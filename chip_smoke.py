@@ -26,6 +26,24 @@ Phases, each of which fails loudly:
    512, to an early output time that takes a few base steps.  Prints ms
    per base step, particle updates per second and peak device memory.
 
+Then the same for the global stepper (``N_rungs = 1``):
+
+2b. Each of its kernels against its plain version at the shapes of a
+    realized 128³ state on grid 256: the two-sided pair sweep on the
+    45³-cell slot layout (receivers = suppliers, no bounds), and the CIC
+    deposit and gather (D = 3) on the 128³ blocks of 2³ mesh cells, with
+    the library calls as in 2.
+3b. ``param/example_basic.py`` with ``-c "N_rungs=1"`` (64³, grid 128,
+    a = 0.02 → 1) through ``load_params`` and ``run``: it must launch the
+    sweep and both block kernels and neither cell-layout PM kernel,
+    exceed no budget, lose at most half a particle's mass in any deposit
+    and write a finite spectrum.  The same run again under torch.profiler
+    gives the device time by group of kernels; then the sweep is held
+    against its plain version on the counted run's final, clustered
+    slots.
+4b. 256³ particles on grid 512 with ``N_rungs = 1`` for at least 3 global
+    steps.
+
 Before its last line it prints one JSON object ``{"kernels": [...]}`` and
 the card's name and power limit as nvidia-smi reports them; the last line
 is ``{"ok": true, "device": {...}}``.  Without CUDA it exits with 2 and
@@ -42,6 +60,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from types import SimpleNamespace
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PARAM = os.path.join(ROOT, "param", "example_basic.py")
@@ -94,10 +113,12 @@ def _nvidia_smi() -> str:
 
 def _counters():
     from concept_tpu_torch.forces.cuda_shortrange import pair_sweep
+    from concept_tpu_torch.grid.cuda_blocks import deposit_blocks, gather_blocks
     from concept_tpu_torch.grid.cuda_cells import deposit_cells, gather_cells
 
     return {"pair_sweep": pair_sweep, "deposit_cells": deposit_cells,
-            "gather_cells": gather_cells}
+            "gather_cells": gather_cells, "deposit_blocks": deposit_blocks,
+            "gather_blocks": gather_blocks}
 
 
 def _reset_counts():
@@ -151,30 +172,32 @@ def _realized_layout(N: int, mesh: int, device: str):
     return adapter, adapter._to_layout(flat)
 
 
-def _pair_work(recv, sup, n, boxsize, cutoff2, soft2, rext, sext):
-    """(supplier rows tested, pairs inside the cutoff, of those the pairs
-    inside the spline's near field r² < (2.8ε)²) of a bounded or
-    unbounded sweep on these inputs: the work its bound counts."""
+def _pair_work(pos_s, n, boxsize, cutoff2, soft2):
+    """The work a sweep with receivers = suppliers = the sentinel-filled
+    slots pos_s (3, K, C) needs, whatever rows its launch visits: (pair
+    tests between valid slots of neighbouring cells, Σ_c n_c·Σ_nb n_nb
+    over the 27 neighbour cells nb of each cell c; pairs inside the
+    cutoff; of those the pairs inside the spline's near field
+    r² < (2.8ε)²; valid slots)."""
     import torch
 
-    from concept_tpu_torch.forces.cuda_shortrange import _OFFSETS, _bounds
+    from concept_tpu_torch.forces.cuda_shortrange import _OFFSETS
+    from concept_tpu_torch.forces.shortrange import SENTINEL
 
-    _, K_r, C = recv.shape
-    K_s = sup.shape[1]
-    dev = recv.device
-    rb, sb = _bounds(rext, sext, n, K_r, K_s, dev)
-    tested = 27 * int((rb * sb).sum())
+    _, K, C = pos_s.shape
+    dev = pos_s.device
+    valid = pos_s[0].abs() < 0.5 * SENTINEL * boxsize
+    occ = valid.sum(0).reshape(n, n, n).to(torch.int64)
+    nbsum = sum(torch.roll(occ, (di, dj, dk), (0, 1, 2)) for di, dj, dk in _OFFSETS)
+    tested = int((occ * nbsum).sum())
     cells = torch.arange(C, device=dev)
     ci, cj, ck = cells // (n * n), (cells // n) % n, cells % n
-    rows_r = torch.arange(K_r, device=dev)[:, None]
-    rows_s = torch.arange(K_s, device=dev)[:, None]
     within = near = 0
-    ch = max(1, (1 << 24) // (K_r * K_s))
+    ch = max(1, (1 << 24) // (K * K))
     for c0 in range(0, C, ch):
         cols = slice(c0, min(C, c0 + ch))
-        own = recv[:, :, cols][:, :, None, :]
-        rmask = (rows_r < rb[cols][None])[:, None, :]
-        smask = (rows_s < sb[cols][None])[None]
+        own = pos_s[:, :, cols][:, :, None, :]
+        vr = valid[:, cols][:, None, :]
         for di, dj, dk in _OFFSETS:
             ids, shift = [], []
             for c, d in ((ci, di), (cj, dj), (ck, dk)):
@@ -182,19 +205,22 @@ def _pair_work(recv, sup, n, boxsize, cutoff2, soft2, rext, sext):
                 shift.append(((m >= n).float() - (m < 0).float()) * boxsize)
                 ids.append(torch.remainder(m, n))
             col = (ids[0] * n + ids[1]) * n + ids[2]
-            nb = sup[:, :, col] + torch.stack(shift)[:, None, :]
+            nb = pos_s[:, :, col] + torch.stack(shift)[:, None, :]
             d = own - nb[:, None]
             r2 = (d * d).sum(0)
-            m = (r2 < cutoff2) & (r2 > 0) & rmask & smask
+            m = (r2 < cutoff2) & (r2 > 0) & vr & valid[:, col][None]
             within += int(m.sum())
             near += int((m & (r2 < 7.84 * soft2)).sum())
-    return tested, within, near
+    return tested, within, near, int(valid.sum())
 
 
 def _check_sweep(tag: str, pos_s, sim, bounds, reps: int, plain_reps: int) -> dict:
     """The pair sweep kernel against its plain version on the slot
-    positions pos_s (3, K, C) of `sim`'s layout, with row bounds
-    (rext, sext) or (None, None): errors, times and bound.  Fails on a
+    positions pos_s (3, K, C) of a layout with `sim`'s geometry (nc,
+    boxsize, scale, cutoff, softening, softening_kernel), receivers =
+    suppliers, with row bounds (rext, sext) or (None, None): errors, times
+    and bound.  The bound counts the work the function needs on these
+    slots (see _pair_work), which row bounds do not change.  Fails on a
     disagreement beyond max|Δ|/max|ref| ≤ 1e-5."""
     from concept_tpu_torch.forces.cuda_shortrange import _bounds, pair_sweep, pair_sweep_plain
     from concept_tpu_torch.forces.shortrange import f32_square
@@ -216,16 +242,19 @@ def _check_sweep(tag: str, pos_s, sim, bounds, reps: int, plain_reps: int) -> di
     ms, plain_ms = _time_ms(kern, reps), _time_ms(plain, plain_reps)
     _, K, C = pos_s.shape
     rb, sb = _bounds(*bounds, sim.nc, K, K, pos_s.device)
-    tested, within, near = _pair_work(pos_s, pos_s, sim.nc, sim.boxsize, args[3],
-                                      args[4], *bounds)
+    visited = 27 * int((rb * sb).sum())
+    tested, within, near, n_valid = _pair_work(pos_s, sim.nc, sim.boxsize, args[3], args[4])
     flops = FLOPS_PER_TESTED_PAIR * tested + FLOPS_PER_PAIR_IN_CUTOFF * within
-    nbytes = 4 * 2 * pos_s.numel() + (8 * bounds[0].numel() if bounds[0] is not None else 0)
+    # valid positions read, the whole (3, K, C) result written, bounds read
+    nbytes = 4 * (3 * n_valid + pos_s.numel()) + (
+        8 * bounds[0].numel() if bounds[0] is not None else 0)
     bound_ms = 1e3 * max(flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S)
     print(f"  pair_sweep ({tag}): max |Δ| {err:.3e}, max|Δ|/max|ref| {rel:.3e} "
           f"(tol 1e-5) {'ok' if ok else 'FAIL'}; {ms:.3f} ms, plain {plain_ms:.1f} ms, "
-          f"bound {bound_ms:.3f} ms; {tested} pairs tested, {within} in the cutoff, "
-          f"{near} in the spline near field; deepest receiver bound {int(rb.max())}, "
-          f"supplier bound {int(sb.max())} rows")
+          f"bound {bound_ms:.3f} ms; {tested} pair tests needed ({n_valid} valid "
+          f"slots), {within} in the cutoff, {near} in the spline near field; the "
+          f"launch visits {visited} row pairs (deepest receiver bound {int(rb.max())}, "
+          f"supplier bound {int(sb.max())} rows)")
     if not ok:
         raise SystemExit(f"pair_sweep ({tag}) disagrees with its plain version")
     return dict(
@@ -233,7 +262,8 @@ def _check_sweep(tag: str, pos_s, sim, bounds, reps: int, plain_reps: int) -> di
         bound_ms=bound_ms, bound_by="operations" if flops / FP32_FLOPS >
         nbytes / HBM_BYTES_PER_S else "bytes", flops=flops, bytes=nbytes,
         pairs_tested=tested, pairs_in_cutoff=within, pairs_near_field=near,
-        K_rows=K, max_receiver_bound=int(rb.max()), max_supplier_bound=int(sb.max()))
+        valid_slots=n_valid, row_pairs_visited=visited, K_rows=K,
+        max_receiver_bound=int(rb.max()), max_supplier_bound=int(sb.max()))
 
 
 def _sentineled(state, K: int, sentinel: float):
@@ -244,25 +274,29 @@ def _sentineled(state, K: int, sentinel: float):
     return torch.where(state.valid[:K][None], state.pos[:, :K], sentinel).contiguous()
 
 
-def _deposit_library(pos, w, mesh: int, box: float):
+def _deposit_library(pos, w, mesh: int, box: float, cb: int = 8, zmajor: bool = False):
     """The deposit's scatter as one library call: ``index_add_`` of the 8
     CIC corner indices and weights of every depositing slot, computed
-    beforehand (the call does not form them).  Returns the call."""
+    beforehand (the call does not form them).  Columns are cb mesh cells
+    wide, ids x-major (or z-major).  Returns the call."""
     import torch
 
-    from concept_tpu_torch.grid.cuda_cells import _corners, cell_geometry
+    from concept_tpu_torch.grid.cuda_cells import cell_geometry
+    from concept_tpu_torch.grid.interp import cic_corners
 
-    nc = mesh // 8
-    anchors, fracs, in_halo = cell_geometry(pos, slice(0, nc**3), nc, 8, mesh / box)
+    nc = mesh // cb
+    anchors, fracs, in_halo = cell_geometry(pos, slice(0, nc**3), nc, cb, mesh / box,
+                                            zmajor)
     q = w * in_halo
     keep = q != 0
-    idx, vals = zip(*((i[keep], (wt * q)[keep]) for i, wt in _corners(anchors, fracs, mesh)))
+    idx, vals = zip(*((i[keep], (wt * q)[keep]) for i, wt in cic_corners(anchors, fracs, mesh)))
     idx, vals = torch.cat(idx), torch.cat(vals)
     return lambda: torch.zeros(mesh**3, device=pos.device).index_add_(
         0, idx, vals).reshape(mesh, mesh, mesh)
 
 
-def _gather_library(pos, wv, grids, mesh: int, box: float):
+def _gather_library(pos, wv, grids, mesh: int, box: float, cb: int = 8,
+                    zmajor: bool = False):
     """The gather as one library call: trilinear ``grid_sample`` (CIC
     interpolation) of the D grids, padded periodically by one cell
     beforehand, at every slot.  Returns (call, mask of the slots the
@@ -274,8 +308,8 @@ def _gather_library(pos, wv, grids, mesh: int, box: float):
 
     D = grids.shape[0]
     _, K, C = pos.shape
-    nc = mesh // 8
-    _, _, in_halo = cell_geometry(pos, slice(0, C), nc, 8, mesh / box)
+    nc = mesh // cb
+    _, _, in_halo = cell_geometry(pos, slice(0, C), nc, cb, mesh / box, zmajor)
     padded = F.pad(grids[None], (1, 1, 1, 1, 1, 1), mode="circular")
     # padded mesh index of the cell-centred CIC, normalised so that
     # -1 and 1 are the padded grid's first and last points; grid_sample
@@ -294,15 +328,10 @@ def _gather_library(pos, wv, grids, mesh: int, box: float):
 def check_kernels(N: int = 128**3, mesh: int = 256, device: str = "cuda") -> dict:
     """Each kernel against its plain version at the shapes of a realized
     N-particle state on the mesh-`mesh` layout."""
-    import torch
-
-    from concept_tpu_torch.forces.pm import gravity_potential_slab
     from concept_tpu_torch.forces.shortrange import SENTINEL
-    from concept_tpu_torch.grid import fourier
     from concept_tpu_torch.grid.cuda_cells import (
         deposit_cells, deposit_cells_plain, gather_cells, gather_cells_plain,
     )
-    from concept_tpu_torch.grid.fft import irfft3, rfft3
 
     adapter, state = _realized_layout(N, mesh, device)
     sim = adapter.inner
@@ -320,75 +349,190 @@ def check_kernels(N: int = 128**3, mesh: int = 256, device: str = "cuda") -> dic
     for tag, bounds in (("bounded", (ext, ext)), ("unbounded", (None, None))):
         out[f"pair_sweep_{tag}"] = _check_sweep(tag, pos_s, sim, bounds, 10, 2)
 
-    # B: the CIC deposit of w = mass·valid
-    w = (valid.to(pos.dtype) * sim.mass).contiguous()
-    got = deposit_cells(pos, w, mesh, box)
-    ref = deposit_cells_plain(pos, w, mesh, box)
-    _sync()
-    err, rel = _max_rel(got, ref)
-    ok = bool(torch.allclose(got, ref, rtol=2e-5, atol=1e-5 * float(ref.abs().max())))
-    ms = _time_ms(lambda: deposit_cells(pos, w, mesh, box), 20)
-    plain_ms = _time_ms(lambda: deposit_cells_plain(pos, w, mesh, box), 2)
-    nbytes = 4 * (pos.numel() + w.numel() + mesh**3)
+    # B, C: the CIC deposit of w = mass·valid and the gather of the three
+    # PM force components
+    out.update(_check_pm_kernels(
+        ("deposit_cells", "gather_cells"), pos, valid, sim.mass, sim.G, sim.scale,
+        mesh, box, 8, False,
+        lambda w: deposit_cells(pos, w, mesh, box),
+        lambda w: deposit_cells_plain(pos, w, mesh, box),
+        lambda wv, g: gather_cells(pos, wv, g, mesh, box),
+        lambda wv, g: gather_cells_plain(pos, wv, g, mesh, box)))
+    return out
+
+
+def _check_pm_kernels(names, pos, valid, mass: float, G: float, scale: float,
+                      mesh: int, box: float, cb: int, zmajor: bool,
+                      dep, dep_plain, gat, gat_plain) -> dict:
+    """A CIC deposit kernel and its gather twin against their plain
+    versions on the slots pos (3, K, C) of columns cb mesh cells wide
+    (x-major or z-major ids): the deposit of w = mass·valid, then the
+    gather (D = 3) of the long-range force components of that deposit.
+    dep(w), gat(wv, grads) call a kernel; the *_plain twins its plain
+    version.  Each is timed beside its bound and its library call.
+    Fails on a disagreement beyond rtol 2e-5, atol 1e-5·max|ref|."""
+    import torch
+
+    from concept_tpu_torch.forces.pm import gravity_potential_slab
+    from concept_tpu_torch.grid import fourier
+    from concept_tpu_torch.grid.fft import irfft3, rfft3
+
+    def compare(name, got, ref):
+        err, rel = _max_rel(got, ref)
+        ok = bool(torch.allclose(got, ref, rtol=2e-5, atol=1e-5 * float(ref.abs().max())))
+        print(f"  {name}: max |Δ| {err:.3e} ({rel:.3e} of max) {'ok' if ok else 'FAIL'}",
+              end="; ")
+        if not ok:
+            print()
+            raise SystemExit(f"{name} disagrees with its plain version")
+        return err, rel
+
+    out = {}
     n_valid = int(valid.sum())
+    w = (valid.to(pos.dtype) * mass).contiguous()
+    got, ref = dep(w), dep_plain(w)
+    _sync()
+    err, rel = compare(names[0], got, ref)
+    ms = _time_ms(lambda: dep(w), 20)
+    plain_ms = _time_ms(lambda: dep_plain(w), 2)
+    # w read in full, valid slots' positions read, the mesh written
+    nbytes = 4 * (w.numel() + 3 * n_valid + mesh**3)
     flops = 60 * n_valid  # geometry (~12) + 8 corners × (weight, product, add)
     bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS)
-    library = _deposit_library(pos, w, mesh, box)
+    library = _deposit_library(pos, w, mesh, box, cb, zmajor)
     _, lib_rel = _max_rel(library(), ref)
     library_ms = _time_ms(library, 20)
     del library
-    out["deposit_cells"] = dict(
+    out[names[0]] = dict(
         max_abs_err=err, max_rel_err=rel, tol="rtol 2e-5, atol 1e-5·max|ref|", ms=ms,
         plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes", bytes=nbytes, flops=flops,
-        mass_sum=float(got.sum()), mass_expected=n_valid * sim.mass,
+        mass_sum=float(got.sum(dtype=torch.float64)), mass_expected=n_valid * mass,
         library_ms=library_ms, library="index_add_ of precomputed corners",
         library_max_rel_err=lib_rel)
-    print(f"  deposit_cells: max |Δ| {err:.3e} ({rel:.3e} of max) {'ok' if ok else 'FAIL'}; "
-          f"{ms:.3f} ms, plain {plain_ms:.1f} ms, bound {bound_ms:.3f} ms; library "
+    print(f"{ms:.3f} ms, plain {plain_ms:.1f} ms, bound {bound_ms:.3f} ms; library "
           f"(index_add_ of precomputed corners) {library_ms:.3f} ms, {lib_rel:.1e} of max off")
-    if not ok:
-        raise SystemExit("deposit_cells disagrees with its plain version")
 
-    # C: the CIC gather of the three PM force components
     slab = rfft3(got / (box / mesh) ** 3)
-    phi = gravity_potential_slab(slab, mesh, box, sim.G, deconv_order=4,
-                                 longrange_scale=sim.scale)
+    phi = gravity_potential_slab(slab, mesh, box, G, deconv_order=4, longrange_scale=scale)
     grads = torch.stack([irfft3(fourier.fourier_diff(phi, mesh, box, d), mesh)
                          for d in range(3)]).contiguous()
-    del slab, phi
+    del slab, phi, got, ref
     wv = valid.to(pos.dtype).contiguous()
-    got = gather_cells(pos, wv, grads, mesh, box)
-    ref = gather_cells_plain(pos, wv, grads, mesh, box)
+    got, ref = gat(wv, grads), gat_plain(wv, grads)
     _sync()
-    err, rel = _max_rel(got, ref)
-    ok = bool(torch.allclose(got, ref, rtol=2e-5, atol=1e-5 * float(ref.abs().max())))
-    ms = _time_ms(lambda: gather_cells(pos, wv, grads, mesh, box), 20)
-    plain_ms = _time_ms(lambda: gather_cells_plain(pos, wv, grads, mesh, box), 2)
-    nbytes = 4 * (pos.numel() + wv.numel() + grads.numel() + got.numel())
+    err, rel = compare(f"{names[1]} (D = 3)", got, ref)
+    ms = _time_ms(lambda: gat(wv, grads), 20)
+    plain_ms = _time_ms(lambda: gat_plain(wv, grads), 2)
+    nbytes = 4 * (wv.numel() + 3 * n_valid + grads.numel() + got.numel())
     flops = (12 + 3 * 8 * 3) * n_valid
     bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS)
-    library, mask = _gather_library(pos, wv, grads, mesh, box)
+    library, mask = _gather_library(pos, wv, grads, mesh, box, cb, zmajor)
     _, lib_rel = _max_rel(library() * mask, ref)
     library_ms = _time_ms(library, 20)
     del library, mask
-    out["gather_cells"] = dict(
+    out[names[1]] = dict(
         max_abs_err=err, max_rel_err=rel, tol="rtol 2e-5, atol 1e-5·max|ref|", ms=ms,
         plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes", bytes=nbytes, flops=flops,
         library_ms=library_ms, library="grid_sample on the periodically padded grids",
         library_max_rel_err=lib_rel)
-    print(f"  gather_cells (D = 3): max |Δ| {err:.3e} ({rel:.3e} of max) "
-          f"{'ok' if ok else 'FAIL'}; {ms:.3f} ms, plain {plain_ms:.1f} ms, "
-          f"bound {bound_ms:.3f} ms; library (grid_sample on padded grids) "
-          f"{library_ms:.3f} ms, {lib_rel:.1e} of max off")
-    if not ok:
-        raise SystemExit("gather_cells disagrees with its plain version")
+    print(f"{ms:.3f} ms, plain {plain_ms:.1f} ms, bound {bound_ms:.3f} ms; library "
+          f"(grid_sample on padded grids) {library_ms:.3f} ms, {lib_rel:.1e} of max off")
     return out
 
 
-def _run(overrides: list, outdir: str, device: str = "cuda"):
+def _global_sim(N: int, mesh: int, device: str):
+    """A global-stepper Simulation of example_basic at N particles on
+    grid `mesh` (``N_rungs = 1``), and its realized initial state."""
+    from concept_tpu_torch.device import resolve_device
+    from concept_tpu_torch.param import load_params
+    from concept_tpu_torch.run import build_components, build_cosmology, softening_length
+    from concept_tpu_torch.sim import SimConfig, Simulation
+
+    n = round(N ** (1 / 3))
+    cfg = load_params(PARAM, overrides=[
+        f"initial_conditions={{'species':'matter','N':{n}**3}}",
+        f"potential_options={mesh}", "N_rungs=1"])
+    _, consts, bg, lin = build_cosmology(cfg)
+    spec, _ = build_components(cfg, bg, consts)[0]
+    config = SimConfig(boxsize=cfg.boxsize, potential_gridsize=mesh,
+                       device=resolve_device(device), G=consts.G_Newton,
+                       softening=softening_length(cfg, spec, mesh),
+                       softening_kernel=cfg.softening_kernel)
+    sim = Simulation(spec, config, bg, lin)
+    return sim, sim.initial_state(cfg.a_begin, seed=0)
+
+
+def _sweep_geometry(sim) -> SimpleNamespace:
+    """The short-range geometry of a global-stepper Simulation, in the
+    attribute names _check_sweep reads."""
+    return SimpleNamespace(nc=sim._sr_ncells, boxsize=sim.config.boxsize,
+                           scale=sim._sr_scale, cutoff=sim._sr_range,
+                           softening=sim.config.softening,
+                           softening_kernel=sim.config.softening_kernel)
+
+
+def _global_sweep_slots(sim, pos):
+    """The global stepper's sweep input: the sentinel-filled (3, K, C)
+    short-range slots of positions pos (N, 3) at the current capacity,
+    and the number of stragglers beyond it."""
+    import torch
+
+    from concept_tpu_torch.forces.shortrange import SENTINEL, bucketize
+
+    comps = tuple(pos[:, d].contiguous() for d in range(3))
+    b = bucketize(comps, sim.config.boxsize, sim._sr_ncells, sim._sr_capacity)
+    slots = torch.where(b["valid"][None], torch.stack([b["hx"], b["hy"], b["hz"]]),
+                        SENTINEL * sim.config.boxsize).contiguous()
+    return slots, pos.shape[0] - int(b["valid"].sum())
+
+
+def check_global_kernels(N: int = 128**3, mesh: int = 256, device: str = "cuda") -> dict:
+    """The global stepper's kernels against their plain versions at the
+    shapes of a realized N-particle state on grid `mesh`: the two-sided
+    sweep on the short-range slots, the deposit and gather on the PM
+    blocks."""
+    from concept_tpu_torch.forces.p3m import block_layout
+    from concept_tpu_torch.grid.cuda_blocks import (
+        deposit_blocks, deposit_blocks_plain, gather_blocks, gather_blocks_plain,
+    )
+
+    sim, flat = _global_sim(N, mesh, device)
+    box = sim.config.boxsize
+    slots, n_over = _global_sweep_slots(sim, flat.pos)
+    K = slots.shape[1]
+    print(f"global-stepper kernels vs plain: {N} particles, mesh {mesh}, "
+          f"{sim._sr_ncells}³ short-range cells, K = {K} ({n_over} stragglers); "
+          f"{mesh // 2}³ PM blocks, K = {sim._k_pm}")
+    out = {"shape": {"N": N, "mesh": mesh, "nc": sim._sr_ncells, "K_rows": K,
+                     "stragglers": n_over, "nb": mesh // 2, "k_pm": sim._k_pm}}
+    out["pair_sweep_two_sided"] = _check_sweep("two-sided", slots, _sweep_geometry(sim),
+                                               (None, None), 10, 2)
+    del slots
+    lay = block_layout(*(flat.pos[:, d].contiguous() for d in range(3)), mesh, box,
+                       sim._k_pm)
+    pos, valid = lay["slots"], lay["valid"]
+    del lay
+    print(f"  PM blocks: {int(valid.sum())} of {N} particles in the slots")
+    out.update(_check_pm_kernels(
+        ("deposit_blocks", "gather_blocks"), pos, valid, sim.spec.mass, sim.config.G,
+        sim._sr_scale, mesh, box, 2, True,
+        lambda w: deposit_blocks(*pos, w, mesh, box),
+        lambda w: deposit_blocks_plain(*pos, w, mesh, box),
+        lambda wv, g: gather_blocks(*pos, wv, g, mesh, box),
+        lambda wv, g: gather_blocks_plain(*pos, wv, g, mesh, box)))
+    return out
+
+
+RUNG_KERNELS = ("pair_sweep", "deposit_cells", "gather_cells")
+GLOBAL_KERNELS = ("pair_sweep", "deposit_blocks", "gather_blocks")
+
+
+def _run(overrides: list, outdir: str, kernels=RUNG_KERNELS, device: str = "cuda"):
     """load_params + run on the card, as the CLI does; returns
-    (sim, final state, a, launch counts, host seconds).  Fails when the
-    deposit lost more than half a particle's mass at any base step."""
+    (sim, final state, a, launch counts, host seconds).  Fails unless each
+    of ``kernels`` launched and no other kernel did, when a budget was
+    exceeded or when the deposit lost more than half a particle's mass at
+    any step."""
     import torch
 
     from concept_tpu_torch.param import load_params
@@ -411,15 +555,20 @@ def _run(overrides: list, outdir: str, device: str = "cuda"):
         raise SystemExit("the power spectrum is not finite")
     if not torch.isfinite(state.pos).all() or not torch.isfinite(state.mom).all():
         raise SystemExit("the final state is not finite")
-    stats = sim.inner.stats
+    stats = getattr(sim, "inner", sim).stats
     if stats.get("pm_mass_warnings", 0):
         raise SystemExit(f"the PM deposit lost mass {stats['pm_mass_warnings']} times")
+    if stats.get("budget_warnings", 0):
+        raise SystemExit(f"an overflow budget was exceeded {stats['budget_warnings']} times")
     if stats["pm_mass_deficit_max"] > 0.5:
         raise SystemExit(f"the PM deposit lost {stats['pm_mass_deficit_max']:.3g} "
-                         "particle masses at a base step")
-    missing = [k for k, v in counts.items() if v == 0]
+                         "particle masses at a step")
+    missing = [k for k in kernels if counts[k] == 0]
     if missing:
         raise SystemExit(f"kernels never launched on this path: {missing}")
+    stray = [k for k, v in counts.items() if v and k not in kernels]
+    if stray:
+        raise SystemExit(f"kernels of another path launched: {stray}")
     return sim, state, a, counts, seconds
 
 
@@ -487,13 +636,124 @@ def realistic(a_end: float = 0.023) -> dict:
             "pm_mass_deficit_max": st["pm_mass_deficit_max"]}
 
 
+# device-time groups of a profiled run, by kernel name (first match)
+PROFILE_GROUPS = (("pair_sweep", ("pair_sweep_kernel",)),
+                  ("CIC deposit", ("deposit_cells_kernel",)),
+                  ("CIC gather", ("gather_cells_kernel",)),
+                  ("cuFFT", ("fft", "FFT")),
+                  ("sort", ("Sort", "sort")),
+                  ("index, scatter, gather", ("index", "scatter", "gather")))
+
+
+def _profiled(overrides: list, outdir: str) -> dict:
+    """The device time of one run by group of kernels (torch.profiler,
+    CUDA activity), and the run's host seconds.  The profiler slows the
+    host, so this run's wall time overstates the unprofiled run's."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from concept_tpu_torch.param import load_params
+    from concept_tpu_torch.run import run
+
+    cfg = load_params(PARAM, overrides=overrides + [f"output_dirs='{outdir}'"])
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sim, _, _ = run(cfg, device="cuda")
+        torch.cuda.synchronize()
+    groups = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.device_time_total <= 0:
+            continue
+        g = next((g for g, keys in PROFILE_GROUPS if any(k in e.key for k in keys)),
+                 "other")
+        groups[g] = groups.get(g, 0.0) + e.device_time_total / 1e6
+    return {"device_s": sum(groups.values()), "device_s_by_group": groups,
+            "host_s": dict(sim.timings)}
+
+
+def global_main_path() -> dict:
+    """example_basic with N_rungs = 1; then the same run again under the
+    profiler (where the device time goes), and the sweep kernel against
+    its plain version on the counted run's final, clustered slots."""
+    outdir = tempfile.mkdtemp(prefix="chip_smoke_global_")
+    try:
+        sim, state, a, counts, seconds = _run(["N_rungs=1"], outdir, GLOBAL_KERNELS)
+        prof = _profiled(["N_rungs=1"], outdir)
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    st = sim.stats
+    steps = st["steps"]
+    ev = sim.timings["evolve_s"]
+    print(f"global main path (example_basic, N_rungs = 1, 64³, grid 128, a 0.02 → "
+          f"{a:.4g}): {steps} steps, {1e3 * ev / steps:.2f} ms per step, wall "
+          f"{seconds:.1f} s (evolution {ev:.1f} s), largest K {st['capacity_max']}, "
+          f"largest straggler count {st['sr_overflow_max']}, largest PM overflow "
+          f"{st['pm_overflow_max']}, largest deposit deficit "
+          f"{st['pm_mass_deficit_max']:.3g} particle masses, launches {counts}")
+    wall = sum(sim.timings.values())
+    dev_s = prof["device_s"]
+    print(f"  profiled rerun: device time {dev_s:.3f} s, busy share of the counted "
+          f"run's {wall:.3f} s ≈ {dev_s / wall:.3f}; by group: " + ", ".join(
+              f"{g} {v:.3f} s ({100 * v / max(dev_s, 1e-30):.1f} %)" for g, v in
+              sorted(prof["device_s_by_group"].items(), key=lambda kv: -kv[1])))
+    slots, n_over = _global_sweep_slots(sim, state.pos)
+    print(f"kernel vs plain on the final slots: {sim._sr_ncells}³ cells, "
+          f"K = {slots.shape[1]}, {n_over} stragglers")
+    clustered = _check_sweep("two-sided, clustered", slots, _sweep_geometry(sim),
+                             (None, None), 10, 1)
+    return {"a_end": a, "steps": steps, "wall_s": seconds, "evolve_s": ev,
+            "ms_per_step": 1e3 * ev / steps, "launches": counts,
+            "stats": dict(st), "profile": prof, "device_busy_share": dev_s / wall,
+            "pair_sweep_clustered": clustered}
+
+
+def global_realistic(a_end: float = 0.025) -> dict:
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    outdir = tempfile.mkdtemp(prefix="chip_smoke_global_big_")
+    try:
+        sim, _, a, counts, seconds = _run([
+            "initial_conditions={'species':'matter','N':256**3}",
+            "potential_options=512", "N_rungs=1",
+            f"output_times={{'powerspec': [{a_end}]}}"], outdir, GLOBAL_KERNELS)
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    st = sim.stats
+    steps = st["steps"]
+    if steps < 3:
+        raise SystemExit(f"the realistic global run took {steps} steps (< 3)")
+    N = sim.spec.N
+    ev = sim.timings["evolve_s"]
+    peak = torch.cuda.max_memory_allocated()
+    print(f"global realistic (256³, grid 512, N_rungs = 1, a 0.02 → {a:.4g}): {steps} "
+          f"steps, {1e3 * ev / steps:.1f} ms per step, {N * steps / ev:.4g} particle "
+          f"updates/s, peak device memory {peak / 2**30:.2f} GiB, realization "
+          f"{sim.timings['realize_s']:.1f} s, K {st['capacity_max']}, stragglers "
+          f"{st['sr_overflow_max']}, PM overflow {st['pm_overflow_max']}, largest "
+          f"deposit deficit {st['pm_mass_deficit_max']:.3g} particle masses; launches "
+          + ", ".join(f"{k}={v}" for k, v in counts.items()))
+    return {"a_end": a, "steps": steps, "evolve_s": ev, "ms_per_step": 1e3 * ev / steps,
+            "particle_updates_per_s": N * steps / ev, "peak_bytes": peak,
+            "realize_s": sim.timings["realize_s"], "launches": counts, "stats": dict(st)}
+
+
+# (name, phase with its check, key, source, the TPU kernel's pallas_call,
+# phase with the main-path launch count)
 KERNELS = (
-    ("pair_sweep", "pair_sweep_bounded", "concept_tpu_torch/csrc/pair_sweep.cu",
-     "concept_tpu/forces/pallas_shortrange.py:287"),
-    ("deposit_cells", "deposit_cells", "concept_tpu_torch/csrc/cells.cu",
-     "concept_tpu/grid/pallas_cells.py:162"),
-    ("gather_cells", "gather_cells", "concept_tpu_torch/csrc/cells.cu",
-     "concept_tpu/grid/pallas_cells.py:206"),
+    ("pair_sweep", "check", "pair_sweep_bounded", "concept_tpu_torch/csrc/pair_sweep.cu",
+     "concept_tpu/forces/pallas_shortrange.py:287", "main_path"),
+    ("deposit_cells", "check", "deposit_cells", "concept_tpu_torch/csrc/cells.cu",
+     "concept_tpu/grid/pallas_cells.py:162", "main_path"),
+    ("gather_cells", "check", "gather_cells", "concept_tpu_torch/csrc/cells.cu",
+     "concept_tpu/grid/pallas_cells.py:206", "main_path"),
+    ("pair_sweep_two_sided", "check_global", "pair_sweep_two_sided",
+     "concept_tpu_torch/csrc/pair_sweep.cu", "concept_tpu/forces/pallas_shortrange.py:1163",
+     "global_main_path"),
+    ("deposit_blocks", "check_global", "deposit_blocks", "concept_tpu_torch/csrc/cells.cu",
+     "concept_tpu/grid/pallas_pm.py:322", "global_main_path"),
+    ("gather_blocks", "check_global", "gather_blocks", "concept_tpu_torch/csrc/cells.cu",
+     "concept_tpu/grid/pallas_pm.py:379", "global_main_path"),
 )
 
 
@@ -516,26 +776,31 @@ def main(argv=None) -> int:
     results["check"] = check_kernels()
     results["main_path"] = main_path()
     results["realistic"] = realistic()
+    results["check_global"] = check_global_kernels()
+    results["global_main_path"] = global_main_path()
+    results["global_realistic"] = global_realistic()
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(results, f, indent=1)
-    chk = results["check"]
     kernels = []
-    for name, key, source, replaces in KERNELS:
-        c = chk[key]
+    for name, phase, key, source, replaces, path in KERNELS:
+        c = results[phase][key]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": results["main_path"]["launches"][name],
+            "launches": results[path]["launches"][name.replace("_two_sided", "")],
             "max_abs_err": c["max_abs_err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
             "library_ms": c.get("library_ms"),
         })
-    unb = chk["pair_sweep_unbounded"]
+    unb = results["check"]["pair_sweep_unbounded"]
     kernels[0].update(unbounded_max_abs_err=unb["max_abs_err"], unbounded_ms=unb["ms"],
                       unbounded_plain_ms=unb["plain_ms"], unbounded_bound_ms=unb["bound_ms"])
     clu = results["main_path"]["pair_sweep_clustered"]
     kernels[0].update(clustered_max_abs_err=clu["max_abs_err"], clustered_ms=clu["ms"],
+                      clustered_plain_ms=clu["plain_ms"], clustered_bound_ms=clu["bound_ms"])
+    clu = results["global_main_path"]["pair_sweep_clustered"]
+    kernels[3].update(clustered_max_abs_err=clu["max_abs_err"], clustered_ms=clu["ms"],
                       clustered_plain_ms=clu["plain_ms"], clustered_bound_ms=clu["bound_ms"])
     print(json.dumps({"kernels": kernels}))
     print(smi)

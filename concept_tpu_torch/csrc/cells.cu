@@ -1,18 +1,26 @@
-// CIC deposit and gather straight from the (K, C) cell layout.
+// CIC deposit and gather straight from a slot-major (K, C) column layout.
 //
 // Replaces concept_tpu/grid/pallas_cells.py
 //   _deposit_kernel_cells (pallas_call at :284) and
-//   _gather_kernel_cells  (pallas_call at :341).
+//   _gather_kernel_cells  (pallas_call at :341),
+// and concept_tpu/grid/pallas_pm.py
+//   _deposit_kernel_pos   (pallas_call at :322) and
+//   _gather_kernel_pos    (pallas_call at :379).
 //
-// Cells are cb mesh cells wide, C = nc³ with ids (cx·nc + cy)·nc + cz.
-// A slot takes part only when its CIC cloud lies inside its cell's
-// ±1-mesh-cell halo, the test of _cell_geometry (pallas_cells.py:133): the
-// TPU kernels fill a (cb+2)³ mini-grid per cell and drop the rest, so the
-// deposited mass falls short exactly when a particle drifted out of its
-// column's halo, which the rung stepper checks (mass_sum).  Unlike
-// _cell_geometry, the test here is periodic: a particle that crossed a
-// box face is wrapped to the far side of the box but still lies in its
-// column's halo, and is kept.
+// Columns are cubes cb mesh cells wide, C = nc³ of them: the rung
+// stepper's cells (cb = 8, ids x-major: c = (cx·nc + cy)·nc + cz) or the
+// global stepper's PM blocks (cb = 2, ids z-major: c = (cz·nc + cy)·nc +
+// cx); both are launch arguments.  A slot takes part only when its CIC
+// cloud lies inside its column's ±1-mesh-cell halo, the test of
+// _cell_geometry (pallas_cells.py:133) and _slot_geometry
+// (pallas_pm.py:182): the TPU kernels fill a (cb+2)³ mini-grid per column
+// and drop the rest, so the deposited mass falls short exactly when a
+// particle drifted out of its column's halo, which the rung stepper
+// checks (mass_sum).  Unlike the TPU kernels, the test here is periodic:
+// a particle that crossed a box face is wrapped to the far side of the
+// box but still lies in its column's halo, and is kept.  (The global
+// stepper rebuilds its blocks from wrapped positions at every kick, so
+// there both tests keep the same slots.)
 //
 // What bounds them on the card: device memory.  A slot moves 16 bytes in
 // (x, y, z, w), 8 atomic corner updates (deposit) or 8·D corner reads and
@@ -33,10 +41,11 @@ struct Geometry {
 
 __device__ __forceinline__ Geometry cell_geometry(float px, float py, float pz,
                                                   int c, int nc, int cb,
-                                                  float inv_h) {
+                                                  bool zmajor, float inv_h) {
   // round-to-nearest intrinsics keep u = p·inv_h − ½ unfused, as the
   // reference and the plain version form it, so the halo test agrees
-  const int cz = c % nc, cy = (c / nc) % nc, cx = c / (nc * nc);
+  const int fast = c % nc, cy = (c / nc) % nc, slow = c / (nc * nc);
+  const int cx = zmajor ? fast : slow, cz = zmajor ? slow : fast;
   Geometry g;
   const float ux = __fadd_rn(__fmul_rn(px, inv_h), -0.5f);
   const float uy = __fadd_rn(__fmul_rn(py, inv_h), -0.5f);
@@ -61,17 +70,18 @@ __device__ __forceinline__ Geometry cell_geometry(float px, float py, float pz,
 
 __device__ __forceinline__ int wrap(int i, int n) { return i < 0 ? i + n : (i >= n ? i - n : i); }
 
-__global__ void deposit_cells_kernel(const float* __restrict__ pos, long long pos_cs,
-                                     const float* __restrict__ w, long long KC,
-                                     int nc, int cb, float inv_h,
+__global__ void deposit_cells_kernel(const float* __restrict__ px,
+                                     const float* __restrict__ py,
+                                     const float* __restrict__ pz,
+                                     const float* __restrict__ w, long long KC, int nc,
+                                     int cb, bool zmajor, float inv_h,
                                      float* __restrict__ grid) {
   const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (i >= KC) return;
   const float q = w[i];
   if (q == 0.0f) return;
   const int C = nc * nc * nc;
-  const Geometry g = cell_geometry(pos[i], pos[pos_cs + i], pos[2 * pos_cs + i],
-                                   (int)(i % C), nc, cb, inv_h);
+  const Geometry g = cell_geometry(px[i], py[i], pz[i], (int)(i % C), nc, cb, zmajor, inv_h);
   if (!g.in_halo) return;
   const int n = nc * cb;
 #pragma unroll
@@ -91,9 +101,11 @@ __global__ void deposit_cells_kernel(const float* __restrict__ pos, long long po
   }
 }
 
-__global__ void gather_cells_kernel(const float* __restrict__ pos, long long pos_cs,
-                                    const float* __restrict__ w, long long KC,
-                                    int nc, int cb, float inv_h,
+__global__ void gather_cells_kernel(const float* __restrict__ px,
+                                    const float* __restrict__ py,
+                                    const float* __restrict__ pz,
+                                    const float* __restrict__ w, long long KC, int nc,
+                                    int cb, bool zmajor, float inv_h,
                                     const float* __restrict__ grids, int D,
                                     float* __restrict__ out) {
   const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
@@ -104,8 +116,7 @@ __global__ void gather_cells_kernel(const float* __restrict__ pos, long long pos
   float q = w[i];
   Geometry g = {};
   if (q != 0.0f) {
-    g = cell_geometry(pos[i], pos[pos_cs + i], pos[2 * pos_cs + i], (int)(i % C), nc, cb,
-                      inv_h);
+    g = cell_geometry(px[i], py[i], pz[i], (int)(i % C), nc, cb, zmajor, inv_h);
     if (!g.in_halo) q = 0.0f;
   }
   const int n = nc * cb;
@@ -134,29 +145,29 @@ __global__ void gather_cells_kernel(const float* __restrict__ pos, long long pos
   }
 }
 
-// pos (3, K, C) float32 with rows contiguous (row stride C) and component
-// stride pos_cs; w (K, C) contiguous; grid (n, n, n) contiguous, zeroed by
-// the caller.  Returns the cudaError_t of the launch.
-extern "C" int deposit_cells_launch(const float* pos, long long pos_cs,
-                                    const float* w, int K, int nc, int cb,
-                                    float inv_h, float* grid, void* stream) {
+// px, py, pz, w: (K, C) float32 with rows contiguous (row stride C);
+// grid (n, n, n) contiguous, zeroed by the caller.  zmajor selects the
+// column-id order.  Returns the cudaError_t of the launch.
+extern "C" int cic_deposit_launch(const float* px, const float* py, const float* pz,
+                                  const float* w, int K, int nc, int cb, int zmajor,
+                                  float inv_h, float* grid, void* stream) {
   const long long KC = (long long)K * nc * nc * nc;
   const int threads = 256;
   const long long blocks = (KC + threads - 1) / threads;
   deposit_cells_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      pos, pos_cs, w, KC, nc, cb, inv_h, grid);
+      px, py, pz, w, KC, nc, cb, zmajor != 0, inv_h, grid);
   return (int)cudaGetLastError();
 }
 
 // grids (D, n, n, n) contiguous; out (D, K, C) contiguous.
-extern "C" int gather_cells_launch(const float* pos, long long pos_cs,
-                                   const float* w, int K, int nc, int cb,
-                                   float inv_h, const float* grids, int D,
-                                   float* out, void* stream) {
+extern "C" int cic_gather_launch(const float* px, const float* py, const float* pz,
+                                 const float* w, int K, int nc, int cb, int zmajor,
+                                 float inv_h, const float* grids, int D, float* out,
+                                 void* stream) {
   const long long KC = (long long)K * nc * nc * nc;
   const int threads = 256;
   const long long blocks = (KC + threads - 1) / threads;
   gather_cells_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      pos, pos_cs, w, KC, nc, cb, inv_h, grids, D, out);
+      px, py, pz, w, KC, nc, cb, zmajor != 0, inv_h, grids, D, out);
   return (int)cudaGetLastError();
 }

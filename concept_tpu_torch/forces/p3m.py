@@ -1,0 +1,136 @@
+"""The global stepper's P³M kick: the short-range sweep plus the
+Gaussian-split long-range PM on 2³-mesh-cell blocks (port of
+``pm_block_capacity``, ``pm_longrange_components`` and
+``p3m_kick_components``, concept_tpu/forces/p3m.py).
+
+The PM part sorts the particles once by z-major block key, scatters them
+into slot-major (K, C) block slots (validity from the block counts),
+deposits through the block kernel (grid/cuda_blocks.py), adds the
+particles beyond the block capacity K through the plain CIC deposit
+(grid/interp.py, exact while there are at most ``max_overflow`` of them),
+solves for the potential (rfft3, Gaussian split, deconvolution of order
+4), takes one Fourier gradient per dimension, gathers them at the slots
+(and the overflow particles through the plain gather) and unsorts.
+Reference semantics: interactions.py:1353-1984 (short range) and
+interactions.py:1985-2415 with the exp(−rₛ²k²) factor of
+gravity.py:160-180 (mesh part).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from concept_tpu_torch.forces.pm import gravity_potential_slab
+from concept_tpu_torch.forces.shortrange import (
+    grid_key, scatter_slots, shortrange_momentum_updates, slot_layout,
+)
+from concept_tpu_torch.grid import fourier
+from concept_tpu_torch.grid.bucketed import B, _block_count
+from concept_tpu_torch.grid.cuda_blocks import deposit_blocks, gather_blocks
+from concept_tpu_torch.grid.fft import irfft3, rfft3
+from concept_tpu_torch.grid.interp import deposit, gather
+
+
+def pm_block_capacity(N: int, mesh: int, headroom: float = 8.0) -> int:
+    """Deposit-block capacity from the mean occupancy (blocks are B³ = 8
+    mesh cells; the overflow beyond the capacity is exact through the
+    plain path, so moderate headroom suffices)."""
+    mean = N * B**3 / mesh**3
+    return max(8, int((headroom * mean + 7) // 8) * 8)
+
+
+def block_layout(px0, py0, pz0, mesh: int, boxsize: float, k_pm: int) -> dict:
+    """The PM block slots: one stable sort by z-major block key (the block
+    kernels' column convention), then a slot scatter, validity from the
+    block counts.  Returns the dict of :func:`slot_layout` with slots
+    (3, K, C) positions (0 in empty slots) and the sorted positions pos_s
+    (3, N) added."""
+    nb = _block_count(mesh)
+    C = nb**3
+    lay = slot_layout(grid_key((pz0, py0, px0), boxsize / mesh, mesh, B), C, k_pm)
+    order = lay["order"]
+    lay["pos_s"] = torch.stack([px0[order], py0[order], pz0[order]])
+    lay["slots"] = scatter_slots(lay["pos_s"], lay["slot"], k_pm, C)
+    return lay
+
+
+def pm_longrange_components(px0, py0, pz0, mass: float, boxsize: float,
+                            G: float, kick_integral: float, mesh: int,
+                            longrange_scale: float, k_pm: int = 8,
+                            max_overflow: int = 65536):
+    """Long-range (Gaussian-split) PM momentum updates, component-wise.
+
+    Returns ((dmx, dmy, dmz), n_overflow, mass_sum): per-particle Δmom,
+    the number of particles beyond the block capacity (an int; exact
+    through the plain path while ≤ max_overflow, the rest deposit and
+    receive nothing, as in the JAX package) and the deposited mass (a
+    0-dim float64 tensor).  CIC deposit and gather, Fourier
+    differentiation, deconvolution order 4."""
+    n = mesh
+    N = px0.shape[0]
+    dtype = px0.dtype
+    dev = px0.device
+    h = boxsize / n
+    lay = block_layout(px0, py0, pz0, n, boxsize, k_pm)
+    bx, by, bz = lay["slots"]
+    slot, order = lay["slot"], lay["order"]
+    w1 = lay["valid"].to(dtype)
+    grid = deposit_blocks(bx, by, bz, w1 * mass, n, boxsize)
+
+    # exact fixed-size overflow path (rank ≥ K)
+    n_overflow = N - int(lay["valid"].sum())
+    sidx = None
+    if n_overflow > 0:
+        sidx = torch.nonzero(lay["rank"] >= k_pm).reshape(-1)[:max_overflow]
+        s_pos = lay["pos_s"][:, sidx].T.contiguous()
+        grid += deposit(s_pos, mass, n, boxsize, order=2)
+    del lay
+    # summed in float64: a float32 total of 2²⁴ particle masses cannot
+    # resolve one particle's mass
+    mass_sum = grid.sum(dtype=torch.float64)
+
+    slab = rfft3(grid / h**3)
+    del grid
+    phi = gravity_potential_slab(slab, n, boxsize, G, deconv_order=4,
+                                 longrange_scale=longrange_scale)
+    del slab
+    grads = torch.stack([irfft3(fourier.fourier_diff(phi, n, boxsize, d), n)
+                         for d in range(3)])
+    del phi
+    fds = gather_blocks(bx, by, bz, w1, grads, n, boxsize)
+    del bx, by, bz, w1
+    coef = -mass * kick_integral
+    dms = []
+    for d in range(3):
+        fdp = torch.cat([fds[d].reshape(-1),
+                         torch.zeros((1,), dtype=dtype, device=dev)])
+        val = fdp[slot]  # sorted order; overflow particles read 0
+        if sidx is not None:
+            val[sidx] = gather(grads[d], s_pos, boxsize, order=2)
+        out = torch.empty_like(val)
+        out[order] = coef * val
+        dms.append(out)
+    return tuple(dms), n_overflow, mass_sum
+
+
+def p3m_kick_components(px, py, pz, mass: float, boxsize: float, scale: float,
+                        cutoff: float, kick_integral: float, mesh: int,
+                        n_cells: int, capacity: int, k_pm: int = 8,
+                        softening: float = 0.0, G: float = 1.0,
+                        max_overflow: int = 2048, pm_max_overflow: int = 65536,
+                        softening_kernel: str = "plummer"):
+    """Full P³M momentum update: the short-range pair sweep plus the
+    Gaussian-split long-range PM, component-wise.
+
+    Returns ((dmx, dmy, dmz), n_sr_overflow, n_pm_overflow, mass_sum),
+    the last the PM deposit's mass (0-dim float64)."""
+    (dsx, dsy, dsz), n_sr = shortrange_momentum_updates(
+        (px, py, pz), mass, boxsize, scale, cutoff, kick_integral,
+        n_cells=n_cells, capacity=capacity, softening=softening, G=G,
+        max_overflow=max_overflow, softening_kernel=softening_kernel,
+    )
+    (dlx, dly, dlz), n_pm, mass_sum = pm_longrange_components(
+        px, py, pz, mass, boxsize, G, kick_integral, mesh, scale,
+        k_pm=k_pm, max_overflow=pm_max_overflow,
+    )
+    return (dsx + dlx, dsy + dly, dsz + dlz), n_sr, n_pm, mass_sum

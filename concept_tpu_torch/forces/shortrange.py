@@ -150,3 +150,201 @@ def f32_square(x: float) -> float:
     """x² rounded as the float32 kernels form it (f32(x)·f32(x))."""
     x = np.float32(x)
     return float(x * x)
+
+
+# ---------------------------------------------------------------------- #
+# The global stepper's short range: bucketize, the two-sided sweep on the
+# slot layout and the exact straggler path (port of cell_grid_shape,
+# auto_capacity, cell_counts, bucketize and shortrange_momentum_updates of
+# concept_tpu/forces/shortrange.py).
+
+_FULL_OFFSETS_27 = [(i, j, k) for i in (-1, 0, 1) for j in (-1, 0, 1)
+                    for k in (-1, 0, 1)]
+NCELLS_ITEM = ("ROADMAP Queue 1 item 9: the short-range sweep for "
+               "n_cells < 3 (offsets fold)")
+STRAGGLER_ROWS = 1024  # straggler↔straggler pairs per chunk: rows × S
+
+
+def cell_grid_shape(boxsize: float, cutoff: float, max_cells: int = 512) -> int:
+    """Cells per dimension: width ≥ cutoff (27-neighbour completeness)."""
+    n = int(boxsize / cutoff)
+    return max(1, min(n, max_cells))
+
+
+def auto_capacity(N: int, n_cells: int, headroom: float = 1.3) -> int:
+    """Bucket capacity from the mean occupancy, rounded up to 8.  Sized
+    for near-uniform states; clustered states overflow into the exact
+    straggler path until the host grows the capacity."""
+    mean = N / n_cells**3
+    return max(8, int(math.ceil(headroom * mean / 8)) * 8)
+
+
+def grid_key(comps, width: float, n: int, div: int = 1):
+    """Flat int64 key of every particle: per component
+    clamp(trunc(p/width), 0, n−1) // div, the first component of
+    ``comps`` most significant, as the JAX package forms its cell and
+    block ids (x-major cells: (px, py, pz); z-major blocks: (pz, py, px))."""
+    m = (n - 1) // div + 1
+    key = torch.zeros_like(comps[0], dtype=torch.int64)
+    for comp in comps:
+        idx = torch.clamp((comp / width).to(torch.int32), 0, n - 1) // div
+        key = key * m + idx.to(torch.int64)
+    return key
+
+
+def slot_layout(key, n_keys: int, capacity: int) -> dict:
+    """One stable sort by ``key`` into slot-major (K, C) buckets, C =
+    n_keys, K = capacity.  Returns a dict: order (N,) original index per
+    sorted particle; key, rank and slot (N,) in sorted order (slot =
+    rank·C + key, or K·C where rank ≥ K: in no bucket); counts (C,)
+    unclamped, starts (C,); valid (K, C)."""
+    C, K = n_keys, capacity
+    key_s, order = torch.sort(key, stable=True)
+    counts = torch.bincount(key_s, minlength=C)
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(key.shape[0], device=key.device) - starts[key_s]
+    slot = torch.where(rank < K, rank * C + key_s, K * C)
+    valid = torch.arange(K, device=key.device)[:, None] < counts[None, :]
+    return dict(order=order, key=key_s, rank=rank, slot=slot, counts=counts,
+                starts=starts, valid=valid)
+
+
+def scatter_slots(vals, slot, K: int, C: int):
+    """Sorted per-particle values (D, N) → slot arrays (D, K, C), 0 in
+    empty slots; particles with slot = K·C are left out."""
+    out = torch.zeros(vals.shape[:-1] + (K * C + 1,), dtype=vals.dtype,
+                      device=vals.device)
+    out[..., slot] = vals
+    return out[..., :K * C].reshape(vals.shape[:-1] + (K, C))
+
+
+def cell_counts(pos, boxsize: float, n_cells: int):
+    """Per-cell occupancy (C,) int64 of positions (N, 3): the
+    capacity-sizing probe."""
+    cell = grid_key(pos.unbind(1), boxsize / n_cells, n_cells)
+    return torch.bincount(cell, minlength=n_cells**3)
+
+
+def bucketize(pos, boxsize: float, n_cells: int, capacity: int):
+    """Sort the particles of the component triple ``pos`` into slot-major
+    (K, C) cell buckets (x-major, z-fastest cell ids).
+
+    Returns a dict: hx, hy, hz (K, C) positions (0 in empty slots), valid
+    (K, C), order (N,) original index per sorted particle, cell, rank and
+    slot (N,) in sorted order (rank ≥ capacity: a straggler, not in the
+    buckets), counts (C,) unclamped, starts (C,), and the sorted
+    positions px, py, pz.  No particle is dropped: callers route
+    rank ≥ capacity through the straggler path."""
+    C = n_cells**3
+    lay = slot_layout(grid_key(pos, boxsize / n_cells, n_cells), C, capacity)
+    order = lay["order"]
+    px, py, pz = (p[order] for p in pos)
+    hx, hy, hz = scatter_slots(torch.stack([px, py, pz]), lay["slot"], capacity, C)
+    return dict(hx=hx, hy=hy, hz=hz, valid=lay["valid"], order=order,
+                cell=lay["key"], rank=lay["rank"], slot=lay["slot"],
+                counts=lay["counts"], starts=lay["starts"], px=px, py=py, pz=pz)
+
+
+def _min_image(d, boxsize: float):
+    return d - boxsize * torch.round(d / boxsize)
+
+
+def _straggler_forces(b, acc, sidx, n: int, boxsize: float, scale: float,
+                      cutoff2: float, soft2: float, kernel: str):
+    """The exact straggler path: accelerations (S, 3) on the stragglers
+    sidx (sorted indices, rank ≥ K) from the bucketed slots of their 27
+    neighbour cells and from each other (all pairs, minimum image), with
+    the reactions added into the slot accelerations ``acc`` (3, K, C) in
+    place."""
+    valid = b["valid"]
+    K, C = valid.shape
+    dev = acc.device
+    sx, sy, sz = b["px"][sidx], b["py"][sidx], b["pz"][sidx]
+    scell = b["cell"][sidx]
+    sc = (scell // (n * n), (scell // n) % n, scell % n)
+    offs = torch.as_tensor(_FULL_OFFSETS_27, device=dev)  # (27, 3)
+    nbc = [sc[d][:, None] + offs[None, :, d] for d in range(3)]  # (S, 27)
+    ncell = ((nbc[0] % n) * n + nbc[1] % n) * n + nbc[2] % n
+    # a neighbour across a box face is seen at ±boxsize
+    d = []
+    for s_d, h_d, c_d in zip((sx, sy, sz), (b["hx"], b["hy"], b["hz"]), nbc):
+        shift = torch.div(c_d, n, rounding_mode="floor").to(s_d.dtype) * boxsize
+        d.append(s_d[None, :, None] - (h_d[:, ncell] + shift[None]))  # (K, S, 27)
+    r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+    m = valid[:, ncell] & (r2 < cutoff2) & (r2 > 0)
+    f = torch.where(m, shortrange_force_factor(r2, scale, soft2, kernel), 0.0)
+    fd = [f * dd for dd in d]
+    s_acc = torch.stack([x.sum(dim=(0, 2)) for x in fd], 1)  # (S, 3)
+    # reactions onto the bucketed side
+    rows = torch.arange(K, device=dev)[:, None, None]
+    tgt = (rows * C + ncell[None])[m]
+    accf = acc.reshape(3, K * C)
+    for k in range(3):
+        accf[k].index_add_(0, tgt, -fd[k][m])
+    # straggler ↔ straggler all pairs, in row chunks
+    S = sidx.shape[0]
+    for r0 in range(0, S, STRAGGLER_ROWS):
+        rs = slice(r0, min(S, r0 + STRAGGLER_ROWS))
+        ds = [_min_image(s_d[rs, None] - s_d[None, :], boxsize)
+              for s_d in (sx, sy, sz)]
+        r2s = ds[0] * ds[0] + ds[1] * ds[1] + ds[2] * ds[2]
+        fs = torch.where((r2s < cutoff2) & (r2s > 0),
+                         shortrange_force_factor(r2s, scale, soft2, kernel), 0.0)
+        s_acc[rs] += torch.stack([(fs * dd).sum(1) for dd in ds], 1)
+    return s_acc
+
+
+def shortrange_momentum_updates(pos, mass: float, boxsize: float, scale: float,
+                                cutoff: float, kick_integral: float,
+                                n_cells: int, capacity: int,
+                                softening: float = 0.0, G: float = 1.0,
+                                max_overflow: int = 2048,
+                                softening_kernel: str = "plummer"):
+    """Δmom from the P³M short-range force of one self-interacting
+    particle group: the two-sided sweep of every slot against its 27
+    neighbour cells (``pair_sweep`` with receivers = suppliers, the CUDA
+    kernel on the card), the exact straggler path for particles beyond
+    the capacity K of their cell, and the unsort.
+
+    pos: a 3-tuple of (N,) components.  Returns ((dmx, dmy, dmz),
+    n_overflow), the number of stragglers an int.  Overflow is exact
+    while the number of stragglers is ≤ max_overflow; beyond it the
+    stragglers past the first max_overflow (in cell order) get no
+    short-range force and exert none, as in the JAX package's fixed-size
+    path, and the caller must grow the budget."""
+    from concept_tpu_torch.forces.cuda_shortrange import pair_sweep
+
+    if n_cells < 3:
+        raise ValueError(f"n_cells = {n_cells} < 3 ({NCELLS_ITEM})")
+    N = pos[0].shape[0]
+    dtype = pos[0].dtype
+    n = n_cells
+    C = n**3
+    K = capacity
+    b = bucketize(pos, boxsize, n, K)
+    cutoff2 = f32_square(cutoff) if dtype == torch.float32 else cutoff**2
+    soft2 = f32_square(softening) if dtype == torch.float32 else softening**2
+    valid = b["valid"]
+    big = SENTINEL * boxsize
+    slots = torch.where(valid[None], torch.stack([b["hx"], b["hy"], b["hz"]]), big)
+    acc = pair_sweep(slots, slots, n, boxsize, scale, cutoff2, soft2,
+                     kernel=softening_kernel)
+    del slots
+    n_overflow = N - int(valid.sum())
+    sidx = None
+    if n_overflow > 0:
+        sidx = torch.nonzero(b["rank"] >= K).reshape(-1)[:max_overflow]
+        s_acc = _straggler_forces(b, acc, sidx, n, boxsize, scale, cutoff2,
+                                  soft2, softening_kernel)
+    # unsort: each sorted particle reads its slot (stragglers read 0, then
+    # take their straggler sum), then scatter back to the original order
+    accf = torch.cat([acc.reshape(3, K * C),
+                      torch.zeros((3, 1), dtype=dtype, device=acc.device)], 1)
+    del acc
+    dm_s = accf[:, b["slot"]]
+    if sidx is not None:
+        dm_s[:, sidx] = s_acc.T
+    coef = G * mass * mass * kick_integral
+    dmom = torch.empty_like(dm_s)
+    dmom[:, b["order"]] = coef * dm_s
+    return tuple(dmom), n_overflow

@@ -1,0 +1,59 @@
+"""CIC deposit and gather on the global stepper's PM blocks: the wrappers
+of the CUDA kernels of csrc/cells.cu launched on 2³-mesh-cell blocks
+(cb = B = 2, z-major block ids c = (bz·nb + by)·nb + bx), and their plain
+PyTorch versions.
+
+Port of ``deposit_pallas_pos`` / ``gather_pallas_pos``
+(concept_tpu/grid/pallas_pm.py:289-395) without the lane padding: slots
+(K, C), C = nb³ blocks, nb = n/2.  A slot is served when its CIC anchor
+lies in its block ±1 mesh cell (``_slot_geometry``); the test here is
+periodic (see grid/cuda_cells.py), which keeps exactly the slots the TPU
+kernels keep whenever the blocks were built from wrapped positions, as
+forces/p3m.py builds them at every kick.
+
+On CPU tensors the wrappers run the plain versions; on CUDA tensors they
+launch the kernels or raise.
+"""
+
+from __future__ import annotations
+
+from concept_tpu_torch.grid.bucketed import B
+from concept_tpu_torch.grid.cuda_cells import (
+    deposit_cells_plain, gather_cells_plain, launch_deposit, launch_gather,
+)
+
+
+def deposit_blocks_plain(px, py, pz, w, gridsize: int, boxsize: float):
+    """Plain PyTorch version of :func:`deposit_blocks`."""
+    return deposit_cells_plain((px, py, pz), w, gridsize, boxsize, cb=B,
+                               zmajor=True)
+
+
+def gather_blocks_plain(px, py, pz, w, grids, gridsize: int, boxsize: float):
+    """Plain PyTorch version of :func:`gather_blocks`."""
+    return gather_cells_plain((px, py, pz), w, grids, gridsize, boxsize, cb=B,
+                              zmajor=True)
+
+
+def deposit_blocks(px, py, pz, w, gridsize: int, boxsize: float):
+    """CIC deposit of the per-slot weights w (mass·valid) from the (K, C)
+    block slots px, py, pz onto the (n, n, n) mesh."""
+    if px.device.type == "cpu":
+        return deposit_blocks_plain(px, py, pz, w, gridsize, boxsize)
+    grid = launch_deposit((px, py, pz), w, gridsize, boxsize, B, zmajor=True)
+    deposit_blocks.launches += 1
+    return grid
+
+
+def gather_blocks(px, py, pz, w, grids, gridsize: int, boxsize: float):
+    """CIC interpolation of D mesh fields at every block slot, times w
+    (the validity): ``grids`` (D, n, n, n) → (D, K, C)."""
+    if px.device.type == "cpu":
+        return gather_blocks_plain(px, py, pz, w, grids, gridsize, boxsize)
+    out = launch_gather((px, py, pz), w, grids, gridsize, boxsize, B, zmajor=True)
+    gather_blocks.launches += 1
+    return out
+
+
+deposit_blocks.launches = 0
+gather_blocks.launches = 0

@@ -2,11 +2,12 @@
 dumps (port of the single-component path of concept_tpu/run.py;
 reference main.py:1676-2188).
 
-The port runs one matter particle component with P³M gravity and
-adaptive rungs (the default run).  Multi-component and fluid runs,
-snapshot input and output, autosave and the global-step (N_rungs = 1)
-and PM-only steppers raise ``NotImplementedError`` naming the ROADMAP
-item that brings them.
+The port runs one matter particle component with P³M gravity, stepped
+by adaptive rungs (the default run, ``N_rungs > 1``:
+p3mrungs.RungSimulationAdapter) or globally (``N_rungs = 1``:
+sim.Simulation).  Multi-component and fluid runs, snapshot input and
+output, autosave and the PM-only and PP methods raise
+``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from concept_tpu_torch.cosmology.linear import LinearCosmology
 from concept_tpu_torch.cosmology.primordial import PrimordialSpectrum
 from concept_tpu_torch.device import resolve_device, resolve_dtype
 from concept_tpu_torch.param import RunConfig, is_selected
-from concept_tpu_torch.sim import SimConfig
+from concept_tpu_torch.sim import METHOD_ITEMS, SimConfig, Simulation
 from concept_tpu_torch.units import UnitSystem
 from concept_tpu_torch.utils.terminal import masterprint
 
@@ -151,21 +152,38 @@ def run(cfg: RunConfig, max_steps: int = 100000, seed: int | None = None,
         raise NotImplementedError("multi-component runs (ROADMAP Queue 1 item 12)")
     spec, _ = comps[0]
     method = spec.force_method("gravity") or "p3m"
-    if method != "p3m" or cfg.N_rungs <= 1:
+    if method != "p3m":
         raise NotImplementedError(
-            f"gravity {method!r} with N_rungs = {cfg.N_rungs}: only P³M with "
-            f"rungs is ported (ROADMAP Queue 1 items 9-11)")
+            f"gravity {method!r} ({METHOD_ITEMS.get(method, 'not a method')})")
     pot = cfg.potential_options
     gridsize = int(pot.get("gridsize_per_method", {}).get(method)
                    or pot.get("gridsize") or 2 * round(spec.N ** (1 / 3)))
     overrides = shortrange_overrides(cfg, cfg.boxsize, gridsize)
-    scale = 1.25 * cfg.boxsize / gridsize
-    if not (math.isclose(overrides.get("shortrange_scale", scale), scale)
-            and math.isclose(overrides.get("shortrange_range", 4.5 * scale),
-                             4.5 * scale)):
-        raise NotImplementedError(
-            f"shortrange_params {overrides}: the rung stepper uses scale = "
-            f"1.25·boxsize/gridsize and range = 4.5·scale")
+    rungs = cfg.N_rungs > 1
+    static_dt = prepare_static_timestepping(cfg.static_timestepping)
+    if rungs:
+        scale = 1.25 * cfg.boxsize / gridsize
+        if not (math.isclose(overrides.get("shortrange_scale", scale), scale)
+                and math.isclose(overrides.get("shortrange_range", 4.5 * scale),
+                                 4.5 * scale)):
+            raise NotImplementedError(
+                f"shortrange_params {overrides}: the rung stepper uses scale = "
+                f"1.25·boxsize/gridsize and range = 4.5·scale")
+        if static_dt is not None and static_dt.records:
+            raise NotImplementedError(
+                "recording static_timestepping with rungs: the rung stepper "
+                "replays a recorded file, the global stepper (N_rungs = 1) "
+                "records it")
+    else:
+        fused = (pot.get("interpolation", 2) in (2, "CIC", "cic")
+                 and tuple(pot.get("deconvolve", (True, True))) == (True, True)
+                 and not bool(pot.get("interlace", False))
+                 and pot.get("differentiation", "fourier") in ("fourier", 0))
+        if not fused:
+            raise NotImplementedError(
+                f"potential_options {pot}: the global P³M stepper runs CIC, "
+                f"deconvolution of order 4, no interlacing and Fourier "
+                f"differentiation (ROADMAP Queue 1 items 4, 10)")
     if dev.type == "cuda":
         masterprint(f"Device: {dev} ({_device_name(dev)})")
     sim_config = SimConfig(
@@ -173,9 +191,17 @@ def run(cfg: RunConfig, max_steps: int = 100000, seed: int | None = None,
         dtype=dtype, G=consts.G_Newton, method=method,
         softening=softening_length(cfg, spec, gridsize),
         softening_kernel=cfg.softening_kernel,
+        dt_base_background_factor=cfg.Delta_t_base_background_factor,
+        dt_base_nonlinear_factor=cfg.Delta_t_base_nonlinear_factor,
+        da_max_early=cfg.Delta_a_max_early, da_max_late=cfg.Delta_a_max_late,
+        **overrides,
     )
-    sim = RungSimulationAdapter(spec, sim_config, bg, lin, N_rungs=cfg.N_rungs,
-                                fac_rung=cfg.Delta_t_rung_factor)
+    if rungs:
+        sim = RungSimulationAdapter(spec, sim_config, bg, lin,
+                                    N_rungs=cfg.N_rungs,
+                                    fac_rung=cfg.Delta_t_rung_factor)
+    else:
+        sim = Simulation(spec, sim_config, bg, lin)
     seed_val = seed if seed is not None else int(
         cfg.random_seeds.get("primordial amplitudes", 0))
     lpt = int(cfg.realization_options.get("lpt", 1))
@@ -208,7 +234,6 @@ def run(cfg: RunConfig, max_steps: int = 100000, seed: int | None = None,
 
     t_wall0 = _time.time()
     t_evolve = t_dump = 0.0
-    static_dt = prepare_static_timestepping(cfg.static_timestepping)
     hysteresis = None
     while events:
         a_next = events[0][0]

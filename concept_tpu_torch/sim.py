@@ -1,12 +1,29 @@
-"""Run configuration and the time-step limiter constants (port of
-``SimConfig`` and the ``FAC_*`` / ``DELTA_A_MAX_*`` constants of
-concept_tpu/sim.py; reference main.py:2345-2433)."""
+"""Run configuration, the time-step limiter constants and the global
+stepper (port of ``SimConfig``, the ``FAC_*`` / ``DELTA_A_MAX_*``
+constants and ``Simulation`` for P³M on one device, concept_tpu/sim.py;
+reference main.py:214-461, 697-996, 2345-2433).
+
+The global stepper is leapfrog KDK with exact time integrals (reference
+integration.py:712):
+
+    kick:  mom ← mom − m ∇φ · ᔑ a⁻¹ dt
+    drift: pos ← pos + mom/m · ᔑ a⁻² dt
+
+Every particle takes the same Δt (``N_rungs = 1``); each kick is the
+fused P³M kick of forces/p3m.py.  The host advances the scalars (t, a,
+Δt, the Δt hysteresis of timestep.py) and the fixed-size budgets.
+"""
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
+
+from concept_tpu_torch.components import ParticleState, periodic_wrap
+from concept_tpu_torch.utils.terminal import warn
 
 # Reference numeric defaults (main.py:2345-2433)
 FAC_DYNAMICAL = 0.056
@@ -15,6 +32,11 @@ FAC_PM = 0.13
 FAC_P3M = 0.14
 DELTA_A_MAX_EARLY = 0.00153
 DELTA_A_MAX_LATE = 0.022
+DT_INCREASE_MAX_FAC = 1.5
+
+METHOD_ITEMS = {"pm": "ROADMAP Queue 1 item 10: PM-only",
+                "pp": "ROADMAP Queue 1 item 11: PP / Ewald",
+                "ppnonperiodic": "ROADMAP Queue 1 item 11: PP / Ewald"}
 
 
 @dataclass(frozen=True)
@@ -31,3 +53,313 @@ class SimConfig:
     # 'plummer' | 'spline' (GADGET-2 cubic spline, the reference default)
     # | 'none' (reference softening_kernel, example_explanatory:372)
     softening_kernel: str = "spline"
+    # P³M split scale rₛ and cutoff range (reference defaults:
+    # scale = 1.25·boxsize/gridsize, range = 4.5·scale,
+    # param/example_explanatory:211-218); None → derived defaults
+    shortrange_scale: float | None = None
+    shortrange_range: float | None = None
+    shortrange_capacity: int = 0  # 0 → auto from the mean density
+    # Δt limiter prefactors (reference Δt_base_background_factor /
+    # Δt_base_nonlinear_factor, main.py:2401-2424)
+    dt_base_background_factor: float = 1.0
+    dt_base_nonlinear_factor: float = 1.0
+    # Δa per-step bounds (reference Δa_max_early/late, commons.py:3883)
+    da_max_early: float = DELTA_A_MAX_EARLY
+    da_max_late: float = DELTA_A_MAX_LATE
+
+    def derived_shortrange(self):
+        scale = self.shortrange_scale
+        if scale is None:
+            scale = 1.25 * self.boxsize / self.potential_gridsize
+        rng = self.shortrange_range
+        if rng is None:
+            rng = 4.5 * scale
+        return scale, rng
+
+
+class Simulation:
+    """One matter-like particle component with P³M gravity and global
+    time stepping (``N_rungs = 1``), on one device."""
+
+    def __init__(self, spec, config: SimConfig, bg, lin=None):
+        from concept_tpu_torch.forces.p3m import pm_block_capacity
+        from concept_tpu_torch.forces.shortrange import (
+            NCELLS_ITEM, auto_capacity, cell_grid_shape,
+        )
+
+        if config.method != "p3m":
+            if config.method in METHOD_ITEMS:
+                raise NotImplementedError(
+                    f"gravity {config.method!r} ({METHOD_ITEMS[config.method]})")
+            raise ValueError(f"gravity has no method {config.method!r} "
+                             f"(available: p3m, pm, pp, ppnonperiodic)")
+        self.spec = spec
+        self.config = config
+        self.bg = bg
+        self.lin = lin
+        scale, rng = config.derived_shortrange()
+        self._sr_scale, self._sr_range = scale, rng
+        self._sr_ncells = cell_grid_shape(config.boxsize, rng)
+        if self._sr_ncells < 3:
+            raise ValueError(f"{self._sr_ncells} short-range cells per "
+                             f"dimension < 3 ({NCELLS_ITEM})")
+        cap = config.shortrange_capacity
+        if cap == 0 and spec.N:
+            cap = auto_capacity(spec.N, self._sr_ncells)
+        self._sr_capacity = cap
+        self._sr_max_overflow = max(2048, (spec.N or 0) // 1024)
+        self._pm_max_overflow = 65536
+        self._k_pm = pm_block_capacity(spec.N, config.potential_gridsize)
+        # steps and kicks of the run, the largest capacity K, the largest
+        # straggler and PM-overflow counts of a kick, budget warnings, and
+        # the largest PM deposit deficit |deposited/m − N| in particle
+        # masses (m rounded to the state's dtype, as the deposit holds it)
+        self.stats = {"steps": 0, "kicks": 0, "capacity_max": cap,
+                      "sr_overflow_max": 0, "pm_overflow_max": 0,
+                      "budget_warnings": 0, "pm_mass_deficit_max": 0.0}
+        self.hysteresis = {}
+
+    # ------------------------------------------------------------------ #
+    def initial_state(self, a_begin: float, seed: int = 0, lpt_order: int = 1,
+                      with_ids: bool = False, **kw) -> ParticleState:
+        from concept_tpu_torch.ic import realize_particles
+
+        return realize_particles(
+            self.lin, self.spec, self.config.boxsize, a_begin, seed=seed,
+            lpt_order=lpt_order, dtype=self.config.dtype,
+            device=self.config.device, with_ids=with_ids, **kw)
+
+    # ------------------------------------------------------------------ #
+    def _kick(self, state: ParticleState, int_a1: float):
+        """The fused P³M kick, in place on the momenta.  Returns (state,
+        (n_sr_overflow, n_pm_overflow))."""
+        from concept_tpu_torch.forces.p3m import p3m_kick_components
+
+        cfg = self.config
+        pos = state.pos
+        dmom, n_sr, n_pm, mass_sum = p3m_kick_components(
+            pos[:, 0], pos[:, 1], pos[:, 2], self.spec.mass, cfg.boxsize,
+            self._sr_scale, self._sr_range, int_a1, cfg.potential_gridsize,
+            self._sr_ncells, self._sr_capacity, k_pm=self._k_pm,
+            softening=cfg.softening, G=cfg.G,
+            max_overflow=self._sr_max_overflow,
+            pm_max_overflow=self._pm_max_overflow,
+            softening_kernel=cfg.softening_kernel,
+        )
+        for d in range(3):
+            state.mom[:, d] += dmom[d]
+        st = self.stats
+        st["kicks"] += 1
+        st["sr_overflow_max"] = max(st["sr_overflow_max"], n_sr)
+        st["pm_overflow_max"] = max(st["pm_overflow_max"], n_pm)
+        m = float(torch.tensor(self.spec.mass, dtype=pos.dtype))
+        st["pm_mass_deficit_max"] = max(
+            st["pm_mass_deficit_max"], abs(float(mass_sum) / m - self.spec.N))
+        return state, (n_sr, n_pm)
+
+    def _drift(self, state: ParticleState, int_a2: float) -> ParticleState:
+        fac = int_a2 / self.spec.mass
+        return state._replace(
+            pos=periodic_wrap(state.pos + state.mom * fac, self.config.boxsize))
+
+    def step(self, state: ParticleState, int_a1: float, int_a2: float):
+        """One KDK-ordered update: kick(int_a1), then drift(int_a2).  The
+        momenta are updated in place.  The kick's overflow counts are
+        checked against the budgets at once (the JAX package keeps them
+        and checks the last step's at period boundaries only, so a
+        truncation mid-period goes unreported there)."""
+        state, (n_sr, n_pm) = self._kick(state, int_a1)
+        self._check_overflow_budgets(n_sr, n_pm)
+        return self._drift(state, int_a2)
+
+    def _check_overflow_budgets(self, n_sr: int, n_pm: int):
+        """Compare a kick's overflow counts with the fixed budgets (the
+        integers of the JAX package's check).  A count beyond its budget
+        means forces were truncated at that kick: warn and grow the
+        budget so it cannot recur."""
+        if n_sr > self._sr_max_overflow:
+            warn(f"short-range overflow {n_sr} exceeded the straggler "
+                 f"budget {self._sr_max_overflow}: pair forces were "
+                 f"truncated this step; growing the budget")
+            self._sr_max_overflow = 2 * n_sr + 1024
+            self.stats["budget_warnings"] += 1
+        if n_pm > self._pm_max_overflow:
+            warn(f"PM deposit-block overflow {n_pm} exceeded the budget "
+                 f"{self._pm_max_overflow}: deposit mass was truncated "
+                 f"this step; growing the budget")
+            self._pm_max_overflow = 2 * n_pm + 1024
+            self.stats["budget_warnings"] += 1
+        elif n_pm > self._pm_max_overflow // 2:
+            # keep the exact fallback comfortable (≤ half full)
+            self._pm_max_overflow = 2 * n_pm + 1024
+
+    def _refresh_shortrange_capacity(self, state: ParticleState,
+                                     cap_max: int = 1024):
+        """Grow the short-range bucket capacity (and the straggler budget)
+        as clustering raises cell occupancies (reference runtime tile
+        refinement, species.py:4170-4428).  Correctness does not depend
+        on it: overflow beyond the capacity is exact through the
+        straggler path while its budget holds; this keeps the budget at
+        most half full."""
+        from concept_tpu_torch.forces.shortrange import cell_counts
+
+        counts = cell_counts(state.pos, self.config.boxsize,
+                             self._sr_ncells).cpu().numpy()
+        changed = False
+        K = self._sr_capacity
+        budget = self._sr_max_overflow // 2
+        while K < cap_max and int(np.maximum(counts - K, 0).sum()) > budget:
+            K = int(math.ceil((K * 2) / 8) * 8)
+            changed = True
+        overflow = int(np.maximum(counts - K, 0).sum())
+        if overflow > budget:
+            self._sr_max_overflow = 2 * overflow + 1024
+            changed = True
+        if changed and K != self._sr_capacity:
+            self._sr_capacity = min(K, cap_max)
+        self.stats["capacity_max"] = max(self.stats["capacity_max"],
+                                         self._sr_capacity)
+
+    # ------------------------------------------------------------------ #
+    def base_timestep_size(self, a: float, v_max: float | None = None
+                           ) -> tuple[float, str]:
+        """Base Δt_max and its bottleneck (reference
+        get_base_timestep_size, main.py:697-996): dynamical time, Hubble
+        time, Δa_max and, with the largest particle speed, the P³M
+        displacement bound fac_p3m·split scale per step."""
+        bg = self.bg
+        cfg = self.config
+        H = float(bg.hubble_np(a))
+        rho = (self.spec.mass * self.spec.N / cfg.boxsize**3 / a**3
+               if self.spec.N else 0.0)
+        fac_bg = cfg.dt_base_background_factor
+        fac_nl = cfg.dt_base_nonlinear_factor
+        limits: list[tuple[float, str]] = []
+        if rho > 0:
+            limits.append((fac_bg * FAC_DYNAMICAL / math.sqrt(cfg.G * rho),
+                           "the dynamical time scale"))
+        if H > 0:
+            limits.append((fac_bg * FAC_HUBBLE / H, "the Hubble time"))
+            # Δa limiters: Δt ≈ Δa/(aH)
+            da_max = cfg.da_max_early if a < 0.1 else cfg.da_max_late
+            limits.append((da_max / (a * H), "Δa"))
+        if v_max is not None and v_max > 0:
+            # comoving drift speed ẋ = v_pec/a; displacement per step
+            # bounded by a fraction of the split scale
+            limits.append((fac_nl * FAC_P3M * self._sr_scale / (v_max / a),
+                           "the P³M split scale"))
+        if not limits:
+            return float("inf"), ""
+        return min(limits, key=lambda lb: lb[0])
+
+    def timestep_size(self, a: float, v_max: float | None = None) -> float:
+        return self.base_timestep_size(a, v_max=v_max)[0]
+
+    def evolve(self, state: ParticleState, a_begin: float, a_end: float,
+               max_steps: int = 100000, static_dt=None,
+               resume: dict | None = None):
+        """Leapfrog KDK from a_begin to a_end, the momenta synchronised at
+        both ends: the first kick covers Δt/2, each later one the
+        straddling interval, and a closing kick the last half step.
+
+        Δt follows the reference's hysteresis (main.py:920-983): it starts
+        at Δt_initial_fac·Δt_max, is reduced at once when a limiter binds,
+        and may increase only once DT_PERIOD steps have passed since the
+        last change.  ``static_dt`` (timestep.prepare_static_timestepping)
+        records or replays the stepping.  ``resume`` (the ``hysteresis``
+        of the previous segment) carries Δt, Δt_min and the step
+        counters; its kick sync point is not taken over, since every
+        segment ends with the momenta synchronised (the JAX package takes
+        it over and so kicks [t_mom, t_end] twice across a dump; ROADMAP
+        Queue 3).  Returns (state, a)."""
+        from concept_tpu_torch import timestep as ts
+
+        bg = self.bg
+        t = float(bg.t_of_a_np(a_begin))
+        t_end = float(bg.t_of_a_np(a_end))
+        a = a_begin
+        step_count = 0
+        t_mom = t  # the momenta are synchronised at t
+        replay = static_dt is not None and static_dt.applies
+        records = static_dt is not None and static_dt.records
+
+        def dt_max_at(a_now, v_now):
+            """(Δt_max, bottleneck); static replay overrides the
+            limiters (reference main.py:787-800)."""
+            if replay:
+                a_next = a_now + static_dt.delta_a(a_now)
+                if a_next > 1.0:
+                    # Δt = ∞ once a + Δa passes 1 (main.py:615); the t_end
+                    # clamp bounds the actual step
+                    return float("inf"), "static time-stepping"
+                return (float(bg.t_of_a_np(a_next)) - float(bg.t_of_a_np(a_now)),
+                        "static time-stepping")
+            return self.base_timestep_size(a_now, v_max=v_now)
+
+        def refresh_v(a_now, st):
+            # velocity-based limiters, refreshed at period boundaries
+            # (reference main.py:2380)
+            v2 = (st.mom * st.mom).sum(dim=1).max()
+            return math.sqrt(float(v2)) / (a_now * self.spec.mass)
+
+        def record(a_now, dt_max):
+            if records and math.isfinite(dt_max):
+                static_dt.record(
+                    a_now, float(bg.a_of_t_np(min(t + dt_max, t_end))) - a_now)
+
+        v_max = refresh_v(a, state)
+        self._refresh_shortrange_capacity(state)
+        dt_max, _ = dt_max_at(a, v_max)
+        record(a, dt_max)
+        dt = ts.DT_INITIAL_FAC * dt_max if math.isfinite(dt_max) else t_end - t
+        dt_min = 1e-4 * dt  # reference Δt_min = 1e-4·Δt_begin (main.py:192)
+        step_last_sync = 0
+        if resume:
+            dt = float(resume.get("dt", dt))
+            dt_min = float(resume.get("dt_min", dt_min))
+            step_count = int(resume.get("step_count", 0))
+            step_last_sync = int(resume.get("step_last_sync", step_count))
+        self.hysteresis = {"dt": dt, "dt_min": dt_min, "step_count": step_count,
+                           "step_last_sync": step_last_sync, "t_mom": t_mom}
+        while t < t_end - 1e-12 * abs(t_end):
+            if step_count and (step_count - step_last_sync) >= ts.DT_PERIOD:
+                # period boundary: full limiter refresh, Δt may increase
+                v_max = refresh_v(a, state)
+                self._refresh_shortrange_capacity(state)
+                dt_max, bn = dt_max_at(a, v_max)
+                record(a, dt_max)
+                if dt > dt_max or dt_max > ts.DT_INCREASE_MIN_FAC * dt:
+                    dt, _ = ts.update_base_timestep_size(
+                        dt, dt_min, dt_max, bn, step_count - step_last_sync,
+                        dt_increase_max_factor=DT_INCREASE_MAX_FAC,
+                        tolerate_danger=replay)
+                    step_last_sync = step_count
+            else:
+                # mid-period: reduction only
+                dt_max, bn = dt_max_at(a, v_max)
+                if dt > dt_max:
+                    dt, _ = ts.update_base_timestep_size(
+                        dt, dt_min, dt_max, bn, allow_increase=False,
+                        tolerate_danger=replay)
+                    step_last_sync = step_count
+            dt = min(dt, t_end - t)
+            # kick target: the midpoint of the coming drift
+            t_mid = min(t + 0.5 * dt, t_end)
+            int_a1 = bg.integrals_np(t_mom, t_mid, keys=("a**(-1)",))["a**(-1)"]
+            int_a2 = bg.integrals_np(t, t + dt, keys=("a**(-2)",))["a**(-2)"]
+            state = self.step(state, int_a1, int_a2)
+            t_mom = t_mid
+            t += dt
+            a = float(bg.a_of_t_np(t))
+            step_count += 1
+            self.stats["steps"] += 1
+            self.hysteresis = {"dt": dt, "dt_min": dt_min,
+                               "step_count": step_count,
+                               "step_last_sync": step_last_sync, "t_mom": t_mom}
+            if step_count >= max_steps:
+                raise RuntimeError("max_steps exceeded")
+        # the closing half kick synchronises the momenta at t_end
+        if t_mom < t_end - 1e-12 * abs(t_end):
+            int_a1 = bg.integrals_np(t_mom, t_end, keys=("a**(-1)",))["a**(-1)"]
+            state = self.step(state, int_a1, 0.0)
+        return state, a

@@ -1,8 +1,19 @@
-"""Static time-stepping: replay the base time-stepping as (a, Δa) pairs
-(reference src/main.py:499-646 ``prepare_static_timestepping``).  The
-``static_timestepping`` parameter is a path to a previously recorded
-(a, Δa) file → replay it, or a callable a ↦ Δa → apply it directly.
-Recording a run's stepping to a fresh path is not ported yet.
+"""Base time-step hysteresis and static time-stepping (port of
+concept_tpu/timestep.py; reference src/main.py:499-646
+``prepare_static_timestepping``, main.py:920-983
+``update_base_timestep_size``, constants main.py:2320-2381).
+
+* Δt never *increases* mid-period: only once ``DT_PERIOD`` steps have
+  passed since the last synchronization, and then at most by a ramp
+  factor ``1 + period_frac·(Δt_increase_max_factor − 1)``.
+* Δt *decreases* immediately whenever it exceeds the current maximum,
+  to ``DT_REDUCE_FAC·Δt_max``; reductions below ``DT_RATIO_WARN`` warn
+  and below ``DT_RATIO_ABORT`` abort (unless tolerate_danger).
+* ``static_timestepping`` (parameter): a path to a previously recorded
+  (a, Δa) file → replay it; a fresh path → record this run's stepping
+  (the global stepper records, the rung stepper only replays, as in the
+  JAX package); a callable a ↦ Δa → apply it directly.
+
 Host-side scalar bookkeeping only.
 """
 
@@ -13,26 +24,82 @@ import os
 
 import numpy as np
 
-from concept_tpu_torch.utils.terminal import masterprint
+from concept_tpu_torch.utils.terminal import masterprint, masterwarn
 
+# Reference numeric defaults (main.py:2320-2381)
+DT_INITIAL_FAC = 0.95
+DT_REDUCE_FAC = 0.94
+DT_INCREASE_FAC = 0.96
+DT_INCREASE_MIN_FAC = 1.01
+DT_RATIO_WARN = 0.7
+DT_RATIO_ABORT = 0.01
 DT_RELTOL = 1e-9  # relative precision of the recorded a values
+DT_PERIOD = 8
+
+
+def update_base_timestep_size(
+    dt: float,
+    dt_min: float,
+    dt_max: float,
+    bottleneck: str,
+    steps_since_sync: int = -1,
+    *,
+    dt_increase_max_factor: float = float("inf"),
+    allow_increase: bool = True,
+    tolerate_danger: bool = False,
+) -> tuple[float, str]:
+    """Hysteretic Δt update (reference main.py:920-983).  Returns the new
+    (Δt, bottleneck); bottleneck becomes '' when Δt was raised."""
+    if dt > dt_max:
+        dt_new = DT_REDUCE_FAC * dt_max
+        ratio = dt_new / dt if dt > 0 else 1.0
+        message = (
+            f"Rescaling time step size by a factor {ratio:.1g} due to {bottleneck}"
+        )
+        if ratio < DT_RATIO_ABORT and not tolerate_danger:
+            raise RuntimeError(
+                f"Due to {bottleneck}, the time step size needs to be "
+                f"rescaled by a factor {ratio:.1g}. "
+                f"This extreme change is unacceptable."
+            )
+        if ratio < DT_RATIO_WARN:
+            masterwarn(message)
+        if dt_new < dt_min:
+            raise RuntimeError(
+                f"Time evolution effectively halted with a time step size "
+                f"of {dt_new}"
+            )
+        return dt_new, bottleneck
+    if not allow_increase:
+        return dt, bottleneck
+    dt_new = max(DT_INCREASE_FAC * dt_max, dt)
+    # ramp: the longer since the last sync, the larger the allowed jump
+    period_frac = min(max((steps_since_sync + 1) / DT_PERIOD, 0.0), 1.0)
+    if math.isfinite(dt_increase_max_factor):
+        dt_new = min(dt_new, (1 + period_frac * (dt_increase_max_factor - 1)) * dt)
+    if dt_new > dt:
+        return dt_new, ""
+    return dt, bottleneck
 
 
 class StaticTimestepping:
-    """Replay of the base time-stepping as (a, Δa) pairs (reference
-    prepare_static_timestepping, main.py:499-646).
+    """Record/replay of the base time-stepping as (a, Δa) pairs
+    (reference prepare_static_timestepping, main.py:499-646).
 
     Modes:
       * ``apply`` — param points at an existing file: Δa(a) is replayed,
         exact values when a matches a recorded row (duplicates consumed
         in order, handling synchronizations), log-log interpolation over
         monotonically increasing Δa intervals otherwise.
+      * ``record`` — param points at a fresh path: (a, Δa_max) appended
+        every time the global stepper (re)computes the base step size.
       * ``callable`` — user function a ↦ Δa, applied directly.
     """
 
     def __init__(self, param):
         self.mode = None
         self._func = None
+        self._path = None
         self._data: dict[str, list[float]] = {}
         self._intervals: list[tuple[float, float, object]] = []
         # number of significant digits used to key exact-row lookups
@@ -50,24 +117,34 @@ class StaticTimestepping:
                 f"of type {type(param)}"
             )
         path = os.fspath(param)
+        self._path = path
         if os.path.isdir(path):
             raise ValueError(
                 f'static_timestepping = "{path}" is a directory, not a file'
             )
-        if not os.path.exists(path):
-            raise NotImplementedError(
-                f'static_timestepping = "{path}" does not exist: recording the '
-                f"time-stepping is not ported (ROADMAP Queue 1 item 7)")
-        self.mode = "apply"
-        self._load(path)
-        masterprint(
-            f'Static time-stepping information will be read from "{path}"'
-        )
+        if os.path.exists(path):
+            self.mode = "apply"
+            self._load(path)
+            masterprint(
+                f'Static time-stepping information will be read from "{path}"'
+            )
+        else:
+            self.mode = "record"
+            d = os.path.dirname(path)
+            if d:
+                os.makedirs(d, exist_ok=True)
+            masterprint(
+                f'Static time-stepping information will be written to "{path}"'
+            )
 
     # -------------------------------------------------------------- #
     @property
     def applies(self) -> bool:
         return self.mode in ("apply", "callable")
+
+    @property
+    def records(self) -> bool:
+        return self.mode == "record"
 
     def _key(self, a: float) -> str:
         return f"{a:.{self._ndig}e}"
@@ -140,6 +217,22 @@ class StaticTimestepping:
         i = int(np.clip(np.searchsorted(seg_a, x) - 1, 0, len(seg_a) - 2))
         slope = (seg_d[i + 1] - seg_d[i]) / (seg_a[i + 1] - seg_a[i] + 1e-300)
         return float(np.exp(seg_d[i] + slope * (x - seg_a[i])))
+
+    def record(self, a: float, da_max: float):
+        """Append one (a, Δa_max) row in record mode."""
+        if self.mode != "record":
+            return
+        header_needed = (
+            not os.path.exists(self._path) or os.path.getsize(self._path) == 0
+        )
+        with open(self._path, "a", encoding="utf-8") as f:
+            if header_needed:
+                n = self._ndig
+                f.write(
+                    "# Time-stepping recorded by concept_tpu\n#\n"
+                    "# {}a{}Δa\n".format(" " * ((n + 3) // 2), " " * (n + 5))
+                )
+            f.write(f"{a:.{self._ndig}e} {da_max:.{self._ndig}e}\n")
 
 
 def prepare_static_timestepping(param) -> StaticTimestepping | None:

@@ -140,6 +140,68 @@ def test_deposit_and_gather_match_plain(dev):
     assert float(got[:, 0, C - 1].abs().max()) > 0.0
 
 
+@pytest.mark.parametrize("kernel", ["plummer", "spline", "none"])
+@pytest.mark.parametrize("K", [32, 40])
+def test_pair_sweep_two_sided_matches_plain(dev, kernel, K):
+    """The global stepper's sweep: receivers = suppliers = the whole
+    sentinel-filled slot array, no row bounds, at its column depths
+    (K = 32-40: one pass of 32 or 64 threads per column)."""
+    from concept_tpu_torch.forces.cuda_shortrange import pair_sweep, pair_sweep_plain
+
+    rng = np.random.default_rng(21 + K)
+    n, box = 5, 1.0
+    s, _, _ = _layout(rng, n, K, box)
+    st = torch.as_tensor(s, device=dev)
+    args = (n, box, 0.05, float(np.float32(0.2) ** 2), float(np.float32(0.01) ** 2), kernel)
+    before = pair_sweep.launches
+    got = pair_sweep(st, st, *args)
+    assert pair_sweep.launches == before + 1
+    ref = pair_sweep_plain(st, st, *args)
+    torch.cuda.synchronize()
+    got, ref = got.cpu().numpy(), ref.cpu().numpy()
+    assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+def test_block_deposit_and_gather_match_plain(dev):
+    """The PM block kernels (2-mesh-cell blocks, z-major ids) against
+    their plain versions, with one slot wrapped across the box face since
+    bucketing (kept) and one outside its block's halo (dropped)."""
+    from concept_tpu_torch.grid.cuda_blocks import (
+        deposit_blocks, deposit_blocks_plain, gather_blocks, gather_blocks_plain,
+    )
+
+    rng = np.random.default_rng(13)
+    n, box, K = 32, 4.0, 8
+    nb = n // 2
+    C = nb**3
+    h = box / n
+    cells = np.arange(C)
+    base = np.stack([cells % nb, (cells // nb) % nb, cells // (nb * nb)]) * 2 * h
+    counts = rng.integers(0, K + 1, size=C)
+    valid = np.arange(K)[:, None] < counts[None, :]
+    pos = base[:, None, :] + rng.random((3, K, C)) * 2 * h
+    valid[0, nb - 1] = valid[0, 0] = True
+    pos[:, 0, nb - 1] = np.array([0.4, 0.6, 1.2]) * h  # block bx = nb-1, wrapped: kept
+    pos[:, 0, 0] = np.array([5.5, 0.6, 1.2]) * h       # block 0, out of its halo
+    s = np.where(valid[None], pos, 0.0).astype(np.float32)
+    px, py, pz = (torch.as_tensor(a, device=dev) for a in s)
+    w = torch.as_tensor(valid.astype(np.float32) * 0.7, device=dev)
+    before = (deposit_blocks.launches, gather_blocks.launches)
+    got = deposit_blocks(px, py, pz, w, n, box)
+    ref = deposit_blocks_plain(px, py, pz, w, n, box)
+    torch.testing.assert_close(got, ref, rtol=2e-5, atol=1e-5 * float(ref.abs().max()))
+    np.testing.assert_allclose(float(got.sum()), 0.7 * (valid.sum() - 1), rtol=1e-5)
+    grids = torch.as_tensor(rng.standard_normal((3, n, n, n)).astype(np.float32), device=dev)
+    wv = (w > 0).float()
+    got = gather_blocks(px, py, pz, wv, grids, n, box)
+    ref = gather_blocks_plain(px, py, pz, wv, grids, n, box)
+    assert (deposit_blocks.launches, gather_blocks.launches) == (before[0] + 1, before[1] + 1)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=2e-5, atol=1e-5 * float(r.abs().max()))
+    assert float(got[0][0, nb - 1].abs()) > 0.0
+    assert float(got[0][0, 0].abs()) == 0.0
+
+
 def test_float64_on_the_card_raises(dev):
     from concept_tpu_torch.forces.cuda_shortrange import pair_sweep
 
