@@ -44,6 +44,22 @@ Then the same for the global stepper (``N_rungs = 1``):
 4b. 256³ particles on grid 512 with ``N_rungs = 1`` for at least 3 global
     steps.
 
+Then the rung stepper's two other layouts:
+
+2c. The reach-2 sweep (117 kept offsets), one-sided (receivers at the
+    negative sentinel) and two-sided (``sweep_reach``), and the cell
+    deposit and gather at cb = 4, each against its plain version at the
+    shapes of a realized 128³ state on mesh 256 with ``unified_cb = 4``
+    (64³ cells), with the bounds and library calls as in 2.
+3c. ``param/example_basic.py`` at 62³ particles on grid 124 (the
+    4-mesh-cell layout), a = 0.02 → 1: it must launch the reach sweep and
+    the cell deposit and gather and no other kernel; then the reach sweep
+    is held against its plain version on the run's final slots.
+3d. The same at 63³ on grid 126 (the tight layout, 19³ cells): the
+    bounded ±1 sweep and the block deposit and gather.
+4c, 4d. 250³ particles on grid 500 (4-mesh-cell layout) and 255³ on grid
+    510 (tight layout) for at least 3 base steps each.
+
 Before its last line it prints one JSON object ``{"kernels": [...]}`` and
 the card's name and power limit as nvidia-smi reports them; the last line
 is ``{"ok": true, "device": {...}}``.  Without CUDA it exits with 2 and
@@ -112,11 +128,13 @@ def _nvidia_smi() -> str:
 
 
 def _counters():
-    from concept_tpu_torch.forces.cuda_shortrange import pair_sweep
+    from concept_tpu_torch.forces.cuda_shortrange import pair_sweep, pair_sweep_reach
+    from concept_tpu_torch.forces.shortrange import sweep_reach
     from concept_tpu_torch.grid.cuda_blocks import deposit_blocks, gather_blocks
     from concept_tpu_torch.grid.cuda_cells import deposit_cells, gather_cells
 
-    return {"pair_sweep": pair_sweep, "deposit_cells": deposit_cells,
+    return {"pair_sweep": pair_sweep, "pair_sweep_reach": pair_sweep_reach,
+            "sweep_reach": sweep_reach, "deposit_cells": deposit_cells,
             "gather_cells": gather_cells, "deposit_blocks": deposit_blocks,
             "gather_blocks": gather_blocks}
 
@@ -146,12 +164,11 @@ def build() -> dict:
     return {"build_s": seconds}
 
 
-def _realized_layout(N: int, mesh: int, device: str):
+def _realized_layout(N: int, mesh: int, device: str, unified_cb: int | None = None):
     """A realized example_basic state at N particles on the mesh-`mesh`
-    8-mesh-cell layout: (adapter, RungState)."""
-    import torch
-
-    from concept_tpu_torch.p3mrungs import RungSimulationAdapter
+    rung layout (the device's choice, or the unified layout with cells
+    `unified_cb` mesh cells wide): (adapter, RungState)."""
+    from concept_tpu_torch.p3mrungs import P3MRungSimulation, RungSimulationAdapter
     from concept_tpu_torch.param import load_params
     from concept_tpu_torch.run import build_components, build_cosmology, softening_length
     from concept_tpu_torch.device import resolve_device
@@ -168,27 +185,32 @@ def _realized_layout(N: int, mesh: int, device: str):
                        G=consts.G_Newton, softening=softening_length(cfg, spec, mesh),
                        softening_kernel=cfg.softening_kernel)
     adapter = RungSimulationAdapter(spec, config, bg, lin, N_rungs=cfg.N_rungs)
+    if unified_cb is not None:
+        adapter.inner = P3MRungSimulation(
+            n, cfg.boxsize, spec.mass, consts.G_Newton, mesh=mesh, bg=bg,
+            N_rungs=cfg.N_rungs, softening=config.softening,
+            softening_kernel=config.softening_kernel, unified=True,
+            unified_cb=unified_cb, device=dev)
     flat = adapter.initial_state(cfg.a_begin, seed=0)
     return adapter, adapter._to_layout(flat)
 
 
-def _pair_work(pos_s, n, boxsize, cutoff2, soft2):
+def _pair_work(pos_s, n, boxsize, cutoff2, soft2, offsets):
     """The work a sweep with receivers = suppliers = the sentinel-filled
     slots pos_s (3, K, C) needs, whatever rows its launch visits: (pair
     tests between valid slots of neighbouring cells, Σ_c n_c·Σ_nb n_nb
-    over the 27 neighbour cells nb of each cell c; pairs inside the
-    cutoff; of those the pairs inside the spline's near field
-    r² < (2.8ε)²; valid slots)."""
+    over the neighbour cells nb = c + d, d in ``offsets``, of each cell
+    c; pairs inside the cutoff; of those the pairs inside the spline's
+    near field r² < (2.8ε)²; valid slots)."""
     import torch
 
-    from concept_tpu_torch.forces.cuda_shortrange import _OFFSETS
     from concept_tpu_torch.forces.shortrange import SENTINEL
 
     _, K, C = pos_s.shape
     dev = pos_s.device
     valid = pos_s[0].abs() < 0.5 * SENTINEL * boxsize
     occ = valid.sum(0).reshape(n, n, n).to(torch.int64)
-    nbsum = sum(torch.roll(occ, (di, dj, dk), (0, 1, 2)) for di, dj, dk in _OFFSETS)
+    nbsum = sum(torch.roll(occ, (-di, -dj, -dk), (0, 1, 2)) for di, dj, dk in offsets)
     tested = int((occ * nbsum).sum())
     cells = torch.arange(C, device=dev)
     ci, cj, ck = cells // (n * n), (cells // n) % n, cells % n
@@ -198,7 +220,7 @@ def _pair_work(pos_s, n, boxsize, cutoff2, soft2):
         cols = slice(c0, min(C, c0 + ch))
         own = pos_s[:, :, cols][:, :, None, :]
         vr = valid[:, cols][:, None, :]
-        for di, dj, dk in _OFFSETS:
+        for di, dj, dk in offsets:
             ids, shift = [], []
             for c, d in ((ci, di), (cj, dj), (ck, dk)):
                 m = c[cols] + d
@@ -214,25 +236,57 @@ def _pair_work(pos_s, n, boxsize, cutoff2, soft2):
     return tested, within, near, int(valid.sum())
 
 
-def _check_sweep(tag: str, pos_s, sim, bounds, reps: int, plain_reps: int) -> dict:
+def _check_sweep(tag: str, pos_s, sim, bounds, reps: int, plain_reps: int,
+                 reach: str | None = None) -> dict:
     """The pair sweep kernel against its plain version on the slot
     positions pos_s (3, K, C) of a layout with `sim`'s geometry (nc,
     boxsize, scale, cutoff, softening, softening_kernel), receivers =
     suppliers, with row bounds (rext, sext) or (None, None): errors, times
-    and bound.  The bound counts the work the function needs on these
-    slots (see _pair_work), which row bounds do not change.  Fails on a
-    disagreement beyond max|Δ|/max|ref| ≤ 1e-5."""
-    from concept_tpu_torch.forces.cuda_shortrange import _bounds, pair_sweep, pair_sweep_plain
-    from concept_tpu_torch.forces.shortrange import f32_square
+    and bound.  ``reach`` = "one-sided" or "two-sided" sweeps `sim`'s
+    reach-2 offsets (the 4-mesh-cell layout) instead of the ±1 columns:
+    one-sided through pair_sweep_reach with the receivers at the negative
+    sentinel, two-sided through sweep_reach.  The bound counts the work
+    the function needs on these slots (see _pair_work), which row bounds
+    do not change.  Fails on a disagreement beyond max|Δ|/max|ref| ≤
+    1e-5."""
+    import torch
+
+    from concept_tpu_torch.forces.cuda_shortrange import (
+        OFFSETS_27, _bounds, pair_sweep, pair_sweep_plain, pair_sweep_reach,
+    )
+    from concept_tpu_torch.forces.shortrange import SENTINEL, f32_square, sweep_reach
 
     args = (sim.nc, sim.boxsize, sim.scale, f32_square(sim.cutoff),
             f32_square(sim.softening), sim.softening_kernel)
+    offsets = OFFSETS_27 if reach is None else sim.offsets
+    if reach is None:
+        def kern():
+            return pair_sweep(pos_s, pos_s, *args, rext=bounds[0], sext=bounds[1])
 
-    def kern():
-        return pair_sweep(pos_s, pos_s, *args, rext=bounds[0], sext=bounds[1])
+        def plain():
+            return pair_sweep_plain(pos_s, pos_s, *args, rext=bounds[0], sext=bounds[1])
+    elif reach == "one-sided":
+        recv = torch.where(pos_s.abs() < 0.5 * SENTINEL * sim.boxsize, pos_s,
+                           -SENTINEL * sim.boxsize)
 
-    def plain():
-        return pair_sweep_plain(pos_s, pos_s, *args, rext=bounds[0], sext=bounds[1])
+        def kern():
+            return pair_sweep_reach(recv, pos_s, *args[:5], offsets, kernel=args[5])
+
+        def plain():
+            return pair_sweep_plain(recv, pos_s, *args, offsets=offsets)
+    else:
+        from concept_tpu_torch.p3mrungs import UNIFIED_SWEEP_MARGIN
+
+        valid = pos_s[0].abs() < 0.5 * SENTINEL * sim.boxsize
+        cw = sim.boxsize / sim.nc
+
+        def kern():
+            return sweep_reach(*pos_s, valid, sim.nc, sim.boxsize, sim.scale, sim.cutoff,
+                               sim.softening, cw, UNIFIED_SWEEP_MARGIN * cw / 4.0,
+                               kernel=args[5])
+
+        def plain():
+            return pair_sweep_plain(pos_s, pos_s, *args, offsets=offsets)
 
     got, ref = kern(), plain()
     _sync()
@@ -242,14 +296,15 @@ def _check_sweep(tag: str, pos_s, sim, bounds, reps: int, plain_reps: int) -> di
     ms, plain_ms = _time_ms(kern, reps), _time_ms(plain, plain_reps)
     _, K, C = pos_s.shape
     rb, sb = _bounds(*bounds, sim.nc, K, K, pos_s.device)
-    visited = 27 * int((rb * sb).sum())
-    tested, within, near, n_valid = _pair_work(pos_s, sim.nc, sim.boxsize, args[3], args[4])
+    visited = len(offsets) * int((rb * sb).sum())
+    tested, within, near, n_valid = _pair_work(pos_s, sim.nc, sim.boxsize, args[3], args[4],
+                                               offsets)
     flops = FLOPS_PER_TESTED_PAIR * tested + FLOPS_PER_PAIR_IN_CUTOFF * within
     # valid positions read, the whole (3, K, C) result written, bounds read
     nbytes = 4 * (3 * n_valid + pos_s.numel()) + (
         8 * bounds[0].numel() if bounds[0] is not None else 0)
     bound_ms = 1e3 * max(flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S)
-    print(f"  pair_sweep ({tag}): max |Δ| {err:.3e}, max|Δ|/max|ref| {rel:.3e} "
+    print(f"  {'pair_sweep' if reach is None else 'reach sweep'} ({tag}): max |Δ| {err:.3e}, max|Δ|/max|ref| {rel:.3e} "
           f"(tol 1e-5) {'ok' if ok else 'FAIL'}; {ms:.3f} ms, plain {plain_ms:.1f} ms, "
           f"bound {bound_ms:.3f} ms; {tested} pair tests needed ({n_valid} valid "
           f"slots), {within} in the cutoff, {near} in the spline near field; the "
@@ -523,8 +578,45 @@ def check_global_kernels(N: int = 128**3, mesh: int = 256, device: str = "cuda")
     return out
 
 
+def check_reach_kernels(N: int = 128**3, mesh: int = 256, device: str = "cuda") -> dict:
+    """The 4-mesh-cell layout's kernels against their plain versions at
+    the shapes of a realized N-particle state on mesh `mesh` with
+    ``unified_cb = 4``: the reach sweep one-sided and two-sided, the cell
+    deposit and gather at cb = 4."""
+    from concept_tpu_torch.forces.shortrange import SENTINEL
+    from concept_tpu_torch.grid.cuda_cells import (
+        deposit_cells, deposit_cells_plain, gather_cells, gather_cells_plain,
+    )
+
+    adapter, state = _realized_layout(N, mesh, device, unified_cb=4)
+    sim = adapter.inner
+    K = sim._K_occ
+    nc, box = sim.nc, sim.boxsize
+    pos = state.pos[:, :K]
+    valid = state.valid[:K]
+    pos_s = _sentineled(state, K, SENTINEL * box)
+    print(f"4-mesh-cell kernels vs plain: {N} particles, mesh {mesh}, {nc}³ cells, "
+          f"{K} slot rows (capacity {sim.capacity}), {len(sim.offsets)} kept offsets")
+    out = {"shape": {"N": N, "mesh": mesh, "nc": nc, "K_rows": K,
+                     "offsets": len(sim.offsets)}}
+    for reach in ("one-sided", "two-sided"):
+        out[f"reach_{reach.replace('-', '_')}"] = _check_sweep(
+            reach, pos_s, sim, (None, None), 10, 1, reach=reach)
+    del pos_s
+    out.update(_check_pm_kernels(
+        ("deposit_cells_cb4", "gather_cells_cb4"), pos, valid, sim.mass, sim.G,
+        sim.scale, mesh, box, 4, False,
+        lambda w: deposit_cells(pos, w, mesh, box, 4),
+        lambda w: deposit_cells_plain(pos, w, mesh, box, 4),
+        lambda wv, g: gather_cells(pos, wv, g, mesh, box, 4),
+        lambda wv, g: gather_cells_plain(pos, wv, g, mesh, box, 4)))
+    return out
+
+
 RUNG_KERNELS = ("pair_sweep", "deposit_cells", "gather_cells")
 GLOBAL_KERNELS = ("pair_sweep", "deposit_blocks", "gather_blocks")
+REACH_KERNELS = ("pair_sweep_reach", "deposit_cells", "gather_cells")
+TIGHT_KERNELS = ("pair_sweep", "deposit_blocks", "gather_blocks")
 
 
 def _run(overrides: list, outdir: str, kernels=RUNG_KERNELS, device: str = "cuda"):
@@ -604,18 +696,66 @@ def main_path() -> dict:
             "pair_sweep_clustered": clustered}
 
 
-def realistic(a_end: float = 0.023) -> dict:
+def _layout_main_path(tag: str, n: int, mesh: int, ucb: int, kernels) -> dict:
+    """example_basic at n³ particles on grid `mesh`, a = 0.02 → 1, which
+    must take the rung layout with cells `ucb` mesh cells wide (0: tight)
+    and launch `kernels` only; then the run's sweep against its plain
+    version on the final, clustered slots (the reach sweep one-sided on
+    the 4-mesh-cell layout, the bounded ±1 sweep on the tight one)."""
+    from concept_tpu_torch.forces.shortrange import SENTINEL
+
+    outdir = tempfile.mkdtemp(prefix=f"chip_smoke_{tag}_")
+    try:
+        sim, state, a, counts, seconds = _run([
+            f"initial_conditions={{'species':'matter','N':{n}**3}}",
+            f"potential_options={mesh}"], outdir, kernels)
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    inner = sim.inner
+    if inner.ucb != ucb:
+        raise SystemExit(f"{tag}: grid {mesh} took the layout ucb = {inner.ucb}, "
+                         f"not {ucb}")
+    st = inner.stats
+    steps = sim.hysteresis.get("step_count", 0)
+    print(f"{tag} path (example_basic, {n}³, grid {mesh}, {inner.nc}³ cells, ucb = {ucb}, "
+          f"a 0.02 → {a:.4g}): {steps} base steps, {st['substeps']} substeps, max rung "
+          f"{st['max_rung']}, wall {seconds:.1f} s (evolution {sim.timings['evolve_s']:.1f} s), "
+          f"largest deposit deficit {st['pm_mass_deficit_max']:.3g} particle masses, PM "
+          f"overflow budget {inner.pm_max_overflow}, launches {counts}")
+    layout = sim._to_layout(state)
+    K = inner._K_occ
+    pos_s = _sentineled(layout, K, SENTINEL * inner.boxsize)
+    print(f"kernel vs plain on the final layout: {inner.nc}³ cells, {K} slot rows")
+    if ucb == 4:
+        clustered = _check_sweep("one-sided, clustered", pos_s, inner, (None, None), 10, 1,
+                                 reach="one-sided")
+    else:
+        clustered = _check_sweep("clustered, bounded", pos_s, inner,
+                                 (inner._ext_occ, inner._ext_occ), 10, 1)
+    return {"N": n**3, "mesh": mesh, "nc": inner.nc, "ucb": ucb, "a_end": a,
+            "base_steps": steps, "substeps": st["substeps"], "max_rung": st["max_rung"],
+            "wall_s": seconds, "evolve_s": sim.timings["evolve_s"], "launches": counts,
+            "pm_mass_deficit_max": st["pm_mass_deficit_max"],
+            "budget_warnings": st["budget_warnings"], "sweep_clustered": clustered}
+
+
+def realistic(a_end: float = 0.023, n: int = 256, mesh: int = 512, ucb: int = 8,
+              kernels=RUNG_KERNELS) -> dict:
+    """The realistic size of a rung layout: n³ particles on grid `mesh`
+    (example_basic's widths) to an early output time."""
     import torch
 
     torch.cuda.reset_peak_memory_stats()
     outdir = tempfile.mkdtemp(prefix="chip_smoke_big_")
     try:
         sim, _, a, counts, seconds = _run([
-            "initial_conditions={'species':'matter','N':256**3}",
-            "potential_options=512",
-            f"output_times={{'powerspec': [{a_end}]}}"], outdir)
+            f"initial_conditions={{'species':'matter','N':{n}**3}}",
+            f"potential_options={mesh}",
+            f"output_times={{'powerspec': [{a_end}]}}"], outdir, kernels)
     finally:
         shutil.rmtree(outdir, ignore_errors=True)
+    if sim.inner.ucb != ucb:
+        raise SystemExit(f"grid {mesh} took the layout ucb = {sim.inner.ucb}, not {ucb}")
     steps = sim.hysteresis.get("step_count", 0)
     if steps < 3:
         raise SystemExit(f"the realistic run took {steps} base steps (< 3)")
@@ -623,7 +763,8 @@ def realistic(a_end: float = 0.023) -> dict:
     ev = sim.timings["evolve_s"]
     peak = torch.cuda.max_memory_allocated()
     st = sim.inner.stats
-    print(f"realistic (256³, grid 512, a 0.02 → {a:.4g}): {steps} base steps, "
+    print(f"realistic ({n}³, grid {mesh}, {sim.inner.nc}³ cells, ucb = {ucb}, a 0.02 → "
+          f"{a:.4g}): {steps} base steps, "
           f"{st['substeps']} substeps, {1e3 * ev / steps:.1f} ms per base step, "
           f"{N * steps / ev:.4g} particle updates/s, peak device memory "
           f"{peak / 2**30:.2f} GiB, realization {sim.timings['realize_s']:.1f} s, "
@@ -633,7 +774,8 @@ def realistic(a_end: float = 0.023) -> dict:
             "max_rung": st["max_rung"], "evolve_s": ev, "ms_per_base_step": 1e3 * ev / steps,
             "particle_updates_per_s": N * steps / ev, "peak_bytes": peak,
             "realize_s": sim.timings["realize_s"], "launches": counts,
-            "pm_mass_deficit_max": st["pm_mass_deficit_max"]}
+            "pm_mass_deficit_max": st["pm_mass_deficit_max"],
+            "budget_warnings": st["budget_warnings"]}
 
 
 # device-time groups of a profiled run, by kernel name (first match)
@@ -738,22 +880,28 @@ def global_realistic(a_end: float = 0.025) -> dict:
             "realize_s": sim.timings["realize_s"], "launches": counts, "stats": dict(st)}
 
 
-# (name, phase with its check, key, source, the TPU kernel's pallas_call,
-# phase with the main-path launch count)
+# (name, counter, phase with its check, key, source, the TPU kernel's
+# definition, phase with the main-path launch count or None where no path
+# runs the kernel)
+SWEEP_SRC = "concept_tpu_torch/csrc/pair_sweep.cu"
+CELLS_SRC = "concept_tpu_torch/csrc/cells.cu"
 KERNELS = (
-    ("pair_sweep", "check", "pair_sweep_bounded", "concept_tpu_torch/csrc/pair_sweep.cu",
+    ("pair_sweep", "pair_sweep", "check", "pair_sweep_bounded", SWEEP_SRC,
      "concept_tpu/forces/pallas_shortrange.py:287", "main_path"),
-    ("deposit_cells", "check", "deposit_cells", "concept_tpu_torch/csrc/cells.cu",
+    ("deposit_cells", "deposit_cells", "check", "deposit_cells", CELLS_SRC,
      "concept_tpu/grid/pallas_cells.py:162", "main_path"),
-    ("gather_cells", "check", "gather_cells", "concept_tpu_torch/csrc/cells.cu",
+    ("gather_cells", "gather_cells", "check", "gather_cells", CELLS_SRC,
      "concept_tpu/grid/pallas_cells.py:206", "main_path"),
-    ("pair_sweep_two_sided", "check_global", "pair_sweep_two_sided",
-     "concept_tpu_torch/csrc/pair_sweep.cu", "concept_tpu/forces/pallas_shortrange.py:1163",
-     "global_main_path"),
-    ("deposit_blocks", "check_global", "deposit_blocks", "concept_tpu_torch/csrc/cells.cu",
-     "concept_tpu/grid/pallas_pm.py:322", "global_main_path"),
-    ("gather_blocks", "check_global", "gather_blocks", "concept_tpu_torch/csrc/cells.cu",
-     "concept_tpu/grid/pallas_pm.py:379", "global_main_path"),
+    ("pair_sweep_reach", "pair_sweep_reach", "check_reach", "reach_one_sided", SWEEP_SRC,
+     "concept_tpu/forces/pallas_shortrange.py:976", "reach_main_path"),
+    ("pair_sweep_two_sided", "pair_sweep", "check_global", "pair_sweep_two_sided",
+     SWEEP_SRC, "concept_tpu/forces/pallas_shortrange.py:220", "global_main_path"),
+    ("sweep_reach", "sweep_reach", "check_reach", "reach_two_sided", SWEEP_SRC,
+     "concept_tpu/forces/pallas_shortrange.py:831", None),
+    ("deposit_blocks", "deposit_blocks", "check_global", "deposit_blocks", CELLS_SRC,
+     "concept_tpu/grid/pallas_pm.py:210", "global_main_path"),
+    ("gather_blocks", "gather_blocks", "check_global", "gather_blocks", CELLS_SRC,
+     "concept_tpu/grid/pallas_pm.py:245", "global_main_path"),
 )
 
 
@@ -779,29 +927,47 @@ def main(argv=None) -> int:
     results["check_global"] = check_global_kernels()
     results["global_main_path"] = global_main_path()
     results["global_realistic"] = global_realistic()
+    results["check_reach"] = check_reach_kernels()
+    results["reach_main_path"] = _layout_main_path("reach", 62, 124, 4, REACH_KERNELS)
+    results["tight_main_path"] = _layout_main_path("tight", 63, 126, 0, TIGHT_KERNELS)
+    results["reach_realistic"] = realistic(n=250, mesh=500, ucb=4, kernels=REACH_KERNELS)
+    results["tight_realistic"] = realistic(n=255, mesh=510, ucb=0, kernels=TIGHT_KERNELS)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(results, f, indent=1)
     kernels = []
-    for name, phase, key, source, replaces, path in KERNELS:
+    for name, counter, phase, key, source, replaces, path in KERNELS:
         c = results[phase][key]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": results[path]["launches"][name.replace("_two_sided", "")],
+            # a kernel no path runs: its launches in the 4-mesh-cell run (0)
+            "launches": results[path or "reach_main_path"]["launches"][counter],
             "max_abs_err": c["max_abs_err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
             "library_ms": c.get("library_ms"),
         })
+    byname = {k["name"]: k for k in kernels}
+    for name in ("deposit_cells", "gather_cells"):
+        c = results["check_reach"][f"{name}_cb4"]
+        byname[name].update(
+            cb4_max_abs_err=c["max_abs_err"], cb4_ms=c["ms"], cb4_plain_ms=c["plain_ms"],
+            cb4_bound_ms=c["bound_ms"], cb4_library_ms=c["library_ms"],
+            cb4_launches=results["reach_main_path"]["launches"][name])
+    byname["pair_sweep"].update(tight_launches=results["tight_main_path"]["launches"]
+                                ["pair_sweep"])
     unb = results["check"]["pair_sweep_unbounded"]
-    kernels[0].update(unbounded_max_abs_err=unb["max_abs_err"], unbounded_ms=unb["ms"],
-                      unbounded_plain_ms=unb["plain_ms"], unbounded_bound_ms=unb["bound_ms"])
-    clu = results["main_path"]["pair_sweep_clustered"]
-    kernels[0].update(clustered_max_abs_err=clu["max_abs_err"], clustered_ms=clu["ms"],
-                      clustered_plain_ms=clu["plain_ms"], clustered_bound_ms=clu["bound_ms"])
-    clu = results["global_main_path"]["pair_sweep_clustered"]
-    kernels[3].update(clustered_max_abs_err=clu["max_abs_err"], clustered_ms=clu["ms"],
-                      clustered_plain_ms=clu["plain_ms"], clustered_bound_ms=clu["bound_ms"])
+    byname["pair_sweep"].update(
+        unbounded_max_abs_err=unb["max_abs_err"], unbounded_ms=unb["ms"],
+        unbounded_plain_ms=unb["plain_ms"], unbounded_bound_ms=unb["bound_ms"])
+    for name, phase, key in (("pair_sweep", "main_path", "pair_sweep_clustered"),
+                             ("pair_sweep_two_sided", "global_main_path",
+                              "pair_sweep_clustered"),
+                             ("pair_sweep_reach", "reach_main_path", "sweep_clustered")):
+        clu = results[phase][key]
+        byname[name].update(
+            clustered_max_abs_err=clu["max_abs_err"], clustered_ms=clu["ms"],
+            clustered_plain_ms=clu["plain_ms"], clustered_bound_ms=clu["bound_ms"])
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

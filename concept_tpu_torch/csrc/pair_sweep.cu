@@ -1,20 +1,27 @@
 // One-sided P³M short-range pair sweep on the (K, C) slot layout.
 //
 // Replaces concept_tpu/forces/pallas_shortrange.py
-//   _make_pair_kernel_flat_bounded (pallas_call at :714) and
+//   _make_pair_kernel_flat_bounded (pallas_call at :714),
 //   _make_pair_kernel_flat         (pallas_call at :798),
+//   _make_pair_kernel_reach        (pallas_call at :1103) and
+//   _make_kernel_reach             (pallas_call at :965),
 // with the shared pair math of _make_accum / _force_law / screening_g.
 //
 // What it computes: for every receiver slot (row r < K_r of column c) the
-// sum over the supplier slots (rows s < K_s) of the 27 periodic
-// neighbour columns of −S(r/rₛ)·r⁻³_soft·(x_r − x_s), counting a pair only
-// when 0 < r² < cutoff².  Columns are cells of an n³ grid with x-major,
-// z-fastest ids; a neighbour across a box face is seen at ±boxsize.
-// Invalid slots hold the far sentinel 1e4·boxsize, so the cutoff mask
-// removes them; coincident sentinels give r² = 0, removed by r² > 0.
-// Optional per-pencil row bounds (rext, sext; pencil = ci·n + cj): rows of
-// column c at or beyond rext[pencil(c)] output exactly 0, and suppliers at
-// or beyond the max of sext over the 9 neighbouring pencils are skipped.
+// sum over the supplier slots (rows s < K_s) of the neighbour columns
+// c + d, d in the launch's offset table, of −S(r/rₛ)·r⁻³_soft·(x_r − x_s),
+// counting a pair only when 0 < r² < cutoff².  The table is the 27
+// offsets of |d| ≤ 1 for cells at least a cutoff wide, or the kept
+// offsets of |d| ≤ 2 (kept_offsets: 117 of 125) for the rung stepper's
+// cells 4 mesh cells wide, which are narrower than the cutoff.  Columns
+// are cells of an n³ grid with x-major, z-fastest ids; a neighbour across
+// a box face is seen at ±boxsize (for |d| ≤ 2 and n ≥ 5 every offset of
+// a column names a distinct column).  Invalid slots hold a far sentinel
+// (±1e4·boxsize), so the cutoff mask removes them; coincident sentinels
+// give r² = 0, removed by r² > 0.  Optional per-pencil row bounds (rext,
+// sext; pencil = ci·n + cj), for the |d| ≤ 1 table only: rows of column c
+// at or beyond rext[pencil(c)] output exactly 0, and suppliers at or
+// beyond the max of sext over the 9 neighbouring pencils are skipped.
 //
 // What bounds it on the card: FP32 operations.  A pair costs ~40 FP32
 // operations (an FMA counted as 2) and a rsqrt, against 12 bytes of
@@ -27,7 +34,11 @@
 // and then reused by every receiver row of the block; all threads read
 // the same staged row, a broadcast.  Rows and whole columns beyond the
 // bounds do no pair work.  No tensor cores: the pair force is not a
-// matrix product.
+// matrix product.  The offset table lives in the launch parameters (a
+// uniform read per neighbour column).  On the 4-mesh-cell layout (mean
+// occupancy 8, K ≈ 16) a block's 32 threads leave half of its warp idle,
+// and each column stages 117 neighbour columns of a few rows each:
+// simple first, to be redesigned for those shallow columns later.
 #include <cuda_runtime.h>
 
 #define NCOEF 11
@@ -50,13 +61,19 @@ __device__ __forceinline__ float screening_g(float u, const GCoef& gc) {
 
 #define TILE 512     // supplier rows staged in shared memory at a time
 #define THREADS 256  // receiver rows per pass, at most
+#define MAX_OFFSETS 125  // (2·2 + 1)³: reach 2
+
+struct Offsets {
+  int count;
+  signed char d[3 * MAX_OFFSETS];  // (di, dj, dk) triples
+};
 
 __global__ void __launch_bounds__(THREADS) pair_sweep_kernel(
     const float* __restrict__ recv, long long recv_cs, int K_r,
     const float* __restrict__ sup, long long sup_cs, int K_s, int n,
     const int* __restrict__ rext, const int* __restrict__ sext,
     float* __restrict__ out, float boxsize, float inv_scale, float cutoff2,
-    float soft2, int kernel, GCoef gc) {
+    float soft2, int kernel, GCoef gc, Offsets offs) {
   __shared__ float sx[TILE], sy[TILE], sz[TILE];
   const long long C = (long long)n * n * n;
   const long long oc = (long long)K_r * C;
@@ -93,8 +110,9 @@ __global__ void __launch_bounds__(THREADS) pair_sweep_kernel(
       oz = recv[2 * recv_cs + (long long)r * C + c];
     }
     float ax = 0.0f, ay = 0.0f, az = 0.0f;
-    for (int nb = 0; nb < 27 && sb > 0; ++nb) {
-      int ni = ci + nb / 9 - 1, nj = cj + (nb / 3) % 3 - 1, nk = ck + nb % 3 - 1;
+    for (int nb = 0; nb < offs.count && sb > 0; ++nb) {
+      int ni = ci + offs.d[3 * nb], nj = cj + offs.d[3 * nb + 1],
+          nk = ck + offs.d[3 * nb + 2];
       const float shx = ni < 0 ? -boxsize : (ni >= n ? boxsize : 0.0f);
       const float shy = nj < 0 ? -boxsize : (nj >= n ? boxsize : 0.0f);
       const float shz = nk < 0 ? -boxsize : (nk >= n ? boxsize : 0.0f);
@@ -164,19 +182,26 @@ __global__ void __launch_bounds__(THREADS) pair_sweep_kernel(
 // recv (3, K_r, C) and sup (3, K_s, C) float32, rows contiguous with row
 // stride C and component strides recv_cs / sup_cs; out (3, K_r, C)
 // contiguous.  rext/sext: (n²,) int32 device arrays or both null.  coef:
-// host array of NCOEF floats.  Returns the cudaError_t of the launch.
+// host array of NCOEF floats; offsets: host array of n_offsets (di, dj, dk)
+// triples, n_offsets ≤ MAX_OFFSETS.  Returns the cudaError_t of the
+// launch (cudaErrorInvalidValue for a table that does not fit).
 extern "C" int pair_sweep_launch(const float* recv, long long recv_cs, int K_r,
                                  const float* sup, long long sup_cs, int K_s,
                                  int n, const int* rext, const int* sext,
                                  float* out, float boxsize, float inv_scale,
                                  float cutoff2, float soft2, int kernel,
-                                 const float* coef, void* stream) {
+                                 const float* coef, const signed char* offsets,
+                                 int n_offsets, void* stream) {
+  if (n_offsets < 1 || n_offsets > MAX_OFFSETS) return (int)cudaErrorInvalidValue;
   GCoef gc;
   for (int i = 0; i < NCOEF; ++i) gc.c[i] = coef[i];
+  Offsets offs;
+  offs.count = n_offsets;
+  for (int i = 0; i < 3 * n_offsets; ++i) offs.d[i] = offsets[i];
   const int rows = ((K_r + 31) / 32) * 32;
   const int threads = rows < THREADS ? rows : THREADS;
   pair_sweep_kernel<<<n * n * n, threads, 0, (cudaStream_t)stream>>>(
       recv, recv_cs, K_r, sup, sup_cs, K_s, n, rext, sext, out, boxsize,
-      inv_scale, cutoff2, soft2, kernel, gc);
+      inv_scale, cutoff2, soft2, kernel, gc, offs);
   return (int)cudaGetLastError();
 }

@@ -1,22 +1,30 @@
-"""The one-sided P³M short-range sweep: the CUDA kernel's wrapper
+"""The one-sided P³M short-range sweep: the CUDA kernel's wrappers
 (csrc/pair_sweep.cu) and its plain PyTorch version.
 
-Port of ``sweep_pallas_pair`` (concept_tpu/forces/pallas_shortrange.py),
-flat and row-bounded.  Contract: ``recv`` (3, K_r, C) and ``sup``
-(3, K_s, C) slot positions with invalid slots at the far sentinel
-``SENTINEL·boxsize`` (typically row slices of one sentinel-filled
-(3, K, C) array); C = n³ cells, ids x-major and z-fastest.  Returns the
-accelerations (3, K_r, C); the caller applies G·m.  Optional per-pencil
-extents ``rext``/``sext`` (n²,) int32: every valid receiver (supplier)
-of pencil p = ci·n + cj lies in a row below rext[p] (sext[p]).  Rows of
-a column at or beyond its receiver bound come out exactly 0.
+Port of ``sweep_pallas_pair`` (flat and row-bounded) and
+``sweep_pallas_pair_reach`` (concept_tpu/forces/pallas_shortrange.py).
+Contract: ``recv`` (3, K_r, C) and ``sup`` (3, K_s, C) slot positions
+with invalid slots at a far sentinel ``±SENTINEL·boxsize`` (typically row
+slices of one sentinel-filled (3, K, C) array); C = n³ cells, ids
+x-major and z-fastest.  Returns the accelerations (3, K_r, C); the
+caller applies G·m.
 
-On a CPU tensor :func:`pair_sweep` runs :func:`pair_sweep_plain`; on a
-CUDA tensor it launches the kernel or raises.
+:func:`pair_sweep` sweeps the 27 neighbour columns of |d| ≤ 1 (cells at
+least a cutoff wide), with optional per-pencil extents ``rext``/``sext``
+(n²,) int32: every valid receiver (supplier) of pencil p = ci·n + cj lies
+in a row below rext[p] (sext[p]); rows of a column at or beyond its
+receiver bound come out exactly 0.  :func:`pair_sweep_reach` sweeps a
+given offset table (the kept reach-2 offsets of the 4-mesh-cell layout,
+``shortrange.reach_offsets``), without row bounds, as the TPU kernel.
+Both launch the one kernel and count their launches apart.
+
+On a CPU tensor they run :func:`pair_sweep_plain`; on a CUDA tensor they
+launch the kernel or raise.
 """
 
 from __future__ import annotations
 
+import bisect
 import ctypes
 
 import numpy as np
@@ -25,22 +33,33 @@ import torch
 from concept_tpu_torch import _build
 from concept_tpu_torch.device import FLOAT64_ITEM
 from concept_tpu_torch.forces.shortrange import (
-    _G_COEF, shortrange_force_factor, window_bounds,
+    _G_COEF, SENTINEL, shortrange_force_factor, window_bounds,
 )
 
 KERNEL_IDS = {"plummer": 0, "spline": 1, "none": 2}
 
-_OFFSETS = [(i, j, k) for i in (-1, 0, 1) for j in (-1, 0, 1)
-            for k in (-1, 0, 1)]
+OFFSETS_27 = tuple((i, j, k) for i in (-1, 0, 1) for j in (-1, 0, 1)
+                   for k in (-1, 0, 1))
+MAX_OFFSETS = 125  # csrc/pair_sweep.cu: the offsets of |d| ≤ 2
 
 
-def _check(recv, sup, n: int, kernel: str):
+def _check(recv, sup, n: int, kernel: str, offsets=OFFSETS_27,
+           bounded: bool = False):
     if recv.dim() != 3 or sup.dim() != 3 or recv.shape[0] != 3 \
             or sup.shape[0] != 3 or recv.shape[2] != sup.shape[2]:
         raise ValueError(f"recv {tuple(recv.shape)} / sup {tuple(sup.shape)}"
                          " must be (3, K_r, C) / (3, K_s, C)")
-    if n < 3 or recv.shape[2] != n**3:
-        raise ValueError(f"C = {recv.shape[2]} is not n³ with n = {n} ≥ 3")
+    if not 1 <= len(offsets) <= MAX_OFFSETS:
+        raise ValueError(f"{len(offsets)} offsets; the kernel takes 1 to "
+                         f"{MAX_OFFSETS}")
+    # every offset of a column must name a distinct column
+    side = 2 * max(abs(d) for off in offsets for d in off) + 1
+    if bounded and side > 3:
+        raise ValueError("row bounds take the ±1 offsets only (their supplier "
+                         "window spans ±1 pencils)")
+    if n < max(3, side) or recv.shape[2] != n**3:
+        raise ValueError(f"C = {recv.shape[2]} is not n³ with n = {n} ≥ "
+                         f"{max(3, side)}")
     if kernel not in KERNEL_IDS:
         raise ValueError(f"unknown softening kernel {kernel!r}")
 
@@ -60,45 +79,60 @@ def _bounds(rext, sext, n: int, K_r: int, K_s: int, device):
 
 def pair_sweep_plain(recv, sup, n_cells: int, boxsize: float, scale: float,
                      cutoff2: float, soft2: float, kernel: str = "plummer",
-                     rext=None, sext=None):
-    """Plain PyTorch version of the sweep kernel, chunked over columns so
-    that a (K_r, K_s, columns) pair block stays near 2²⁴ elements on the
-    card and 2²¹ on the CPU."""
-    _check(recv, sup, n_cells, kernel)
+                     rext=None, sext=None, offsets=OFFSETS_27):
+    """Plain PyTorch version of the sweep kernel over the neighbour
+    ``offsets`` (row bounds only with the ±1 table), on a list of pairs:
+    every receiver that can feel a force (in its row bound and off the
+    sentinel; the others come out 0, as from the kernel) with every
+    supplier off the sentinel in its neighbour columns, below the
+    receiver column's supplier bound.  Receivers go in chunks whose pairs
+    stay near 2²⁴ on the card and 2²¹ on the CPU."""
+    _check(recv, sup, n_cells, kernel, offsets, rext is not None)
     n = n_cells
     _, K_r, C = recv.shape
     K_s = sup.shape[1]
     dev = recv.device
-    chunk_elems = 1 << (24 if dev.type == "cuda" else 21)
+    chunk_pairs = 1 << (24 if dev.type == "cuda" else 21)
     rb, sb = _bounds(rext, sext, n, K_r, K_s, dev)
-    cells = torch.arange(C, device=dev)
-    ci, cj, ck = cells // (n * n), (cells // n) % n, cells % n
-    rows_r = torch.arange(K_r, device=dev)[:, None]
-    rows_s = torch.arange(K_s, device=dev)[:, None]
+    far = 0.5 * SENTINEL * boxsize
     out = torch.zeros((3, K_r, C), dtype=recv.dtype, device=dev)
-    ch = max(1, chunk_elems // max(1, K_r * K_s))
-    for c0 in range(0, C, ch):
-        cols = slice(c0, min(C, c0 + ch))
-        own = recv[:, :, cols][:, :, None, :]  # (3, K_r, 1, ch)
-        smask = (rows_s < sb[cols][None])[None]  # (1, K_s, ch)
-        acc = torch.zeros((3, K_r, own.shape[-1]), dtype=recv.dtype,
-                          device=dev)
-        for di, dj, dk in _OFFSETS:
-            parts, ids = [], []
-            for c, d in ((ci, di), (cj, dj), (ck, dk)):
-                m = c[cols] + d
-                # a neighbour across a box face sits at ±boxsize
-                parts.append((m >= n).to(sup.dtype) - (m < 0).to(sup.dtype))
-                ids.append(torch.remainder(m, n))
-            col = (ids[0] * n + ids[1]) * n + ids[2]
-            nb = sup[:, :, col] + (torch.stack(parts) * boxsize)[:, None, :]
-            d = own - nb[:, None, :, :]  # (3, K_r, K_s, ch)
-            r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
-            m = (r2 < cutoff2) & (r2 > 0) & smask
-            f = torch.where(m, shortrange_force_factor(r2, scale, soft2,
-                                                       kernel), 0.0)
-            acc += (f[None] * d).sum(dim=2)
-        out[:, :, cols] = torch.where(rows_r < rb[cols][None], acc, 0.0)
+    live = (torch.arange(K_r, device=dev)[:, None] < rb[None]) & (recv[0].abs() < far)
+    r_row, r_col = torch.nonzero(live, as_tuple=True)
+    # suppliers off the sentinel, column by column
+    s_col, s_row = torch.nonzero((sup[0].abs() < far).T, as_tuple=True)
+    s_pos = sup[:, s_row, s_col]
+    counts = torch.bincount(s_col, minlength=C)
+    starts = torch.cumsum(counts, 0) - counts
+    offs = torch.as_tensor(offsets, device=dev)  # (n_off, 3)
+    n_off = offs.shape[0]
+    cc = (r_col // (n * n), (r_col // n) % n, r_col % n)
+    nb = [c[:, None] + offs[None, :, d] for d, c in enumerate(cc)]  # (N_r, n_off)
+    nb_col = ((torch.remainder(nb[0], n) * n + torch.remainder(nb[1], n)) * n
+              + torch.remainder(nb[2], n))
+    # a neighbour across a box face sits at ±boxsize
+    shift = torch.stack([((m >= n).to(sup.dtype) - (m < 0).to(sup.dtype)) * boxsize
+                         for m in nb])  # (3, N_r, n_off)
+    n_pairs = counts[nb_col].sum(dim=1)  # per receiver
+    ends = torch.cumsum(n_pairs, 0).tolist()
+    i0 = 0
+    while i0 < len(ends):
+        base = ends[i0 - 1] if i0 else 0
+        i1 = max(i0 + 1, bisect.bisect_right(ends, base + chunk_pairs, lo=i0))
+        cnt = counts[nb_col[i0:i1]].reshape(-1)  # per (receiver, offset)
+        grp = torch.repeat_interleave(torch.arange(cnt.numel(), device=dev), cnt)
+        first = torch.cumsum(cnt, 0) - cnt
+        sidx = (starts[nb_col[i0:i1].reshape(-1)][grp]
+                + torch.arange(grp.numel(), device=dev) - first[grp])
+        ri = i0 + torch.div(grp, n_off, rounding_mode="floor")
+        d = (recv[:, r_row[ri], r_col[ri]]
+             - (s_pos[:, sidx] + shift.reshape(3, -1)[:, i0 * n_off + grp]))
+        r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+        m = (r2 < cutoff2) & (r2 > 0) & (s_row[sidx] < sb[r_col[ri]])
+        f = torch.where(m, shortrange_force_factor(r2, scale, soft2, kernel), 0.0)
+        acc = torch.zeros((3, i1 - i0), dtype=recv.dtype, device=dev)
+        acc.index_add_(1, ri - i0, f[None] * d)
+        out[:, r_row[i0:i1], r_col[i0:i1]] = acc
+        i0 = i1
     return out
 
 
@@ -106,7 +140,7 @@ def _lib():
     fn = _build.load("pair_sweep").pair_sweep_launch
     if fn.argtypes is None:
         P, L, I, F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [P, L, I, P, L, I, I, P, P, P, F, F, F, F, I, P, P]
+        fn.argtypes = [P, L, I, P, L, I, I, P, P, P, F, F, F, F, I, P, P, I, P]
         fn.restype = ctypes.c_int
     return fn
 
@@ -119,17 +153,10 @@ def _check_cuda_rows(t, C: int, what: str):
         raise ValueError(f"{what} rows must be contiguous with row stride C")
 
 
-def pair_sweep(recv, sup, n_cells: int, boxsize: float, scale: float,
-               cutoff2: float, soft2: float, kernel: str = "plummer",
-               rext=None, sext=None):
-    """The sweep: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors (see the module docstring for the contract)."""
-    if (rext is None) != (sext is None):
-        raise ValueError("give both rext and sext, or neither")
-    if recv.device.type == "cpu":
-        return pair_sweep_plain(recv, sup, n_cells, boxsize, scale, cutoff2,
-                                soft2, kernel, rext, sext)
-    _check(recv, sup, n_cells, kernel)
+def _launch(recv, sup, n_cells: int, boxsize: float, scale: float,
+            cutoff2: float, soft2: float, kernel: str, rext, sext, offsets):
+    """Check the CUDA inputs, launch the kernel, return its output."""
+    _check(recv, sup, n_cells, kernel, offsets, rext is not None)
     _, K_r, C = recv.shape
     K_s = sup.shape[1]
     _check_cuda_rows(recv, C, "recv")
@@ -144,17 +171,52 @@ def pair_sweep(recv, sup, n_cells: int, boxsize: float, scale: float,
                                  "on the receivers' device")
     out = torch.empty((3, K_r, C), dtype=torch.float32, device=recv.device)
     coef = np.ascontiguousarray(_G_COEF, np.float32)
+    table = np.ascontiguousarray(offsets, np.int8)
     inv_scale = float(np.float32(1.0) / np.float32(scale))
     err = _lib()(
         recv.data_ptr(), recv.stride(0), K_r, sup.data_ptr(), sup.stride(0),
         K_s, n_cells, None if rext is None else rext.data_ptr(),
         None if sext is None else sext.data_ptr(), out.data_ptr(),
         boxsize, inv_scale, cutoff2, soft2, KERNEL_IDS[kernel],
-        coef.ctypes.data, torch.cuda.current_stream(recv.device).cuda_stream,
+        coef.ctypes.data, table.ctypes.data, len(offsets),
+        torch.cuda.current_stream(recv.device).cuda_stream,
     )
     _build.check(err, "pair_sweep")
+    return out
+
+
+def pair_sweep(recv, sup, n_cells: int, boxsize: float, scale: float,
+               cutoff2: float, soft2: float, kernel: str = "plummer",
+               rext=None, sext=None):
+    """The ±1 sweep: the CUDA kernel for CUDA tensors, the plain version
+    for CPU tensors (see the module docstring for the contract)."""
+    if (rext is None) != (sext is None):
+        raise ValueError("give both rext and sext, or neither")
+    if recv.device.type == "cpu":
+        return pair_sweep_plain(recv, sup, n_cells, boxsize, scale, cutoff2,
+                                soft2, kernel, rext, sext)
+    out = _launch(recv, sup, n_cells, boxsize, scale, cutoff2, soft2, kernel,
+                  rext, sext, OFFSETS_27)
     pair_sweep.launches += 1
     return out
 
 
+def pair_sweep_reach(recv, sup, n_cells: int, boxsize: float, scale: float,
+                     cutoff2: float, soft2: float, offsets,
+                     kernel: str = "plummer"):
+    """The sweep over the neighbour ``offsets`` (|d| ≤ 2, n ≥ 5), without
+    row bounds: the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors.  Port of ``sweep_pallas_pair_reach``, whose receivers sit
+    at −SENTINEL·boxsize and suppliers at +SENTINEL·boxsize."""
+    offsets = tuple(tuple(int(d) for d in off) for off in offsets)
+    if recv.device.type == "cpu":
+        return pair_sweep_plain(recv, sup, n_cells, boxsize, scale, cutoff2,
+                                soft2, kernel, offsets=offsets)
+    out = _launch(recv, sup, n_cells, boxsize, scale, cutoff2, soft2, kernel,
+                  None, None, offsets)
+    pair_sweep_reach.launches += 1
+    return out
+
+
 pair_sweep.launches = 0
+pair_sweep_reach.launches = 0

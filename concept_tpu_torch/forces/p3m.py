@@ -1,7 +1,9 @@
 """The global stepper's P³M kick: the short-range sweep plus the
 Gaussian-split long-range PM on 2³-mesh-cell blocks (port of
 ``pm_block_capacity``, ``pm_longrange_components`` and
-``p3m_kick_components``, concept_tpu/forces/p3m.py).
+``p3m_kick_components``, concept_tpu/forces/p3m.py; the block PM,
+:func:`pm_gradient_blocks`, also serves the rung stepper's tight layout
+through ``p3msim.pm_gradient_layout``).
 
 The PM part sorts the particles once by z-major block key, scatters them
 into slot-major (K, C) block slots (validity from the block counts),
@@ -54,18 +56,22 @@ def block_layout(px0, py0, pz0, mesh: int, boxsize: float, k_pm: int) -> dict:
     return lay
 
 
-def pm_longrange_components(px0, py0, pz0, mass: float, boxsize: float,
-                            G: float, kick_integral: float, mesh: int,
-                            longrange_scale: float, k_pm: int = 8,
-                            max_overflow: int = 65536):
-    """Long-range (Gaussian-split) PM momentum updates, component-wise.
+def pm_gradient_blocks(px0, py0, pz0, mass: float, G: float, scale: float,
+                       boxsize: float, mesh: int, k_pm: int = 8,
+                       max_overflow: int = 65536):
+    """The Gaussian-split long-range potential gradient ∂φ at N particles
+    given component-wise, through the 2³-mesh-cell PM blocks: the block
+    slots of :func:`block_layout`, the block deposit, the particles beyond
+    the block capacity k_pm through the plain CIC (exact while there are at
+    most max_overflow of them; the rest deposit and receive nothing, as in
+    the JAX package), the FFT, the split potential with deconvolution of
+    order 4, the Fourier gradient, the block gather (and the plain gather
+    of the overflow) and the unsort.  The shared PM of the global stepper
+    (:func:`pm_longrange_components`) and of the rung stepper's tight
+    layout (``p3msim.pm_gradient_layout``).
 
-    Returns ((dmx, dmy, dmz), n_overflow, mass_sum): per-particle Δmom,
-    the number of particles beyond the block capacity (an int; exact
-    through the plain path while ≤ max_overflow, the rest deposit and
-    receive nothing, as in the JAX package) and the deposited mass (a
-    0-dim float64 tensor).  CIC deposit and gather, Fourier
-    differentiation, deconvolution order 4."""
+    Returns (fd (3, N) in input order, n_overflow (an int), mass_sum (the
+    deposited mass, a 0-dim float64 tensor))."""
     n = mesh
     N = px0.shape[0]
     dtype = px0.dtype
@@ -92,25 +98,38 @@ def pm_longrange_components(px0, py0, pz0, mass: float, boxsize: float,
     slab = rfft3(grid / h**3)
     del grid
     phi = gravity_potential_slab(slab, n, boxsize, G, deconv_order=4,
-                                 longrange_scale=longrange_scale)
+                                 longrange_scale=scale)
     del slab
     grads = torch.stack([irfft3(fourier.fourier_diff(phi, n, boxsize, d), n)
                          for d in range(3)])
     del phi
     fds = gather_blocks(bx, by, bz, w1, grads, n, boxsize)
     del bx, by, bz, w1
-    coef = -mass * kick_integral
-    dms = []
+    fd = torch.empty((3, N), dtype=dtype, device=dev)
     for d in range(3):
         fdp = torch.cat([fds[d].reshape(-1),
                          torch.zeros((1,), dtype=dtype, device=dev)])
         val = fdp[slot]  # sorted order; overflow particles read 0
         if sidx is not None:
             val[sidx] = gather(grads[d], s_pos, boxsize, order=2)
-        out = torch.empty_like(val)
-        out[order] = coef * val
-        dms.append(out)
-    return tuple(dms), n_overflow, mass_sum
+        fd[d, order] = val
+    return fd, n_overflow, mass_sum
+
+
+def pm_longrange_components(px0, py0, pz0, mass: float, boxsize: float,
+                            G: float, kick_integral: float, mesh: int,
+                            longrange_scale: float, k_pm: int = 8,
+                            max_overflow: int = 65536):
+    """Long-range (Gaussian-split) PM momentum updates, component-wise:
+    −mass·kick_integral·∂φ from :func:`pm_gradient_blocks`.
+
+    Returns ((dmx, dmy, dmz), n_overflow, mass_sum): per-particle Δmom,
+    the number of particles beyond the block capacity (an int) and the
+    deposited mass (a 0-dim float64 tensor)."""
+    fd, n_overflow, mass_sum = pm_gradient_blocks(
+        px0, py0, pz0, mass, G, longrange_scale, boxsize, mesh, k_pm=k_pm,
+        max_overflow=max_overflow)
+    return tuple(fd.mul_(-mass * kick_integral)), n_overflow, mass_sum
 
 
 def p3m_kick_components(px, py, pz, mass: float, boxsize: float, scale: float,

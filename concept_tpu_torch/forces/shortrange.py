@@ -130,20 +130,59 @@ def window_bounds(ext: torch.Tensor, n: int, neighbors: bool) -> torch.Tensor:
     return w.reshape(n * n)
 
 
+def kept_offsets(cell_width: float, cutoff: float, margin: float,
+                 reach: int = 2):
+    """The neighbour offsets (di, dj, dk) ∈ [−reach, reach]³ whose
+    smallest box-to-box gap cell_width·√Σ max(|d|−1, 0)² lies below
+    cutoff + 2·margin: pairs in the other cells cannot interact even after
+    both particles drift by the rebucket margin (port of
+    ``kept_offsets``, concept_tpu/forces/pallas_shortrange.py)."""
+    keep = []
+    thresh = cutoff + 2.0 * margin
+    for di in range(-reach, reach + 1):
+        for dj in range(-reach, reach + 1):
+            for dk in range(-reach, reach + 1):
+                gap = cell_width * math.sqrt(
+                    max(abs(di) - 1, 0) ** 2 + max(abs(dj) - 1, 0) ** 2
+                    + max(abs(dk) - 1, 0) ** 2)
+                if gap < thresh:
+                    keep.append((di, dj, dk))
+    return tuple(keep)
+
+
+def reach_offsets(cell_width: float, margin: float):
+    """The reach-2 offsets of the 4-mesh-cell rung layout, pruned with the
+    layout's static cutoff (4.5·1.25/4)·cell_width, as the JAX package's
+    ``_sr_pair_accel`` and ``sweep_pallas_pair_reach`` prune them (117 of
+    the 125 at the rung stepper's margin)."""
+    cutoff = (4.5 * 1.25 / 4.0) * cell_width
+    if 2 * cell_width < cutoff:
+        raise ValueError("reach 2 does not cover the cutoff")
+    return kept_offsets(cell_width, cutoff, margin, reach=2)
+
+
 def _sweep_pair(bx, by, bz, bvalid, hx, hy, hz, valid, n_cells: int,
                 boxsize: float, scale: float, cutoff2: float, soft2: float,
-                kernel: str = "plummer"):
+                kernel: str = "plummer", offsets_ext=None):
     """One-sided sweep with the valid-mask contract of the JAX
     ``_sweep_pair``: accelerations (3, K_r, C) ON the receiver slots
     (bx, by, bz, bvalid) FROM the supplier slots (hx, hy, hz, valid) of
-    the 27 periodic neighbour cells; the caller applies G·m."""
-    from concept_tpu_torch.forces.cuda_shortrange import pair_sweep
+    the 27 periodic neighbour cells, or of the cells at ``offsets_ext``
+    (the reach-2 table); the caller applies G·m."""
+    from concept_tpu_torch.forces.cuda_shortrange import (
+        pair_sweep, pair_sweep_reach,
+    )
 
     big = SENTINEL * boxsize
-    recv = torch.where(bvalid[None], torch.stack([bx, by, bz]), big)
     sup = torch.where(valid[None], torch.stack([hx, hy, hz]), big)
-    return pair_sweep(recv, sup, n_cells, boxsize, scale, cutoff2, soft2,
-                      kernel=kernel)
+    if offsets_ext is None:
+        recv = torch.where(bvalid[None], torch.stack([bx, by, bz]), big)
+        return pair_sweep(recv, sup, n_cells, boxsize, scale, cutoff2, soft2,
+                          kernel=kernel)
+    # receivers at the opposite sentinel, as sweep_pallas_pair_reach
+    recv = torch.where(bvalid[None], torch.stack([bx, by, bz]), -big)
+    return pair_sweep_reach(recv, sup, n_cells, boxsize, scale, cutoff2, soft2,
+                            offsets_ext, kernel=kernel)
 
 
 def f32_square(x: float) -> float:
@@ -348,3 +387,27 @@ def shortrange_momentum_updates(pos, mass: float, boxsize: float, scale: float,
     dmom = torch.empty_like(dm_s)
     dmom[:, b["order"]] = coef * dm_s
     return tuple(dmom), n_overflow
+
+
+def sweep_reach(hx, hy, hz, valid, n_cells: int, boxsize: float,
+                scale: float, cutoff: float, softening: float,
+                cell_width: float, margin: float, kernel: str = "plummer"):
+    """The two-sided reach-2 sweep (port of ``sweep_pallas_reach``,
+    concept_tpu/forces/pallas_shortrange.py): accelerations (3, K, C) of
+    every slot from every slot of the kept reach-2 offset columns
+    (:func:`reach_offsets`), receivers = suppliers = the sentinel-filled
+    slots, no row bounds.  A launch of the one-sided reach kernel; like
+    the TPU kernel, nothing in the package calls it yet."""
+    from concept_tpu_torch.forces.cuda_shortrange import pair_sweep_reach
+
+    slots = torch.where(valid[None], torch.stack([hx, hy, hz]),
+                        SENTINEL * boxsize).contiguous()
+    acc = pair_sweep_reach(slots, slots, n_cells, boxsize, scale,
+                           f32_square(cutoff), f32_square(softening),
+                           reach_offsets(cell_width, margin), kernel=kernel)
+    if slots.device.type == "cuda":
+        sweep_reach.launches += 1
+    return acc
+
+
+sweep_reach.launches = 0

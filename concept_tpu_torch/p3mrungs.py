@@ -1,10 +1,23 @@
 """Adaptive per-particle rungs on the persistent P³M cell layout — the
-production rung stepper (port of concept_tpu/p3mrungs.py, the unified
-layout with cells 8 mesh cells wide).
+production rung stepper (port of concept_tpu/p3mrungs.py).
 
-The particle state lives in slot-major (K, C) arrays over cells exactly
-8 mesh cells wide (C = (mesh/8)³, ids x-major, z-fastest), kept
-RUNG-MAJOR within every cell column: the bucketize key is
+The particle state lives in slot-major (K, C) arrays over the cells of
+one of three layouts (C = nc³, ids x-major, z-fastest), chosen from the
+mesh and the device as the JAX package chooses from the mesh and the
+backend (``P3MRungSimulation``):
+
+- unified, ``ucb = 8``: cells 8 mesh cells wide, wider than the cutoff:
+  the ±1 sweep with per-pencil row bounds, and the PM deposit and gather
+  straight on the slot arrays (p3msim.pm_gradient_cells, cb = 8);
+- unified, ``ucb = 4``: cells 4 mesh cells wide, narrower than the
+  cutoff: the one-sided reach-2 sweep over the kept offsets
+  (forces/shortrange.reach_offsets, no row bounds) and the cell PM at
+  cb = 4;
+- tight (``ucb = 0``): cells at least cutoff·(1 + margin_frac) wide,
+  no multiple of the mesh: the bounded ±1 sweep, and the block PM on
+  the flattened valid slots (p3msim.pm_gradient_layout).
+
+Within every column the slots are kept RUNG-MAJOR: the bucketize key is
 cell·NR + (NR−1−rung), so the slots with rung ≥ k form a prefix of each
 column.  A substep that kicks rungs ≥ kmin sweeps only the leading
 K_act[kmin] rows as receivers against all slots as suppliers, so its
@@ -23,8 +36,7 @@ acceleration.
 
 Every integer result (slot order, valid, rungs, K_act, tight, _K_occ)
 equals the JAX package's: its sorts are stable ``torch.sort`` on the same
-composite keys.  The tight layout and the 4-mesh-cell (reach-2) layout
-wait for later slices.
+composite keys.
 """
 
 from __future__ import annotations
@@ -36,14 +48,20 @@ import numpy as np
 import torch
 
 from concept_tpu_torch.components import periodic_wrap
-from concept_tpu_torch.forces.cuda_shortrange import pair_sweep
-from concept_tpu_torch.forces.shortrange import SENTINEL, f32_square
-from concept_tpu_torch.p3msim import pm_gradient_cells
+from concept_tpu_torch.forces.cuda_shortrange import pair_sweep, pair_sweep_reach
+from concept_tpu_torch.forces.shortrange import (
+    NCELLS_ITEM, SENTINEL, f32_square, reach_offsets,
+)
+from concept_tpu_torch.p3msim import (
+    margin_cell_count, pm_gradient_cells, pm_gradient_layout,
+)
 from concept_tpu_torch.utils.terminal import warn
 
 FAC_SOFTENING = 0.025  # reference main.py:2433 Δt_rung_factor base
-UCB = 8  # cell width in mesh cells
-LAYOUT_ITEM = "ROADMAP Queue 1 item 2: tight and 4-mesh-cell rung layouts"
+# The 4-mesh-cell layout's sweep margin in mesh cells, which prunes the
+# reach-2 offsets; its one-sided drift tolerance is min(0.5 mesh cells
+# [the deposit halo], this).
+UNIFIED_SWEEP_MARGIN = 0.55
 
 
 class RungState(NamedTuple):
@@ -54,19 +72,23 @@ class RungState(NamedTuple):
     ids: torch.Tensor    # (K, C) int32 original particle index (-1 empty)
 
 
-def _cell_index(comp, nc: int, boxsize: float):
-    """Per-dimension cell coordinate from the MESH index
-    floor(p·mesh/boxsize)//8, the arithmetic of the deposit geometry, so a
-    particle provably lands inside its column's deposit halo."""
-    inv_h = (nc * UCB) / boxsize
-    m = torch.floor(comp * inv_h).to(torch.int64)
-    return torch.clamp(torch.div(m, UCB, rounding_mode="floor"), 0, nc - 1)
+def _cell_index(comp, nc: int, boxsize: float, mesh_cells: int):
+    """Per-dimension cell coordinate.  mesh_cells > 0 (the unified
+    layouts): from the MESH index floor(p·mesh/boxsize)//mesh_cells, the
+    arithmetic of the deposit geometry, so a particle provably lands
+    inside its column's deposit halo; else (the tight layout)
+    trunc(p/cell_width)."""
+    if mesh_cells > 0:
+        inv_h = (nc * mesh_cells) / boxsize
+        m = torch.floor(comp * inv_h).to(torch.int64)
+        return torch.clamp(torch.div(m, mesh_cells, rounding_mode="floor"), 0, nc - 1)
+    return torch.clamp((comp / (boxsize / nc)).to(torch.int64), 0, nc - 1)
 
 
-def _cell_of(pos, nc: int, boxsize: float):
+def _cell_of(pos, nc: int, boxsize: float, mesh_cells: int):
     cell = torch.zeros_like(pos[0], dtype=torch.int64)
     for comp in pos:
-        cell = cell * nc + _cell_index(comp, nc, boxsize)
+        cell = cell * nc + _cell_index(comp, nc, boxsize, mesh_cells)
     return cell
 
 
@@ -115,16 +137,17 @@ def _column_layout(key, arrays, NR: int, C: int, K: int, n_keep: int):
 
 
 def bucketize_rungs(pos, mom, rungs0, ids0, boxsize: float, nc: int,
-                    capacity: int, NR: int):
-    """Flat component arrays (3-tuples of (N,)) → (RungState, n_kept)."""
+                    capacity: int, NR: int, mesh_cells: int = 0):
+    """Flat component arrays (3-tuples of (N,)) → (RungState, n_kept);
+    mesh_cells as in :func:`_cell_index`."""
     C = nc**3
-    cell = _cell_of(pos, nc, boxsize)
+    cell = _cell_of(pos, nc, boxsize, mesh_cells)
     key = cell * NR + (NR - 1 - rungs0.to(torch.int64))
     return _column_layout(key, [*pos, *mom, ids0], NR, C, capacity, key.shape[0])
 
 
 def rebucketize_rungs(state: RungState, boxsize: float, nc: int,
-                      capacity: int, n_total: int, NR: int):
+                      capacity: int, n_total: int, NR: int, mesh_cells: int = 0):
     """Re-bucketize the slot arrays at the current positions, carrying
     rungs and ids.  Returns (RungState, n_kept)."""
     M = state.valid.numel()
@@ -132,21 +155,22 @@ def rebucketize_rungs(state: RungState, boxsize: float, nc: int,
     validf = state.valid.reshape(M)
     flat = state.pos.reshape(3, M)
     mflat = state.mom.reshape(3, M)
-    cell = _cell_of(flat, nc, boxsize)
+    cell = _cell_of(flat, nc, boxsize, mesh_cells)
     rungM = state.rungs.reshape(M).to(torch.int64)
     key = torch.where(validf, cell * NR + (NR - 1 - rungM), C * NR)
     return _column_layout(key, [*flat, *mflat, state.ids.reshape(M)],
                           NR, C, capacity, n_total)
 
 
-def occupancy_and_activity(state: RungState, boxsize: float, nc: int, NR: int):
+def occupancy_and_activity(state: RungState, boxsize: float, nc: int, NR: int,
+                           mesh_cells: int = 0):
     """(max per-cell occupancy at the CURRENT positions, K_act (NR,)):
     the sizing probe before a rebucketize, and the active-prefix row
     counts the re-sorted layout will have."""
     M = state.valid.numel()
     C = nc**3
     validf = state.valid.reshape(M)
-    cell = _cell_of(state.pos.reshape(3, M), nc, boxsize)[validf]
+    cell = _cell_of(state.pos.reshape(3, M), nc, boxsize, mesh_cells)[validf]
     max_occ = int(torch.bincount(cell, minlength=C).max())
     rungM = state.rungs.reshape(M)[validf].to(torch.int64)
     cnt = torch.bincount(cell * NR + rungM, minlength=C * NR).reshape(C, NR)
@@ -198,7 +222,8 @@ def rung_substep(state: RungState, mass: float, G: float, int_drift: float,
                  eps_rung: float = 1.0, fac_rung: float = FAC_SOFTENING,
                  acc_cache=None, return_acc: bool = False,
                  sentinel_out: bool = False, K_s: int | None = None,
-                 skip_drift: bool = False, rext=None, sext=None):
+                 skip_drift: bool = False, rext=None, sext=None,
+                 offsets=None):
     """One rung boundary: drift all slots by int_drift (ᔑa⁻² over the
     sub-interval ending here), then kick each fired rung by its
     straddling integral kick_ints[rung] ((NR,) tensor).
@@ -208,8 +233,11 @@ def rung_substep(state: RungState, mass: float, G: float, int_drift: float,
     assign=True (the last boundary) reassigns rungs from the fresh
     acceleration.  K_s bounds the supplier rows.  sentinel_out=True
     (interior substeps) fills invalid slots with the sweep sentinel
-    instead of 0.  Returns (state, (K_act, tight, vmax2)[, acc]); the
-    momenta are updated in place (the JAX package donates them)."""
+    instead of 0.  ``offsets`` (the 4-mesh-cell layout's reach-2 table)
+    selects the reach sweep, without row bounds; else the ±1 sweep with
+    the per-pencil bounds rext/sext.  Returns (state, (K_act, tight,
+    vmax2)[, acc]); the momenta are updated in place (the JAX package
+    donates them)."""
     K, C = state.valid.shape
     K_s = K if K_s is None else K_s
     if not K_r <= K_s <= K:
@@ -225,11 +253,18 @@ def rung_substep(state: RungState, mass: float, G: float, int_drift: float,
     if acc_cache is not None:
         acc = acc_cache[:, :K_r, :]
     else:
-        # one shared sentinel array: receivers and suppliers are row slices
+        # one shared sentinel array: suppliers (and the ±1 sweep's
+        # receivers) are row slices
         pos_s = pos if sentinel_out else torch.where(state.valid[None], pos, big)
-        acc = pair_sweep(pos_s[:, :K_r], pos_s[:, :K_s], nc, boxsize, scale,
-                         f32_square(cutoff), f32_square(softening),
-                         kernel=softening_kernel, rext=rext, sext=sext)
+        sweep_args = (nc, boxsize, scale, f32_square(cutoff), f32_square(softening))
+        if offsets is None:
+            acc = pair_sweep(pos_s[:, :K_r], pos_s[:, :K_s], *sweep_args,
+                             kernel=softening_kernel, rext=rext, sext=sext)
+        else:
+            # the reach sweep's receivers sit at the opposite sentinel
+            recv = torch.where(state.valid[:K_r][None], pos[:, :K_r], -big)
+            acc = pair_sweep_reach(recv, pos_s[:, :K_s], *sweep_args, offsets,
+                                   kernel=softening_kernel)
     valid_r = state.valid[:K_r]
     per_slot_int = kick_ints[state.rungs[:K_r].to(torch.int64)]
     active = valid_r & (per_slot_int > 0)
@@ -290,19 +325,54 @@ def resort_rungs_within_columns(state: RungState, acc, NR: int = 8):
 
 
 def pm_kick_rungs(state: RungState, mass: float, G: float, int_pm: float,
-                  boxsize: float, mesh: int, scale: float,
+                  boxsize: float, mesh: int, scale: float, k_pm: int = 8,
+                  pm_max_overflow: int = 262144, cells_cb: int = 0,
                   k_rows: int | None = None):
-    """Base-cadence PM long-range kick on the cell layout, over the
-    leading k_rows rows (rows beyond the max occupancy are invalid in
-    every column).  Updates the momenta in place (the JAX package donates
-    them).  Returns (state, mass_sum)."""
+    """Base-cadence PM long-range kick over the leading k_rows slot rows
+    (rows beyond the max occupancy are invalid in every column).
+    cells_cb > 0 (the unified layouts, cells cells_cb mesh cells wide):
+    the slot layout is the deposit layout (pm_gradient_cells); else the
+    block PM of pm_gradient_layout (block capacity k_pm, exact overflow up
+    to pm_max_overflow particles).  Updates the momenta in place (the JAX
+    package donates them).  Returns (state, n_pm_overflow (an int, 0 on
+    the unified layouts), mass_sum)."""
     K = state.valid.shape[0]
     kr = K if k_rows is None else min(k_rows, K)
-    fd3, mass_sum = pm_gradient_cells(state.pos[:, :kr], state.valid[:kr],
-                                      mass, G, scale, boxsize, mesh, cb=UCB)
+    pos, valid = state.pos[:, :kr], state.valid[:kr]
+    if cells_cb > 0:
+        fd3, mass_sum = pm_gradient_cells(pos, valid, mass, G, scale, boxsize,
+                                          mesh, cb=cells_cb)
+        n_over = 0
+    else:
+        fd3, n_over, mass_sum = pm_gradient_layout(
+            pos, valid, mass, G, scale, boxsize, mesh, k_pm=k_pm,
+            pm_max_overflow=pm_max_overflow)
     state.mom[:, :kr].add_(fd3, alpha=-mass * int_pm)
     state.mom.masked_fill_(~state.valid[None], 0.0)
-    return state, mass_sum
+    return state, n_over, mass_sum
+
+
+def _layout_cells(mesh: int, unified, unified_cb, device_type: str) -> int:
+    """The layout's cell width in mesh cells, 0 for the tight layout: the
+    JAX package's rule (concept_tpu/p3mrungs.py P3MRungSimulation) with
+    ``cuda`` in place of its TPU backend."""
+    if unified is None:
+        unified = mesh % 4 == 0 and mesh // 4 >= 3 and device_type == "cuda"
+    if not unified:
+        return 0
+    if unified_cb is not None:
+        need = {8: 3, 4: 5}.get(unified_cb)  # the ±1 / reach-2 sweep
+        if need is None or mesh % unified_cb or mesh // unified_cb < need:
+            raise ValueError(f"mesh {mesh} cannot take the unified layout with "
+                             f"unified_cb = {unified_cb} (cb ∈ {{4, 8}}, mesh % cb"
+                             f" == 0, mesh ≥ 24 for 8 and ≥ 20 for 4)")
+        return unified_cb
+    if mesh % 8 == 0 and mesh // 8 >= 3:
+        return 8
+    if mesh % 4 == 0 and mesh // 4 >= 5:
+        return 4
+    raise ValueError(f"mesh {mesh}: the unified layout needs mesh % 8 == 0 "
+                     f"(mesh ≥ 24) or mesh % 4 == 0 (mesh ≥ 20)")
 
 
 def _quantize_K(k_act: int, K: int) -> int:
@@ -333,13 +403,24 @@ class P3MRungSimulation:
          prefix rows; the last substep (kmin = 0) also reassigns rungs
          and reports (K_act, vmax²).
       3. margin-budget / occupancy bookkeeping → rebucketize.
+
+    The layout (see the module docstring) follows the JAX package's rule
+    with the run's device in place of its backend: ``unified=None`` takes
+    a unified layout on ``cuda`` when mesh % 4 == 0 and mesh ≥ 12 (cells
+    8 mesh cells wide when mesh % 8 == 0 and mesh ≥ 24, else 4 wide when
+    mesh ≥ 20, else ValueError), and the tight layout otherwise and on the
+    CPU.  ``unified``/``unified_cb`` choose explicitly; a choice the mesh
+    cannot take raises.  There is no fall-back to another layout.
     """
 
     def __init__(self, n_part: int, boxsize: float, mass: float, G: float,
                  mesh: int | None = None, bg=None, N_rungs: int = 8,
-                 capacity: int | None = None, softening: float = 0.0,
+                 margin_frac: float = 0.12, capacity: int | None = None,
+                 k_pm: int = 8, softening: float = 0.0,
                  softening_kernel: str = "plummer", fac_rung: float = 1.0,
-                 rebucket_every_max: int = 64, n_total: int | None = None):
+                 rebucket_every_max: int = 64, unified: bool | None = None,
+                 unified_cb: int | None = None, n_total: int | None = None,
+                 pm_max_overflow: int = 262144, device=None):
         if n_total is not None:
             self.N = int(n_total)
             if mesh is None:
@@ -354,16 +435,32 @@ class P3MRungSimulation:
         self.mesh = mesh or 2 * n_part
         self.scale = 1.25 * boxsize / self.mesh
         self.cutoff = 4.5 * self.scale
-        if self.mesh % UCB or self.mesh // UCB < 3:
-            raise ValueError(
-                f"mesh {self.mesh}: the 8-mesh-cell layout needs mesh % 8 == 0"
-                f" and mesh ≥ 24 ({LAYOUT_ITEM})")
+        self.margin_frac = margin_frac
         mesh_h = boxsize / self.mesh
-        self.nc = self.mesh // UCB
-        self.cell_width = UCB * mesh_h
-        # plain ±1 sweep: pair margin = cell − cutoff; the deposit halo
-        # allows ±0.5 mesh cells
-        self.margin = 2.0 * min(0.5 * mesh_h, 0.5 * (self.cell_width - self.cutoff))
+        self.ucb = _layout_cells(self.mesh, unified, unified_cb,
+                                 torch.device(device or "cuda").type)
+        self.unified = self.ucb > 0
+        self.offsets = None  # the ±1 sweep
+        if self.ucb:
+            self.nc = self.mesh // self.ucb
+            self.cell_width = self.ucb * mesh_h
+            if self.ucb == 8:
+                # plain ±1 sweep: pair margin = cell − cutoff; the
+                # deposit halo allows ±0.5 mesh cells
+                self.margin = 2.0 * min(0.5 * mesh_h,
+                                        0.5 * (self.cell_width - self.cutoff))
+            else:
+                # reach-2 sweep: one-sided tolerance min(the deposit halo
+                # 0.5·mesh_h, the offset pruning's margin)
+                self.margin = 2.0 * min(0.5, UNIFIED_SWEEP_MARGIN) * mesh_h
+                cw = boxsize / self.nc  # as _sr_pair_accel forms it
+                self.offsets = reach_offsets(cw, UNIFIED_SWEEP_MARGIN * cw / 4.0)
+        else:
+            self.nc = margin_cell_count(boxsize, self.cutoff, margin_frac)
+            self.cell_width = boxsize / self.nc
+            self.margin = self.cell_width - self.cutoff
+        self.k_pm = k_pm
+        self.pm_max_overflow = pm_max_overflow
         self.softening = softening
         self.softening_kernel = softening_kernel
         # rung-criterion ε: the softening length when set, else the PM cell
@@ -383,21 +480,26 @@ class P3MRungSimulation:
         self._ext_rung = None
         self._acc_cache = None  # (3, K_occ, C) SR acc at current positions
         # pm_mass_deficit_max: the largest |deposited − N·m| of the run,
-        # in particle masses
+        # in particle masses; budget_warnings: PM block-overflow budgets
+        # exceeded (the tight layout)
         self.stats = {"substeps": 0, "receiver_rows": 0, "full_rows": 0,
-                      "max_rung": 0, "base_steps": 0, "pm_mass_deficit_max": 0.0}
+                      "max_rung": 0, "base_steps": 0, "pm_mass_deficit_max": 0.0,
+                      "budget_warnings": 0}
         self.hysteresis = {}  # step count, Δt, kick sync point (evolve)
 
     # -------------------------------------------------------------- #
     def init_state(self, pos, mom, ids=None):
         """pos/mom: 3-tuples of (N,) tensors.  Sizes the capacity from the
         measured max cell occupancy and bucketizes with rung 0."""
+        if self.nc < 3:
+            raise ValueError(f"mesh {self.mesh}: the tight layout has "
+                             f"{self.nc}³ cells ({NCELLS_ITEM})")
         N = pos[0].shape[0]
         dev = pos[0].device
         if ids is None:
             ids = torch.arange(N, dtype=torch.int32, device=dev)
         rungs = torch.zeros((N,), dtype=torch.int8, device=dev)
-        counts = torch.bincount(_cell_of(pos, self.nc, self.boxsize),
+        counts = torch.bincount(_cell_of(pos, self.nc, self.boxsize, self.ucb),
                                 minlength=self.nc**3)
         max_count = int(counts.max())
         self.capacity = max(self.capacity, _pad8(max_count, 1 << 30))
@@ -405,7 +507,7 @@ class P3MRungSimulation:
         # rebucket; 12 % headroom and a ratchet (see rebucket)
         self._K_occ = _pad16(int(max_count * 1.12), self.capacity)
         state, kept = bucketize_rungs(pos, mom, rungs, ids, self.boxsize,
-                                      self.nc, self.capacity, self.NR)
+                                      self.nc, self.capacity, self.NR, self.ucb)
         if kept != N:
             raise RuntimeError(f"bucketize kept {kept} of {N} particles")
         self._drift_used = 0.0
@@ -420,7 +522,8 @@ class P3MRungSimulation:
             torch.as_tensor(kick, dtype=dtype, device=state.pos.device),
             self.boxsize, self.nc, self.scale, self.cutoff, self.softening,
             K_r=K_r, softening_kernel=self.softening_kernel, NR=self.NR,
-            eps_rung=self.eps_rung, fac_rung=self.fac_rung, **kw)
+            eps_rung=self.eps_rung, fac_rung=self.fac_rung,
+            offsets=self.offsets, **kw)
 
     def assign_initial_rungs(self, state: RungState, dt_base: float):
         """Probe sweep (no drift, no kick) → initial rungs + K_act."""
@@ -500,10 +603,12 @@ class P3MRungSimulation:
                 self._acc_cache = None
                 int_pm = bg.integrals_np(t_mom, t + 0.5 * dt,
                                          keys=("a**(-1)",))["a**(-1)"]
-                state, mass_sum = pm_kick_rungs(
-                    state, self.mass, self.G, int_pm, self.boxsize, self.mesh,
-                    self.scale, k_rows=K_occ)
-                self._check_pm_mass(float(mass_sum), state.pos.dtype)
+                state, n_over, mass_sum = self._pm_kick(state, int_pm, K_occ)
+                self._record_pm_mass(float(mass_sum), state.pos.dtype)
+                if self.unified:
+                    self._check_pm_mass(float(mass_sum))
+                else:
+                    self._check_pm_overflow(n_over)
         vmax = math.sqrt(vmax2)
         # fresh rungs (and a possible resort) moved the per-pencil extents
         self._ext_rung = _pencil_rung_ext(state.rungs, state.valid, self.nc, self.NR)
@@ -512,23 +617,46 @@ class P3MRungSimulation:
         self._drift_used += vmax / self.mass * float(int_a2)
         return state, vmax
 
-    def _check_pm_mass(self, mass_sum: float, dtype: torch.dtype):
-        """Every valid slot must deposit; a deficit means a particle
-        drifted outside its column's deposit halo (the margin budget
-        should prevent it): warn and force a rebucket.  Records the
-        deficit in masses of a particle as the deposit holds it (rounded
-        to ``dtype``: in float32 the rounding alone can shift the total of
-        256³ particles by up to one particle's mass)."""
-        expect = self.N * self.mass
+    def _pm_kick(self, state: RungState, int_pm: float, k_rows=None):
+        return pm_kick_rungs(state, self.mass, self.G, int_pm, self.boxsize,
+                             self.mesh, self.scale, k_pm=self.k_pm,
+                             pm_max_overflow=self.pm_max_overflow,
+                             cells_cb=self.ucb, k_rows=k_rows)
+
+    def _record_pm_mass(self, mass_sum: float, dtype: torch.dtype):
+        """Records the deposit's deficit in masses of a particle as the
+        deposit holds it (rounded to ``dtype``: in float32 the rounding
+        alone can shift the total of 256³ particles by up to one
+        particle's mass)."""
         m = float(torch.tensor(self.mass, dtype=dtype))
         self.stats["pm_mass_deficit_max"] = max(
             self.stats["pm_mass_deficit_max"], abs(mass_sum / m - self.N))
+
+    def _check_pm_mass(self, mass_sum: float):
+        """The unified layouts: every valid slot must deposit; a deficit
+        means a particle drifted outside its column's deposit halo (the
+        margin budget should prevent it): warn and force a rebucket."""
+        expect = self.N * self.mass
         if not abs(mass_sum - expect) <= 1e-3 * abs(expect):
             warn(f"PM deposit mass {mass_sum:.6e} != expected {expect:.6e}"
                  f" — particles drifted outside the deposit halo; "
                  f"forcing rebucketize")
             self.stats["pm_mass_warnings"] = self.stats.get("pm_mass_warnings", 0) + 1
             self._drift_used = float("inf")
+
+    def _check_pm_overflow(self, n_pm_over: int):
+        """The tight layout: the particles beyond the PM block capacity
+        are exact up to the budget; past it the deposit was truncated:
+        warn, count it, and grow the budget (also when more than half of
+        it was used)."""
+        if n_pm_over > self.pm_max_overflow:
+            warn(f"PM deposit-block overflow {n_pm_over} exceeded the budget "
+                 f"{self.pm_max_overflow}: deposit mass truncated; growing the "
+                 f"budget")
+            self.stats["budget_warnings"] += 1
+            self.pm_max_overflow = 2 * n_pm_over + 1024
+        elif n_pm_over > self.pm_max_overflow // 2:
+            self.pm_max_overflow = 2 * n_pm_over + 1024
 
     @staticmethod
     def _rung_waste(K_act: np.ndarray, tight: np.ndarray) -> float:
@@ -553,12 +681,13 @@ class P3MRungSimulation:
 
     def rebucket(self, state: RungState) -> RungState:
         max_count, K_act = occupancy_and_activity(state, self.boxsize, self.nc,
-                                                  self.NR)
+                                                  self.NR, self.ucb)
         need = max(8, ((max_count + 7) // 8) * 8)
         if need > 0.87 * self.capacity:
             self.capacity = max(8, int(math.ceil(1.3 * need / 8)) * 8)
         new_state, kept = rebucketize_rungs(state, self.boxsize, self.nc,
-                                            self.capacity, self.N, self.NR)
+                                            self.capacity, self.N, self.NR,
+                                            self.ucb)
         if kept != self.N:
             raise RuntimeError(f"rebucketize kept {kept} of {self.N} particles")
         self._K_act = K_act.cpu().numpy()
@@ -599,8 +728,7 @@ class P3MRungSimulation:
         are synchronised at t1 by the final full substep)."""
         if t_mom < t1 - 1e-12 * abs(t1):
             int_pm = self.bg.integrals_np(t_mom, t1, keys=("a**(-1)",))["a**(-1)"]
-            state, _ = pm_kick_rungs(state, self.mass, self.G, int_pm,
-                                     self.boxsize, self.mesh, self.scale)
+            state = self._pm_kick(state, int_pm)[0]
         return state
 
     def evolve(self, state: RungState, t0: float, t1: float,
@@ -665,6 +793,7 @@ class RungSimulationAdapter:
             softening=config.softening,
             softening_kernel=config.softening_kernel, fac_rung=fac_rung,
             n_total=spec.N if n_part**3 != spec.N else None,
+            device=config.device,
         )
         self._cached_flat = None
         self._cached_layout = None

@@ -1,16 +1,22 @@
-"""PM long range on the unified P³M cell layout (port of
-``pm_gradient_cells`` and ``margin_cell_count`` of concept_tpu/p3msim.py).
+"""PM long range on the rung stepper's slot layouts (port of
+``pm_gradient_cells``, ``pm_gradient_layout`` and ``margin_cell_count`` of
+concept_tpu/p3msim.py).
 
-The short-range (K, C) slot layout IS the deposit layout: cells are
-exactly ``cb`` mesh cells wide, so the CIC deposit and the force gather
-run on the sweep's slot arrays (grid/cuda_cells.py), with no per-step
-layout translation.  Reference: interactions.py:1985-2415 (mesh part).
+On the unified layouts the short-range (K, C) slot layout IS the deposit
+layout: cells are exactly ``cb`` mesh cells wide (8 or 4), so the CIC
+deposit and the force gather run on the sweep's slot arrays
+(grid/cuda_cells.py), with no per-step layout translation.  The tight
+layout's cells are no multiple of the mesh: its valid slots go through
+the 2³-mesh-cell block PM of the global stepper
+(forces/p3m.pm_gradient_blocks).  Reference: interactions.py:1985-2415
+(mesh part).
 """
 
 from __future__ import annotations
 
 import torch
 
+from concept_tpu_torch.forces.p3m import pm_gradient_blocks
 from concept_tpu_torch.forces.pm import gravity_potential_slab
 from concept_tpu_torch.grid import fourier
 from concept_tpu_torch.grid.cuda_cells import deposit_cells, gather_cells
@@ -49,3 +55,27 @@ def pm_gradient_cells(pos3, valid, mass: float, G: float, scale: float,
     grads = torch.stack([irfft3(fourier.fourier_diff(phi, n, boxsize, d), n)
                          for d in range(3)])
     return gather_cells(pos3, wv, grads, n, boxsize, cb), mass_sum
+
+
+def pm_gradient_layout(pos3, valid, mass: float, G: float, scale: float,
+                       boxsize: float, mesh: int, k_pm: int = 8,
+                       pm_max_overflow: int = 262144):
+    """∂φ/∂x at every slot of a (3, K, C) layout whose cells are no
+    multiple of the mesh (the tight layout): the valid slots, flattened in
+    slot order, go through the block PM (deposit blocks of capacity k_pm,
+    the overflow beyond it exact through the plain CIC up to
+    pm_max_overflow particles, FFT, split potential with deconvolution of
+    order 4, Fourier gradient, block gather) and back to their slots;
+    invalid slots get 0.
+
+    Returns (fd (3, K, C), n_overflow (an int), mass_sum (0-dim
+    float64))."""
+    K, C = valid.shape
+    src = torch.nonzero(valid.reshape(K * C)).reshape(-1)
+    flat = pos3.reshape(3, K * C)[:, src]
+    fd_v, n_over, mass_sum = pm_gradient_blocks(
+        *flat, mass, G, scale, boxsize, mesh, k_pm=k_pm,
+        max_overflow=pm_max_overflow)
+    fd = torch.zeros((3, K * C), dtype=pos3.dtype, device=pos3.device)
+    fd[:, src] = fd_v
+    return fd.reshape(3, K, C), n_over, mass_sum

@@ -112,14 +112,17 @@ def test_pair_sweep_deep_columns_match_plain(dev, kernel, bounds):
     assert np.abs(got[:, 512:, deep]).max() > 0  # the third receiver pass ran
 
 
-def test_deposit_and_gather_match_plain(dev):
+def _check_cells(dev, cb):
+    """deposit_cells / gather_cells on columns cb mesh cells wide, with one
+    slot outside its column's halo (dropped) and one across the box face
+    since bucketing (kept)."""
     from concept_tpu_torch.grid.cuda_cells import (
         deposit_cells, deposit_cells_plain, gather_cells, gather_cells_plain,
     )
 
     rng = np.random.default_rng(8)
     n, box = 32, 4.0
-    nc = n // 8
+    nc = n // cb
     s, valid, _ = _layout(rng, nc, 16, box)
     C = nc**3
     valid[0, 0] = valid[0, C - 1] = True
@@ -129,15 +132,112 @@ def test_deposit_and_gather_match_plain(dev):
     s[:, 0, C - 1] = np.array([0.3, n - 3.5, n - 2.5]) * h    # across the box face: kept
     pos = torch.as_tensor(s, device=dev)
     w = torch.as_tensor(valid.astype(np.float32) * 0.7, device=dev)
-    got, ref = deposit_cells(pos, w, n, box), deposit_cells_plain(pos, w, n, box)
+    before = (deposit_cells.launches, gather_cells.launches)
+    got, ref = deposit_cells(pos, w, n, box, cb), deposit_cells_plain(pos, w, n, box, cb)
     torch.testing.assert_close(got, ref, rtol=2e-5, atol=1e-5 * float(ref.abs().max()))
     grids = torch.as_tensor(rng.standard_normal((3, n, n, n)).astype(np.float32), device=dev)
     wv = (w > 0).float()
-    got = gather_cells(pos, wv, grids, n, box)
-    ref = gather_cells_plain(pos, wv, grids, n, box)
+    got = gather_cells(pos, wv, grids, n, box, cb)
+    ref = gather_cells_plain(pos, wv, grids, n, box, cb)
     torch.testing.assert_close(got, ref, rtol=2e-5, atol=1e-5 * float(ref.abs().max()))
+    assert (deposit_cells.launches, gather_cells.launches) == (before[0] + 1, before[1] + 1)
     assert float(got[:, 0, 0].abs().max()) == 0.0
     assert float(got[:, 0, C - 1].abs().max()) > 0.0
+
+
+def test_deposit_and_gather_match_plain(dev):
+    _check_cells(dev, 8)
+
+
+def test_deposit_and_gather_cb4_match_plain(dev):
+    """The 4-mesh-cell rung layout's PM: 8³ columns on mesh 32."""
+    _check_cells(dev, 4)
+
+
+def _reach_geometry(n, box=1.0):
+    """(scale, cutoff², offsets) of the 4-mesh-cell layout with n³ cells."""
+    from concept_tpu_torch.forces.shortrange import reach_offsets
+
+    cw = box / n
+    cutoff = (4.5 * 1.25 / 4.0) * cw
+    return (1.25 * cw / 4.0, float(np.float32(cutoff) ** 2),
+            reach_offsets(cw, 0.55 * cw / 4.0))
+
+
+def _check_reach(dev, s, valid, n, K_r, kernel, soft, two_sided):
+    """The reach sweep kernel against its plain version: one-sided on the
+    leading K_r rows (receivers at −sentinel, suppliers at +sentinel), or
+    two-sided through sweep_reach (receivers = suppliers, all rows)."""
+    from concept_tpu_torch.forces.cuda_shortrange import (
+        pair_sweep, pair_sweep_plain, pair_sweep_reach,
+    )
+    from concept_tpu_torch.forces.shortrange import sweep_reach
+
+    box = 1.0
+    scale, cutoff2, offs = _reach_geometry(n, box)
+    assert len(offs) == 117
+    st = torch.as_tensor(s, device=dev)
+    before = (pair_sweep.launches, pair_sweep_reach.launches, sweep_reach.launches)
+    soft2 = float(np.float32(soft) ** 2)
+    if two_sided:
+        v = torch.as_tensor(valid, device=dev)
+        got = sweep_reach(*st, v, n, box, scale, float(np.sqrt(cutoff2)), soft,
+                          box / n, 0.55 * box / n / 4.0, kernel=kernel)
+        ref = pair_sweep_plain(st, st, n, box, scale, cutoff2, soft2, kernel,
+                               offsets=offs)
+        counts = (before[0], before[1] + 1, before[2] + 1)
+    else:
+        recv = torch.where(torch.as_tensor(valid[:K_r], device=dev)[None],
+                           st[:, :K_r], -1e4 * box).contiguous()
+        got = pair_sweep_reach(recv, st, n, box, scale, cutoff2, soft2, offs,
+                               kernel=kernel)
+        ref = pair_sweep_plain(recv, st, n, box, scale, cutoff2, soft2, kernel,
+                               offsets=offs)
+        counts = (before[0], before[1] + 1, before[2])
+    assert (pair_sweep.launches, pair_sweep_reach.launches, sweep_reach.launches) == counts
+    torch.cuda.synchronize()
+    got, ref = got.cpu().numpy(), ref.cpu().numpy()
+    assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+    return got
+
+
+@pytest.mark.parametrize("two_sided", [False, True])
+@pytest.mark.parametrize("kernel", ["plummer", "spline", "none"])
+@pytest.mark.parametrize("K", [8, 16, 40])
+def test_pair_sweep_reach_matches_plain(dev, K, kernel, two_sided):
+    """The reach-2 sweep (117 kept offsets) at the 4-mesh-cell layout's
+    column depths, 6³ cells."""
+    rng = np.random.default_rng(31 + K)
+    n = 6
+    s, valid, _ = _layout(rng, n, K, 1.0)
+    _check_reach(dev, s, valid, n, max(1, K // 2), kernel, 0.01, two_sided)
+
+
+@pytest.mark.parametrize("two_sided", [False, True])
+@pytest.mark.parametrize("kernel", ["plummer", "spline", "none"])
+def test_pair_sweep_reach_wrapped_and_clumped(dev, kernel, two_sided):
+    """n = 5, where the ±2 offsets of every column wrap onto distinct
+    columns, with one clump of 600 slots: a second shared-memory tile of
+    supplier rows, three receiver passes and spline near-field pairs."""
+    rng = np.random.default_rng(41)
+    n, K, box = 5, 600, 1.0
+    C = n**3
+    cw = box / n
+    counts = rng.integers(0, 9, size=C)
+    counts[C // 2] = K
+    valid = np.arange(K)[:, None] < counts[None, :]
+    cells = np.arange(C)
+    base = np.stack([cells // (n * n), (cells // n) % n, cells % n]) * cw
+    frac = rng.random((3, K, C))
+    frac[:, :, C // 2] = np.clip(rng.normal(0.5, 0.05, (3, K)), 0.0, 0.999)
+    pos = base[:, None, :] + frac * cw
+    s = np.where(valid[None], pos, 1e4 * box).astype(np.float32)
+    soft = 0.004
+    clump = pos[:, :, C // 2].T
+    r2 = ((clump[:, None] - clump[None]) ** 2).sum(-1)
+    assert ((r2 > 0) & (r2 < (2.8 * soft) ** 2)).sum() > 0  # near field reached
+    got = _check_reach(dev, s, valid, n, K, kernel, soft, two_sided)
+    assert np.abs(got[:, 512:, C // 2]).max() > 0  # the third receiver pass ran
 
 
 @pytest.mark.parametrize("kernel", ["plummer", "spline", "none"])

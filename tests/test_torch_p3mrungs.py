@@ -56,7 +56,7 @@ def setup():
               softening_kernel="spline")
     jsim = JaxRungs(8, box, mass, G, bg=jbg, unified=True, unified_cb=8, **kw)
     tsim = P3MRungSimulation(8, box, mass, G, bg=Background(H0=H0, Omega_m=0.30),
-                             **kw)
+                             unified=True, unified_cb=8, **kw)
     assert (jsim.nc, jsim.capacity, jsim.margin) == (tsim.nc, tsim.capacity,
                                                      tsim.margin)
     jstate = jsim.init_state(tuple(jnp.asarray(pos[:, d]) for d in range(3)),

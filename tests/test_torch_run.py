@@ -1,9 +1,9 @@
 """The shrunk default run (example_basic at N = 8³, grid 32) through both
 command-line interfaces, on the CPU: the power spectra at a = 1 agree bin
-by bin to 1 % up to half the Nyquist wavenumber.  The JAX package steps
-the tight cell layout on the CPU and the port the 8-mesh-cell layout, so
-their time steps differ and the spectra agree to the integrator's
-accuracy, not to rounding."""
+by bin to 1 % up to half the Nyquist wavenumber.  Both packages step the
+tight cell layout on the CPU (5³ cells, the block PM); the port's summation
+order differs, so its rungs and time steps may part from the JAX package's
+late in the run, and the spectra agree to the integrator's accuracy."""
 
 import glob
 import math
