@@ -60,6 +60,30 @@ Then the rung stepper's two other layouts:
 4c, 4d. 250³ particles on grid 500 (4-mesh-cell layout) and 255³ on grid
     510 (tight layout) for at least 3 base steps each.
 
+Then PM-only gravity (``select_forces = {'all': {'gravity': 'pm'}}``):
+
+2e. The PM-only block kernels (rows 10 and 11: deposit and gather from
+    precomputed per-slot geometry) against their plain versions at the
+    shapes of a realized 256³ state on PM grid 256 (128³ blocks, K = 32,
+    D = 1 as the kick gathers one gradient component at a time), with
+    bounds and library calls as in 2.
+3e. ``param/example_basic.py`` with PM gravity (64³, grid 128, a = 0.02 →
+    1) through ``load_params`` and ``run`` with the default
+    ``deposit_method``: it must launch rows 10 and 11 and no other kernel,
+    lose at most half a particle's mass in any deposit and write a finite
+    spectrum; it prints its largest block overflow.  Then rows 10 and 11
+    are held against their plain versions on the run's final state,
+    bucketed as the kick buckets it (K = 16, deep blocks, overflow).
+    Where its time goes is scripts/torch_profile_main_path.py's work.
+4e. 512³ particles on PM grid 512 through ``run`` for at least 3 steps.
+4f. ``BucketSimulation``, the persistent-bucket PM stepper: bench.py's
+    flagship shape (a 512³ lattice with a 0.3-cell jitter, capacity 8, 5
+    timed steps after a warm-up) and its sustained shape (256³ with 1LPT
+    initial conditions evolved to a = 0.12, then one rebucket cadence of
+    16 steps and a rebucket).  Each launches only rows 8 and 9; rows 8
+    and 9 are then held against their plain versions on the sustained
+    run's rebucketed final slots.
+
 Before its last line it prints one JSON object ``{"kernels": [...]}`` and
 the card's name and power limit as nvidia-smi reports them; the last line
 is ``{"ok": true, "device": {...}}``.  Without CUDA it exits with 2 and
@@ -132,11 +156,13 @@ def _counters():
     from concept_tpu_torch.forces.shortrange import sweep_reach
     from concept_tpu_torch.grid.cuda_blocks import deposit_blocks, gather_blocks
     from concept_tpu_torch.grid.cuda_cells import deposit_cells, gather_cells
+    from concept_tpu_torch.grid.cuda_pm import deposit_pm, gather_pm
 
     return {"pair_sweep": pair_sweep, "pair_sweep_reach": pair_sweep_reach,
             "sweep_reach": sweep_reach, "deposit_cells": deposit_cells,
             "gather_cells": gather_cells, "deposit_blocks": deposit_blocks,
-            "gather_blocks": gather_blocks}
+            "gather_blocks": gather_blocks, "deposit_pm": deposit_pm,
+            "gather_pm": gather_pm}
 
 
 def _reset_counts():
@@ -416,16 +442,20 @@ def check_kernels(N: int = 128**3, mesh: int = 256, device: str = "cuda") -> dic
     return out
 
 
-def _check_pm_kernels(names, pos, valid, mass: float, G: float, scale: float,
+def _check_pm_kernels(names, pos, valid, mass: float, G: float, scale: float | None,
                       mesh: int, box: float, cb: int, zmajor: bool,
-                      dep, dep_plain, gat, gat_plain) -> dict:
+                      dep, dep_plain, gat, gat_plain, nbytes=None, libraries=None,
+                      D: int = 3) -> dict:
     """A CIC deposit kernel and its gather twin against their plain
     versions on the slots pos (3, K, C) of columns cb mesh cells wide
     (x-major or z-major ids): the deposit of w = mass·valid, then the
-    gather (D = 3) of the long-range force components of that deposit.
-    dep(w), gat(wv, grads) call a kernel; the *_plain twins its plain
-    version.  Each is timed beside its bound and its library call.
-    Fails on a disagreement beyond rtol 2e-5, atol 1e-5·max|ref|."""
+    gather of the first D force components of that deposit (long-range
+    with the split scale, PM-only with ``scale`` None).  dep(w), gat(wv,
+    grads) call a kernel; the *_plain twins its plain version.  Each is
+    timed beside its bound and its library call.  ``nbytes`` (deposit,
+    gather) and ``libraries`` (deposit's call of w, gather's (call, mask)
+    of wv and grads) replace the position-based defaults.  Fails on a
+    disagreement beyond rtol 2e-5, atol 1e-5·max|ref|."""
     import torch
 
     from concept_tpu_torch.forces.pm import gravity_potential_slab
@@ -444,23 +474,24 @@ def _check_pm_kernels(names, pos, valid, mass: float, G: float, scale: float,
 
     out = {}
     n_valid = int(valid.sum())
-    w = (valid.to(pos.dtype) * mass).contiguous()
+    w = (valid.to(torch.float32) * mass).contiguous()
     got, ref = dep(w), dep_plain(w)
     _sync()
     err, rel = compare(names[0], got, ref)
     ms = _time_ms(lambda: dep(w), 20)
     plain_ms = _time_ms(lambda: dep_plain(w), 2)
     # w read in full, valid slots' positions read, the mesh written
-    nbytes = 4 * (w.numel() + 3 * n_valid + mesh**3)
+    dep_bytes = nbytes[0] if nbytes else 4 * (w.numel() + 3 * n_valid + mesh**3)
     flops = 60 * n_valid  # geometry (~12) + 8 corners × (weight, product, add)
-    bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS)
-    library = _deposit_library(pos, w, mesh, box, cb, zmajor)
+    bound_ms = 1e3 * max(dep_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS)
+    library = (libraries[0](w) if libraries
+               else _deposit_library(pos, w, mesh, box, cb, zmajor))
     _, lib_rel = _max_rel(library(), ref)
     library_ms = _time_ms(library, 20)
     del library
     out[names[0]] = dict(
         max_abs_err=err, max_rel_err=rel, tol="rtol 2e-5, atol 1e-5·max|ref|", ms=ms,
-        plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes", bytes=nbytes, flops=flops,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes", bytes=dep_bytes, flops=flops,
         mass_sum=float(got.sum(dtype=torch.float64)), mass_expected=n_valid * mass,
         library_ms=library_ms, library="index_add_ of precomputed corners",
         library_max_rel_err=lib_rel)
@@ -470,25 +501,27 @@ def _check_pm_kernels(names, pos, valid, mass: float, G: float, scale: float,
     slab = rfft3(got / (box / mesh) ** 3)
     phi = gravity_potential_slab(slab, mesh, box, G, deconv_order=4, longrange_scale=scale)
     grads = torch.stack([irfft3(fourier.fourier_diff(phi, mesh, box, d), mesh)
-                         for d in range(3)]).contiguous()
+                         for d in range(D)]).contiguous()
     del slab, phi, got, ref
-    wv = valid.to(pos.dtype).contiguous()
+    wv = valid.to(torch.float32).contiguous()
     got, ref = gat(wv, grads), gat_plain(wv, grads)
     _sync()
-    err, rel = compare(f"{names[1]} (D = 3)", got, ref)
+    err, rel = compare(f"{names[1]} (D = {D})", got, ref)
     ms = _time_ms(lambda: gat(wv, grads), 20)
     plain_ms = _time_ms(lambda: gat_plain(wv, grads), 2)
-    nbytes = 4 * (wv.numel() + 3 * n_valid + grads.numel() + got.numel())
-    flops = (12 + 3 * 8 * 3) * n_valid
-    bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS)
-    library, mask = _gather_library(pos, wv, grads, mesh, box, cb, zmajor)
+    gat_bytes = nbytes[1] if nbytes else 4 * (wv.numel() + 3 * n_valid + grads.numel()
+                                              + got.numel())
+    flops = (12 + D * 8 * 3) * n_valid
+    bound_ms = 1e3 * max(gat_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS)
+    library, mask = (libraries[1](wv, grads) if libraries
+                     else _gather_library(pos, wv, grads, mesh, box, cb, zmajor))
     _, lib_rel = _max_rel(library() * mask, ref)
     library_ms = _time_ms(library, 20)
     del library, mask
     out[names[1]] = dict(
         max_abs_err=err, max_rel_err=rel, tol="rtol 2e-5, atol 1e-5·max|ref|", ms=ms,
-        plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes", bytes=nbytes, flops=flops,
-        library_ms=library_ms, library="grid_sample on the periodically padded grids",
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes", bytes=gat_bytes, flops=flops,
+        D=D, library_ms=library_ms, library="grid_sample on the periodically padded grids",
         library_max_rel_err=lib_rel)
     print(f"{ms:.3f} ms, plain {plain_ms:.1f} ms, bound {bound_ms:.3f} ms; library "
           f"(grid_sample on padded grids) {library_ms:.3f} ms, {lib_rel:.1e} of max off")
@@ -613,10 +646,96 @@ def check_reach_kernels(N: int = 128**3, mesh: int = 256, device: str = "cuda") 
     return out
 
 
+def _pm_only_libraries(bk, mesh: int):
+    """The library calls of rows 10 and 11 on the block buckets bk: a
+    builder of the deposit's call (``index_add_`` of the 8 CIC corners
+    of every depositing slot, computed beforehand) and one of the
+    gather's (call, mask): trilinear ``grid_sample`` of the periodically
+    padded grids at the slots' padded mesh coordinates, anchor + fraction
+    + 1."""
+    import torch
+    import torch.nn.functional as F
+
+    from concept_tpu_torch.grid.cuda_pm import _anchors
+    from concept_tpu_torch.grid.interp import cic_corners
+
+    K, C = bk["valid"].shape
+    anchors = _anchors(bk["lidx"], slice(0, C), mesh // 2)
+    fracs = (bk["fx"], bk["fy"], bk["fz"])
+
+    def deposit_library(w):
+        keep = w != 0
+        idx, vals = zip(*((i[keep], (wt * w)[keep]) for i, wt in
+                          cic_corners(anchors, fracs, mesh)))
+        idx, vals = torch.cat(idx), torch.cat(vals)
+        return lambda: torch.zeros(mesh**3, device=w.device).index_add_(
+            0, idx, vals).reshape(mesh, mesh, mesh)
+
+    def gather_library(wv, grids):
+        D = grids.shape[0]
+        padded = F.pad(grids[None], (1, 1, 1, 1, 1, 1), mode="circular")
+        u = torch.stack([a + f + 1.0 for a, f in zip(anchors, fracs)]) * (2.0 / (mesh + 1)) - 1.0
+        coords = u.flip(0).permute(1, 2, 0).reshape(1, 1, 1, K * C, 3).contiguous()
+
+        def call():
+            return F.grid_sample(padded, coords, mode="bilinear", padding_mode="border",
+                                 align_corners=True).reshape(D, K, C)
+
+        return call, wv != 0
+
+    return deposit_library, gather_library
+
+
+def _check_pm_buckets(pos, mass: float, G: float, mesh: int, box: float) -> dict:
+    """Rows 10 and 11 against their plain versions on the block buckets of
+    the particles pos (N, 3) on PM grid `mesh`, as the PM-only kick
+    buckets them (capacity max(16, 4·8N/mesh³)) and gathers (D = 1: one
+    gradient component at a time).  The bounds count the work of the
+    valid slots only: 20 bytes in (lidx, fx, fy, fz, q) per slot and the
+    mesh written (deposit), 20 bytes in and 4 out per slot and the mesh
+    read (gather)."""
+    from concept_tpu_torch.grid.bucketed import bucketize_blocks
+    from concept_tpu_torch.grid.cuda_pm import (
+        deposit_pm, deposit_pm_plain, gather_pm, gather_pm_plain,
+    )
+
+    N = pos.shape[0]
+    capacity = max(16, int(4 * (N * 8 / mesh**3)))
+    bk = bucketize_blocks(pos, mass, mesh, box, capacity, uniform_q=True)
+    valid = bk["valid"]
+    n_valid = int(valid.sum())
+    n_over = int(bk["over_idx"].numel())
+    print(f"  {N} particles, mesh {mesh}, {mesh // 2}³ blocks, K = {capacity}, "
+          f"{n_valid} valid slots, {n_over} beyond the capacity")
+    out = {"shape": {"N": N, "mesh": mesh, "nb": mesh // 2, "K": capacity,
+                     "valid_slots": n_valid, "overflow": n_over}}
+    args = (bk["lidx"], bk["fx"], bk["fy"], bk["fz"])
+    out.update(_check_pm_kernels(
+        ("deposit_pm", "gather_pm"), None, valid, mass, G, None, mesh, box, 2, False,
+        lambda w: deposit_pm(*args, w, mesh), lambda w: deposit_pm_plain(*args, w, mesh),
+        lambda wv, g: gather_pm(*args, wv, g, mesh),
+        lambda wv, g: gather_pm_plain(*args, wv, g, mesh),
+        nbytes=(20 * n_valid + 4 * mesh**3, (20 + 4) * n_valid + 4 * mesh**3),
+        libraries=_pm_only_libraries(bk, mesh), D=1))
+    return out
+
+
+def check_pm_only_kernels(N: int = 256**3, mesh: int = 256, device: str = "cuda") -> dict:
+    """Rows 10 and 11 against their plain versions at the shapes of a
+    realized N-particle state on PM grid `mesh`."""
+    sim, flat = _global_sim(N, mesh, device)
+    print("PM-only block kernels vs plain, realized state:")
+    return _check_pm_buckets(flat.pos, sim.spec.mass, sim.config.G, mesh,
+                             sim.config.boxsize)
+
+
 RUNG_KERNELS = ("pair_sweep", "deposit_cells", "gather_cells")
 GLOBAL_KERNELS = ("pair_sweep", "deposit_blocks", "gather_blocks")
 REACH_KERNELS = ("pair_sweep_reach", "deposit_cells", "gather_cells")
 TIGHT_KERNELS = ("pair_sweep", "deposit_blocks", "gather_blocks")
+PM_KERNELS = ("deposit_pm", "gather_pm")
+BUCKET_KERNELS = ("deposit_blocks", "gather_blocks")
+PM_ONLY = "select_forces={'all': {'gravity': 'pm'}}"
 
 
 def _run(overrides: list, outdir: str, kernels=RUNG_KERNELS, device: str = "cuda"):
@@ -655,13 +774,18 @@ def _run(overrides: list, outdir: str, kernels=RUNG_KERNELS, device: str = "cuda
     if stats["pm_mass_deficit_max"] > 0.5:
         raise SystemExit(f"the PM deposit lost {stats['pm_mass_deficit_max']:.3g} "
                          "particle masses at a step")
+    _check_launches(counts, kernels)
+    return sim, state, a, counts, seconds
+
+
+def _check_launches(counts: dict, kernels):
+    """Fail unless each of ``kernels`` launched and no other kernel did."""
     missing = [k for k in kernels if counts[k] == 0]
     if missing:
         raise SystemExit(f"kernels never launched on this path: {missing}")
     stray = [k for k, v in counts.items() if v and k not in kernels]
     if stray:
         raise SystemExit(f"kernels of another path launched: {stray}")
-    return sim, state, a, counts, seconds
 
 
 def main_path() -> dict:
@@ -880,11 +1004,194 @@ def global_realistic(a_end: float = 0.025) -> dict:
             "realize_s": sim.timings["realize_s"], "launches": counts, "stats": dict(st)}
 
 
+def pm_only_main_path() -> dict:
+    """example_basic with PM gravity (64³, grid 128, a = 0.02 → 1) through
+    load_params and run with the default deposit_method (where its time
+    goes: scripts/torch_profile_main_path.py --gravity pm); then rows 10
+    and 11 against their plain versions on the run's final, clustered
+    buckets (deep blocks, many particles beyond the capacity)."""
+    outdir = tempfile.mkdtemp(prefix="chip_smoke_pm_")
+    try:
+        sim, state, a, counts, seconds = _run([PM_ONLY], outdir, PM_KERNELS)
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    st = sim.stats
+    steps = st["steps"]
+    ev = sim.timings["evolve_s"]
+    print(f"PM-only main path (example_basic, gravity pm, 64³, grid "
+          f"{sim.config.potential_gridsize}, a 0.02 → {a:.4g}): {steps} steps, "
+          f"{1e3 * ev / steps:.2f} ms per step, wall {seconds:.1f} s (evolution {ev:.1f} s), "
+          f"largest block overflow {st['pm_overflow_max']} particles, largest deposit "
+          f"deficit {st['pm_mass_deficit_max']:.3g} particle masses, launches {counts}")
+    print("PM-only block kernels vs plain, the run's final state:")
+    clustered = _check_pm_buckets(state.pos, sim.spec.mass, sim.config.G,
+                                  sim.config.potential_gridsize, sim.config.boxsize)
+    return {"a_end": a, "steps": steps, "wall_s": seconds, "evolve_s": ev,
+            "ms_per_step": 1e3 * ev / steps, "launches": counts, "stats": dict(st),
+            "clustered": clustered}
+
+
+def pm_only_realistic(a_end: float = 0.025, n: int = 512, mesh: int = 512) -> dict:
+    """n³ particles on PM grid `mesh` through run, to an early output time."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    outdir = tempfile.mkdtemp(prefix="chip_smoke_pm_big_")
+    try:
+        sim, _, a, counts, seconds = _run([
+            f"initial_conditions={{'species':'matter','N':{n}**3}}",
+            f"potential_options={mesh}", PM_ONLY,
+            f"output_times={{'powerspec': [{a_end}]}}"], outdir, PM_KERNELS)
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    st = sim.stats
+    steps = st["steps"]
+    if steps < 3:
+        raise SystemExit(f"the realistic PM-only run took {steps} steps (< 3)")
+    N = sim.spec.N
+    ev = sim.timings["evolve_s"]
+    peak = torch.cuda.max_memory_allocated()
+    print(f"PM-only realistic ({n}³, grid {mesh}, a 0.02 → {a:.4g}): {steps} steps, "
+          f"{1e3 * ev / steps:.1f} ms per step, {N * steps / ev:.4g} particle updates/s, "
+          f"peak device memory {peak / 2**30:.2f} GiB, realization "
+          f"{sim.timings['realize_s']:.1f} s, output {sim.timings['dump_s']:.1f} s, largest "
+          f"block overflow {st['pm_overflow_max']}, largest deposit deficit "
+          f"{st['pm_mass_deficit_max']:.3g} particle masses; launches "
+          + ", ".join(f"{k}={v}" for k, v in counts.items()))
+    return {"a_end": a, "steps": steps, "evolve_s": ev, "ms_per_step": 1e3 * ev / steps,
+            "particle_updates_per_s": N * steps / ev, "peak_bytes": peak,
+            "realize_s": sim.timings["realize_s"], "launches": counts, "stats": dict(st)}
+
+
+def _timed_steps(sim, state, int1: float, int2: float, n_steps: int, rebucket: bool):
+    """n_steps bucket steps (a rebucket after every sim.rebucket_every-th
+    when ``rebucket``) between two syncs: (state, seconds per step, the
+    stragglers of each step)."""
+    _sync()
+    stragglers = []
+    t0 = time.perf_counter()
+    for i in range(n_steps):
+        state, ns = sim.step(state, int1, int2)
+        stragglers.append(ns)
+        if rebucket and (i + 1) % sim.rebucket_every == 0:
+            state = sim.maybe_rebucket(state)
+    _sync()
+    return state, (time.perf_counter() - t0) / n_steps, stragglers
+
+
+def bucket_flagship(n: int = 512) -> dict:
+    """bench.py's flagship shape (bench.py:33-75): an n³ lattice with a
+    uniform ±0.3-cell jitter on grid n (every block holds 8 particles),
+    capacity 8, zero momenta, a warm-up step and 5 timed steps of ᔑ = 1e-3."""
+    import torch
+
+    from concept_tpu_torch.bucketsim import BucketSimulation
+    from concept_tpu_torch.components import periodic_wrap
+
+    box, N = 512.0, n**3
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    lin = (torch.arange(n, device=dev, dtype=torch.float32) + 0.5) * (box / n)
+    axes = (lin[:, None, None], lin[None, :, None], lin[None, None, :])
+    jit = 0.3 * box / n
+    pos = tuple(periodic_wrap(ax.expand(n, n, n).reshape(-1) + jit * (
+        2 * torch.rand(N, generator=gen, device=dev) - 1), box) for ax in axes)
+    mom = tuple(torch.zeros(N, device=dev) for _ in range(3))
+    sim = BucketSimulation(n, box, 2.0, 1.0, capacity=8)
+    state = sim.init_state(pos, mom)
+    del pos, mom
+    if int(state.valid.sum()) != N or sim.capacity != 8:
+        raise SystemExit(f"the flagship lattice did not fit capacity 8 ({sim.capacity})")
+    _reset_counts()
+    state, _ = sim.step(state, 1e-3, 1e-3)
+    state, dt, stragglers = _timed_steps(sim, state, 1e-3, 1e-3, 5, rebucket=False)
+    counts = _read_counts()
+    _check_launches(counts, BUCKET_KERNELS)
+    if not torch.isfinite(state.pos).all():
+        raise SystemExit("the flagship state is not finite")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"BucketSimulation flagship ({n}³ jittered lattice, grid {n}, capacity 8): "
+          f"{1e3 * dt:.2f} ms per step, {N / dt:.4g} particle updates/s, peak device "
+          f"memory {peak / 2**30:.2f} GiB, stragglers {stragglers}, launches {counts}")
+    return {"N": N, "ms_per_step": 1e3 * dt, "particle_updates_per_s": N / dt,
+            "peak_bytes": peak, "stragglers": stragglers, "launches": counts}
+
+
+def bucket_sustained(n: int = 256, a_end: float = 0.12) -> dict:
+    """bench.py's sustained shape (bench.py:318-385): n³ particles in a box
+    n Mpc wide (example_basic's cosmology), 1LPT initial conditions at
+    a = 0.02 (bench.py takes 2LPT, ROADMAP Queue 1 item 6) evolved to
+    a_end on grid n, the capacity settled (rebucket, step, rebucket,
+    step), then one rebucket cadence (16 steps and a rebucket) timed; then
+    rows 8 and 9 against their plain versions on the rebucketed final
+    slots."""
+    import torch
+
+    from concept_tpu_torch.bucketsim import BucketSimulation
+    from concept_tpu_torch.grid.cuda_blocks import (
+        deposit_blocks, deposit_blocks_plain, gather_blocks, gather_blocks_plain,
+    )
+    from concept_tpu_torch.ic import realize_particles
+    from concept_tpu_torch.param import load_params
+    from concept_tpu_torch.run import build_components, build_cosmology
+
+    cfg = load_params(PARAM, overrides=[
+        f"initial_conditions={{'species':'matter','N':{n}**3}}", f"boxsize={n}*Mpc"])
+    _, consts, bg, lin = build_cosmology(cfg)
+    spec, _ = build_components(cfg, bg, consts)[0]
+    torch.cuda.reset_peak_memory_stats()
+    sim = BucketSimulation(n, cfg.boxsize, spec.mass, consts.G_Newton, bg=bg, capacity=16)
+    st0 = realize_particles(lin, spec, cfg.boxsize, 0.02, seed=0, lpt_order=1, device="cuda")
+    state = sim.init_state(st0.pos, st0.mom)
+    del st0
+    _reset_counts()
+    t0 = time.perf_counter()
+    state = sim.evolve(state, float(bg.t_of_a_np(0.02)), float(bg.t_of_a_np(a_end)))
+    _sync()
+    evolve_s = time.perf_counter() - t0
+    evolve_steps = sim.stats["steps"]
+    t_now = float(bg.t_of_a_np(a_end))
+    int1 = bg.integrals_np(t_now, t_now * 1.01, keys=("a**(-1)",))["a**(-1)"]
+    int2 = bg.integrals_np(t_now, t_now * 1.01, keys=("a**(-2)",))["a**(-2)"]
+    for _ in range(2):
+        state = sim.maybe_rebucket(state)
+        state, _ = sim.step(state, int1, int2)
+    state, dt, stragglers = _timed_steps(sim, state, int1, int2, sim.rebucket_every,
+                                         rebucket=True)
+    counts = _read_counts()
+    _check_launches(counts, BUCKET_KERNELS)
+    if not torch.isfinite(state.pos).all() or int(state.valid.sum()) != spec.N:
+        raise SystemExit("the sustained state lost particles or is not finite")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"BucketSimulation sustained ({n}³, grid {n}, 1LPT, a 0.02 → {a_end}: "
+          f"{evolve_steps} steps in {evolve_s:.1f} s): {1e3 * dt:.2f} ms per step over "
+          f"{sim.rebucket_every} steps and a rebucket, {spec.N / dt:.4g} particle "
+          f"updates/s, capacity {sim.capacity}, spilled {sim._n_spilled}, stragglers "
+          f"{stragglers}, peak device memory {peak / 2**30:.2f} GiB, launches {counts}")
+    pos, box = state.pos, cfg.boxsize
+    print(f"block kernels vs plain on the final slots: {n // 2}³ blocks, "
+          f"K = {pos.shape[1]}")
+    final = _check_pm_kernels(
+        ("deposit_blocks", "gather_blocks"), pos, state.valid, spec.mass, consts.G_Newton,
+        None, n, box, 2, True,
+        lambda w: deposit_blocks(*pos, w, n, box),
+        lambda w: deposit_blocks_plain(*pos, w, n, box),
+        lambda wv, g: gather_blocks(*pos, wv, g, n, box),
+        lambda wv, g: gather_blocks_plain(*pos, wv, g, n, box))
+    return {"N": spec.N, "evolve_steps": evolve_steps, "evolve_s": evolve_s,
+            "ms_per_step": 1e3 * dt, "particle_updates_per_s": spec.N / dt,
+            "capacity": sim.capacity, "spilled": sim._n_spilled, "stragglers": stragglers,
+            "peak_bytes": peak, "launches": counts, "final_slots": final}
+
+
 # (name, counter, phase with its check, key, source, the TPU kernel's
 # definition, phase with the main-path launch count or None where no path
 # runs the kernel)
 SWEEP_SRC = "concept_tpu_torch/csrc/pair_sweep.cu"
 CELLS_SRC = "concept_tpu_torch/csrc/cells.cu"
+PM_SRC = "concept_tpu_torch/csrc/pm_blocks.cu"
 KERNELS = (
     ("pair_sweep", "pair_sweep", "check", "pair_sweep_bounded", SWEEP_SRC,
      "concept_tpu/forces/pallas_shortrange.py:287", "main_path"),
@@ -902,6 +1209,10 @@ KERNELS = (
      "concept_tpu/grid/pallas_pm.py:210", "global_main_path"),
     ("gather_blocks", "gather_blocks", "check_global", "gather_blocks", CELLS_SRC,
      "concept_tpu/grid/pallas_pm.py:245", "global_main_path"),
+    ("deposit_pm", "deposit_pm", "check_pm_only", "deposit_pm", PM_SRC,
+     "concept_tpu/grid/pallas_pm.py:54", "pm_only_main_path"),
+    ("gather_pm", "gather_pm", "check_pm_only", "gather_pm", PM_SRC,
+     "concept_tpu/grid/pallas_pm.py:81", "pm_only_main_path"),
 )
 
 
@@ -932,6 +1243,11 @@ def main(argv=None) -> int:
     results["tight_main_path"] = _layout_main_path("tight", 63, 126, 0, TIGHT_KERNELS)
     results["reach_realistic"] = realistic(n=250, mesh=500, ucb=4, kernels=REACH_KERNELS)
     results["tight_realistic"] = realistic(n=255, mesh=510, ucb=0, kernels=TIGHT_KERNELS)
+    results["check_pm_only"] = check_pm_only_kernels()
+    results["pm_only_main_path"] = pm_only_main_path()
+    results["pm_only_realistic"] = pm_only_realistic()
+    results["bucket_flagship"] = bucket_flagship()
+    results["bucket_sustained"] = bucket_sustained()
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
@@ -968,6 +1284,15 @@ def main(argv=None) -> int:
         byname[name].update(
             clustered_max_abs_err=clu["max_abs_err"], clustered_ms=clu["ms"],
             clustered_plain_ms=clu["plain_ms"], clustered_bound_ms=clu["bound_ms"])
+    for name, phase, key in (("deposit_pm", "pm_only_main_path", "clustered"),
+                             ("gather_pm", "pm_only_main_path", "clustered"),
+                             ("deposit_blocks", "bucket_sustained", "final_slots"),
+                             ("gather_blocks", "bucket_sustained", "final_slots")):
+        clu = results[phase][key][name]
+        byname[name].update(
+            clustered_max_abs_err=clu["max_abs_err"], clustered_ms=clu["ms"],
+            clustered_plain_ms=clu["plain_ms"], clustered_bound_ms=clu["bound_ms"],
+            clustered_library_ms=clu["library_ms"])
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -19,7 +19,7 @@ import subprocess
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build_out")
-SOURCES = ("pair_sweep", "cells")
+SOURCES = ("pair_sweep", "cells", "pm_blocks")
 
 _libs: dict[str, ctypes.CDLL] = {}
 

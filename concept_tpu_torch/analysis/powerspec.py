@@ -18,45 +18,9 @@ import torch
 from concept_tpu_torch.components import periodic_wrap
 from concept_tpu_torch.grid import fourier
 from concept_tpu_torch.grid.fft import rfft3
+from concept_tpu_torch.grid.interp import deposit, interpolation_order
 
-ORDER_NAMES = {"NGP": 1, "CIC": 2, "TSC": 3, "PCS": 4}
 _K_LINEAR_MAX = 16
-
-
-def _weights(u, order: int):
-    """Per-dimension lowest corner index and the ``order`` B-spline
-    weights (cell-centred; reference mesh.py:5052-5413)."""
-    if order in (1, 3):
-        i0 = torch.round(u)
-        f = u - i0
-        if order == 1:
-            return i0.to(torch.int64), [torch.ones_like(u)]
-        return i0.to(torch.int64) - 1, [0.5 * (0.5 - f) ** 2, 0.75 - f**2,
-                                         0.5 * (0.5 + f) ** 2]
-    i0 = torch.floor(u)
-    f = u - i0
-    if order == 2:
-        return i0.to(torch.int64), [1 - f, f]
-    return i0.to(torch.int64) - 1, [
-        (1 - f) ** 3 / 6, (4 - 6 * f**2 + 3 * f**3) / 6,
-        (4 - 6 * (1 - f) ** 2 + 3 * (1 - f) ** 3) / 6, f**3 / 6]
-
-
-def deposit(pos, gridsize: int, boxsize: float, order: int = 4):
-    """Unit-weight deposit of (N, 3) positions onto an (n, n, n) grid."""
-    n = gridsize
-    u = pos / (boxsize / n) - 0.5
-    per_dim = [_weights(u[:, d], order) for d in range(3)]
-    grid = torch.zeros(n**3, dtype=pos.dtype, device=pos.device)
-    for a in range(order):
-        ia = torch.remainder(per_dim[0][0] + a, n) * n
-        for b in range(order):
-            ib = (ia + torch.remainder(per_dim[1][0] + b, n)) * n
-            wab = per_dim[0][1][a] * per_dim[1][1][b]
-            for c in range(order):
-                grid.index_add_(0, ib + torch.remainder(per_dim[2][0] + c, n),
-                                wab * per_dim[2][1][c])
-    return grid.reshape(n, n, n)
 
 
 def delta_power_grid(pos, gridsize: int, boxsize: float, order: int = 4,
@@ -64,12 +28,12 @@ def delta_power_grid(pos, gridsize: int, boxsize: float, order: int = 4,
     """|δ(k)|² over the rfft layout, interlaced (bcc) and deconvolved."""
     n = gridsize
     dtype = pos.dtype
-    grid = deposit(pos, n, boxsize, order)
+    grid = deposit(pos, 1.0, n, boxsize, order)
     mean = grid.mean()
     slab = rfft3(grid / mean - 1.0)
     if interlace:
         shift = 0.5 * boxsize / n
-        grid2 = deposit(periodic_wrap(pos + shift, boxsize), n, boxsize, order)
+        grid2 = deposit(periodic_wrap(pos + shift, boxsize), 1.0, n, boxsize, order)
         phase = fourier.interlace_phase(n, (-0.5, -0.5, -0.5), dtype, pos.device)
         slab = (slab + rfft3(grid2 / mean - 1.0) * phase) / 2
     if deconvolve:
@@ -125,11 +89,9 @@ def powerspec(pos, gridsize: int, boxsize: float, n_particles: int,
     if isinstance(bins_per_decade, dict):
         raise NotImplementedError("running bins-per-decade (ROADMAP Queue 1 "
                                   "item 13: analysis)")
-    if isinstance(order, str):
-        order = ORDER_NAMES[order.upper()]
     n = gridsize
     V = boxsize**3
-    p2 = delta_power_grid(pos, n, boxsize, int(order), deconvolve,
+    p2 = delta_power_grid(pos, n, boxsize, interpolation_order(order), deconvolve,
                           bool(interlace)).to(torch.float64)
     bins, k_phys, nbins = bin_indices_and_k(n, boxsize, bins_per_decade,
                                             pos.device)

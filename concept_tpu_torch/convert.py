@@ -1,12 +1,14 @@
 """Carry particle states between the JAX package and the port as numpy
 arrays, field for field (ParticleState: pos, mom, ids, rungs; RungState:
-pos, mom, valid, rungs, ids), so that both can start from one state."""
+pos, mom, valid, rungs, ids; BucketState: pos, mom, valid), so that both
+can start from one state."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from concept_tpu_torch.bucketsim import BucketState
 from concept_tpu_torch.components import ParticleState
 from concept_tpu_torch.p3mrungs import RungState
 
@@ -35,3 +37,22 @@ def to_numpy(state) -> dict:
     (fields that are None are left out)."""
     return {k: v.detach().cpu().numpy() for k, v in state._asdict().items()
             if v is not None}
+
+
+def bucket_state_from_jax(arrays: dict, gridsize: int, device="cpu") -> BucketState:
+    """{pos, mom: (3, K, Cp), valid: (K, Cp)} numpy arrays of a JAX
+    ``BucketState``, whose block axis is padded to a multiple of 128
+    lanes, → the port's BucketState with C = (gridsize/2)³ columns.  The
+    padding columns must be empty (the JAX package's spill may fill them;
+    rebucket such a state in the port instead)."""
+    C = (gridsize // 2) ** 3
+    valid = np.asarray(arrays["valid"])
+    if valid[:, C:].any():
+        raise ValueError("the JAX state holds particles in its padding columns")
+
+    def conv(a, dtype=None):
+        return torch.as_tensor(np.array(np.asarray(a)[..., :C]),
+                               device=device, dtype=dtype)
+
+    return BucketState(pos=conv(arrays["pos"]), mom=conv(arrays["mom"]),
+                       valid=conv(valid, torch.bool))

@@ -5,8 +5,9 @@ reference main.py:1676-2188).
 The port runs one matter particle component with P³M gravity, stepped
 by adaptive rungs (the default run, ``N_rungs > 1``:
 p3mrungs.RungSimulationAdapter) or globally (``N_rungs = 1``:
-sim.Simulation).  Multi-component and fluid runs, snapshot input and
-output, autosave and the PM-only and PP methods raise
+sim.Simulation), or with PM gravity, stepped globally whatever
+``N_rungs`` says (as the JAX package does).  Multi-component and fluid
+runs, snapshot input and output, autosave and the PP methods raise
 ``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 
@@ -130,10 +131,15 @@ def softening_length(cfg: RunConfig, spec, gridsize: int) -> float:
 
 
 def run(cfg: RunConfig, max_steps: int = 100000, seed: int | None = None,
-        device=None):
+        device=None, deposit_method: str | None = None):
     """Run the simulation described by cfg on ``device`` (default: the
-    CUDA card; a missing card raises).  Returns (sim, state, a); the host
-    seconds of realization, evolution and output are in ``sim.timings``."""
+    CUDA card; a missing card raises).  ``deposit_method`` (default
+    'auto') is the generic PM's, as in the JAX package: 'pallas' names the
+    block kernels of PERF.md rows 10-11 (CUDA on the card, their plain
+    versions on the CPU); 'auto' takes them on the card wherever they
+    apply and 'scatter' elsewhere (grid/interp.py).  Returns (sim, state,
+    a); the host seconds of realization, evolution and output are in
+    ``sim.timings``."""
     from concept_tpu_torch.p3mrungs import RungSimulationAdapter
     from concept_tpu_torch.timestep import prepare_static_timestepping
     from concept_tpu_torch.utils.terminal import set_formatting, set_suppress_output
@@ -152,14 +158,15 @@ def run(cfg: RunConfig, max_steps: int = 100000, seed: int | None = None,
         raise NotImplementedError("multi-component runs (ROADMAP Queue 1 item 12)")
     spec, _ = comps[0]
     method = spec.force_method("gravity") or "p3m"
-    if method != "p3m":
+    if method not in ("pm", "p3m"):
         raise NotImplementedError(
             f"gravity {method!r} ({METHOD_ITEMS.get(method, 'not a method')})")
     pot = cfg.potential_options
     gridsize = int(pot.get("gridsize_per_method", {}).get(method)
-                   or pot.get("gridsize") or 2 * round(spec.N ** (1 / 3)))
+                   or pot.get("gridsize")
+                   or (2 if method == "p3m" else 1) * round(spec.N ** (1 / 3)))
     overrides = shortrange_overrides(cfg, cfg.boxsize, gridsize)
-    rungs = cfg.N_rungs > 1
+    rungs = method == "p3m" and cfg.N_rungs > 1
     static_dt = prepare_static_timestepping(cfg.static_timestepping)
     if rungs:
         scale = 1.25 * cfg.boxsize / gridsize
@@ -174,21 +181,16 @@ def run(cfg: RunConfig, max_steps: int = 100000, seed: int | None = None,
                 "recording static_timestepping with rungs: the rung stepper "
                 "replays a recorded file, the global stepper (N_rungs = 1) "
                 "records it")
-    else:
-        fused = (pot.get("interpolation", 2) in (2, "CIC", "cic")
-                 and tuple(pot.get("deconvolve", (True, True))) == (True, True)
-                 and not bool(pot.get("interlace", False))
-                 and pot.get("differentiation", "fourier") in ("fourier", 0))
-        if not fused:
-            raise NotImplementedError(
-                f"potential_options {pot}: the global P³M stepper runs CIC, "
-                f"deconvolution of order 4, no interlacing and Fourier "
-                f"differentiation (ROADMAP Queue 1 items 4, 10)")
     if dev.type == "cuda":
         masterprint(f"Device: {dev} ({_device_name(dev)})")
     sim_config = SimConfig(
         boxsize=cfg.boxsize, potential_gridsize=gridsize, device=dev,
         dtype=dtype, G=consts.G_Newton, method=method,
+        interpolation_order=pot.get("interpolation", 2),
+        deconvolve=tuple(pot.get("deconvolve", (True, True))),
+        differentiation=pot.get("differentiation", "fourier"),
+        interlace=pot.get("interlace", False),
+        deposit_method=deposit_method or "auto",
         softening=softening_length(cfg, spec, gridsize),
         softening_kernel=cfg.softening_kernel,
         dt_base_background_factor=cfg.Delta_t_base_background_factor,

@@ -1,7 +1,7 @@
 """Run configuration, the time-step limiter constants and the global
 stepper (port of ``SimConfig``, the ``FAC_*`` / ``DELTA_A_MAX_*``
-constants and ``Simulation`` for P³M on one device, concept_tpu/sim.py;
-reference main.py:214-461, 697-996, 2345-2433).
+constants and ``Simulation`` for PM and P³M on one device,
+concept_tpu/sim.py; reference main.py:214-461, 697-996, 2345-2433).
 
 The global stepper is leapfrog KDK with exact time integrals (reference
 integration.py:712):
@@ -9,9 +9,12 @@ integration.py:712):
     kick:  mom ← mom − m ∇φ · ᔑ a⁻¹ dt
     drift: pos ← pos + mom/m · ᔑ a⁻² dt
 
-Every particle takes the same Δt (``N_rungs = 1``); each kick is the
-fused P³M kick of forces/p3m.py.  The host advances the scalars (t, a,
-Δt, the Δt hysteresis of timestep.py) and the fixed-size budgets.
+Every particle takes the same Δt.  A P³M kick with CIC, Fourier
+gradients, no interlacing and deconvolution of order 4 is the fused kick
+of forces/p3m.py; every other PM or P³M kick is the generic PM of
+forces/pm.py (plus, for P³M, the short-range sweep).  The host advances
+the scalars (t, a, Δt, the Δt hysteresis of timestep.py) and the
+fixed-size budgets.
 """
 
 from __future__ import annotations
@@ -23,6 +26,9 @@ import numpy as np
 import torch
 
 from concept_tpu_torch.components import ParticleState, periodic_wrap
+from concept_tpu_torch.forces.pm import interlace_pair, pm_gravity_momentum_updates
+from concept_tpu_torch.forces.shortrange import shortrange_momentum_updates
+from concept_tpu_torch.grid.interp import interpolation_order
 from concept_tpu_torch.utils.terminal import warn
 
 # Reference numeric defaults (main.py:2345-2433)
@@ -34,8 +40,7 @@ DELTA_A_MAX_EARLY = 0.00153
 DELTA_A_MAX_LATE = 0.022
 DT_INCREASE_MAX_FAC = 1.5
 
-METHOD_ITEMS = {"pm": "ROADMAP Queue 1 item 10: PM-only",
-                "pp": "ROADMAP Queue 1 item 11: PP / Ewald",
+METHOD_ITEMS = {"pp": "ROADMAP Queue 1 item 11: PP / Ewald",
                 "ppnonperiodic": "ROADMAP Queue 1 item 11: PP / Ewald"}
 
 
@@ -49,6 +54,14 @@ class SimConfig:
     dtype: torch.dtype = torch.float32
     G: float = 1.0
     method: str = "p3m"
+    # potential options (reference potential_options,
+    # param/example_explanatory:163-208)
+    interpolation_order: int = 2  # CIC
+    deconvolve: tuple = (True, True)  # (upstream/deposit, downstream/gather)
+    differentiation: object = "fourier"  # 'fourier' or a stencil order 2/4/6/8
+    interlace: object = False  # a lattice name, a bool or an (up, down) pair
+    # 'auto' | 'scatter' | 'sort' | 'sorted' | 'pallas' (grid/interp.py)
+    deposit_method: str = "auto"
     softening: float = 0.0
     # 'plummer' | 'spline' (GADGET-2 cubic spline, the reference default)
     # | 'none' (reference softening_kernel, example_explanatory:372)
@@ -78,8 +91,8 @@ class SimConfig:
 
 
 class Simulation:
-    """One matter-like particle component with P³M gravity and global
-    time stepping (``N_rungs = 1``), on one device."""
+    """One matter-like particle component with PM or P³M gravity and
+    global time stepping, on one device."""
 
     def __init__(self, spec, config: SimConfig, bg, lin=None):
         from concept_tpu_torch.forces.p3m import pm_block_capacity
@@ -87,7 +100,7 @@ class Simulation:
             NCELLS_ITEM, auto_capacity, cell_grid_shape,
         )
 
-        if config.method != "p3m":
+        if config.method not in ("pm", "p3m"):
             if config.method in METHOD_ITEMS:
                 raise NotImplementedError(
                     f"gravity {config.method!r} ({METHOD_ITEMS[config.method]})")
@@ -97,19 +110,27 @@ class Simulation:
         self.config = config
         self.bg = bg
         self.lin = lin
-        scale, rng = config.derived_shortrange()
-        self._sr_scale, self._sr_range = scale, rng
-        self._sr_ncells = cell_grid_shape(config.boxsize, rng)
-        if self._sr_ncells < 3:
-            raise ValueError(f"{self._sr_ncells} short-range cells per "
-                             f"dimension < 3 ({NCELLS_ITEM})")
-        cap = config.shortrange_capacity
-        if cap == 0 and spec.N:
-            cap = auto_capacity(spec.N, self._sr_ncells)
-        self._sr_capacity = cap
-        self._sr_max_overflow = max(2048, (spec.N or 0) // 1024)
+        cap = 0
+        if config.method == "p3m":
+            # short-range state: PM-only steps have no short-range cells
+            scale, rng = config.derived_shortrange()
+            self._sr_scale, self._sr_range = scale, rng
+            self._sr_ncells = cell_grid_shape(config.boxsize, rng)
+            if self._sr_ncells < 3:
+                raise ValueError(f"{self._sr_ncells} short-range cells per "
+                                 f"dimension < 3 ({NCELLS_ITEM})")
+            cap = config.shortrange_capacity
+            if cap == 0 and spec.N:
+                cap = auto_capacity(spec.N, self._sr_ncells)
+            self._sr_capacity = cap
+            self._sr_max_overflow = max(2048, (spec.N or 0) // 1024)
         self._pm_max_overflow = 65536
         self._k_pm = pm_block_capacity(spec.N, config.potential_gridsize)
+        self._fused = (config.method == "p3m"
+                       and interpolation_order(config.interpolation_order) == 2
+                       and config.differentiation in ("fourier", 0)
+                       and interlace_pair(config.interlace) == ("sc", "sc")
+                       and tuple(config.deconvolve) == (True, True))
         # steps and kicks of the run, the largest capacity K, the largest
         # straggler and PM-overflow counts of a kick, budget warnings, and
         # the largest PM deposit deficit |deposited/m − N| in particle
@@ -131,21 +152,47 @@ class Simulation:
 
     # ------------------------------------------------------------------ #
     def _kick(self, state: ParticleState, int_a1: float):
-        """The fused P³M kick, in place on the momenta.  Returns (state,
-        (n_sr_overflow, n_pm_overflow))."""
-        from concept_tpu_torch.forces.p3m import p3m_kick_components
-
+        """One kick, in place on the momenta: the fused P³M kick, or the
+        generic PM of forces/pm.py (plus the short-range sweep for P³M).
+        Returns (state, (n_sr_overflow, n_pm_overflow)), the counts that
+        have a budget: the generic PM's block overflow is exact at any
+        count and has none (0 here; its count is in the stats)."""
         cfg = self.config
         pos = state.pos
-        dmom, n_sr, n_pm, mass_sum = p3m_kick_components(
-            pos[:, 0], pos[:, 1], pos[:, 2], self.spec.mass, cfg.boxsize,
-            self._sr_scale, self._sr_range, int_a1, cfg.potential_gridsize,
-            self._sr_ncells, self._sr_capacity, k_pm=self._k_pm,
-            softening=cfg.softening, G=cfg.G,
-            max_overflow=self._sr_max_overflow,
-            pm_max_overflow=self._pm_max_overflow,
-            softening_kernel=cfg.softening_kernel,
-        )
+        comps = (pos[:, 0], pos[:, 1], pos[:, 2])
+        n_sr = 0
+        if self._fused:
+            from concept_tpu_torch.forces.p3m import p3m_kick_components
+
+            dmom, n_sr, n_pm, mass_sum = p3m_kick_components(
+                *comps, self.spec.mass, cfg.boxsize,
+                self._sr_scale, self._sr_range, int_a1, cfg.potential_gridsize,
+                self._sr_ncells, self._sr_capacity, k_pm=self._k_pm,
+                softening=cfg.softening, G=cfg.G,
+                max_overflow=self._sr_max_overflow,
+                pm_max_overflow=self._pm_max_overflow,
+                softening_kernel=cfg.softening_kernel,
+            )
+            budget_pm = n_pm
+        else:
+            info = {}
+            p3m = cfg.method == "p3m"
+            (d,) = pm_gravity_momentum_updates(
+                [pos], [self.spec.mass], cfg.potential_gridsize, cfg.boxsize, cfg.G,
+                int_a1, order=cfg.interpolation_order, deconvolve=cfg.deconvolve,
+                differentiation=cfg.differentiation, deposit_method=cfg.deposit_method,
+                longrange_scale=self._sr_scale if p3m else None,
+                interlace=cfg.interlace, info=info)
+            dmom = d.unbind(1)
+            if p3m:
+                dsr, n_sr = shortrange_momentum_updates(
+                    comps, self.spec.mass, cfg.boxsize, self._sr_scale, self._sr_range,
+                    int_a1, n_cells=self._sr_ncells, capacity=self._sr_capacity,
+                    softening=cfg.softening, G=cfg.G,
+                    max_overflow=self._sr_max_overflow,
+                    softening_kernel=cfg.softening_kernel)
+                dmom = tuple(a + b for a, b in zip(dmom, dsr))
+            n_pm, mass_sum, budget_pm = info["n_overflow"], info["mass_sum"], 0
         for d in range(3):
             state.mom[:, d] += dmom[d]
         st = self.stats
@@ -155,7 +202,7 @@ class Simulation:
         m = float(torch.tensor(self.spec.mass, dtype=pos.dtype))
         st["pm_mass_deficit_max"] = max(
             st["pm_mass_deficit_max"], abs(float(mass_sum) / m - self.spec.N))
-        return state, (n_sr, n_pm)
+        return state, (n_sr, budget_pm)
 
     def _drift(self, state: ParticleState, int_a2: float) -> ParticleState:
         fac = int_a2 / self.spec.mass
@@ -177,7 +224,7 @@ class Simulation:
         integers of the JAX package's check).  A count beyond its budget
         means forces were truncated at that kick: warn and grow the
         budget so it cannot recur."""
-        if n_sr > self._sr_max_overflow:
+        if self.config.method == "p3m" and n_sr > self._sr_max_overflow:
             warn(f"short-range overflow {n_sr} exceeded the straggler "
                  f"budget {self._sr_max_overflow}: pair forces were "
                  f"truncated this step; growing the budget")
@@ -245,9 +292,14 @@ class Simulation:
             limits.append((da_max / (a * H), "Δa"))
         if v_max is not None and v_max > 0:
             # comoving drift speed ẋ = v_pec/a; displacement per step
-            # bounded by a fraction of the split scale
-            limits.append((fac_nl * FAC_P3M * self._sr_scale / (v_max / a),
-                           "the P³M split scale"))
+            # bounded by a fraction of the split scale (P³M) or of the
+            # mesh cell (PM)
+            if cfg.method == "p3m":
+                limits.append((fac_nl * FAC_P3M * self._sr_scale / (v_max / a),
+                               "the P³M split scale"))
+            else:
+                cell = cfg.boxsize / cfg.potential_gridsize
+                limits.append((fac_nl * FAC_PM * cell / (v_max / a), "the PM grid"))
         if not limits:
             return float("inf"), ""
         return min(limits, key=lambda lb: lb[0])
@@ -307,8 +359,10 @@ class Simulation:
                 static_dt.record(
                     a_now, float(bg.a_of_t_np(min(t + dt_max, t_end))) - a_now)
 
+        p3m = self.config.method == "p3m"
         v_max = refresh_v(a, state)
-        self._refresh_shortrange_capacity(state)
+        if p3m:
+            self._refresh_shortrange_capacity(state)
         dt_max, _ = dt_max_at(a, v_max)
         record(a, dt_max)
         dt = ts.DT_INITIAL_FAC * dt_max if math.isfinite(dt_max) else t_end - t
@@ -325,7 +379,8 @@ class Simulation:
             if step_count and (step_count - step_last_sync) >= ts.DT_PERIOD:
                 # period boundary: full limiter refresh, Δt may increase
                 v_max = refresh_v(a, state)
-                self._refresh_shortrange_capacity(state)
+                if p3m:
+                    self._refresh_shortrange_capacity(state)
                 dt_max, bn = dt_max_at(a, v_max)
                 record(a, dt_max)
                 if dt > dt_max or dt_max > ts.DT_INCREASE_MIN_FAC * dt:

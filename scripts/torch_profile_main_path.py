@@ -1,15 +1,16 @@
 """Where the time of the port's main path goes, on one NVIDIA card.
 
     python3 scripts/torch_profile_main_path.py [--N 64**3] [--mesh 128]
-        [--a-end 1.0] [--out profile.json]
+        [--a-end 1.0] [--gravity p3m|pm] [--out profile.json]
 
 Builds the kernels, warms up with a short run, then runs
-param/example_basic.py (with the given particle count, P³M grid and final
-a) through the port's ``run`` twice: once plain, for the host wall time,
+param/example_basic.py (with the given particle count, grid, final a and
+gravity: P³M with rungs as shipped, or PM only, whose global steps run
+the block kernels of PERF.md rows 10-11) through the port's ``run`` twice: once plain, for the host wall time,
 and once under ``torch.profiler`` (CPU and CUDA activities), for the
 device time of every kernel, copy and fill.  Prints the device time by
-group (the pair sweep, the CIC deposit and gather, cuFFT, sorts, and all
-other PyTorch kernels), the top kernels, and the device busy share: the
+group (the pair sweep, the CIC deposit and gather on cells and on PM blocks,
+cuFFT, sorts, and all other PyTorch kernels), the top kernels, and the device busy share: the
 profiled run's device time over the plain run's wall time, both of the
 whole run (realization, evolution, output).  The profiler slows the
 host, so its own wall time would understate the share; the two runs are
@@ -32,6 +33,8 @@ PARAM = os.path.join(ROOT, "param", "example_basic.py")
 GROUPS = (("pair_sweep", ("pair_sweep_kernel",)),
           ("deposit_cells", ("deposit_cells_kernel",)),
           ("gather_cells", ("gather_cells_kernel",)),
+          ("deposit_pm", ("pm_deposit_kernel",)),
+          ("gather_pm", ("pm_gather_kernel",)),
           ("cufft", ("fft", "FFT")),
           ("sort", ("Sort", "sort")))
 
@@ -64,6 +67,7 @@ def main(argv=None) -> int:
     p.add_argument("--N", default="64**3")
     p.add_argument("--mesh", type=int, default=128)
     p.add_argument("--a-end", type=float, default=1.0)
+    p.add_argument("--gravity", choices=("p3m", "pm"), default="p3m")
     p.add_argument("--top", type=int, default=12)
     p.add_argument("--out")
     args = p.parse_args(argv)
@@ -80,9 +84,12 @@ def main(argv=None) -> int:
     overrides = [f"initial_conditions={{'species':'matter','N':{args.N}}}",
                  f"potential_options={args.mesh}",
                  f"output_times={{'powerspec': [{args.a_end}]}}"]
+    if args.gravity == "pm":
+        overrides.append("select_forces={'all': {'gravity': 'pm'}}")
     _build.build_all()
     with tempfile.TemporaryDirectory() as outdir:
-        _run(overrides[:2] + ["output_times={'powerspec': [0.021]}"], outdir)
+        _run(overrides[:2] + overrides[3:] + ["output_times={'powerspec': [0.021]}"],
+             outdir)
         sim, a = _run(overrides, outdir)
         wall = _wall(sim)
         steps = sim.hysteresis["step_count"]
@@ -97,19 +104,22 @@ def main(argv=None) -> int:
         groups[g] = groups.get(g, 0.0) + e.device_time_total
     top = sorted(events, key=lambda e: -e.device_time_total)[:args.top]
     smi = os.popen("nvidia-smi --query-gpu=name,power.limit --format=csv,noheader").read().strip()
+    # rung runs count substeps; global steps are their own substeps
+    stats, stats_p = (getattr(x, "inner", x).stats for x in (sim, sim_p))
     res = {
-        "card": smi, "N": args.N, "mesh": args.mesh, "a_end": a, "base_steps": steps,
-        "substeps": sim.inner.stats["substeps"], "max_rung": sim.inner.stats["max_rung"],
-        "run_wall_s": wall, "timings": sim.timings,
+        "card": smi, "N": args.N, "mesh": args.mesh, "gravity": args.gravity, "a_end": a,
+        "base_steps": steps, "substeps": stats.get("substeps", steps),
+        "max_rung": stats.get("max_rung", 0), "run_wall_s": wall, "timings": sim.timings,
         "profiled_run_wall_s": _wall(sim_p),
-        "profiled_substeps": sim_p.inner.stats["substeps"],
+        "profiled_substeps": stats_p.get("substeps", stats_p.get("steps")),
         "device_s": total_us / 1e6,
         "device_s_by_group": {g: v / 1e6 for g, v in sorted(groups.items())},
         "top_kernels": [{"name": e.key[:90], "calls": e.count,
                          "device_s": e.device_time_total / 1e6} for e in top],
     }
     res["device_busy_share"] = res["device_s"] / wall
-    print(f"{smi}: N = {args.N}, mesh {args.mesh}, a → {a:.4g}: {steps} base steps, "
+    print(f"{smi}: N = {args.N}, mesh {args.mesh}, gravity {args.gravity}, a → {a:.4g}: "
+          f"{steps} base steps, "
           f"{res['substeps']} substeps, max rung {res['max_rung']}")
     print(f"run wall {wall:.3f} s unprofiled ({sim.timings}); profiled run: "
           f"{res['profiled_substeps']} substeps, device time {total_us / 1e6:.3f} s; "

@@ -308,3 +308,90 @@ def test_float64_on_the_card_raises(dev):
     s = torch.zeros((3, 8, 27), dtype=torch.float64, device=dev)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pair_sweep(s, s, 3, 1.0, 0.1, 0.2, 0.0)
+
+
+def _clumped_blocks(dev, n, N, clump, K=32, box=4.0, seed=9):
+    """N uniform particles plus ``clump`` in the block of mesh cells
+    [2, 4)³ (far beyond the capacity K), bucketed for the PM-only block
+    kernels: (bucket dict, positions)."""
+    from concept_tpu_torch.grid.bucketed import bucketize_blocks
+
+    rng = np.random.default_rng(seed)
+    h = box / n
+    pos = rng.uniform(0, box, (N + clump, 3))
+    pos[:clump] = 2 * h + rng.uniform(0, 1.9 * h, (clump, 3))
+    pos = torch.as_tensor(pos.astype(np.float32), device=dev)
+    return bucketize_blocks(pos, 1.3, n, box, capacity=K, uniform_q=True), pos
+
+
+@pytest.mark.parametrize("n, D", [(32, 3), (32, 1), (18, 3)], ids=["n32-D3", "n32-D1",
+                                                                  "odd-C-n18-D3"])
+def test_pm_block_kernels_match_plain(dev, n, D):
+    """Rows 10 and 11 (the PM-only block kernels) against their plain
+    versions, on buckets with a deep clump that overflows (600 particles
+    in one block at capacity 32), at an even and an odd block count
+    (18 → 9³ = 729 blocks) and D = 1 or 3 fields."""
+    from concept_tpu_torch.grid.cuda_pm import (
+        deposit_pm, deposit_pm_plain, gather_pm, gather_pm_plain,
+    )
+
+    bk, _ = _clumped_blocks(dev, n, 3 * n**3 // 8, 600)
+    assert int(bk["over_idx"].numel()) >= 600 - 32
+    args = (bk["lidx"], bk["fx"], bk["fy"], bk["fz"])
+    before = (deposit_pm.launches, gather_pm.launches)
+    got, ref = deposit_pm(*args, bk["q"], n), deposit_pm_plain(*args, bk["q"], n)
+    torch.testing.assert_close(got, ref, rtol=2e-5, atol=1e-5 * float(ref.abs().max()))
+    assert float(got.sum(dtype=torch.float64)) == pytest.approx(
+        1.3 * float(bk["valid"].sum()), rel=1e-6)
+    rng = np.random.default_rng(4)
+    grids = torch.as_tensor(rng.standard_normal((D, n, n, n)).astype(np.float32), device=dev)
+    wv = bk["valid"].float()
+    got, ref = gather_pm(*args, wv, grids, n), gather_pm_plain(*args, wv, grids, n)
+    torch.testing.assert_close(got, ref, rtol=2e-5, atol=1e-5 * float(ref.abs().max()))
+    assert float(got[:, ~bk["valid"]].abs().max()) == 0.0
+    assert (deposit_pm.launches, gather_pm.launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("differentiation", ["fourier", 4])
+def test_pm_kernel_path_equals_scatter_on_the_card(dev, differentiation):
+    """The PM kick through rows 10-11 ('auto' on the card) with a deep
+    clump equals the plain 'scatter' PM: the block overflow is exact, and
+    the gradients are the ones ``differentiation`` asks for."""
+    from concept_tpu_torch.forces.pm import pm_gravity_momentum_updates
+    from concept_tpu_torch.grid.cuda_pm import deposit_pm, gather_pm
+
+    n, box = 32, 4.0
+    _, pos = _clumped_blocks(dev, n, 4096, 600, box=box)
+    info = {}
+    kw = dict(kick_integral=0.5, differentiation=differentiation)
+    before = (deposit_pm.launches, gather_pm.launches)
+    (auto,) = pm_gravity_momentum_updates([pos], [1.3], n, box, 1.0,
+                                          deposit_method="auto", info=info, **kw)
+    assert (deposit_pm.launches, gather_pm.launches) == (before[0] + 1, before[1] + 3)
+    (plain,) = pm_gravity_momentum_updates([pos], [1.3], n, box, 1.0,
+                                           deposit_method="scatter", **kw)
+    assert info["n_overflow"] >= 600 - 32
+    scale = float(plain.abs().max())
+    torch.testing.assert_close(auto / scale, plain / scale, rtol=0, atol=1e-5)
+
+
+def test_bucket_step_on_the_card_matches_the_cpu(dev):
+    """One BucketSimulation step (rows 8-9 with stragglers) on the card
+    against the same step on the CPU (the plain versions)."""
+    from concept_tpu_torch.bucketsim import BucketSimulation
+
+    rng = np.random.default_rng(2)
+    pos = rng.uniform(0, 40.0, (3000, 3)).astype(np.float32)
+    mom = (10 * rng.standard_normal((3000, 3))).astype(np.float32)
+    out = []
+    for device in ("cpu", dev):
+        sim = BucketSimulation(16, 40.0, 2.0, 1.0, capacity=24, device=device)
+        st = sim.init_state(torch.as_tensor(pos), torch.as_tensor(mom))
+        for _ in range(2):
+            st, ns = sim.step(st, 0.3, 0.25)
+        out.append((st.pos.cpu(), st.valid.cpu(), ns))
+    # the second step's stragglers: from positions that may differ in the
+    # last bit (the deposits' atomics add in another order)
+    assert out[1][2] > 0 and abs(out[0][2] - out[1][2]) <= 1
+    assert torch.equal(out[0][1], out[1][1])
+    torch.testing.assert_close(out[1][0], out[0][0], rtol=0, atol=1e-3 * 40.0)
