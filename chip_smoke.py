@@ -8,9 +8,11 @@ Phases, each of which fails loudly:
    source, all started together) and print the build time.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes of a realized 128³-particle state on the mesh-256 cell layout:
-   the pair sweep with its occupancy row bounds and without bounds, the
-   CIC deposit, and the CIC gather of the three PM force components.
-   Prints each kernel's error and time, the plain version's time, the
+   the pair sweep with its per-column occupancy row bounds and without
+   bounds, the CIC deposit, and the CIC gather of the three PM force
+   components.  Prints each kernel's error and time (for the sweeps also
+   the row pairs the launch visits beside the pair tests the slots
+   need), the plain version's time, the
    least time the card could take (its bound) and, for the deposit and
    the gather, the time of the one PyTorch library call that does their
    work (``index_add_`` of precomputed corners, ``grid_sample``).
@@ -47,14 +49,16 @@ Then the same for the global stepper (``N_rungs = 1``):
 Then the rung stepper's two other layouts:
 
 2c. The reach-2 sweep (117 kept offsets), one-sided (receivers at the
-    negative sentinel) and two-sided (``sweep_reach``), and the cell
-    deposit and gather at cb = 4, each against its plain version at the
-    shapes of a realized 128³ state on mesh 256 with ``unified_cb = 4``
-    (64³ cells), with the bounds and library calls as in 2.
+    negative sentinel) with per-column occupancy bounds, as the stepper
+    launches it, and without, and two-sided (``sweep_reach``, no
+    bounds), and the cell deposit and gather at cb = 4, each against its
+    plain version at the shapes of a realized 128³ state on mesh 256 with
+    ``unified_cb = 4`` (64³ cells), with the library calls as in 2.
 3c. ``param/example_basic.py`` at 62³ particles on grid 124 (the
     4-mesh-cell layout), a = 0.02 → 1: it must launch the reach sweep and
     the cell deposit and gather and no other kernel; then the reach sweep
-    is held against its plain version on the run's final slots.
+    is held against its plain version on the run's final slots, with
+    their per-column bounds.
 3d. The same at 63³ on grid 126 (the tight layout, 19³ cells): the
     bounded ±1 sweep and the block deposit and gather.
 4c, 4d. 250³ particles on grid 500 (4-mesh-cell layout) and 255³ on grid
@@ -262,23 +266,34 @@ def _pair_work(pos_s, n, boxsize, cutoff2, soft2, offsets):
     return tested, within, near, int(valid.sum())
 
 
+def _visited(rb, sb, n: int, offsets) -> int:
+    """Row pairs a sweep launch visits under per-column bounds rb, sb (C,):
+    Σ_c rb[c]·Σ_d sb[c + d] over the offsets d (periodic)."""
+    import torch
+
+    s3 = sb.reshape(n, n, n)
+    nbsum = sum(torch.roll(s3, (-di, -dj, -dk), (0, 1, 2)) for di, dj, dk in offsets)
+    return int((rb.reshape(n, n, n) * nbsum).sum())
+
+
 def _check_sweep(tag: str, pos_s, sim, bounds, reps: int, plain_reps: int,
                  reach: str | None = None) -> dict:
     """The pair sweep kernel against its plain version on the slot
     positions pos_s (3, K, C) of a layout with `sim`'s geometry (nc,
     boxsize, scale, cutoff, softening, softening_kernel), receivers =
-    suppliers, with row bounds (rext, sext) or (None, None): errors, times
-    and bound.  ``reach`` = "one-sided" or "two-sided" sweeps `sim`'s
-    reach-2 offsets (the 4-mesh-cell layout) instead of the ±1 columns:
-    one-sided through pair_sweep_reach with the receivers at the negative
-    sentinel, two-sided through sweep_reach.  The bound counts the work
-    the function needs on these slots (see _pair_work), which row bounds
-    do not change.  Fails on a disagreement beyond max|Δ|/max|ref| ≤
-    1e-5."""
+    suppliers, with per-column row bounds (rext, sext) or (None, None):
+    errors, times and bound.  ``reach`` = "one-sided" or "two-sided"
+    sweeps `sim`'s reach-2 offsets (the 4-mesh-cell layout) instead of the
+    ±1 columns: one-sided through pair_sweep_reach with the receivers at
+    the negative sentinel, two-sided through sweep_reach (no bounds).
+    The bound counts the work the function needs on these slots (see
+    _pair_work), which row bounds do not change; the row pairs the launch
+    visits are Σ_c rb[c]·Σ_d sb[c + d].  Fails on a disagreement beyond
+    max|Δ|/max|ref| ≤ 1e-5."""
     import torch
 
     from concept_tpu_torch.forces.cuda_shortrange import (
-        OFFSETS_27, _bounds, pair_sweep, pair_sweep_plain, pair_sweep_reach,
+        OFFSETS_27, column_bounds, pair_sweep, pair_sweep_plain, pair_sweep_reach,
     )
     from concept_tpu_torch.forces.shortrange import SENTINEL, f32_square, sweep_reach
 
@@ -296,10 +311,12 @@ def _check_sweep(tag: str, pos_s, sim, bounds, reps: int, plain_reps: int,
                            -SENTINEL * sim.boxsize)
 
         def kern():
-            return pair_sweep_reach(recv, pos_s, *args[:5], offsets, kernel=args[5])
+            return pair_sweep_reach(recv, pos_s, *args[:5], offsets, kernel=args[5],
+                                    rext=bounds[0], sext=bounds[1])
 
         def plain():
-            return pair_sweep_plain(recv, pos_s, *args, offsets=offsets)
+            return pair_sweep_plain(recv, pos_s, *args, rext=bounds[0], sext=bounds[1],
+                                    offsets=offsets)
     else:
         from concept_tpu_torch.p3mrungs import UNIFIED_SWEEP_MARGIN
 
@@ -321,14 +338,15 @@ def _check_sweep(tag: str, pos_s, sim, bounds, reps: int, plain_reps: int,
     del got, ref
     ms, plain_ms = _time_ms(kern, reps), _time_ms(plain, plain_reps)
     _, K, C = pos_s.shape
-    rb, sb = _bounds(*bounds, sim.nc, K, K, pos_s.device)
-    visited = len(offsets) * int((rb * sb).sum())
+    rb, sb = (torch.full((C,), K, device=pos_s.device) if e is None else
+              torch.clamp(column_bounds(e, sim.nc).to(torch.int64), max=K) for e in bounds)
+    visited = _visited(rb, sb, sim.nc, offsets)
     tested, within, near, n_valid = _pair_work(pos_s, sim.nc, sim.boxsize, args[3], args[4],
                                                offsets)
     flops = FLOPS_PER_TESTED_PAIR * tested + FLOPS_PER_PAIR_IN_CUTOFF * within
     # valid positions read, the whole (3, K, C) result written, bounds read
-    nbytes = 4 * (3 * n_valid + pos_s.numel()) + (
-        8 * bounds[0].numel() if bounds[0] is not None else 0)
+    nbytes = 4 * (3 * n_valid + pos_s.numel()) + sum(
+        4 * e.numel() for e in bounds if e is not None)
     bound_ms = 1e3 * max(flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S)
     print(f"  {'pair_sweep' if reach is None else 'reach sweep'} ({tag}): max |Δ| {err:.3e}, max|Δ|/max|ref| {rel:.3e} "
           f"(tol 1e-5) {'ok' if ok else 'FAIL'}; {ms:.3f} ms, plain {plain_ms:.1f} ms, "
@@ -614,8 +632,9 @@ def check_global_kernels(N: int = 128**3, mesh: int = 256, device: str = "cuda")
 def check_reach_kernels(N: int = 128**3, mesh: int = 256, device: str = "cuda") -> dict:
     """The 4-mesh-cell layout's kernels against their plain versions at
     the shapes of a realized N-particle state on mesh `mesh` with
-    ``unified_cb = 4``: the reach sweep one-sided and two-sided, the cell
-    deposit and gather at cb = 4."""
+    ``unified_cb = 4``: the reach sweep one-sided with per-column
+    occupancy bounds and without, and two-sided, the cell deposit and
+    gather at cb = 4."""
     from concept_tpu_torch.forces.shortrange import SENTINEL
     from concept_tpu_torch.grid.cuda_cells import (
         deposit_cells, deposit_cells_plain, gather_cells, gather_cells_plain,
@@ -632,8 +651,11 @@ def check_reach_kernels(N: int = 128**3, mesh: int = 256, device: str = "cuda") 
           f"{K} slot rows (capacity {sim.capacity}), {len(sim.offsets)} kept offsets")
     out = {"shape": {"N": N, "mesh": mesh, "nc": nc, "K_rows": K,
                      "offsets": len(sim.offsets)}}
+    ext = sim._ext_occ
+    out["reach_one_sided"] = _check_sweep("one-sided, bounded", pos_s, sim, (ext, ext), 10, 1,
+                                          reach="one-sided")
     for reach in ("one-sided", "two-sided"):
-        out[f"reach_{reach.replace('-', '_')}"] = _check_sweep(
+        out[f"reach_{reach.replace('-', '_')}_unbounded"] = _check_sweep(
             reach, pos_s, sim, (None, None), 10, 1, reach=reach)
     del pos_s
     out.update(_check_pm_kernels(
@@ -824,8 +846,9 @@ def _layout_main_path(tag: str, n: int, mesh: int, ucb: int, kernels) -> dict:
     """example_basic at n³ particles on grid `mesh`, a = 0.02 → 1, which
     must take the rung layout with cells `ucb` mesh cells wide (0: tight)
     and launch `kernels` only; then the run's sweep against its plain
-    version on the final, clustered slots (the reach sweep one-sided on
-    the 4-mesh-cell layout, the bounded ±1 sweep on the tight one)."""
+    version on the final, clustered slots with their per-column bounds
+    (the reach sweep one-sided on the 4-mesh-cell layout, the ±1 sweep on
+    the tight one)."""
     from concept_tpu_torch.forces.shortrange import SENTINEL
 
     outdir = tempfile.mkdtemp(prefix=f"chip_smoke_{tag}_")
@@ -851,8 +874,8 @@ def _layout_main_path(tag: str, n: int, mesh: int, ucb: int, kernels) -> dict:
     pos_s = _sentineled(layout, K, SENTINEL * inner.boxsize)
     print(f"kernel vs plain on the final layout: {inner.nc}³ cells, {K} slot rows")
     if ucb == 4:
-        clustered = _check_sweep("one-sided, clustered", pos_s, inner, (None, None), 10, 1,
-                                 reach="one-sided")
+        clustered = _check_sweep("one-sided, clustered, bounded", pos_s, inner,
+                                 (inner._ext_occ, inner._ext_occ), 10, 1, reach="one-sided")
     else:
         clustered = _check_sweep("clustered, bounded", pos_s, inner,
                                  (inner._ext_occ, inner._ext_occ), 10, 1)
@@ -1203,7 +1226,7 @@ KERNELS = (
      "concept_tpu/forces/pallas_shortrange.py:976", "reach_main_path"),
     ("pair_sweep_two_sided", "pair_sweep", "check_global", "pair_sweep_two_sided",
      SWEEP_SRC, "concept_tpu/forces/pallas_shortrange.py:220", "global_main_path"),
-    ("sweep_reach", "sweep_reach", "check_reach", "reach_two_sided", SWEEP_SRC,
+    ("sweep_reach", "sweep_reach", "check_reach", "reach_two_sided_unbounded", SWEEP_SRC,
      "concept_tpu/forces/pallas_shortrange.py:831", None),
     ("deposit_blocks", "deposit_blocks", "check_global", "deposit_blocks", CELLS_SRC,
      "concept_tpu/grid/pallas_pm.py:210", "global_main_path"),
@@ -1272,10 +1295,13 @@ def main(argv=None) -> int:
             cb4_launches=results["reach_main_path"]["launches"][name])
     byname["pair_sweep"].update(tight_launches=results["tight_main_path"]["launches"]
                                 ["pair_sweep"])
-    unb = results["check"]["pair_sweep_unbounded"]
-    byname["pair_sweep"].update(
-        unbounded_max_abs_err=unb["max_abs_err"], unbounded_ms=unb["ms"],
-        unbounded_plain_ms=unb["plain_ms"], unbounded_bound_ms=unb["bound_ms"])
+    for name, phase, key in (("pair_sweep", "check", "pair_sweep_unbounded"),
+                             ("pair_sweep_reach", "check_reach",
+                              "reach_one_sided_unbounded")):
+        unb = results[phase][key]
+        byname[name].update(
+            unbounded_max_abs_err=unb["max_abs_err"], unbounded_ms=unb["ms"],
+            unbounded_plain_ms=unb["plain_ms"], unbounded_bound_ms=unb["bound_ms"])
     for name, phase, key in (("pair_sweep", "main_path", "pair_sweep_clustered"),
                              ("pair_sweep_two_sided", "global_main_path",
                               "pair_sweep_clustered"),

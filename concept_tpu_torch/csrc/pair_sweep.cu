@@ -18,27 +18,50 @@
 // a box face is seen at ±boxsize (for |d| ≤ 2 and n ≥ 5 every offset of
 // a column names a distinct column).  Invalid slots hold a far sentinel
 // (±1e4·boxsize), so the cutoff mask removes them; coincident sentinels
-// give r² = 0, removed by r² > 0.  Optional per-pencil row bounds (rext,
-// sext; pencil = ci·n + cj), for the |d| ≤ 1 table only: rows of column c
-// at or beyond rext[pencil(c)] output exactly 0, and suppliers at or
-// beyond the max of sext over the 9 neighbouring pencils are skipped.
+// give r² = 0, removed by r² > 0.  Optional per-column row bounds rb, sb
+// (C,): rows of column c at or beyond rb[c] output exactly 0, and the
+// supplier rows of a neighbour column at or beyond its sb are skipped.
 //
-// What bounds it on the card: FP32 operations.  A pair costs ~40 FP32
-// operations (an FMA counted as 2) and a rsqrt, against 12 bytes of
-// supplier data that a block reuses for all of its receiver rows.
-// Design: one block per receiver column, one thread per receiver row with
-// its sum in registers (columns deeper than 256 rows take several passes).
-// The block stages each neighbour column's supplier rows in shared memory,
-// 512 rows at a time (the ±box wrap applied while staging), so a supplier
-// row is read from device memory once per neighbouring column and pass
-// and then reused by every receiver row of the block; all threads read
-// the same staged row, a broadcast.  Rows and whole columns beyond the
-// bounds do no pair work.  No tensor cores: the pair force is not a
-// matrix product.  The offset table lives in the launch parameters (a
-// uniform read per neighbour column).  On the 4-mesh-cell layout (mean
-// occupancy 8, K ≈ 16) a block's 32 threads leave half of its warp idle,
-// and each column stages 117 neighbour columns of a few rows each:
-// simple first, to be redesigned for those shallow columns later.
+// What bounds it on the card: FP32 operations.  A pair test costs ~8
+// FP32 operations (with its loads and compares ~12 lane-instructions), a
+// pair inside the cutoff ~40 more and a rsqrt, against 12 bytes of
+// supplier data that every receiver of a column reuses.  Only ~5-10 % of
+// the tested pairs fall inside the cutoff, and the first version of this
+// kernel ran the force inline under the test: a warp took the force path
+// whenever one of its 32 receivers passed, which cost it 59 % of its time
+// at the 8-mesh-cell layout (scripts/torch_sweep_split.py).  Both designs
+// below therefore test 32 staged rows per lane into a pass mask, queue the
+// (block, mask) entries that hold a pass per lane in shared memory (QUEUE
+// of them), and drain the queues when one is full or the staged rows are
+// about to be replaced: there each lane walks its own passing pairs, so
+// the force path runs on pairs inside the cutoff only and a lane's sum
+// stays in its registers.  Lanes without a receiver hold NaN, which fails
+// every test.  Rows beyond a column's receiver bound do no work at all.
+// No tensor cores: the pair force is not a matrix product.
+// - The ±1 table (pair_sweep_kernel; columns of ~64 rows and 27
+//   neighbours at the 8-mesh-cell layout): one block per receiver column,
+//   one thread per receiver row (several passes past THREADS rows).  The
+//   block reads its 27 neighbours' row counts at once, stages their
+//   supplier rows, compacted by sb and with the ±box wrap applied, TILE
+//   rows at a time as float4 (one load a test), and every warp that holds
+//   a receiver tests all of them (a broadcast read).  Two block barriers
+//   per tile.
+// - The reach table (pair_sweep_kernel_reach; columns of ~8 rows and 117
+//   neighbours at the 4-mesh-cell layout): a block per receiver column
+//   leaves most of its lanes idle and pays two barriers per neighbour.  So
+//   one warp per receiver column, WARPS columns (consecutive in z, whose
+//   neighbourhoods overlap in L1) a block, at least 8 blocks resident on
+//   an SM, and no block barrier: the warp
+//   stages its own neighbourhood, CAP rows at a time (one lane per
+//   neighbour column, whose neighbours in z are neighbours in memory, a
+//   warp scan for the places; the lanes over the rows of a deep column; a
+//   column deeper than the room left is split across stagings), and splits
+//   its lanes as R ≤ 32 receivers × ⌊32/R⌋ groups of staged rows (lane =
+//   g·R + ρ, group g testing rows g, g + G, …), so that 8 receivers keep
+//   32 lanes busy; shuffles add the groups' sums at the end.
+// r² is formed unfused, in the plain version's order: the force jumps at
+// the cutoff, so the kernel and the plain version must take the same
+// pairs.
 #include <cuda_runtime.h>
 
 #define NCOEF 11
@@ -59,135 +82,414 @@ __device__ __forceinline__ float screening_g(float u, const GCoef& gc) {
   return g;
 }
 
-#define TILE 512     // supplier rows staged in shared memory at a time
-#define THREADS 256  // receiver rows per pass, at most
+struct ForceLaw {
+  int kernel;
+  float inv_scale, inv_scale2, h2, inv_h;
+  float soft2;
+};
+
+// −S(r/rₛ)·r⁻³_soft for a pair inside the cutoff (_make_accum)
+__device__ __forceinline__ float pair_factor(float r2, const ForceLaw& L,
+                                             const GCoef& gc) {
+  if (L.kernel == KERNEL_PLUMMER) {
+    const float r2s = r2 + L.soft2;
+    const float inv_r = rsqrtf(r2s);
+    const float g = screening_g(r2s * L.inv_scale2, gc);
+    return -(inv_r * inv_r * (inv_r + L.inv_scale * g));
+  }
+  const float inv_r = rsqrtf(fmaxf(r2, 1e-30f));
+  const float inv_r2 = inv_r * inv_r;
+  const float g = screening_g(r2 * L.inv_scale2, gc);
+  float f = -(inv_r2 * (inv_r + L.inv_scale * g));
+  if (L.kernel == KERNEL_SPLINE && r2 < L.h2) {
+    // near-field spline correction (_make_accum's near_m branch)
+    const float rr = r2 * inv_r;
+    const float S = 1.0f + (rr * L.inv_scale) * g;
+    const float far = inv_r2 * inv_r;
+    const float u = rr * L.inv_h;
+    const float near = 32.0f * L.inv_h * L.inv_h * L.inv_h *
+                       (1.0f / 3.0f + u * u * (-6.0f / 5.0f + u));
+    const float mid = (32.0f / 3.0f) * far *
+                      (u * u * u * (2.0f + u * (-4.5f + u * (3.6f - u))) -
+                       3.0f / 480.0f);
+    f -= S * ((u < 0.5f ? near : mid) - far);
+  }
+  return f;
+}
+
+// unfused, in the plain version's order
+__device__ __forceinline__ float dist2(float dx, float dy, float dz) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                   __fmul_rn(dz, dz));
+}
+
+#define THREADS 256      // ±1 kernel: receiver rows per pass, at most
+#define TILE 512         // ±1 kernel: supplier rows staged at a time
+#define WARPS 4          // reach kernel: receiver columns per block, a warp each
+#define CAP 256          // reach kernel: supplier rows a warp stages at a time
+#define QUEUE 8          // (32-test block, pass mask) entries a lane queues
 #define MAX_OFFSETS 125  // (2·2 + 1)³: reach 2
+#define FULL 0xffffffffu
 
 struct Offsets {
   int count;
   signed char d[3 * MAX_OFFSETS];  // (di, dj, dk) triples
 };
 
-__global__ void __launch_bounds__(THREADS) pair_sweep_kernel(
-    const float* __restrict__ recv, long long recv_cs, int K_r,
-    const float* __restrict__ sup, long long sup_cs, int K_s, int n,
-    const int* __restrict__ rext, const int* __restrict__ sext,
-    float* __restrict__ out, float boxsize, float inv_scale, float cutoff2,
-    float soft2, int kernel, GCoef gc, Offsets offs) {
-  __shared__ float sx[TILE], sy[TILE], sz[TILE];
-  const long long C = (long long)n * n * n;
-  const long long oc = (long long)K_r * C;
-  const int c = blockIdx.x;
-  const int ci = c / (n * n), cj = (c / n) % n, ck = c % n;
-  int rb = K_r, sb = K_s;
-  if (rext != nullptr) {
-    rb = min(rext[ci * n + cj], K_r);
-    int m = 0;
-    for (int di = -1; di <= 1; ++di)
-      for (int dj = -1; dj <= 1; ++dj)
-        m = max(m, sext[((ci + di + n) % n) * n + (cj + dj + n) % n]);
-    sb = min(m, K_s);
+struct Geometry {
+  const float* sup;
+  long long sup_cs, C;
+  int K_s, n;
+  const int* sb;
+  float boxsize;
+};
+
+// Column id and ±box shift of the neighbour c + d of column (ci, cj, ck).
+__device__ __forceinline__ int neighbour(const Geometry& G, int ci, int cj,
+                                         int ck, const signed char* d,
+                                         float& hx, float& hy, float& hz) {
+  const int n = G.n;
+  int ni = ci + d[0], nj = cj + d[1], nk = ck + d[2];
+  hx = ni < 0 ? -G.boxsize : (ni >= n ? G.boxsize : 0.0f);
+  hy = nj < 0 ? -G.boxsize : (nj >= n ? G.boxsize : 0.0f);
+  hz = nk < 0 ? -G.boxsize : (nk >= n ? G.boxsize : 0.0f);
+  ni = (ni + n) % n;
+  nj = (nj + n) % n;
+  nk = (nk + n) % n;
+  return (ni * n + nj) * n + nk;
+}
+
+__device__ __forceinline__ void stage_row(const Geometry& G, int row, int col,
+                                          float hx, float hy, float hz,
+                                          float4* q, int at) {
+  const long long a = (long long)row * G.C + col;
+  q[at] = make_float4(G.sup[a] + hx, G.sup[G.sup_cs + a] + hy,
+                      G.sup[2 * G.sup_cs + a] + hz, 0.0f);
+}
+
+// A lane's receiver and its sum.  A lane without a receiver holds NaN,
+// which fails every test.
+struct Receiver {
+  float ox, oy, oz, ax, ay, az;
+
+  __device__ __forceinline__ Receiver(const float* recv, long long cs,
+                                      long long at, bool own)
+      : ax(0.0f), ay(0.0f), az(0.0f) {
+    ox = oy = oz = __int_as_float(0x7fffffff);
+    if (own) {
+      ox = recv[at];
+      oy = recv[cs + at];
+      oz = recv[2 * cs + at];
+    }
   }
+
+  // bit u of m is set for a pair with the staged row p inside the cutoff
+  __device__ __forceinline__ void test(float4 p, float cutoff2, int u,
+                                       unsigned& m) const {
+    const float r2 = dist2(ox - p.x, oy - p.y, oz - p.z);
+    if (r2 < cutoff2 && r2 > 0.0f) m |= 1u << u;
+  }
+
+  __device__ __forceinline__ void add(float4 p, const ForceLaw& law,
+                                      const GCoef& gc) {
+    const float dx = ox - p.x, dy = oy - p.y, dz = oz - p.z;
+    const float f = pair_factor(dist2(dx, dy, dz), law, gc);
+    ax += f * dx;
+    ay += f * dy;
+    az += f * dz;
+  }
+};
+
+// A lane's queue of tested 32-blocks with at least one pair inside the
+// cutoff: the block's first staged index and its pass mask; entries
+// `stride` apart in shared memory.
+struct Queue {
+  unsigned* mask;
+  unsigned short* base;
+  int stride, cnt;
+
+  __device__ __forceinline__ void push(unsigned m, int s0) {
+    if (m) {
+      mask[cnt * stride] = m;
+      base[cnt * stride] = (unsigned short)s0;
+      ++cnt;
+    }
+  }
+
+  // Adds the forces of the queued pairs to the receiver's sum and empties
+  // the queue; bit u of a block at s0 is the staged row s0 + u·step + off.
+  // One pair an iteration of one loop, each lane at its own pace (nested
+  // loops over entries and bits would reconverge after every entry).
+  __device__ __forceinline__ void drain(int step, int off, const float4* q,
+                                        Receiver& R, const ForceLaw& law,
+                                        const GCoef& gc) {
+    int e = 0, s0 = 0;
+    unsigned m = 0;
+    while (true) {
+      if (m == 0) {
+        if (e == cnt) break;
+        m = mask[e * stride];
+        s0 = base[e * stride] + off;
+        ++e;
+      }
+      R.add(q[s0 + (__ffs(m) - 1) * step], law, gc);
+      m &= m - 1;
+    }
+    cnt = 0;
+  }
+};
+
+// The ±1 table (27 columns of ~64 rows at the 8-mesh-cell layout): one
+// block per receiver column, one thread per receiver row (several passes
+// past THREADS rows); the block stages its neighbourhood's supplier rows,
+// compacted by sb, TILE rows at a time, and every warp that holds a
+// receiver tests all of them (a broadcast read).  Dynamic shared memory:
+// the lanes' queues, QUEUE × blockDim entries of 6 bytes.
+__global__ void __launch_bounds__(THREADS) pair_sweep_kernel(
+    const float* __restrict__ recv, long long recv_cs, int K_r, Geometry G,
+    const int* __restrict__ rbound, float* __restrict__ out, float cutoff2,
+    ForceLaw law, GCoef gc, Offsets offs) {
+  __shared__ float4 tile[TILE];
+  __shared__ signed char table[3 * MAX_OFFSETS];
+  __shared__ int nrows[MAX_OFFSETS];
+  extern __shared__ unsigned queue_mem[];
+  const int n_off = offs.count;
+  for (int i = threadIdx.x; i < 3 * n_off; i += blockDim.x) table[i] = offs.d[i];
+  __syncthreads();
+
+  const int n = G.n;
+  const long long C = G.C;
+  const long long c = blockIdx.x;
+  const long long oc = (long long)K_r * C;
+  const int ci = (int)(c / ((long long)n * n)), cj = (int)((c / n) % n),
+            ck = (int)(c % n);
+  // the neighbour columns and their supplier rows, read all at once
+  for (int j = threadIdx.x; j < n_off; j += blockDim.x) {
+    float hx, hy, hz;
+    const int col = neighbour(G, ci, cj, ck, table + 3 * j, hx, hy, hz);
+    nrows[j] = G.sb ? min(G.sb[col], G.K_s) : G.K_s;
+  }
+  __syncthreads();
+  const int rb = rbound ? max(0, min(rbound[c], K_r)) : K_r;
   // rows at or beyond the bound write exactly 0
   for (int r = rb + threadIdx.x; r < K_r; r += blockDim.x) {
     out[(long long)r * C + c] = 0.0f;
     out[oc + (long long)r * C + c] = 0.0f;
     out[2 * oc + (long long)r * C + c] = 0.0f;
   }
-  const float inv_scale2 = inv_scale * inv_scale;
-  // GADGET-2 spline: h = 2.8ε (soft2 = ε²)
-  const float h2 = 7.84f * soft2;
-  const float h = 2.8f * sqrtf(soft2);
-  const float inv_h = h > 0.0f ? 1.0f / fmaxf(h, 1e-30f) : 1e30f;
-  // one pass per blockDim.x receiver rows (bounds are uniform over the block)
+  Queue Q{queue_mem + threadIdx.x,
+          (unsigned short*)(queue_mem + QUEUE * blockDim.x) + threadIdx.x,
+          (int)blockDim.x, 0};
+  const float far = 1e30f;  // pads a tile to whole 32-blocks
   for (int r0 = 0; r0 < rb; r0 += blockDim.x) {
-    const int r = r0 + threadIdx.x;
-    const bool own = r < rb;
-    float ox = 0.0f, oy = 0.0f, oz = 0.0f;
-    if (own) {
-      ox = recv[(long long)r * C + c];
-      oy = recv[recv_cs + (long long)r * C + c];
-      oz = recv[2 * recv_cs + (long long)r * C + c];
-    }
-    float ax = 0.0f, ay = 0.0f, az = 0.0f;
-    for (int nb = 0; nb < offs.count && sb > 0; ++nb) {
-      int ni = ci + offs.d[3 * nb], nj = cj + offs.d[3 * nb + 1],
-          nk = ck + offs.d[3 * nb + 2];
-      const float shx = ni < 0 ? -boxsize : (ni >= n ? boxsize : 0.0f);
-      const float shy = nj < 0 ? -boxsize : (nj >= n ? boxsize : 0.0f);
-      const float shz = nk < 0 ? -boxsize : (nk >= n ? boxsize : 0.0f);
-      ni = (ni + n) % n;
-      nj = (nj + n) % n;
-      nk = (nk + n) % n;
-      const long long col = ((long long)ni * n + nj) * n + nk;
-      for (int s0 = 0; s0 < sb; s0 += TILE) {
-        const int ns = min(TILE, sb - s0);
-        __syncthreads();  // the previous tile is consumed
-        for (int s = threadIdx.x; s < ns; s += blockDim.x) {
-          const long long at = (long long)(s0 + s) * C + col;
-          sx[s] = sup[at] + shx;
-          sy[s] = sup[sup_cs + at] + shy;
-          sz[s] = sup[2 * sup_cs + at] + shz;
-        }
-        __syncthreads();
-        if (!own) continue;
-        for (int s = 0; s < ns; ++s) {
-          const float dx = ox - sx[s];
-          const float dy = oy - sy[s];
-          const float dz = oz - sz[s];
-          // unfused, in the plain version's order: the force jumps at the
-          // cutoff, so both must take the same pairs
-          const float r2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                                     __fmul_rn(dz, dz));
-          if (!(r2 < cutoff2 && r2 > 0.0f)) continue;
-          float f;
-          if (kernel == KERNEL_PLUMMER) {
-            const float r2s = r2 + soft2;
-            const float inv_r = rsqrtf(r2s);
-            const float g = screening_g(r2s * inv_scale2, gc);
-            f = -(inv_r * inv_r * (inv_r + inv_scale * g));
-          } else {
-            const float inv_r = rsqrtf(fmaxf(r2, 1e-30f));
-            const float inv_r2 = inv_r * inv_r;
-            const float g = screening_g(r2 * inv_scale2, gc);
-            f = -(inv_r2 * (inv_r + inv_scale * g));
-            if (kernel == KERNEL_SPLINE && r2 < h2) {
-              // near-field spline correction (_make_accum's near_m branch)
-              const float rr = r2 * inv_r;
-              const float S = 1.0f + (rr * inv_scale) * g;
-              const float far = inv_r2 * inv_r;
-              const float u = rr * inv_h;
-              const float near = 32.0f * inv_h * inv_h * inv_h *
-                                 (1.0f / 3.0f + u * u * (-6.0f / 5.0f + u));
-              const float mid = (32.0f / 3.0f) * far *
-                                (u * u * u * (2.0f + u * (-4.5f + u * (3.6f - u))) -
-                                 3.0f / 480.0f);
-              f -= S * ((u < 0.5f ? near : mid) - far);
-            }
-          }
-          ax += f * dx;
-          ay += f * dy;
-          az += f * dz;
+    const long long r = r0 + threadIdx.x;
+    // warps with no receiver in this pass only help to stage
+    const bool warp_live = r0 + (int)(threadIdx.x & ~31u) < rb;
+    Receiver R(recv, recv_cs, r * C + c, r < rb);
+    int nb = 0, row = 0;
+    while (nb < n_off) {
+      int total = 0;
+      while (nb < n_off && total < TILE) {  // uniform over the block
+        float hx, hy, hz;
+        const int col = neighbour(G, ci, cj, ck, table + 3 * nb, hx, hy, hz);
+        const int left = nrows[nb] - row;
+        const int take = max(0, min(left, TILE - total));
+        for (int t = threadIdx.x; t < take; t += blockDim.x)
+          stage_row(G, row + t, col, hx, hy, hz, tile, total + t);
+        total += take;
+        if (take < left) {
+          row += take;
+        } else {
+          ++nb;
+          row = 0;
         }
       }
+      const int padded = (total + 31) & ~31;
+      for (int t = total + threadIdx.x; t < padded; t += blockDim.x)
+        tile[t] = make_float4(far, far, far, 0.0f);
+      __syncthreads();
+      if (warp_live) {
+        for (int s0 = 0; s0 < padded; s0 += 32) {
+          unsigned m = 0;
+#pragma unroll
+          for (int u = 0; u < 32; ++u) R.test(tile[s0 + u], cutoff2, u, m);
+          Q.push(m, s0);
+          // drain before a queue can overflow, and after the tile's last
+          // block (the entries name its rows)
+          if (__any_sync(FULL, Q.cnt == QUEUE) || s0 + 32 >= padded)
+            Q.drain(1, 0, tile, R, law, gc);
+        }
+      }
+      __syncthreads();  // the tile is consumed
     }
-    if (own) {
-      out[(long long)r * C + c] = ax;
-      out[oc + (long long)r * C + c] = ay;
-      out[2 * oc + (long long)r * C + c] = az;
+    if (r < rb) {
+      out[r * C + c] = R.ax;
+      out[oc + r * C + c] = R.ay;
+      out[2 * oc + r * C + c] = R.az;
+    }
+  }
+}
+
+// Stages the supplier rows of the neighbour columns from neighbour nb's
+// row `row` on into the warp's buffer, at most CAP rows; advances nb and
+// row (warp-uniform) past what it staged.  Returns the rows staged.
+__device__ int stage(const Geometry& G, int ci, int cj, int ck,
+                     const signed char* table, int n_off, int& nb, int& row,
+                     float4* q, int lane) {
+  int total = 0;
+  while (nb < n_off && total < CAP) {
+    const int avail = min(32, n_off - nb);
+    float hx = 0.0f, hy = 0.0f, hz = 0.0f;
+    int col = 0, cnt = 0;
+    if (lane < avail) {
+      col = neighbour(G, ci, cj, ck, table + 3 * (nb + lane), hx, hy, hz);
+      cnt = G.sb ? min(G.sb[col], G.K_s) : G.K_s;
+    }
+    const int first = lane == 0 ? row : 0;
+    cnt = max(cnt - first, 0);
+    int incl = cnt;  // inclusive scan of the row counts
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int t = __shfl_up_sync(FULL, incl, o);
+      if (lane >= o) incl += t;
+    }
+    const int room = CAP - total;
+    // incl never falls with the lane, so the columns that fit are a prefix
+    const int nfit = __popc(__ballot_sync(FULL, lane < avail && incl <= room));
+    const int at = total + incl - cnt;
+    // shallow columns: a lane per column (lanes on neighbouring columns
+    // read neighbouring addresses); deep ones: the lanes over its rows
+    const int deepest = __reduce_max_sync(FULL, lane < nfit ? cnt : 0);
+    const int passes = __reduce_add_sync(FULL, lane < nfit ? (cnt + 31) / 32 : 0);
+    if (deepest <= passes) {
+      if (lane < nfit) {
+#pragma unroll 4
+        for (int s = 0; s < cnt; ++s) stage_row(G, first + s, col, hx, hy, hz, q, at + s);
+      }
+    } else {
+      for (int j = 0; j < nfit; ++j) {
+        const int jcnt = __shfl_sync(FULL, cnt, j);
+        const int jcol = __shfl_sync(FULL, col, j);
+        const int jfirst = __shfl_sync(FULL, first, j);
+        const int jat = __shfl_sync(FULL, at, j);
+        const float jhx = __shfl_sync(FULL, hx, j);
+        const float jhy = __shfl_sync(FULL, hy, j);
+        const float jhz = __shfl_sync(FULL, hz, j);
+        for (int t = lane; t < jcnt; t += 32)
+          stage_row(G, jfirst + t, jcol, jhx, jhy, jhz, q, jat + t);
+      }
+    }
+    total += nfit ? __shfl_sync(FULL, incl, nfit - 1) : 0;
+    if (nfit < avail) {
+      // neighbour nb + nfit does not fit whole: stage the rows that do
+      const int part = CAP - total;
+      const int pcol = __shfl_sync(FULL, col, nfit);
+      const float phx = __shfl_sync(FULL, hx, nfit);
+      const float phy = __shfl_sync(FULL, hy, nfit);
+      const float phz = __shfl_sync(FULL, hz, nfit);
+      const int pfirst = nfit == 0 ? row : 0;
+      for (int t = lane; t < part; t += 32)
+        stage_row(G, pfirst + t, pcol, phx, phy, phz, q, total + t);
+      nb += nfit;
+      row = pfirst + part;
+      total = CAP;
+    } else {
+      nb += nfit;
+      row = 0;
+    }
+  }
+  __syncwarp();
+  return total;
+}
+
+// The reach table (117 columns of ~8 rows at the 4-mesh-cell layout): a
+// warp per receiver column, WARPS columns a block.
+__global__ void __launch_bounds__(WARPS * 32, 8) pair_sweep_kernel_reach(
+    const float* __restrict__ recv, long long recv_cs, int K_r, Geometry G,
+    const int* __restrict__ rbound, float* __restrict__ out, float cutoff2,
+    ForceLaw law, GCoef gc, Offsets offs) {
+  __shared__ float4 staged[WARPS][CAP];
+  __shared__ unsigned qmask[QUEUE][WARPS * 32];
+  __shared__ unsigned short qbase[QUEUE][WARPS * 32];
+  __shared__ signed char table[3 * MAX_OFFSETS];
+  const int n_off = offs.count;
+  for (int i = threadIdx.x; i < 3 * n_off; i += blockDim.x) table[i] = offs.d[i];
+  __syncthreads();  // the only block barrier
+
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int n = G.n;
+  const long long C = G.C;
+  const long long c = (long long)blockIdx.x * WARPS + w;
+  if (c >= C) return;
+  const long long oc = (long long)K_r * C;
+  const int ci = (int)(c / ((long long)n * n)), cj = (int)((c / n) % n),
+            ck = (int)(c % n);
+  const int rb = rbound ? max(0, min(rbound[c], K_r)) : K_r;
+  // rows at or beyond the bound write exactly 0
+  for (int r = rb + lane; r < K_r; r += 32) {
+    out[(long long)r * C + c] = 0.0f;
+    out[oc + (long long)r * C + c] = 0.0f;
+    out[2 * oc + (long long)r * C + c] = 0.0f;
+  }
+  float4* q = staged[w];
+  Queue Q{&qmask[0][threadIdx.x], &qbase[0][threadIdx.x], WARPS * 32, 0};
+
+  for (int r0 = 0; r0 < rb; r0 += 32) {
+    // warp-uniform split of the lanes: R receivers × Gr supplier groups
+    const int R = min(32, rb - r0);
+    const int Gr = 32 / R;
+    const int rho = lane % R, g = lane / R;
+    const long long r = r0 + rho;
+    Receiver Rc(recv, recv_cs, r * C + c, g < Gr);
+    int nb = 0, row = 0;
+    while (nb < n_off) {
+      const int total = stage(G, ci, cj, ck, table, n_off, nb, row, q, lane);
+      for (int s0 = 0; s0 < total; s0 += 32 * Gr) {
+        unsigned m = 0;
+#pragma unroll
+        for (int u = 0; u < 32; ++u) {
+          const int s = s0 + u * Gr + g;
+          if (s < total) Rc.test(q[s], cutoff2, u, m);
+        }
+        Q.push(m, s0);
+        // drain before a queue can overflow, and after the staging's last
+        // block (the entries name its rows)
+        if (__any_sync(FULL, Q.cnt == QUEUE) || s0 + 32 * Gr >= total)
+          Q.drain(Gr, g, q, Rc, law, gc);
+      }
+      __syncwarp();  // the staged rows are consumed before the next staging
+    }
+    // add the groups' sums into the lanes of group 0
+    float ax = Rc.ax, ay = Rc.ay, az = Rc.az;
+    for (int k = 1; k < Gr; ++k) {
+      const int src = min(lane + k * R, 31);
+      const float tx = __shfl_sync(FULL, ax, src);
+      const float ty = __shfl_sync(FULL, ay, src);
+      const float tz = __shfl_sync(FULL, az, src);
+      if (lane < R) {
+        ax += tx;
+        ay += ty;
+        az += tz;
+      }
+    }
+    if (lane < R) {
+      out[r * C + c] = ax;
+      out[oc + r * C + c] = ay;
+      out[2 * oc + r * C + c] = az;
     }
   }
 }
 
 // recv (3, K_r, C) and sup (3, K_s, C) float32, rows contiguous with row
 // stride C and component strides recv_cs / sup_cs; out (3, K_r, C)
-// contiguous.  rext/sext: (n²,) int32 device arrays or both null.  coef:
-// host array of NCOEF floats; offsets: host array of n_offsets (di, dj, dk)
-// triples, n_offsets ≤ MAX_OFFSETS.  Returns the cudaError_t of the
-// launch (cudaErrorInvalidValue for a table that does not fit).
+// contiguous.  rb/sb: (C,) int32 device arrays of per-column row bounds,
+// each may be null (no bound).  coef: host array of NCOEF floats;
+// offsets: host array of n_offsets (di, dj, dk) triples, n_offsets ≤
+// MAX_OFFSETS.  Returns the cudaError_t of the launch
+// (cudaErrorInvalidValue for a table that does not fit).
 extern "C" int pair_sweep_launch(const float* recv, long long recv_cs, int K_r,
                                  const float* sup, long long sup_cs, int K_s,
-                                 int n, const int* rext, const int* sext,
+                                 int n, const int* rb, const int* sb,
                                  float* out, float boxsize, float inv_scale,
                                  float cutoff2, float soft2, int kernel,
                                  const float* coef, const signed char* offsets,
@@ -198,10 +500,33 @@ extern "C" int pair_sweep_launch(const float* recv, long long recv_cs, int K_r,
   Offsets offs;
   offs.count = n_offsets;
   for (int i = 0; i < 3 * n_offsets; ++i) offs.d[i] = offsets[i];
-  const int rows = ((K_r + 31) / 32) * 32;
-  const int threads = rows < THREADS ? rows : THREADS;
-  pair_sweep_kernel<<<n * n * n, threads, 0, (cudaStream_t)stream>>>(
-      recv, recv_cs, K_r, sup, sup_cs, K_s, n, rext, sext, out, boxsize,
-      inv_scale, cutoff2, soft2, kernel, gc, offs);
+  // GADGET-2 spline: h = 2.8ε (soft2 = ε²)
+  const float h = 2.8f * sqrtf(soft2);
+  ForceLaw law;
+  law.kernel = kernel;
+  law.inv_scale = inv_scale;
+  law.inv_scale2 = inv_scale * inv_scale;
+  law.h2 = 7.84f * soft2;
+  law.inv_h = h > 0.0f ? 1.0f / fmaxf(h, 1e-30f) : 1e30f;
+  law.soft2 = soft2;
+  Geometry G;
+  G.sup = sup;
+  G.sup_cs = sup_cs;
+  G.C = (long long)n * n * n;
+  G.K_s = K_s;
+  G.n = n;
+  G.sb = sb;
+  G.boxsize = boxsize;
+  if (n_offsets <= 27) {
+    const int rows = ((K_r + 31) / 32) * 32;
+    const int threads = rows < THREADS ? rows : THREADS;
+    pair_sweep_kernel<<<(unsigned)G.C, threads, 6 * QUEUE * threads,
+                        (cudaStream_t)stream>>>(recv, recv_cs, K_r, G, rb, out,
+                                                cutoff2, law, gc, offs);
+  } else {
+    pair_sweep_kernel_reach<<<(unsigned)((G.C + WARPS - 1) / WARPS), WARPS * 32, 0,
+                              (cudaStream_t)stream>>>(recv, recv_cs, K_r, G, rb,
+                                                      out, cutoff2, law, gc, offs);
+  }
   return (int)cudaGetLastError();
 }

@@ -10,13 +10,18 @@ x-major and z-fastest.  Returns the accelerations (3, K_r, C); the
 caller applies G·m.
 
 :func:`pair_sweep` sweeps the 27 neighbour columns of |d| ≤ 1 (cells at
-least a cutoff wide), with optional per-pencil extents ``rext``/``sext``
-(n²,) int32: every valid receiver (supplier) of pencil p = ci·n + cj lies
-in a row below rext[p] (sext[p]); rows of a column at or beyond its
-receiver bound come out exactly 0.  :func:`pair_sweep_reach` sweeps a
-given offset table (the kept reach-2 offsets of the 4-mesh-cell layout,
-``shortrange.reach_offsets``), without row bounds, as the TPU kernel.
-Both launch the one kernel and count their launches apart.
+least a cutoff wide), :func:`pair_sweep_reach` a given offset table (the
+kept reach-2 offsets of the 4-mesh-cell layout,
+``shortrange.reach_offsets``).  Both take optional int32 row bounds
+``rext`` (receivers) and ``sext`` (suppliers), per column (C,) or per
+pencil (n²,), p = ci·n + cj, which stands for the same bound on each
+column of the pencil: every valid receiver (supplier) of a column lies
+in a row below its bound.  Rows of a column at or beyond its receiver
+bound come out exactly 0; the supplier rows of a neighbour column at or
+beyond its own supplier bound are skipped.  The TPU reach kernel takes
+no bounds; with bounds that hold the valid slots the output is the same
+on every row that carries a force.  Both launch the one kernel and
+count their launches apart.
 
 On a CPU tensor they run :func:`pair_sweep_plain`; on a CUDA tensor they
 launch the kernel or raise.
@@ -33,7 +38,7 @@ import torch
 from concept_tpu_torch import _build
 from concept_tpu_torch.device import FLOAT64_ITEM
 from concept_tpu_torch.forces.shortrange import (
-    _G_COEF, SENTINEL, shortrange_force_factor, window_bounds,
+    _G_COEF, SENTINEL, shortrange_force_factor,
 )
 
 KERNEL_IDS = {"plummer": 0, "spline": 1, "none": 2}
@@ -43,8 +48,7 @@ OFFSETS_27 = tuple((i, j, k) for i in (-1, 0, 1) for j in (-1, 0, 1)
 MAX_OFFSETS = 125  # csrc/pair_sweep.cu: the offsets of |d| ≤ 2
 
 
-def _check(recv, sup, n: int, kernel: str, offsets=OFFSETS_27,
-           bounded: bool = False):
+def _check(recv, sup, n: int, kernel: str, offsets=OFFSETS_27):
     if recv.dim() != 3 or sup.dim() != 3 or recv.shape[0] != 3 \
             or sup.shape[0] != 3 or recv.shape[2] != sup.shape[2]:
         raise ValueError(f"recv {tuple(recv.shape)} / sup {tuple(sup.shape)}"
@@ -54,9 +58,6 @@ def _check(recv, sup, n: int, kernel: str, offsets=OFFSETS_27,
                          f"{MAX_OFFSETS}")
     # every offset of a column must name a distinct column
     side = 2 * max(abs(d) for off in offsets for d in off) + 1
-    if bounded and side > 3:
-        raise ValueError("row bounds take the ±1 offsets only (their supplier "
-                         "window spans ±1 pencils)")
     if n < max(3, side) or recv.shape[2] != n**3:
         raise ValueError(f"C = {recv.shape[2]} is not n³ with n = {n} ≥ "
                          f"{max(3, side)}")
@@ -64,42 +65,44 @@ def _check(recv, sup, n: int, kernel: str, offsets=OFFSETS_27,
         raise ValueError(f"unknown softening kernel {kernel!r}")
 
 
-def _bounds(rext, sext, n: int, K_r: int, K_s: int, device):
-    """Per-column receiver and supplier row bounds (C,) int64."""
-    C = n**3
-    pencil = torch.arange(C, device=device) // n
-    if rext is None:
-        return (torch.full((C,), K_r, device=device),
-                torch.full((C,), K_s, device=device))
-    rb = torch.clamp(rext.to(torch.int64), max=K_r)[pencil]
-    sb = torch.clamp(window_bounds(sext.to(torch.int64), n, True),
-                     max=K_s)[pencil]
-    return rb, sb
+def column_bounds(ext, n: int):
+    """Row bounds per column (C,) from bounds per column (C,) or per
+    pencil (n²,); None stays None."""
+    if ext is None or ext.numel() == n**3:
+        return ext
+    if ext.numel() != n * n:
+        raise ValueError(f"row bounds of {ext.numel()} entries: per column "
+                         f"({n**3}) or per pencil ({n * n})")
+    return ext[torch.arange(n**3, device=ext.device) // n]
 
 
 def pair_sweep_plain(recv, sup, n_cells: int, boxsize: float, scale: float,
                      cutoff2: float, soft2: float, kernel: str = "plummer",
                      rext=None, sext=None, offsets=OFFSETS_27):
     """Plain PyTorch version of the sweep kernel over the neighbour
-    ``offsets`` (row bounds only with the ±1 table), on a list of pairs:
-    every receiver that can feel a force (in its row bound and off the
-    sentinel; the others come out 0, as from the kernel) with every
-    supplier off the sentinel in its neighbour columns, below the
-    receiver column's supplier bound.  Receivers go in chunks whose pairs
+    ``offsets``, on a list of pairs: every receiver that can feel a force
+    (in its row bound and off the sentinel; the others come out 0, as
+    from the kernel) with every supplier off the sentinel in its
+    neighbour columns, below that column's supplier bound.  Receivers go in chunks whose pairs
     stay near 2²⁴ on the card and 2²¹ on the CPU."""
-    _check(recv, sup, n_cells, kernel, offsets, rext is not None)
+    _check(recv, sup, n_cells, kernel, offsets)
     n = n_cells
     _, K_r, C = recv.shape
     K_s = sup.shape[1]
     dev = recv.device
     chunk_pairs = 1 << (24 if dev.type == "cuda" else 21)
-    rb, sb = _bounds(rext, sext, n, K_r, K_s, dev)
     far = 0.5 * SENTINEL * boxsize
     out = torch.zeros((3, K_r, C), dtype=recv.dtype, device=dev)
-    live = (torch.arange(K_r, device=dev)[:, None] < rb[None]) & (recv[0].abs() < far)
+    live = recv[0].abs() < far
+    if rext is not None:
+        live &= torch.arange(K_r, device=dev)[:, None] < column_bounds(rext, n)[None]
     r_row, r_col = torch.nonzero(live, as_tuple=True)
-    # suppliers off the sentinel, column by column
-    s_col, s_row = torch.nonzero((sup[0].abs() < far).T, as_tuple=True)
+    # suppliers off the sentinel and below their column's bound, column
+    # by column
+    supplies = sup[0].abs() < far
+    if sext is not None:
+        supplies &= torch.arange(K_s, device=dev)[:, None] < column_bounds(sext, n)[None]
+    s_col, s_row = torch.nonzero(supplies.T, as_tuple=True)
     s_pos = sup[:, s_row, s_col]
     counts = torch.bincount(s_col, minlength=C)
     starts = torch.cumsum(counts, 0) - counts
@@ -127,7 +130,7 @@ def pair_sweep_plain(recv, sup, n_cells: int, boxsize: float, scale: float,
         d = (recv[:, r_row[ri], r_col[ri]]
              - (s_pos[:, sidx] + shift.reshape(3, -1)[:, i0 * n_off + grp]))
         r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
-        m = (r2 < cutoff2) & (r2 > 0) & (s_row[sidx] < sb[r_col[ri]])
+        m = (r2 < cutoff2) & (r2 > 0)
         f = torch.where(m, shortrange_force_factor(r2, scale, soft2, kernel), 0.0)
         acc = torch.zeros((3, i1 - i0), dtype=recv.dtype, device=dev)
         acc.index_add_(1, ri - i0, f[None] * d)
@@ -156,27 +159,27 @@ def _check_cuda_rows(t, C: int, what: str):
 def _launch(recv, sup, n_cells: int, boxsize: float, scale: float,
             cutoff2: float, soft2: float, kernel: str, rext, sext, offsets):
     """Check the CUDA inputs, launch the kernel, return its output."""
-    _check(recv, sup, n_cells, kernel, offsets, rext is not None)
+    _check(recv, sup, n_cells, kernel, offsets)
     _, K_r, C = recv.shape
     K_s = sup.shape[1]
     _check_cuda_rows(recv, C, "recv")
     _check_cuda_rows(sup, C, "sup")
     if sup.device != recv.device or K_r < 1:
         raise ValueError("recv and sup must share a device; K_r ≥ 1")
-    if rext is not None:
-        for e in (rext, sext):
-            if e.dtype != torch.int32 or not e.is_contiguous() \
-                    or e.numel() != n_cells**2 or e.device != recv.device:
-                raise ValueError("rext/sext must be contiguous (n²,) int32 "
-                                 "on the receivers' device")
+    bounds = [column_bounds(e, n_cells) for e in (rext, sext)]
+    for e in bounds:
+        if e is not None and (e.dtype != torch.int32 or not e.is_contiguous()
+                              or e.device != recv.device):
+            raise ValueError("rext/sext must be contiguous int32 on the "
+                             "receivers' device")
+    rb, sb = (None if e is None else e.data_ptr() for e in bounds)
     out = torch.empty((3, K_r, C), dtype=torch.float32, device=recv.device)
     coef = np.ascontiguousarray(_G_COEF, np.float32)
     table = np.ascontiguousarray(offsets, np.int8)
     inv_scale = float(np.float32(1.0) / np.float32(scale))
     err = _lib()(
         recv.data_ptr(), recv.stride(0), K_r, sup.data_ptr(), sup.stride(0),
-        K_s, n_cells, None if rext is None else rext.data_ptr(),
-        None if sext is None else sext.data_ptr(), out.data_ptr(),
+        K_s, n_cells, rb, sb, out.data_ptr(),
         boxsize, inv_scale, cutoff2, soft2, KERNEL_IDS[kernel],
         coef.ctypes.data, table.ctypes.data, len(offsets),
         torch.cuda.current_stream(recv.device).cuda_stream,
@@ -190,8 +193,6 @@ def pair_sweep(recv, sup, n_cells: int, boxsize: float, scale: float,
                rext=None, sext=None):
     """The ±1 sweep: the CUDA kernel for CUDA tensors, the plain version
     for CPU tensors (see the module docstring for the contract)."""
-    if (rext is None) != (sext is None):
-        raise ValueError("give both rext and sext, or neither")
     if recv.device.type == "cpu":
         return pair_sweep_plain(recv, sup, n_cells, boxsize, scale, cutoff2,
                                 soft2, kernel, rext, sext)
@@ -203,17 +204,18 @@ def pair_sweep(recv, sup, n_cells: int, boxsize: float, scale: float,
 
 def pair_sweep_reach(recv, sup, n_cells: int, boxsize: float, scale: float,
                      cutoff2: float, soft2: float, offsets,
-                     kernel: str = "plummer"):
-    """The sweep over the neighbour ``offsets`` (|d| ≤ 2, n ≥ 5), without
-    row bounds: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors.  Port of ``sweep_pallas_pair_reach``, whose receivers sit
-    at −SENTINEL·boxsize and suppliers at +SENTINEL·boxsize."""
+                     kernel: str = "plummer", rext=None, sext=None):
+    """The sweep over the neighbour ``offsets`` (|d| ≤ 2, n ≥ 5): the
+    CUDA kernel for CUDA tensors, the plain version for CPU tensors.
+    Port of ``sweep_pallas_pair_reach``, whose receivers sit at
+    −SENTINEL·boxsize and suppliers at +SENTINEL·boxsize; the row bounds
+    are the port's own (see the module docstring)."""
     offsets = tuple(tuple(int(d) for d in off) for off in offsets)
     if recv.device.type == "cpu":
         return pair_sweep_plain(recv, sup, n_cells, boxsize, scale, cutoff2,
-                                soft2, kernel, offsets=offsets)
+                                soft2, kernel, rext, sext, offsets)
     out = _launch(recv, sup, n_cells, boxsize, scale, cutoff2, soft2, kernel,
-                  None, None, offsets)
+                  rext, sext, offsets)
     pair_sweep_reach.launches += 1
     return out
 

@@ -114,22 +114,6 @@ def shortrange_force_factor(r2: torch.Tensor, scale: float, softening2: float,
     return f - torch.where(r2 < 7.84 * softening2, S * near, 0.0)
 
 
-def window_bounds(ext: torch.Tensor, n: int, neighbors: bool) -> torch.Tensor:
-    """Per-pencil layout extents (n²,) → per-pencil row bounds (n²,).
-    neighbors=True takes the max over the 9 pencils ((i±1) mod n,
-    (j±1) mod n) a column's 27-cell neighbourhood reads — the supplier
-    bound of ``_window_bounds(..., neighbors=True)`` at pack factor 1."""
-    w = ext.reshape(n, n)
-    if neighbors:
-        m = w
-        for di in (-1, 0, 1):
-            for dj in (-1, 0, 1):
-                if di or dj:
-                    m = torch.maximum(m, torch.roll(w, (di, dj), (0, 1)))
-        w = m
-    return w.reshape(n * n)
-
-
 def kept_offsets(cell_width: float, cutoff: float, margin: float,
                  reach: int = 2):
     """The neighbour offsets (di, dj, dk) ∈ [−reach, reach]³ whose

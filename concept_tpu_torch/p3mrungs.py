@@ -7,15 +7,19 @@ mesh and the device as the JAX package chooses from the mesh and the
 backend (``P3MRungSimulation``):
 
 - unified, ``ucb = 8``: cells 8 mesh cells wide, wider than the cutoff:
-  the ±1 sweep with per-pencil row bounds, and the PM deposit and gather
-  straight on the slot arrays (p3msim.pm_gradient_cells, cb = 8);
+  the ±1 sweep, and the PM deposit and gather straight on the slot
+  arrays (p3msim.pm_gradient_cells, cb = 8);
 - unified, ``ucb = 4``: cells 4 mesh cells wide, narrower than the
   cutoff: the one-sided reach-2 sweep over the kept offsets
-  (forces/shortrange.reach_offsets, no row bounds) and the cell PM at
-  cb = 4;
+  (forces/shortrange.reach_offsets) and the cell PM at cb = 4;
 - tight (``ucb = 0``): cells at least cutoff·(1 + margin_frac) wide,
-  no multiple of the mesh: the bounded ±1 sweep, and the block PM on
-  the flattened valid slots (p3msim.pm_gradient_layout).
+  no multiple of the mesh: the ±1 sweep, and the block PM on the
+  flattened valid slots (p3msim.pm_gradient_layout).
+
+Every sweep takes per-column row bounds (the JAX package's reach sweep
+takes none): receivers up to the column's occupancy, or its rung-≥kmin
+extent on interior substeps, suppliers up to each neighbour column's
+occupancy.
 
 Within every column the slots are kept RUNG-MAJOR: the bucketize key is
 cell·NR + (NR−1−rung), so the slots with rung ≥ k form a prefix of each
@@ -195,23 +199,20 @@ def _rung_tight(rungs, valid, NR: int):
                         for k in range(NR)])
 
 
-def _pencil_occ_ext(valid, nc: int):
-    """Per-pencil occupancy extents (nc²,) int32 (valid slots are a
-    column prefix between rebuckets)."""
-    counts = valid.sum(dim=0, dtype=torch.int32)
-    return counts.reshape(nc * nc, nc).max(dim=1).values.contiguous()
-
-
-def _pencil_rung_ext(rungs, valid, nc: int, NR: int):
-    """(NR, nc²) int32: per pencil, 1 + the highest row holding a valid
-    slot with rung ≥ k (LAYOUT extents)."""
+def _column_occ_ext(valid):
+    """Per-column occupancy extents (C,) int32: 1 + the highest row
+    holding a valid slot (LAYOUT extents, correct whether or not the
+    valid slots are a column prefix)."""
     K = valid.shape[0]
     rows1 = torch.arange(1, K + 1, dtype=torch.int32, device=valid.device)[:, None]
-    outs = []
-    for k in range(NR):
-        ext = torch.where((rungs >= k) & valid, rows1, 0).max(dim=0).values
-        outs.append(ext.reshape(nc * nc, nc).max(dim=1).values)
-    return torch.stack(outs).contiguous()
+    return torch.where(valid, rows1, 0).max(dim=0).values.contiguous()
+
+
+def _column_rung_ext(rungs, valid, NR: int):
+    """(NR, C) int32: per column, 1 + the highest row holding a valid
+    slot with rung ≥ k (LAYOUT extents)."""
+    return torch.stack([_column_occ_ext(valid & (rungs >= k))
+                        for k in range(NR)]).contiguous()
 
 
 def rung_substep(state: RungState, mass: float, G: float, int_drift: float,
@@ -234,10 +235,10 @@ def rung_substep(state: RungState, mass: float, G: float, int_drift: float,
     acceleration.  K_s bounds the supplier rows.  sentinel_out=True
     (interior substeps) fills invalid slots with the sweep sentinel
     instead of 0.  ``offsets`` (the 4-mesh-cell layout's reach-2 table)
-    selects the reach sweep, without row bounds; else the ±1 sweep with
-    the per-pencil bounds rext/sext.  Returns (state, (K_act, tight,
-    vmax2)[, acc]); the momenta are updated in place (the JAX package
-    donates them)."""
+    selects the reach sweep, else the ±1 sweep; either takes the row
+    bounds rext/sext (per column, or per pencil).  Returns (state,
+    (K_act, tight, vmax2)[, acc]); the momenta are updated in place (the
+    JAX package donates them)."""
     K, C = state.valid.shape
     K_s = K if K_s is None else K_s
     if not K_r <= K_s <= K:
@@ -264,7 +265,7 @@ def rung_substep(state: RungState, mass: float, G: float, int_drift: float,
             # the reach sweep's receivers sit at the opposite sentinel
             recv = torch.where(state.valid[:K_r][None], pos[:, :K_r], -big)
             acc = pair_sweep_reach(recv, pos_s[:, :K_s], *sweep_args, offsets,
-                                   kernel=softening_kernel)
+                                   kernel=softening_kernel, rext=rext, sext=sext)
     valid_r = state.valid[:K_r]
     per_slot_int = kick_ints[state.rungs[:K_r].to(torch.int64)]
     active = valid_r & (per_slot_int > 0)
@@ -474,8 +475,8 @@ class P3MRungSimulation:
         self._drift_used = 0.0
         self._K_act = None  # host copy, refreshed per base step
         self._K_occ = None  # occupancy row extent (≤ capacity), per rebucket
-        # per-pencil layout extents for the bounded sweep: _ext_occ (nc²,)
-        # per rebucket, _ext_rung (NR, nc²) per assign
+        # per-column layout extents for the bounded sweep: _ext_occ (C,)
+        # per rebucket, _ext_rung (NR, C) per assign
         self._ext_occ = None
         self._ext_rung = None
         self._acc_cache = None  # (3, K_occ, C) SR acc at current positions
@@ -511,8 +512,8 @@ class P3MRungSimulation:
         if kept != N:
             raise RuntimeError(f"bucketize kept {kept} of {N} particles")
         self._drift_used = 0.0
-        self._ext_occ = _pencil_occ_ext(state.valid, self.nc)
-        self._ext_rung = _pencil_rung_ext(state.rungs, state.valid, self.nc, self.NR)
+        self._ext_occ = _column_occ_ext(state.valid)
+        self._ext_rung = _column_rung_ext(state.rungs, state.valid, self.NR)
         return state
 
     def _substep(self, state, int_drift, kick, K_r, **kw):
@@ -610,8 +611,8 @@ class P3MRungSimulation:
                 else:
                     self._check_pm_overflow(n_over)
         vmax = math.sqrt(vmax2)
-        # fresh rungs (and a possible resort) moved the per-pencil extents
-        self._ext_rung = _pencil_rung_ext(state.rungs, state.valid, self.nc, self.NR)
+        # fresh rungs (and a possible resort) moved the per-column extents
+        self._ext_rung = _column_rung_ext(state.rungs, state.valid, self.NR)
         # margin budget over the whole base step
         int_a2 = bg.integrals_np(t, t + dt, keys=("a**(-2)",))["a**(-2)"]
         self._drift_used += vmax / self.mass * float(int_a2)
@@ -696,9 +697,8 @@ class P3MRungSimulation:
         if self._K_occ is None or max_count > self._K_occ:
             self._K_occ = _pad16(int(max_count * 1.12), self.capacity)
         self._K_occ = min(self._K_occ, self.capacity)
-        self._ext_occ = _pencil_occ_ext(new_state.valid, self.nc)
-        self._ext_rung = _pencil_rung_ext(new_state.rungs, new_state.valid,
-                                          self.nc, self.NR)
+        self._ext_occ = _column_occ_ext(new_state.valid)
+        self._ext_rung = _column_rung_ext(new_state.rungs, new_state.valid, self.NR)
         self._acc_cache = None  # layout permuted
         self._drift_used = 0.0
         return new_state

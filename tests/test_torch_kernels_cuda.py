@@ -395,3 +395,164 @@ def test_bucket_step_on_the_card_matches_the_cpu(dev):
     assert out[1][2] > 0 and abs(out[0][2] - out[1][2]) <= 1
     assert torch.equal(out[0][1], out[1][1])
     torch.testing.assert_close(out[1][0], out[0][0], rtol=0, atol=1e-3 * 40.0)
+
+
+def _holey(rng, n, K, box):
+    """Sentinel-filled slots over n³ cells whose valid slots are no column
+    prefix (each slot valid with probability 0.6), and their per-column
+    extents (1 + the highest valid row)."""
+    valid = rng.random((K, n**3)) < 0.6
+    cells = np.arange(n**3)
+    cw = box / n
+    base = np.stack([cells // (n * n), (cells // n) % n, cells % n]) * cw
+    pos = base[:, None, :] + rng.random((3, K, n**3)) * cw
+    # some slots on cell faces and on the half-cell planes
+    face = rng.random((3, K, n**3)) < 0.1
+    pos = np.where(face, base[:, None, :] + cw * rng.integers(0, 2, pos.shape) / 2, pos)
+    s = np.where(valid[None], pos, 1e4 * box).astype(np.float32)
+    ext = np.where(valid, np.arange(1, K + 1)[:, None], 0).max(axis=0).astype(np.int32)
+    return s, valid, ext
+
+
+def _table(name, n, box=1.0):
+    """(sweep, offsets, scale, cutoff) of the ±1 table (cells a cutoff
+    wide) or the 4-mesh-cell layout's reach-2 table."""
+    from concept_tpu_torch.forces.cuda_shortrange import (
+        OFFSETS_27, pair_sweep, pair_sweep_reach,
+    )
+
+    cw = box / n
+    if name == "pm1":
+        return pair_sweep, OFFSETS_27, 0.2 * cw, 0.9 * cw
+    scale, cutoff2, offs = _reach_geometry(n, box)
+
+    def sweep(recv, sup, n, box, scale, cutoff2, soft2, kernel, **kw):
+        return pair_sweep_reach(recv, sup, n, box, scale, cutoff2, soft2, offs,
+                                kernel=kernel, **kw)
+    return sweep, offs, scale, float(np.sqrt(cutoff2))
+
+
+def _check_bounded(dev, table, s, valid, n, rb, sb, kernel, soft):
+    """A sweep of ``table`` with per-column bounds rb/sb (or None) against
+    its plain version: max|Δ|/max|ref| ≤ 1e-5, rows at or beyond rb
+    exactly 0, one launch counted.  Receivers are the suppliers (±1) or
+    the valid slots at −sentinel (reach)."""
+    from concept_tpu_torch.forces.cuda_shortrange import (
+        pair_sweep, pair_sweep_plain, pair_sweep_reach,
+    )
+
+    box = 1.0
+    sweep, offs, scale, cutoff = _table(table, n, box)
+    st = torch.as_tensor(s, device=dev)
+    recv = st if table == "pm1" else torch.where(
+        torch.as_tensor(valid, device=dev)[None], st, -1e4 * box).contiguous()
+    bounds = dict(rext=None if rb is None else torch.as_tensor(rb, device=dev),
+                  sext=None if sb is None else torch.as_tensor(sb, device=dev))
+    args = (n, box, scale, float(np.float32(cutoff) ** 2), float(np.float32(soft) ** 2),
+            kernel)
+    counter = pair_sweep if table == "pm1" else pair_sweep_reach
+    before = counter.launches
+    got = sweep(recv, st, *args, **bounds)
+    assert counter.launches == before + 1
+    ref = pair_sweep_plain(recv, st, *args, offsets=offs, **bounds)
+    torch.cuda.synchronize()
+    got, ref = got.cpu().numpy(), ref.cpu().numpy()
+    assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+    if rb is not None:
+        assert np.all(got[:, np.arange(s.shape[1])[:, None] >= rb[None, :]] == 0)
+    return got
+
+
+@pytest.mark.parametrize("kernel", ["plummer", "spline", "none"])
+@pytest.mark.parametrize("bounds", ["column", "restricted", "none"])
+@pytest.mark.parametrize("table, n", [("pm1", 3), ("reach", 5)])
+def test_sweep_column_bounds_match_plain(dev, table, n, bounds, kernel):
+    """Both tables at their smallest n (every column has neighbours across
+    a box face), with holes below the column bounds, slots on cell faces
+    and half-cell planes, per-column occupancy bounds, receiver bounds
+    cut below them at random, and no bounds."""
+    rng = np.random.default_rng(61 + n + len(bounds))
+    K = 24
+    s, valid, ext = _holey(rng, n, K, 1.0)
+    rb = sb = None
+    if bounds != "none":
+        rb = sb = ext
+    if bounds == "restricted":
+        rb = np.minimum(ext, rng.integers(0, K, size=n**3)).astype(np.int32)
+    _check_bounded(dev, table, s, valid, n, rb, sb, kernel, 0.01)
+
+
+@pytest.mark.parametrize("kernel", ["plummer", "spline", "none"])
+@pytest.mark.parametrize("table, n", [("pm1", 4), ("reach", 5)])
+def test_sweep_column_bounds_deep_clump(dev, table, n, kernel):
+    """A clump of 600 slots in one column, deeper than one staging of the
+    kernel (512 rows) and than 32 receivers a pass, with per-column
+    bounds; spline near-field pairs occur; its neighbours hold a few
+    slots."""
+    rng = np.random.default_rng(71 + n)
+    K, box = 600, 1.0
+    C = n**3
+    cw = box / n
+    counts = rng.integers(0, 9, size=C)
+    deep = C // 2
+    counts[deep] = K
+    valid = np.arange(K)[:, None] < counts[None, :]
+    cells = np.arange(C)
+    base = np.stack([cells // (n * n), (cells // n) % n, cells % n]) * cw
+    frac = rng.random((3, K, C))
+    frac[:, :, deep] = np.clip(rng.normal(0.5, 0.05, (3, K)), 0.0, 0.999)
+    pos = base[:, None, :] + frac * cw
+    s = np.where(valid[None], pos, 1e4 * box).astype(np.float32)
+    soft = 0.004
+    clump = pos[:, :, deep].T
+    r2 = ((clump[:, None] - clump[None]) ** 2).sum(-1)
+    assert ((r2 > 0) & (r2 < (2.8 * soft) ** 2)).sum() > 0  # near field reached
+    ext = counts.astype(np.int32)
+    got = _check_bounded(dev, table, s, valid, n, ext, ext, kernel, soft)
+    assert np.abs(got[:, 512:, deep]).max() > 0
+
+
+@pytest.mark.parametrize("table, n", [("pm1", 6), ("reach", 8)])
+def test_sweep_keeps_the_plain_pair_set_at_the_cutoff(dev, table, n):
+    """Isolated pairs whose r², formed unfused in float32 as both versions
+    form it, lies within a few ulps of cutoff² on either side: each slot
+    feels its partner only, so a pair taken or dropped by one version
+    alone would show as a zero against a nonzero force."""
+    from concept_tpu_torch.forces.cuda_shortrange import pair_sweep_plain
+
+    box = 1.0
+    sweep, offs, scale, cutoff = _table(table, n, box)
+    cutoff2 = np.float32(np.float32(cutoff) ** 2)
+    cw = box / n
+    K = 2
+    C = n**3
+    s = np.full((3, K, C), 1e4 * box, np.float32)
+    valid = np.zeros((K, C), bool)
+    half = n // 2  # columns half a box apart: no pair across columns
+    cols = [(i * n + j) * n + k for i in (0, half) for j in (0, half) for k in (0, half)]
+    for m, c in enumerate(cols):
+        ci, cj, ck = c // (n * n), (c // n) % n, c % n
+        xr = np.float32(np.float32(ci * cw) + np.float32(0.03 * cw))
+        y, z = np.float32((cj + 0.5) * cw), np.float32((ck + 0.5) * cw)
+        # partners at xr + cutoff nudged by ulps: the m-th pair takes the
+        # (m mod 4)-th r² below cutoff² (m < 4) or at or above it
+        cand = [np.float32(xr + np.float32(cutoff))]
+        for _ in range(40):
+            cand.append(np.nextafter(cand[-1], np.float32(2.0)))
+            cand.insert(0, np.nextafter(cand[0], np.float32(0.0)))
+        r2 = [np.float32(np.float32(xr - x) * np.float32(xr - x)) for x in cand]
+        below = [x for x, q in zip(cand, r2) if q < cutoff2][::-1]
+        above = [x for x, q in zip(cand, r2) if q >= cutoff2]
+        s[:, 0, c] = (xr, y, z)
+        s[:, 1, c] = ((below if m < 4 else above)[m % 4], y, z)
+        valid[:, c] = True
+    st = torch.as_tensor(s, device=dev)
+    recv = st if table == "pm1" else torch.where(
+        torch.as_tensor(valid, device=dev)[None], st, -1e4 * box).contiguous()
+    args = (n, box, scale, float(cutoff2), float(np.float32(0.01 * cw) ** 2), "plummer")
+    got = sweep(recv, st, *args).cpu().numpy()
+    ref = pair_sweep_plain(recv, st, *args, offsets=offs).cpu().numpy()
+    g, r = got[:, valid], ref[:, valid]
+    assert np.array_equal(g[0] != 0, r[0] != 0)
+    assert (r[0] != 0).sum() == 8  # the 4 pairs below cutoff², both members
+    np.testing.assert_allclose(g, r, rtol=1e-5, atol=0)

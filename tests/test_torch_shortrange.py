@@ -24,9 +24,11 @@ from concept_tpu.forces.pallas_shortrange import (  # noqa: E402
 from concept_tpu.forces.shortrange import (  # noqa: E402
     _sweep_pair as jax_sweep_pair, bucketize,
 )
-from concept_tpu_torch.forces.cuda_shortrange import pair_sweep  # noqa: E402
+from concept_tpu_torch.forces.cuda_shortrange import (  # noqa: E402
+    OFFSETS_27, column_bounds, pair_sweep,
+)
 from concept_tpu_torch.forces.shortrange import (  # noqa: E402
-    _G_COEF, SENTINEL, _sweep_pair, screening_g, window_bounds,
+    _G_COEF, SENTINEL, _sweep_pair, screening_g,
 )
 
 TOL = 1e-5
@@ -164,12 +166,21 @@ def test_bounded_sweep_matches_jax(kernel, bounds):
 
 
 def test_window_bounds_match_jax_at_pack_1():
+    """The port's per-column bounds against the Pallas kernel's per-window
+    bounds at pack factor 1: a column's receiver bound is its pencil's
+    window bound, and the largest supplier bound over its 27 neighbour
+    columns is its pencil's supplier window bound (the 9 pencils around
+    it), so both kernels read the same valid rows."""
     from concept_tpu.forces.pallas_shortrange import _window_bounds
 
     rng = np.random.default_rng(1)
     n = 6
     ext = rng.integers(0, 20, size=n * n).astype(np.int32)
-    for nb in (False, True):
-        np.testing.assert_array_equal(
-            window_bounds(torch.as_tensor(ext), n, nb).numpy(),
-            np.asarray(_window_bounds(jnp.asarray(ext), n, 1, nb)))
+    col = column_bounds(torch.as_tensor(ext), n).numpy().reshape(n, n, n)
+    recv, sup = (np.asarray(_window_bounds(jnp.asarray(ext), n, 1, nb)).reshape(n, n, 1)
+                 for nb in (False, True))
+    np.testing.assert_array_equal(col, np.broadcast_to(recv, col.shape))
+    # neighbour (di, dj, dk) of column (i, j, k) is ((i+di) % n, ...)
+    nb_max = np.max([np.roll(col, (-di, -dj, -dk), (0, 1, 2))
+                     for di, dj, dk in OFFSETS_27], axis=0)
+    np.testing.assert_array_equal(nb_max, np.broadcast_to(sup, col.shape))
