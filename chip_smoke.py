@@ -67,19 +67,21 @@ Then the rung stepper's two other layouts:
 Then PM-only gravity (``select_forces = {'all': {'gravity': 'pm'}}``):
 
 2e. The PM-only block kernels (rows 10 and 11: deposit and gather from
-    precomputed per-slot geometry) against their plain versions at the
-    shapes of a realized 256³ state on PM grid 256 (128³ blocks, K = 32,
-    D = 1 as the kick gathers one gradient component at a time), with
-    bounds and library calls as in 2.
+    block-sorted particles) against their plain versions at the shapes of
+    a realized 256³ state on PM grid 256 (128³ blocks): the gather at
+    D = 3, as the kick gathers its three gradient components in one
+    launch, and at D = 1, with bounds and library calls as in 2.
 3e. ``param/example_basic.py`` with PM gravity (64³, grid 128, a = 0.02 →
     1) through ``load_params`` and ``run`` with the default
     ``deposit_method``: it must launch rows 10 and 11 and no other kernel,
     lose at most half a particle's mass in any deposit and write a finite
-    spectrum; it prints its largest block overflow.  Then rows 10 and 11
-    are held against their plain versions on the run's final state,
-    bucketed as the kick buckets it (K = 16, deep blocks, overflow).
+    spectrum.  Then rows 10 and 11 are held against their plain versions
+    on the run's final state, sorted as the kick sorts it (deep blocks).
     Where its time goes is scripts/torch_profile_main_path.py's work.
-4e. 512³ particles on PM grid 512 through ``run`` for at least 3 steps.
+4e. 512³ particles on PM grid 512 through ``run`` for at least 3 steps,
+    then the device memory of one kick on its final state, piece by
+    piece (block sort, deposit, potential and gradients, gather), and of
+    the power spectrum its output writes.
 4f. ``BucketSimulation``, the persistent-bucket PM stepper: bench.py's
     flagship shape (a 512³ lattice with a 0.3-cell jitter, capacity 8, 5
     timed steps after a warm-up) and its sustained shape (256³ with 1LPT
@@ -463,17 +465,20 @@ def check_kernels(N: int = 128**3, mesh: int = 256, device: str = "cuda") -> dic
 def _check_pm_kernels(names, pos, valid, mass: float, G: float, scale: float | None,
                       mesh: int, box: float, cb: int, zmajor: bool,
                       dep, dep_plain, gat, gat_plain, nbytes=None, libraries=None,
-                      D: int = 3) -> dict:
+                      D=3) -> dict:
     """A CIC deposit kernel and its gather twin against their plain
     versions on the slots pos (3, K, C) of columns cb mesh cells wide
     (x-major or z-major ids): the deposit of w = mass·valid, then the
     gather of the first D force components of that deposit (long-range
     with the split scale, PM-only with ``scale`` None).  dep(w), gat(wv,
     grads) call a kernel; the *_plain twins its plain version.  Each is
-    timed beside its bound and its library call.  ``nbytes`` (deposit,
-    gather) and ``libraries`` (deposit's call of w, gather's (call, mask)
-    of wv and grads) replace the position-based defaults.  Fails on a
-    disagreement beyond rtol 2e-5, atol 1e-5·max|ref|."""
+    timed beside its bound and its library call.  ``nbytes`` (deposit's
+    bytes, the gather's as a function of D) and ``libraries`` (deposit's
+    call of w, gather's (call, mask) of wv and grads) replace the
+    position-based defaults.  ``D`` may be a tuple of widths: the gather
+    is checked at each, under ``names[1]`` for the first and
+    ``names[1]_D<width>`` for the others.  Fails on a disagreement beyond
+    rtol 2e-5, atol 1e-5·max|ref|."""
     import torch
 
     from concept_tpu_torch.forces.pm import gravity_potential_slab
@@ -516,33 +521,38 @@ def _check_pm_kernels(names, pos, valid, mass: float, G: float, scale: float | N
     print(f"{ms:.3f} ms, plain {plain_ms:.1f} ms, bound {bound_ms:.3f} ms; library "
           f"(index_add_ of precomputed corners) {library_ms:.3f} ms, {lib_rel:.1e} of max off")
 
+    widths = D if isinstance(D, tuple) else (D,)
     slab = rfft3(got / (box / mesh) ** 3)
     phi = gravity_potential_slab(slab, mesh, box, G, deconv_order=4, longrange_scale=scale)
-    grads = torch.stack([irfft3(fourier.fourier_diff(phi, mesh, box, d), mesh)
-                         for d in range(D)]).contiguous()
+    all_grads = torch.stack([irfft3(fourier.fourier_diff(phi, mesh, box, d), mesh)
+                             for d in range(max(widths))])
     del slab, phi, got, ref
     wv = valid.to(torch.float32).contiguous()
-    got, ref = gat(wv, grads), gat_plain(wv, grads)
-    _sync()
-    err, rel = compare(f"{names[1]} (D = {D})", got, ref)
-    ms = _time_ms(lambda: gat(wv, grads), 20)
-    plain_ms = _time_ms(lambda: gat_plain(wv, grads), 2)
-    gat_bytes = nbytes[1] if nbytes else 4 * (wv.numel() + 3 * n_valid + grads.numel()
-                                              + got.numel())
-    flops = (12 + D * 8 * 3) * n_valid
-    bound_ms = 1e3 * max(gat_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS)
-    library, mask = (libraries[1](wv, grads) if libraries
-                     else _gather_library(pos, wv, grads, mesh, box, cb, zmajor))
-    _, lib_rel = _max_rel(library() * mask, ref)
-    library_ms = _time_ms(library, 20)
-    del library, mask
-    out[names[1]] = dict(
-        max_abs_err=err, max_rel_err=rel, tol="rtol 2e-5, atol 1e-5·max|ref|", ms=ms,
-        plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes", bytes=gat_bytes, flops=flops,
-        D=D, library_ms=library_ms, library="grid_sample on the periodically padded grids",
-        library_max_rel_err=lib_rel)
-    print(f"{ms:.3f} ms, plain {plain_ms:.1f} ms, bound {bound_ms:.3f} ms; library "
-          f"(grid_sample on padded grids) {library_ms:.3f} ms, {lib_rel:.1e} of max off")
+    for k, width in enumerate(widths):
+        grads = all_grads[:width].contiguous()
+        name = names[1] if k == 0 else f"{names[1]}_D{width}"
+        got, ref = gat(wv, grads), gat_plain(wv, grads)
+        _sync()
+        err, rel = compare(f"{names[1]} (D = {width})", got, ref)
+        ms = _time_ms(lambda: gat(wv, grads), 20)
+        plain_ms = _time_ms(lambda: gat_plain(wv, grads), 2)
+        gat_bytes = nbytes[1](width) if nbytes else 4 * (
+            wv.numel() + 3 * n_valid + grads.numel() + got.numel())
+        flops = (12 + width * 8 * 3) * n_valid
+        bound_ms = 1e3 * max(gat_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS)
+        library, mask = (libraries[1](wv, grads) if libraries
+                         else _gather_library(pos, wv, grads, mesh, box, cb, zmajor))
+        _, lib_rel = _max_rel(library() * mask, ref)
+        library_ms = _time_ms(library, 20)
+        del library, mask, got, ref
+        out[name] = dict(
+            max_abs_err=err, max_rel_err=rel, tol="rtol 2e-5, atol 1e-5·max|ref|", ms=ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes", bytes=gat_bytes,
+            flops=flops, D=width, library_ms=library_ms,
+            library="grid_sample on the periodically padded grids",
+            library_max_rel_err=lib_rel)
+        print(f"{ms:.3f} ms, plain {plain_ms:.1f} ms, bound {bound_ms:.3f} ms; library "
+              f"(grid_sample on padded grids) {library_ms:.3f} ms, {lib_rel:.1e} of max off")
     return out
 
 
@@ -668,27 +678,25 @@ def check_reach_kernels(N: int = 128**3, mesh: int = 256, device: str = "cuda") 
     return out
 
 
-def _pm_only_libraries(bk, mesh: int):
-    """The library calls of rows 10 and 11 on the block buckets bk: a
-    builder of the deposit's call (``index_add_`` of the 8 CIC corners
-    of every depositing slot, computed beforehand) and one of the
+def _pm_only_libraries(sb, mesh: int):
+    """The library calls of rows 10 and 11 on the block-sorted particles
+    sb: a function making the deposit's call (``index_add_`` of the 8 CIC
+    corners of every particle, computed beforehand) and one of the
     gather's (call, mask): trilinear ``grid_sample`` of the periodically
-    padded grids at the slots' padded mesh coordinates, anchor + fraction
-    + 1."""
+    padded grids at the particles' padded mesh coordinates, anchor +
+    fraction + 1."""
     import torch
     import torch.nn.functional as F
 
-    from concept_tpu_torch.grid.cuda_pm import _anchors
+    from concept_tpu_torch.grid.cuda_pm import _geometry
     from concept_tpu_torch.grid.interp import cic_corners
 
-    K, C = bk["valid"].shape
-    anchors = _anchors(bk["lidx"], slice(0, C), mesh // 2)
-    fracs = (bk["fx"], bk["fy"], bk["fz"])
+    N = sb["lidx"].shape[0]
+    anchors, fracs, _ = _geometry(sb["lidx"], sb["fx"], sb["fy"], sb["fz"], sb["starts"],
+                                  sb["counts"], mesh // 2, slice(0, N))
 
     def deposit_library(w):
-        keep = w != 0
-        idx, vals = zip(*((i[keep], (wt * w)[keep]) for i, wt in
-                          cic_corners(anchors, fracs, mesh)))
+        idx, vals = zip(*((i, wt * w) for i, wt in cic_corners(anchors, fracs, mesh)))
         idx, vals = torch.cat(idx), torch.cat(vals)
         return lambda: torch.zeros(mesh**3, device=w.device).index_add_(
             0, idx, vals).reshape(mesh, mesh, mesh)
@@ -697,11 +705,11 @@ def _pm_only_libraries(bk, mesh: int):
         D = grids.shape[0]
         padded = F.pad(grids[None], (1, 1, 1, 1, 1, 1), mode="circular")
         u = torch.stack([a + f + 1.0 for a, f in zip(anchors, fracs)]) * (2.0 / (mesh + 1)) - 1.0
-        coords = u.flip(0).permute(1, 2, 0).reshape(1, 1, 1, K * C, 3).contiguous()
+        coords = u.flip(0).T.reshape(1, 1, 1, N, 3).contiguous()
 
         def call():
             return F.grid_sample(padded, coords, mode="bilinear", padding_mode="border",
-                                 align_corners=True).reshape(D, K, C)
+                                 align_corners=True).reshape(D, N)
 
         return call, wv != 0
 
@@ -709,36 +717,37 @@ def _pm_only_libraries(bk, mesh: int):
 
 
 def _check_pm_buckets(pos, mass: float, G: float, mesh: int, box: float) -> dict:
-    """Rows 10 and 11 against their plain versions on the block buckets of
-    the particles pos (N, 3) on PM grid `mesh`, as the PM-only kick
-    buckets them (capacity max(16, 4·8N/mesh³)) and gathers (D = 1: one
-    gradient component at a time).  The bounds count the work of the
-    valid slots only: 20 bytes in (lidx, fx, fy, fz, q) per slot and the
-    mesh written (deposit), 20 bytes in and 4 out per slot and the mesh
-    read (gather)."""
-    from concept_tpu_torch.grid.bucketed import bucketize_blocks
+    """Rows 10 and 11 against their plain versions on the particles pos
+    (N, 3) sorted by block on PM grid `mesh`, as the PM-only kick sorts
+    them: the deposit, and the gather at D = 3 (the kick's three gradient
+    components in one launch) and at D = 1 (one component a launch, as
+    the kick gathered in the padded-slot design).  The bounds count each
+    input read once and each output written once: 20 bytes in a particle
+    (lidx, fx, fy, fz, q) and the mesh written (deposit); 16 bytes in and
+    4·D out a particle and the D meshes read (gather)."""
+    import torch
+
+    from concept_tpu_torch.grid.bucketed import sort_blocks
     from concept_tpu_torch.grid.cuda_pm import (
         deposit_pm, deposit_pm_plain, gather_pm, gather_pm_plain,
     )
 
     N = pos.shape[0]
-    capacity = max(16, int(4 * (N * 8 / mesh**3)))
-    bk = bucketize_blocks(pos, mass, mesh, box, capacity, uniform_q=True)
-    valid = bk["valid"]
-    n_valid = int(valid.sum())
-    n_over = int(bk["over_idx"].numel())
-    print(f"  {N} particles, mesh {mesh}, {mesh // 2}³ blocks, K = {capacity}, "
-          f"{n_valid} valid slots, {n_over} beyond the capacity")
-    out = {"shape": {"N": N, "mesh": mesh, "nb": mesh // 2, "K": capacity,
-                     "valid_slots": n_valid, "overflow": n_over}}
-    args = (bk["lidx"], bk["fx"], bk["fy"], bk["fz"])
+    sb = sort_blocks(pos, mesh, box)
+    deepest = int(sb["counts"].max())
+    print(f"  {N} particles, mesh {mesh}, {mesh // 2}³ blocks, deepest block {deepest}")
+    out = {"shape": {"N": N, "mesh": mesh, "nb": mesh // 2, "deepest_block": deepest}}
+    args = (sb["lidx"], sb["fx"], sb["fy"], sb["fz"])
+    blocks = (sb["starts"], sb["counts"])
     out.update(_check_pm_kernels(
-        ("deposit_pm", "gather_pm"), None, valid, mass, G, None, mesh, box, 2, False,
-        lambda w: deposit_pm(*args, w, mesh), lambda w: deposit_pm_plain(*args, w, mesh),
-        lambda wv, g: gather_pm(*args, wv, g, mesh),
-        lambda wv, g: gather_pm_plain(*args, wv, g, mesh),
-        nbytes=(20 * n_valid + 4 * mesh**3, (20 + 4) * n_valid + 4 * mesh**3),
-        libraries=_pm_only_libraries(bk, mesh), D=1))
+        ("deposit_pm", "gather_pm"), None, torch.ones(N, dtype=torch.bool, device=pos.device),
+        mass, G, None, mesh, box, 2, False,
+        lambda w: deposit_pm(*args, w, *blocks, mesh),
+        lambda w: deposit_pm_plain(*args, w, *blocks, mesh),
+        lambda wv, g: gather_pm(*args, *blocks, g, mesh),
+        lambda wv, g: gather_pm_plain(*args, *blocks, g, mesh),
+        nbytes=(20 * N + 4 * mesh**3, lambda D: 16 * N + 4 * D * N + 4 * D * mesh**3),
+        libraries=_pm_only_libraries(sb, mesh), D=(3, 1)))
     return out
 
 
@@ -1055,13 +1064,14 @@ def pm_only_main_path() -> dict:
 
 
 def pm_only_realistic(a_end: float = 0.025, n: int = 512, mesh: int = 512) -> dict:
-    """n³ particles on PM grid `mesh` through run, to an early output time."""
+    """n³ particles on PM grid `mesh` through run, to an early output time;
+    then one kick's device memory on the final state."""
     import torch
 
     torch.cuda.reset_peak_memory_stats()
     outdir = tempfile.mkdtemp(prefix="chip_smoke_pm_big_")
     try:
-        sim, _, a, counts, seconds = _run([
+        sim, state, a, counts, seconds = _run([
             f"initial_conditions={{'species':'matter','N':{n}**3}}",
             f"potential_options={mesh}", PM_ONLY,
             f"output_times={{'powerspec': [{a_end}]}}"], outdir, PM_KERNELS)
@@ -1081,9 +1091,59 @@ def pm_only_realistic(a_end: float = 0.025, n: int = 512, mesh: int = 512) -> di
           f"block overflow {st['pm_overflow_max']}, largest deposit deficit "
           f"{st['pm_mass_deficit_max']:.3g} particle masses; launches "
           + ", ".join(f"{k}={v}" for k, v in counts.items()))
+    memory = _pm_kick_memory(sim, state)
     return {"a_end": a, "steps": steps, "evolve_s": ev, "ms_per_step": 1e3 * ev / steps,
             "particle_updates_per_s": N * steps / ev, "peak_bytes": peak,
-            "realize_s": sim.timings["realize_s"], "launches": counts, "stats": dict(st)}
+            "realize_s": sim.timings["realize_s"], "launches": counts, "stats": dict(st),
+            "kick_memory": memory}
+
+
+def _pm_kick_memory(sim, state) -> dict:
+    """Device memory (bytes) of one PM-only kernel-path kick on the state:
+    allocated before; the peak of the whole kick; then the kick's pieces
+    one by one, each with its peak and what it leaves allocated: the
+    block sort, the row-10 deposit, the potential and its three gradient
+    grids, the row-11 gather (D = 3) and its unsort; and, beside the kick,
+    the power spectrum the run's output writes (PCS, interlaced, on the
+    PM grid: example_basic's powerspec defaults)."""
+    import torch
+
+    from concept_tpu_torch.analysis.powerspec import powerspec
+    from concept_tpu_torch.forces.pm import (
+        gravity_potential_slab, pm_gravity_momentum_updates, potential_gradient_grids,
+    )
+    from concept_tpu_torch.grid.bucketed import deposit_bucketed, gather_bucketed, sort_blocks
+    from concept_tpu_torch.grid.fft import rfft3
+
+    cfg = sim.config
+    n, box, m = cfg.potential_gridsize, cfg.boxsize, sim.spec.mass
+    _sync()
+    out = {"before": torch.cuda.memory_allocated()}
+
+    def piece(name, fn):
+        _sync()
+        torch.cuda.reset_peak_memory_stats()
+        res = fn()
+        _sync()
+        out[name] = {"peak": torch.cuda.max_memory_allocated(),
+                     "after": torch.cuda.memory_allocated()}
+        return res
+
+    piece("kick", lambda: pm_gravity_momentum_updates(
+        [state.pos], [m], n, box, cfg.G, 1e-3, deposit_method="pallas"))
+    sb = piece("sort_blocks", lambda: sort_blocks(state.pos, n, box))
+    grid = piece("deposit", lambda: deposit_bucketed(sb, m, n))
+    grads = piece("potential_gradients", lambda: potential_gradient_grids(
+        gravity_potential_slab(rfft3(grid / (box / n) ** 3), n, box, cfg.G, deconv_order=4),
+        n, box))
+    del grid
+    piece("gather", lambda: gather_bucketed(sb, grads, n))
+    del sb, grads
+    piece("powerspec", lambda: powerspec(state.pos, n, box, sim.spec.N))
+    gib = {k: (v if isinstance(v, int) else v["peak"]) / 2**30 for k, v in out.items()}
+    print("  one kick's device memory, GiB (allocated before, then each piece's peak): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in gib.items()))
+    return out
 
 
 def _timed_steps(sim, state, int1: float, int2: float, n_steps: int, rebucket: bool):
@@ -1310,6 +1370,13 @@ def main(argv=None) -> int:
         byname[name].update(
             clustered_max_abs_err=clu["max_abs_err"], clustered_ms=clu["ms"],
             clustered_plain_ms=clu["plain_ms"], clustered_bound_ms=clu["bound_ms"])
+    # row 11 at D = 1 beside the kick's D = 3
+    for key, c in (("D1", results["check_pm_only"]["gather_pm_D1"]),
+                   ("clustered_D1", results["pm_only_main_path"]["clustered"]["gather_pm_D1"])):
+        byname["gather_pm"].update({
+            f"{key}_max_abs_err": c["max_abs_err"], f"{key}_ms": c["ms"],
+            f"{key}_plain_ms": c["plain_ms"], f"{key}_bound_ms": c["bound_ms"],
+            f"{key}_library_ms": c["library_ms"]})
     for name, phase, key in (("deposit_pm", "pm_only_main_path", "clustered"),
                              ("gather_pm", "pm_only_main_path", "clustered"),
                              ("deposit_blocks", "bucket_sustained", "final_slots"),

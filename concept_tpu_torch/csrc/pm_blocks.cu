@@ -1,149 +1,333 @@
-// CIC deposit and gather on 2³-mesh-cell blocks from precomputed per-slot
-// geometry: the PM-only path's block kernels.
+// CIC deposit and gather on 2³-mesh-cell blocks from block-sorted
+// particles: the PM-only path's block kernels.
 //
 // Replaces concept_tpu/grid/pallas_pm.py
 //   _deposit_kernel (:54; deposit_pallas_kc, pallas_call at :139) and
 //   _gather_kernel  (:81; gather_pallas_kc, pallas_call at :171).
 //
-// Inputs are slot-major (K, C), C = nb³ blocks with x-major ids
-// c = (bx·nb + by)·nb + bz, nb = n/2, as grid/bucketed.bucketize_blocks
-// lays them out: lidx (int32), the slot's CIC anchor in its block's 4³
-// halo mini-grid, (lx·4 + ly)·4 + lz with each of lx, ly, lz in [0, 2]
-// (a particle is bucketed by its own cell, so its anchor lies within one
-// cell of it and no halo test is needed); the CIC fractions fx, fy, fz;
-// and q (deposit: the weight, premasked by validity) or w (gather: the
-// validity weight).  The global anchor is 2·(bx, by, bz) − 1 + (lx, ly,
-// lz), taken modulo n.
+// Inputs (grid/bucketed.sort_blocks): the N particles in block order,
+// C = nb³ blocks with x-major ids c = (bx·nb + by)·nb + bz, nb = n/2.
+// Per particle: lidx (int32), the CIC anchor in its block's 4³ halo
+// mini-grid, (lx·4 + ly)·4 + lz with each of lx, ly, lz in [0, 2] (a
+// particle is bucketed by its own cell, so its anchor lies within one
+// cell of it; other values are clamped into [0, 2], which keeps every
+// access inside the tile); the CIC fractions fx, fy, fz; and q (deposit:
+// the weight).  Per block: starts, the exclusive running sum of the
+// blocks' full counts (block c holds sorted particles [starts[c],
+// starts[c + 1]), N after the last), and counts, which cut the block to
+// its first counts[c] particles (the rest are not deposited and gather
+// 0).  The global anchor is 2·(bx, by, bz) − 1 + (lx, ly, lz), modulo n.
 //
-// What bounds them on the card: device memory.  A slot moves 20 bytes in
-// (lidx, fx, fy, fz, q) and makes 8 atomic corner updates (deposit), or
-// 8·D corner reads and D floats out (gather), for ~30 FP32 operations.
-// Design: one thread per slot, neighbouring threads on neighbouring
-// blocks, so the slot-major reads and the gather's writes are coalesced.
-// The deposit adds its 8 corner weights atomically straight into the
-// periodic n³ mesh, which takes the place of the TPU kernels' 64-cell
-// one-hot mini-grids and their overlap-add band contractions
-// (_assemble_global_T); slots of weight 0 return at once.  The corner
-// weight is formed in the TPU kernel's order, (wx·wy·wz)·q.  Atomics add
-// in no fixed order.
+// What bounds them on the card: device memory.  A particle moves 20 bytes
+// in (lidx, fx, fy, fz, q) and the mesh is written once (deposit), or 16
+// bytes in, 4·D out and D meshes read (gather); ~30 FP32 operations a
+// particle and field.
+//
+// Design.  The TPU kernels run over slot-major (K, C) buckets padded to
+// the capacity K, because its lanes wanted dense (K, 128) tiles; here a
+// CTA takes a tile of TX × TY × TZ blocks and only the particles the
+// tile holds.  Block ids run along z, so the tile's TX·TY runs of TZ
+// blocks are TX·TY contiguous ranges of the sorted arrays, read
+// coalesced; an exclusive scan of the tile's block lengths in shared
+// memory maps a thread's particle index to its block by a binary search.
+// The tile's halo, (2·TX + 2)(2·TY + 2)(2·TZ + 2) mesh cells (the
+// corners reach one cell beyond the blocks), lives in shared memory:
+//   deposit (tiles of 4 × 8 × 8 blocks): the particles add their 8 corner
+//     weights (wx·wy·wz)·q, in the TPU kernel's order, to the halo tile
+//     with shared atomics; the tile then goes to the zeroed mesh by one
+//     global atomic a nonzero cell, in place of 8 a particle;
+//   gather (tiles of 4 × 4 × 8 blocks): the CTA stages the halo of all D
+//     fields with asynchronous copies along z, the periodic wrap taken
+//     there, and every particle reads its 8·D corners from shared memory
+//     and writes D values at its sorted index ((D, N), coalesced): one
+//     launch for the three gradient components.
+// Measured beside the alternatives (PERF.md §6): plain stores for
+// the cells no other tile reaches, and a halo copy per warp to spread a
+// clump's shared atomics, were slower; so were the other tile shapes
+// tried, and staging through registers (the gather waited on its loads).
+// The last tiles along a dimension are clipped to the mesh; a mesh
+// smaller than a tile (nb < TZ) is one clipped tile along that
+// dimension, whose halo wraps onto itself (its halo cells map to global
+// cells with the wrap, and atomics add the copies).  Atomics add in no
+// fixed order.
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
-struct Anchor {
-  int ix, iy, iz;  // global anchor mesh indices, in [−1, n − 1]
-};
-
-__device__ __forceinline__ Anchor decode(int l, long long i, int nb) {
-  const int C = nb * nb * nb;
-  const int c = (int)(i % C);
-  Anchor a;
-  a.ix = 2 * (c / (nb * nb)) - 1 + (l >> 4);
-  a.iy = 2 * ((c / nb) % nb) - 1 + ((l >> 2) & 3);
-  a.iz = 2 * (c % nb) - 1 + (l & 3);
-  return a;
-}
+constexpr int kThreads = 256;
 
 __device__ __forceinline__ int wrap(int i, int n) { return i < 0 ? i + n : (i >= n ? i - n : i); }
 
-__global__ void pm_deposit_kernel(const int* __restrict__ lidx,
-                                  const float* __restrict__ fx,
-                                  const float* __restrict__ fy,
-                                  const float* __restrict__ fz,
-                                  const float* __restrict__ q, long long KC, int nb,
-                                  float* __restrict__ grid) {
-  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= KC) return;
-  const float qv = q[i];
-  if (qv == 0.0f) return;
-  const Anchor a = decode(lidx[i], i, nb);
-  const float f[3] = {fx[i], fy[i], fz[i]};
-  const int n = 2 * nb;
+template <int TX, int TY, int TZ>
+struct Tile {
+  static constexpr int kBlocks = TX * TY * TZ;
+  static constexpr int HX = 2 * TX + 2, HY = 2 * TY + 2, HZ = 2 * TZ + 2;
+  static constexpr int kCells = HX * HY * HZ;
+  static_assert(kBlocks <= kThreads && (kBlocks & (kBlocks - 1)) == 0,
+                "a tile's blocks: a power of two, at most one per thread");
+
+  // shared: the exclusive scan of the blocks' lengths (kBlocks + 1
+  // entries), each block's first sorted particle and its cut
+  int* pre;
+  int* first;
+  int* cut;
+  int bx0, by0, bz0;  // the tile's first block
+  int ex, ey, ez;     // its extent inside the mesh, in blocks
+  int P;              // its particles
+
+  static int count(int nb) {
+    return ((nb + TX - 1) / TX) * ((nb + TY - 1) / TY) * ((nb + TZ - 1) / TZ);
+  }
+
+  // Locate blockIdx.x's tile (z fastest) and load its blocks' ranges.
+  // All threads call it; it ends with a barrier.
+  __device__ void load(const int* __restrict__ starts, const int* __restrict__ counts, int N,
+                       int nb, int* pre_s, int* first_s, int* cut_s, int* warp_s) {
+    pre = pre_s;
+    first = first_s;
+    cut = cut_s;
+    const int ntz = (nb + TZ - 1) / TZ, nty = (nb + TY - 1) / TY;
+    const int t = blockIdx.x;
+    bz0 = (t % ntz) * TZ;
+    by0 = ((t / ntz) % nty) * TY;
+    bx0 = (t / (ntz * nty)) * TX;
+    ex = min(TX, nb - bx0);
+    ey = min(TY, nb - by0);
+    ez = min(TZ, nb - bz0);
+    const int b = threadIdx.x;
+    int len = 0;
+    if (b < kBlocks) {
+      const int lx = b / (TY * TZ), ly = (b / TZ) % TY, lz = b % TZ;
+      int s = 0, k = 0;
+      if (lx < ex && ly < ey && lz < ez) {
+        const long long C = (long long)nb * nb * nb;
+        const long long c = ((long long)(bx0 + lx) * nb + by0 + ly) * nb + bz0 + lz;
+        s = starts[c];
+        len = (c + 1 < C ? starts[c + 1] : N) - s;
+        k = min(counts[c], len);
+      }
+      first[b] = s;
+      cut[b] = k;
+    }
+    // block-wide exclusive scan of len: within warps, then over warp sums
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    int x = len;
 #pragma unroll
-  for (int cx = 0; cx < 2; ++cx) {
-    const float wx = cx ? f[0] : 1.0f - f[0];
-    const long long ox = (long long)wrap(a.ix + cx, n) * n;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, x, o);
+      if (lane >= o) x += y;
+    }
+    if (lane == 31) warp_s[warp] = x;
+    __syncthreads();
+    if (warp == 0) {
+      int w = lane < kThreads / 32 ? warp_s[lane] : 0;
 #pragma unroll
-    for (int cy = 0; cy < 2; ++cy) {
-      const float wy = cy ? f[1] : 1.0f - f[1];
-      const long long oy = (ox + wrap(a.iy + cy, n)) * n;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, w, o);
+        if (lane >= o) w += y;
+      }
+      if (lane < kThreads / 32) warp_s[lane] = w;
+    }
+    __syncthreads();
+    if (b < kBlocks) pre[b] = (warp ? warp_s[warp - 1] : 0) + x - len;
+    P = warp_s[kThreads / 32 - 1];
+    if (b == 0) pre[kBlocks] = P;
+    __syncthreads();
+  }
+
+  // The tile block of the tile's j-th particle: the largest b with
+  // pre[b] ≤ j (empty blocks repeat their neighbour's entry).
+  __device__ __forceinline__ int block_of(int j) const {
+    int b = 0;
 #pragma unroll
-      for (int cz = 0; cz < 2; ++cz) {
-        const float wz = cz ? f[2] : 1.0f - f[2];
-        atomicAdd(grid + oy + wrap(a.iz + cz, n), (wx * wy * wz) * qv);
+    for (int step = kBlocks / 2; step > 0; step >>= 1)
+      if (pre[b + step] <= j) b += step;
+    return b;
+  }
+
+  // The halo-tile index of the particle's anchor: 2·(its block in the
+  // tile) + (lx, ly, lz), each in [0, 2·T]; its corners add 0 or 1.
+  __device__ __forceinline__ int anchor(int b, int l) const {
+    const int hx = 2 * (b / (TY * TZ)) + min(max(l >> 4, 0), 2);
+    const int hy = 2 * ((b / TZ) % TY) + min((l >> 2) & 3, 2);
+    const int hz = 2 * (b % TZ) + min(l & 3, 2);
+    return (hx * HY + hy) * HZ + hz;
+  }
+
+  // For halo-tile cell s: whether it lies inside the clipped tile's halo,
+  // and its global mesh index (the periodic wrap taken).
+  __device__ __forceinline__ bool cell(int s, int n, long long* g) const {
+    const int hz = s % HZ, hy = (s / HZ) % HY, hx = s / (HZ * HY);
+    if (hx > 2 * ex + 1 || hy > 2 * ey + 1 || hz > 2 * ez + 1) return false;
+    *g = ((long long)wrap(2 * bx0 - 1 + hx, n) * n + wrap(2 * by0 - 1 + hy, n)) * n +
+         wrap(2 * bz0 - 1 + hz, n);
+    return true;
+  }
+};
+
+template <int TX, int TY, int TZ>
+__global__ void __launch_bounds__(kThreads)
+pm_deposit_kernel(const int* __restrict__ lidx, const float* __restrict__ fx,
+                  const float* __restrict__ fy, const float* __restrict__ fz,
+                  const float* __restrict__ q, const int* __restrict__ starts,
+                  const int* __restrict__ counts, int N, int nb, float* __restrict__ grid) {
+  using T = Tile<TX, TY, TZ>;
+  __shared__ int pre_s[T::kBlocks + 1], first_s[T::kBlocks], cut_s[T::kBlocks];
+  __shared__ int warp_s[kThreads / 32];
+  extern __shared__ float halo[];  // kCells
+  T tile;
+  tile.load(starts, counts, N, nb, pre_s, first_s, cut_s, warp_s);
+  if (tile.P == 0) return;
+  for (int s = threadIdx.x; s < T::kCells; s += kThreads) halo[s] = 0.0f;
+  __syncthreads();
+  for (int j = threadIdx.x; j < tile.P; j += kThreads) {
+    const int b = tile.block_of(j);
+    const int r = j - tile.pre[b];
+    if (r >= tile.cut[b]) continue;
+    const int i = tile.first[b] + r;
+    const int a = tile.anchor(b, lidx[i]);
+    const float f[3] = {fx[i], fy[i], fz[i]};
+    const float qv = q[i];
+#pragma unroll
+    for (int cx = 0; cx < 2; ++cx) {
+      const float wx = cx ? f[0] : 1.0f - f[0];
+#pragma unroll
+      for (int cy = 0; cy < 2; ++cy) {
+        const float wy = cy ? f[1] : 1.0f - f[1];
+#pragma unroll
+        for (int cz = 0; cz < 2; ++cz) {
+          const float wz = cz ? f[2] : 1.0f - f[2];
+          atomicAdd(halo + a + (cx * T::HY + cy) * T::HZ + cz, (wx * wy * wz) * qv);
+        }
       }
     }
   }
+  __syncthreads();
+  const int n = 2 * nb;
+  for (int s = threadIdx.x; s < T::kCells; s += kThreads) {
+    long long g;
+    const float v = halo[s];
+    if (v != 0.0f && tile.cell(s, n, &g)) atomicAdd(grid + g, v);
+  }
 }
 
-__global__ void pm_gather_kernel(const int* __restrict__ lidx,
-                                 const float* __restrict__ fx,
-                                 const float* __restrict__ fy,
-                                 const float* __restrict__ fz,
-                                 const float* __restrict__ w, long long KC, int nb,
-                                 const float* __restrict__ grids, int D,
-                                 float* __restrict__ out) {
-  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= KC) return;
-  const float wv = w[i];
+template <int TX, int TY, int TZ>
+__global__ void __launch_bounds__(kThreads)
+pm_gather_kernel(const int* __restrict__ lidx, const float* __restrict__ fx,
+                 const float* __restrict__ fy, const float* __restrict__ fz,
+                 const int* __restrict__ starts, const int* __restrict__ counts, int N, int nb,
+                 const float* __restrict__ grids, int D, float* __restrict__ out) {
+  using T = Tile<TX, TY, TZ>;
+  __shared__ int pre_s[T::kBlocks + 1], first_s[T::kBlocks], cut_s[T::kBlocks];
+  __shared__ int warp_s[kThreads / 32];
+  extern __shared__ float halo[];  // D × kCells
+  T tile;
+  tile.load(starts, counts, N, nb, pre_s, first_s, cut_s, warp_s);
+  if (tile.P == 0) return;
   const int n = 2 * nb;
   const long long n3 = (long long)n * n * n;
-  if (wv == 0.0f) {
-    for (int dd = 0; dd < D; ++dd) out[dd * KC + i] = 0.0f;
-    return;
+  // asynchronous copies (cp.async): every load of the halo in flight at
+  // once, none through registers
+  for (int s = threadIdx.x; s < T::kCells; s += kThreads) {
+    long long g;
+    if (!tile.cell(s, n, &g)) continue;
+    for (int d = 0; d < D; ++d)
+      __pipeline_memcpy_async(halo + d * T::kCells + s, grids + d * n3 + g, sizeof(float));
   }
-  const Anchor a = decode(lidx[i], i, nb);
-  const float f[3] = {fx[i], fy[i], fz[i]};
-  // the 8 corners' mesh offsets and weights, shared by the D fields
-  long long off[8];
-  float wt[8];
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  for (int j = threadIdx.x; j < tile.P; j += kThreads) {
+    const int b = tile.block_of(j);
+    const int r = j - tile.pre[b];
+    const int i = tile.first[b] + r;
+    if (r >= tile.cut[b]) {
+      for (int d = 0; d < D; ++d) out[d * (long long)N + i] = 0.0f;
+      continue;
+    }
+    const int a = tile.anchor(b, lidx[i]);
+    const float f[3] = {fx[i], fy[i], fz[i]};
+    // the 8 corners' halo offsets and weights, shared by the D fields
+    int off[8];
+    float wt[8];
 #pragma unroll
-  for (int cx = 0; cx < 2; ++cx) {
-    const float wx = cx ? f[0] : 1.0f - f[0];
-    const long long ox = (long long)wrap(a.ix + cx, n) * n;
+    for (int cx = 0; cx < 2; ++cx) {
+      const float wx = cx ? f[0] : 1.0f - f[0];
 #pragma unroll
-    for (int cy = 0; cy < 2; ++cy) {
-      const float wy = cy ? f[1] : 1.0f - f[1];
-      const long long oy = (ox + wrap(a.iy + cy, n)) * n;
+      for (int cy = 0; cy < 2; ++cy) {
+        const float wy = cy ? f[1] : 1.0f - f[1];
 #pragma unroll
-      for (int cz = 0; cz < 2; ++cz) {
-        const float wz = cz ? f[2] : 1.0f - f[2];
-        const int k = (cx * 2 + cy) * 2 + cz;
-        off[k] = oy + wrap(a.iz + cz, n);
-        wt[k] = (wx * wy * wz) * wv;
+        for (int cz = 0; cz < 2; ++cz) {
+          const float wz = cz ? f[2] : 1.0f - f[2];
+          const int k = (cx * 2 + cy) * 2 + cz;
+          off[k] = a + (cx * T::HY + cy) * T::HZ + cz;
+          wt[k] = wx * wy * wz;
+        }
       }
     }
-  }
-  for (int dd = 0; dd < D; ++dd) {
-    const float* G = grids + dd * n3;
-    float v = 0.0f;
+    for (int d = 0; d < D; ++d) {
+      const float* S = halo + d * T::kCells;
+      float v = 0.0f;
 #pragma unroll
-    for (int k = 0; k < 8; ++k) v += wt[k] * G[off[k]];
-    out[dd * KC + i] = v;
+      for (int k = 0; k < 8; ++k) v += wt[k] * S[off[k]];
+      out[d * (long long)N + i] = v;
+    }
   }
 }
 
-// lidx (int32), fx, fy, fz, q: (K, C) contiguous, C = nb³; grid (n, n, n)
-// contiguous, n = 2·nb, zeroed by the caller.  Returns the cudaError_t of
-// the launch.
-extern "C" int pm_deposit_launch(const int* lidx, const float* fx, const float* fy,
-                                 const float* fz, const float* q, int K, int nb,
-                                 float* grid, void* stream) {
-  const long long KC = (long long)K * nb * nb * nb;
-  const int threads = 256;
-  const long long blocks = (KC + threads - 1) / threads;
-  pm_deposit_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      lidx, fx, fy, fz, q, KC, nb, grid);
+// Allow the kernel `bytes` of dynamic shared memory: past 48 KB, static
+// and dynamic together, only after an opt-in (raised once per kernel).
+template <typename Kernel>
+static int shared_bytes(Kernel kernel, size_t bytes, size_t& allowed) {
+  if (bytes <= allowed) return 0;
+  const int err = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == 0) allowed = bytes;
+  return err;
+}
+
+template <int TX, int TY, int TZ>
+static int deposit_launch(const int* lidx, const float* fx, const float* fy, const float* fz,
+                          const float* q, const int* starts, const int* counts, int N, int nb,
+                          float* grid, cudaStream_t stream) {
+  using T = Tile<TX, TY, TZ>;
+  const size_t bytes = sizeof(float) * T::kCells;
+  auto kernel = pm_deposit_kernel<TX, TY, TZ>;
+  static size_t allowed = 0;
+  if (int err = shared_bytes(kernel, bytes, allowed)) return err;
+  kernel<<<T::count(nb), kThreads, bytes, stream>>>(lidx, fx, fy, fz, q, starts, counts, N, nb,
+                                                     grid);
   return (int)cudaGetLastError();
 }
 
-// the same slot arrays with the validity weight w; grids (D, n, n, n)
-// contiguous; out (D, K, C) contiguous.
-extern "C" int pm_gather_launch(const int* lidx, const float* fx, const float* fy,
-                                const float* fz, const float* w, int K, int nb,
-                                const float* grids, int D, float* out, void* stream) {
-  const long long KC = (long long)K * nb * nb * nb;
-  const int threads = 256;
-  const long long blocks = (KC + threads - 1) / threads;
-  pm_gather_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      lidx, fx, fy, fz, w, KC, nb, grids, D, out);
+template <int TX, int TY, int TZ>
+static int gather_launch(const int* lidx, const float* fx, const float* fy, const float* fz,
+                         const int* starts, const int* counts, int N, int nb,
+                         const float* grids, int D, float* out, cudaStream_t stream) {
+  using T = Tile<TX, TY, TZ>;
+  const size_t bytes = sizeof(float) * D * T::kCells;
+  auto kernel = pm_gather_kernel<TX, TY, TZ>;
+  static size_t allowed = 0;
+  if (int err = shared_bytes(kernel, bytes, allowed)) return err;
+  kernel<<<T::count(nb), kThreads, bytes, stream>>>(lidx, fx, fy, fz, starts, counts, N, nb,
+                                                     grids, D, out);
   return (int)cudaGetLastError();
+}
+
+// lidx (int32), fx, fy, fz, q: (N,) contiguous, block-sorted; starts,
+// counts: (C,) int32, C = nb³; grid (n, n, n) contiguous, n = 2·nb,
+// zeroed by the caller.  Returns the cudaError_t of the launch.
+extern "C" int pm_deposit_launch(const int* lidx, const float* fx, const float* fy,
+                                 const float* fz, const float* q, const int* starts,
+                                 const int* counts, int N, int nb, float* grid, void* stream) {
+  return deposit_launch<4, 8, 8>(lidx, fx, fy, fz, q, starts, counts, N, nb, grid,
+                                           (cudaStream_t)stream);
+}
+
+// the same particle and block arrays; grids (D, n, n, n) contiguous; out
+// (D, N) contiguous, every entry written.
+extern "C" int pm_gather_launch(const int* lidx, const float* fx, const float* fy,
+                                const float* fz, const int* starts, const int* counts, int N,
+                                int nb, const float* grids, int D, float* out, void* stream) {
+  return gather_launch<4, 4, 8>(lidx, fx, fy, fz, starts, counts, N, nb, grids, D, out,
+                                 (cudaStream_t)stream);
 }

@@ -10,8 +10,9 @@ real-space stencil → gather at the particles → Δmom = −m ∇φ · ᔑa⁻
 The deposit and the gather are one of two pairs: the generic one
 (grid/interp.py, any order, with interlacing) or, for CIC without
 interlacing, the block kernels of PERF.md rows 10-11 over particles
-bucketed by 2³-mesh-cell block (:func:`_block_density_slab`), whose
-overflow beyond the block capacity goes through the plain CIC in full.
+sorted by 2³-mesh-cell block (:func:`_block_density_slab`): every
+particle goes through them, and the gather reads the three gradient
+components in one launch.
 ``deposit_method`` chooses (grid/interp.resolve_deposit_method); the
 potential and its gradients do not depend on the choice.
 """
@@ -24,9 +25,7 @@ import torch
 
 from concept_tpu_torch.components import periodic_wrap
 from concept_tpu_torch.grid import fourier
-from concept_tpu_torch.grid.bucketed import (
-    bucketize_blocks, deposit_bucketed, gather_bucketed,
-)
+from concept_tpu_torch.grid.bucketed import deposit_bucketed, gather_bucketed, sort_blocks
 from concept_tpu_torch.grid.fft import irfft3, rfft3
 from concept_tpu_torch.grid.interp import (
     deposit, gather, interpolation_order, resolve_deposit_method,
@@ -155,29 +154,26 @@ def potential_gradient_grids(phi_slab, gridsize: int, boxsize: float,
 
 def _block_density_slab(pos_list, mass_list, gridsize: int, boxsize: float,
                         info: dict | None = None):
-    """ϱ(k) through the row-10 kernel (CIC, one device), and the block
-    buckets of each component, which the row-11 gather reads again.
-
-    The particles beyond the block capacity take the plain CIC, all of
-    them: their count costs one host sync per kick.  (The JAX package
-    takes at most max(256, N/16) of them and silently drops the rest from
-    deposit and force; ROADMAP Queue 3.)"""
+    """ϱ(k) through the row-10 kernel (CIC, one device), and the
+    block-sorted particles of each component, which the row-11 gather
+    reads again.  Every particle goes through the kernel: the sorted
+    layout has no capacity, so nothing overflows.  (The JAX package's
+    buckets hold at most max(16, 4·8N/n³) a block; it takes at most
+    max(256, N/16) particles beyond that and silently drops the rest
+    from deposit and force; ROADMAP Queue 3.)"""
     n = gridsize
-    N_total = sum(p.shape[0] for p in pos_list)
-    capacity = max(16, int(4 * (N_total * 8 / n**3)))
-    bks, grid = [], None
+    sbs, grid = [], None
     for p, m in zip(pos_list, mass_list):
-        bk = bucketize_blocks(p, m, n, boxsize, capacity=capacity, uniform_q=True)
-        g = deposit_bucketed(bk, n, p, boxsize, m)
-        del bk["q"]
-        bks.append(bk)
+        sb = sort_blocks(p, n, boxsize)
+        g = deposit_bucketed(sb, m, n)
+        sbs.append(sb)
         grid = g if grid is None else grid + g
     if info is not None:
-        info["n_overflow"] = sum(int(bk["over_idx"].numel()) for bk in bks)
+        info["n_overflow"] = 0
         # summed in float64: a float32 total of 2²⁴ particle masses cannot
         # resolve one particle's mass
         info["mass_sum"] = grid.sum(dtype=torch.float64)
-    return rfft3(grid / (boxsize / n) ** 3), bks
+    return rfft3(grid / (boxsize / n) ** 3), sbs
 
 
 def pm_gravity_momentum_updates(pos_list, mass_list, gridsize: int, boxsize: float,
@@ -198,16 +194,16 @@ def pm_gravity_momentum_updates(pos_list, mass_list, gridsize: int, boxsize: flo
     kernels of rows 10-11 for the deposit and the gather where their
     preconditions hold (CIC, no interlacing); the potential and its
     gradients are the same either way.  ``info``, a dict, receives
-    'n_overflow' (particles beyond the block capacity; 0 off the kernel
-    path) and 'mass_sum' (the deposited mass, 0-dim float64)."""
+    'n_overflow' (0: no path drops or defers a particle) and 'mass_sum'
+    (the deposited mass, 0-dim float64)."""
     order = interpolation_order(order)
     il_up, il_down = interlace_pair(interlace)
     n = gridsize
     h = boxsize / n
-    bks = None
     kernels = order == 2 and (il_up, il_down) == ("sc", "sc")
+    sbs = None
     if resolve_deposit_method(deposit_method, pos_list[0].device, kernels) == "pallas":
-        rho, bks = _block_density_slab(pos_list, mass_list, n, boxsize, info)
+        rho, sbs = _block_density_slab(pos_list, mass_list, n, boxsize, info)
     else:
         if info is not None:
             info["n_overflow"] = 0
@@ -216,17 +212,20 @@ def pm_gravity_momentum_updates(pos_list, mass_list, gridsize: int, boxsize: flo
         rho, n, boxsize, G, deconv_order=order * (int(deconvolve[0]) + int(deconvolve[1])),
         longrange_scale=longrange_scale)
     del rho
+    if sbs is not None:
+        # the three gradient grids first, then one row-11 launch gathers
+        # them all at each component's particles
+        grads = potential_gradient_grids(phi, n, boxsize, differentiation)
+        del phi
+        return [(-m * kick_integral) * gather_bucketed(sb, grads, n)
+                for sb, m in zip(sbs, mass_list)]
     down_shifts = INTERLACE_SHIFTS[il_down]
 
-    def interpolated(grid_for, i, p):
+    def interpolated(grid_for, p):
         """Downstream-interlaced interpolation (reference
         interactions.py:2188-2191 lattice_downstream): for each primitive
         shift s, the grid sampled at the +s-shifted points, read with the
-        particle coordinate in that frame, p − s·h; summed over s.  On the
-        kernel path (one unshifted grid) the row-11 gather reads it."""
-        if bks is not None:
-            return gather_bucketed(bks[i], grid_for(down_shifts[0])[None], n, p,
-                                   boxsize)[:, 0]
+        particle coordinate in that frame, p − s·h; summed over s."""
         acc = None
         for shift in down_shifts:
             v = gather(grid_for(shift), _shifted(p, shift, h, boxsize, -1.0), boxsize,
@@ -249,7 +248,7 @@ def pm_gravity_momentum_updates(pos_list, mass_list, gridsize: int, boxsize: flo
 
             for i, (p, m) in enumerate(zip(pos_list, mass_list)):
                 updates[i][:, d] = (-m * kick_integral) * (
-                    interpolated(grad_for, i, p) / len(down_shifts))
+                    interpolated(grad_for, p) / len(down_shifts))
         return updates
     # stencil differentiation: one gradient set per downstream shift (φ
     # phase-rotated in Fourier space, then differentiated)
@@ -264,5 +263,5 @@ def pm_gravity_momentum_updates(pos_list, mass_list, gridsize: int, boxsize: flo
     for i, (p, m) in enumerate(zip(pos_list, mass_list)):
         for d in range(3):
             updates[i][:, d] = (-m * kick_integral / len(down_shifts)) * interpolated(
-                lambda shift, d=d: grads_for(shift)[d], i, p)
+                lambda shift, d=d: grads_for(shift)[d], p)
     return updates

@@ -215,21 +215,37 @@ def grid_key(comps, width: float, n: int, div: int = 1):
     return key
 
 
+def sorted_runs(key, n_keys: int) -> dict:
+    """One stable sort by ``key`` (values in [0, n_keys)).  Returns a
+    dict: order (N,) original index per sorted particle, key (N,) sorted,
+    and per key counts (C,) and starts (C,) (int64), so that key c's
+    particles are sorted positions [starts[c], starts[c] + counts[c])."""
+    key_s, order = torch.sort(key, stable=True)
+    counts = torch.bincount(key_s, minlength=n_keys)
+    starts = torch.cumsum(counts, 0) - counts
+    return dict(order=order, key=key_s, counts=counts, starts=starts)
+
+
+def run_slots(runs: dict, capacity: int) -> dict:
+    """The sorted runs of :func:`sorted_runs` as slot-major (K, C)
+    buckets, K = capacity: adds rank and slot (N,) in sorted order (slot
+    = rank·C + key, or K·C where rank ≥ K: in no bucket) and valid
+    (K, C)."""
+    key_s, counts = runs["key"], runs["counts"]
+    C, K = counts.shape[0], capacity
+    rank = torch.arange(key_s.shape[0], device=key_s.device) - runs["starts"][key_s]
+    slot = torch.where(rank < K, rank * C + key_s, K * C)
+    valid = torch.arange(K, device=key_s.device)[:, None] < counts[None, :]
+    return dict(runs, rank=rank, slot=slot, valid=valid)
+
+
 def slot_layout(key, n_keys: int, capacity: int) -> dict:
     """One stable sort by ``key`` into slot-major (K, C) buckets, C =
     n_keys, K = capacity.  Returns a dict: order (N,) original index per
     sorted particle; key, rank and slot (N,) in sorted order (slot =
     rank·C + key, or K·C where rank ≥ K: in no bucket); counts (C,)
     unclamped, starts (C,); valid (K, C)."""
-    C, K = n_keys, capacity
-    key_s, order = torch.sort(key, stable=True)
-    counts = torch.bincount(key_s, minlength=C)
-    starts = torch.cumsum(counts, 0) - counts
-    rank = torch.arange(key.shape[0], device=key.device) - starts[key_s]
-    slot = torch.where(rank < K, rank * C + key_s, K * C)
-    valid = torch.arange(K, device=key.device)[:, None] < counts[None, :]
-    return dict(order=order, key=key_s, rank=rank, slot=slot, counts=counts,
-                starts=starts, valid=valid)
+    return run_slots(sorted_runs(key, n_keys), capacity)
 
 
 def scatter_slots(vals, slot, K: int, C: int):

@@ -1,16 +1,22 @@
-"""CIC deposit and gather on 2³-mesh-cell blocks from precomputed per-slot
-geometry: the wrappers of the CUDA kernels of csrc/pm_blocks.cu (PERF.md
+"""CIC deposit and gather on 2³-mesh-cell blocks from block-sorted
+particles: the wrappers of the CUDA kernels of csrc/pm_blocks.cu (PERF.md
 rows 10 and 11) and their plain PyTorch versions.
 
 Port of ``deposit_pallas_kc`` / ``gather_pallas_kc``
-(concept_tpu/grid/pallas_pm.py:128-186) without the lane padding.  The
-per-slot arrays are slot-major (K, C), C = nb³ blocks with x-major ids
-c = (bx·nb + by)·nb + bz, nb = n/2, as grid/bucketed.bucketize_blocks
-lays them out: ``lidx`` (int32) is the slot's CIC anchor in its block's
-4³ halo mini-grid, (lx·4 + ly)·4 + lz with lx, ly, lz in [0, 2];
-``fx, fy, fz`` the CIC fractions; ``q`` the deposit weight, premasked by
-validity, or ``w`` the gather's validity weight.  A slot's global anchor
-is 2·(bx, by, bz) − 1 + (lx, ly, lz), modulo n.
+(concept_tpu/grid/pallas_pm.py:128-186) without the padded slots.  The
+particle arrays are (N,) in block-sorted order, as
+grid/bucketed.sort_blocks makes them: ``lidx`` (int32) is the particle's
+CIC anchor in its block's 4³ halo mini-grid, (lx·4 + ly)·4 + lz with lx,
+ly, lz in [0, 2] (other values are clamped into it); ``fx, fy, fz`` the CIC
+fractions; ``q`` the deposit weight.  ``starts`` (C,) int32 is the
+exclusive running sum of the blocks' full particle counts, C = nb³ blocks
+with x-major ids c = (bx·nb + by)·nb + bz, nb = n/2: sorted particle i
+belongs to the block c with starts[c] ≤ i < starts[c + 1] (N for the
+last).  ``counts`` (C,) int32 cuts each block: only its first counts[c]
+particles are deposited or gathered (the rest gather 0), so counts
+clamped to a capacity K give the TPU kernels' bucket truncation, and the
+full counts take every particle.  A particle's global anchor is
+2·(bx, by, bz) − 1 + (lx, ly, lz), modulo n.
 
 On CPU tensors the wrappers run the plain versions; on CUDA tensors they
 launch the kernels or raise.
@@ -29,55 +35,61 @@ from concept_tpu_torch.grid.cuda_cells import _chunk
 from concept_tpu_torch.grid.interp import cic_corners
 
 
-def _check(lidx, fracs, q, gridsize: int):
+def _check(particles, starts, counts, gridsize: int):
     nb = _block_count(gridsize)
-    K, C = q.shape
-    if C != nb**3 or any(tuple(t.shape) != (K, C) for t in (lidx, *fracs)):
-        raise ValueError(f"slot arrays {[tuple(t.shape) for t in (lidx, *fracs, q)]}"
-                         f" do not fit nb = {nb}")
-    return nb, K, C
+    N = particles[0].shape[0]
+    if any(tuple(t.shape) != (N,) for t in particles) or any(
+            tuple(t.shape) != (nb**3,) for t in (starts, counts)):
+        raise ValueError(f"particle arrays {[tuple(t.shape) for t in particles]} and block "
+                         f"arrays {[tuple(t.shape) for t in (starts, counts)]} do not fit "
+                         f"nb = {nb}")
+    return nb, N
 
 
-def _anchors(lidx, cols: slice, nb: int):
-    """Global CIC anchors (int64, unwrapped) of the slots in block columns
-    ``cols``: 2·block − 1 + the local anchor."""
-    c = torch.arange(cols.start, cols.stop, device=lidx.device)
+def _geometry(lidx, fx, fy, fz, starts, counts, nb: int, sel: slice):
+    """For the sorted particles ``sel``: their global CIC anchors (int64,
+    unwrapped), fractions and the mask of those within their block's
+    count."""
+    i = torch.arange(sel.start, sel.stop, device=lidx.device)
+    c = torch.searchsorted(starts.to(torch.int64), i, right=True) - 1
+    keep = i - starts[c] < counts[c]
     blocks = (c // (nb * nb), (c // nb) % nb, c % nb)
-    li = lidx[:, cols].to(torch.int64)
+    li = lidx[sel].to(torch.int64)
     local = (li // (LDIM * LDIM), (li // LDIM) % LDIM, li % LDIM)
-    return [B * b[None] - 1 + lo for b, lo in zip(blocks, local)]
+    anchors = [B * b - 1 + torch.clamp(lo, 0, 2) for b, lo in zip(blocks, local)]
+    return anchors, (fx[sel], fy[sel], fz[sel]), keep
 
 
-def deposit_pm_plain(lidx, fx, fy, fz, q, gridsize: int):
+def deposit_pm_plain(lidx, fx, fy, fz, q, starts, counts, gridsize: int):
     """Plain PyTorch version of :func:`deposit_pm`."""
-    nb, K, C = _check(lidx, (fx, fy, fz), q, gridsize)
+    nb, N = _check((lidx, fx, fy, fz, q), starts, counts, gridsize)
     n = gridsize
     grid = torch.zeros(n**3, dtype=q.dtype, device=q.device)
-    ch = _chunk(K, q.device)
-    for c0 in range(0, C, ch):
-        cols = slice(c0, min(C, c0 + ch))
-        fr = (fx[:, cols], fy[:, cols], fz[:, cols])
-        for idx, wt in cic_corners(_anchors(lidx, cols, nb), fr, n):
-            grid.index_add_(0, idx.reshape(-1), (wt * q[:, cols]).reshape(-1))
+    ch = _chunk(1, q.device)
+    for i0 in range(0, N, ch):
+        sel = slice(i0, min(N, i0 + ch))
+        anchors, fr, keep = _geometry(lidx, fx, fy, fz, starts, counts, nb, sel)
+        qk = q[sel] * keep
+        for idx, wt in cic_corners(anchors, fr, n):
+            grid.index_add_(0, idx, wt * qk)
     return grid.reshape(n, n, n)
 
 
-def gather_pm_plain(lidx, fx, fy, fz, w, grids, gridsize: int):
+def gather_pm_plain(lidx, fx, fy, fz, starts, counts, grids, gridsize: int):
     """Plain PyTorch version of :func:`gather_pm`."""
-    nb, K, C = _check(lidx, (fx, fy, fz), w, gridsize)
+    nb, N = _check((lidx, fx, fy, fz), starts, counts, gridsize)
     n = gridsize
     D = grids.shape[0]
     flat = grids.reshape(D, -1)
-    out = torch.empty((D, K, C), dtype=grids.dtype, device=grids.device)
-    ch = _chunk(K, w.device)
-    for c0 in range(0, C, ch):
-        cols = slice(c0, min(C, c0 + ch))
-        fr = (fx[:, cols], fy[:, cols], fz[:, cols])
-        vals = torch.zeros((D, K, cols.stop - c0), dtype=grids.dtype,
-                           device=grids.device)
-        for idx, wt in cic_corners(_anchors(lidx, cols, nb), fr, n):
-            vals += (wt * w[:, cols])[None] * flat[:, idx]
-        out[:, :, cols] = vals
+    out = torch.empty((D, N), dtype=grids.dtype, device=grids.device)
+    ch = _chunk(1, grids.device)
+    for i0 in range(0, N, ch):
+        sel = slice(i0, min(N, i0 + ch))
+        anchors, fr, keep = _geometry(lidx, fx, fy, fz, starts, counts, nb, sel)
+        vals = torch.zeros((D, sel.stop - i0), dtype=grids.dtype, device=grids.device)
+        for idx, wt in cic_corners(anchors, fr, n):
+            vals += wt[None] * flat[:, idx]
+        out[:, sel] = vals * keep
     return out
 
 
@@ -89,52 +101,57 @@ def _fn(name: str, argtypes: list):
     return fn
 
 
-def _check_cuda(lidx, floats):
-    if lidx.dtype != torch.int32:
-        raise ValueError(f"lidx must be int32, not {lidx.dtype}")
+def _check_cuda(ints, floats):
+    for t in ints:
+        if t.dtype != torch.int32:
+            raise ValueError(f"lidx, starts and counts must be int32, not {t.dtype}")
     for t in floats:
         if t.dtype != torch.float32:
-            raise NotImplementedError(f"{t.dtype} slot arrays; the kernels are "
+            raise NotImplementedError(f"{t.dtype} particle arrays; the kernels are "
                                       f"float32 ({FLOAT64_ITEM})")
-    for t in (lidx, *floats):
-        if not t.is_contiguous() or t.device != lidx.device:
-            raise ValueError("slot arrays must be contiguous and on one device")
+    dev = ints[0].device
+    for t in (*ints, *floats):
+        if not t.is_contiguous() or t.device != dev:
+            raise ValueError("particle, block and mesh arrays must be contiguous and "
+                             "on one device")
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
-def deposit_pm(lidx, fx, fy, fz, q, gridsize: int):
-    """CIC deposit of the per-slot weights q onto the (n, n, n) mesh."""
+def deposit_pm(lidx, fx, fy, fz, q, starts, counts, gridsize: int):
+    """CIC deposit of the sorted particles' weights q onto the (n, n, n)
+    mesh."""
     if q.device.type == "cpu":
-        return deposit_pm_plain(lidx, fx, fy, fz, q, gridsize)
-    nb, K, _ = _check(lidx, (fx, fy, fz), q, gridsize)
-    _check_cuda(lidx, (fx, fy, fz, q))
+        return deposit_pm_plain(lidx, fx, fy, fz, q, starts, counts, gridsize)
+    nb, N = _check((lidx, fx, fy, fz, q), starts, counts, gridsize)
+    _check_cuda((lidx, starts, counts), (fx, fy, fz, q))
     n = gridsize
     grid = torch.zeros((n, n, n), dtype=torch.float32, device=q.device)
-    err = _fn("pm_deposit_launch", [_P] * 5 + [_I, _I, _P, _P])(
-        *(t.data_ptr() for t in (lidx, fx, fy, fz, q)), K, nb, grid.data_ptr(),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    err = _fn("pm_deposit_launch", [_P] * 7 + [_I, _I, _P, _P])(
+        *(t.data_ptr() for t in (lidx, fx, fy, fz, q, starts, counts)), N, nb,
+        grid.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "pm_deposit")
     deposit_pm.launches += 1
     return grid
 
 
-def gather_pm(lidx, fx, fy, fz, w, grids, gridsize: int):
+def gather_pm(lidx, fx, fy, fz, starts, counts, grids, gridsize: int):
     """CIC interpolation of the D mesh fields ``grids`` (D, n, n, n) at
-    every slot, times the validity weight w: returns (D, K, C)."""
-    if w.device.type == "cpu":
-        return gather_pm_plain(lidx, fx, fy, fz, w, grids, gridsize)
-    nb, K, C = _check(lidx, (fx, fy, fz), w, gridsize)
-    _check_cuda(lidx, (fx, fy, fz, w, grids))
+    every sorted particle, in one launch: returns (D, N)."""
+    if grids.device.type == "cpu":
+        return gather_pm_plain(lidx, fx, fy, fz, starts, counts, grids, gridsize)
+    nb, N = _check((lidx, fx, fy, fz), starts, counts, gridsize)
+    _check_cuda((lidx, starts, counts), (fx, fy, fz, grids))
     n = gridsize
     if grids.dim() != 4 or tuple(grids.shape[1:]) != (n, n, n):
         raise ValueError(f"grids must be (D, {n}, {n}, {n}), not {tuple(grids.shape)}")
     D = grids.shape[0]
-    out = torch.empty((D, K, C), dtype=torch.float32, device=w.device)
-    err = _fn("pm_gather_launch", [_P] * 5 + [_I, _I, _P, _I, _P, _P])(
-        *(t.data_ptr() for t in (lidx, fx, fy, fz, w)), K, nb, grids.data_ptr(), D,
-        out.data_ptr(), torch.cuda.current_stream(w.device).cuda_stream)
+    out = torch.empty((D, N), dtype=torch.float32, device=grids.device)
+    err = _fn("pm_gather_launch", [_P] * 6 + [_I, _I, _P, _I, _P, _P])(
+        *(t.data_ptr() for t in (lidx, fx, fy, fz, starts, counts)), N, nb,
+        grids.data_ptr(), D, out.data_ptr(),
+        torch.cuda.current_stream(grids.device).cuda_stream)
     _build.check(err, "pm_gather")
     gather_pm.launches += 1
     return out

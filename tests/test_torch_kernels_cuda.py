@@ -310,53 +310,89 @@ def test_float64_on_the_card_raises(dev):
         pair_sweep(s, s, 3, 1.0, 0.1, 0.2, 0.0)
 
 
-def _clumped_blocks(dev, n, N, clump, K=32, box=4.0, seed=9):
+def _clumped_blocks(dev, n, N, clump, box=4.0, seed=9, face=0):
     """N uniform particles plus ``clump`` in the block of mesh cells
-    [2, 4)³ (far beyond the capacity K), bucketed for the PM-only block
-    kernels: (bucket dict, positions)."""
-    from concept_tpu_torch.grid.bucketed import bucketize_blocks
+    [2, 4)³ (deep beyond any block capacity), and the last ``face`` of
+    them moved onto the box faces in z (0 or just below the box), sorted
+    by block for the PM-only block kernels: (sort dict, positions)."""
+    from concept_tpu_torch.grid.bucketed import sort_blocks
 
     rng = np.random.default_rng(seed)
     h = box / n
     pos = rng.uniform(0, box, (N + clump, 3))
     pos[:clump] = 2 * h + rng.uniform(0, 1.9 * h, (clump, 3))
+    if face:
+        pos[-face:, 2] = rng.choice([0.0, box * (1 - 1e-7)], face)
     pos = torch.as_tensor(pos.astype(np.float32), device=dev)
-    return bucketize_blocks(pos, 1.3, n, box, capacity=K, uniform_q=True), pos
+    return sort_blocks(pos, n, box), pos
 
 
-@pytest.mark.parametrize("n, D", [(32, 3), (32, 1), (18, 3)], ids=["n32-D3", "n32-D1",
-                                                                  "odd-C-n18-D3"])
-def test_pm_block_kernels_match_plain(dev, n, D):
+@pytest.mark.parametrize("n, D, face, capacity", [
+    (32, 3, 0, None), (32, 1, 0, None), (18, 3, 0, None), (16, 1, 0, None),
+    (16, 3, 0, None), (32, 3, 300, None), (18, 3, 0, 32),
+], ids=["n32-D3", "n32-D1", "odd-C-n18-D3", "nb-below-tile-n16-D1", "nb-below-tile-n16-D3",
+        "box-face-n32-D3", "capacity-n18-D3"])
+def test_pm_block_kernels_match_plain(dev, n, D, face, capacity):
     """Rows 10 and 11 (the PM-only block kernels) against their plain
-    versions, on buckets with a deep clump that overflows (600 particles
-    in one block at capacity 32), at an even and an odd block count
-    (18 → 9³ = 729 blocks) and D = 1 or 3 fields."""
+    versions on block-sorted particles with a deep clump (600 particles
+    in one block): at an even and an odd block count (18 → 9³ = 729
+    blocks, no tile divides 9), at nb = 8, below the tile's 16 blocks
+    along z (the halo wraps onto its own tile), with particles on the box
+    faces, with the counts clamped to a capacity of 32 (the TPU kernels'
+    truncation: the rest deposit nothing and gather 0), and D = 1 or 3
+    fields.  The deposit's mass sum to 1e-6; one launch each."""
     from concept_tpu_torch.grid.cuda_pm import (
         deposit_pm, deposit_pm_plain, gather_pm, gather_pm_plain,
     )
 
-    bk, _ = _clumped_blocks(dev, n, 3 * n**3 // 8, 600)
-    assert int(bk["over_idx"].numel()) >= 600 - 32
-    args = (bk["lidx"], bk["fx"], bk["fy"], bk["fz"])
+    sb, _ = _clumped_blocks(dev, n, 3 * n**3 // 8, 600, face=face)
+    counts = sb["counts"] if capacity is None else torch.clamp(sb["counts"], max=capacity)
+    args = (sb["lidx"], sb["fx"], sb["fy"], sb["fz"])
+    N = sb["lidx"].shape[0]
+    q = torch.full((N,), 1.3, device=dev)
     before = (deposit_pm.launches, gather_pm.launches)
-    got, ref = deposit_pm(*args, bk["q"], n), deposit_pm_plain(*args, bk["q"], n)
+    got = deposit_pm(*args, q, sb["starts"], counts, n)
+    ref = deposit_pm_plain(*args, q, sb["starts"], counts, n)
     torch.testing.assert_close(got, ref, rtol=2e-5, atol=1e-5 * float(ref.abs().max()))
     assert float(got.sum(dtype=torch.float64)) == pytest.approx(
-        1.3 * float(bk["valid"].sum()), rel=1e-6)
+        1.3 * float(counts.sum()), rel=1e-6)
     rng = np.random.default_rng(4)
     grids = torch.as_tensor(rng.standard_normal((D, n, n, n)).astype(np.float32), device=dev)
-    wv = bk["valid"].float()
-    got, ref = gather_pm(*args, wv, grids, n), gather_pm_plain(*args, wv, grids, n)
+    got = gather_pm(*args, sb["starts"], counts, grids, n)
+    ref = gather_pm_plain(*args, sb["starts"], counts, grids, n)
+    assert got.shape == (D, N)
     torch.testing.assert_close(got, ref, rtol=2e-5, atol=1e-5 * float(ref.abs().max()))
-    assert float(got[:, ~bk["valid"]].abs().max()) == 0.0
+    if capacity is not None:
+        rank = torch.arange(N, device=dev) - sb["starts"][sb["key"]]
+        assert int((rank >= capacity).sum()) >= 600 - capacity
+        assert float(got[:, rank >= capacity].abs().max()) == 0.0
+    assert (deposit_pm.launches, gather_pm.launches) == (before[0] + 1, before[1] + 1)
+
+
+def test_pm_block_kernels_empty_set(dev):
+    """Rows 10 and 11 on no particles: a zero mesh and a (D, 0) gather,
+    one launch each."""
+    from concept_tpu_torch.grid.cuda_pm import deposit_pm, gather_pm
+
+    sb, _ = _clumped_blocks(dev, 16, 0, 0)
+    args = (sb["lidx"], sb["fx"], sb["fy"], sb["fz"])
+    before = (deposit_pm.launches, gather_pm.launches)
+    grid = deposit_pm(*args, torch.zeros(0, device=dev), sb["starts"], sb["counts"], 16)
+    assert grid.shape == (16, 16, 16) and float(grid.abs().max()) == 0.0
+    out = gather_pm(*args, sb["starts"], sb["counts"],
+                    torch.ones((3, 16, 16, 16), device=dev), 16)
+    assert out.shape == (3, 0)
+    torch.cuda.synchronize()
     assert (deposit_pm.launches, gather_pm.launches) == (before[0] + 1, before[1] + 1)
 
 
 @pytest.mark.parametrize("differentiation", ["fourier", 4])
 def test_pm_kernel_path_equals_scatter_on_the_card(dev, differentiation):
     """The PM kick through rows 10-11 ('auto' on the card) with a deep
-    clump equals the plain 'scatter' PM: the block overflow is exact, and
-    the gradients are the ones ``differentiation`` asks for."""
+    clump equals the plain 'scatter' PM: every particle goes through the
+    kernels (no capacity, no overflow), one row-10 and one row-11 launch
+    (D = 3) a kick, and the gradients are the ones ``differentiation``
+    asks for."""
     from concept_tpu_torch.forces.pm import pm_gravity_momentum_updates
     from concept_tpu_torch.grid.cuda_pm import deposit_pm, gather_pm
 
@@ -367,10 +403,11 @@ def test_pm_kernel_path_equals_scatter_on_the_card(dev, differentiation):
     before = (deposit_pm.launches, gather_pm.launches)
     (auto,) = pm_gravity_momentum_updates([pos], [1.3], n, box, 1.0,
                                           deposit_method="auto", info=info, **kw)
-    assert (deposit_pm.launches, gather_pm.launches) == (before[0] + 1, before[1] + 3)
+    assert (deposit_pm.launches, gather_pm.launches) == (before[0] + 1, before[1] + 1)
     (plain,) = pm_gravity_momentum_updates([pos], [1.3], n, box, 1.0,
                                            deposit_method="scatter", **kw)
-    assert info["n_overflow"] >= 600 - 32
+    assert info["n_overflow"] == 0
+    assert float(info["mass_sum"]) == pytest.approx(1.3 * pos.shape[0], rel=1e-6)
     scale = float(plain.abs().max())
     torch.testing.assert_close(auto / scale, plain / scale, rtol=0, atol=1e-5)
 

@@ -1,10 +1,11 @@
 """PM-only gravity of the port (forces/pm.py, grid/bucketed.py,
 grid/cuda_pm.py, grid/interp.py, grid/stencil.py, the PM route of run.py)
-against the JAX package on the CPU: the block buckets, the plain versions
-of the block kernels (PERF.md rows 10-11) against JAX's Pallas kernels in
-interpret mode, the PM momentum updates over the options, the block
-overflow, and the shrunk PM-only run through both command-line
-interfaces.
+against the JAX package on the CPU: the block buckets and the block sort,
+the plain versions of the block kernels (PERF.md rows 10-11) on the
+block-sorted particles against JAX's Pallas kernels in interpret mode
+(counts clamped to the capacity) and its plain CIC (every particle), the
+PM momentum updates over the options, the block overflow, and the shrunk
+PM-only run through both command-line interfaces.
 
 Tolerances: bucket layouts exactly (integers, and the same float32
 arithmetic); deposit and gather rtol 2e-5, atol 1e-5·max|ref|
@@ -32,11 +33,14 @@ from concept_tpu.cli import main as jax_main  # noqa: E402
 from concept_tpu.forces.pm import pm_gravity_momentum_updates as jax_pm  # noqa: E402
 from concept_tpu.grid.bucketed import bucketize_blocks as jax_bucketize  # noqa: E402
 from concept_tpu.grid.interp import deposit as jax_deposit  # noqa: E402
+from concept_tpu.grid.interp import gather as jax_gather  # noqa: E402
 from concept_tpu.grid.pallas_pm import deposit_pallas, gather_pallas  # noqa: E402
 from concept_tpu_torch.cli import main  # noqa: E402
 from concept_tpu_torch.forces.pm import pm_gravity_momentum_updates  # noqa: E402
-from concept_tpu_torch.grid.bucketed import bucketize_blocks  # noqa: E402
-from concept_tpu_torch.grid.cuda_pm import deposit_pm, gather_pm  # noqa: E402
+from concept_tpu_torch.grid.bucketed import bucketize_blocks, sort_blocks  # noqa: E402
+from concept_tpu_torch.grid.cuda_pm import (  # noqa: E402
+    deposit_pm, deposit_pm_plain, gather_pm, gather_pm_plain,
+)
 from concept_tpu_torch.param import load_params  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -95,23 +99,107 @@ def test_bucketize_blocks_matches_jax():
                                   np.sort(bt["order"][bt["overflow"]]))
 
 
+def _sorted(pos, capacity=None):
+    """The block-sorted particles of pos through the port: (sort dict,
+    the particle arrays, starts, counts clamped to ``capacity`` or
+    full)."""
+    sb = sort_blocks(torch.as_tensor(pos), N_GRID, BOX)
+    counts = sb["counts"] if capacity is None else torch.clamp(sb["counts"], max=capacity)
+    return sb, (sb["lidx"], sb["fx"], sb["fy"], sb["fz"]), sb["starts"], counts
+
+
+def _grids():
+    grids = np.random.default_rng(6).standard_normal((3, N_GRID, N_GRID, N_GRID))
+    return grids.astype(np.float32)
+
+
+def test_sort_blocks_matches_jax_buckets():
+    """The block sort against JAX's buckets on the clumped set: the same
+    order; starts and counts consistent with its sorted keys; the sorted
+    lidx, fx, fy, fz equal its in-capacity slots."""
+    pos, n_over = _clumped()
+    bj = {k: np.asarray(v) for k, v in
+          jax_bucketize(jnp.asarray(pos), MASS, N_GRID, BOX, CAPACITY, uniform_q=True).items()}
+    sb = {k: v.numpy() for k, v in sort_blocks(torch.as_tensor(pos), N_GRID, BOX).items()}
+    C = (N_GRID // 2) ** 3
+    np.testing.assert_array_equal(sb["order"], bj["order"])
+    np.testing.assert_array_equal(sb["key"], bj["key_sorted"])
+    assert sb["starts"].dtype == sb["counts"].dtype == np.int32
+    np.testing.assert_array_equal(sb["counts"], np.bincount(bj["key_sorted"], minlength=C))
+    np.testing.assert_array_equal(sb["starts"], np.cumsum(sb["counts"]) - sb["counts"])
+    rank = np.arange(N) - sb["starts"][sb["key"]]
+    inb = rank < CAPACITY
+    assert int((~inb).sum()) == n_over
+    key, rank = sb["key"][inb], rank[inb]
+    lidx_j = (bj["lx"] * 4 + bj["ly"]) * 4 + bj["lz"]
+    np.testing.assert_array_equal(sb["lidx"][inb], lidx_j[key, rank])
+    for k in ("fx", "fy", "fz"):
+        np.testing.assert_array_equal(sb[k][inb], bj[k][key, rank], err_msg=k)
+
+
+@pytest.mark.parametrize("cut", ["capacity", "all"])
+def test_sorted_deposit_plain_matches_jax(cut):
+    """The plain row-10 deposit on the block-sorted clumped set: with
+    counts clamped to the capacity, equal to JAX's deposit_pallas in
+    interpret mode (the in-capacity particles); with the full counts,
+    equal to JAX's plain CIC deposit of every particle."""
+    pos, n_over = _clumped()
+    sb, parts, starts, counts = _sorted(pos, CAPACITY if cut == "capacity" else None)
+    q = torch.full((N,), MASS)
+    got = deposit_pm_plain(*parts, q, starts, counts, N_GRID).numpy()
+    if cut == "capacity":
+        bj = jax_bucketize(jnp.asarray(pos), MASS, N_GRID, BOX, CAPACITY, uniform_q=True)
+        ref = np.asarray(deposit_pallas(bj, N_GRID, interpret=True))
+        assert got.sum() == pytest.approx((N - n_over) * MASS, rel=1e-5)
+    else:
+        ref = np.asarray(jax_deposit(jnp.asarray(pos), MASS, N_GRID, BOX))
+        assert got.sum() == pytest.approx(N * MASS, rel=1e-5)
+    _close(got, ref)
+
+
+@pytest.mark.parametrize("cut", ["capacity", "all"])
+def test_sorted_gather_plain_matches_jax(cut):
+    """The plain row-11 gather of D = 3 fields at the block-sorted
+    clumped set: with counts clamped to the capacity, equal to JAX's
+    gather_pallas in interpret mode at the in-capacity particles, and 0
+    beyond; with the full counts, equal to JAX's plain CIC gather at
+    every particle."""
+    pos, n_over = _clumped()
+    sb, parts, starts, counts = _sorted(pos, CAPACITY if cut == "capacity" else None)
+    grids = _grids()
+    got = gather_pm_plain(*parts, starts, counts, torch.as_tensor(grids), N_GRID).numpy()
+    assert got.shape == (3, N)
+    if cut == "capacity":
+        bj = jax_bucketize(jnp.asarray(pos), MASS, N_GRID, BOX, CAPACITY, uniform_q=True)
+        ref = np.asarray(gather_pallas(bj, jnp.asarray(grids), N_GRID, interpret=True))
+        rank = np.arange(N) - sb["starts"].numpy()[sb["key"].numpy()]
+        inb = rank < CAPACITY
+        _close(got[:, inb], ref[sb["key"].numpy()[inb], rank[inb]].T)
+        assert int((~inb).sum()) == n_over and not got[:, ~inb].any()
+    else:
+        order = sb["order"].numpy()
+        ref = np.stack([np.asarray(jax_gather(jnp.asarray(g), jnp.asarray(pos[order]), BOX))
+                        for g in grids])
+        _close(got, ref)
+
+
 def test_block_kernels_plain_match_jax_pallas():
     """The plain versions of rows 10 and 11 (the CPU path of deposit_pm /
     gather_pm) against the JAX package's deposit_pallas / gather_pallas
-    in interpret mode, on the clumped buckets (deep blocks full)."""
+    in interpret mode, on the clumped set with the counts clamped to the
+    capacity (deep blocks full)."""
     pos, _ = _clumped()
     bj = jax_bucketize(jnp.asarray(pos), MASS, N_GRID, BOX, CAPACITY, uniform_q=True)
-    bt = bucketize_blocks(torch.as_tensor(pos), MASS, N_GRID, BOX, CAPACITY,
-                          uniform_q=True)
+    sb, parts, starts, counts = _sorted(pos, CAPACITY)
     before = (deposit_pm.launches, gather_pm.launches)
-    got = deposit_pm(bt["lidx"], bt["fx"], bt["fy"], bt["fz"], bt["q"], N_GRID)
+    got = deposit_pm(*parts, torch.full((N,), MASS), starts, counts, N_GRID)
     _close(got.numpy(), np.asarray(deposit_pallas(bj, N_GRID, interpret=True)))
-    grids = np.random.default_rng(6).standard_normal((3, N_GRID, N_GRID, N_GRID))
-    grids = grids.astype(np.float32)
-    got = gather_pm(bt["lidx"], bt["fx"], bt["fy"], bt["fz"], bt["valid"].float(),
-                    torch.as_tensor(grids), N_GRID)
+    grids = _grids()
+    got = gather_pm(*parts, starts, counts, torch.as_tensor(grids), N_GRID).numpy()
     ref = np.asarray(gather_pallas(bj, jnp.asarray(grids), N_GRID, interpret=True))
-    _close(got.numpy(), ref.transpose(2, 1, 0))
+    rank = np.arange(N) - sb["starts"].numpy()[sb["key"].numpy()]
+    inb = rank < CAPACITY
+    _close(got[:, inb], ref[sb["key"].numpy()[inb], rank[inb]].T)
     # the CPU path is the plain version: no kernel launch is counted
     assert (deposit_pm.launches, gather_pm.launches) == before
 
@@ -141,9 +229,10 @@ def test_pm_momentum_updates_match_jax(kw):
 def test_block_overflow_is_exact_where_jax_truncates():
     """Some 375 particles beyond the block capacity: the JAX 'pallas'
     path deposits at most 256 of them (max(256, N/16),
-    forces/pm.py:335-337) and gives the rest the zero force; the port
-    deposits and gathers them all and equals its (and JAX's) 'scatter'
-    path."""
+    forces/pm.py:335-337) and gives the rest the zero force; the port's
+    kernel path has no capacity (block-sorted particles), deposits and
+    gathers them all, counts no overflow, and equals its (and JAX's)
+    'scatter' path."""
     pos, n_over = _clumped()
     kick = dict(kick_integral=0.5)
     (scatter,) = pm_gravity_momentum_updates([torch.as_tensor(pos)], [MASS], N_GRID, BOX,
@@ -151,7 +240,7 @@ def test_block_overflow_is_exact_where_jax_truncates():
     info = {}
     (pallas,) = pm_gravity_momentum_updates([torch.as_tensor(pos)], [MASS], N_GRID, BOX,
                                             1.0, deposit_method="pallas", info=info, **kick)
-    assert info["n_overflow"] == n_over
+    assert info["n_overflow"] == 0
     assert float(info["mass_sum"]) == pytest.approx(N * MASS, rel=1e-6)
     scale = float(scatter.abs().max())
     np.testing.assert_allclose(pallas.numpy() / scale, scatter.numpy() / scale, atol=1e-5)
