@@ -22,8 +22,9 @@ Phases, each of which fails loudly:
    makes.  Every kernel's launch count is set to 0 just before and read
    just after; each must be > 0, the deposit may have lost at most half
    a particle's mass at any base step, and the power spectrum must be
-   finite.  Then the sweep kernel is held against its plain version on
-   the run's final, clustered layout (deep columns).
+   finite.  Then the sweep kernel, the deposit and the gather are held
+   against their plain versions on the run's final, clustered layout
+   (deep columns), the two PM kernels with their library calls.
 4. The realistic size through the same calls: 256³ particles, P³M grid
    512, to an early output time that takes a few base steps.  Prints ms
    per base step, particle updates per second and peak device memory.
@@ -40,9 +41,9 @@ Then the same for the global stepper (``N_rungs = 1``):
     sweep and both block kernels and neither cell-layout PM kernel,
     exceed no budget, lose at most half a particle's mass in any deposit
     and write a finite spectrum.  The same run again under torch.profiler
-    gives the device time by group of kernels; then the sweep is held
-    against its plain version on the counted run's final, clustered
-    slots.
+    gives the device time by group of kernels; then the sweep, and the
+    block deposit and gather on the PM blocks, are held against their
+    plain versions on the counted run's final, clustered state.
 4b. 256³ particles on grid 512 with ``N_rungs = 1`` for at least 3 global
     steps.
 
@@ -58,9 +59,10 @@ Then the rung stepper's two other layouts:
     4-mesh-cell layout), a = 0.02 → 1: it must launch the reach sweep and
     the cell deposit and gather and no other kernel; then the reach sweep
     is held against its plain version on the run's final slots, with
-    their per-column bounds.
+    their per-column bounds, and the cell deposit and gather (cb = 4).
 3d. The same at 63³ on grid 126 (the tight layout, 19³ cells): the
-    bounded ±1 sweep and the block deposit and gather.
+    bounded ±1 sweep and the block deposit and gather, the latter two
+    held on the blocks the final slots fill.
 4c, 4d. 250³ particles on grid 500 (4-mesh-cell layout) and 255³ on grid
     510 (tight layout) for at least 3 base steps each.
 
@@ -86,9 +88,11 @@ Then PM-only gravity (``select_forces = {'all': {'gravity': 'pm'}}``):
     flagship shape (a 512³ lattice with a 0.3-cell jitter, capacity 8, 5
     timed steps after a warm-up) and its sustained shape (256³ with 1LPT
     initial conditions evolved to a = 0.12, then one rebucket cadence of
-    16 steps and a rebucket).  Each launches only rows 8 and 9; rows 8
-    and 9 are then held against their plain versions on the sustained
-    run's rebucketed final slots.
+    16 steps and a rebucket).  Each launches only rows 8 and 9; the
+    flagship's device time a step is split by kernel (rows 8, 9, cuFFT,
+    the rest; torch.profiler over 3 steps); rows 8 and 9 are then held
+    against their plain versions on the sustained run's rebucketed final
+    slots.
 
 Before its last line it prints one JSON object ``{"kernels": [...]}`` and
 the card's name and power limit as nvidia-smi reports them; the last line
@@ -430,9 +434,6 @@ def check_kernels(N: int = 128**3, mesh: int = 256, device: str = "cuda") -> dic
     """Each kernel against its plain version at the shapes of a realized
     N-particle state on the mesh-`mesh` layout."""
     from concept_tpu_torch.forces.shortrange import SENTINEL
-    from concept_tpu_torch.grid.cuda_cells import (
-        deposit_cells, deposit_cells_plain, gather_cells, gather_cells_plain,
-    )
 
     adapter, state = _realized_layout(N, mesh, device)
     sim = adapter.inner
@@ -452,13 +453,7 @@ def check_kernels(N: int = 128**3, mesh: int = 256, device: str = "cuda") -> dic
 
     # B, C: the CIC deposit of w = mass·valid and the gather of the three
     # PM force components
-    out.update(_check_pm_kernels(
-        ("deposit_cells", "gather_cells"), pos, valid, sim.mass, sim.G, sim.scale,
-        mesh, box, 8, False,
-        lambda w: deposit_cells(pos, w, mesh, box),
-        lambda w: deposit_cells_plain(pos, w, mesh, box),
-        lambda wv, g: gather_cells(pos, wv, g, mesh, box),
-        lambda wv, g: gather_cells_plain(pos, wv, g, mesh, box)))
+    out.update(_check_slot_pm("cells", pos, valid, sim.mass, sim.G, sim.scale, mesh, box, 8))
     return out
 
 
@@ -607,11 +602,6 @@ def check_global_kernels(N: int = 128**3, mesh: int = 256, device: str = "cuda")
     shapes of a realized N-particle state on grid `mesh`: the two-sided
     sweep on the short-range slots, the deposit and gather on the PM
     blocks."""
-    from concept_tpu_torch.forces.p3m import block_layout
-    from concept_tpu_torch.grid.cuda_blocks import (
-        deposit_blocks, deposit_blocks_plain, gather_blocks, gather_blocks_plain,
-    )
-
     sim, flat = _global_sim(N, mesh, device)
     box = sim.config.boxsize
     slots, n_over = _global_sweep_slots(sim, flat.pos)
@@ -624,18 +614,9 @@ def check_global_kernels(N: int = 128**3, mesh: int = 256, device: str = "cuda")
     out["pair_sweep_two_sided"] = _check_sweep("two-sided", slots, _sweep_geometry(sim),
                                                (None, None), 10, 2)
     del slots
-    lay = block_layout(*(flat.pos[:, d].contiguous() for d in range(3)), mesh, box,
-                       sim._k_pm)
-    pos, valid = lay["slots"], lay["valid"]
-    del lay
-    print(f"  PM blocks: {int(valid.sum())} of {N} particles in the slots")
-    out.update(_check_pm_kernels(
-        ("deposit_blocks", "gather_blocks"), pos, valid, sim.spec.mass, sim.config.G,
-        sim._sr_scale, mesh, box, 2, True,
-        lambda w: deposit_blocks(*pos, w, mesh, box),
-        lambda w: deposit_blocks_plain(*pos, w, mesh, box),
-        lambda wv, g: gather_blocks(*pos, wv, g, mesh, box),
-        lambda wv, g: gather_blocks_plain(*pos, wv, g, mesh, box)))
+    pos, valid, ext = _global_pm_slots(sim, flat.pos)
+    out.update(_check_slot_pm("PM blocks", pos, valid, sim.spec.mass, sim.config.G,
+                              sim._sr_scale, mesh, box, 2, ext))
     return out
 
 
@@ -646,9 +627,6 @@ def check_reach_kernels(N: int = 128**3, mesh: int = 256, device: str = "cuda") 
     occupancy bounds and without, and two-sided, the cell deposit and
     gather at cb = 4."""
     from concept_tpu_torch.forces.shortrange import SENTINEL
-    from concept_tpu_torch.grid.cuda_cells import (
-        deposit_cells, deposit_cells_plain, gather_cells, gather_cells_plain,
-    )
 
     adapter, state = _realized_layout(N, mesh, device, unified_cb=4)
     sim = adapter.inner
@@ -668,14 +646,77 @@ def check_reach_kernels(N: int = 128**3, mesh: int = 256, device: str = "cuda") 
         out[f"reach_{reach.replace('-', '_')}_unbounded"] = _check_sweep(
             reach, pos_s, sim, (None, None), 10, 1, reach=reach)
     del pos_s
-    out.update(_check_pm_kernels(
-        ("deposit_cells_cb4", "gather_cells_cb4"), pos, valid, sim.mass, sim.G,
-        sim.scale, mesh, box, 4, False,
-        lambda w: deposit_cells(pos, w, mesh, box, 4),
-        lambda w: deposit_cells_plain(pos, w, mesh, box, 4),
-        lambda wv, g: gather_cells(pos, wv, g, mesh, box, 4),
-        lambda wv, g: gather_cells_plain(pos, wv, g, mesh, box, 4)))
+    pm = _check_slot_pm("cells", pos, valid, sim.mass, sim.G, sim.scale, mesh, box, 4)
+    out.update({f"{k}_cb4": v for k, v in pm.items()})
     return out
+
+
+def _check_slot_pm(tag: str, pos, valid, mass: float, G: float, scale, mesh: int,
+                   box: float, cb: int, ext=None) -> dict:
+    """The slot-layout deposit and gather (D = 3) against their plain
+    versions on the slots pos (3, K, C): the cells' kernels (rows 3-4) for
+    cb 8 or 4 with x-major ids, the blocks' (rows 8-9) for cb 2 with
+    z-major ids and the blocks' row extents ``ext`` where the caller
+    passes them, with bounds and library calls as in 2."""
+    from concept_tpu_torch.grid.cuda_blocks import (
+        deposit_blocks, deposit_blocks_plain, gather_blocks, gather_blocks_plain,
+    )
+    from concept_tpu_torch.grid.cuda_cells import (
+        deposit_cells, deposit_cells_plain, gather_cells, gather_cells_plain,
+    )
+
+    _, K, C = pos.shape
+    print(f"  {tag}: {K} slot rows × {C} columns {cb} mesh cells wide, "
+          f"{int(valid.sum())} live slots")
+    if cb == 2:
+        kernels = ("deposit_blocks", "gather_blocks",
+                   lambda w: deposit_blocks(*pos, w, mesh, box, ext),
+                   lambda w: deposit_blocks_plain(*pos, w, mesh, box),
+                   lambda wv, g: gather_blocks(*pos, wv, g, mesh, box, ext),
+                   lambda wv, g: gather_blocks_plain(*pos, wv, g, mesh, box))
+    else:
+        kernels = ("deposit_cells", "gather_cells",
+                   lambda w: deposit_cells(pos, w, mesh, box, cb),
+                   lambda w: deposit_cells_plain(pos, w, mesh, box, cb),
+                   lambda wv, g: gather_cells(pos, wv, g, mesh, box, cb),
+                   lambda wv, g: gather_cells_plain(pos, wv, g, mesh, box, cb))
+    nbytes = None
+    if ext is not None:
+        # with extents the kernels read the extents and the live rows' w
+        live = int(valid.sum())
+        nbytes = (4 * (C + 4 * live + mesh**3),
+                  lambda D: 4 * (C + 4 * live + D * mesh**3 + D * K * C))
+    out = _check_pm_kernels(kernels[:2], pos, valid, mass, G, scale, mesh, box, cb, cb == 2,
+                            *kernels[2:], nbytes=nbytes)
+    out["slots"] = {"K_rows": K, "columns": C, "cb": cb, "live": int(valid.sum())}
+    return out
+
+
+def _rung_pm_slots(inner, layout):
+    """The slots the rung stepper's PM kick deposits from on a layout: its
+    leading K_occ rows on the cell layouts (cb = ucb), or on the tight
+    layout the valid slots in the 2-mesh-cell blocks of
+    p3msim.pm_gradient_layout.  Returns (pos (3, K, C), valid, cb, the
+    blocks' row extents or None)."""
+    from concept_tpu_torch.forces.p3m import block_layout
+
+    K = inner._K_occ
+    pos, valid = layout.pos[:, :K], layout.valid[:K]
+    if inner.ucb:
+        return pos, valid, inner.ucb, None
+    flat = pos.reshape(3, -1)[:, valid.reshape(-1)]
+    lay = block_layout(*flat, inner.mesh, inner.boxsize, inner.k_pm)
+    return lay["slots"], lay["valid"], 2, lay["ext"]
+
+
+def _global_pm_slots(sim, pos):
+    """The global stepper's PM block slots of positions pos (N, 3):
+    (slots (3, K, C), valid, row extents)."""
+    from concept_tpu_torch.forces.p3m import block_layout
+
+    lay = block_layout(*(pos[:, d].contiguous() for d in range(3)),
+                       sim.config.potential_gridsize, sim.config.boxsize, sim._k_pm)
+    return lay["slots"], lay["valid"], lay["ext"]
 
 
 def _pm_only_libraries(sb, mesh: int):
@@ -844,11 +885,15 @@ def main_path() -> dict:
     print(f"kernel vs plain on the final layout: {inner.nc}³ cells, {K} slot rows")
     clustered = _check_sweep("clustered, bounded", pos_s, inner,
                              (inner._ext_occ, inner._ext_occ), 10, 1)
+    del pos_s
+    pos, valid, cb, ext = _rung_pm_slots(inner, layout)
+    pm = _check_slot_pm("PM kernels vs plain on the final layout", pos, valid, inner.mass,
+                        inner.G, inner.scale, inner.mesh, inner.boxsize, cb, ext)
     return {"a_end": a, "base_steps": steps, "substeps": st["substeps"],
             "max_rung": st["max_rung"], "wall_s": seconds,
             "evolve_s": sim.timings["evolve_s"], "launches": counts,
             "pm_mass_deficit_max": st["pm_mass_deficit_max"],
-            "pair_sweep_clustered": clustered}
+            "pair_sweep_clustered": clustered, "pm_clustered": pm}
 
 
 def _layout_main_path(tag: str, n: int, mesh: int, ucb: int, kernels) -> dict:
@@ -888,11 +933,16 @@ def _layout_main_path(tag: str, n: int, mesh: int, ucb: int, kernels) -> dict:
     else:
         clustered = _check_sweep("clustered, bounded", pos_s, inner,
                                  (inner._ext_occ, inner._ext_occ), 10, 1)
+    del pos_s
+    pos, valid, cb, ext = _rung_pm_slots(inner, layout)
+    pm = _check_slot_pm("PM kernels vs plain on the final layout", pos, valid, inner.mass,
+                        inner.G, inner.scale, inner.mesh, inner.boxsize, cb, ext)
     return {"N": n**3, "mesh": mesh, "nc": inner.nc, "ucb": ucb, "a_end": a,
             "base_steps": steps, "substeps": st["substeps"], "max_rung": st["max_rung"],
             "wall_s": seconds, "evolve_s": sim.timings["evolve_s"], "launches": counts,
             "pm_mass_deficit_max": st["pm_mass_deficit_max"],
-            "budget_warnings": st["budget_warnings"], "sweep_clustered": clustered}
+            "budget_warnings": st["budget_warnings"], "sweep_clustered": clustered,
+            "pm_clustered": pm}
 
 
 def realistic(a_end: float = 0.023, n: int = 256, mesh: int = 512, ucb: int = 8,
@@ -936,35 +986,45 @@ def realistic(a_end: float = 0.023, n: int = 256, mesh: int = 512, ucb: int = 8,
 
 # device-time groups of a profiled run, by kernel name (first match)
 PROFILE_GROUPS = (("pair_sweep", ("pair_sweep_kernel",)),
-                  ("CIC deposit", ("deposit_cells_kernel",)),
-                  ("CIC gather", ("gather_cells_kernel",)),
+                  ("CIC deposit", ("deposit_tile_kernel",)),
+                  ("CIC gather", ("gather_tile_kernel", "gather_cells_kernel")),
                   ("cuFFT", ("fft", "FFT")),
                   ("sort", ("Sort", "sort")),
                   ("index, scatter, gather", ("index", "scatter", "gather")))
 
 
-def _profiled(overrides: list, outdir: str) -> dict:
-    """The device time of one run by group of kernels (torch.profiler,
-    CUDA activity), and the run's host seconds.  The profiler slows the
-    host, so this run's wall time overstates the unprofiled run's."""
+def _device_split(fn, groups=PROFILE_GROUPS, kernels: dict | None = None) -> tuple:
+    """Device seconds of fn() by group of kernels (torch.profiler, CUDA
+    activity; a kernel joins the first group one of whose keys its name
+    holds, else "other"), and fn's result: (groups, result).  ``kernels``,
+    a dict, receives the seconds of each kernel by name."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        res = fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.device_time_total <= 0:
+            continue
+        g = next((g for g, keys in groups if any(k in e.key for k in keys)), "other")
+        out[g] = out.get(g, 0.0) + e.device_time_total / 1e6
+        if kernels is not None:
+            kernels[e.key] = kernels.get(e.key, 0.0) + e.device_time_total / 1e6
+    return out, res
+
+
+def _profiled(overrides: list, outdir: str) -> dict:
+    """The device time of one run by group of kernels, and the run's host
+    seconds.  The profiler slows the host, so this run's wall time
+    overstates the unprofiled run's."""
     from concept_tpu_torch.param import load_params
     from concept_tpu_torch.run import run
 
     cfg = load_params(PARAM, overrides=overrides + [f"output_dirs='{outdir}'"])
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        sim, _, _ = run(cfg, device="cuda")
-        torch.cuda.synchronize()
-    groups = {}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA or e.device_time_total <= 0:
-            continue
-        g = next((g for g, keys in PROFILE_GROUPS if any(k in e.key for k in keys)),
-                 "other")
-        groups[g] = groups.get(g, 0.0) + e.device_time_total / 1e6
+    groups, (sim, _, _) = _device_split(lambda: run(cfg, device="cuda"))
     return {"device_s": sum(groups.values()), "device_s_by_group": groups,
             "host_s": dict(sim.timings)}
 
@@ -999,10 +1059,15 @@ def global_main_path() -> dict:
           f"K = {slots.shape[1]}, {n_over} stragglers")
     clustered = _check_sweep("two-sided, clustered", slots, _sweep_geometry(sim),
                              (None, None), 10, 1)
+    del slots
+    pos, valid, ext = _global_pm_slots(sim, state.pos)
+    pm = _check_slot_pm("PM kernels vs plain on the final blocks", pos, valid,
+                        sim.spec.mass, sim.config.G, sim._sr_scale,
+                        sim.config.potential_gridsize, sim.config.boxsize, 2, ext)
     return {"a_end": a, "steps": steps, "wall_s": seconds, "evolve_s": ev,
             "ms_per_step": 1e3 * ev / steps, "launches": counts,
             "stats": dict(st), "profile": prof, "device_busy_share": dev_s / wall,
-            "pair_sweep_clustered": clustered}
+            "pair_sweep_clustered": clustered, "pm_clustered": pm}
 
 
 def global_realistic(a_end: float = 0.025) -> dict:
@@ -1198,8 +1263,33 @@ def bucket_flagship(n: int = 512) -> dict:
     print(f"BucketSimulation flagship ({n}³ jittered lattice, grid {n}, capacity 8): "
           f"{1e3 * dt:.2f} ms per step, {N / dt:.4g} particle updates/s, peak device "
           f"memory {peak / 2**30:.2f} GiB, stragglers {stragglers}, launches {counts}")
+    split = _step_split(sim, state, 3)
     return {"N": N, "ms_per_step": 1e3 * dt, "particle_updates_per_s": N / dt,
-            "peak_bytes": peak, "stragglers": stragglers, "launches": counts}
+            "peak_bytes": peak, "stragglers": stragglers, "launches": counts,
+            "device_ms_per_step_by_group": split}
+
+
+# device-time groups of a bucket step: rows 8 and 9, and the rest
+STEP_GROUPS = (("deposit_blocks", ("deposit_tile_kernel",)),
+               ("gather_blocks", ("gather_tile_kernel",)),
+               ("cuFFT", ("fft", "FFT")))
+
+
+def _step_split(sim, state, n_steps: int, groups=STEP_GROUPS) -> dict:
+    """Device milliseconds a bucket step by group of kernels, over n_steps
+    profiled steps (torch.profiler); prints the 6 costliest kernels too."""
+    kernels = {}
+    split, _ = _device_split(lambda: _timed_steps(sim, state, 1e-3, 1e-3, n_steps,
+                                                  rebucket=False), groups, kernels)
+    split = {g: 1e3 * v / n_steps for g, v in split.items()}
+    total = sum(split.values())
+    print(f"  device time a step {total:.2f} ms: " + ", ".join(
+        f"{g} {v:.2f} ms ({100 * v / total:.1f} %)"
+        for g, v in sorted(split.items(), key=lambda kv: -kv[1])))
+    print("  costliest kernels, ms a step: " + "; ".join(
+        f"{1e3 * v / n_steps:.2f} {k[:70]}"
+        for k, v in sorted(kernels.items(), key=lambda kv: -kv[1])[:6]))
+    return split
 
 
 def bucket_sustained(n: int = 256, a_end: float = 0.12) -> dict:
@@ -1213,9 +1303,6 @@ def bucket_sustained(n: int = 256, a_end: float = 0.12) -> dict:
     import torch
 
     from concept_tpu_torch.bucketsim import BucketSimulation
-    from concept_tpu_torch.grid.cuda_blocks import (
-        deposit_blocks, deposit_blocks_plain, gather_blocks, gather_blocks_plain,
-    )
     from concept_tpu_torch.ic import realize_particles
     from concept_tpu_torch.param import load_params
     from concept_tpu_torch.run import build_components, build_cosmology
@@ -1253,16 +1340,8 @@ def bucket_sustained(n: int = 256, a_end: float = 0.12) -> dict:
           f"{sim.rebucket_every} steps and a rebucket, {spec.N / dt:.4g} particle "
           f"updates/s, capacity {sim.capacity}, spilled {sim._n_spilled}, stragglers "
           f"{stragglers}, peak device memory {peak / 2**30:.2f} GiB, launches {counts}")
-    pos, box = state.pos, cfg.boxsize
-    print(f"block kernels vs plain on the final slots: {n // 2}³ blocks, "
-          f"K = {pos.shape[1]}")
-    final = _check_pm_kernels(
-        ("deposit_blocks", "gather_blocks"), pos, state.valid, spec.mass, consts.G_Newton,
-        None, n, box, 2, True,
-        lambda w: deposit_blocks(*pos, w, n, box),
-        lambda w: deposit_blocks_plain(*pos, w, n, box),
-        lambda wv, g: gather_blocks(*pos, wv, g, n, box),
-        lambda wv, g: gather_blocks_plain(*pos, wv, g, n, box))
+    final = _check_slot_pm("block kernels vs plain on the final slots", state.pos,
+                           state.valid, spec.mass, consts.G_Newton, None, n, cfg.boxsize, 2)
     return {"N": spec.N, "evolve_steps": evolve_steps, "evolve_s": evolve_s,
             "ms_per_step": 1e3 * dt, "particle_updates_per_s": spec.N / dt,
             "capacity": sim.capacity, "spilled": sim._n_spilled, "stragglers": stragglers,
@@ -1377,15 +1456,27 @@ def main(argv=None) -> int:
             f"{key}_max_abs_err": c["max_abs_err"], f"{key}_ms": c["ms"],
             f"{key}_plain_ms": c["plain_ms"], f"{key}_bound_ms": c["bound_ms"],
             f"{key}_library_ms": c["library_ms"]})
-    for name, phase, key in (("deposit_pm", "pm_only_main_path", "clustered"),
-                             ("gather_pm", "pm_only_main_path", "clustered"),
-                             ("deposit_blocks", "bucket_sustained", "final_slots"),
-                             ("gather_blocks", "bucket_sustained", "final_slots")):
+    # each kernel on the final, clustered slots of the runs that launch it
+    # (prefix "clustered_": the bucket sustained run for rows 8-9)
+    for name, prefix, phase, key in (
+            ("deposit_pm", "clustered", "pm_only_main_path", "clustered"),
+            ("gather_pm", "clustered", "pm_only_main_path", "clustered"),
+            ("deposit_cells", "clustered", "main_path", "pm_clustered"),
+            ("gather_cells", "clustered", "main_path", "pm_clustered"),
+            ("deposit_cells", "cb4_clustered", "reach_main_path", "pm_clustered"),
+            ("gather_cells", "cb4_clustered", "reach_main_path", "pm_clustered"),
+            ("deposit_blocks", "clustered", "bucket_sustained", "final_slots"),
+            ("gather_blocks", "clustered", "bucket_sustained", "final_slots"),
+            ("deposit_blocks", "global_clustered", "global_main_path", "pm_clustered"),
+            ("gather_blocks", "global_clustered", "global_main_path", "pm_clustered"),
+            ("deposit_blocks", "tight_clustered", "tight_main_path", "pm_clustered"),
+            ("gather_blocks", "tight_clustered", "tight_main_path", "pm_clustered")):
         clu = results[phase][key][name]
-        byname[name].update(
-            clustered_max_abs_err=clu["max_abs_err"], clustered_ms=clu["ms"],
-            clustered_plain_ms=clu["plain_ms"], clustered_bound_ms=clu["bound_ms"],
-            clustered_library_ms=clu["library_ms"])
+        byname[name].update({f"{prefix}_{k}": clu[k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")})
+    byname["deposit_blocks"].update(
+        bucket_launches=results["bucket_sustained"]["launches"]["deposit_blocks"],
+        flagship_device_ms_per_step=results["bucket_flagship"]["device_ms_per_step_by_group"])
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -8,30 +8,69 @@
 //   _gather_kernel_pos    (pallas_call at :379).
 //
 // Columns are cubes cb mesh cells wide, C = nc³ of them: the rung
-// stepper's cells (cb = 8, ids x-major: c = (cx·nc + cy)·nc + cz) or the
-// global stepper's PM blocks (cb = 2, ids z-major: c = (cz·nc + cy)·nc +
-// cx); both are launch arguments.  A slot takes part only when its CIC
-// cloud lies inside its column's ±1-mesh-cell halo, the test of
-// _cell_geometry (pallas_cells.py:133) and _slot_geometry
+// stepper's cells (cb = 8 or 4, ids x-major: c = (cx·nc + cy)·nc + cz) or
+// the global and bucket steppers' PM blocks (cb = 2, ids z-major: c =
+// (cz·nc + cy)·nc + cx); both are launch arguments.  A slot takes part
+// only when its CIC cloud lies inside its column's ±1-mesh-cell halo, the
+// test of _cell_geometry (pallas_cells.py:133) and _slot_geometry
 // (pallas_pm.py:182): the TPU kernels fill a (cb+2)³ mini-grid per column
 // and drop the rest, so the deposited mass falls short exactly when a
-// particle drifted out of its column's halo, which the rung stepper
-// checks (mass_sum).  Unlike the TPU kernels, the test here is periodic:
-// a particle that crossed a box face is wrapped to the far side of the
-// box but still lies in its column's halo, and is kept.  (The global
-// stepper rebuilds its blocks from wrapped positions at every kick, so
-// there both tests keep the same slots.)
+// particle drifted out of its column's halo, which the steppers check
+// (mass_sum).  Unlike the TPU kernels, the test here is periodic: a
+// particle that crossed a box face is wrapped to the far side of the box
+// but still lies in its column's halo, and is kept.  (The global stepper
+// rebuilds its blocks from wrapped positions at every kick, so there both
+// tests keep the same slots.)
 //
-// What bounds them on the card: device memory.  A slot moves 16 bytes in
-// (x, y, z, w), 8 atomic corner updates (deposit) or 8·D corner reads and
-// D floats out (gather), for ~30 FP32 operations.
-// Design: one thread per slot, neighbouring threads on neighbouring
-// columns, so slot reads and gather writes are coalesced.  The deposit
-// atomically adds the 8 corner weights straight into the periodic n³
-// mesh, which takes the place of the TPU's mini-grids and their
-// overlap-add band contractions; neighbouring slots share mesh lines, so
-// the corners mostly hit L2.  Atomics add in no fixed order.
+// What bounds them on the card: device memory.  A slot's weight w is read
+// whether or not the slot holds a particle; a live slot moves 12 bytes of
+// position more and makes 8 corner updates (deposit) or 8·D corner reads
+// and D floats out (gather; every slot writes its D outputs), for ~30
+// FP32 operations.
+//
+// Design (the deposit for every layout, the gather on the blocks).  The
+// first design ran a thread per slot: 7/8 of the threads found w = 0, and
+// each live slot made 8 scattered global atomics (deposit) or 8·D
+// scattered mesh reads (gather).  Now a CTA takes a tile of columns and a
+// chunk of its rows.  Tiles (chosen among the shapes measured): cb 8 1 × 1
+// × 8 columns, cb 4 2 × 2 × 8, the blocks 8 × 4 × 8 (z, y, x); each
+// thread keeps one column and SLOTS = 8 rows of it, so a chunk is 512, 64
+// or 8 rows and a deep column spreads over several CTAs.  A thread first
+// reads its slots' w, coalesced along the row; a chunk with no live slot
+// exits at once (the gather writes its zeros).  Any slot inside its own
+// column's halo lies inside the tile's halo, (tile + 2)³ mesh cells, which
+// lives in shared memory:
+//   deposit: the live slots add their 8 corner weights (wx·wy·wz)·q, in
+//     the plain version's order, to the zeroed halo tile with shared
+//     atomics; the tile then goes to the zeroed mesh by one global atomic
+//     a nonzero cell, in runs along z: on the cells by 4-float vector
+//     atomics (halo rows padded to 16-byte alignment), on the blocks cell
+//     by cell (the padding's strides put the blocks' neighbouring threads,
+//     which lie along x, on a few shared-memory banks);
+//   gather (the blocks): the halo of all D fields is staged by
+//     asynchronous copies (cp.async), the periodic wrap taken there, while
+//     the threads read their live slots' positions and compute their
+//     anchors; each slot then reads its 8·D corners from shared memory
+//     and writes D values at (d, r, c), along the row as the slots were
+//     read: one launch for the three gradient components.
+// A per-column extent ext (C,) int32 may cut each column's rows: rows
+// r ≥ ext[c] count as w = 0 (optional; the block P³M path passes its
+// block counts, which spares reading the empty rows' w).  The last tiles
+// along a dimension are clipped to the mesh; a mesh smaller than a tile
+// is one clipped tile along that dimension, whose halo wraps onto itself
+// (its halo cells map to global cells with the wrap, and atomics add the
+// copies).  Atomics add in no fixed order.
+//
+// The cells' gather (cb 8 and 4, PERF.md row 4) keeps the first design,
+// one thread per slot reading its corners from the mesh, neighbouring
+// threads on neighbouring columns: it reaches half its bound there, and
+// the tiled gather was slower on the cells (staging a halo for few live
+// slots).  Measured beside the alternatives: PERF.md §6,
+// scripts/cells_variants.py.
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+
+constexpr int kThreads = 256;
 
 struct Geometry {
   int ix, iy, iz;  // anchor mesh indices (unwrapped, ≥ −1)
@@ -70,37 +109,281 @@ __device__ __forceinline__ Geometry cell_geometry(float px, float py, float pz,
 
 __device__ __forceinline__ int wrap(int i, int n) { return i < 0 ? i + n : (i >= n ? i - n : i); }
 
-__global__ void deposit_cells_kernel(const float* __restrict__ px,
-                                     const float* __restrict__ py,
-                                     const float* __restrict__ pz,
-                                     const float* __restrict__ w, long long KC, int nc,
-                                     int cb, bool zmajor, float inv_h,
-                                     float* __restrict__ grid) {
-  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= KC) return;
-  const float q = w[i];
-  if (q == 0.0f) return;
-  const int C = nc * nc * nc;
-  const Geometry g = cell_geometry(px[i], py[i], pz[i], (int)(i % C), nc, cb, zmajor, inv_h);
-  if (!g.in_halo) return;
-  const int n = nc * cb;
-#pragma unroll
-  for (int a = 0; a < 2; ++a) {
-    const float wx = a ? g.fx : 1.0f - g.fx;
-    const long long ox = (long long)wrap(g.ix + a, n) * n;
-#pragma unroll
-    for (int b = 0; b < 2; ++b) {
-      const float wy = b ? g.fy : 1.0f - g.fy;
-      const long long oy = (ox + wrap(g.iy + b, n)) * n;
-#pragma unroll
-      for (int d = 0; d < 2; ++d) {
-        const float wz = d ? g.fz : 1.0f - g.fz;
-        atomicAdd(grid + oy + wrap(g.iz + d, n), (wx * wy * wz) * q);
+// A CTA's tile of TS × TM × TF columns along the id's slow, middle and
+// fast axes (x, y, z for x-major ids; z, y, x for z-major), and the
+// column this thread keeps.  The halo tile is indexed along the mesh's
+// x, y, z, z fastest.
+template <int CB, bool ZMAJOR, bool QUADS, int TS, int TM, int TF>
+struct SlotTile {
+  static constexpr int kCols = TS * TM * TF;
+  static constexpr int kRowStep = kThreads / kCols;  // rows one pass of the CTA covers
+  static constexpr int TX = ZMAJOR ? TF : TS, TZ = ZMAJOR ? TS : TF;
+  static constexpr int HX = TX * CB + 2, HY = TM * CB + 2, HZ = TZ * CB + 2;
+  // A halo row along z is HZP floats.  With QUADS its cell hz lies at
+  // hz + 3 of a row padded to a multiple of 4, so that its interior (hz in
+  // [1, HZ − 1)) starts 16-byte aligned, as the mesh row's part it maps to
+  // does: the rows move as 4-float quads and a scalar at each end.  That
+  // makes every stride a multiple of 4 floats, which suits the cells
+  // (neighbouring threads on neighbouring columns along z) but puts the
+  // blocks' neighbours along x on few banks: there rows are cell by cell,
+  // of odd length.
+  static constexpr int HZP = QUADS ? (HZ + 3 + 3) / 4 * 4 : (HZ | 1);
+  static constexpr int kLead = QUADS ? 3 : 0, kQuads = TZ * CB / 4;
+  static constexpr int kItems = QUADS ? kQuads + 2 : HZ;  // runs a row
+  static constexpr int kCells = HX * HY * HZP;
+  static_assert(kCols <= kThreads && kThreads % kCols == 0,
+                "a tile's columns divide the CTA's threads");
+  static_assert(!QUADS || TZ * CB % 4 == 0, "a tile's rows along z hold whole quads");
+
+  int nc, n;
+  int cx0, cy0, cz0;  // the tile's first column along x, y, z
+  int ex, ey, ez;     // its extent inside the mesh, in columns
+  int lcx, lcy, lcz;  // this thread's column in the tile
+  int row;            // this thread's first row in a chunk
+  bool inside;        // its column lies inside the mesh
+  long long c;        // its column id
+
+  static int count(int nc) {
+    return ((nc + TS - 1) / TS) * ((nc + TM - 1) / TM) * ((nc + TF - 1) / TF);
+  }
+
+  // blockIdx.x's tile, fast axis fastest
+  __device__ explicit SlotTile(int nc_) : nc(nc_), n(nc_ * CB) {
+    const int nf = (nc + TF - 1) / TF, nm = (nc + TM - 1) / TM;
+    const int t = blockIdx.x;
+    const int f0 = (t % nf) * TF, m0 = ((t / nf) % nm) * TM, s0 = (t / (nf * nm)) * TS;
+    const int k = threadIdx.x % kCols;
+    const int tf = k % TF, tm = (k / TF) % TM, ts = k / (TF * TM);
+    row = threadIdx.x / kCols;
+    inside = s0 + ts < nc && m0 + tm < nc && f0 + tf < nc;
+    c = ((long long)(s0 + ts) * nc + m0 + tm) * nc + f0 + tf;
+    cx0 = ZMAJOR ? f0 : s0;
+    cy0 = m0;
+    cz0 = ZMAJOR ? s0 : f0;
+    ex = min(TX, nc - cx0);
+    ey = min(TM, nc - cy0);
+    ez = min(TZ, nc - cz0);
+    lcx = ZMAJOR ? tf : ts;
+    lcy = tm;
+    lcz = ZMAJOR ? ts : tf;
+  }
+
+  // The halo-tile index of the CIC anchor of a slot of this thread's
+  // column at (px, py, pz), its fractions in f; −1 if the anchor leaves
+  // the column's halo.  The arithmetic is cell_geometry's.
+  __device__ __forceinline__ int anchor(float px, float py, float pz, float inv_h,
+                                        float f[3]) const {
+    const float ux = __fadd_rn(__fmul_rn(px, inv_h), -0.5f);
+    const float uy = __fadd_rn(__fmul_rn(py, inv_h), -0.5f);
+    const float uz = __fadd_rn(__fmul_rn(pz, inv_h), -0.5f);
+    const float ax = floorf(ux), ay = floorf(uy), az = floorf(uz);
+    f[0] = __fsub_rn(ux, ax);
+    f[1] = __fsub_rn(uy, ay);
+    f[2] = __fsub_rn(uz, az);
+    const int lx = ((int)ax - (cx0 + lcx) * CB + 1 + n) % n;
+    const int ly = ((int)ay - (cy0 + lcy) * CB + 1 + n) % n;
+    const int lz = ((int)az - (cz0 + lcz) * CB + 1 + n) % n;
+    // unsigned: a negative remainder (a position far outside the box) is
+    // outside the halo, as the plain version's remainder finds it
+    if ((unsigned)lx > CB || (unsigned)ly > CB || (unsigned)lz > CB) return -1;
+    return index(lcx * CB + lx, lcy * CB + ly, lcz * CB + lz);
+  }
+
+  static __device__ __forceinline__ int index(int hx, int hy, int hz) {
+    return (hx * HY + hy) * HZP + hz + kLead;
+  }
+  // the offset of a CIC corner (0 or 1 along each axis) from its anchor
+  static __device__ __forceinline__ int corner(int cx, int cy, int cz) {
+    return (cx * HY + cy) * HZP + cz;
+  }
+
+  // Call quad(s, g) or scalar(s, g) on every run of the clipped tile's
+  // halo: s its first shared index, g its first global mesh index (the
+  // periodic wrap taken).  With QUADS the interior of a row along z goes
+  // by aligned quads when ``vec`` (the mesh rows are 16-byte aligned:
+  // n % 4 = 0); the rest cell by cell.
+  template <class Scalar, class Quad>
+  __device__ __forceinline__ void for_halo(bool vec, Scalar scalar, Quad quad) const {
+    const int zend = ez * CB + 1;  // the clipped halo's last cell along z
+    for (int it = threadIdx.x; it < HX * HY * kItems; it += kThreads) {
+      const int k = it % kItems, hy = (it / kItems) % HY, hx = it / (kItems * HY);
+      if (hx > ex * CB + 1 || hy > ey * CB + 1) continue;
+      const long long row =
+          ((long long)wrap(cx0 * CB - 1 + hx, n) * n + wrap(cy0 * CB - 1 + hy, n)) * n;
+      int lo = k, hi = k + 1;
+      if (QUADS) {
+        lo = k == 0 ? 0 : (k <= kQuads ? 4 * k - 3 : HZ - 1);
+        hi = k == 0 ? 1 : (k <= kQuads ? lo + 4 : HZ);
+        if (vec && k >= 1 && k <= kQuads && hi <= zend) {
+          quad(index(hx, hy, lo), row + cz0 * CB - 1 + lo);
+          continue;
+        }
       }
+      for (int hz = lo; hz < hi && hz <= zend; ++hz)
+        scalar(index(hx, hy, hz), row + wrap(cz0 * CB - 1 + hz, n));
+    }
+  }
+
+  // Read this thread's SLOTS weights of chunk blockIdx.y (0 past the
+  // column's rows or its extent); returns the row bound of its column.
+  template <int SLOTS>
+  __device__ __forceinline__ int weights(const float* __restrict__ w, int K,
+                                         const int* __restrict__ ext, float q[SLOTS]) const {
+    const int kend = !inside ? 0 : (ext ? min(K, ext[c]) : K);
+    const long long C = (long long)nc * nc * nc;
+    const int r0 = blockIdx.y * (SLOTS * kRowStep) + row;
+#pragma unroll
+    for (int s = 0; s < SLOTS; ++s) {
+      const int r = r0 + s * kRowStep;
+      q[s] = r < kend ? w[r * C + c] : 0.0f;
+    }
+    return inside ? K : 0;
+  }
+};
+
+template <int CB, bool ZMAJOR, bool QUADS, int TS, int TM, int TF, int SLOTS>
+__global__ void __launch_bounds__(kThreads)
+deposit_tile_kernel(const float* __restrict__ px, const float* __restrict__ py,
+                    const float* __restrict__ pz, const float* __restrict__ w, int K, int nc,
+                    float inv_h, const int* __restrict__ ext, bool vec,
+                    float* __restrict__ grid) {
+  using T = SlotTile<CB, ZMAJOR, QUADS, TS, TM, TF>;
+  extern __shared__ float halo[];  // kCells
+  const T tile(nc);
+  float q[SLOTS];
+  tile.template weights<SLOTS>(w, K, ext, q);
+  bool live = false;
+#pragma unroll
+  for (int s = 0; s < SLOTS; ++s) live |= q[s] != 0.0f;
+  if (!__syncthreads_or(live)) return;
+  for (int s = threadIdx.x; s < T::kCells; s += kThreads) halo[s] = 0.0f;
+  __syncthreads();
+  const long long C = (long long)nc * nc * nc;
+  const int r0 = blockIdx.y * (SLOTS * T::kRowStep) + tile.row;
+#pragma unroll
+  for (int s = 0; s < SLOTS; ++s) {
+    if (q[s] == 0.0f) continue;
+    const long long i = (r0 + s * T::kRowStep) * C + tile.c;
+    float f[3];
+    const int a = tile.anchor(px[i], py[i], pz[i], inv_h, f);
+    if (a < 0) continue;
+#pragma unroll
+    for (int cx = 0; cx < 2; ++cx) {
+      const float wx = cx ? f[0] : 1.0f - f[0];
+#pragma unroll
+      for (int cy = 0; cy < 2; ++cy) {
+        const float wy = cy ? f[1] : 1.0f - f[1];
+#pragma unroll
+        for (int cz = 0; cz < 2; ++cz) {
+          const float wz = cz ? f[2] : 1.0f - f[2];
+          atomicAdd(halo + a + T::corner(cx, cy, cz), (wx * wy * wz) * q[s]);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  tile.for_halo(
+      vec,
+      [&](int s, long long g) {
+        if (halo[s] != 0.0f) atomicAdd(grid + g, halo[s]);
+      },
+      [&](int s, long long g) {
+        const float4 v = *reinterpret_cast<const float4*>(halo + s);
+        if (v.x != 0.0f || v.y != 0.0f || v.z != 0.0f || v.w != 0.0f)
+          atomicAdd(reinterpret_cast<float4*>(grid + g), v);
+      });
+}
+
+template <int CB, bool ZMAJOR, bool QUADS, int TS, int TM, int TF, int SLOTS>
+__global__ void __launch_bounds__(kThreads)
+gather_tile_kernel(const float* __restrict__ px, const float* __restrict__ py,
+                   const float* __restrict__ pz, const float* __restrict__ w, int K, int nc,
+                   float inv_h, const int* __restrict__ ext, bool vec,
+                   const float* __restrict__ grids, int D, float* __restrict__ out) {
+  using T = SlotTile<CB, ZMAJOR, QUADS, TS, TM, TF>;
+  extern __shared__ float halo[];  // D × kCells
+  const T tile(nc);
+  float q[SLOTS];
+  const int kout = tile.template weights<SLOTS>(w, K, ext, q);  // rows written
+  bool live = false;
+#pragma unroll
+  for (int s = 0; s < SLOTS; ++s) live |= q[s] != 0.0f;
+  const long long C = (long long)nc * nc * nc, KC = K * C;
+  const int r0 = blockIdx.y * (SLOTS * T::kRowStep) + tile.row;
+  if (!__syncthreads_or(live)) {
+#pragma unroll
+    for (int s = 0; s < SLOTS; ++s) {
+      const int r = r0 + s * T::kRowStep;
+      if (r >= kout) continue;
+      for (int d = 0; d < D; ++d) out[d * KC + r * C + tile.c] = 0.0f;
+    }
+    return;
+  }
+  const int n = nc * CB;
+  const long long n3 = (long long)n * n * n;
+  // asynchronous copies (cp.async): every load of the halo in flight at
+  // once, none through registers
+  tile.for_halo(
+      vec,
+      [&](int s, long long g) {
+        for (int d = 0; d < D; ++d)
+          __pipeline_memcpy_async(halo + d * T::kCells + s, grids + d * n3 + g, 4);
+      },
+      [&](int s, long long g) {
+        for (int d = 0; d < D; ++d)
+          __pipeline_memcpy_async(halo + d * T::kCells + s, grids + d * n3 + g, 16);
+      });
+  __pipeline_commit();
+  // the live slots' anchors and fractions while the halo lands
+  int a[SLOTS];
+  float f[SLOTS][3];
+#pragma unroll
+  for (int s = 0; s < SLOTS; ++s) {
+    a[s] = -1;
+    if (q[s] == 0.0f) continue;
+    const long long i = (r0 + s * T::kRowStep) * C + tile.c;
+    a[s] = tile.anchor(px[i], py[i], pz[i], inv_h, f[s]);
+  }
+  __pipeline_wait_prior(0);
+  __syncthreads();
+#pragma unroll
+  for (int s = 0; s < SLOTS; ++s) {
+    const int r = r0 + s * T::kRowStep;
+    if (r >= kout) continue;
+    const long long i = r * C + tile.c;
+    if (a[s] < 0) {
+      for (int d = 0; d < D; ++d) out[d * KC + i] = 0.0f;
+      continue;
+    }
+    // the 8 corners' halo offsets and weights, shared by the D fields
+    int off[8];
+    float wt[8];
+#pragma unroll
+    for (int cx = 0; cx < 2; ++cx) {
+      const float wx = cx ? f[s][0] : 1.0f - f[s][0];
+#pragma unroll
+      for (int cy = 0; cy < 2; ++cy) {
+        const float wy = cy ? f[s][1] : 1.0f - f[s][1];
+#pragma unroll
+        for (int cz = 0; cz < 2; ++cz) {
+          const float wz = cz ? f[s][2] : 1.0f - f[s][2];
+          const int k = (cx * 2 + cy) * 2 + cz;
+          off[k] = a[s] + T::corner(cx, cy, cz);
+          wt[k] = (wx * wy * wz) * q[s];
+        }
+      }
+    }
+    for (int d = 0; d < D; ++d) {
+      const float* S = halo + d * T::kCells;
+      float v = 0.0f;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) v += wt[k] * S[off[k]];
+      out[d * KC + i] = v;
     }
   }
 }
 
+// The first design, one thread per slot: the cells' gather (row 4).
 __global__ void gather_cells_kernel(const float* __restrict__ px,
                                     const float* __restrict__ py,
                                     const float* __restrict__ pz,
@@ -145,29 +428,97 @@ __global__ void gather_cells_kernel(const float* __restrict__ px,
   }
 }
 
-// px, py, pz, w: (K, C) float32 with rows contiguous (row stride C);
-// grid (n, n, n) contiguous, zeroed by the caller.  zmajor selects the
-// column-id order.  Returns the cudaError_t of the launch.
-extern "C" int cic_deposit_launch(const float* px, const float* py, const float* pz,
-                                  const float* w, int K, int nc, int cb, int zmajor,
-                                  float inv_h, float* grid, void* stream) {
-  const long long KC = (long long)K * nc * nc * nc;
-  const int threads = 256;
-  const long long blocks = (KC + threads - 1) / threads;
-  deposit_cells_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      px, py, pz, w, KC, nc, cb, zmajor != 0, inv_h, grid);
+// Allow the kernel `bytes` of dynamic shared memory: past 48 KB, static
+// and dynamic together, only after an opt-in (raised once per kernel).
+template <typename Kernel>
+static int shared_bytes(Kernel kernel, size_t bytes, size_t& allowed) {
+  if (bytes <= allowed) return 0;
+  const int err = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == 0) allowed = bytes;
+  return err;
+}
+
+template <int CB, bool ZMAJOR, bool QUADS, int TS, int TM, int TF, int SLOTS>
+static int deposit_tiles(const float* px, const float* py, const float* pz, const float* w,
+                         int K, int nc, float inv_h, const int* ext, float* grid,
+                         cudaStream_t stream) {
+  using T = SlotTile<CB, ZMAJOR, QUADS, TS, TM, TF>;
+  if (K <= 0 || nc <= 0) return 0;
+  const size_t bytes = sizeof(float) * T::kCells;
+  auto kernel = deposit_tile_kernel<CB, ZMAJOR, QUADS, TS, TM, TF, SLOTS>;
+  static size_t allowed = 0;
+  if (int err = shared_bytes(kernel, bytes, allowed)) return err;
+  const int rows = SLOTS * T::kRowStep;
+  const dim3 grid_dims(T::count(nc), (K + rows - 1) / rows);
+  kernel<<<grid_dims, kThreads, bytes, stream>>>(px, py, pz, w, K, nc, inv_h, ext,
+                                                 nc * CB % 4 == 0, grid);
   return (int)cudaGetLastError();
 }
 
-// grids (D, n, n, n) contiguous; out (D, K, C) contiguous.
+template <int CB, bool ZMAJOR, bool QUADS, int TS, int TM, int TF, int SLOTS>
+static int gather_tiles(const float* px, const float* py, const float* pz, const float* w,
+                        int K, int nc, float inv_h, const int* ext, const float* grids, int D,
+                        float* out, cudaStream_t stream) {
+  using T = SlotTile<CB, ZMAJOR, QUADS, TS, TM, TF>;
+  if (K <= 0 || nc <= 0) return 0;
+  const size_t bytes = sizeof(float) * D * T::kCells;
+  auto kernel = gather_tile_kernel<CB, ZMAJOR, QUADS, TS, TM, TF, SLOTS>;
+  static size_t allowed = 0;
+  if (int err = shared_bytes(kernel, bytes, allowed)) return err;
+  const int rows = SLOTS * T::kRowStep;
+  const dim3 grid_dims(T::count(nc), (K + rows - 1) / rows);
+  kernel<<<grid_dims, kThreads, bytes, stream>>>(px, py, pz, w, K, nc, inv_h, ext,
+                                                 nc * CB % 4 == 0, grids, D, out);
+  return (int)cudaGetLastError();
+}
+
+static int gather_slots(const float* px, const float* py, const float* pz, const float* w,
+                        int K, int nc, int cb, bool zmajor, float inv_h, const float* grids,
+                        int D, float* out, cudaStream_t stream) {
+  const long long KC = (long long)K * nc * nc * nc;
+  if (KC == 0) return 0;
+  const long long blocks = (KC + kThreads - 1) / kThreads;
+  gather_cells_kernel<<<(unsigned)blocks, kThreads, 0, stream>>>(
+      px, py, pz, w, KC, nc, cb, zmajor, inv_h, grids, D, out);
+  return (int)cudaGetLastError();
+}
+
+// The tiles, chosen by scripts/cells_variants.py (PERF.md §6): cb 8 1 × 1
+// × 8 columns (8 × 8 × 64 mesh cells) and cb 4 2 × 2 × 8 (8 × 8 × 32),
+// rows by quads; the blocks 8 × 4 × 8 (16 × 8 × 16), cell by cell.  8
+// slots a thread.
+#define CELLS8_TILE 8, false, true, 1, 1, 8, 8
+#define CELLS4_TILE 4, false, true, 2, 2, 8, 8
+#define BLOCKS_TILE 2, true, false, 8, 4, 8, 8
+
+// px, py, pz, w: (K, C) float32 with rows contiguous (row stride C);
+// ext: (C,) int32 row extents or null; grid (n, n, n) contiguous, zeroed
+// by the caller.  Columns: cb 8 or 4 with x-major ids (zmajor 0), or cb 2
+// with z-major ids (zmajor 1).  Returns the cudaError_t of the launch.
+extern "C" int cic_deposit_launch(const float* px, const float* py, const float* pz,
+                                  const float* w, int K, int nc, int cb, int zmajor,
+                                  float inv_h, const int* ext, float* grid, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (cb == 8 && !zmajor)
+    return deposit_tiles<CELLS8_TILE>(px, py, pz, w, K, nc, inv_h, ext, grid, s);
+  if (cb == 4 && !zmajor)
+    return deposit_tiles<CELLS4_TILE>(px, py, pz, w, K, nc, inv_h, ext, grid, s);
+  if (cb == 2 && zmajor)
+    return deposit_tiles<BLOCKS_TILE>(px, py, pz, w, K, nc, inv_h, ext, grid, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// grids (D, n, n, n) contiguous; out (D, K, C) contiguous, every entry
+// written.  The blocks (cb 2, z-major) take the tiled kernel; the cells
+// the first design, which takes no extents.
 extern "C" int cic_gather_launch(const float* px, const float* py, const float* pz,
                                  const float* w, int K, int nc, int cb, int zmajor,
-                                 float inv_h, const float* grids, int D, float* out,
-                                 void* stream) {
-  const long long KC = (long long)K * nc * nc * nc;
-  const int threads = 256;
-  const long long blocks = (KC + threads - 1) / threads;
-  gather_cells_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      px, py, pz, w, KC, nc, cb, zmajor != 0, inv_h, grids, D, out);
-  return (int)cudaGetLastError();
+                                 float inv_h, const int* ext, const float* grids, int D,
+                                 float* out, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (cb == 2 && zmajor)
+    return gather_tiles<BLOCKS_TILE>(px, py, pz, w, K, nc, inv_h, ext, grids, D, out, s);
+  if (ext) return (int)cudaErrorInvalidValue;
+  return gather_slots(px, py, pz, w, K, nc, cb, zmajor != 0, inv_h, grids, D, out, s);
 }

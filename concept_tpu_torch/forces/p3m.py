@@ -45,14 +45,16 @@ def block_layout(px0, py0, pz0, mesh: int, boxsize: float, k_pm: int) -> dict:
     """The PM block slots: one stable sort by z-major block key (the block
     kernels' column convention), then a slot scatter, validity from the
     block counts.  Returns the dict of :func:`slot_layout` with slots
-    (3, K, C) positions (0 in empty slots) and the sorted positions pos_s
-    (3, N) added."""
+    (3, K, C) positions (0 in empty slots), the sorted positions pos_s
+    (3, N) and the blocks' row extents ext (C,) int32 (their counts clamped
+    to K: the block kernels skip the rows past them) added."""
     nb = _block_count(mesh)
     C = nb**3
     lay = slot_layout(grid_key((pz0, py0, px0), boxsize / mesh, mesh, B), C, k_pm)
     order = lay["order"]
     lay["pos_s"] = torch.stack([px0[order], py0[order], pz0[order]])
     lay["slots"] = scatter_slots(lay["pos_s"], lay["slot"], k_pm, C)
+    lay["ext"] = torch.clamp(lay["counts"], max=k_pm).to(torch.int32)
     return lay
 
 
@@ -79,9 +81,9 @@ def pm_gradient_blocks(px0, py0, pz0, mass: float, G: float, scale: float,
     h = boxsize / n
     lay = block_layout(px0, py0, pz0, n, boxsize, k_pm)
     bx, by, bz = lay["slots"]
-    slot, order = lay["slot"], lay["order"]
+    slot, order, ext = lay["slot"], lay["order"], lay["ext"]
     w1 = lay["valid"].to(dtype)
-    grid = deposit_blocks(bx, by, bz, w1 * mass, n, boxsize)
+    grid = deposit_blocks(bx, by, bz, w1 * mass, n, boxsize, ext)
 
     # exact fixed-size overflow path (rank ≥ K)
     n_overflow = N - int(lay["valid"].sum())
@@ -103,8 +105,8 @@ def pm_gradient_blocks(px0, py0, pz0, mass: float, G: float, scale: float,
     grads = torch.stack([irfft3(fourier.fourier_diff(phi, n, boxsize, d), n)
                          for d in range(3)])
     del phi
-    fds = gather_blocks(bx, by, bz, w1, grads, n, boxsize)
-    del bx, by, bz, w1
+    fds = gather_blocks(bx, by, bz, w1, grads, n, boxsize, ext)
+    del bx, by, bz, w1, ext
     fd = torch.empty((3, N), dtype=dtype, device=dev)
     for d in range(3):
         fdp = torch.cat([fds[d].reshape(-1),

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 from concept_tpu_torch.grid.bucketed import B
 from concept_tpu_torch.grid.cuda_cells import (
-    deposit_cells_plain, gather_cells_plain, launch_deposit, launch_gather,
+    cut_rows, deposit_cells_plain, gather_cells_plain, launch_deposit, launch_gather,
 )
 
 
@@ -35,22 +35,25 @@ def gather_blocks_plain(px, py, pz, w, grids, gridsize: int, boxsize: float):
                               zmajor=True)
 
 
-def deposit_blocks(px, py, pz, w, gridsize: int, boxsize: float):
+def deposit_blocks(px, py, pz, w, gridsize: int, boxsize: float, ext=None):
     """CIC deposit of the per-slot weights w (mass·valid) from the (K, C)
-    block slots px, py, pz onto the (n, n, n) mesh."""
+    block slots px, py, pz onto the (n, n, n) mesh.  ``ext`` (C,) int32,
+    optional, cuts block c to its first ext[c] rows (the kernel then skips
+    the rows past every block's extent)."""
     if px.device.type == "cpu":
-        return deposit_blocks_plain(px, py, pz, w, gridsize, boxsize)
-    grid = launch_deposit((px, py, pz), w, gridsize, boxsize, B, zmajor=True)
+        return deposit_blocks_plain(px, py, pz, cut_rows(w, ext), gridsize, boxsize)
+    grid = launch_deposit((px, py, pz), w, gridsize, boxsize, B, zmajor=True, ext=ext)
     deposit_blocks.launches += 1
     return grid
 
 
-def gather_blocks(px, py, pz, w, grids, gridsize: int, boxsize: float):
+def gather_blocks(px, py, pz, w, grids, gridsize: int, boxsize: float, ext=None):
     """CIC interpolation of D mesh fields at every block slot, times w
-    (the validity): ``grids`` (D, n, n, n) → (D, K, C)."""
+    (the validity): ``grids`` (D, n, n, n) → (D, K, C); ``ext`` as in
+    :func:`deposit_blocks`."""
     if px.device.type == "cpu":
-        return gather_blocks_plain(px, py, pz, w, grids, gridsize, boxsize)
-    out = launch_gather((px, py, pz), w, grids, gridsize, boxsize, B, zmajor=True)
+        return gather_blocks_plain(px, py, pz, cut_rows(w, ext), grids, gridsize, boxsize)
+    out = launch_gather((px, py, pz), w, grids, gridsize, boxsize, B, zmajor=True, ext=ext)
     gather_blocks.launches += 1
     return out
 

@@ -116,6 +116,15 @@ def gather_cells_plain(pos3, w, grids, gridsize: int, boxsize: float,
     return out
 
 
+def cut_rows(w, ext):
+    """The weights w (K, C) with each column c cut to its first ext[c]
+    rows (the kernels' optional extents); w itself when ext is None."""
+    if ext is None:
+        return w
+    rows = torch.arange(w.shape[0], device=w.device)[:, None]
+    return w * (rows < ext.to(w.device)[None, :])
+
+
 def _fn(name: str, argtypes: list):
     fn = getattr(_build.load("cells"), name)
     if fn.argtypes is None:
@@ -140,18 +149,35 @@ def _check_cuda(pos3, w):
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
+def _check_ext(ext, C: int, device):
+    """The optional per-column row extents: (C,) int32, contiguous, on the
+    slots' device; returns its pointer (None for no extents)."""
+    if ext is None:
+        return None
+    if ext.dtype != torch.int32 or tuple(ext.shape) != (C,) \
+            or not ext.is_contiguous() or ext.device != device:
+        raise ValueError(f"ext must be contiguous int32 ({C},) on the slots' device")
+    return ext.data_ptr()
+
+
 def launch_deposit(pos3, w, gridsize: int, boxsize: float, cb: int,
-                   zmajor: bool):
+                   zmajor: bool, ext=None):
     """Launch the deposit kernel on CUDA tensors: pos3 a (3, K, C) tensor
-    or three (K, C) tensors, columns cb mesh cells wide with x-major (or
-    z-major) ids.  Returns the (n, n, n) mesh."""
+    or three (K, C) tensors, columns cb mesh cells wide: the rung cells
+    (cb 8 or 4, x-major ids) or the PM blocks (cb 2, z-major ids).
+    ``ext`` (C,) int32, optional, cuts column c to its first ext[c] rows.
+    Returns the (n, n, n) mesh."""
     nc, K, C = _check(pos3, w, gridsize, cb)
     _check_cuda(pos3, w)
+    if (cb, bool(zmajor)) not in ((8, False), (4, False), (2, True)):
+        raise ValueError(f"the deposit kernel takes cells of cb 8 or 4 with x-major ids "
+                         f"or blocks of cb 2 with z-major ids, not cb {cb}, zmajor {zmajor}")
+    ext_ptr = _check_ext(ext, C, w.device)
     n = gridsize
     grid = torch.zeros((n, n, n), dtype=torch.float32, device=w.device)
-    err = _fn("cic_deposit_launch", [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P])(
+    err = _fn("cic_deposit_launch", [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P])(
         *(p.data_ptr() for p in pos3), w.data_ptr(), K, nc, cb, int(zmajor),
-        float(n / boxsize), grid.data_ptr(),
+        float(n / boxsize), ext_ptr, grid.data_ptr(),
         torch.cuda.current_stream(w.device).cuda_stream,
     )
     _build.check(err, "cic_deposit")
@@ -159,9 +185,10 @@ def launch_deposit(pos3, w, gridsize: int, boxsize: float, cb: int,
 
 
 def launch_gather(pos3, w, grids, gridsize: int, boxsize: float, cb: int,
-                  zmajor: bool):
+                  zmajor: bool, ext=None):
     """Launch the gather kernel on CUDA tensors (layout as
-    :func:`launch_deposit`): grids (D, n, n, n) → (D, K, C)."""
+    :func:`launch_deposit`): grids (D, n, n, n) → (D, K, C).  ``ext`` is
+    taken on the blocks (cb 2, z-major) only."""
     nc, K, C = _check(pos3, w, gridsize, cb)
     _check_cuda(pos3, w)
     n = gridsize
@@ -170,13 +197,16 @@ def launch_gather(pos3, w, grids, gridsize: int, boxsize: float, cb: int,
             or grids.device != w.device:
         raise ValueError(f"grids must be contiguous float32 (D, {n}, {n}, {n})"
                          " on the positions' device")
+    if ext is not None and not (cb == 2 and zmajor):
+        raise ValueError("the cells' gather takes no extents")
+    ext_ptr = _check_ext(ext, C, w.device)
     D = grids.shape[0]
     out = torch.empty((D, K, C), dtype=torch.float32, device=w.device)
     err = _fn("cic_gather_launch",
-              [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _I, _P, _P])(
+              [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _I, _P, _P])(
         *(p.data_ptr() for p in pos3), w.data_ptr(), K, nc, cb, int(zmajor),
-        float(n / boxsize), grids.data_ptr(), D, out.data_ptr(),
-        torch.cuda.current_stream(w.device).cuda_stream,
+        float(n / boxsize), ext_ptr, grids.data_ptr(), D,
+        out.data_ptr(), torch.cuda.current_stream(w.device).cuda_stream,
     )
     _build.check(err, "cic_gather")
     return out

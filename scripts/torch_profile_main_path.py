@@ -31,8 +31,8 @@ sys.path.insert(0, ROOT)
 PARAM = os.path.join(ROOT, "param", "example_basic.py")
 
 GROUPS = (("pair_sweep", ("pair_sweep_kernel",)),
-          ("deposit_cells", ("deposit_cells_kernel",)),
-          ("gather_cells", ("gather_cells_kernel",)),
+          ("deposit_cells", ("deposit_tile_kernel",)),
+          ("gather_cells", ("gather_tile_kernel", "gather_cells_kernel")),
           ("deposit_pm", ("pm_deposit_kernel",)),
           ("gather_pm", ("pm_gather_kernel",)),
           ("cufft", ("fft", "FFT")),

@@ -593,3 +593,105 @@ def test_sweep_keeps_the_plain_pair_set_at_the_cutoff(dev, table, n):
     assert np.array_equal(g[0] != 0, r[0] != 0)
     assert (r[0] != 0).sum() == 8  # the 4 pairs below cutoff², both members
     np.testing.assert_allclose(g, r, rtol=1e-5, atol=0)
+
+
+def _slot_case(rng, n, cb, zmajor, K, box=4.0, clump=0, empty=False):
+    """Random slots (3, K, C) of columns cb mesh cells wide (x-major or
+    z-major ids) on mesh n: live slots within 0.45 mesh cells of their
+    column (anchors in its halo), wrapped across the box faces; a few
+    slots 1.6 mesh cells beyond their column (out of its halo: dropped);
+    the empty slots at the far sentinel with w = 0; with ``clump``, one
+    column holding that many slots (K = clump); with ``empty``, no live
+    slot at all.  Returns (pos, w (K, C) float32, row counts (C,))."""
+    nc = n // cb
+    C = nc**3
+    h = box / n
+    cols = np.arange(C)
+    fast, mid, slow = cols % nc, (cols // nc) % nc, cols // (nc * nc)
+    base = np.stack([fast, mid, slow] if zmajor else [slow, mid, fast]) * cb * h
+    counts = rng.integers(0, min(K, 8) + 1, size=C)
+    if clump:
+        counts[C // 2] = clump
+    if empty:
+        counts[:] = 0
+    valid = np.arange(K)[:, None] < counts[None, :]
+    pos = base[:, None, :] + rng.uniform(-0.45, cb + 0.45, (3, K, C)) * h
+    out = rng.choice(C, size=min(8, C // 4), replace=False)
+    if not empty:
+        pos[0, 0, out] = base[0, out] + (cb + 1.6) * h
+        valid[0, out] = True
+    pos = np.where(valid[None], np.mod(pos, box), 1e4 * box).astype(np.float32)
+    w = (valid * 0.7).astype(np.float32)
+    return pos, w, counts
+
+
+@pytest.mark.parametrize("case", ["D3", "D1", "K1", "empty", "clump", "extents"])
+@pytest.mark.parametrize("n", [16, 24, 32])
+@pytest.mark.parametrize("cb, zmajor", [(2, True), (8, False), (4, False)],
+                         ids=["blocks", "cells8", "cells4"])
+def test_slot_kernels_match_plain(dev, cb, zmajor, n, case):
+    """The tiled deposit (rows 3 and 8) and the gather (row 9 tiled on the
+    blocks, row 4 on the cells) against their plain versions: meshes of
+    16, 24 and 32 (clipped tiles; at 16 the mesh is smaller than a tile and
+    its halo wraps onto itself), slots across every box face and outside
+    their halo (dropped, gather 0), sentinel slots of w = 0, D = 3 and 1,
+    K = 1, no live slot, a clumped column of 600 rows over several row
+    chunks, and per-column extents that cut rows (plain: w cut the same
+    way).  The deposited mass, summed in float64, is Σ w over the slots
+    that pass the halo test."""
+    from concept_tpu_torch.grid.cuda_blocks import deposit_blocks, gather_blocks
+    from concept_tpu_torch.grid.cuda_cells import (
+        cell_geometry, deposit_cells, deposit_cells_plain, gather_cells,
+        gather_cells_plain, launch_deposit, launch_gather,
+    )
+
+    rng = np.random.default_rng(n + cb)
+    box = 4.0
+    K = {"K1": 1, "clump": 600}.get(case, 12)
+    s, w_np, _ = _slot_case(rng, n, cb, zmajor, K, box, clump=600 if case == "clump" else 0,
+                            empty=case == "empty")
+    pos = torch.as_tensor(s, device=dev)
+    w = torch.as_tensor(w_np, device=dev)
+    C = w.shape[1]
+    ext = None
+    if case == "extents":
+        ext = torch.as_tensor(rng.integers(0, K + 1, size=C).astype(np.int32), device=dev)
+        w_ref = w * (torch.arange(K, device=dev)[:, None] < ext[None, :])
+    else:
+        w_ref = w
+    D = 1 if case == "D1" else 3
+    grids = torch.as_tensor(rng.standard_normal((D, n, n, n)).astype(np.float32), device=dev)
+    dep, gat = ((deposit_blocks, gather_blocks) if cb == 2 else (deposit_cells, gather_cells))
+    before = (dep.launches, gat.launches)
+    if ext is not None:
+        got = launch_deposit(pos, w, n, box, cb, zmajor, ext=ext)
+    elif cb == 2:
+        got = deposit_blocks(*pos, w, n, box)
+    else:
+        got = deposit_cells(pos, w, n, box, cb)
+    ref = deposit_cells_plain(pos, w_ref, n, box, cb, zmajor)
+    torch.testing.assert_close(got, ref, rtol=2e-5, atol=1e-5 * float(ref.abs().max()))
+    _, _, in_halo = cell_geometry(pos, slice(0, C), n // cb, cb, n / box, zmajor)
+    kept = float((w_ref.double() * in_halo).sum())
+    assert float(got.sum(dtype=torch.float64)) == pytest.approx(kept, rel=1e-6, abs=1e-30)
+    if ext is not None and cb != 2:
+        with pytest.raises(ValueError, match="no extents"):
+            launch_gather(pos, w, grids, n, box, cb, zmajor, ext=ext)
+        ext = None
+        w_ref = w
+    if ext is not None:
+        got = launch_gather(pos, w, grids, n, box, cb, zmajor, ext=ext)
+    elif cb == 2:
+        got = gather_blocks(*pos, w, grids, n, box)
+    else:
+        got = gather_cells(pos, w, grids, n, box, cb)
+    ref = gather_cells_plain(pos, w_ref, grids, n, box, cb, zmajor)
+    assert got.shape == (D, K, C)
+    torch.testing.assert_close(got, ref, rtol=2e-5,
+                               atol=1e-5 * max(float(ref.abs().max()), 1e-30))
+    assert float(got.masked_fill(in_halo & (w_ref != 0), 0.0).abs().max()) == 0.0
+    if case != "empty":
+        assert float(got.abs().max()) > 0.0 and kept > 0.0
+    # the wrappers count their launches; launch_deposit / launch_gather do not
+    counted = (1 if case != "extents" else 0) + (1 if ext is None else 0)
+    assert dep.launches + gat.launches - sum(before) == counted
