@@ -86,13 +86,38 @@ Then PM-only gravity (``select_forces = {'all': {'gravity': 'pm'}}``):
     the power spectrum its output writes.
 4f. ``BucketSimulation``, the persistent-bucket PM stepper: bench.py's
     flagship shape (a 512³ lattice with a 0.3-cell jitter, capacity 8, 5
-    timed steps after a warm-up) and its sustained shape (256³ with 1LPT
+    timed steps after a warm-up) and its sustained shape (256³ with 2LPT
     initial conditions evolved to a = 0.12, then one rebucket cadence of
     16 steps and a rebucket).  Each launches only rows 8 and 9; the
     flagship's device time a step is split by kernel (rows 8, 9, cuFFT,
     the rest; torch.profiler over 3 steps); rows 8 and 9 are then held
     against their plain versions on the sustained run's rebucketed final
     slots.
+
+Then the persistent P³M stepper, global-step rungs, the lean PM kick and
+the LPT initial conditions:
+
+5a. ``P3MSimulation`` at bench.py's persistent shape (bench_p3m_persistent)
+    in example_basic's cosmology: 256³ particles on grid 512, 2LPT
+    initial conditions at a = 0.02 evolved to a = 0.025, one
+    ``autotune_margin`` over its three candidates, 5 timed steps; only
+    rows 6, 8 and 9 may launch.  Then rows 6, 8 and 9 against their plain
+    versions on the final slots.
+5b. ``rungs.evolve_rungs_p3m`` on example_basic (64³, grid 128) from 2LPT
+    initial conditions, base step by base step until a rung above 0 and
+    two steps more: the long range through rows 10-11,
+    the rungs' probe through row 6, the substeps through
+    ``shortrange_momentum_updates_on_subset`` (row 2); then row 2 against
+    its plain version on the last substep's receivers.
+5c. One memory-lean PM kick (rows 3 and 4, stencil gradients one at a
+    time) as the rung stepper's dispatch takes it at grid 768, and one
+    spectral kick, on a realized 384³ state on the 8-mesh-cell layout:
+    peak device memory of each and their rms difference; the lean kick
+    again through the plain deposit and gather (within 2e-5 of the
+    largest change), and rows 3-4 against their plain versions there.
+5d. The 2LPT and 3LPT realizations at 256³ (time, peak memory), and
+    ``param/example_pm_quick.py`` (2LPT) to a = 1 with its outputs cut to
+    the power spectra, through ``load_params`` and ``run``.
 
 Before its last line it prints one JSON object ``{"kernels": [...]}`` and
 the card's name and power limit as nvidia-smi reports them; the last line
@@ -162,7 +187,9 @@ def _nvidia_smi() -> str:
 
 
 def _counters():
-    from concept_tpu_torch.forces.cuda_shortrange import pair_sweep, pair_sweep_reach
+    from concept_tpu_torch.forces.cuda_shortrange import (
+        pair_sweep, pair_sweep_reach, pair_sweep_subset,
+    )
     from concept_tpu_torch.forces.shortrange import sweep_reach
     from concept_tpu_torch.grid.cuda_blocks import deposit_blocks, gather_blocks
     from concept_tpu_torch.grid.cuda_cells import deposit_cells, gather_cells
@@ -172,7 +199,7 @@ def _counters():
             "sweep_reach": sweep_reach, "deposit_cells": deposit_cells,
             "gather_cells": gather_cells, "deposit_blocks": deposit_blocks,
             "gather_blocks": gather_blocks, "deposit_pm": deposit_pm,
-            "gather_pm": gather_pm}
+            "gather_pm": gather_pm, "pair_sweep_subset": pair_sweep_subset}
 
 
 def _reset_counts():
@@ -200,25 +227,33 @@ def build() -> dict:
     return {"build_s": seconds}
 
 
+def _example(n: int, mesh: int, extra=()):
+    """example_basic at n³ particles on grid `mesh`: (cfg, consts, bg, lin,
+    spec, softening length)."""
+    from concept_tpu_torch.param import load_params
+    from concept_tpu_torch.run import build_components, build_cosmology, softening_length
+
+    cfg = load_params(PARAM, overrides=[
+        f"initial_conditions={{'species':'matter','N':{n}**3}}",
+        f"potential_options={mesh}", *extra])
+    _, consts, bg, lin = build_cosmology(cfg)
+    spec, _ = build_components(cfg, bg, consts)[0]
+    return cfg, consts, bg, lin, spec, softening_length(cfg, spec, mesh)
+
+
 def _realized_layout(N: int, mesh: int, device: str, unified_cb: int | None = None):
     """A realized example_basic state at N particles on the mesh-`mesh`
     rung layout (the device's choice, or the unified layout with cells
     `unified_cb` mesh cells wide): (adapter, RungState)."""
     from concept_tpu_torch.p3mrungs import P3MRungSimulation, RungSimulationAdapter
-    from concept_tpu_torch.param import load_params
-    from concept_tpu_torch.run import build_components, build_cosmology, softening_length
     from concept_tpu_torch.device import resolve_device
     from concept_tpu_torch.sim import SimConfig
 
     n = round(N ** (1 / 3))
-    cfg = load_params(PARAM, overrides=[
-        f"initial_conditions={{'species':'matter','N':{n}**3}}",
-        f"potential_options={mesh}"])
-    _, consts, bg, lin = build_cosmology(cfg)
-    spec, _ = build_components(cfg, bg, consts)[0]
+    cfg, consts, bg, lin, spec, soft = _example(n, mesh)
     dev = resolve_device(device)
     config = SimConfig(boxsize=cfg.boxsize, potential_gridsize=mesh, device=dev,
-                       G=consts.G_Newton, softening=softening_length(cfg, spec, mesh),
+                       G=consts.G_Newton, softening=soft,
                        softening_kernel=cfg.softening_kernel)
     adapter = RungSimulationAdapter(spec, config, bg, lin, N_rungs=cfg.N_rungs)
     if unified_cb is not None:
@@ -288,10 +323,12 @@ def _check_sweep(tag: str, pos_s, sim, bounds, reps: int, plain_reps: int,
     positions pos_s (3, K, C) of a layout with `sim`'s geometry (nc,
     boxsize, scale, cutoff, softening, softening_kernel), receivers =
     suppliers, with per-column row bounds (rext, sext) or (None, None):
-    errors, times and bound.  ``reach`` = "one-sided" or "two-sided"
-    sweeps `sim`'s reach-2 offsets (the 4-mesh-cell layout) instead of the
-    ±1 columns: one-sided through pair_sweep_reach with the receivers at
-    the negative sentinel, two-sided through sweep_reach (no bounds).
+    errors, times and bound.  ``reach`` = "subset" sweeps the ±1 columns
+    through pair_sweep_subset (row 2, no bounds); "one-sided" or
+    "two-sided" sweeps `sim`'s reach-2 offsets (the 4-mesh-cell layout)
+    instead of the ±1 columns: one-sided through pair_sweep_reach with the
+    receivers at the negative sentinel, two-sided through sweep_reach (no
+    bounds).
     The bound counts the work the function needs on these slots (see
     _pair_work), which row bounds do not change; the row pairs the launch
     visits are Σ_c rb[c]·Σ_d sb[c + d].  Fails on a disagreement beyond
@@ -300,14 +337,17 @@ def _check_sweep(tag: str, pos_s, sim, bounds, reps: int, plain_reps: int,
 
     from concept_tpu_torch.forces.cuda_shortrange import (
         OFFSETS_27, column_bounds, pair_sweep, pair_sweep_plain, pair_sweep_reach,
+        pair_sweep_subset,
     )
     from concept_tpu_torch.forces.shortrange import SENTINEL, f32_square, sweep_reach
 
     args = (sim.nc, sim.boxsize, sim.scale, f32_square(sim.cutoff),
             f32_square(sim.softening), sim.softening_kernel)
-    offsets = OFFSETS_27 if reach is None else sim.offsets
-    if reach is None:
+    offsets = OFFSETS_27 if reach in (None, "subset") else sim.offsets
+    if reach in (None, "subset"):
         def kern():
+            if reach == "subset":
+                return pair_sweep_subset(pos_s, pos_s, *args)
             return pair_sweep(pos_s, pos_s, *args, rext=bounds[0], sext=bounds[1])
 
         def plain():
@@ -354,14 +394,15 @@ def _check_sweep(tag: str, pos_s, sim, bounds, reps: int, plain_reps: int,
     nbytes = 4 * (3 * n_valid + pos_s.numel()) + sum(
         4 * e.numel() for e in bounds if e is not None)
     bound_ms = 1e3 * max(flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S)
-    print(f"  {'pair_sweep' if reach is None else 'reach sweep'} ({tag}): max |Δ| {err:.3e}, max|Δ|/max|ref| {rel:.3e} "
+    name = {None: "pair_sweep", "subset": "pair_sweep_subset"}.get(reach, "reach sweep")
+    print(f"  {name} ({tag}): max |Δ| {err:.3e}, max|Δ|/max|ref| {rel:.3e} "
           f"(tol 1e-5) {'ok' if ok else 'FAIL'}; {ms:.3f} ms, plain {plain_ms:.1f} ms, "
           f"bound {bound_ms:.3f} ms; {tested} pair tests needed ({n_valid} valid "
           f"slots), {within} in the cutoff, {near} in the spline near field; the "
           f"launch visits {visited} row pairs (deepest receiver bound {int(rb.max())}, "
           f"supplier bound {int(sb.max())} rows)")
     if not ok:
-        raise SystemExit(f"pair_sweep ({tag}) disagrees with its plain version")
+        raise SystemExit(f"{name} ({tag}) disagrees with its plain version")
     return dict(
         max_abs_err=err, max_rel_err=rel, tol_rel=1e-5, ms=ms, plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by="operations" if flops / FP32_FLOPS >
@@ -555,19 +596,11 @@ def _global_sim(N: int, mesh: int, device: str):
     """A global-stepper Simulation of example_basic at N particles on
     grid `mesh` (``N_rungs = 1``), and its realized initial state."""
     from concept_tpu_torch.device import resolve_device
-    from concept_tpu_torch.param import load_params
-    from concept_tpu_torch.run import build_components, build_cosmology, softening_length
     from concept_tpu_torch.sim import SimConfig, Simulation
 
-    n = round(N ** (1 / 3))
-    cfg = load_params(PARAM, overrides=[
-        f"initial_conditions={{'species':'matter','N':{n}**3}}",
-        f"potential_options={mesh}", "N_rungs=1"])
-    _, consts, bg, lin = build_cosmology(cfg)
-    spec, _ = build_components(cfg, bg, consts)[0]
+    cfg, consts, bg, lin, spec, soft = _example(round(N ** (1 / 3)), mesh, ("N_rungs=1",))
     config = SimConfig(boxsize=cfg.boxsize, potential_gridsize=mesh,
-                       device=resolve_device(device), G=consts.G_Newton,
-                       softening=softening_length(cfg, spec, mesh),
+                       device=resolve_device(device), G=consts.G_Newton, softening=soft,
                        softening_kernel=cfg.softening_kernel)
     sim = Simulation(spec, config, bg, lin)
     return sim, sim.initial_state(cfg.a_begin, seed=0)
@@ -652,12 +685,12 @@ def check_reach_kernels(N: int = 128**3, mesh: int = 256, device: str = "cuda") 
 
 
 def _check_slot_pm(tag: str, pos, valid, mass: float, G: float, scale, mesh: int,
-                   box: float, cb: int, ext=None) -> dict:
-    """The slot-layout deposit and gather (D = 3) against their plain
-    versions on the slots pos (3, K, C): the cells' kernels (rows 3-4) for
-    cb 8 or 4 with x-major ids, the blocks' (rows 8-9) for cb 2 with
-    z-major ids and the blocks' row extents ``ext`` where the caller
-    passes them, with bounds and library calls as in 2."""
+                   box: float, cb: int, ext=None, D=3) -> dict:
+    """The slot-layout deposit and gather (at D, as in _check_pm_kernels)
+    against their plain versions on the slots pos (3, K, C): the cells'
+    kernels (rows 3-4) for cb 8 or 4 with x-major ids, the blocks' (rows
+    8-9) for cb 2 with z-major ids and the blocks' row extents ``ext``
+    where the caller passes them, with bounds and library calls as in 2."""
     from concept_tpu_torch.grid.cuda_blocks import (
         deposit_blocks, deposit_blocks_plain, gather_blocks, gather_blocks_plain,
     )
@@ -687,7 +720,7 @@ def _check_slot_pm(tag: str, pos, valid, mass: float, G: float, scale, mesh: int
         nbytes = (4 * (C + 4 * live + mesh**3),
                   lambda D: 4 * (C + 4 * live + D * mesh**3 + D * K * C))
     out = _check_pm_kernels(kernels[:2], pos, valid, mass, G, scale, mesh, box, cb, cb == 2,
-                            *kernels[2:], nbytes=nbytes)
+                            *kernels[2:], nbytes=nbytes, D=D)
     out["slots"] = {"K_rows": K, "columns": C, "cb": cb, "live": int(valid.sum())}
     return out
 
@@ -810,7 +843,8 @@ BUCKET_KERNELS = ("deposit_blocks", "gather_blocks")
 PM_ONLY = "select_forces={'all': {'gravity': 'pm'}}"
 
 
-def _run(overrides: list, outdir: str, kernels=RUNG_KERNELS, device: str = "cuda"):
+def _run(overrides: list, outdir: str, kernels=RUNG_KERNELS, device: str = "cuda",
+         param: str = PARAM):
     """load_params + run on the card, as the CLI does; returns
     (sim, final state, a, launch counts, host seconds).  Fails unless each
     of ``kernels`` launched and no other kernel did, when a budget was
@@ -821,7 +855,7 @@ def _run(overrides: list, outdir: str, kernels=RUNG_KERNELS, device: str = "cuda
     from concept_tpu_torch.param import load_params
     from concept_tpu_torch.run import run
 
-    cfg = load_params(PARAM, overrides=overrides + [f"output_dirs='{outdir}'"])
+    cfg = load_params(param, overrides=overrides + [f"output_dirs='{outdir}'"])
     _reset_counts()
     t0 = time.time()
     sim, state, a = run(cfg, device=device)
@@ -1294,8 +1328,8 @@ def _step_split(sim, state, n_steps: int, groups=STEP_GROUPS) -> dict:
 
 def bucket_sustained(n: int = 256, a_end: float = 0.12) -> dict:
     """bench.py's sustained shape (bench.py:318-385): n³ particles in a box
-    n Mpc wide (example_basic's cosmology), 1LPT initial conditions at
-    a = 0.02 (bench.py takes 2LPT, ROADMAP Queue 1 item 6) evolved to
+    n Mpc wide (example_basic's cosmology), 2LPT initial conditions at
+    a = 0.02, as bench.py:349 takes them, evolved to
     a_end on grid n, the capacity settled (rebucket, step, rebucket,
     step), then one rebucket cadence (16 steps and a rebucket) timed; then
     rows 8 and 9 against their plain versions on the rebucketed final
@@ -1313,7 +1347,7 @@ def bucket_sustained(n: int = 256, a_end: float = 0.12) -> dict:
     spec, _ = build_components(cfg, bg, consts)[0]
     torch.cuda.reset_peak_memory_stats()
     sim = BucketSimulation(n, cfg.boxsize, spec.mass, consts.G_Newton, bg=bg, capacity=16)
-    st0 = realize_particles(lin, spec, cfg.boxsize, 0.02, seed=0, lpt_order=1, device="cuda")
+    st0 = realize_particles(lin, spec, cfg.boxsize, 0.02, seed=0, lpt_order=2, device="cuda")
     state = sim.init_state(st0.pos, st0.mom)
     del st0
     _reset_counts()
@@ -1335,7 +1369,7 @@ def bucket_sustained(n: int = 256, a_end: float = 0.12) -> dict:
     if not torch.isfinite(state.pos).all() or int(state.valid.sum()) != spec.N:
         raise SystemExit("the sustained state lost particles or is not finite")
     peak = torch.cuda.max_memory_allocated()
-    print(f"BucketSimulation sustained ({n}³, grid {n}, 1LPT, a 0.02 → {a_end}: "
+    print(f"BucketSimulation sustained ({n}³, grid {n}, 2LPT, a 0.02 → {a_end}: "
           f"{evolve_steps} steps in {evolve_s:.1f} s): {1e3 * dt:.2f} ms per step over "
           f"{sim.rebucket_every} steps and a rebucket, {spec.N / dt:.4g} particle "
           f"updates/s, capacity {sim.capacity}, spilled {sim._n_spilled}, stragglers "
@@ -1348,29 +1382,339 @@ def bucket_sustained(n: int = 256, a_end: float = 0.12) -> dict:
             "peak_bytes": peak, "launches": counts, "final_slots": final}
 
 
+P3M_KERNELS = ("pair_sweep", "deposit_blocks", "gather_blocks")
+RUNGS_GLOBAL_KERNELS = ("pair_sweep", "pair_sweep_subset", "deposit_pm", "gather_pm")
+LEAN_KERNELS = ("deposit_cells", "gather_cells")
+
+
+def p3m_persistent(n: int = 256, mesh: int = 512, a_end: float = 0.025,
+                   n_steps: int = 5, device: str = "cuda") -> dict:
+    """bench.py's persistent P³M shape (bench_p3m_persistent) in
+    example_basic's cosmology and box at n³ on grid `mesh`: 2LPT initial
+    conditions at a = 0.02, ``P3MSimulation.evolve`` to a_end, one
+    ``autotune_margin`` over its three candidates, then n_steps timed
+    steps.  Only rows 6, 8 and 9 may launch.  Then rows 6, 8 and 9
+    against their plain versions on the final slots: the sweep on the
+    stored layout, the deposit and gather on the PM blocks its valid
+    slots fill."""
+    import torch
+
+    from concept_tpu_torch.forces.shortrange import SENTINEL
+    from concept_tpu_torch.ic import realize_particles
+    from concept_tpu_torch.p3msim import P3MSimulation, autotune_margin
+
+    cfg, consts, bg, lin, spec, soft = _example(n, mesh)
+    box, m, G = cfg.boxsize, spec.mass, consts.G_Newton
+    _sync()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    st0 = realize_particles(lin, spec, box, 0.02, seed=0, lpt_order=2, device=device)
+    sim = P3MSimulation(n, box, m, G, mesh=mesh, bg=bg, softening=soft,
+                        softening_kernel=cfg.softening_kernel)
+    state = sim.init_state(st0.pos.T.unbind(0), st0.mom.T.unbind(0))
+    del st0
+    _sync()
+    setup_s = time.perf_counter() - t0
+    peaks = {}
+
+    def stage_peak(name):  # the peak device memory of a stage, then reset
+        _sync()
+        peaks[name] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+
+    stage_peak("realize_and_bucketize")
+    _reset_counts()
+    t0 = time.perf_counter()
+    state = sim.evolve(state, float(bg.t_of_a_np(0.02)), float(bg.t_of_a_np(a_end)))
+    _sync()
+    evolve_s = time.perf_counter() - t0
+    evolve_steps = sim.stats["steps"]
+    stage_peak("evolve")
+    state, tune = autotune_margin(sim, state)
+    stage_peak("autotune")
+    t_now = float(bg.t_of_a_np(a_end))
+    dt = sim._timestep(a_end, 0.0)
+    int1 = bg.integrals_np(t_now, t_now + 0.5 * dt, keys=("a**(-1)",))["a**(-1)"]
+    int2 = bg.integrals_np(t_now, t_now + dt, keys=("a**(-2)",))["a**(-2)"]
+    state, _ = sim.step(state, int1, int2)
+    _sync()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        state, _ = sim.step(state, int1, int2)
+        if sim.needs_rebucket:
+            state = sim.rebucket(state)
+    _sync()
+    step_s = (time.perf_counter() - t0) / n_steps
+    stage_peak("timed_steps")
+    counts = _read_counts()
+    _check_launches(counts, P3M_KERNELS)
+    st = sim.stats
+    if st["pm_mass_warnings"] or st["budget_warnings"]:
+        raise SystemExit(f"P3MSimulation: {st['pm_mass_warnings']} mass warnings, "
+                         f"{st['budget_warnings']} budgets exceeded")
+    if not torch.isfinite(state.pos).all() or int(state.valid.sum()) != n**3:
+        raise SystemExit("the P3MSimulation state lost particles or is not finite")
+    peak = max(peaks.values())
+    print(f"P3MSimulation ({n}³, grid {mesh}, 2LPT, a 0.02 → {a_end}: {evolve_steps} "
+          f"steps in {evolve_s:.2f} s; setup {setup_s:.1f} s): autotune "
+          f"{ {k: round(1e3 * v, 2) for k, v in tune.items()} } ms a step → margin "
+          f"{sim.margin_frac} ({sim.nc}³ cells, K {sim.capacity}); {1e3 * step_s:.2f} ms "
+          f"per step over {n_steps}, {n**3 / step_s:.4g} particle updates/s, peak device "
+          f"memory {peak / 2**30:.2f} GiB (" + ", ".join(
+              f"{k} {v / 2**30:.2f}" for k, v in peaks.items()) +
+          f"), rebuckets {st['rebuckets']}, binding refreshes "
+          f"{st['binding_refreshes']}, largest PM overflow {st['pm_overflow_max']}, "
+          f"launches {counts}")
+    pos_s = torch.where(state.valid[None], state.pos, SENTINEL * box).contiguous()
+    print(f"kernels vs plain on the final slots: {sim.nc}³ cells, K = {sim.capacity}")
+    sweep = _check_sweep("two-sided, final", pos_s, sim, (None, None), 5, 1)
+    del pos_s
+    flat = state.pos.reshape(3, -1)[:, state.valid.reshape(-1)]
+    from concept_tpu_torch.forces.p3m import block_layout
+
+    lay = block_layout(*flat, mesh, box, sim.k_pm)
+    del flat, state
+    pm = _check_slot_pm("PM blocks of the final slots", lay["slots"], lay["valid"], m, G,
+                        sim.scale, mesh, box, 2, lay["ext"])
+    return {"N": n**3, "mesh": mesh, "evolve_steps": evolve_steps, "evolve_s": evolve_s,
+            "autotune_s_per_step": tune, "margin_frac": sim.margin_frac, "nc": sim.nc,
+            "capacity": sim.capacity, "ms_per_step": 1e3 * step_s,
+            "particle_updates_per_s": n**3 / step_s, "peak_bytes": peak,
+            "peak_bytes_by_stage": peaks, "stats": dict(st), "launches": counts,
+            "sweep_final": sweep, "pm_final": pm}
+
+
+def global_rungs(n: int = 64, mesh: int = 128, extra_steps: int = 2,
+                 device: str = "cuda") -> dict:
+    """``rungs.evolve_rungs_p3m`` on example_basic (n³, grid `mesh`, its
+    N_rungs) from 2LPT initial conditions at a = 0.02, one base step a
+    call, until a particle takes a rung above 0 and then `extra_steps`
+    more (no entry point runs this stepper yet, so the phase stays
+    short): the long range through rows 10-11 each base step, the rungs
+    from the two-sided sweep (row 6), the substeps through
+    ``on_subset`` (row 2's ``pair_sweep_subset``).  Then row 2 against
+    its plain version on the last substep's receiver set (every particle:
+    the last substep fires rung 0)."""
+    import torch
+
+    from concept_tpu_torch.device import resolve_device
+    from concept_tpu_torch.forces.shortrange import SENTINEL, bucketize, cell_counts
+    from concept_tpu_torch.rungs import evolve_rungs_p3m
+    from concept_tpu_torch.sim import SimConfig, Simulation
+
+    cfg, consts, bg, lin, spec, soft = _example(n, mesh)
+    config = SimConfig(boxsize=cfg.boxsize, potential_gridsize=mesh,
+                       device=resolve_device(device), G=consts.G_Newton, softening=soft,
+                       softening_kernel=cfg.softening_kernel)
+    sim = Simulation(spec, config, bg, lin)
+    state = sim.initial_state(cfg.a_begin, seed=0, lpt_order=2)
+    stats = {}
+    _reset_counts()
+    t0 = time.perf_counter()
+    a, calls, left = cfg.a_begin, 0, extra_steps
+    while left and a < 1.0:
+        t = float(bg.t_of_a_np(a))
+        a_next = min(1.0, float(bg.a_of_t_np(t + sim.timestep_size(a))))
+        # max_steps 3: the a(t) round trip may leave a sliver step
+        state, a = evolve_rungs_p3m(sim, state, a, a_next, N_rungs=cfg.N_rungs,
+                                    max_steps=3, stats=stats)
+        calls += 1
+        left -= stats["max_rung"] > 0
+    _sync()
+    seconds = time.perf_counter() - t0
+    counts = _read_counts()
+    _check_launches(counts, RUNGS_GLOBAL_KERNELS)
+    if not torch.isfinite(state.pos).all() or not torch.isfinite(state.mom).all():
+        raise SystemExit("the global-rungs state is not finite")
+    print(f"global rungs (example_basic, {n}³, grid {mesh}, 2LPT, a {cfg.a_begin} → "
+          f"{a:.4g} in {calls} base steps, N_rungs {cfg.N_rungs}): {seconds:.2f} s, "
+          f"max rung {stats['max_rung']}, "
+          f"receiver rows {stats['receiver_rows']} of {stats['full_rows']} "
+          f"({stats['receiver_rows'] / stats['full_rows']:.3f}), launches {counts}")
+    cap = max(8, -(-(int(cell_counts(state.pos, cfg.boxsize, sim._sr_ncells).max()) + 1)
+                   // 8) * 8)
+    b = bucketize(state.pos.unbind(1), cfg.boxsize, sim._sr_ncells, cap)
+    slots = torch.where(b["valid"][None], torch.stack([b["hx"], b["hy"], b["hz"]]),
+                        SENTINEL * cfg.boxsize).contiguous()
+    print(f"row 2 vs plain on the last substep's receivers: {sim._sr_ncells}³ cells, "
+          f"K = {cap}")
+    sweep = _check_sweep("one-sided, substep", slots, _sweep_geometry(sim), (None, None), 10, 1,
+                         reach="subset")
+    return {"a_end": a, "base_steps": calls, "seconds": seconds, "stats": stats,
+            "launches": counts, "subset_sweep": sweep}
+
+
+def lean_kick(n: int = 384, mesh: int = 768, device: str = "cuda") -> dict:
+    """One memory-lean PM kick (``pm_kick_cells_lean``: order-4 stencil
+    gradients one at a time, rows 3 and 4, the gather at D = 1 three
+    times), as the rung stepper's dispatch takes it at mesh ≥ 768 on the
+    card, and one spectral kick (``pm_gradient_cells``) on a copy of the
+    same realized n³ state on the mesh-`mesh` 8-mesh-cell layout: each
+    kick's peak device memory and the rms difference of the momentum
+    changes relative to the spectral kick's rms.  Then the lean kick
+    through the plain deposit and gather on the same state, held to the
+    kernels' one within max|Δ| ≤ 2e-5·max|ref| (so that the rms difference
+    from the spectral kick is the stencil's, not the kernels'), and rows 3
+    and 4 (the gather at D = 1 and 3) against their plain versions on the
+    layout."""
+    from unittest import mock
+
+    import torch
+
+    from concept_tpu_torch import p3msim
+    from concept_tpu_torch.grid.cuda_cells import deposit_cells_plain, gather_cells_plain
+    from concept_tpu_torch.p3mrungs import pm_kick_rungs
+
+    adapter, state = _realized_layout(n**3, mesh, device)
+    inner = adapter.inner
+    if inner.ucb != 8 or inner.pm_lean is not None:
+        raise SystemExit(f"grid {mesh}: layout ucb {inner.ucb}, pm_lean {inner.pm_lean}")
+    K = inner._K_occ
+    int_pm = 1e-3
+    base = torch.cuda.memory_allocated()
+    out = {"N": n**3, "mesh": mesh, "K_rows": K, "state_bytes": base}
+    dmom = {}
+    for name, lean in (("lean", None), ("spectral", False)):
+        state.mom.zero_()  # the kick alone, without cancellation against the momenta
+        _sync()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        if lean is None:  # the stepper's own dispatch
+            state, _, mass_sum = inner._pm_kick(state, int_pm, k_rows=K)
+        else:
+            state, _, mass_sum = pm_kick_rungs(
+                state, inner.mass, inner.G, int_pm, inner.boxsize, mesh, inner.scale,
+                cells_cb=8, k_rows=K, lean=False)
+        _sync()
+        counts = _read_counts()
+        _check_launches(counts, LEAN_KERNELS)
+        expect = {"lean": (1, 3), "spectral": (1, 1)}[name]
+        if (counts["deposit_cells"], counts["gather_cells"]) != expect:
+            raise SystemExit(f"{name} kick launched {counts}, not {expect}")
+        # in masses of a particle as the float32 deposit holds it
+        m32 = float(torch.tensor(inner.mass, dtype=torch.float32))
+        deficit = abs(float(mass_sum) / m32 - inner.N)
+        if deficit > 0.5:
+            raise SystemExit(f"the {name} kick's deposit lost {deficit:.3g} masses")
+        dmom[name] = state.mom[:, :K].to("cpu", copy=True)  # off the card: the next peak is its own
+        out[name] = {"seconds": time.perf_counter() - t0,
+                     "peak_bytes": torch.cuda.max_memory_allocated(),
+                     "peak_above_state_bytes": torch.cuda.max_memory_allocated() - base,
+                     "launches": counts, "mass_deficit": deficit}
+    out["launches"] = out["lean"]["launches"]
+    # the same lean kick through the plain deposit and gather: what the
+    # kernels add to its difference from the spectral kick
+    state.mom.zero_()
+    with mock.patch.object(p3msim, "deposit_cells", deposit_cells_plain), \
+            mock.patch.object(p3msim, "gather_cells", gather_cells_plain):
+        _reset_counts()
+        state, _, _ = inner._pm_kick(state, int_pm, k_rows=K)
+        _check_launches(_read_counts(), ())
+    dmom["lean_plain"] = state.mom[:, :K].to("cpu", copy=True)
+    valid = state.valid[:K].cpu()
+    d = {k: v[:, valid] for k, v in dmom.items()}
+    del dmom
+
+    def rms_rel(a, b):
+        return float((a - b).pow(2).mean().sqrt() / b.pow(2).mean().sqrt())
+
+    rel = out["rms_diff_rel"] = rms_rel(d["lean"], d["spectral"])
+    rel_plain = out["plain_rms_diff_rel"] = rms_rel(d["lean_plain"], d["spectral"])
+    _, kern_rel = _max_rel(d["lean"], d["lean_plain"])
+    out["kernels_vs_plain_max_rel"] = kern_rel
+    kern_rms = out["kernels_vs_plain_rms_rel"] = rms_rel(d["lean"], d["lean_plain"])
+    del d
+    if not 0 < rel < 0.2:
+        raise SystemExit(f"the lean kick differs from the spectral one by {rel:.3g} rms")
+    if not kern_rel <= 2e-5:
+        raise SystemExit(f"the lean kick through rows 3-4 differs from the one through "
+                         f"their plain versions by {kern_rel:.3g} of the largest")
+    print(f"lean PM kick ({n}³, grid {mesh}, cb 8, K {K}): peak device memory lean "
+          f"{out['lean']['peak_bytes'] / 2**30:.2f} GiB against spectral "
+          f"{out['spectral']['peak_bytes'] / 2**30:.2f} GiB (state {base / 2**30:.2f} GiB); "
+          f"{out['lean']['seconds']:.3f} s against {out['spectral']['seconds']:.3f} s; rms "
+          f"of the difference {rel:.3e} of the spectral kick's ({rel_plain:.3e} through "
+          f"the plain deposit and gather); the kernels' lean kick against the plain one: "
+          f"max|Δ|/max|ref| {kern_rel:.3e} (tol 2e-5), rms {kern_rms:.3e}; launches lean "
+          f"{out['lean']['launches']}, spectral {out['spectral']['launches']}")
+    # rows 3 and 4 against their plain versions on this layout, the gather
+    # at the lean kick's D = 1 and at the spectral kick's D = 3
+    out.update(_check_slot_pm("cells of the lean kick", state.pos[:, :K], state.valid[:K],
+                              inner.mass, inner.G, inner.scale, mesh, inner.boxsize, 8,
+                              D=(1, 3)))
+    return out
+
+
+def lpt(n: int = 256, device: str = "cuda") -> dict:
+    """The 2LPT and 3LPT realizations of example_basic at n³ (time and
+    peak device memory each, after a 1LPT warm-up), then the CLI's two
+    calls on param/example_pm_quick.py (2LPT, 32³, PM grid 64,
+    interlaced) to a = 1 with its outputs cut to the power spectra: its
+    interlaced PM takes no hand kernel, and none may launch."""
+    import torch
+
+    from concept_tpu_torch.ic import realize_particles
+
+    cfg, _, bg, lin, spec, _ = _example(n, 2 * n)
+    out = {"N": n**3}
+    for order in (1, 2, 3):
+        _sync()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        st = realize_particles(lin, spec, cfg.boxsize, cfg.a_begin, seed=0,
+                               lpt_order=order, device=device)
+        _sync()
+        seconds = time.perf_counter() - t0
+        if not torch.isfinite(st.pos).all() or not torch.isfinite(st.mom).all():
+            raise SystemExit(f"the {order}LPT realization is not finite")
+        out[f"lpt{order}"] = {"seconds": seconds,
+                              "peak_bytes": torch.cuda.max_memory_allocated()}
+        del st
+    print(f"LPT realizations ({n}³, example_basic, a {cfg.a_begin}): " + ", ".join(
+        f"{o}LPT {out[f'lpt{o}']['seconds']:.3f} s, peak "
+        f"{out[f'lpt{o}']['peak_bytes'] / 2**30:.2f} GiB" for o in (1, 2, 3)))
+    outdir = tempfile.mkdtemp(prefix="chip_smoke_pm_quick_")
+    try:
+        sim, _, a, counts, seconds = _run(
+            ["output_times={'powerspec': [0.1, 0.3, 1.0]}"], outdir, kernels=(),
+            device=device, param=os.path.join(ROOT, "param", "example_pm_quick.py"))
+        spectra = sorted(f for f in os.listdir(outdir) if f.startswith("powerspec"))
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    print(f"example_pm_quick (2LPT, 32³, PM grid 64, interlaced, a → {a:.4g}): "
+          f"{sim.stats['steps']} steps, wall {seconds:.1f} s, {len(spectra)} power "
+          f"spectra, launches {counts}")
+    out["pm_quick"] = {"a_end": a, "steps": sim.stats["steps"], "wall_s": seconds,
+                       "spectra": spectra, "launches": counts}
+    return out
+
+
 # (name, counter, phase with its check, key, source, the TPU kernel's
-# definition, phase with the main-path launch count or None where no path
-# runs the kernel)
+# definition, the newest path that launches the kernel (its launch count)
+# or None where no path runs it)
 SWEEP_SRC = "concept_tpu_torch/csrc/pair_sweep.cu"
 CELLS_SRC = "concept_tpu_torch/csrc/cells.cu"
 PM_SRC = "concept_tpu_torch/csrc/pm_blocks.cu"
 KERNELS = (
     ("pair_sweep", "pair_sweep", "check", "pair_sweep_bounded", SWEEP_SRC,
      "concept_tpu/forces/pallas_shortrange.py:287", "main_path"),
-    ("deposit_cells", "deposit_cells", "check", "deposit_cells", CELLS_SRC,
-     "concept_tpu/grid/pallas_cells.py:162", "main_path"),
-    ("gather_cells", "gather_cells", "check", "gather_cells", CELLS_SRC,
-     "concept_tpu/grid/pallas_cells.py:206", "main_path"),
+    ("pair_sweep_subset", "pair_sweep_subset", "global_rungs", "subset_sweep", SWEEP_SRC,
+     "concept_tpu/forces/pallas_shortrange.py:540", "global_rungs"),
+    ("deposit_cells", "deposit_cells", "lean_kick", "deposit_cells", CELLS_SRC,
+     "concept_tpu/grid/pallas_cells.py:162", "lean_kick"),
+    ("gather_cells", "gather_cells", "lean_kick", "gather_cells", CELLS_SRC,
+     "concept_tpu/grid/pallas_cells.py:206", "lean_kick"),
     ("pair_sweep_reach", "pair_sweep_reach", "check_reach", "reach_one_sided", SWEEP_SRC,
      "concept_tpu/forces/pallas_shortrange.py:976", "reach_main_path"),
     ("pair_sweep_two_sided", "pair_sweep", "check_global", "pair_sweep_two_sided",
-     SWEEP_SRC, "concept_tpu/forces/pallas_shortrange.py:220", "global_main_path"),
+     SWEEP_SRC, "concept_tpu/forces/pallas_shortrange.py:220", "p3m_persistent"),
     ("sweep_reach", "sweep_reach", "check_reach", "reach_two_sided_unbounded", SWEEP_SRC,
      "concept_tpu/forces/pallas_shortrange.py:831", None),
     ("deposit_blocks", "deposit_blocks", "check_global", "deposit_blocks", CELLS_SRC,
-     "concept_tpu/grid/pallas_pm.py:210", "global_main_path"),
+     "concept_tpu/grid/pallas_pm.py:210", "p3m_persistent"),
     ("gather_blocks", "gather_blocks", "check_global", "gather_blocks", CELLS_SRC,
-     "concept_tpu/grid/pallas_pm.py:245", "global_main_path"),
+     "concept_tpu/grid/pallas_pm.py:245", "p3m_persistent"),
     ("deposit_pm", "deposit_pm", "check_pm_only", "deposit_pm", PM_SRC,
      "concept_tpu/grid/pallas_pm.py:54", "pm_only_main_path"),
     ("gather_pm", "gather_pm", "check_pm_only", "gather_pm", PM_SRC,
@@ -1410,6 +1754,10 @@ def main(argv=None) -> int:
     results["pm_only_realistic"] = pm_only_realistic()
     results["bucket_flagship"] = bucket_flagship()
     results["bucket_sustained"] = bucket_sustained()
+    results["p3m_persistent"] = p3m_persistent()
+    results["global_rungs"] = global_rungs()
+    results["lean_kick"] = lean_kick()
+    results["lpt"] = lpt()
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
@@ -1432,8 +1780,27 @@ def main(argv=None) -> int:
             cb4_max_abs_err=c["max_abs_err"], cb4_ms=c["ms"], cb4_plain_ms=c["plain_ms"],
             cb4_bound_ms=c["bound_ms"], cb4_library_ms=c["library_ms"],
             cb4_launches=results["reach_main_path"]["launches"][name])
+    # rows 3-4 on the first path's check (128³, grid 256, D = 3), and the
+    # gather at D = 3 on the lean kick's layout
+    for name, prefix, c in (
+            ("deposit_cells", "check", results["check"]["deposit_cells"]),
+            ("gather_cells", "check", results["check"]["gather_cells"]),
+            ("gather_cells", "D3", results["lean_kick"]["gather_cells_D3"])):
+        byname[name].update({f"{prefix}_{k}": c[k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")})
     byname["pair_sweep"].update(tight_launches=results["tight_main_path"]["launches"]
                                 ["pair_sweep"])
+    # the earlier paths' launches of the kernels whose newest path is above
+    for name, counter, phase in (("deposit_cells", "deposit_cells", "main_path"),
+                                 ("gather_cells", "gather_cells", "main_path"),
+                                 ("pair_sweep_two_sided", "pair_sweep", "global_main_path"),
+                                 ("deposit_blocks", "deposit_blocks", "global_main_path"),
+                                 ("gather_blocks", "gather_blocks", "global_main_path")):
+        byname[name][f"{phase}_launches"] = results[phase]["launches"][counter]
+    byname["pair_sweep_two_sided"]["global_rungs_launches"] = (
+        results["global_rungs"]["launches"]["pair_sweep"])
+    for name in ("deposit_pm", "gather_pm"):
+        byname[name]["global_rungs_launches"] = results["global_rungs"]["launches"][name]
     for name, phase, key in (("pair_sweep", "check", "pair_sweep_unbounded"),
                              ("pair_sweep_reach", "check_reach",
                               "reach_one_sided_unbounded")):
@@ -1441,14 +1808,14 @@ def main(argv=None) -> int:
         byname[name].update(
             unbounded_max_abs_err=unb["max_abs_err"], unbounded_ms=unb["ms"],
             unbounded_plain_ms=unb["plain_ms"], unbounded_bound_ms=unb["bound_ms"])
-    for name, phase, key in (("pair_sweep", "main_path", "pair_sweep_clustered"),
-                             ("pair_sweep_two_sided", "global_main_path",
-                              "pair_sweep_clustered"),
-                             ("pair_sweep_reach", "reach_main_path", "sweep_clustered")):
+    for name, prefix, phase, key in (
+            ("pair_sweep", "clustered", "main_path", "pair_sweep_clustered"),
+            ("pair_sweep_two_sided", "clustered", "global_main_path", "pair_sweep_clustered"),
+            ("pair_sweep_two_sided", "p3m_final", "p3m_persistent", "sweep_final"),
+            ("pair_sweep_reach", "clustered", "reach_main_path", "sweep_clustered")):
         clu = results[phase][key]
-        byname[name].update(
-            clustered_max_abs_err=clu["max_abs_err"], clustered_ms=clu["ms"],
-            clustered_plain_ms=clu["plain_ms"], clustered_bound_ms=clu["bound_ms"])
+        byname[name].update({f"{prefix}_{k}": clu[k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms")})
     # row 11 at D = 1 beside the kick's D = 3
     for key, c in (("D1", results["check_pm_only"]["gather_pm_D1"]),
                    ("clustered_D1", results["pm_only_main_path"]["clustered"]["gather_pm_D1"])):
@@ -1470,7 +1837,9 @@ def main(argv=None) -> int:
             ("deposit_blocks", "global_clustered", "global_main_path", "pm_clustered"),
             ("gather_blocks", "global_clustered", "global_main_path", "pm_clustered"),
             ("deposit_blocks", "tight_clustered", "tight_main_path", "pm_clustered"),
-            ("gather_blocks", "tight_clustered", "tight_main_path", "pm_clustered")):
+            ("gather_blocks", "tight_clustered", "tight_main_path", "pm_clustered"),
+            ("deposit_blocks", "p3m_final", "p3m_persistent", "pm_final"),
+            ("gather_blocks", "p3m_final", "p3m_persistent", "pm_final")):
         clu = results[phase][key][name]
         byname[name].update({f"{prefix}_{k}": clu[k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")})

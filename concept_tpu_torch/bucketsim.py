@@ -268,19 +268,31 @@ def _rebucketize_bucketstate(state: BucketState, boxsize: float, gridsize: int,
     key_s, perm = torch.clamp(key_s[:N], max=C - 1), perm[:N]
     pos = state.pos.reshape(3, -1)[:, perm]
     mom = state.mom.reshape(3, -1)[:, perm]
+    slot, valid, n_spill = spill_slots(key_s, C, K)
+    new = BucketState(pos=scatter_slots(pos, slot, K, C),
+                      mom=scatter_slots(mom, slot, K, C), valid=valid)
+    return new, int(valid.sum()), n_spill, n_valid
+
+
+def spill_slots(key_s, C: int, K: int):
+    """The slots of N particles sorted by key (key_s (N,), values in
+    [0, C)) in a (K, C) layout: rank·C + key within the capacity; the
+    particles beyond the capacity of their column go to the free slots of
+    others, the j-th of them to the j-th free slot in layout order (the
+    JAX package's spill).  Returns (slot (N,), valid (K, C), the number
+    spilled)."""
+    dev = key_s.device
+    N = key_s.shape[0]
     counts = torch.bincount(key_s, minlength=C)
-    rank = torch.arange(N, device=key.device) - (torch.cumsum(counts, 0) - counts)[key_s]
+    rank = torch.arange(N, device=dev) - (torch.cumsum(counts, 0) - counts)[key_s]
     in_b = rank < K
     counts_k = torch.clamp(counts, max=K)
     n_spill = N - int(counts_k.sum())
     slot = torch.where(in_b, rank * C + key_s, K * C)
     if n_spill:
-        free = torch.nonzero((torch.arange(K, device=key.device)[:, None]
+        free = torch.nonzero((torch.arange(K, device=dev)[:, None]
                               >= counts_k[None, :]).reshape(-1)).reshape(-1)
         slot[~in_b] = free[:n_spill]
-    valid = torch.zeros(K * C + 1, dtype=torch.bool, device=key.device)
+    valid = torch.zeros(K * C + 1, dtype=torch.bool, device=dev)
     valid[slot] = True
-    valid = valid[:K * C].view(K, C)
-    new = BucketState(pos=scatter_slots(pos, slot, K, C),
-                      mom=scatter_slots(mom, slot, K, C), valid=valid)
-    return new, int(valid.sum()), n_spill, n_valid
+    return slot, valid[:K * C].view(K, C), n_spill

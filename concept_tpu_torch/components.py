@@ -10,7 +10,6 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 
@@ -66,21 +65,18 @@ def lattice_positions(n_per_dim: int, boxsize: float, kind: str = "sc",
                       dtype=torch.float32, device="cpu"):
     """Pre-IC particle lattice (reference ic.py:1199-1446): sc gives n³
     particles at cell centers, bcc and fcc add 1 and 3 shifted copies.
-    Returns (N, 3) positions."""
+    Returns (N, 3) positions, built on ``device`` in float64 as the JAX
+    package builds them with numpy."""
     n = n_per_dim
     h = boxsize / n
-    idx = np.indices((n, n, n)).reshape(3, -1).T  # (n³, 3)
-    base = (idx + 0.5) * h
-    if kind == "sc":
-        pos = base
-    elif kind == "bcc":
-        pos = np.concatenate([base, base + 0.5 * h])
-    elif kind == "fcc":
-        shifts = np.array(
-            [[0, 0, 0], [0, 0.5, 0.5], [0.5, 0, 0.5], [0.5, 0.5, 0]]
-        ) * h
-        pos = np.concatenate([base + s for s in shifts])
-    else:
+    shifts = {"sc": [[0, 0, 0]], "bcc": [[0, 0, 0], [0.5, 0.5, 0.5]],
+              "fcc": [[0, 0, 0], [0, 0.5, 0.5], [0.5, 0, 0.5], [0.5, 0.5, 0]]}
+    if kind not in shifts:
         raise ValueError(f"unknown lattice kind {kind!r}")
-    pos = np.mod(pos, boxsize)
-    return torch.as_tensor(pos, dtype=dtype, device=device)
+    i = torch.arange(n, dtype=torch.float64, device=device)
+    base = (torch.stack(torch.meshgrid(i, i, i, indexing="ij"), -1).reshape(-1, 3)
+            + 0.5) * h
+    pos = torch.cat([base + torch.as_tensor(s, dtype=torch.float64, device=device) * h
+                     for s in shifts[kind]])
+    # every coordinate is ≥ 0: fmod is numpy's mod exactly
+    return torch.fmod(pos, boxsize).to(dtype)

@@ -1,7 +1,7 @@
 """Carry particle states between the JAX package and the port as numpy
 arrays, field for field (ParticleState: pos, mom, ids, rungs; RungState:
-pos, mom, valid, rungs, ids; BucketState: pos, mom, valid), so that both
-can start from one state."""
+pos, mom, valid, rungs, ids; P3MState and BucketState: pos, mom, valid),
+so that both can start from one state."""
 
 from __future__ import annotations
 
@@ -11,29 +11,34 @@ import torch
 from concept_tpu_torch.bucketsim import BucketState
 from concept_tpu_torch.components import ParticleState
 from concept_tpu_torch.p3mrungs import RungState
+from concept_tpu_torch.p3msim import P3MState
 
 _RUNG_FIELDS = ("pos", "mom", "valid", "rungs", "ids")
 _INT_DTYPES = {"valid": torch.bool, "rungs": torch.int8, "ids": torch.int32}
 
 
 def from_jax_state(arrays: dict, device="cpu"):
-    """{field: numpy array} of a JAX ``RungState`` (all five fields) or
-    ``ParticleState`` (pos, mom, optional ids/rungs) → the port's state
-    on ``device``.  Floating fields keep their dtype."""
+    """{field: numpy array} of a JAX ``RungState`` (all five fields),
+    ``P3MState`` (pos, mom, valid) or ``ParticleState`` (pos, mom,
+    optional ids/rungs) → the port's state on ``device``.  Floating
+    fields keep their dtype."""
     def conv(a, dtype=None):
         return torch.as_tensor(np.ascontiguousarray(a), device=device,
                                dtype=dtype)
 
-    if "valid" in arrays:
+    if "valid" in arrays and "rungs" in arrays:
         return RungState(**{k: conv(arrays[k], _INT_DTYPES.get(k))
                             for k in _RUNG_FIELDS})
+    if "valid" in arrays:
+        return P3MState(pos=conv(arrays["pos"]), mom=conv(arrays["mom"]),
+                        valid=conv(arrays["valid"], torch.bool))
     return ParticleState(**{k: conv(arrays[k]) for k in
                             ("pos", "mom", "ids", "rungs")
                             if arrays.get(k) is not None})
 
 
 def to_numpy(state) -> dict:
-    """The port's RungState or ParticleState → {field: numpy array}
+    """The port's RungState, P3MState or ParticleState → {field: numpy array}
     (fields that are None are left out)."""
     return {k: v.detach().cpu().numpy() for k, v in state._asdict().items()
             if v is not None}

@@ -20,7 +20,7 @@ in a row below its bound.  Rows of a column at or beyond its receiver
 bound come out exactly 0; the supplier rows of a neighbour column at or
 beyond its own supplier bound are skipped.  The TPU reach kernel takes
 no bounds; with bounds that hold the valid slots the output is the same
-on every row that carries a force.  Both launch the one kernel and
+on every row that carries a force.  They launch the one kernel and
 count their launches apart.
 
 On a CPU tensor they run :func:`pair_sweep_plain`; on a CUDA tensor they
@@ -202,6 +202,21 @@ def pair_sweep(recv, sup, n_cells: int, boxsize: float, scale: float,
     return out
 
 
+def pair_sweep_subset(recv, sup, n_cells: int, boxsize: float, scale: float,
+                      cutoff2: float, soft2: float, kernel: str = "plummer"):
+    """The ±1 sweep without row bounds of a receiver set against another
+    set's suppliers (port of ``sweep_pallas_pair`` → the flat
+    ``_make_pair_kernel_flat``, PERF.md row 2): the kernel of
+    :func:`pair_sweep`, its launches counted apart."""
+    if recv.device.type == "cpu":
+        return pair_sweep_plain(recv, sup, n_cells, boxsize, scale, cutoff2,
+                                soft2, kernel)
+    out = _launch(recv, sup, n_cells, boxsize, scale, cutoff2, soft2, kernel,
+                  None, None, OFFSETS_27)
+    pair_sweep_subset.launches += 1
+    return out
+
+
 def pair_sweep_reach(recv, sup, n_cells: int, boxsize: float, scale: float,
                      cutoff2: float, soft2: float, offsets,
                      kernel: str = "plummer", rext=None, sext=None):
@@ -221,4 +236,5 @@ def pair_sweep_reach(recv, sup, n_cells: int, boxsize: float, scale: float,
 
 
 pair_sweep.launches = 0
+pair_sweep_subset.launches = 0
 pair_sweep_reach.launches = 0

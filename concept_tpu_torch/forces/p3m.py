@@ -12,7 +12,8 @@ particles beyond the block capacity K through the plain CIC deposit
 (grid/interp.py, exact while there are at most ``max_overflow`` of them),
 solves for the potential (rfft3, Gaussian split, deconvolution of order
 4), takes one Fourier gradient per dimension, gathers them at the slots
-(and the overflow particles through the plain gather) and unsorts.
+(and the overflow particles through the plain gather) and unsorts
+(:func:`block_pm`, which the persistent P³M stepper's PM binding shares).
 Reference semantics: interactions.py:1353-1984 (short range) and
 interactions.py:1985-2415 with the exp(−rₛ²k²) factor of
 gravity.py:160-180 (mesh part).
@@ -58,46 +59,24 @@ def block_layout(px0, py0, pz0, mesh: int, boxsize: float, k_pm: int) -> dict:
     return lay
 
 
-def pm_gradient_blocks(px0, py0, pz0, mass: float, G: float, scale: float,
-                       boxsize: float, mesh: int, k_pm: int = 8,
-                       max_overflow: int = 65536):
-    """The Gaussian-split long-range potential gradient ∂φ at N particles
-    given component-wise, through the 2³-mesh-cell PM blocks: the block
-    slots of :func:`block_layout`, the block deposit, the particles beyond
-    the block capacity k_pm through the plain CIC (exact while there are at
-    most max_overflow of them; the rest deposit and receive nothing, as in
-    the JAX package), the FFT, the split potential with deconvolution of
-    order 4, the Fourier gradient, the block gather (and the plain gather
-    of the overflow) and the unsort.  The shared PM of the global stepper
-    (:func:`pm_longrange_components`) and of the rung stepper's tight
-    layout (``p3msim.pm_gradient_layout``).
-
-    Returns (fd (3, N) in input order, n_overflow (an int), mass_sum (the
-    deposited mass, a 0-dim float64 tensor))."""
+def block_pm(slots, w1, ext, s_pos, mass: float, G: float, scale: float,
+             boxsize: float, mesh: int):
+    """The Gaussian-split long-range potential gradient on 2³-mesh-cell
+    block slots (3, K, C) (validity weights w1, row extents ext) and at
+    the particles s_pos (S, 3) beyond them: the block deposit (row 8) plus
+    the plain CIC of s_pos, the FFT, the split potential with
+    deconvolution of order 4, the Fourier gradient, the block gather (row
+    9) and the plain gather at s_pos.  Returns (fds (3, K, C), s_fd
+    (3, S), mass_sum (the deposited mass, a 0-dim float64 tensor))."""
     n = mesh
-    N = px0.shape[0]
-    dtype = px0.dtype
-    dev = px0.device
-    h = boxsize / n
-    lay = block_layout(px0, py0, pz0, n, boxsize, k_pm)
-    bx, by, bz = lay["slots"]
-    slot, order, ext = lay["slot"], lay["order"], lay["ext"]
-    w1 = lay["valid"].to(dtype)
+    bx, by, bz = slots
     grid = deposit_blocks(bx, by, bz, w1 * mass, n, boxsize, ext)
-
-    # exact fixed-size overflow path (rank ≥ K)
-    n_overflow = N - int(lay["valid"].sum())
-    sidx = None
-    if n_overflow > 0:
-        sidx = torch.nonzero(lay["rank"] >= k_pm).reshape(-1)[:max_overflow]
-        s_pos = lay["pos_s"][:, sidx].T.contiguous()
+    if s_pos.shape[0]:
         grid += deposit(s_pos, mass, n, boxsize, order=2)
-    del lay
     # summed in float64: a float32 total of 2²⁴ particle masses cannot
     # resolve one particle's mass
     mass_sum = grid.sum(dtype=torch.float64)
-
-    slab = rfft3(grid / h**3)
+    slab = rfft3(grid / (boxsize / n) ** 3)
     del grid
     phi = gravity_potential_slab(slab, n, boxsize, G, deconv_order=4,
                                  longrange_scale=scale)
@@ -106,15 +85,48 @@ def pm_gradient_blocks(px0, py0, pz0, mass: float, G: float, scale: float,
                          for d in range(3)])
     del phi
     fds = gather_blocks(bx, by, bz, w1, grads, n, boxsize, ext)
-    del bx, by, bz, w1, ext
-    fd = torch.empty((3, N), dtype=dtype, device=dev)
-    for d in range(3):
-        fdp = torch.cat([fds[d].reshape(-1),
-                         torch.zeros((1,), dtype=dtype, device=dev)])
-        val = fdp[slot]  # sorted order; overflow particles read 0
-        if sidx is not None:
-            val[sidx] = gather(grads[d], s_pos, boxsize, order=2)
-        fd[d, order] = val
+    if not s_pos.shape[0]:
+        return fds, s_pos.T, mass_sum
+    s_fd = torch.stack([gather(grads[d], s_pos, boxsize, order=2) for d in range(3)])
+    return fds, s_fd, mass_sum
+
+
+def pm_gradient_blocks(px0, py0, pz0, mass: float, G: float, scale: float,
+                       boxsize: float, mesh: int, k_pm: int = 8,
+                       max_overflow: int = 65536):
+    """The Gaussian-split long-range potential gradient ∂φ at N particles
+    given component-wise, through the 2³-mesh-cell PM blocks: the block
+    slots of :func:`block_layout`, :func:`block_pm` with the particles
+    beyond the block capacity k_pm through the plain CIC (exact while
+    there are at most max_overflow of them; the rest deposit and receive
+    nothing, as in the JAX package), and the unsort.  The shared PM of
+    the global stepper (:func:`pm_longrange_components`) and of the rung
+    stepper's tight layout (``p3msim.pm_gradient_layout``).
+
+    Returns (fd (3, N) in input order, n_overflow (an int), mass_sum (the
+    deposited mass, a 0-dim float64 tensor))."""
+    N = px0.shape[0]
+    lay = block_layout(px0, py0, pz0, mesh, boxsize, k_pm)
+    slot, order = lay["slot"], lay["order"]
+    n_overflow = N - int(lay["valid"].sum())
+    sidx = None
+    s_pos = px0.new_empty((0, 3))
+    if n_overflow > 0:
+        sidx = torch.nonzero(lay["rank"] >= k_pm).reshape(-1)[:max_overflow]
+        s_pos = lay["pos_s"][:, sidx].T.contiguous()
+    fds, s_fd, mass_sum = block_pm(lay["slots"], lay["valid"].to(px0.dtype), lay["ext"],
+                                   s_pos, mass, G, scale, boxsize, mesh)
+    del lay
+    # in sorted order: the slots' gradients, 0 past the capacity, then the
+    # overflow particles' plain gather
+    fds = fds.view(3, -1)
+    KC = fds.shape[1]
+    val = fds[:, torch.clamp(slot, max=KC - 1)].masked_fill_((slot == KC)[None], 0.0)
+    del fds
+    if sidx is not None:
+        val[:, sidx] = s_fd
+    fd = torch.empty_like(val)
+    fd[:, order] = val
     return fd, n_overflow, mass_sum
 
 

@@ -145,24 +145,82 @@ def reach_offsets(cell_width: float, margin: float):
     return kept_offsets(cell_width, cutoff, margin, reach=2)
 
 
+def _min_image(d, boxsize: float):
+    return d - boxsize * torch.round(d / boxsize)
+
+
+def sweep_fold(recv, sup, n_cells: int, boxsize: float, scale: float,
+               cutoff2: float, soft2: float, kernel: str = "plummer",
+               rext=None, sext=None):
+    """The sweep for fewer than 3 cells a side, with the contract of
+    ``cuda_shortrange.pair_sweep`` (slots at ±SENTINEL·boxsize are
+    invalid; row bounds per column or per pencil): port of the XLA
+    sweeps' folded offsets (``_sweep(halve=False)``, ``_sweep_pair`` at
+    n_cells < 3, concept_tpu/forces/shortrange.py).  There the ±1
+    offsets alias and the folded list {0} or {0, 1} per dimension reaches
+    every cell once, so each receiver meets every supplier once, at the
+    minimum image.  Plain PyTorch on every device: the JAX package runs
+    no Pallas kernel at n_cells < 3 either.  Returns (3, K_r, C)."""
+    from concept_tpu_torch.forces.cuda_shortrange import column_bounds
+
+    if n_cells >= 3:
+        raise ValueError(f"the folded sweep is for n_cells < 3, got {n_cells}")
+    _, K_r, C = recv.shape
+    K_s = sup.shape[1]
+    dev = recv.device
+    far = 0.5 * SENTINEL * boxsize
+
+    def live(slots, K, ext):
+        m = slots[0].abs() < far
+        if ext is not None:
+            m &= torch.arange(K, device=dev)[:, None] < column_bounds(ext, n_cells)[None]
+        return torch.nonzero(m.reshape(-1)).reshape(-1)
+
+    r_idx = live(recv, K_r, rext)
+    s_pos = sup.reshape(3, -1)[:, live(sup, K_s, sext)]
+    r_pos = recv.reshape(3, -1)[:, r_idx]
+    out = torch.zeros((3, K_r * C), dtype=recv.dtype, device=dev)
+    rows = max(1, (1 << (24 if dev.type == "cuda" else 21)) // max(1, s_pos.shape[1]))
+    for i0 in range(0, r_idx.numel(), rows):
+        d = _min_image(r_pos[:, i0:i0 + rows, None] - s_pos[:, None, :], boxsize)
+        r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+        f = torch.where((r2 < cutoff2) & (r2 > 0),
+                        shortrange_force_factor(r2, scale, soft2, kernel), 0.0)
+        out[:, r_idx[i0:i0 + rows]] = (f[None] * d).sum(-1)
+    return out.reshape(3, K_r, C)
+
+
+def sweep_slots(recv, sup, n_cells: int, boxsize: float, scale: float,
+                cutoff2: float, soft2: float, kernel: str = "plummer",
+                rext=None, sext=None):
+    """The ±1 sweep of ``cuda_shortrange.pair_sweep`` (the CUDA kernel on
+    the card) where there are at least 3 cells a side, else the folded
+    plain sweep (:func:`sweep_fold`), chosen by n_cells as the JAX
+    package chooses its engine."""
+    from concept_tpu_torch.forces.cuda_shortrange import pair_sweep
+
+    sweep = pair_sweep if n_cells >= 3 else sweep_fold
+    return sweep(recv, sup, n_cells, boxsize, scale, cutoff2, soft2,
+                 kernel=kernel, rext=rext, sext=sext)
+
+
 def _sweep_pair(bx, by, bz, bvalid, hx, hy, hz, valid, n_cells: int,
                 boxsize: float, scale: float, cutoff2: float, soft2: float,
                 kernel: str = "plummer", offsets_ext=None):
     """One-sided sweep with the valid-mask contract of the JAX
     ``_sweep_pair``: accelerations (3, K_r, C) ON the receiver slots
     (bx, by, bz, bvalid) FROM the supplier slots (hx, hy, hz, valid) of
-    the 27 periodic neighbour cells, or of the cells at ``offsets_ext``
-    (the reach-2 table); the caller applies G·m."""
-    from concept_tpu_torch.forces.cuda_shortrange import (
-        pair_sweep, pair_sweep_reach,
-    )
+    the 27 periodic neighbour cells (folded below 3 cells a side), or of
+    the cells at ``offsets_ext`` (the reach-2 table); the caller applies
+    G·m."""
+    from concept_tpu_torch.forces.cuda_shortrange import pair_sweep_reach
 
     big = SENTINEL * boxsize
     sup = torch.where(valid[None], torch.stack([hx, hy, hz]), big)
     if offsets_ext is None:
         recv = torch.where(bvalid[None], torch.stack([bx, by, bz]), big)
-        return pair_sweep(recv, sup, n_cells, boxsize, scale, cutoff2, soft2,
-                          kernel=kernel)
+        return sweep_slots(recv, sup, n_cells, boxsize, scale, cutoff2, soft2,
+                           kernel=kernel)
     # receivers at the opposite sentinel, as sweep_pallas_pair_reach
     recv = torch.where(bvalid[None], torch.stack([bx, by, bz]), -big)
     return pair_sweep_reach(recv, sup, n_cells, boxsize, scale, cutoff2, soft2,
@@ -183,8 +241,6 @@ def f32_square(x: float) -> float:
 
 _FULL_OFFSETS_27 = [(i, j, k) for i in (-1, 0, 1) for j in (-1, 0, 1)
                     for k in (-1, 0, 1)]
-NCELLS_ITEM = ("ROADMAP Queue 1 item 9: the short-range sweep for "
-               "n_cells < 3 (offsets fold)")
 STRAGGLER_ROWS = 1024  # straggler↔straggler pairs per chunk: rows × S
 
 
@@ -284,10 +340,6 @@ def bucketize(pos, boxsize: float, n_cells: int, capacity: int):
                 counts=lay["counts"], starts=lay["starts"], px=px, py=py, pz=pz)
 
 
-def _min_image(d, boxsize: float):
-    return d - boxsize * torch.round(d / boxsize)
-
-
 def _straggler_forces(b, acc, sidx, n: int, boxsize: float, scale: float,
                       cutoff2: float, soft2: float, kernel: str):
     """The exact straggler path: accelerations (S, 3) on the stragglers
@@ -350,11 +402,12 @@ def shortrange_momentum_updates(pos, mass: float, boxsize: float, scale: float,
     while the number of stragglers is ≤ max_overflow; beyond it the
     stragglers past the first max_overflow (in cell order) get no
     short-range force and exert none, as in the JAX package's fixed-size
-    path, and the caller must grow the budget."""
+    path, and the caller must grow the budget.  Below 3 cells a side the
+    sweep is folded (:func:`sweep_fold`): the slots and the stragglers in
+    the budget meet all at once, each pair at its minimum image, which
+    sums the JAX package's folded sweep and straggler path."""
     from concept_tpu_torch.forces.cuda_shortrange import pair_sweep
 
-    if n_cells < 3:
-        raise ValueError(f"n_cells = {n_cells} < 3 ({NCELLS_ITEM})")
     N = pos[0].shape[0]
     dtype = pos[0].dtype
     n = n_cells
@@ -365,14 +418,28 @@ def shortrange_momentum_updates(pos, mass: float, boxsize: float, scale: float,
     soft2 = f32_square(softening) if dtype == torch.float32 else softening**2
     valid = b["valid"]
     big = SENTINEL * boxsize
-    slots = torch.where(valid[None], torch.stack([b["hx"], b["hy"], b["hz"]]), big)
-    acc = pair_sweep(slots, slots, n, boxsize, scale, cutoff2, soft2,
-                     kernel=softening_kernel)
-    del slots
     n_overflow = N - int(valid.sum())
     sidx = None
     if n_overflow > 0:
         sidx = torch.nonzero(b["rank"] >= K).reshape(-1)[:max_overflow]
+    coef = G * mass * mass * kick_integral
+    if n < 3:
+        # the bucketed particles and the stragglers in the budget, in
+        # sorted order, as one (3, N, 1) slot column
+        acts = b["rank"] < K
+        if sidx is not None:
+            acts[sidx] = True
+        sl = torch.where(acts, torch.stack([b["px"], b["py"], b["pz"]]), big)[:, :, None]
+        dm_s = sweep_fold(sl, sl, n, boxsize, scale, cutoff2, soft2,
+                          kernel=softening_kernel)[:, :, 0]
+        dmom = torch.empty_like(dm_s)
+        dmom[:, b["order"]] = coef * dm_s
+        return tuple(dmom), n_overflow
+    slots = torch.where(valid[None], torch.stack([b["hx"], b["hy"], b["hz"]]), big)
+    acc = pair_sweep(slots, slots, n, boxsize, scale, cutoff2, soft2,
+                     kernel=softening_kernel)
+    del slots
+    if sidx is not None:
         s_acc = _straggler_forces(b, acc, sidx, n, boxsize, scale, cutoff2,
                                   soft2, softening_kernel)
     # unsort: each sorted particle reads its slot (stragglers read 0, then
@@ -383,10 +450,60 @@ def shortrange_momentum_updates(pos, mass: float, boxsize: float, scale: float,
     dm_s = accf[:, b["slot"]]
     if sidx is not None:
         dm_s[:, sidx] = s_acc.T
-    coef = G * mass * mass * kick_integral
     dmom = torch.empty_like(dm_s)
     dmom[:, b["order"]] = coef * dm_s
     return tuple(dmom), n_overflow
+
+
+def shortrange_momentum_updates_on_subset(recv_pos, sup_pos, mass: float,
+                                          boxsize: float, scale: float,
+                                          cutoff: float, n_cells: int,
+                                          capacity_recv: int, capacity_sup: int,
+                                          softening: float = 0.0, G: float = 1.0,
+                                          softening_kernel: str = "plummer",
+                                          mass_sup: float | None = None):
+    """Per-unit-kick-integral Δmom (M, 3) ON the receivers recv_pos (M, 3)
+    FROM the suppliers sup_pos (N, 3) (port of the function of that name,
+    concept_tpu/forces/shortrange.py): both sets are bucketized into the
+    same cells, at their own capacities, and the one-sided sweep
+    (``cuda_shortrange.pair_sweep_subset``, the CUDA kernel of PERF.md
+    row 2 on the card; :func:`sweep_fold` below 3 cells a side)
+    runs receivers against the suppliers of their 27 neighbour cells.
+    Two uses: the global rungs' substep force (receivers the active
+    rungs, suppliers everyone, one mass) and a pair of components
+    (``mass_sup`` the supplier's particle mass).  The capacities must
+    cover each set's largest cell occupancy: a receiver beyond its
+    capacity gets 0 and a supplier beyond it acts on nobody, as in the
+    JAX package.  Returns G·m_recv·m_sup·acc (multiply by ᔑa⁻¹dt at
+    use)."""
+    from concept_tpu_torch.forces.cuda_shortrange import pair_sweep_subset
+
+    M = recv_pos.shape[0]
+    dtype = recv_pos.dtype
+    n = n_cells
+    C = n**3
+    K_r = capacity_recv
+    b_sup = bucketize(sup_pos.unbind(1), boxsize, n, capacity_sup)
+    b_rec = bucketize(recv_pos.unbind(1), boxsize, n, K_r)
+    big = SENTINEL * boxsize
+    sup = torch.where(b_sup["valid"][None],
+                      torch.stack([b_sup["hx"], b_sup["hy"], b_sup["hz"]]), big)
+    del b_sup
+    recv = torch.where(b_rec["valid"][None],
+                       torch.stack([b_rec["hx"], b_rec["hy"], b_rec["hz"]]), big)
+    f32 = dtype == torch.float32
+    sweep = pair_sweep_subset if n >= 3 else sweep_fold
+    acc = sweep(recv, sup, n, boxsize, scale,
+                f32_square(cutoff) if f32 else cutoff**2,
+                f32_square(softening) if f32 else softening**2,
+                kernel=softening_kernel)
+    del recv, sup
+    accf = torch.cat([acc.reshape(3, K_r * C),
+                      torch.zeros((3, 1), dtype=dtype, device=acc.device)], 1)
+    coef = G * mass * (mass if mass_sup is None else mass_sup)
+    out = torch.empty((M, 3), dtype=dtype, device=acc.device)
+    out[b_rec["order"]] = coef * accf[:, b_rec["slot"]].T
+    return out
 
 
 def sweep_reach(hx, hy, hz, valid, n_cells: int, boxsize: float,

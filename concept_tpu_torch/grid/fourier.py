@@ -1,6 +1,6 @@
-"""Fourier-space factors on the rfft layout (port of the parts of
-concept_tpu/grid/fourier.py the default run uses; reference
-src/mesh.py:3327-3696).
+"""Fourier-space factors on the rfft layout (port of
+concept_tpu/grid/fourier.py; reference src/mesh.py:1018-1327,
+3327-3696, 4182).
 
 Conventions: a real grid (n, n, n) of cell width boxsize/n; its rfft
 slab (n, n, n//2+1) holds mode (ki, kj, kk) with ki, kj ∈ {0..n/2−1,
@@ -73,3 +73,88 @@ def interlace_phase(gridsize: int, shift_cells, dtype=torch.float32,
         ki * shift_cells[0] + kj * shift_cells[1] + kk * shift_cells[2]
     )
     return torch.exp(-1j * phase.to(dtype))
+
+
+def k_int_1d(n: int, device="cpu"):
+    """Integer wavenumbers along a full FFT axis: [0, 1, ..., n/2−1,
+    −n/2, ..., −1], int64."""
+    return torch.as_tensor((np.fft.fftfreq(n) * n).astype(np.int64),
+                           device=device)
+
+
+def laplacian_inverse_factor(gridsize: int, boxsize: float,
+                             dtype=torch.float32, device="cpu"):
+    """1/|k|² with |k| physical, 0 at the origin (reference
+    mesh.py:3422-3465)."""
+    k2 = k2_int_grid(gridsize, device).to(dtype)
+    kfac = (2 * math.pi / boxsize) ** 2
+    return torch.where(k2 > 0, 1.0 / (kfac * k2), 0.0)
+
+
+def k_physical(gridsize: int, boxsize: float, dim: int, dtype=torch.float32,
+               device="cpu"):
+    """The physical wavenumber component along dim, broadcastable."""
+    return (2 * math.pi / boxsize) * k_int_vectors(gridsize, device)[dim].to(dtype)
+
+
+def nullify_origin(slab):
+    """A copy of slab with the k = 0 mode zeroed (reference nullify_modes
+    'origin', mesh.py:3545)."""
+    out = slab.clone()
+    out[0, 0, 0] = 0
+    return out
+
+
+def nullify_nyquist(slab, gridsize: int):
+    """Zero every Nyquist plane (reference nullify_modes 'nyquist')."""
+    n = gridsize
+    ki, kj, kk = k_int_vectors(n, slab.device)
+    nyq = (ki == -(n // 2)) | (kj == -(n // 2)) | (kk == n // 2)
+    return torch.where(nyq, torch.zeros((), dtype=slab.dtype, device=slab.device), slab)
+
+
+def nullify_beyond_sphere(slab, gridsize: int, k2_max_int: int):
+    """Zero the modes with integer |k|² > k2_max_int."""
+    k2 = k2_int_grid(gridsize, slab.device)
+    return torch.where(k2 > k2_max_int,
+                       torch.zeros((), dtype=slab.dtype, device=slab.device), slab)
+
+
+def copy_modes(slab_src, gridsize_src: int, gridsize_dst: int,
+               norm: bool = True, cell_centered: bool = True):
+    """Copy the integer modes two rfft layouts share (reference
+    mesh.py:1018-1327 copy_modes / resize_grid).  Modes at or beyond the
+    smaller grid's Nyquist are dropped (zero on the destination).
+    ``norm`` rescales by (n_dst/n_src)³, so that the inverse transform
+    keeps the physical amplitude; ``cell_centered`` re-centres the
+    samples, which sit at (i+½)h, by the phase exp(iπk(1/n_dst −
+    1/n_src)) per axis."""
+    n1, n2 = gridsize_src, gridsize_dst
+    if n1 == n2:
+        return slab_src
+    h = min(n1, n2) // 2  # modes |k| < h are kept
+    pos, neg = h, h - 1  # rows 0..h−1 and the last h−1 rows
+    src = slab_src
+    out = torch.zeros((n2, n2, n2 // 2 + 1), dtype=src.dtype, device=src.device)
+    out[:pos, :pos, :h + 1] = src[:pos, :pos, :h + 1]
+    out[:pos, -neg:, :h + 1] = src[:pos, -neg:, :h + 1]
+    out[-neg:, :pos, :h + 1] = src[-neg:, :pos, :h + 1]
+    out[-neg:, -neg:, :h + 1] = src[-neg:, -neg:, :h + 1]
+    if norm:
+        out = out * (n2 / n1) ** 3
+    if cell_centered:
+        ki, kj, kk = k_int_vectors(n2, src.device)
+        phase = (math.pi * (1.0 / n2 - 1.0 / n1)) * (ki + kj + kk).to(out.real.dtype)
+        out = out * torch.exp(1j * phase)
+    return out
+
+
+def check_hermitian(slab, gridsize: int) -> float:
+    """The largest violation of R(−k) = conj R(k) on the self-conjugate
+    kk ∈ {0, n/2} planes (reference slabs_check_symmetry, mesh.py:4182)."""
+    worst = 0.0
+    for kk in (0, gridsize // 2):
+        plane = slab[:, :, kk]
+        mirrored = torch.roll(torch.conj(plane.flip(0, 1)), (1, 1), (0, 1))
+        worst = max(worst, float((plane - mirrored).abs().max()))
+    return worst

@@ -1,6 +1,5 @@
-"""Initial conditions: primordial noise and 1LPT particle realization
-(port of the 'simple' scheme of concept_tpu/ic.py; reference
-src/ic.py:928-1446).
+"""Initial conditions: primordial noise and 1/2/3LPT particle realization
+(port of concept_tpu/ic.py; reference src/ic.py:928-2058).
 
 The 'simple' noise is ``jax.random.normal(jax.random.key(seed), (n,n,n),
 float32)`` of the JAX package, to rounding: JAX 0.9 draws it with
@@ -14,8 +13,13 @@ uses XLA's float32 polynomial.
 Conventions: δ_dft(k) = Σ_x δ(x) e^{−ikx}; ⟨|δ_dft(k)|²⟩ = N_cells²/V·P(k),
 so the realization amplitude is √(N/V)·√P(k) on unit-variance noise.
 Zel'dovich: x = q + ψ(q), ψ(k) = i k/k² δ(k); mom = a²·m·H·f1·ψ.
-2LPT/3LPT, the 'distributed' noise, fixed amplitudes, phase shifts and
-non-Gaussianity are not ported yet.
+2LPT: x += ψ², ψ²(k) = (D2/D1²)·i k/k²·S(k), S = Σ_{i<j}(ψ¹ᵢ,ᵢψ¹ⱼ,ⱼ −
+(ψ¹ᵢ,ⱼ)²); 3LPT adds the two scalar terms and the transverse one
+(reference carryout_2lpt / carryout_3lpt_{a,b,c}, ic.py:1546-1845).
+
+The 'distributed' noise is the JAX package's mode hash (a 32-bit integer
+hash of the seed and the mode's coordinates), computed on int64 tensors
+masked to 32 bits.
 """
 
 from __future__ import annotations
@@ -30,8 +34,8 @@ from concept_tpu_torch.components import (
 )
 from concept_tpu_torch.grid import fourier
 from concept_tpu_torch.grid.fft import irfft3, rfft3
+from concept_tpu_torch.grid.interp import gather
 
-IC_ITEM = "ROADMAP Queue 1 item 6: other IC schemes and LPT orders"
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
@@ -102,20 +106,221 @@ def normal_noise(seed: int, n: int, device="cpu"):
     return (math.sqrt(2.0) * erfinv_f32(u)).reshape(n, n, n)
 
 
-def realize_delta_slab(lin, gridsize: int, boxsize: float, a: float,
-                       seed: int = 0, dtype=torch.float32, device="cpu"):
-    """δ(k) in DFT normalisation at scale factor a ('simple' noise;
-    reference ic.py:542 get_amplitudes + ic.py:670 realize_grid)."""
+
+
+def _mul32(x, c: int):
+    """x·c mod 2³² for x int64 in [0, 2³²) and a 32-bit constant c, in two
+    16-bit halves of c so that no product leaves int64."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def _mode_hash(ki, kj, kk, key: tuple[int, int], salt: int):
+    """The JAX package's 32-bit hash of a mode's coordinates (int64
+    tensors) under the key words of ``jax.random.key(seed)``, as int64 in
+    [0, 2³²)."""
+    off = 1 << 15
+    cnt = (((ki + off) & _M32) ^ (((kj + off) << 11) & _M32)
+           ^ (((kk + off) << 22) & _M32) ^ salt)
+    x = (_mul32(cnt, 0x9E3779B9) + key[0]) & _M32
+    x ^= x >> 16
+    x = (_mul32(x, 0x85EBCA6B) + key[1]) & _M32
+    x ^= x >> 13
+    x = _mul32(x, 0xC2B2AE35)
+    return x ^ (x >> 16)
+
+
+def _modewise_noise(gridsize: int, seed: int, dtype=torch.float32, device="cpu"):
+    """Mode-indexed Gaussian noise over the rfft layout (port of
+    ``_modewise_noise``): each mode's value is a function of (seed, ki,
+    kj, kk) alone, the same at every grid size that holds the mode.
+    Modes on the self-conjugate planes kk ∈ {0, n/2} take the conjugate
+    of their canonical (lexicographically larger) partner; self-conjugate
+    points are real with unit variance.  Normalised to ⟨|R|²⟩ = n³."""
     n = gridsize
-    R = rfft3(normal_noise(seed, n, device).to(dtype))
-    # the amplitude depends on |k|² only: evaluate the (float64, host)
-    # linear layer once per integer |k|², then index
+    shape = (n, n, n // 2 + 1)
+    ki, kj, kk = (k.expand(shape) for k in fourier.k_int_vectors(n, device))
+    on_plane = (kk == 0) | (kk == n // 2)
+
+    def alias_neg(k):  # −k with the Nyquist aliasing −(−n/2) ≡ −n/2
+        return torch.where(-k == n // 2, -(n // 2), -k)
+
+    pi, pj = alias_neg(ki), alias_neg(kj)
+    flip = on_plane & ((kj < pj) | ((kj == pj) & (ki < pi)))
+    ki_c = torch.where(flip, pi, ki)
+    kj_c = torch.where(flip, pj, kj)
+    key = ((seed >> 32) & _M32, seed & _M32)
+
+    def uniform(salt):
+        bits = _mode_hash(ki_c, kj_c, kk, key, salt).to(torch.float32)
+        return (bits + 0.5) / np.float32(2**32)
+
+    u1 = torch.clamp(uniform(0x1234ABCD), 1e-7, 1 - 1e-7)
+    u2 = uniform(0x5678EF01)
+    r = torch.sqrt(-torch.log(u1))
+    theta = (2 * math.pi) * u2
+    re = r * torch.cos(theta)
+    im = torch.where(flip, -1.0, 1.0) * (r * torch.sin(theta))
+    selfconj = on_plane & (ki == pi) & (kj == pj)
+    re = torch.where(selfconj, re * math.sqrt(2), re)
+    im = torch.where(selfconj, 0.0, im)
+    R = torch.complex(re, im) * math.sqrt(n**3)
+    return R.to(torch.complex64 if dtype == torch.float32 else torch.complex128)
+
+
+def generate_primordial_noise(gridsize: int, seed: int = 0,
+                              fixed_amplitude: bool = False,
+                              phase_shift: float = 0.0, dtype=torch.float32,
+                              scheme: str = "simple", device="cpu"):
+    """Unit white noise in the rfft layout with Hermitian symmetry,
+    ⟨|R(k)|²⟩ = n³: 'simple' is the transform of JAX's real-space normal
+    draw (:func:`normal_noise`), 'distributed' the mode hash
+    (:func:`_modewise_noise`).  ``fixed_amplitude`` sets |R| = √n³ and
+    keeps the phase; ``phase_shift`` is added to every phase (π for the
+    partner of a pair; reference ic.py:1058-1105)."""
+    n = gridsize
+    if scheme == "simple":
+        R = rfft3(normal_noise(seed, n, device).to(dtype))
+    elif scheme == "distributed":
+        R = _modewise_noise(n, seed, dtype, device)
+    else:
+        raise ValueError(f"unknown noise scheme {scheme!r}")
+    if fixed_amplitude or phase_shift != 0.0:
+        amp = torch.full_like(R.real, math.sqrt(n**3)) if fixed_amplitude else R.abs()
+        R = amp * torch.exp(1j * (torch.angle(R) + phase_shift))
+    return R
+
+
+def _by_k2(fn, gridsize: int, boxsize: float, dtype, device):
+    """fn(|k|) (float64, on the host) evaluated once per integer |k|² of
+    the rfft layout and indexed onto it; 0 at k = 0."""
+    n = gridsize
     k2 = fourier.k2_int_grid(n, device)
-    k2_vals = np.arange(int(3 * (n // 2) ** 2) + 1, dtype=np.float64)
-    kmag = (2 * math.pi / boxsize) * np.sqrt(k2_vals)
-    amp = np.zeros_like(kmag)
-    amp[1:] = lin.delta_amplitude(kmag[1:], a) * math.sqrt(n**3 / boxsize**3)
-    return R * torch.as_tensor(amp, dtype=dtype, device=device)[k2]
+    kmag = (2 * math.pi / boxsize) * np.sqrt(
+        np.arange(int(3 * (n // 2) ** 2) + 1, dtype=np.float64))
+    vals = np.zeros_like(kmag)
+    vals[1:] = fn(kmag[1:])
+    return torch.as_tensor(vals, dtype=dtype, device=device)[k2]
+
+
+def realize_delta_slab(lin, gridsize: int, boxsize: float, a: float,
+                       seed: int = 0, fixed_amplitude: bool = False,
+                       phase_shift: float = 0.0, dtype=torch.float32,
+                       device="cpu", nongaussianity: float = 0.0,
+                       scheme: str = "simple", backscale: bool = False):
+    """δ(k) in DFT normalisation at scale factor a (reference ic.py:542
+    get_amplitudes + ic.py:670 realize_grid).  ``nongaussianity`` f_NL
+    adds the local-type term ζ → ζ + (3/5)f_NL(ζ² − ⟨ζ²⟩) to the
+    primordial field; ``backscale`` realizes the a = 1 spectrum scaled
+    back by D1(a) (the classic N-body convention)."""
+    n = gridsize
+    norm = math.sqrt(n**3 / boxsize**3)
+    bs_fac = float(lin.bg.growth_np("D1", a)) if backscale else 1.0
+    a_amp = 1.0 if backscale else a
+    R = generate_primordial_noise(n, seed, fixed_amplitude, phase_shift, dtype,
+                                  scheme, device)
+    if nongaussianity == 0.0:
+        return R * _by_k2(lambda k: lin.delta_amplitude(k, a_amp) * bs_fac * norm,
+                          n, boxsize, dtype, device)
+    zeta_k = R * _by_k2(lambda k: lin.primordial.zeta_amplitude(k) * norm,
+                        n, boxsize, dtype, device)
+    zeta_x = irfft3(zeta_k, n)
+    zeta_k = zeta_k + rfft3((3.0 / 5.0) * nongaussianity
+                            * (zeta_x**2 - (zeta_x**2).mean()))
+    return zeta_k * _by_k2(lambda k: lin.transfer_delta(k, a_amp) * bs_fac,
+                           n, boxsize, dtype, device)
+
+
+def dealias_gridsize(n: int) -> int:
+    """The Orszag 3/2-rule padded grid size, even (reference
+    ic.py:1322-1323)."""
+    m = (n * 3) // 2
+    return m + (m & 1)
+
+
+def _hessian_real(psi_k, gridsize: int, boxsize: float, m: int | None = None):
+    """The 6 distinct ∂ᵢψⱼ real grids of the Fourier components psi_k
+    (ψ = ∇Φ, so ∂ᵢψⱼ = Φ,ᵢⱼ), on an m-grid zero-padded in Fourier space
+    for dealiased products.  Keys (i, j), i ≤ j."""
+    n = gridsize
+    m = m or n
+    out = {}
+    for i in range(3):
+        for j in range(i, 3):
+            dk = fourier.fourier_diff(psi_k[i], n, boxsize, j)
+            if m != n:
+                dk = fourier.copy_modes(dk, n, m)
+            out[(i, j)] = irfft3(dk, m)
+    return out
+
+
+def _truncate_product(S_m, n: int, m: int):
+    """A real m-grid product → the n-grid field (aliased modes dropped)."""
+    if m == n:
+        return S_m
+    return irfft3(fourier.copy_modes(rfft3(S_m), m, n), n)
+
+
+def lpt2_source(psi_k, gridsize: int, boxsize: float, dealias: bool = False):
+    """The 2LPT source S(x) = Σ_{i<j}(ψᵢ,ᵢψⱼ,ⱼ − ψᵢ,ⱼ²) of the Fourier ψ¹
+    components (reference ic.py:1546-1718), the products on the 3/2-padded
+    grid with ``dealias`` (ic.py:1316-1325)."""
+    n = gridsize
+    m = dealias_gridsize(n) if dealias else n
+    d = _hessian_real(psi_k, n, boxsize, m)
+    S = (d[(0, 0)] * d[(1, 1)] + d[(0, 0)] * d[(2, 2)] + d[(1, 1)] * d[(2, 2)]
+         - d[(0, 1)] ** 2 - d[(0, 2)] ** 2 - d[(1, 2)] ** 2)
+    return _truncate_product(S, n, m)
+
+
+def _grad_inv_laplacian(src_k, gridsize: int, boxsize: float, d: int):
+    """i·k_d/k² · src(k) (0 at k = 0)."""
+    n = gridsize
+    kfac = 2 * math.pi / boxsize
+    dtype = src_k.real.dtype
+    k2 = fourier.k2_int_grid(n, src_k.device).to(dtype) * kfac**2
+    inv_k2 = torch.where(k2 > 0, 1.0 / k2, 0.0)
+    kd = fourier.k_int_vectors(n, src_k.device)[d].to(dtype) * kfac
+    return (1j * kd) * inv_k2 * src_k
+
+
+def lpt3_sources(psi_k, S2_k, fac2: float, gridsize: int, boxsize: float,
+                 dealias: bool = False):
+    """The 3LPT sources from ψ¹(k) and the 2LPT source S₂(k): (S3a(x),
+    S3b(x), [the transverse term's A3c sources, i = 0, 1, 2]) with the
+    reference's term lists (ic.py:1630-1645 '3a', 1708-1741 '3b',
+    1799-1830 '3c'), Φ² the full 2LPT potential at the realization epoch
+    (fac2·∇⁻²S₂), so that the growth ratios outside are D3a/D1³ and
+    D3b/(D1·D2), D3c/(D1·D2)."""
+    n = gridsize
+    m = dealias_gridsize(n) if dealias else n
+    psi2_k = [_grad_inv_laplacian(fac2 * S2_k, n, boxsize, d) for d in range(3)]
+    d1 = _hessian_real(psi_k, n, boxsize, m)
+    d2 = _hessian_real(psi2_k, n, boxsize, m)
+    del psi2_k
+
+    def g(d, i, j):
+        return d[(min(i, j), max(i, j))]
+
+    S3a = (g(d1, 2, 0) ** 2 * g(d1, 1, 1)
+           - g(d1, 1, 1) * g(d1, 2, 2) * g(d1, 0, 0)
+           + g(d1, 0, 0) * g(d1, 1, 2) ** 2
+           - 2 * g(d1, 1, 2) * g(d1, 2, 0) * g(d1, 0, 1)
+           + g(d1, 0, 1) ** 2 * g(d1, 2, 2))
+    S3b = (-0.5 * (g(d1, 2, 2) * g(d2, 0, 0) + g(d2, 0, 0) * g(d1, 1, 1)
+                   + g(d1, 1, 1) * g(d2, 2, 2) + g(d2, 2, 2) * g(d1, 0, 0)
+                   + g(d1, 0, 0) * g(d2, 1, 1) + g(d2, 1, 1) * g(d1, 2, 2))
+           + g(d2, 2, 0) * g(d1, 2, 0) + g(d2, 0, 1) * g(d1, 0, 1)
+           + g(d2, 1, 2) * g(d1, 1, 2))
+    A3c = []
+    for i in range(3):
+        j, k = (i + 1) % 3, (i + 2) % 3
+        A3c.append(g(d2, j, j) * g(d1, j, k) - g(d1, j, k) * g(d2, k, k)
+                   - g(d1, i, j) * g(d2, i, k) - g(d1, j, j) * g(d2, j, k)
+                   + g(d2, j, k) * g(d1, k, k) + g(d2, i, j) * g(d1, i, k))
+    return (_truncate_product(S3a, n, m), _truncate_product(S3b, n, m),
+            [_truncate_product(A, n, m) for A in A3c])
 
 
 def preic_lattice_of(N: int) -> str:
@@ -140,32 +345,78 @@ def realize_particles(lin, spec: ComponentSpec, boxsize: float, a: float,
                       scheme: str = "simple", fixed_amplitude: bool = False,
                       phase_shift: float = 0.0, nongaussianity: float = 0.0,
                       dealias: bool = False, backscale: bool = False,
-                      delta_k=None) -> ParticleState:
-    """1LPT particle ICs on the sc lattice at scale factor a (reference
-    ic.py:1199-1446).  ``delta_k`` overrides the realized density."""
-    if lpt_order != 1 or scheme != "simple" or fixed_amplitude \
-            or phase_shift or nongaussianity or dealias or backscale:
-        raise NotImplementedError(
-            f"only 1LPT with 'simple' noise is ported (lpt={lpt_order}, "
-            f"scheme={scheme!r}; {IC_ITEM})")
-    lattice = preic_lattice_of(spec.N)
-    if lattice != "sc":
-        raise NotImplementedError(f"{lattice} pre-IC lattice ({IC_ITEM})")
-    n = round(spec.N ** (1 / 3))
-    H = float(lin.bg.hubble_np(a))
-    f1 = float(lin.bg.growth_np("f1", a))
+                      delta_k=None, lattice: str | None = None) -> ParticleState:
+    """LPT particle ICs of order ``lpt_order`` (1-3) at scale factor a on
+    the sc, bcc or fcc lattice (``lattice`` None: the one N implies),
+    reference ic.py:1199-2058.  ``delta_k`` overrides the realized
+    density; the other options go to :func:`realize_delta_slab`; with
+    ``dealias`` the LPT products are 3/2-padded."""
+    if lattice is None:
+        lattice = preic_lattice_of(spec.N)
+    per_site = {"sc": 1, "bcc": 2, "fcc": 4}[lattice]
+    n = round((spec.N // per_site) ** (1 / 3))
+    if per_site * n**3 != spec.N:
+        raise ValueError(f"N = {spec.N} is not a {lattice} lattice count "
+                         f"(needs {per_site}·n³)")
+    if not 1 <= lpt_order <= 3:
+        raise NotImplementedError(f"LPT order {lpt_order} (the reference's are 1-3)")
+    bg = lin.bg
+    H = float(bg.hubble_np(a))
     if delta_k is None:
-        delta_k = realize_delta_slab(lin, n, boxsize, a, seed, dtype, device)
-    kfac = 2 * math.pi / boxsize
-    k2 = fourier.k2_int_grid(n, device).to(dtype) * kfac**2
-    inv_k2 = torch.where(k2 > 0, 1.0 / k2, 0.0)
-    kvecs = fourier.k_int_vectors(n, device)
-    # ψ grids sampled at the sc lattice sites = the grid's cell centres
-    disp = torch.stack([
-        irfft3((1j * (kvecs[d].to(dtype) * kfac)) * inv_k2 * delta_k, n).reshape(-1)
-        for d in range(3)], dim=1)
-    q = lattice_positions(n, boxsize, "sc", dtype, device)
+        delta_k = realize_delta_slab(lin, n, boxsize, a, seed, fixed_amplitude,
+                                     phase_shift, dtype, device, nongaussianity,
+                                     scheme, backscale)
+    psi_k = [_grad_inv_laplacian(delta_k, n, boxsize, d) for d in range(3)]
+    psi = torch.stack([irfft3(pk, n) for pk in psi_k])
+    vel = (H * float(bg.growth_np("f1", a))) * psi
+    if lpt_order >= 2:
+        D1, D2 = float(bg.growth_np("D1", a)), float(bg.growth_np("D2", a))
+        S_k = rfft3(lpt2_source(psi_k, n, boxsize, dealias))
+        # Ψ²(k) = +(D2/D1²)·ik/k²·S(k) with D2 = +3/7 a² in EdS (the
+        # reference's growth convention), i.e. the standard
+        # Ψ² = −(3/7)D1²∇φ⁽²⁾, ∇²φ⁽²⁾ = S
+        fac2 = D2 / (D1 * D1)
+        f2 = float(bg.growth_np("f2", a))
+        for d in range(3):
+            psi2 = irfft3(_grad_inv_laplacian(fac2 * S_k, n, boxsize, d), n)
+            psi[d] += psi2
+            vel[d] += (H * f2) * psi2
+    if lpt_order >= 3:
+        gr = {k: float(bg.growth_np(k, a))
+              for k in ("D3a", "D3b", "D3c", "f3a", "f3b", "f3c")}
+        S3a, S3b, A3c = lpt3_sources(psi_k, S_k, fac2, n, boxsize, dealias)
+        S3a_k = (gr["D3a"] / D1**3) * rfft3(S3a)
+        S3b_k = (gr["D3b"] / (D1 * D2)) * rfft3(S3b)
+        del S3a, S3b
+        for d in range(3):
+            p3a = irfft3(_grad_inv_laplacian(S3a_k, n, boxsize, d), n)
+            p3b = irfft3(_grad_inv_laplacian(S3b_k, n, boxsize, d), n)
+            psi[d] += p3a + p3b
+            vel[d] += H * (gr["f3a"] * p3a + gr["f3b"] * p3b)
+        # transverse: Ψ³ᶜ = ∇×A, ∇²Aᵢ = the A3c sources; Ψ³ᶜⱼ = ±∂ₖAᵢ with
+        # + iff k == (j+1) mod 3 (reference ic.py:1844)
+        kfac = 2 * math.pi / boxsize
+        k2 = fourier.k2_int_grid(n, delta_k.device).to(dtype) * kfac**2
+        inv_k2 = torch.where(k2 > 0, 1.0 / k2, 0.0)
+        for i in range(3):
+            A_k = inv_k2 * ((gr["D3c"] / (D1 * D2)) * rfft3(A3c[i]))
+            for j in range(3):
+                if j == i:
+                    continue
+                k_ax = 3 - i - j
+                sign = 1.0 if k_ax == (j + 1) % 3 else -1.0
+                p3c = sign * irfft3(fourier.fourier_diff(A_k, n, boxsize, k_ax), n)
+                psi[j] += p3c
+                vel[j] += (H * gr["f3c"]) * p3c
+    q = lattice_positions(n, boxsize, lattice, dtype, device)
+    if lattice == "sc":
+        # the sc sites are the grid's cell centres
+        disp, vel = psi.reshape(3, -1).T, vel.reshape(3, -1).T
+    else:
+        # the shifted lattice copies sample ψ by CIC
+        disp = torch.stack([gather(psi[d], q, boxsize, order=2) for d in range(3)], 1)
+        vel = torch.stack([gather(vel[d], q, boxsize, order=2) for d in range(3)], 1)
     pos = periodic_wrap(q + disp, boxsize)
-    mom = (a * a * spec.mass) * (H * f1 * disp)
+    mom = (a * a * spec.mass) * vel
     ids = torch.arange(spec.N, dtype=torch.int32, device=device) if with_ids else None
     return ParticleState(pos=pos, mom=mom.to(dtype), ids=ids)

@@ -13,8 +13,9 @@ backend (``P3MRungSimulation``):
   cutoff: the one-sided reach-2 sweep over the kept offsets
   (forces/shortrange.reach_offsets) and the cell PM at cb = 4;
 - tight (``ucb = 0``): cells at least cutoff·(1 + margin_frac) wide,
-  no multiple of the mesh: the ±1 sweep, and the block PM on the
-  flattened valid slots (p3msim.pm_gradient_layout).
+  no multiple of the mesh: the ±1 sweep (folded, with minimum image,
+  below 3 cells a side: forces/shortrange.sweep_fold), and the block PM
+  on the flattened valid slots (p3msim.pm_gradient_layout).
 
 Every sweep takes per-column row bounds (the JAX package's reach sweep
 takes none): receivers up to the column's occupancy, or its rung-≥kmin
@@ -28,7 +29,9 @@ K_act[kmin] rows as receivers against all slots as suppliers, so its
 cost follows the active population (the reference's rung economics,
 interactions.py:1353-1984).  The PM long range kicks at the base
 cadence, deposited and gathered straight on the slot arrays
-(p3msim.pm_gradient_cells).
+(p3msim.pm_gradient_cells; at mesh ≥ 768 on the card the memory-lean
+p3msim.pm_kick_cells_lean, as the JAX package on the TPU, unless
+``pm_diff`` says otherwise).
 
 Kick staggering: rung k (span s_k substeps) kicks at every boundary i
 with i mod s_k == 0 over the STRADDLING integral
@@ -52,12 +55,12 @@ import numpy as np
 import torch
 
 from concept_tpu_torch.components import periodic_wrap
-from concept_tpu_torch.forces.cuda_shortrange import pair_sweep, pair_sweep_reach
+from concept_tpu_torch.forces.cuda_shortrange import pair_sweep_reach
 from concept_tpu_torch.forces.shortrange import (
-    NCELLS_ITEM, SENTINEL, f32_square, reach_offsets,
+    SENTINEL, f32_square, reach_offsets, sweep_slots,
 )
 from concept_tpu_torch.p3msim import (
-    margin_cell_count, pm_gradient_cells, pm_gradient_layout,
+    margin_cell_count, pm_gradient_cells, pm_gradient_layout, pm_kick_cells_lean,
 )
 from concept_tpu_torch.utils.terminal import warn
 
@@ -235,10 +238,10 @@ def rung_substep(state: RungState, mass: float, G: float, int_drift: float,
     acceleration.  K_s bounds the supplier rows.  sentinel_out=True
     (interior substeps) fills invalid slots with the sweep sentinel
     instead of 0.  ``offsets`` (the 4-mesh-cell layout's reach-2 table)
-    selects the reach sweep, else the ±1 sweep; either takes the row
-    bounds rext/sext (per column, or per pencil).  Returns (state,
-    (K_act, tight, vmax2)[, acc]); the momenta are updated in place (the
-    JAX package donates them)."""
+    selects the reach sweep, else the ±1 sweep (folded below 3 cells a
+    side); either takes the row bounds rext/sext (per column, or per
+    pencil).  Returns (state, (K_act, tight, vmax2)[, acc]); the momenta
+    are updated in place (the JAX package donates them)."""
     K, C = state.valid.shape
     K_s = K if K_s is None else K_s
     if not K_r <= K_s <= K:
@@ -259,8 +262,8 @@ def rung_substep(state: RungState, mass: float, G: float, int_drift: float,
         pos_s = pos if sentinel_out else torch.where(state.valid[None], pos, big)
         sweep_args = (nc, boxsize, scale, f32_square(cutoff), f32_square(softening))
         if offsets is None:
-            acc = pair_sweep(pos_s[:, :K_r], pos_s[:, :K_s], *sweep_args,
-                             kernel=softening_kernel, rext=rext, sext=sext)
+            acc = sweep_slots(pos_s[:, :K_r], pos_s[:, :K_s], *sweep_args,
+                              kernel=softening_kernel, rext=rext, sext=sext)
         else:
             # the reach sweep's receivers sit at the opposite sentinel
             recv = torch.where(state.valid[:K_r][None], pos[:, :K_r], -big)
@@ -328,18 +331,27 @@ def resort_rungs_within_columns(state: RungState, acc, NR: int = 8):
 def pm_kick_rungs(state: RungState, mass: float, G: float, int_pm: float,
                   boxsize: float, mesh: int, scale: float, k_pm: int = 8,
                   pm_max_overflow: int = 262144, cells_cb: int = 0,
-                  k_rows: int | None = None):
+                  k_rows: int | None = None, lean: bool | None = None):
     """Base-cadence PM long-range kick over the leading k_rows slot rows
     (rows beyond the max occupancy are invalid in every column).
     cells_cb > 0 (the unified layouts, cells cells_cb mesh cells wide):
-    the slot layout is the deposit layout (pm_gradient_cells); else the
-    block PM of pm_gradient_layout (block capacity k_pm, exact overflow up
-    to pm_max_overflow particles).  Updates the momenta in place (the JAX
-    package donates them).  Returns (state, n_pm_overflow (an int, 0 on
-    the unified layouts), mass_sum)."""
+    the slot layout is the deposit layout, with Fourier gradients
+    (pm_gradient_cells) or, with ``lean``, the memory-lean kick of
+    order-4 stencil gradients one at a time (pm_kick_cells_lean); lean =
+    None takes it at mesh ≥ 768 on the card, as the JAX package does on
+    the TPU.  cells_cb = 0: the block PM of pm_gradient_layout (block
+    capacity k_pm, exact overflow up to pm_max_overflow particles).
+    Updates the momenta in place (the JAX package donates them).  Returns
+    (state, n_pm_overflow (an int, 0 on the unified layouts), mass_sum)."""
     K = state.valid.shape[0]
     kr = K if k_rows is None else min(k_rows, K)
     pos, valid = state.pos[:, :kr], state.valid[:kr]
+    if lean is None:
+        lean = mesh >= 768 and pos.device.type == "cuda"
+    if cells_cb > 0 and lean:
+        _, mass_sum = pm_kick_cells_lean(pos, state.mom[:, :kr], valid, mass, G,
+                                         int_pm, scale, boxsize, mesh, cb=cells_cb)
+        return state, 0, mass_sum
     if cells_cb > 0:
         fd3, mass_sum = pm_gradient_cells(pos, valid, mass, G, scale, boxsize,
                                           mesh, cb=cells_cb)
@@ -412,6 +424,9 @@ class P3MRungSimulation:
     mesh ≥ 20, else ValueError), and the tight layout otherwise and on the
     CPU.  ``unified``/``unified_cb`` choose explicitly; a choice the mesh
     cannot take raises.  There is no fall-back to another layout.
+    ``pm_diff`` picks the unified layouts' PM gradients: 'spectral'
+    (Fourier), 'lean' (order-4 stencil, one component at a time) or
+    'auto' (lean at mesh ≥ 768 on the card).
     """
 
     def __init__(self, n_part: int, boxsize: float, mass: float, G: float,
@@ -421,7 +436,8 @@ class P3MRungSimulation:
                  softening_kernel: str = "plummer", fac_rung: float = 1.0,
                  rebucket_every_max: int = 64, unified: bool | None = None,
                  unified_cb: int | None = None, n_total: int | None = None,
-                 pm_max_overflow: int = 262144, device=None):
+                 pm_max_overflow: int = 262144, device=None,
+                 pm_diff: str = "auto"):
         if n_total is not None:
             self.N = int(n_total)
             if mesh is None:
@@ -462,6 +478,12 @@ class P3MRungSimulation:
             self.margin = self.cell_width - self.cutoff
         self.k_pm = k_pm
         self.pm_max_overflow = pm_max_overflow
+        # the unified layouts' PM differentiation: 'spectral' (Fourier),
+        # 'lean' (pm_kick_cells_lean) or 'auto' (lean at mesh ≥ 768 on
+        # the card)
+        if pm_diff not in ("auto", "spectral", "lean"):
+            raise ValueError(f"pm_diff {pm_diff!r} not in auto, spectral, lean")
+        self.pm_lean = {"auto": None, "spectral": False, "lean": True}[pm_diff]
         self.softening = softening
         self.softening_kernel = softening_kernel
         # rung-criterion ε: the softening length when set, else the PM cell
@@ -492,9 +514,6 @@ class P3MRungSimulation:
     def init_state(self, pos, mom, ids=None):
         """pos/mom: 3-tuples of (N,) tensors.  Sizes the capacity from the
         measured max cell occupancy and bucketizes with rung 0."""
-        if self.nc < 3:
-            raise ValueError(f"mesh {self.mesh}: the tight layout has "
-                             f"{self.nc}³ cells ({NCELLS_ITEM})")
         N = pos[0].shape[0]
         dev = pos[0].device
         if ids is None:
@@ -622,7 +641,7 @@ class P3MRungSimulation:
         return pm_kick_rungs(state, self.mass, self.G, int_pm, self.boxsize,
                              self.mesh, self.scale, k_pm=self.k_pm,
                              pm_max_overflow=self.pm_max_overflow,
-                             cells_cb=self.ucb, k_rows=k_rows)
+                             cells_cb=self.ucb, k_rows=k_rows, lean=self.pm_lean)
 
     def _record_pm_mass(self, mass_sum: float, dtype: torch.dtype):
         """Records the deposit's deficit in masses of a particle as the

@@ -96,9 +96,7 @@ class Simulation:
 
     def __init__(self, spec, config: SimConfig, bg, lin=None):
         from concept_tpu_torch.forces.p3m import pm_block_capacity
-        from concept_tpu_torch.forces.shortrange import (
-            NCELLS_ITEM, auto_capacity, cell_grid_shape,
-        )
+        from concept_tpu_torch.forces.shortrange import auto_capacity, cell_grid_shape
 
         if config.method not in ("pm", "p3m"):
             if config.method in METHOD_ITEMS:
@@ -116,9 +114,6 @@ class Simulation:
             scale, rng = config.derived_shortrange()
             self._sr_scale, self._sr_range = scale, rng
             self._sr_ncells = cell_grid_shape(config.boxsize, rng)
-            if self._sr_ncells < 3:
-                raise ValueError(f"{self._sr_ncells} short-range cells per "
-                                 f"dimension < 3 ({NCELLS_ITEM})")
             cap = config.shortrange_capacity
             if cap == 0 and spec.N:
                 cap = auto_capacity(spec.N, self._sr_ncells)

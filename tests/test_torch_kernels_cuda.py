@@ -695,3 +695,105 @@ def test_slot_kernels_match_plain(dev, cb, zmajor, n, case):
     # the wrappers count their launches; launch_deposit / launch_gather do not
     counted = (1 if case != "extents" else 0) + (1 if ext is None else 0)
     assert dep.launches + gat.launches - sum(before) == counted
+
+
+@pytest.mark.parametrize("nc", [2, 5])
+def test_on_subset_on_the_card_matches_the_cpu(dev, nc):
+    """shortrange_momentum_updates_on_subset on the card (row 2: the
+    unbounded ±1 sweep of receivers against suppliers; at 2 cells a side
+    the folded plain sweep, no launch) against the same call on the CPU
+    (the plain version), within the sweep tolerance."""
+    from concept_tpu_torch.forces.cuda_shortrange import pair_sweep, pair_sweep_subset
+    from concept_tpu_torch.forces.shortrange import shortrange_momentum_updates_on_subset
+
+    rng = np.random.default_rng(4)
+    box, N = 64.0, 3000
+    sup = rng.uniform(0, box, (N, 3)).astype(np.float32)
+    sup[:300] = np.mod(20.0 + rng.normal(0, 1.0, (300, 3)), box)  # a clump
+    recv = sup[rng.choice(N, 700, replace=False)]
+    cutoff = 0.97 * box / nc
+    kw = dict(n_cells=nc, capacity_recv=400, capacity_sup=800, softening=0.3,
+              softening_kernel="spline")
+    out = []
+    before = (pair_sweep_subset.launches, pair_sweep.launches)
+    for device in ("cpu", dev):
+        out.append(shortrange_momentum_updates_on_subset(
+            torch.as_tensor(recv, device=device), torch.as_tensor(sup, device=device),
+            2.0, box, cutoff / 4.5, cutoff, **kw).cpu())
+    assert (pair_sweep_subset.launches, pair_sweep.launches) == (
+        before[0] + (nc >= 3), before[1])
+    ref = out[0]
+    assert float((out[1] - ref).abs().max() / ref.abs().max()) < 1e-5
+
+
+def test_p3m_step_on_the_card_matches_the_cpu(dev):
+    """A P3MSimulation step (row 6 on the stored layout, rows 8-9 through
+    the PM binding, with block overflow from a clump) on the card against
+    the same step on the CPU: equal layouts and overflow, positions within
+    5e-5 of the box, momenta within 1e-5 of the largest."""
+    from concept_tpu_torch.forces.cuda_shortrange import pair_sweep
+    from concept_tpu_torch.grid.cuda_blocks import deposit_blocks, gather_blocks
+    from concept_tpu_torch.p3msim import P3MSimulation
+
+    rng = np.random.default_rng(7)
+    n_part, box = 24, 96.0
+    N = n_part**3
+    pos = rng.uniform(0, box, (N, 3)).astype(np.float32)
+    pos[:500] = np.mod(40.0 + rng.normal(0, 3.0, (500, 3)), box)
+    mom = (0.2 * rng.standard_normal((N, 3))).astype(np.float32)
+    out = []
+    for device in ("cpu", dev):
+        sim = P3MSimulation(n_part, box, 2.0, 1.0, softening=0.1,
+                            softening_kernel="spline")
+        st = sim.init_state(tuple(torch.as_tensor(pos[:, d], device=device) for d in range(3)),
+                            tuple(torch.as_tensor(mom[:, d], device=device) for d in range(3)))
+        before = (pair_sweep.launches, deposit_blocks.launches, gather_blocks.launches)
+        st, (n_over, _) = sim.step(st, 2e-3, 0.5)
+        after = (pair_sweep.launches, deposit_blocks.launches, gather_blocks.launches)
+        out.append((st.pos.cpu(), st.mom.cpu(), st.valid.cpu(), n_over))
+    assert after == tuple(b + 1 for b in before)
+    assert out[1][3] == out[0][3] > 0
+    assert torch.equal(out[0][2], out[1][2])
+    dx = out[1][0] - out[0][0]
+    dx -= box * torch.round(dx / box)
+    assert float(dx.abs().max()) <= 5e-5 * box
+    assert float((out[1][1] - out[0][1]).abs().max()) <= 1e-5 * float(out[0][1].abs().max())
+
+
+def test_lean_kick_on_the_card_matches_the_cpu(dev):
+    """The memory-lean PM kick (row 3's deposit, row 4's gather at D = 1
+    once a component) on the card against its plain versions on the CPU,
+    at the deposit/gather tolerance; the stepper's dispatch takes it at
+    mesh ≥ 768 on the card only."""
+    from concept_tpu_torch.grid.cuda_cells import deposit_cells, gather_cells
+    from concept_tpu_torch.p3mrungs import P3MRungSimulation
+    from concept_tpu_torch.p3msim import pm_kick_cells_lean
+
+    rng = np.random.default_rng(8)
+    mesh, cb, K, box = 32, 8, 40, 64.0
+    nc = mesh // cb
+    C = nc**3
+    cw = box / nc
+    cells = np.arange(C)
+    base = np.stack([cells // (nc * nc), (cells // nc) % nc, cells % nc]) * cw
+    pos = (base[:, None, :] + rng.uniform(0.05, 0.95, (3, K, C)) * cw).astype(np.float32)
+    valid = np.arange(K)[:, None] < rng.integers(0, K + 1, C)[None, :]
+    # momenta 0 in the valid slots, so that the result is the kick itself,
+    # and nonzero in the invalid ones, which the kick must zero
+    mom = np.where(valid[None], 0, rng.standard_normal((3, K, C))).astype(np.float32)
+    out = []
+    before = (deposit_cells.launches, gather_cells.launches)
+    for device in ("cpu", dev):
+        m, _ = pm_kick_cells_lean(torch.as_tensor(pos, device=device),
+                                  torch.tensor(mom, device=device),  # a copy: updated in place
+                                  torch.as_tensor(valid, device=device), 2.0, 1.0, 1e-2,
+                                  1.25 * box / mesh, box, mesh, cb=cb)
+        out.append(m.cpu())
+    assert (deposit_cells.launches, gather_cells.launches) == (before[0] + 1, before[1] + 3)
+    assert not out[1][:, torch.as_tensor(~valid)].any()
+    torch.testing.assert_close(out[1], out[0], rtol=2e-5,
+                               atol=1e-5 * float(out[0].abs().max()))
+    sim = P3MRungSimulation(384, 1000.0, 1.0, 1.0, mesh=768, device="cuda")
+    assert sim.ucb == 8 and sim.pm_lean is None
+    assert P3MRungSimulation(384, 1000.0, 1.0, 1.0, mesh=768, device="cuda",
+                             pm_diff="spectral").pm_lean is False

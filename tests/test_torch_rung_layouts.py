@@ -2,14 +2,15 @@
 wide with the reach-2 sweep (``ucb = 4``) and the tight cutoff-wide
 layout with the block PM — against the JAX package, in the setup of
 tests/test_unified_layout.py (8³ particles, mesh 32, N_rungs = 4, spline
-softening; 8³ cells at ucb = 4, 5³ tight cells).
+softening; 8³ cells at ucb = 4, 5³ tight cells), and the tight layout at
+mesh 16, whose 2³ cells take the folded sweep.
 
 - ``kept_offsets`` equals the JAX function; the reach sweeps equal the
   JAX XLA sweeps over the same offsets within max|Δ|/max|ref| 1e-5 (the
   flat sweeps' metric, tests/test_pallas_shortrange.py:41).
 - ``init_state`` gives exactly the JAX layout, and the initial rung
   assignment the same rungs and K_act.  After evolving a = 0.02 → 0.05
-  the mean |Δx|/box stays ≤ 5e-5 and the deepest rung is the same, as in
+  (0.03 at mesh 16) the mean |Δx|/box stays ≤ 5e-5 and the deepest rung is the same, as in
   tests/test_torch_p3mrungs.py (on the CPU the JAX package deposits
   every layout through pm_gradient_layout, the port the ucb = 4 layout
   on its cells: they differ at rounding level).
@@ -45,7 +46,9 @@ from concept_tpu_torch.forces.shortrange import (  # noqa: E402
 from concept_tpu_torch.p3mrungs import P3MRungSimulation, extract_flat  # noqa: E402
 
 FIELDS = ("pos", "mom", "valid", "rungs", "ids")
-LAYOUTS = {"ucb4": dict(unified=True, unified_cb=4), "tight": dict(unified=False)}
+LAYOUTS = {"ucb4": dict(unified=True, unified_cb=4), "tight": dict(unified=False),
+           # mesh 16: 2³ tight cells, the folded sweep (to a = 0.03)
+           "tight16": dict(unified=False, mesh=16, a_end=0.03)}
 FIXTURE = os.path.join(os.path.dirname(__file__), "data", "oracle_pp_8cube.npz")
 TOL = 1e-5
 
@@ -161,7 +164,7 @@ def test_impossible_layout_raises(mesh, kw):
 def runs(request):
     """One JAX run and one port run per layout from the same state: the
     layouts after init_state and after the initial rung assignment, and
-    the positions at a = 0.05."""
+    the positions at a = 0.05 (0.03 at mesh 16)."""
     h = 0.70
     H0 = 70 * units.km / (units.s * units.Mpc)
     box = 8 * units.Mpc / h
@@ -176,8 +179,9 @@ def runs(request):
         pos + 0.2 * (box / 8) * rng.standard_normal(pos.shape).astype(np.float32),
         box,
     ).astype(np.float32)
-    kw = dict(mesh=32, N_rungs=4, softening=0.03 * box / 8,
-              softening_kernel="spline", **LAYOUTS[request.param])
+    kw = dict(mesh=32, N_rungs=4, softening=0.03 * box / 8, softening_kernel="spline")
+    kw.update(LAYOUTS[request.param])
+    a_end = kw.pop("a_end", 0.05)
     jsim = JaxRungs(8, box, mass, G, bg=jbg, **kw)
     tsim = P3MRungSimulation(8, box, mass, G, bg=Background(H0=H0, Omega_m=0.30),
                              device="cpu", **kw)
@@ -198,7 +202,7 @@ def runs(request):
     state = tsim.assign_initial_rungs(state, tsim._timestep(0.02, 0.0))
     out["assign"] = (to_numpy(state), {f: np.asarray(getattr(jstate, f)) for f in FIELDS},
                      (tsim._K_act, tsim._K_occ), (jsim._K_act, jsim._K_occ))
-    t1 = float(jsim.bg.t_of_a_np(0.05))
+    t1 = float(jsim.bg.t_of_a_np(a_end))
     jstate = jsim.evolve(jstate, t0, t1)
     state = tsim.evolve(state, t0, t1)
     p_j, _, ids_j = (np.asarray(a) for a in jax_extract(jstate, N))
@@ -209,10 +213,11 @@ def runs(request):
 
 def test_layout_geometry_matches_jax(runs):
     j, t = runs["jsim"], runs["tsim"]
-    assert t.ucb == {"ucb4": 4, "tight": 0}[runs["layout"]] == j.ucb
+    assert t.ucb == {"ucb4": 4, "tight": 0, "tight16": 0}[runs["layout"]] == j.ucb
     assert (t.nc, t.cell_width, t.margin, t.capacity) == (
         j.nc, j.cell_width, j.margin, j.capacity)
-    assert (t.nc, len(t.offsets or ())) == {"ucb4": (8, 117), "tight": (5, 0)}[runs["layout"]]
+    assert (t.nc, len(t.offsets or ())) == {"ucb4": (8, 117), "tight": (5, 0),
+                                            "tight16": (2, 0)}[runs["layout"]]
 
 
 def test_init_state_layout_identical(runs):
@@ -241,7 +246,7 @@ def test_evolve_matches_jax(runs):
 
 
 @pytest.mark.skipif(not os.path.exists(FIXTURE), reason="oracle fixture not generated")
-@pytest.mark.parametrize("layout", list(LAYOUTS))
+@pytest.mark.parametrize("layout", ["ucb4", "tight"])
 def test_rungs_track_frozen_oracle(layout):
     """The port's stepper (N_rungs = 8) from the fixture's initial
     conditions against its converged PP-Ewald trajectory

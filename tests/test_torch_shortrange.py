@@ -184,3 +184,107 @@ def test_window_bounds_match_jax_at_pack_1():
     nb_max = np.max([np.roll(col, (-di, -dj, -dk), (0, 1, 2))
                      for di, dj, dk in OFFSETS_27], axis=0)
     np.testing.assert_array_equal(nb_max, np.broadcast_to(sup, col.shape))
+
+
+def _fold_positions(rng, box, N):
+    """Uniform particles with a quarter of them within 2 % of a box face,
+    where the minimum image decides which image a pair meets at."""
+    pos = rng.uniform(0, box, (N, 3))
+    pos[: N // 4, 0] = rng.uniform(-0.02, 0.02, N // 4) * box
+    return np.mod(pos, box).astype(np.float32)
+
+
+@pytest.mark.parametrize("nc", [1, 2])
+@pytest.mark.parametrize("kernel", ["plummer", "spline"])
+def test_fold_sweep_matches_jax(nc, kernel):
+    """Below 3 cells a side the port's sweep is the folded one with
+    minimum image: one-sided (``_sweep_pair``) against the JAX package's
+    ``_sweep_pair`` and two-sided (``sweep_fold`` with receivers =
+    suppliers) against its ``_sweep(halve=False)``."""
+    from concept_tpu.forces.shortrange import _sweep as jax_sweep
+    from concept_tpu_torch.forces.shortrange import sweep_fold
+
+    rng = np.random.default_rng(21 + nc)
+    box, N = 64.0, 300
+    cutoff = 0.97 * box / nc if nc == 2 else 0.6 * box
+    scale, soft = cutoff / 4.5, 0.5
+    pos = _fold_positions(rng, box, N)
+    b = bucketize(jnp.asarray(pos), box, nc, N)
+    assert int(box / cutoff) == nc
+    got = _port_sweep(b, nc, box, scale, cutoff, soft, kernel)
+    xla = np.asarray(jax_sweep_pair(
+        *(b["hx"], b["hy"], b["hz"], b["valid"]) * 2, nc, jnp.float32(box),
+        jnp.float32(scale), jnp.float32(cutoff) ** 2, jnp.float32(soft) ** 2,
+        kernel=kernel))
+    v = np.asarray(b["valid"])
+    assert _maxrel(got[:, v], xla[:, v]) < TOL
+    assert np.all(got[:, ~v] == 0)
+    two = np.asarray(jax_sweep(b["hx"], b["hy"], b["hz"], b["valid"], nc,
+                               jnp.float32(box), jnp.float32(scale),
+                               jnp.float32(cutoff) ** 2, jnp.float32(soft) ** 2,
+                               halve=False, kernel=kernel))
+    s = torch.as_tensor(np.where(v[None], np.stack([np.asarray(b[k]) for k in
+                                                    ("hx", "hy", "hz")]),
+                                 SENTINEL * box).astype(np.float32))
+    got2 = sweep_fold(s, s, nc, box, scale, float(np.float32(cutoff) ** 2),
+                      float(np.float32(soft) ** 2), kernel=kernel).numpy()
+    assert _maxrel(got2[:, v], two[:, v]) < TOL
+
+
+@pytest.mark.parametrize("capacity", [8, 400])
+def test_global_fold_with_stragglers_matches_jax(capacity):
+    """The global stepper's short range at 2 cells a side, with and
+    without particles beyond the capacity (the JAX package's folded sweep
+    plus its straggler path), against shortrange_momentum_updates of the
+    JAX package; the straggler count is equal."""
+    from concept_tpu.forces.shortrange import (
+        shortrange_momentum_updates as jax_updates,
+    )
+    from concept_tpu_torch.forces.shortrange import shortrange_momentum_updates
+
+    rng = np.random.default_rng(5)
+    box, N, nc = 64.0, 300, 2
+    cutoff = 0.97 * box / nc
+    scale, soft = cutoff / 4.5, 0.5
+    pos = _fold_positions(rng, box, N)
+    args = (2.0, box, scale, cutoff, 1e-3)
+    ref, n_ref = jax_updates(jnp.asarray(pos), *args, n_cells=nc, capacity=capacity,
+                             softening=soft, return_overflow=True,
+                             softening_kernel="spline")
+    got, n_got = shortrange_momentum_updates(
+        tuple(torch.as_tensor(pos[:, d]) for d in range(3)), *args, n_cells=nc,
+        capacity=capacity, softening=soft, softening_kernel="spline")
+    assert n_got == int(n_ref) == (N - 8 * capacity if capacity == 8 else 0)
+    got = torch.stack(got, 1).numpy()
+    assert _maxrel(got, np.asarray(ref)) < TOL
+
+
+@pytest.mark.parametrize("nc", [2, 5])
+def test_on_subset_matches_jax(nc):
+    """shortrange_momentum_updates_on_subset: receivers (a subset with
+    their own capacity) against all suppliers, at 5 cells a side (the
+    ±1 sweep) and at 2 (folded), and with a supplier mass of its own."""
+    from concept_tpu.forces.shortrange import (
+        cell_counts, shortrange_momentum_updates_on_subset as jax_on_subset,
+    )
+    from concept_tpu_torch.forces.shortrange import (
+        shortrange_momentum_updates_on_subset,
+    )
+
+    rng = np.random.default_rng(11)
+    box, N = 64.0, 400
+    cutoff = 0.97 * box / nc
+    scale, soft = cutoff / 4.5, 0.5
+    sup = _fold_positions(rng, box, N)
+    recv = sup[rng.choice(N, 120, replace=False)]
+    caps = [int(-(-(np.asarray(cell_counts(jnp.asarray(p), box, nc)).max() + 1) // 8) * 8)
+            for p in (recv, sup)]
+    for mass_sup in (None, 3.0):
+        kw = dict(n_cells=nc, capacity_recv=caps[0], capacity_sup=caps[1],
+                  softening=soft, G=1.5, softening_kernel="plummer", mass_sup=mass_sup)
+        ref = np.asarray(jax_on_subset(jnp.asarray(recv), jnp.asarray(sup), 2.0, box,
+                                       scale, cutoff, **kw))
+        got = shortrange_momentum_updates_on_subset(
+            torch.as_tensor(recv), torch.as_tensor(sup), 2.0, box, scale, cutoff,
+            **kw).numpy()
+        assert _maxrel(got, ref) < TOL
