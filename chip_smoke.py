@@ -119,6 +119,20 @@ the LPT initial conditions:
     ``param/example_pm_quick.py`` (2LPT) to a = 1 with its outputs cut to
     the power spectra, through ``load_params`` and ``run``.
 
+Then the run's files, at the realistic size of the main path:
+
+6.  ``files``: 256³ particles of example_basic from 2LPT at a = 0.02,
+    written as GADGET-2 (format 2, float32, two files; also as
+    CONCEPT-HDF5 where h5py imports) and read back exactly (seconds,
+    GB/s, peak host and device memory); ``run`` from that file on grid 512
+    to a = 0.023 with a snapshot, power spectrum and bispectrum dump,
+    twice (the atomics' noise floor); the same run with SIGTERM raised
+    after base step 2, which must exit with 143 and leave an autosave, and
+    its resume, which must end within max(10 × the floor, 1e-5) of the box
+    of the uninterrupted run; ``-u info`` and ``-u powerspec`` through
+    ``cli.main`` on the card; the bispectrum at grid 512 alone.  Every run
+    launches rows 1, 3 and 4 only.
+
 Before its last line it prints one JSON object ``{"kernels": [...]}`` and
 the card's name and power limit as nvidia-smi reports them; the last line
 is ``{"ok": true, "device": {...}}``.  Without CUDA it exits with 2 and
@@ -1690,6 +1704,326 @@ def lpt(n: int = 256, device: str = "cuda") -> dict:
     return out
 
 
+class _HostPeak:
+    """The peak resident host memory of the process above its size at
+    entry, sampled every 2 ms from /proc/self/statm by a thread."""
+
+    def __enter__(self):
+        import threading
+
+        self.page = os.sysconf("SC_PAGE_SIZE")
+        self.base = self.peak = self._rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _rss(self) -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self.page
+
+    def _sample(self):
+        while not self._stop.wait(0.002):
+            self.peak = max(self.peak, self._rss())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=5)
+        self.peak = max(self.peak, self._rss())
+        self.bytes = self.peak - self.base
+
+
+def _timed_io(fn):
+    """(result, seconds, peak host bytes above the start) of fn()."""
+    _sync()
+    with _HostPeak() as hp:
+        t0 = time.perf_counter()
+        out = fn()
+        seconds = time.perf_counter() - t0
+    return out, seconds, hp.bytes
+
+
+def _npz_concept(snap):
+    """A numpy .npz stand-in for snap.save_concept / snap.load_concept,
+    for a machine without h5py: the same arguments and results, the file
+    at the same name."""
+    import numpy as np
+
+    from concept_tpu_torch.components import ComponentSpec, ParticleState
+
+    def save_concept(filename, meta, components, select=None):
+        ((name, (spec, st)),) = components.items()
+        arrays = {k: snap._host(v) for k, v in st._asdict().items() if v is not None}
+        with open(filename, "wb") as f:
+            np.savez(f, **arrays, meta=json.dumps(meta.__dict__),
+                     spec=json.dumps([name, spec.species, spec.N, spec.mass]))
+        return filename
+
+    def load_concept(filename):
+        with np.load(filename) as z:
+            name, species, N, mass = json.loads(str(z["spec"]))
+            st = ParticleState(**{k: z[k] for k in ("pos", "mom", "ids", "rungs") if k in z})
+            meta = snap.SnapshotMeta(**json.loads(str(z["meta"])))
+        return meta, {name: (ComponentSpec(name, species, N=N, mass=mass), st)}
+
+    return save_concept, load_concept
+
+
+def _sigterm_after_base_step(n: int):
+    """Wrap P3MRungSimulation.base_step so that SIGTERM is raised in this
+    process after its n-th call; returns the function that unwraps it."""
+    import signal
+
+    from concept_tpu_torch.p3mrungs import P3MRungSimulation
+
+    step = P3MRungSimulation.base_step
+    calls = [0]
+
+    def hooked(self, *args, **kw):
+        out = step(self, *args, **kw)
+        calls[0] += 1
+        if calls[0] == n:
+            signal.raise_signal(signal.SIGTERM)
+        return out
+
+    P3MRungSimulation.base_step = hooked
+    return lambda: setattr(P3MRungSimulation, "base_step", step)
+
+
+def _dx(a, b, box: float) -> tuple[float, float]:
+    """(max, mean) |Δx| / box between two id-sorted position tensors,
+    periodic."""
+    import torch
+
+    d = (a - b).abs()
+    r = torch.minimum(d, box - d).norm(dim=1)
+    return float(r.max()) / box, float(r.mean()) / box
+
+
+def files(n: int = 256, mesh: int = 512, a_end: float = 0.023, device: str = "cuda") -> dict:
+    """The run's files at the main path's realistic size: n³ particles on
+    grid `mesh` (the 8-mesh-cell rung layout), example_basic's box and
+    cosmology, 2LPT at a = 0.02.
+
+    (a) The realized state written as GADGET-2 (format 2, float32, two
+        files) and, where h5py imports, as CONCEPT-HDF5, and read back:
+        the CONCEPT file gives the float32 state exactly, the GADGET file
+        what its float32 kpc/h and km/s hold (the conversion done again
+        with numpy) exactly.  Seconds, GB/s, sizes, peak host and device
+        memory of each.
+    (b) ``run`` from the GADGET file to a_end, dumping a snapshot, a power
+        spectrum and a bispectrum ('equilateral 10'), twice: the two
+        uninterrupted runs' distance is the atomics' noise floor.
+    (c) The same run with SIGTERM raised after base step 2 (a hook around
+        the stepper, no timer): it must exit with 128 + 15 and leave an
+        autosave; resumed, it must end within max(10 × the floor, 1e-5)
+        of the box of (b).  Without h5py the autosave is a .npz
+        stand-in for save_concept/load_concept, inside this phase only.
+    (d) ``-u info`` and ``-u powerspec`` of the GADGET file through
+        ``cli.main``, on the card.
+    (e) The bispectrum at grid `mesh` alone: seconds and peak device
+        memory.
+    Every run launches rows 1, 3 and 4 only."""
+    import numpy as np
+    import torch
+
+    from concept_tpu_torch import cli
+    from concept_tpu_torch.analysis.bispec import bispec
+    from concept_tpu_torch.ic import realize_particles
+    from concept_tpu_torch.io import snapshot as snap
+    from concept_tpu_torch.param import load_params
+    from concept_tpu_torch.run import autosave_path, run
+
+    try:
+        import h5py  # noqa: F401
+
+        have_h5py = True
+    except ImportError:
+        have_h5py = False
+        print("files: no h5py on this machine; the autosave used a .npz stand-in")
+    cfg, _, bg, lin, spec, _ = _example(n, mesh)
+    box, units = cfg.boxsize, cfg.units
+    N = n**3
+    st = realize_particles(lin, spec, box, 0.02, seed=0, lpt_order=2, device=device)
+    st = st._replace(ids=torch.arange(N, dtype=torch.int32, device=device))
+    meta = snap.SnapshotMeta(a=0.02, boxsize=box, H0=cfg.H0, Omega_b=cfg.Omega_b,
+                             Omega_cdm=cfg.Omega_cdm)
+    root = tempfile.mkdtemp(prefix="chip_smoke_files_")
+    out = {"N": N, "mesh": mesh, "h5py": have_h5py}
+    try:
+        # (a) write and read
+        base = os.path.join(root, "ic")
+        torch.cuda.reset_peak_memory_stats()
+        files_written, w_s, w_host = _timed_io(lambda: snap.save_gadget_multifile(
+            base, meta, spec, st, units, particles_per_file=N // 2))
+        size = sum(os.path.getsize(f) for f in files_written)
+        (rmeta, comps), r_s, r_host = _timed_io(lambda: snap.load(base, units))
+        ((_, (rspec, rst)),) = comps.items()
+        # what the file holds: x/(kpc/h) and mom/(a^1.5·m)/(km/s) in float32
+        _, kpc_h, _, kms = snap._gadget_units(cfg.H0, units)
+        pos32 = st.pos.cpu().numpy()
+        want_pos = (pos32.astype(np.float64) / kpc_h).astype(np.float32).astype(np.float64) * kpc_h
+        vel = (st.mom.cpu().numpy().astype(np.float64) / (0.02**1.5 * spec.mass) / kms)
+        want_mom = vel.astype(np.float32).astype(np.float64) * kms * 0.02**1.5 * rspec.mass
+        if not (np.array_equal(rst.pos, want_pos) and np.array_equal(rst.mom, want_mom)
+                and np.array_equal(rst.ids, np.arange(N)) and rspec.N == N):
+            raise SystemExit("files: the GADGET file does not read back what it holds")
+        f32_err = float(np.abs(rst.pos.astype(np.float32) - pos32).max()) / box
+        out["gadget"] = {"write_s": w_s, "read_s": r_s, "bytes": size,
+                         "write_GBps": size / w_s / 1e9, "read_GBps": size / r_s / 1e9,
+                         "write_host_peak_bytes": w_host, "read_host_peak_bytes": r_host,
+                         "pos_float32_max_err_over_box": f32_err,
+                         "device_peak_bytes": torch.cuda.max_memory_allocated()}
+        del rst, comps, want_pos, want_mom, vel
+        line = (f"files ({n}³, a = 0.02, 2LPT): GADGET-2 format 2 float32 in 2 files, "
+                f"{size / 1e9:.3f} GB: write {w_s:.2f} s ({size / w_s / 1e9:.2f} GB/s, "
+                f"host peak +{w_host / 2**30:.2f} GiB), read {r_s:.2f} s "
+                f"({size / r_s / 1e9:.2f} GB/s, host peak +{r_host / 2**30:.2f} GiB), "
+                f"exact against its float32 kpc/h (max |x_read − x|/box {f32_err:.2e})")
+        if have_h5py:
+            fn = os.path.join(root, "ic.hdf5")
+            _, cw_s, cw_host = _timed_io(lambda: snap.save_concept(
+                fn, meta, {spec.name: (spec, st)}))
+            csize = os.path.getsize(fn)
+            (_, comps), cr_s, cr_host = _timed_io(lambda: snap.load_concept(fn))
+            ((_, (_, cst)),) = comps.items()
+            if not (np.array_equal(cst.pos.astype(np.float32), pos32)
+                    and np.array_equal(cst.mom.astype(np.float32), st.mom.cpu().numpy())):
+                raise SystemExit("files: the CONCEPT-HDF5 file does not read back exactly")
+            out["concept"] = {"write_s": cw_s, "read_s": cr_s, "bytes": csize,
+                              "write_GBps": csize / cw_s / 1e9, "read_GBps": csize / cr_s / 1e9,
+                              "write_host_peak_bytes": cw_host,
+                              "read_host_peak_bytes": cr_host}
+            del cst, comps
+            line += (f"; CONCEPT-HDF5 {csize / 1e9:.3f} GB: write {cw_s:.2f} s "
+                     f"({csize / cw_s / 1e9:.2f} GB/s), read {cr_s:.2f} s "
+                     f"({csize / cr_s / 1e9:.2f} GB/s), exact")
+        print(line + f"; device peak {out['gadget']['device_peak_bytes'] / 2**30:.2f} GiB")
+        del st, pos32
+
+        # (b) two uninterrupted runs from the file
+        overrides = [f"initial_conditions='{base}'", f"potential_options={mesh}",
+                     f"output_times={{'powerspec': [{a_end}], 'snapshot': [{a_end}], "
+                     f"'bispec': [{a_end}]}}",
+                     "snapshot_type='gadget'", f"gadget_snapshot_params={{'particles per file': "
+                     f"{N // 2}}}"]
+        runs = []
+        for i in range(2):
+            outdir = os.path.join(root, f"run{i}")
+            sim, state, a, counts, seconds = _run(overrides, outdir, device=device)
+            if sim.inner.ucb != 8:
+                raise SystemExit(f"files: grid {mesh} took ucb = {sim.inner.ucb}, not 8")
+            dumped = sorted(os.listdir(outdir))
+            pk = np.loadtxt(os.path.join(outdir, f"powerspec_a={a_end:.4g}.txt"))
+            bk = np.loadtxt(os.path.join(outdir, f"bispec_a={a_end:.4g}.txt"))
+            if not (np.all(np.isfinite(bk[:, :5])) and len(bk) == 10):
+                raise SystemExit("files: the bispectrum is not 10 finite triangles")
+            runs.append({"pos": state.pos, "pk": pk, "launches": counts, "wall_s": seconds,
+                         "steps": sim.hysteresis["step_count"],
+                         "max_rung": sim.inner.stats["max_rung"], "dump_s": sim.timings["dump_s"],
+                         "evolve_s": sim.timings["evolve_s"], "files": dumped})
+            shutil.rmtree(outdir, ignore_errors=True)
+        floor, floor_mean = _dx(runs[0]["pos"], runs[1]["pos"], box)
+        print(f"files: run from the GADGET file to a = {a_end} (snapshot, power spectrum, "
+              f"bispectrum): {runs[0]['steps']} base steps, max rung {runs[0]['max_rung']}, "
+              f"wall {runs[0]['wall_s']:.1f} / {runs[1]['wall_s']:.1f} s (dumps "
+              f"{runs[0]['dump_s']:.1f} s), wrote {runs[0]['files']}; two uninterrupted "
+              f"runs part by max |Δx|/box {floor:.3e} (mean {floor_mean:.3e}); launches "
+              f"{runs[0]['launches']}")
+
+        # (c) SIGTERM after base step 2, then the resume
+        outdir = os.path.join(root, "interrupted")
+        save, load = snap.save_concept, snap.load_concept
+        if not have_h5py:
+            snap.save_concept, snap.load_concept = _npz_concept(snap)
+        unhook = _sigterm_after_base_step(2)
+        try:
+            rcfg = load_params(PARAM, overrides=overrides + [f"output_dirs='{outdir}'"])
+            _reset_counts()
+            try:
+                run(rcfg, device=device)
+                raise SystemExit("files: the run went on after SIGTERM")
+            except SystemExit as e:
+                code = e.code
+            finally:
+                unhook()
+            counts_int = _read_counts()
+            _check_launches(counts_int, RUNG_KERNELS)
+            aux_path = os.path.join(autosave_path(rcfg), "auxiliary.json")
+            if code != 128 + 15 or not os.path.exists(aux_path):
+                raise SystemExit(f"files: SIGTERM gave exit code {code} and autosave "
+                                 f"{os.path.exists(aux_path)} (want 143 and an autosave)")
+            with open(aux_path) as f:
+                aux = json.load(f)
+            sim, state, a, counts_res, seconds = _run(overrides, outdir, device=device)
+            if os.path.exists(aux_path):
+                raise SystemExit("files: the finished resume left its autosave")
+        finally:
+            snap.save_concept, snap.load_concept = save, load
+        pk = np.loadtxt(os.path.join(outdir, f"powerspec_a={a_end:.4g}.txt"))
+        dx, dx_mean = _dx(state.pos, runs[0]["pos"], box)
+        pk_rel = float(np.max(np.abs(pk[:, 2] / runs[0]["pk"][:, 2] - 1)))
+        pk_floor = float(np.max(np.abs(runs[1]["pk"][:, 2] / runs[0]["pk"][:, 2] - 1)))
+        allowed = max(10 * floor, 1e-5)
+        print(f"files: SIGTERM after base step 2 → exit {code}, autosave at a = "
+              f"{aux['a']:.6g} (step {aux['step_total']}, t_mom ≠ t); resumed to a = {a:.4g} "
+              f"in {seconds:.1f} s: max |Δx|/box {dx:.3e} (mean {dx_mean:.3e}) from the "
+              f"uninterrupted run "
+              f"(allowed {allowed:.1e}), power spectrum largest relative difference "
+              f"{pk_rel:.2e} (between the uninterrupted runs {pk_floor:.2e}); launches "
+              f"interrupted {counts_int}, resumed {counts_res}")
+        if dx > allowed:
+            raise SystemExit(f"files: the resume ended {dx:.3e} of the box from the "
+                             f"uninterrupted run (allowed {allowed:.1e})")
+        out["runs"] = [{k: v for k, v in r.items() if k not in ("pos", "pk")} for r in runs]
+        out["launches"] = runs[0]["launches"]
+        out["resume"] = {"exit_code": code, "autosave_a": aux["a"],
+                         "autosave_step": aux["step_total"], "max_dx_over_box": dx,
+                         "mean_dx_over_box": dx_mean, "floor_max_dx_over_box": floor,
+                         "floor_mean_dx_over_box": floor_mean, "allowed": allowed,
+                         "pk_max_rel": pk_rel, "floor_pk_max_rel": pk_floor,
+                         "launches_interrupted": counts_int, "launches_resumed": counts_res}
+        del runs, state
+
+        # (d) the utilities on the card
+        _reset_counts()
+        t0 = time.perf_counter()
+        dev_flag = [] if device == "cuda" else ["--device", device]  # the card by default
+        if (cli.main([*dev_flag, "-u", "info", base]) != 0
+                or cli.main([*dev_flag, "-u", "powerspec", base]) != 0):
+            raise SystemExit("files: -u info / -u powerspec failed")
+        _sync()
+        util_s = time.perf_counter() - t0
+        pk = np.loadtxt(f"{base}_powerspec_GADGET halo.txt")
+        if not np.all(np.isfinite(pk[:, :3])):
+            raise SystemExit("files: -u powerspec wrote a spectrum that is not finite")
+        _check_launches(_read_counts(), ())
+        out["utilities_s"] = util_s
+        print(f"files: -u info and -u powerspec (grid {2 * n}) of the GADGET file on the "
+              f"card: {util_s:.1f} s")
+
+        # (e) the bispectrum at grid `mesh`
+        pos = torch.as_tensor(snap.load(base, units)[1]["GADGET halo"][1].pos,
+                              device=device).to(torch.float32)
+        bispec([pos], [1.0], mesh, box, configuration="equilateral 10")  # warm-up
+        _sync()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        bk = bispec([pos], [1.0], mesh, box, configuration="equilateral 10")
+        _sync()
+        out["bispec"] = {"seconds": time.perf_counter() - t0,
+                         "peak_bytes": torch.cuda.max_memory_allocated(),
+                         "finite": bool(np.all(np.isfinite(bk["B"])))}
+        print(f"files: bispectrum ({n}³, grid {mesh}, equilateral 10): "
+              f"{out['bispec']['seconds']:.2f} s, peak device memory "
+              f"{out['bispec']['peak_bytes'] / 2**30:.2f} GiB")
+        if not out["bispec"]["finite"]:
+            raise SystemExit("files: the bispectrum is not finite")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 # (name, counter, phase with its check, key, source, the TPU kernel's
 # definition, the newest path that launches the kernel (its launch count)
 # or None where no path runs it)
@@ -1758,6 +2092,7 @@ def main(argv=None) -> int:
     results["global_rungs"] = global_rungs()
     results["lean_kick"] = lean_kick()
     results["lpt"] = lpt()
+    results["files"] = files()
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
@@ -1790,6 +2125,9 @@ def main(argv=None) -> int:
             "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")})
     byname["pair_sweep"].update(tight_launches=results["tight_main_path"]["launches"]
                                 ["pair_sweep"])
+    # the snapshot-started run of the files phase (rows 1, 3, 4)
+    for name in RUNG_KERNELS:
+        byname[name]["files_launches"] = results["files"]["launches"][name]
     # the earlier paths' launches of the kernels whose newest path is above
     for name, counter, phase in (("deposit_cells", "deposit_cells", "main_path"),
                                  ("gather_cells", "gather_cells", "main_path"),

@@ -751,36 +751,52 @@ class P3MRungSimulation:
         return state
 
     def evolve(self, state: RungState, t0: float, t1: float,
-               max_steps: int = 100000, static_dt=None, steps: int = 0):
-        """Base steps from t0 to t1 (momenta synchronised at t0), then the
-        trailing PM half kick that synchronises them at t1.  ``static_dt``
+               max_steps: int = 100000, static_dt=None, steps: int = 0,
+               t_mom: float | None = None, v_max: float | None = None,
+               callback=None):
+        """Base steps from t0 to t1, then the trailing PM half kick that
+        synchronises the momenta at t1.  ``static_dt``
         (timestep.prepare_static_timestepping) caps Δt; ``steps`` carries
-        the step count of earlier calls.  Records the step count, Δt and
-        kick sync point in ``self.hysteresis``."""
+        the step count of earlier calls.  A state saved after a base step
+        resumes with that step's ``t_mom`` (its PM sync point; the
+        short-range momenta sit at t0) and ``v_max`` (the peculiar speed
+        that bounds the next Δt); by default the momenta are synchronised
+        at t0 and the first Δt takes no speed bound.  ``callback(layout,
+        t, a, steps)`` runs after every base step.  Records the step
+        count, Δt, the kick sync point and v_max in ``self.hysteresis``;
+        after the closing kick t_mom is t1 and v_max None, as a segment
+        that starts there expects."""
         bg = self.bg
-        t = t_mom = t0
-        vmax = 0.0
+        t = t0
+        t_mom = t0 if t_mom is None else t_mom
+        v = 0.0 if v_max is None else v_max
         if self._K_act is None:
             state = self.assign_initial_rungs(
-                state, self._timestep(float(bg.a_of_t_np(t0)), 0.0))
+                state, self._timestep(float(bg.a_of_t_np(t0)), v))
         while t < t1 - 1e-12 * abs(t1):
             a = float(bg.a_of_t_np(t))
-            dt = min(self._timestep(a, vmax / (a * self.mass)), t1 - t)
+            dt = min(self._timestep(a, v), t1 - t)
             if static_dt is not None and static_dt.applies:
                 da = static_dt.delta_a(a)
                 if a + da <= 1.0:
                     dt = min(float(bg.t_of_a_np(a + da)) - t, t1 - t)
-            state, vmax = self.base_step(state, t, dt, t_mom)
+            state, mom_max = self.base_step(state, t, dt, t_mom)
             steps += 1
             if self.needs_rebucket or steps % self.rebucket_every_max == 0:
                 state = self.rebucket(state)
             t_mom = min(t + 0.5 * dt, t1)
             t += dt
+            a = float(bg.a_of_t_np(t))
+            v = mom_max / (a * self.mass)
             self.hysteresis = {"dt": dt, "dt_min": 0.0, "step_count": steps,
-                               "step_last_sync": steps, "t_mom": t_mom}
+                               "step_last_sync": steps, "t_mom": t_mom, "v_max": v}
+            if callback is not None:
+                callback(state, t, a, steps)
             if steps >= max_steps:
                 raise RuntimeError("max_steps exceeded")
-        return self.close_pm_kick(state, t_mom, t1)
+        state = self.close_pm_kick(state, t_mom, t1)
+        self.hysteresis.update(t_mom=t1, v_max=None)
+        return state
 
 
 def extract_flat(state: RungState, n_total: int):
@@ -863,19 +879,31 @@ class RungSimulationAdapter:
         return self.inner.hysteresis
 
     def evolve(self, state, a_begin: float, a_end: float,
-               max_steps: int = 100000, static_dt=None, resume=None):
+               max_steps: int = 100000, static_dt=None, resume=None,
+               callback=None):
         """Evolve the flat state from a_begin to a_end.  ``resume`` (the
-        ``hysteresis`` of the previous segment) carries the step count.
-        Its kick sync point is not taken over: each segment ends with the
-        momenta synchronised at its end (the JAX package's adapter takes
-        it over and so kicks [t_mom, t1] twice across a dump; ROADMAP
-        Queue 3)."""
+        ``hysteresis`` of the previous segment, or of an autosave)
+        carries the step count, the state's kick sync point t_mom and,
+        from a mid-segment autosave, v_max.  A finished segment's
+        hysteresis holds t_mom = a_end's t, where its closing kick left
+        the momenta (the JAX package's adapter keeps the last step's
+        t_mom there and so kicks [t_mom, t1] twice across a dump; ROADMAP
+        Queue 3).  ``callback(flat_state, t, a, steps)`` runs after every
+        base step; ``flat_state()`` extracts the flat ParticleState (a
+        compaction pass), so a callback calls it only when it needs the
+        state."""
         bg = self.bg
+        resume = resume or {}
         t1 = float(bg.t_of_a_np(a_end))
+        inner_cb = None
+        if callback is not None:
+            def inner_cb(layout, t, a, steps):
+                callback(lambda: self._to_flat(layout), t, a, steps)
         layout = self.inner.evolve(
             self._to_layout(state), float(bg.t_of_a_np(a_begin)), t1,
             max_steps=max_steps, static_dt=static_dt,
-            steps=int((resume or {}).get("step_count", 0)))
+            steps=int(resume.get("step_count", 0)), t_mom=resume.get("t_mom"),
+            v_max=resume.get("v_max"), callback=inner_cb)
         flat = self._to_flat(layout)
         self._cached_flat = flat
         self._cached_layout = layout

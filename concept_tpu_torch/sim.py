@@ -304,7 +304,7 @@ class Simulation:
 
     def evolve(self, state: ParticleState, a_begin: float, a_end: float,
                max_steps: int = 100000, static_dt=None,
-               resume: dict | None = None):
+               resume: dict | None = None, callback=None):
         """Leapfrog KDK from a_begin to a_end, the momenta synchronised at
         both ends: the first kick covers Δt/2, each later one the
         straddling interval, and a closing kick the last half step.
@@ -314,11 +314,16 @@ class Simulation:
         and may increase only once DT_PERIOD steps have passed since the
         last change.  ``static_dt`` (timestep.prepare_static_timestepping)
         records or replays the stepping.  ``resume`` (the ``hysteresis``
-        of the previous segment) carries Δt, Δt_min and the step
-        counters; its kick sync point is not taken over, since every
-        segment ends with the momenta synchronised (the JAX package takes
-        it over and so kicks [t_mom, t_end] twice across a dump; ROADMAP
-        Queue 3).  Returns (state, a)."""
+        of the previous segment, or of an autosave) carries Δt, Δt_min,
+        the step counters and the kick sync point t_mom of the state,
+        and, from a mid-segment autosave, the v_max of the last period
+        boundary.  The hysteresis after a segment holds t_mom = a_end,
+        where its closing kick synchronised the momenta (the JAX package
+        keeps the last step's t_mom there and so kicks [t_mom, t_end]
+        twice across a dump; ROADMAP Queue 3).  ``callback(flat_state, t,
+        a, step_count)`` runs after every step; ``flat_state()`` returns
+        the state, whose momenta then sit at ``hysteresis['t_mom']``.
+        Returns (state, a)."""
         from concept_tpu_torch import timestep as ts
 
         bg = self.bg
@@ -368,8 +373,13 @@ class Simulation:
             dt_min = float(resume.get("dt_min", dt_min))
             step_count = int(resume.get("step_count", 0))
             step_last_sync = int(resume.get("step_last_sync", step_count))
+            if resume.get("t_mom") is not None:
+                t_mom = float(resume["t_mom"])
+            if resume.get("v_max") is not None:
+                v_max = float(resume["v_max"])
         self.hysteresis = {"dt": dt, "dt_min": dt_min, "step_count": step_count,
-                           "step_last_sync": step_last_sync, "t_mom": t_mom}
+                           "step_last_sync": step_last_sync, "t_mom": t_mom,
+                           "v_max": v_max}
         while t < t_end - 1e-12 * abs(t_end):
             if step_count and (step_count - step_last_sync) >= ts.DT_PERIOD:
                 # period boundary: full limiter refresh, Δt may increase
@@ -405,11 +415,16 @@ class Simulation:
             self.stats["steps"] += 1
             self.hysteresis = {"dt": dt, "dt_min": dt_min,
                                "step_count": step_count,
-                               "step_last_sync": step_last_sync, "t_mom": t_mom}
+                               "step_last_sync": step_last_sync, "t_mom": t_mom,
+                               "v_max": v_max}
+            if callback is not None:
+                callback(lambda st=state: st, t, a, step_count)
             if step_count >= max_steps:
                 raise RuntimeError("max_steps exceeded")
         # the closing half kick synchronises the momenta at t_end
         if t_mom < t_end - 1e-12 * abs(t_end):
             int_a1 = bg.integrals_np(t_mom, t_end, keys=("a**(-1)",))["a**(-1)"]
             state = self.step(state, int_a1, 0.0)
+        # the next segment refreshes v_max at its start, as this one did
+        self.hysteresis.update(t_mom=t_end, v_max=None)
         return state, a

@@ -50,17 +50,23 @@ def test_normal_noise_matches_jax(seed):
     np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-7)
 
 
-def test_realize_particles_matches_jax():
+@functools.lru_cache(maxsize=1)
+def _cosmologies():
+    """The port's and the JAX package's linear cosmology, built once for
+    the module (their growth and transfer tables take ~0.5 s a pair)."""
     h = 0.67
     H0 = 100 * h * units.km / (units.s * units.Mpc)
-    box = 64 * units.Mpc / h
-    N = 16**3
     prim = dict(A_s=2.1e-9, n_s=0.96, pivot=0.05 / units.Mpc)
     args = (0.049, 0.27, constants.light_speed, units.Mpc)
-    lin = LinearCosmology(Background(H0=H0, Omega_m=0.319),
-                          PrimordialSpectrum(**prim), *args)
-    lin_j = JaxLinear(JaxBackground(H0=H0, Omega_m=0.319), JaxPrim(**prim),
-                      *args)
+    return (LinearCosmology(Background(H0=H0, Omega_m=0.319), PrimordialSpectrum(**prim),
+                            *args),
+            JaxLinear(JaxBackground(H0=H0, Omega_m=0.319), JaxPrim(**prim), *args))
+
+
+def test_realize_particles_matches_jax():
+    box = 64 * units.Mpc / 0.67
+    N = 16**3
+    lin, lin_j = _cosmologies()
     mass = 1.0e10 * units.m_sun
     got = realize_particles(lin, ComponentSpec("matter", "matter", N=N, mass=mass),
                             box, 0.02, seed=3, with_ids=True)
@@ -76,19 +82,6 @@ def test_realize_particles_matches_jax():
     with pytest.raises(NotImplementedError, match="LPT order 4"):
         realize_particles(lin, ComponentSpec("matter", "matter", N=N, mass=mass),
                           box, 0.02, lpt_order=4)
-
-
-@functools.lru_cache(maxsize=1)
-def _cosmologies():
-    """The port's and the JAX package's linear cosmology, built once for
-    the module (their growth and transfer tables take ~0.5 s a pair)."""
-    h = 0.67
-    H0 = 100 * h * units.km / (units.s * units.Mpc)
-    prim = dict(A_s=2.1e-9, n_s=0.96, pivot=0.05 / units.Mpc)
-    args = (0.049, 0.27, constants.light_speed, units.Mpc)
-    return (LinearCosmology(Background(H0=H0, Omega_m=0.319), PrimordialSpectrum(**prim),
-                            *args),
-            JaxLinear(JaxBackground(H0=H0, Omega_m=0.319), JaxPrim(**prim), *args))
 
 
 # (N, options): every LPT order, both noise schemes, the three lattices
