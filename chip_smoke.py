@@ -133,8 +133,32 @@ Then the run's files, at the realistic size of the main path:
     ``cli.main`` on the card; the bispectrum at grid 512 alone.  Every run
     launches rows 1, 3 and 4 only.
 
+Then float64 (``enable_float64 = True``: every kernel's double
+instantiation) and PP gravity:
+
+7a. Rows 1-11 in double against their float64 plain versions at the
+    shapes of 2, 2b, 2c and 2e (states realized in float64), within 1e-10
+    of the largest plain value; bounds at the FP64 rate (34 TFLOP/s) and
+    with 8-byte values; the library calls in float64.
+7b. example_basic in float64 through ``load_params`` and ``run`` with
+    rungs, with ``N_rungs = 1``, with PM gravity and at 62³ / grid 124:
+    each launches its rows in double and no float kernel, passes the
+    checks of 3 and writes a finite spectrum, printed beside the float32
+    run's evolution seconds; then the float64 and the float32 rung run
+    with the 'distributed' noise (one draw in both dtypes): their spectra's
+    largest relative difference below a quarter of the Nyquist frequency.
+    Then global rungs (5b) in float64, and 256³ / grid 512 for 5 base
+    steps (ms per base step, peak memory) in float64.
+7c. PP gravity (``select_forces = {'all': {'gravity': 'pp'}}``) at
+    example_basic's box and cosmology with 32³ particles in float64 to an
+    early output time (no kernel: PP is plain PyTorch); one PP kick timed
+    (pairs a second); one P³M kick (rows 6, 8, 9 in double) against one
+    PP + Ewald kick on a realized 32³ state and on a clustered one (a 32³
+    float64 rung run to a = 1), rms under 0.05.
+
 Before its last line it prints one JSON object ``{"kernels": [...]}`` and
-the card's name and power limit as nvidia-smi reports them; the last line
+the card's name and power limit as nvidia-smi reports them (each kernel
+with its double instantiation's numbers under ``f64_*``); the last line
 is ``{"ok": true, "device": {...}}``.  Without CUDA it exits with 2 and
 prints no result.
 """
@@ -154,15 +178,22 @@ from types import SimpleNamespace
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PARAM = os.path.join(ROOT, "param", "example_basic.py")
 
-# Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and FP32
-# outside the tensor cores.
+# Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and FP32
+# and FP64 outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+FP64_FLOPS = 34e12
 # Pair-sweep operation count: the distance test of a supplier row (3 sub,
 # 1 mul, 2 FMA) and the force of a pair inside the cutoff (rsqrt, the
 # degree-10 Horner screening, the force factor and 3 FMA accumulations).
+# The double kernel evaluates the exact screening instead: erfc (~25
+# operations in CUDA's libdevice) and exp (~15) besides the rest.
 FLOPS_PER_TESTED_PAIR = 8
 FLOPS_PER_PAIR_IN_CUTOFF = 40
+FLOPS_PER_PAIR_IN_CUTOFF_F64 = 80
+# The float64 kernels' check: max |Δ| within 1e-10 of the largest plain
+# value (atomics and summation order in double).
+F64_TOL = 1e-10
 
 
 def _sync():
@@ -218,11 +249,23 @@ def _counters():
 
 def _reset_counts():
     for fn in _counters().values():
-        fn.launches = 0
+        fn.launches = fn.launches_f64 = 0
 
 
 def _read_counts() -> dict:
+    """The float kernels' launch counts."""
     return {name: fn.launches for name, fn in _counters().items()}
+
+
+def _read_counts_f64() -> dict:
+    """The double kernels' launch counts."""
+    return {name: fn.launches_f64 for name, fn in _counters().items()}
+
+
+def _fp_peak(dtype) -> float:
+    import torch
+
+    return FP64_FLOPS if dtype == torch.float64 else FP32_FLOPS
 
 
 # --------------------------------------------------------------------- #
@@ -255,10 +298,14 @@ def _example(n: int, mesh: int, extra=()):
     return cfg, consts, bg, lin, spec, softening_length(cfg, spec, mesh)
 
 
-def _realized_layout(N: int, mesh: int, device: str, unified_cb: int | None = None):
+def _realized_layout(N: int, mesh: int, device: str, unified_cb: int | None = None,
+                     dtype=None):
     """A realized example_basic state at N particles on the mesh-`mesh`
     rung layout (the device's choice, or the unified layout with cells
-    `unified_cb` mesh cells wide): (adapter, RungState)."""
+    `unified_cb` mesh cells wide), in float32 or ``dtype``: (adapter,
+    RungState)."""
+    import torch
+
     from concept_tpu_torch.p3mrungs import P3MRungSimulation, RungSimulationAdapter
     from concept_tpu_torch.device import resolve_device
     from concept_tpu_torch.sim import SimConfig
@@ -267,7 +314,7 @@ def _realized_layout(N: int, mesh: int, device: str, unified_cb: int | None = No
     cfg, consts, bg, lin, spec, soft = _example(n, mesh)
     dev = resolve_device(device)
     config = SimConfig(boxsize=cfg.boxsize, potential_gridsize=mesh, device=dev,
-                       G=consts.G_Newton, softening=soft,
+                       dtype=dtype or torch.float32, G=consts.G_Newton, softening=soft,
                        softening_kernel=cfg.softening_kernel)
     adapter = RungSimulationAdapter(spec, config, bg, lin, N_rungs=cfg.N_rungs)
     if unified_cb is not None:
@@ -346,17 +393,19 @@ def _check_sweep(tag: str, pos_s, sim, bounds, reps: int, plain_reps: int,
     The bound counts the work the function needs on these slots (see
     _pair_work), which row bounds do not change; the row pairs the launch
     visits are Σ_c rb[c]·Σ_d sb[c + d].  Fails on a disagreement beyond
-    max|Δ|/max|ref| ≤ 1e-5."""
+    max|Δ|/max|ref| ≤ 1e-5, or in float64 (the double kernel) 1e-10."""
     import torch
 
     from concept_tpu_torch.forces.cuda_shortrange import (
         OFFSETS_27, column_bounds, pair_sweep, pair_sweep_plain, pair_sweep_reach,
         pair_sweep_subset,
     )
-    from concept_tpu_torch.forces.shortrange import SENTINEL, f32_square, sweep_reach
+    from concept_tpu_torch.forces.shortrange import SENTINEL, dtype_square, sweep_reach
 
-    args = (sim.nc, sim.boxsize, sim.scale, f32_square(sim.cutoff),
-            f32_square(sim.softening), sim.softening_kernel)
+    dtype = pos_s.dtype
+    f64 = dtype == torch.float64
+    args = (sim.nc, sim.boxsize, sim.scale, dtype_square(sim.cutoff, dtype),
+            dtype_square(sim.softening, dtype), sim.softening_kernel)
     offsets = OFFSETS_27 if reach in (None, "subset") else sim.offsets
     if reach in (None, "subset"):
         def kern():
@@ -394,7 +443,8 @@ def _check_sweep(tag: str, pos_s, sim, bounds, reps: int, plain_reps: int,
     got, ref = kern(), plain()
     _sync()
     err, rel = _max_rel(got, ref)
-    ok = rel <= 1e-5
+    tol = F64_TOL if f64 else 1e-5
+    ok = rel <= tol
     del got, ref
     ms, plain_ms = _time_ms(kern, reps), _time_ms(plain, plain_reps)
     _, K, C = pos_s.shape
@@ -403,14 +453,16 @@ def _check_sweep(tag: str, pos_s, sim, bounds, reps: int, plain_reps: int,
     visited = _visited(rb, sb, sim.nc, offsets)
     tested, within, near, n_valid = _pair_work(pos_s, sim.nc, sim.boxsize, args[3], args[4],
                                                offsets)
-    flops = FLOPS_PER_TESTED_PAIR * tested + FLOPS_PER_PAIR_IN_CUTOFF * within
+    flops = FLOPS_PER_TESTED_PAIR * tested + (
+        FLOPS_PER_PAIR_IN_CUTOFF_F64 if f64 else FLOPS_PER_PAIR_IN_CUTOFF) * within
     # valid positions read, the whole (3, K, C) result written, bounds read
-    nbytes = 4 * (3 * n_valid + pos_s.numel()) + sum(
+    nbytes = pos_s.element_size() * (3 * n_valid + pos_s.numel()) + sum(
         4 * e.numel() for e in bounds if e is not None)
-    bound_ms = 1e3 * max(flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S)
+    peak = _fp_peak(dtype)
+    bound_ms = 1e3 * max(flops / peak, nbytes / HBM_BYTES_PER_S)
     name = {None: "pair_sweep", "subset": "pair_sweep_subset"}.get(reach, "reach sweep")
-    print(f"  {name} ({tag}): max |Δ| {err:.3e}, max|Δ|/max|ref| {rel:.3e} "
-          f"(tol 1e-5) {'ok' if ok else 'FAIL'}; {ms:.3f} ms, plain {plain_ms:.1f} ms, "
+    print(f"  {name} ({tag}{', float64' if f64 else ''}): max |Δ| {err:.3e}, max|Δ|/max|ref| "
+          f"{rel:.3e} (tol {tol:g}) {'ok' if ok else 'FAIL'}; {ms:.3f} ms, plain {plain_ms:.1f} ms, "
           f"bound {bound_ms:.3f} ms; {tested} pair tests needed ({n_valid} valid "
           f"slots), {within} in the cutoff, {near} in the spline near field; the "
           f"launch visits {visited} row pairs (deepest receiver bound {int(rb.max())}, "
@@ -418,8 +470,8 @@ def _check_sweep(tag: str, pos_s, sim, bounds, reps: int, plain_reps: int,
     if not ok:
         raise SystemExit(f"{name} ({tag}) disagrees with its plain version")
     return dict(
-        max_abs_err=err, max_rel_err=rel, tol_rel=1e-5, ms=ms, plain_ms=plain_ms,
-        bound_ms=bound_ms, bound_by="operations" if flops / FP32_FLOPS >
+        max_abs_err=err, max_rel_err=rel, tol_rel=tol, ms=ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by="operations" if flops / peak >
         nbytes / HBM_BYTES_PER_S else "bytes", flops=flops, bytes=nbytes,
         pairs_tested=tested, pairs_in_cutoff=within, pairs_near_field=near,
         valid_slots=n_valid, row_pairs_visited=visited, K_rows=K,
@@ -451,7 +503,7 @@ def _deposit_library(pos, w, mesh: int, box: float, cb: int = 8, zmajor: bool = 
     keep = q != 0
     idx, vals = zip(*((i[keep], (wt * q)[keep]) for i, wt in cic_corners(anchors, fracs, mesh)))
     idx, vals = torch.cat(idx), torch.cat(vals)
-    return lambda: torch.zeros(mesh**3, device=pos.device).index_add_(
+    return lambda: torch.zeros(mesh**3, dtype=vals.dtype, device=pos.device).index_add_(
         0, idx, vals).reshape(mesh, mesh, mesh)
 
 
@@ -485,12 +537,12 @@ def _gather_library(pos, wv, grids, mesh: int, box: float, cb: int = 8,
     return call, mask
 
 
-def check_kernels(N: int = 128**3, mesh: int = 256, device: str = "cuda") -> dict:
+def check_kernels(N: int = 128**3, mesh: int = 256, device: str = "cuda", dtype=None) -> dict:
     """Each kernel against its plain version at the shapes of a realized
-    N-particle state on the mesh-`mesh` layout."""
+    N-particle state on the mesh-`mesh` layout (float32, or ``dtype``)."""
     from concept_tpu_torch.forces.shortrange import SENTINEL
 
-    adapter, state = _realized_layout(N, mesh, device)
+    adapter, state = _realized_layout(N, mesh, device, dtype=dtype)
     sim = adapter.inner
     K = sim._K_occ
     nc, box = sim.nc, sim.boxsize
@@ -499,12 +551,13 @@ def check_kernels(N: int = 128**3, mesh: int = 256, device: str = "cuda") -> dic
     pos_s = _sentineled(state, K, SENTINEL * box)
     ext = sim._ext_occ
     print(f"kernels vs plain: {N} particles, mesh {mesh}, {nc}³ cells, "
-          f"{K} slot rows (capacity {sim.capacity})")
+          f"{K} slot rows (capacity {sim.capacity}), {pos.dtype}")
     out = {"shape": {"N": N, "mesh": mesh, "nc": nc, "K_rows": K}}
 
     # A: the pair sweep, with the occupancy bounds and without bounds
     for tag, bounds in (("bounded", (ext, ext)), ("unbounded", (None, None))):
-        out[f"pair_sweep_{tag}"] = _check_sweep(tag, pos_s, sim, bounds, 10, 2)
+        out[f"pair_sweep_{tag}"] = _check_sweep(tag, pos_s, sim, bounds, 10,
+                                                1 if dtype else 2)
 
     # B, C: the CIC deposit of w = mass·valid and the gather of the three
     # PM force components
@@ -515,7 +568,7 @@ def check_kernels(N: int = 128**3, mesh: int = 256, device: str = "cuda") -> dic
 def _check_pm_kernels(names, pos, valid, mass: float, G: float, scale: float | None,
                       mesh: int, box: float, cb: int, zmajor: bool,
                       dep, dep_plain, gat, gat_plain, nbytes=None, libraries=None,
-                      D=3) -> dict:
+                      D=3, dtype=None) -> dict:
     """A CIC deposit kernel and its gather twin against their plain
     versions on the slots pos (3, K, C) of columns cb mesh cells wide
     (x-major or z-major ids): the deposit of w = mass·valid, then the
@@ -528,16 +581,22 @@ def _check_pm_kernels(names, pos, valid, mass: float, G: float, scale: float | N
     position-based defaults.  ``D`` may be a tuple of widths: the gather
     is checked at each, under ``names[1]`` for the first and
     ``names[1]_D<width>`` for the others.  Fails on a disagreement beyond
-    rtol 2e-5, atol 1e-5·max|ref|."""
+    rtol 2e-5, atol 1e-5·max|ref|, or in float64 (``dtype``, the double
+    kernels) beyond max|Δ| ≤ 1e-10·max|ref|."""
     import torch
 
     from concept_tpu_torch.forces.pm import gravity_potential_slab
     from concept_tpu_torch.grid import fourier
     from concept_tpu_torch.grid.fft import irfft3, rfft3
 
+    f64 = dtype == torch.float64
+    b = 8 if f64 else 4  # bytes of a position, weight or mesh value
+    tol = "max|Δ| ≤ 1e-10·max|ref|" if f64 else "rtol 2e-5, atol 1e-5·max|ref|"
+
     def compare(name, got, ref):
         err, rel = _max_rel(got, ref)
-        ok = bool(torch.allclose(got, ref, rtol=2e-5, atol=1e-5 * float(ref.abs().max())))
+        ok = (rel <= F64_TOL if f64 else
+              bool(torch.allclose(got, ref, rtol=2e-5, atol=1e-5 * float(ref.abs().max()))))
         print(f"  {name}: max |Δ| {err:.3e} ({rel:.3e} of max) {'ok' if ok else 'FAIL'}",
               end="; ")
         if not ok:
@@ -547,23 +606,23 @@ def _check_pm_kernels(names, pos, valid, mass: float, G: float, scale: float | N
 
     out = {}
     n_valid = int(valid.sum())
-    w = (valid.to(torch.float32) * mass).contiguous()
+    w = (valid.to(dtype or torch.float32) * mass).contiguous()
     got, ref = dep(w), dep_plain(w)
     _sync()
     err, rel = compare(names[0], got, ref)
     ms = _time_ms(lambda: dep(w), 20)
     plain_ms = _time_ms(lambda: dep_plain(w), 2)
     # w read in full, valid slots' positions read, the mesh written
-    dep_bytes = nbytes[0] if nbytes else 4 * (w.numel() + 3 * n_valid + mesh**3)
+    dep_bytes = nbytes[0] if nbytes else b * (w.numel() + 3 * n_valid + mesh**3)
     flops = 60 * n_valid  # geometry (~12) + 8 corners × (weight, product, add)
-    bound_ms = 1e3 * max(dep_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS)
+    bound_ms = 1e3 * max(dep_bytes / HBM_BYTES_PER_S, flops / _fp_peak(w.dtype))
     library = (libraries[0](w) if libraries
                else _deposit_library(pos, w, mesh, box, cb, zmajor))
     _, lib_rel = _max_rel(library(), ref)
     library_ms = _time_ms(library, 20)
     del library
     out[names[0]] = dict(
-        max_abs_err=err, max_rel_err=rel, tol="rtol 2e-5, atol 1e-5·max|ref|", ms=ms,
+        max_abs_err=err, max_rel_err=rel, tol=tol, ms=ms,
         plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes", bytes=dep_bytes, flops=flops,
         mass_sum=float(got.sum(dtype=torch.float64)), mass_expected=n_valid * mass,
         library_ms=library_ms, library="index_add_ of precomputed corners",
@@ -577,7 +636,7 @@ def _check_pm_kernels(names, pos, valid, mass: float, G: float, scale: float | N
     all_grads = torch.stack([irfft3(fourier.fourier_diff(phi, mesh, box, d), mesh)
                              for d in range(max(widths))])
     del slab, phi, got, ref
-    wv = valid.to(torch.float32).contiguous()
+    wv = valid.to(w.dtype).contiguous()
     for k, width in enumerate(widths):
         grads = all_grads[:width].contiguous()
         name = names[1] if k == 0 else f"{names[1]}_D{width}"
@@ -586,17 +645,17 @@ def _check_pm_kernels(names, pos, valid, mass: float, G: float, scale: float | N
         err, rel = compare(f"{names[1]} (D = {width})", got, ref)
         ms = _time_ms(lambda: gat(wv, grads), 20)
         plain_ms = _time_ms(lambda: gat_plain(wv, grads), 2)
-        gat_bytes = nbytes[1](width) if nbytes else 4 * (
+        gat_bytes = nbytes[1](width) if nbytes else b * (
             wv.numel() + 3 * n_valid + grads.numel() + got.numel())
         flops = (12 + width * 8 * 3) * n_valid
-        bound_ms = 1e3 * max(gat_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS)
+        bound_ms = 1e3 * max(gat_bytes / HBM_BYTES_PER_S, flops / _fp_peak(w.dtype))
         library, mask = (libraries[1](wv, grads) if libraries
                          else _gather_library(pos, wv, grads, mesh, box, cb, zmajor))
         _, lib_rel = _max_rel(library() * mask, ref)
         library_ms = _time_ms(library, 20)
         del library, mask, got, ref
         out[name] = dict(
-            max_abs_err=err, max_rel_err=rel, tol="rtol 2e-5, atol 1e-5·max|ref|", ms=ms,
+            max_abs_err=err, max_rel_err=rel, tol=tol, ms=ms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes", bytes=gat_bytes,
             flops=flops, D=width, library_ms=library_ms,
             library="grid_sample on the periodically padded grids",
@@ -606,15 +665,19 @@ def _check_pm_kernels(names, pos, valid, mass: float, G: float, scale: float | N
     return out
 
 
-def _global_sim(N: int, mesh: int, device: str):
+def _global_sim(N: int, mesh: int, device: str, dtype=None, method: str = "p3m"):
     """A global-stepper Simulation of example_basic at N particles on
-    grid `mesh` (``N_rungs = 1``), and its realized initial state."""
+    grid `mesh` (``N_rungs = 1``; gravity ``method``), in float32 or
+    ``dtype``, and its realized initial state."""
+    import torch
+
     from concept_tpu_torch.device import resolve_device
     from concept_tpu_torch.sim import SimConfig, Simulation
 
     cfg, consts, bg, lin, spec, soft = _example(round(N ** (1 / 3)), mesh, ("N_rungs=1",))
     config = SimConfig(boxsize=cfg.boxsize, potential_gridsize=mesh,
-                       device=resolve_device(device), G=consts.G_Newton, softening=soft,
+                       device=resolve_device(device), dtype=dtype or torch.float32,
+                       G=consts.G_Newton, softening=soft, method=method,
                        softening_kernel=cfg.softening_kernel)
     sim = Simulation(spec, config, bg, lin)
     return sim, sim.initial_state(cfg.a_begin, seed=0)
@@ -644,12 +707,14 @@ def _global_sweep_slots(sim, pos):
     return slots, pos.shape[0] - int(b["valid"].sum())
 
 
-def check_global_kernels(N: int = 128**3, mesh: int = 256, device: str = "cuda") -> dict:
+def check_global_kernels(N: int = 128**3, mesh: int = 256, device: str = "cuda",
+                         dtype=None) -> dict:
     """The global stepper's kernels against their plain versions at the
     shapes of a realized N-particle state on grid `mesh`: the two-sided
     sweep on the short-range slots, the deposit and gather on the PM
-    blocks."""
-    sim, flat = _global_sim(N, mesh, device)
+    blocks.  In float64 (``dtype``) also row 2, the one-sided sweep of
+    ``pair_sweep_subset``, on the same slots."""
+    sim, flat = _global_sim(N, mesh, device, dtype)
     box = sim.config.boxsize
     slots, n_over = _global_sweep_slots(sim, flat.pos)
     K = slots.shape[1]
@@ -659,7 +724,10 @@ def check_global_kernels(N: int = 128**3, mesh: int = 256, device: str = "cuda")
     out = {"shape": {"N": N, "mesh": mesh, "nc": sim._sr_ncells, "K_rows": K,
                      "stragglers": n_over, "nb": mesh // 2, "k_pm": sim._k_pm}}
     out["pair_sweep_two_sided"] = _check_sweep("two-sided", slots, _sweep_geometry(sim),
-                                               (None, None), 10, 2)
+                                               (None, None), 10, 1 if dtype else 2)
+    if dtype is not None:
+        out["subset_sweep"] = _check_sweep("one-sided", slots, _sweep_geometry(sim),
+                                           (None, None), 10, 1, reach="subset")
     del slots
     pos, valid, ext = _global_pm_slots(sim, flat.pos)
     out.update(_check_slot_pm("PM blocks", pos, valid, sim.spec.mass, sim.config.G,
@@ -667,7 +735,8 @@ def check_global_kernels(N: int = 128**3, mesh: int = 256, device: str = "cuda")
     return out
 
 
-def check_reach_kernels(N: int = 128**3, mesh: int = 256, device: str = "cuda") -> dict:
+def check_reach_kernels(N: int = 128**3, mesh: int = 256, device: str = "cuda",
+                        dtype=None) -> dict:
     """The 4-mesh-cell layout's kernels against their plain versions at
     the shapes of a realized N-particle state on mesh `mesh` with
     ``unified_cb = 4``: the reach sweep one-sided with per-column
@@ -675,7 +744,7 @@ def check_reach_kernels(N: int = 128**3, mesh: int = 256, device: str = "cuda") 
     gather at cb = 4."""
     from concept_tpu_torch.forces.shortrange import SENTINEL
 
-    adapter, state = _realized_layout(N, mesh, device, unified_cb=4)
+    adapter, state = _realized_layout(N, mesh, device, unified_cb=4, dtype=dtype)
     sim = adapter.inner
     K = sim._K_occ
     nc, box = sim.nc, sim.boxsize
@@ -731,10 +800,11 @@ def _check_slot_pm(tag: str, pos, valid, mass: float, G: float, scale, mesh: int
     if ext is not None:
         # with extents the kernels read the extents and the live rows' w
         live = int(valid.sum())
-        nbytes = (4 * (C + 4 * live + mesh**3),
-                  lambda D: 4 * (C + 4 * live + D * mesh**3 + D * K * C))
+        b = pos.element_size()
+        nbytes = (4 * C + b * (4 * live + mesh**3),
+                  lambda D: 4 * C + b * (4 * live + D * mesh**3 + D * K * C))
     out = _check_pm_kernels(kernels[:2], pos, valid, mass, G, scale, mesh, box, cb, cb == 2,
-                            *kernels[2:], nbytes=nbytes, D=D)
+                            *kernels[2:], nbytes=nbytes, D=D, dtype=pos.dtype)
     out["slots"] = {"K_rows": K, "columns": C, "cb": cb, "live": int(valid.sum())}
     return out
 
@@ -786,7 +856,7 @@ def _pm_only_libraries(sb, mesh: int):
     def deposit_library(w):
         idx, vals = zip(*((i, wt * w) for i, wt in cic_corners(anchors, fracs, mesh)))
         idx, vals = torch.cat(idx), torch.cat(vals)
-        return lambda: torch.zeros(mesh**3, device=w.device).index_add_(
+        return lambda: torch.zeros(mesh**3, dtype=vals.dtype, device=w.device).index_add_(
             0, idx, vals).reshape(mesh, mesh, mesh)
 
     def gather_library(wv, grids):
@@ -812,7 +882,8 @@ def _check_pm_buckets(pos, mass: float, G: float, mesh: int, box: float) -> dict
     the kick gathered in the padded-slot design).  The bounds count each
     input read once and each output written once: 20 bytes in a particle
     (lidx, fx, fy, fz, q) and the mesh written (deposit); 16 bytes in and
-    4·D out a particle and the D meshes read (gather)."""
+    4·D out a particle and the D meshes read (gather); in float64 the
+    fractions, weights and meshes take 8 bytes a value."""
     import torch
 
     from concept_tpu_torch.grid.bucketed import sort_blocks
@@ -822,6 +893,7 @@ def _check_pm_buckets(pos, mass: float, G: float, mesh: int, box: float) -> dict
 
     N = pos.shape[0]
     sb = sort_blocks(pos, mesh, box)
+    b = pos.element_size()
     deepest = int(sb["counts"].max())
     print(f"  {N} particles, mesh {mesh}, {mesh // 2}³ blocks, deepest block {deepest}")
     out = {"shape": {"N": N, "mesh": mesh, "nb": mesh // 2, "deepest_block": deepest}}
@@ -834,15 +906,17 @@ def _check_pm_buckets(pos, mass: float, G: float, mesh: int, box: float) -> dict
         lambda w: deposit_pm_plain(*args, w, *blocks, mesh),
         lambda wv, g: gather_pm(*args, *blocks, g, mesh),
         lambda wv, g: gather_pm_plain(*args, *blocks, g, mesh),
-        nbytes=(20 * N + 4 * mesh**3, lambda D: 16 * N + 4 * D * N + 4 * D * mesh**3),
-        libraries=_pm_only_libraries(sb, mesh), D=(3, 1)))
+        nbytes=((4 + 4 * b) * N + b * mesh**3,
+                lambda D: (4 + 3 * b) * N + b * D * N + b * D * mesh**3),
+        libraries=_pm_only_libraries(sb, mesh), D=(3, 1), dtype=pos.dtype))
     return out
 
 
-def check_pm_only_kernels(N: int = 256**3, mesh: int = 256, device: str = "cuda") -> dict:
+def check_pm_only_kernels(N: int = 256**3, mesh: int = 256, device: str = "cuda",
+                          dtype=None) -> dict:
     """Rows 10 and 11 against their plain versions at the shapes of a
     realized N-particle state on PM grid `mesh`."""
-    sim, flat = _global_sim(N, mesh, device)
+    sim, flat = _global_sim(N, mesh, device, dtype)
     print("PM-only block kernels vs plain, realized state:")
     return _check_pm_buckets(flat.pos, sim.spec.mass, sim.config.G, mesh,
                              sim.config.boxsize)
@@ -858,24 +932,28 @@ PM_ONLY = "select_forces={'all': {'gravity': 'pm'}}"
 
 
 def _run(overrides: list, outdir: str, kernels=RUNG_KERNELS, device: str = "cuda",
-         param: str = PARAM):
+         param: str = PARAM, f64: bool = False, spectrum: dict | None = None):
     """load_params + run on the card, as the CLI does; returns
     (sim, final state, a, launch counts, host seconds).  Fails unless each
     of ``kernels`` launched and no other kernel did, when a budget was
     exceeded or when the deposit lost more than half a particle's mass at
-    any step."""
+    any step.  With ``f64`` the run is ``enable_float64 = True``: its
+    state must be float64 and ``kernels`` must launch in double only (the
+    counts returned are the double kernels').  ``spectrum`` receives the
+    last power spectrum's columns under "data"."""
     import torch
 
     from concept_tpu_torch.param import load_params
     from concept_tpu_torch.run import run
 
-    cfg = load_params(param, overrides=overrides + [f"output_dirs='{outdir}'"])
+    cfg = load_params(param, overrides=overrides + ["enable_float64=True"] * f64
+                      + [f"output_dirs='{outdir}'"])
     _reset_counts()
     t0 = time.time()
     sim, state, a = run(cfg, device=device)
     _sync()
     seconds = time.time() - t0
-    counts = _read_counts()
+    counts, counts64 = _read_counts(), _read_counts_f64()
     files = [f for f in os.listdir(outdir) if f.startswith("powerspec")]
     if not files:
         raise SystemExit(f"no power spectrum written to {outdir}")
@@ -884,6 +962,8 @@ def _run(overrides: list, outdir: str, kernels=RUNG_KERNELS, device: str = "cuda
     data = np.loadtxt(os.path.join(outdir, sorted(files)[-1]))
     if data.ndim != 2 or not np.all(np.isfinite(data[:, :3])):
         raise SystemExit("the power spectrum is not finite")
+    if spectrum is not None:
+        spectrum["data"] = data
     if not torch.isfinite(state.pos).all() or not torch.isfinite(state.mom).all():
         raise SystemExit("the final state is not finite")
     stats = getattr(sim, "inner", sim).stats
@@ -894,6 +974,13 @@ def _run(overrides: list, outdir: str, kernels=RUNG_KERNELS, device: str = "cuda
     if stats["pm_mass_deficit_max"] > 0.5:
         raise SystemExit(f"the PM deposit lost {stats['pm_mass_deficit_max']:.3g} "
                          "particle masses at a step")
+    if f64:
+        if state.pos.dtype != torch.float64:
+            raise SystemExit(f"an enable_float64 run ended in {state.pos.dtype}")
+        _check_launches(counts, ())
+        _check_launches(counts64, kernels)
+        return sim, state, a, counts64, seconds
+    _check_launches(counts64, ())
     _check_launches(counts, kernels)
     return sim, state, a, counts, seconds
 
@@ -994,9 +1081,10 @@ def _layout_main_path(tag: str, n: int, mesh: int, ucb: int, kernels) -> dict:
 
 
 def realistic(a_end: float = 0.023, n: int = 256, mesh: int = 512, ucb: int = 8,
-              kernels=RUNG_KERNELS) -> dict:
+              kernels=RUNG_KERNELS, f64: bool = False) -> dict:
     """The realistic size of a rung layout: n³ particles on grid `mesh`
-    (example_basic's widths) to an early output time."""
+    (example_basic's widths) to an early output time (in float64 with
+    ``f64``)."""
     import torch
 
     torch.cuda.reset_peak_memory_stats()
@@ -1005,7 +1093,7 @@ def realistic(a_end: float = 0.023, n: int = 256, mesh: int = 512, ucb: int = 8,
         sim, _, a, counts, seconds = _run([
             f"initial_conditions={{'species':'matter','N':{n}**3}}",
             f"potential_options={mesh}",
-            f"output_times={{'powerspec': [{a_end}]}}"], outdir, kernels)
+            f"output_times={{'powerspec': [{a_end}]}}"], outdir, kernels, f64=f64)
     finally:
         shutil.rmtree(outdir, ignore_errors=True)
     if sim.inner.ucb != ucb:
@@ -1017,7 +1105,8 @@ def realistic(a_end: float = 0.023, n: int = 256, mesh: int = 512, ucb: int = 8,
     ev = sim.timings["evolve_s"]
     peak = torch.cuda.max_memory_allocated()
     st = sim.inner.stats
-    print(f"realistic ({n}³, grid {mesh}, {sim.inner.nc}³ cells, ucb = {ucb}, a 0.02 → "
+    print(f"realistic ({n}³, grid {mesh}, {sim.inner.nc}³ cells, ucb = {ucb}"
+          f"{', float64' if f64 else ''}, a 0.02 → "
           f"{a:.4g}): {steps} base steps, "
           f"{st['substeps']} substeps, {1e3 * ev / steps:.1f} ms per base step, "
           f"{N * steps / ev:.4g} particle updates/s, peak device memory "
@@ -1499,7 +1588,7 @@ def p3m_persistent(n: int = 256, mesh: int = 512, a_end: float = 0.025,
 
 
 def global_rungs(n: int = 64, mesh: int = 128, extra_steps: int = 2,
-                 device: str = "cuda") -> dict:
+                 device: str = "cuda", dtype=None) -> dict:
     """``rungs.evolve_rungs_p3m`` on example_basic (n³, grid `mesh`, its
     N_rungs) from 2LPT initial conditions at a = 0.02, one base step a
     call, until a particle takes a rung above 0 and then `extra_steps`
@@ -1508,7 +1597,8 @@ def global_rungs(n: int = 64, mesh: int = 128, extra_steps: int = 2,
     from the two-sided sweep (row 6), the substeps through
     ``on_subset`` (row 2's ``pair_sweep_subset``).  Then row 2 against
     its plain version on the last substep's receiver set (every particle:
-    the last substep fires rung 0)."""
+    the last substep fires rung 0).  In float64 (``dtype``) the same rows
+    must launch in double only."""
     import torch
 
     from concept_tpu_torch.device import resolve_device
@@ -1518,7 +1608,8 @@ def global_rungs(n: int = 64, mesh: int = 128, extra_steps: int = 2,
 
     cfg, consts, bg, lin, spec, soft = _example(n, mesh)
     config = SimConfig(boxsize=cfg.boxsize, potential_gridsize=mesh,
-                       device=resolve_device(device), G=consts.G_Newton, softening=soft,
+                       device=resolve_device(device), dtype=dtype or torch.float32,
+                       G=consts.G_Newton, softening=soft,
                        softening_kernel=cfg.softening_kernel)
     sim = Simulation(spec, config, bg, lin)
     state = sim.initial_state(cfg.a_begin, seed=0, lpt_order=2)
@@ -1536,11 +1627,17 @@ def global_rungs(n: int = 64, mesh: int = 128, extra_steps: int = 2,
         left -= stats["max_rung"] > 0
     _sync()
     seconds = time.perf_counter() - t0
-    counts = _read_counts()
+    counts, counts64 = _read_counts(), _read_counts_f64()
+    if dtype == torch.float64:
+        _check_launches(counts, ())
+        counts = counts64
+    else:
+        _check_launches(counts64, ())
     _check_launches(counts, RUNGS_GLOBAL_KERNELS)
     if not torch.isfinite(state.pos).all() or not torch.isfinite(state.mom).all():
         raise SystemExit("the global-rungs state is not finite")
-    print(f"global rungs (example_basic, {n}³, grid {mesh}, 2LPT, a {cfg.a_begin} → "
+    print(f"global rungs (example_basic, {n}³, grid {mesh}, 2LPT, {state.pos.dtype}, "
+          f"a {cfg.a_begin} → "
           f"{a:.4g} in {calls} base steps, N_rungs {cfg.N_rungs}): {seconds:.2f} s, "
           f"max rung {stats['max_rung']}, "
           f"receiver rows {stats['receiver_rows']} of {stats['full_rows']} "
@@ -2023,6 +2120,199 @@ def files(n: int = 256, mesh: int = 512, a_end: float = 0.023, device: str = "cu
         shutil.rmtree(root, ignore_errors=True)
     return out
 
+# --------------------------------------------------------------------- #
+# float64 (enable_float64) and PP gravity
+
+def check_f64() -> dict:
+    """Each of rows 1-11 in double against its float64 plain version, at
+    the float check's shapes (realized 128³ states on grid 256: the
+    8-mesh-cell and 4-mesh-cell rung layouts, the global stepper's slots
+    and blocks, and 256³ sorted by PM block on grid 256), within 1e-10 of
+    the largest plain value, with bounds at the FP64 rate and 8-byte
+    values, and the library calls in float64."""
+    import torch
+
+    f64 = torch.float64
+    print("float64: each kernel's double instantiation against its float64 plain version")
+    return {"rungs": check_kernels(dtype=f64), "global": check_global_kernels(dtype=f64),
+            "reach": check_reach_kernels(dtype=f64), "pm_only": check_pm_only_kernels(dtype=f64)}
+
+
+def _pk_rel(pk64, pk32, mesh: int) -> float:
+    """Largest |P64/P32 − 1| at k below a quarter of the Nyquist
+    frequency (k_f·mesh/8, k_f the first bin's k)."""
+    import numpy as np
+
+    a, b = np.asarray(pk64), np.asarray(pk32)
+    sel = a[:, 0] < a[:, 0].min() * mesh / 8
+    return float(np.max(np.abs(a[sel, 2] / b[sel, 2] - 1)))
+
+
+# (tag, overrides, kernels, float32 phase with its evolution seconds)
+F64_PATHS = (
+    ("rungs", [], RUNG_KERNELS, "main_path"),
+    ("global", ["N_rungs=1"], GLOBAL_KERNELS, "global_main_path"),
+    ("pm_only", [PM_ONLY], PM_KERNELS, "pm_only_main_path"),
+    ("reach", ["initial_conditions={'species':'matter','N':62**3}", "potential_options=124"],
+     REACH_KERNELS, "reach_main_path"),
+)
+
+
+def f64_main_paths(results: dict) -> dict:
+    """example_basic with ``enable_float64 = True`` through load_params and
+    run, a = 0.02 → 1: with rungs (64³, grid 128: rows 1, 3, 4), with
+    N_rungs = 1 (rows 6, 8, 9), with PM gravity (rows 10, 11) and at 62³ /
+    grid 124 (the 4-mesh-cell layout: rows 5, 3, 4).  Each must launch its
+    rows in double and no float kernel, pass the mass-deficit and budget
+    checks and write a finite spectrum; beside it the float32 run's
+    evolution seconds.  The 'simple' noise of a float64 run is its own
+    draw (float64 normals, as the JAX package draws them under x64), so
+    the spectra are compared on a pair of rung runs, float32 and float64,
+    with the 'distributed' noise, whose uniforms are float32 in both: the
+    largest relative difference below a quarter of the Nyquist
+    frequency."""
+    out = {}
+    for tag, over, kernels, ref in F64_PATHS:
+        outdir = tempfile.mkdtemp(prefix=f"chip_smoke_f64_{tag}_")
+        try:
+            sim, state, a, counts, seconds = _run(over, outdir, kernels, f64=True)
+        finally:
+            shutil.rmtree(outdir, ignore_errors=True)
+        steps = sim.hysteresis.get("step_count", 0)
+        st = getattr(sim, "inner", sim).stats
+        ev, ev32 = sim.timings["evolve_s"], results[ref]["evolve_s"]
+        print(f"float64 {tag} path (example_basic{', ' + ', '.join(over) if over else ''}, "
+              f"a 0.02 → {a:.4g}): {steps} steps, evolution {ev:.2f} s against float32's "
+              f"{ev32:.2f} s ({ev / ev32:.2f}×), largest deposit deficit "
+              f"{st['pm_mass_deficit_max']:.3g} particle masses; double launches {counts}")
+        out[tag] = {"a_end": a, "steps": steps, "wall_s": seconds, "evolve_s": ev,
+                    "evolve_s_f32": ev32, "launches": counts,
+                    "pm_mass_deficit_max": st["pm_mass_deficit_max"],
+                    "budget_warnings": st["budget_warnings"]}
+    spectra = {}
+    for f64 in (False, True):
+        outdir = tempfile.mkdtemp(prefix="chip_smoke_f64_noise_")
+        spectra[f64] = {}
+        try:
+            _run(["primordial_noise_imprinting='distributed'"], outdir, f64=f64,
+                 spectrum=spectra[f64])
+        finally:
+            shutil.rmtree(outdir, ignore_errors=True)
+    rel = _pk_rel(spectra[True]["data"], spectra[False]["data"], 128)
+    print(f"float64 against float32 (example_basic with rungs, 'distributed' noise, a = 1): "
+          f"spectra within {rel:.3e} below a quarter of the Nyquist frequency")
+    out["pk_max_rel_f64_vs_f32"] = rel
+    return out
+
+
+def _kick_of(sim, pos):
+    """One kick of the global stepper ``sim`` at unit kick integral on
+    positions pos with zero momenta (P³M: its short-range capacity
+    refreshed first, as ``evolve`` does, and no overflow budget exceeded):
+    the Δmom (N, 3)."""
+    import torch
+
+    from concept_tpu_torch.components import ParticleState
+
+    state = sim.kick(ParticleState(pos=pos.clone(), mom=torch.zeros_like(pos)), 1.0)
+    if sim.stats["budget_warnings"]:
+        raise SystemExit("an overflow budget was exceeded in a P³M kick")
+    return state.mom
+
+
+def _p3m_vs_pp(tag: str, pos, p3m, pp) -> dict:
+    """The global P³M kick (rows 6, 8, 9 in double) against the PP + Ewald
+    kick on the same positions: rms of the difference over the rms of PP
+    (the JAX package's test bound, 0.05)."""
+    import torch
+
+    _reset_counts()
+    d_p3m = _kick_of(p3m, pos)
+    _sync()
+    _check_launches(_read_counts(), ())
+    _check_launches(_read_counts_f64(), GLOBAL_KERNELS)
+    _reset_counts()
+    d_pp = _kick_of(pp, pos)
+    _sync()
+    _check_launches(_read_counts_f64(), ())
+    rms = float(torch.sqrt(((d_p3m - d_pp) ** 2).mean()) / torch.sqrt((d_pp**2).mean()))
+    print(f"  P³M kick against PP + Ewald ({tag}, {pos.shape[0]} particles, float64): rms "
+          f"difference {rms:.4e} of the PP rms (bound 0.05)")
+    if not rms < 0.05:
+        raise SystemExit(f"P³M against PP ({tag}): rms {rms:.4e} ≥ 0.05")
+    return {"rms_rel": rms}
+
+
+def pp_phase(n: int = 32, a_end: float = 0.023, device: str = "cuda") -> dict:
+    """PP gravity ('pp', Ewald gridsize 64) through load_params and run at
+    example_basic's box and cosmology with n³ particles in float64, a =
+    0.02 → a_end (≥ 3 steps, no kernel: PP is plain PyTorch in the port,
+    as it is XLA in the JAX package); one PP kick on its final state
+    timed (pairs a second, every ordered pair counted); then one P³M kick
+    (grid 2n, rows 6, 8, 9 in double) against one PP kick on a realized
+    n³ state and on a clustered one (an n³ rung run in float64 to a = 1,
+    rows 1, 3, 4 in double)."""
+    import torch
+
+    from concept_tpu_torch.forces.ewald import tabulate_ewald_correction
+    from concept_tpu_torch.forces.pp import pp_momentum_updates
+
+    cache = tempfile.mkdtemp(prefix="chip_smoke_ewald_")
+    old = os.environ.get("CONCEPT_TPU_CACHE")
+    os.environ["CONCEPT_TPU_CACHE"] = cache
+    outdir = tempfile.mkdtemp(prefix="chip_smoke_pp_")
+    try:
+        # the Ewald table (gridsize 64, float64 on the card), tabulated
+        # into the empty cache; the run reads it from there
+        t0 = time.perf_counter()
+        tabulate_ewald_correction(64, device)
+        _sync()
+        table_s = time.perf_counter() - t0
+        sim, state, a, counts, seconds = _run([
+            f"initial_conditions={{'species':'matter','N':{n}**3}}",
+            "select_forces={'all': {'gravity': 'pp'}}",
+            f"output_times={{'powerspec': [{a_end}]}}"], outdir, (), device, f64=True)
+        shutil.rmtree(outdir, ignore_errors=True)
+        steps = sim.stats["steps"]
+        if steps < 3:
+            raise SystemExit(f"the PP run took {steps} steps (< 3)")
+        cfg = sim.config
+        N = sim.spec.N
+
+        def kick():
+            return pp_momentum_updates(state.pos, sim.spec.mass, cfg.boxsize, 1.0, cfg.G,
+                                       softening=cfg.softening, ewald_table=sim._ewald_table,
+                                       softening_kernel=cfg.softening_kernel)
+
+        torch.cuda.reset_peak_memory_stats()
+        ms = _time_ms(kick, 3)
+        peak = torch.cuda.max_memory_allocated()
+        ev = sim.timings["evolve_s"]
+        print(f"PP (example_basic, {n}³, gravity pp, float64, a 0.02 → {a:.4g}): {steps} "
+              f"steps, {1e3 * ev / steps:.1f} ms per step; one PP kick {ms:.1f} ms "
+              f"({N * N / (ms / 1e3):.4g} pairs/s, {N * N} ordered pairs), peak device memory "
+              f"{peak / 2**30:.2f} GiB; the Ewald table (65³ points) tabulated in "
+              f"{table_s:.2f} s")
+        out = {"a_end": a, "steps": steps, "evolve_s": ev, "ms_per_step": 1e3 * ev / steps,
+               "kick_ms": ms, "pairs_per_s": N * N / (ms / 1e3), "kick_peak_bytes": peak,
+               "ewald_table_s": table_s}
+        p3m, flat = _global_sim(N, 2 * n, device, torch.float64)
+        pp, _ = _global_sim(N, n, device, torch.float64, method="pp")
+        out["realized"] = _p3m_vs_pp("realized at a = 0.02", flat.pos, p3m, pp)
+        outdir = tempfile.mkdtemp(prefix="chip_smoke_pp_clustered_")
+        _, late, a_late, _, _ = _run([f"initial_conditions={{'species':'matter','N':{n}**3}}",
+                                      f"potential_options={2 * n}"], outdir, RUNG_KERNELS,
+                                     device, f64=True)
+        out["clustered"] = _p3m_vs_pp(f"clustered, a = {a_late:.3g}", late.pos, p3m, pp)
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+        shutil.rmtree(cache, ignore_errors=True)
+        if old is None:
+            os.environ.pop("CONCEPT_TPU_CACHE", None)
+        else:
+            os.environ["CONCEPT_TPU_CACHE"] = old
+    return out
+
 
 # (name, counter, phase with its check, key, source, the TPU kernel's
 # definition, the newest path that launches the kernel (its launch count)
@@ -2093,6 +2383,11 @@ def main(argv=None) -> int:
     results["lean_kick"] = lean_kick()
     results["lpt"] = lpt()
     results["files"] = files()
+    results["check_f64"] = check_f64()
+    results["f64_paths"] = f64_main_paths(results)
+    results["f64_global_rungs"] = global_rungs(dtype=torch.float64)
+    results["f64_realistic"] = realistic(f64=True)
+    results["pp"] = pp_phase()
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
@@ -2184,6 +2479,31 @@ def main(argv=None) -> int:
     byname["deposit_blocks"].update(
         bucket_launches=results["bucket_sustained"]["launches"]["deposit_blocks"],
         flagship_device_ms_per_step=results["bucket_flagship"]["device_ms_per_step_by_group"])
+    # the double instantiations: their float64 check, and their launches
+    # on the float64 path that runs them (0 for row 7, which none does)
+    f64p = results["f64_paths"]
+    for name, (group, key, launches) in {
+            "pair_sweep": ("rungs", "pair_sweep_bounded", f64p["rungs"]["launches"]["pair_sweep"]),
+            "pair_sweep_subset": ("global", "subset_sweep",
+                                  results["f64_global_rungs"]["launches"]["pair_sweep_subset"]),
+            "deposit_cells": ("rungs", "deposit_cells", f64p["rungs"]["launches"]["deposit_cells"]),
+            "gather_cells": ("rungs", "gather_cells", f64p["rungs"]["launches"]["gather_cells"]),
+            "pair_sweep_reach": ("reach", "reach_one_sided",
+                                 f64p["reach"]["launches"]["pair_sweep_reach"]),
+            "pair_sweep_two_sided": ("global", "pair_sweep_two_sided",
+                                     f64p["global"]["launches"]["pair_sweep"]),
+            "sweep_reach": ("reach", "reach_two_sided_unbounded",
+                            f64p["reach"]["launches"]["sweep_reach"]),
+            "deposit_blocks": ("global", "deposit_blocks",
+                               f64p["global"]["launches"]["deposit_blocks"]),
+            "gather_blocks": ("global", "gather_blocks", f64p["global"]["launches"]["gather_blocks"]),
+            "deposit_pm": ("pm_only", "deposit_pm", f64p["pm_only"]["launches"]["deposit_pm"]),
+            "gather_pm": ("pm_only", "gather_pm", f64p["pm_only"]["launches"]["gather_pm"]),
+    }.items():
+        c = results["check_f64"][group][key]
+        byname[name].update({f"f64_{k}": c.get(k) for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+        byname[name]["f64_launches"] = launches
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -89,3 +89,30 @@ def check(err: int, what: str):
     """Raise on a nonzero cudaError_t returned by a launch function."""
     if err != 0:
         raise RuntimeError(f"CUDA launch of {what} failed: cudaError_t {err}")
+
+
+def scalar_dtype(what: str, *tensors):
+    """The one floating dtype of a launch's tensors: float32 (the float
+    kernels) or float64 (their double twins); raises on anything else and
+    on a mix, on the CPU too, where the plain versions run."""
+    import torch
+
+    dtypes = {t.dtype for t in tensors}
+    if len(dtypes) != 1:
+        raise TypeError(f"{what}: mixed dtypes {sorted(map(str, dtypes))}; every "
+                        "floating input of a launch must have one dtype")
+    (dtype,) = dtypes
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{what}: {dtype} inputs; the kernels take float32 or float64")
+    return dtype
+
+
+def count_launch(fn, dtype):
+    """Add one to the wrapper's launch count: ``fn.launches`` for a float
+    kernel, ``fn.launches_f64`` for a double one."""
+    import torch
+
+    if dtype == torch.float64:
+        fn.launches_f64 += 1
+    else:
+        fn.launches += 1

@@ -67,7 +67,7 @@ def make_parser():
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where to run (default: the CUDA card)")
     p.add_argument("--float64", action="store_true",
-                   help="float64 end to end (CPU only; same as enable_float64 = True)")
+                   help="float64 end to end (same as enable_float64 = True)")
     p.add_argument("--version", action="store_true")
     p.add_argument("--submit", action="store_true",
                    help="write a Slurm/TORQUE-PBS batch script under job/<id>/jobscript "

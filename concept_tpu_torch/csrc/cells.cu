@@ -67,32 +67,98 @@
 // the tiled gather was slower on the cells (staging a halo for few live
 // slots).  Measured beside the alternatives: PERF.md §6,
 // scripts/cells_variants.py.
+//
+// Every kernel is a template on the scalar type, instantiated for float
+// and double (the _f64 launch functions).  The double kernels keep the
+// float tiles: their shared halos take twice the bytes (the largest, the
+// blocks' gather at D = 3, 82 KB of the 227 KB), the round-to-nearest
+// intrinsics are the double ones (__dmul_rn, __dadd_rn, __dsub_rn), so a
+// slot on a cell edge takes the plain version's cell, and a halo flushes
+// by a scalar atomicAdd(double*) a nonzero cell, as there are no vector
+// atomics of doubles; cp.async moves a double quad as two 16-byte copies.
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 constexpr int kThreads = 256;
 
+// The scalar type's round-to-nearest arithmetic (unfused) and floor.
+template <typename T>
+struct Num;
+
+template <>
+struct Num<float> {
+  static __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+  static __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+  static __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+  static __device__ __forceinline__ float floor(float a) { return floorf(a); }
+};
+
+template <>
+struct Num<double> {
+  static __device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
+  static __device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
+  static __device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
+  static __device__ __forceinline__ double floor(double a) { return ::floor(a); }
+};
+
+// The dynamic shared memory as the scalar type's halo (one name a type).
+__device__ __forceinline__ float* shared_halo(float*) {
+  extern __shared__ float halo_f[];
+  return halo_f;
+}
+__device__ __forceinline__ double* shared_halo(double*) {
+  extern __shared__ double halo_d[];
+  return halo_d;
+}
+
+// Flush four halo cells (a 16-byte aligned row piece) to the mesh: one
+// vector atomic in float, a scalar atomic a nonzero cell in double.
+__device__ __forceinline__ void flush_quad(float* grid, const float* halo) {
+  const float4 v = *reinterpret_cast<const float4*>(halo);
+  if (v.x != 0.0f || v.y != 0.0f || v.z != 0.0f || v.w != 0.0f)
+    atomicAdd(reinterpret_cast<float4*>(grid), v);
+}
+__device__ __forceinline__ void flush_quad(double* grid, const double* halo) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (halo[i] != 0.0) atomicAdd(grid + i, halo[i]);
+}
+
+// Asynchronous copies of one cell and of four (16 bytes at a time).
+template <typename T>
+__device__ __forceinline__ void copy_cell(T* dst, const T* src) {
+  __pipeline_memcpy_async(dst, src, sizeof(T));
+}
+template <typename T>
+__device__ __forceinline__ void copy_quad(T* dst, const T* src) {
+  constexpr int kStep = 16 / sizeof(T);
+#pragma unroll
+  for (int i = 0; i < 4; i += kStep) __pipeline_memcpy_async(dst + i, src + i, 16);
+}
+
+template <typename T>
 struct Geometry {
   int ix, iy, iz;  // anchor mesh indices (unwrapped, ≥ −1)
-  float fx, fy, fz;
+  T fx, fy, fz;
   bool in_halo;
 };
 
-__device__ __forceinline__ Geometry cell_geometry(float px, float py, float pz,
-                                                  int c, int nc, int cb,
-                                                  bool zmajor, float inv_h) {
+template <typename T>
+__device__ __forceinline__ Geometry<T> cell_geometry(T px, T py, T pz, int c, int nc, int cb,
+                                                     bool zmajor, T inv_h) {
   // round-to-nearest intrinsics keep u = p·inv_h − ½ unfused, as the
   // reference and the plain version form it, so the halo test agrees
+  using N = Num<T>;
   const int fast = c % nc, cy = (c / nc) % nc, slow = c / (nc * nc);
   const int cx = zmajor ? fast : slow, cz = zmajor ? slow : fast;
-  Geometry g;
-  const float ux = __fadd_rn(__fmul_rn(px, inv_h), -0.5f);
-  const float uy = __fadd_rn(__fmul_rn(py, inv_h), -0.5f);
-  const float uz = __fadd_rn(__fmul_rn(pz, inv_h), -0.5f);
-  const float ax = floorf(ux), ay = floorf(uy), az = floorf(uz);
-  g.fx = __fsub_rn(ux, ax);
-  g.fy = __fsub_rn(uy, ay);
-  g.fz = __fsub_rn(uz, az);
+  Geometry<T> g;
+  const T ux = N::add(N::mul(px, inv_h), T(-0.5));
+  const T uy = N::add(N::mul(py, inv_h), T(-0.5));
+  const T uz = N::add(N::mul(pz, inv_h), T(-0.5));
+  const T ax = N::floor(ux), ay = N::floor(uy), az = N::floor(uz);
+  g.fx = N::sub(ux, ax);
+  g.fy = N::sub(uy, ay);
+  g.fz = N::sub(uz, az);
   g.ix = (int)ax;
   g.iy = (int)ay;
   g.iz = (int)az;
@@ -171,15 +237,16 @@ struct SlotTile {
   // The halo-tile index of the CIC anchor of a slot of this thread's
   // column at (px, py, pz), its fractions in f; −1 if the anchor leaves
   // the column's halo.  The arithmetic is cell_geometry's.
-  __device__ __forceinline__ int anchor(float px, float py, float pz, float inv_h,
-                                        float f[3]) const {
-    const float ux = __fadd_rn(__fmul_rn(px, inv_h), -0.5f);
-    const float uy = __fadd_rn(__fmul_rn(py, inv_h), -0.5f);
-    const float uz = __fadd_rn(__fmul_rn(pz, inv_h), -0.5f);
-    const float ax = floorf(ux), ay = floorf(uy), az = floorf(uz);
-    f[0] = __fsub_rn(ux, ax);
-    f[1] = __fsub_rn(uy, ay);
-    f[2] = __fsub_rn(uz, az);
+  template <typename T>
+  __device__ __forceinline__ int anchor(T px, T py, T pz, T inv_h, T f[3]) const {
+    using N = Num<T>;
+    const T ux = N::add(N::mul(px, inv_h), T(-0.5));
+    const T uy = N::add(N::mul(py, inv_h), T(-0.5));
+    const T uz = N::add(N::mul(pz, inv_h), T(-0.5));
+    const T ax = N::floor(ux), ay = N::floor(uy), az = N::floor(uz);
+    f[0] = N::sub(ux, ax);
+    f[1] = N::sub(uy, ay);
+    f[2] = N::sub(uz, az);
     const int lx = ((int)ax - (cx0 + lcx) * CB + 1 + n) % n;
     const int ly = ((int)ay - (cy0 + lcy) * CB + 1 + n) % n;
     const int lz = ((int)az - (cz0 + lcz) * CB + 1 + n) % n;
@@ -226,57 +293,57 @@ struct SlotTile {
 
   // Read this thread's SLOTS weights of chunk blockIdx.y (0 past the
   // column's rows or its extent); returns the row bound of its column.
-  template <int SLOTS>
-  __device__ __forceinline__ int weights(const float* __restrict__ w, int K,
-                                         const int* __restrict__ ext, float q[SLOTS]) const {
+  template <int SLOTS, typename T>
+  __device__ __forceinline__ int weights(const T* __restrict__ w, int K,
+                                         const int* __restrict__ ext, T q[SLOTS]) const {
     const int kend = !inside ? 0 : (ext ? min(K, ext[c]) : K);
     const long long C = (long long)nc * nc * nc;
     const int r0 = blockIdx.y * (SLOTS * kRowStep) + row;
 #pragma unroll
     for (int s = 0; s < SLOTS; ++s) {
       const int r = r0 + s * kRowStep;
-      q[s] = r < kend ? w[r * C + c] : 0.0f;
+      q[s] = r < kend ? w[r * C + c] : T(0);
     }
     return inside ? K : 0;
   }
 };
 
-template <int CB, bool ZMAJOR, bool QUADS, int TS, int TM, int TF, int SLOTS>
+template <typename T, int CB, bool ZMAJOR, bool QUADS, int TS, int TM, int TF, int SLOTS>
 __global__ void __launch_bounds__(kThreads)
-deposit_tile_kernel(const float* __restrict__ px, const float* __restrict__ py,
-                    const float* __restrict__ pz, const float* __restrict__ w, int K, int nc,
-                    float inv_h, const int* __restrict__ ext, bool vec,
-                    float* __restrict__ grid) {
-  using T = SlotTile<CB, ZMAJOR, QUADS, TS, TM, TF>;
-  extern __shared__ float halo[];  // kCells
-  const T tile(nc);
-  float q[SLOTS];
+deposit_tile_kernel(const T* __restrict__ px, const T* __restrict__ py,
+                    const T* __restrict__ pz, const T* __restrict__ w, int K, int nc,
+                    T inv_h, const int* __restrict__ ext, bool vec,
+                    T* __restrict__ grid) {
+  using Tile = SlotTile<CB, ZMAJOR, QUADS, TS, TM, TF>;
+  T* halo = shared_halo(static_cast<T*>(nullptr));  // kCells
+  const Tile tile(nc);
+  T q[SLOTS];
   tile.template weights<SLOTS>(w, K, ext, q);
   bool live = false;
 #pragma unroll
-  for (int s = 0; s < SLOTS; ++s) live |= q[s] != 0.0f;
+  for (int s = 0; s < SLOTS; ++s) live |= q[s] != T(0);
   if (!__syncthreads_or(live)) return;
-  for (int s = threadIdx.x; s < T::kCells; s += kThreads) halo[s] = 0.0f;
+  for (int s = threadIdx.x; s < Tile::kCells; s += kThreads) halo[s] = T(0);
   __syncthreads();
   const long long C = (long long)nc * nc * nc;
-  const int r0 = blockIdx.y * (SLOTS * T::kRowStep) + tile.row;
+  const int r0 = blockIdx.y * (SLOTS * Tile::kRowStep) + tile.row;
 #pragma unroll
   for (int s = 0; s < SLOTS; ++s) {
-    if (q[s] == 0.0f) continue;
-    const long long i = (r0 + s * T::kRowStep) * C + tile.c;
-    float f[3];
+    if (q[s] == T(0)) continue;
+    const long long i = (r0 + s * Tile::kRowStep) * C + tile.c;
+    T f[3];
     const int a = tile.anchor(px[i], py[i], pz[i], inv_h, f);
     if (a < 0) continue;
 #pragma unroll
     for (int cx = 0; cx < 2; ++cx) {
-      const float wx = cx ? f[0] : 1.0f - f[0];
+      const T wx = cx ? f[0] : T(1) - f[0];
 #pragma unroll
       for (int cy = 0; cy < 2; ++cy) {
-        const float wy = cy ? f[1] : 1.0f - f[1];
+        const T wy = cy ? f[1] : T(1) - f[1];
 #pragma unroll
         for (int cz = 0; cz < 2; ++cz) {
-          const float wz = cz ? f[2] : 1.0f - f[2];
-          atomicAdd(halo + a + T::corner(cx, cy, cz), (wx * wy * wz) * q[s]);
+          const T wz = cz ? f[2] : T(1) - f[2];
+          atomicAdd(halo + a + Tile::corner(cx, cy, cz), (wx * wy * wz) * q[s]);
         }
       }
     }
@@ -285,37 +352,33 @@ deposit_tile_kernel(const float* __restrict__ px, const float* __restrict__ py,
   tile.for_halo(
       vec,
       [&](int s, long long g) {
-        if (halo[s] != 0.0f) atomicAdd(grid + g, halo[s]);
+        if (halo[s] != T(0)) atomicAdd(grid + g, halo[s]);
       },
-      [&](int s, long long g) {
-        const float4 v = *reinterpret_cast<const float4*>(halo + s);
-        if (v.x != 0.0f || v.y != 0.0f || v.z != 0.0f || v.w != 0.0f)
-          atomicAdd(reinterpret_cast<float4*>(grid + g), v);
-      });
+      [&](int s, long long g) { flush_quad(grid + g, halo + s); });
 }
 
-template <int CB, bool ZMAJOR, bool QUADS, int TS, int TM, int TF, int SLOTS>
+template <typename T, int CB, bool ZMAJOR, bool QUADS, int TS, int TM, int TF, int SLOTS>
 __global__ void __launch_bounds__(kThreads)
-gather_tile_kernel(const float* __restrict__ px, const float* __restrict__ py,
-                   const float* __restrict__ pz, const float* __restrict__ w, int K, int nc,
-                   float inv_h, const int* __restrict__ ext, bool vec,
-                   const float* __restrict__ grids, int D, float* __restrict__ out) {
-  using T = SlotTile<CB, ZMAJOR, QUADS, TS, TM, TF>;
-  extern __shared__ float halo[];  // D × kCells
-  const T tile(nc);
-  float q[SLOTS];
+gather_tile_kernel(const T* __restrict__ px, const T* __restrict__ py,
+                   const T* __restrict__ pz, const T* __restrict__ w, int K, int nc,
+                   T inv_h, const int* __restrict__ ext, bool vec,
+                   const T* __restrict__ grids, int D, T* __restrict__ out) {
+  using Tile = SlotTile<CB, ZMAJOR, QUADS, TS, TM, TF>;
+  T* halo = shared_halo(static_cast<T*>(nullptr));  // D × kCells
+  const Tile tile(nc);
+  T q[SLOTS];
   const int kout = tile.template weights<SLOTS>(w, K, ext, q);  // rows written
   bool live = false;
 #pragma unroll
-  for (int s = 0; s < SLOTS; ++s) live |= q[s] != 0.0f;
+  for (int s = 0; s < SLOTS; ++s) live |= q[s] != T(0);
   const long long C = (long long)nc * nc * nc, KC = K * C;
-  const int r0 = blockIdx.y * (SLOTS * T::kRowStep) + tile.row;
+  const int r0 = blockIdx.y * (SLOTS * Tile::kRowStep) + tile.row;
   if (!__syncthreads_or(live)) {
 #pragma unroll
     for (int s = 0; s < SLOTS; ++s) {
-      const int r = r0 + s * T::kRowStep;
+      const int r = r0 + s * Tile::kRowStep;
       if (r >= kout) continue;
-      for (int d = 0; d < D; ++d) out[d * KC + r * C + tile.c] = 0.0f;
+      for (int d = 0; d < D; ++d) out[d * KC + r * C + tile.c] = T(0);
     }
     return;
   }
@@ -326,56 +389,54 @@ gather_tile_kernel(const float* __restrict__ px, const float* __restrict__ py,
   tile.for_halo(
       vec,
       [&](int s, long long g) {
-        for (int d = 0; d < D; ++d)
-          __pipeline_memcpy_async(halo + d * T::kCells + s, grids + d * n3 + g, 4);
+        for (int d = 0; d < D; ++d) copy_cell(halo + d * Tile::kCells + s, grids + d * n3 + g);
       },
       [&](int s, long long g) {
-        for (int d = 0; d < D; ++d)
-          __pipeline_memcpy_async(halo + d * T::kCells + s, grids + d * n3 + g, 16);
+        for (int d = 0; d < D; ++d) copy_quad(halo + d * Tile::kCells + s, grids + d * n3 + g);
       });
   __pipeline_commit();
   // the live slots' anchors and fractions while the halo lands
   int a[SLOTS];
-  float f[SLOTS][3];
+  T f[SLOTS][3];
 #pragma unroll
   for (int s = 0; s < SLOTS; ++s) {
     a[s] = -1;
-    if (q[s] == 0.0f) continue;
-    const long long i = (r0 + s * T::kRowStep) * C + tile.c;
+    if (q[s] == T(0)) continue;
+    const long long i = (r0 + s * Tile::kRowStep) * C + tile.c;
     a[s] = tile.anchor(px[i], py[i], pz[i], inv_h, f[s]);
   }
   __pipeline_wait_prior(0);
   __syncthreads();
 #pragma unroll
   for (int s = 0; s < SLOTS; ++s) {
-    const int r = r0 + s * T::kRowStep;
+    const int r = r0 + s * Tile::kRowStep;
     if (r >= kout) continue;
     const long long i = r * C + tile.c;
     if (a[s] < 0) {
-      for (int d = 0; d < D; ++d) out[d * KC + i] = 0.0f;
+      for (int d = 0; d < D; ++d) out[d * KC + i] = T(0);
       continue;
     }
     // the 8 corners' halo offsets and weights, shared by the D fields
     int off[8];
-    float wt[8];
+    T wt[8];
 #pragma unroll
     for (int cx = 0; cx < 2; ++cx) {
-      const float wx = cx ? f[s][0] : 1.0f - f[s][0];
+      const T wx = cx ? f[s][0] : T(1) - f[s][0];
 #pragma unroll
       for (int cy = 0; cy < 2; ++cy) {
-        const float wy = cy ? f[s][1] : 1.0f - f[s][1];
+        const T wy = cy ? f[s][1] : T(1) - f[s][1];
 #pragma unroll
         for (int cz = 0; cz < 2; ++cz) {
-          const float wz = cz ? f[s][2] : 1.0f - f[s][2];
+          const T wz = cz ? f[s][2] : T(1) - f[s][2];
           const int k = (cx * 2 + cy) * 2 + cz;
-          off[k] = a[s] + T::corner(cx, cy, cz);
+          off[k] = a[s] + Tile::corner(cx, cy, cz);
           wt[k] = (wx * wy * wz) * q[s];
         }
       }
     }
     for (int d = 0; d < D; ++d) {
-      const float* S = halo + d * T::kCells;
-      float v = 0.0f;
+      const T* S = halo + d * Tile::kCells;
+      T v = 0;
 #pragma unroll
       for (int k = 0; k < 8; ++k) v += wt[k] * S[off[k]];
       out[d * KC + i] = v;
@@ -384,41 +445,42 @@ gather_tile_kernel(const float* __restrict__ px, const float* __restrict__ py,
 }
 
 // The first design, one thread per slot: the cells' gather (row 4).
-__global__ void gather_cells_kernel(const float* __restrict__ px,
-                                    const float* __restrict__ py,
-                                    const float* __restrict__ pz,
-                                    const float* __restrict__ w, long long KC, int nc,
-                                    int cb, bool zmajor, float inv_h,
-                                    const float* __restrict__ grids, int D,
-                                    float* __restrict__ out) {
+template <typename T>
+__global__ void gather_cells_kernel(const T* __restrict__ px,
+                                    const T* __restrict__ py,
+                                    const T* __restrict__ pz,
+                                    const T* __restrict__ w, long long KC, int nc,
+                                    int cb, bool zmajor, T inv_h,
+                                    const T* __restrict__ grids, int D,
+                                    T* __restrict__ out) {
   const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (i >= KC) return;
   const int C = nc * nc * nc;
   // slots of weight 0 (invalid ones may hold the far sentinel) skip the
   // geometry and gather 0
-  float q = w[i];
-  Geometry g = {};
-  if (q != 0.0f) {
+  T q = w[i];
+  Geometry<T> g = {};
+  if (q != T(0)) {
     g = cell_geometry(px[i], py[i], pz[i], (int)(i % C), nc, cb, zmajor, inv_h);
-    if (!g.in_halo) q = 0.0f;
+    if (!g.in_halo) q = T(0);
   }
   const int n = nc * cb;
   const long long n3 = (long long)n * n * n;
   for (int dd = 0; dd < D; ++dd) {
-    float v = 0.0f;
-    if (q != 0.0f) {
-      const float* G = grids + dd * n3;
+    T v = 0;
+    if (q != T(0)) {
+      const T* G = grids + dd * n3;
 #pragma unroll
       for (int a = 0; a < 2; ++a) {
-        const float wx = a ? g.fx : 1.0f - g.fx;
+        const T wx = a ? g.fx : T(1) - g.fx;
         const long long ox = (long long)wrap(g.ix + a, n) * n;
 #pragma unroll
         for (int b = 0; b < 2; ++b) {
-          const float wy = b ? g.fy : 1.0f - g.fy;
+          const T wy = b ? g.fy : T(1) - g.fy;
           const long long oy = (ox + wrap(g.iy + b, n)) * n;
 #pragma unroll
           for (int d = 0; d < 2; ++d) {
-            const float wz = d ? g.fz : 1.0f - g.fz;
+            const T wz = d ? g.fz : T(1) - g.fz;
             v += ((wx * wy * wz) * q) * G[oy + wrap(g.iz + d, n)];
           }
         }
@@ -439,47 +501,47 @@ static int shared_bytes(Kernel kernel, size_t bytes, size_t& allowed) {
   return err;
 }
 
-template <int CB, bool ZMAJOR, bool QUADS, int TS, int TM, int TF, int SLOTS>
-static int deposit_tiles(const float* px, const float* py, const float* pz, const float* w,
-                         int K, int nc, float inv_h, const int* ext, float* grid,
-                         cudaStream_t stream) {
-  using T = SlotTile<CB, ZMAJOR, QUADS, TS, TM, TF>;
+template <typename T, int CB, bool ZMAJOR, bool QUADS, int TS, int TM, int TF, int SLOTS>
+static int deposit_tiles(const T* px, const T* py, const T* pz, const T* w, int K, int nc,
+                         T inv_h, const int* ext, T* grid, cudaStream_t stream) {
+  using Tile = SlotTile<CB, ZMAJOR, QUADS, TS, TM, TF>;
   if (K <= 0 || nc <= 0) return 0;
-  const size_t bytes = sizeof(float) * T::kCells;
-  auto kernel = deposit_tile_kernel<CB, ZMAJOR, QUADS, TS, TM, TF, SLOTS>;
+  const size_t bytes = sizeof(T) * Tile::kCells;
+  auto kernel = deposit_tile_kernel<T, CB, ZMAJOR, QUADS, TS, TM, TF, SLOTS>;
   static size_t allowed = 0;
   if (int err = shared_bytes(kernel, bytes, allowed)) return err;
-  const int rows = SLOTS * T::kRowStep;
-  const dim3 grid_dims(T::count(nc), (K + rows - 1) / rows);
+  const int rows = SLOTS * Tile::kRowStep;
+  const dim3 grid_dims(Tile::count(nc), (K + rows - 1) / rows);
   kernel<<<grid_dims, kThreads, bytes, stream>>>(px, py, pz, w, K, nc, inv_h, ext,
                                                  nc * CB % 4 == 0, grid);
   return (int)cudaGetLastError();
 }
 
-template <int CB, bool ZMAJOR, bool QUADS, int TS, int TM, int TF, int SLOTS>
-static int gather_tiles(const float* px, const float* py, const float* pz, const float* w,
-                        int K, int nc, float inv_h, const int* ext, const float* grids, int D,
-                        float* out, cudaStream_t stream) {
-  using T = SlotTile<CB, ZMAJOR, QUADS, TS, TM, TF>;
+template <typename T, int CB, bool ZMAJOR, bool QUADS, int TS, int TM, int TF, int SLOTS>
+static int gather_tiles(const T* px, const T* py, const T* pz, const T* w, int K, int nc,
+                        T inv_h, const int* ext, const T* grids, int D, T* out,
+                        cudaStream_t stream) {
+  using Tile = SlotTile<CB, ZMAJOR, QUADS, TS, TM, TF>;
   if (K <= 0 || nc <= 0) return 0;
-  const size_t bytes = sizeof(float) * D * T::kCells;
-  auto kernel = gather_tile_kernel<CB, ZMAJOR, QUADS, TS, TM, TF, SLOTS>;
+  const size_t bytes = sizeof(T) * D * Tile::kCells;
+  auto kernel = gather_tile_kernel<T, CB, ZMAJOR, QUADS, TS, TM, TF, SLOTS>;
   static size_t allowed = 0;
   if (int err = shared_bytes(kernel, bytes, allowed)) return err;
-  const int rows = SLOTS * T::kRowStep;
-  const dim3 grid_dims(T::count(nc), (K + rows - 1) / rows);
+  const int rows = SLOTS * Tile::kRowStep;
+  const dim3 grid_dims(Tile::count(nc), (K + rows - 1) / rows);
   kernel<<<grid_dims, kThreads, bytes, stream>>>(px, py, pz, w, K, nc, inv_h, ext,
                                                  nc * CB % 4 == 0, grids, D, out);
   return (int)cudaGetLastError();
 }
 
-static int gather_slots(const float* px, const float* py, const float* pz, const float* w,
-                        int K, int nc, int cb, bool zmajor, float inv_h, const float* grids,
-                        int D, float* out, cudaStream_t stream) {
+template <typename T>
+static int gather_slots(const T* px, const T* py, const T* pz, const T* w, int K, int nc,
+                        int cb, bool zmajor, T inv_h, const T* grids, int D, T* out,
+                        cudaStream_t stream) {
   const long long KC = (long long)K * nc * nc * nc;
   if (KC == 0) return 0;
   const long long blocks = (KC + kThreads - 1) / kThreads;
-  gather_cells_kernel<<<(unsigned)blocks, kThreads, 0, stream>>>(
+  gather_cells_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
       px, py, pz, w, KC, nc, cb, zmajor, inv_h, grids, D, out);
   return (int)cudaGetLastError();
 }
@@ -487,10 +549,34 @@ static int gather_slots(const float* px, const float* py, const float* pz, const
 // The tiles, chosen by scripts/cells_variants.py (PERF.md §6): cb 8 1 × 1
 // × 8 columns (8 × 8 × 64 mesh cells) and cb 4 2 × 2 × 8 (8 × 8 × 32),
 // rows by quads; the blocks 8 × 4 × 8 (16 × 8 × 16), cell by cell.  8
-// slots a thread.
+// slots a thread.  The same tiles in double.
 #define CELLS8_TILE 8, false, true, 1, 1, 8, 8
 #define CELLS4_TILE 4, false, true, 2, 2, 8, 8
 #define BLOCKS_TILE 2, true, false, 8, 4, 8, 8
+
+template <typename T>
+static int deposit(const T* px, const T* py, const T* pz, const T* w, int K, int nc, int cb,
+                   int zmajor, T inv_h, const int* ext, T* grid, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (cb == 8 && !zmajor)
+    return deposit_tiles<T, CELLS8_TILE>(px, py, pz, w, K, nc, inv_h, ext, grid, s);
+  if (cb == 4 && !zmajor)
+    return deposit_tiles<T, CELLS4_TILE>(px, py, pz, w, K, nc, inv_h, ext, grid, s);
+  if (cb == 2 && zmajor)
+    return deposit_tiles<T, BLOCKS_TILE>(px, py, pz, w, K, nc, inv_h, ext, grid, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+static int gather(const T* px, const T* py, const T* pz, const T* w, int K, int nc, int cb,
+                  int zmajor, T inv_h, const int* ext, const T* grids, int D, T* out,
+                  void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (cb == 2 && zmajor)
+    return gather_tiles<T, BLOCKS_TILE>(px, py, pz, w, K, nc, inv_h, ext, grids, D, out, s);
+  if (ext) return (int)cudaErrorInvalidValue;
+  return gather_slots<T>(px, py, pz, w, K, nc, cb, zmajor != 0, inv_h, grids, D, out, s);
+}
 
 // px, py, pz, w: (K, C) float32 with rows contiguous (row stride C);
 // ext: (C,) int32 row extents or null; grid (n, n, n) contiguous, zeroed
@@ -499,14 +585,7 @@ static int gather_slots(const float* px, const float* py, const float* pz, const
 extern "C" int cic_deposit_launch(const float* px, const float* py, const float* pz,
                                   const float* w, int K, int nc, int cb, int zmajor,
                                   float inv_h, const int* ext, float* grid, void* stream) {
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (cb == 8 && !zmajor)
-    return deposit_tiles<CELLS8_TILE>(px, py, pz, w, K, nc, inv_h, ext, grid, s);
-  if (cb == 4 && !zmajor)
-    return deposit_tiles<CELLS4_TILE>(px, py, pz, w, K, nc, inv_h, ext, grid, s);
-  if (cb == 2 && zmajor)
-    return deposit_tiles<BLOCKS_TILE>(px, py, pz, w, K, nc, inv_h, ext, grid, s);
-  return (int)cudaErrorInvalidValue;
+  return deposit<float>(px, py, pz, w, K, nc, cb, zmajor, inv_h, ext, grid, stream);
 }
 
 // grids (D, n, n, n) contiguous; out (D, K, C) contiguous, every entry
@@ -516,9 +595,19 @@ extern "C" int cic_gather_launch(const float* px, const float* py, const float* 
                                  const float* w, int K, int nc, int cb, int zmajor,
                                  float inv_h, const int* ext, const float* grids, int D,
                                  float* out, void* stream) {
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (cb == 2 && zmajor)
-    return gather_tiles<BLOCKS_TILE>(px, py, pz, w, K, nc, inv_h, ext, grids, D, out, s);
-  if (ext) return (int)cudaErrorInvalidValue;
-  return gather_slots(px, py, pz, w, K, nc, cb, zmajor != 0, inv_h, grids, D, out, s);
+  return gather<float>(px, py, pz, w, K, nc, cb, zmajor, inv_h, ext, grids, D, out, stream);
+}
+
+// The same two in double: every position, weight and mesh array float64.
+extern "C" int cic_deposit_launch_f64(const double* px, const double* py, const double* pz,
+                                      const double* w, int K, int nc, int cb, int zmajor,
+                                      double inv_h, const int* ext, double* grid, void* stream) {
+  return deposit<double>(px, py, pz, w, K, nc, cb, zmajor, inv_h, ext, grid, stream);
+}
+
+extern "C" int cic_gather_launch_f64(const double* px, const double* py, const double* pz,
+                                     const double* w, int K, int nc, int cb, int zmajor,
+                                     double inv_h, const int* ext, const double* grids, int D,
+                                     double* out, void* stream) {
+  return gather<double>(px, py, pz, w, K, nc, cb, zmajor, inv_h, ext, grids, D, out, stream);
 }

@@ -62,7 +62,19 @@
 // r² is formed unfused, in the plain version's order: the force jumps at
 // the cutoff, so the kernel and the plain version must take the same
 // pairs.
+//
+// Both kernels are templates on the scalar type, instantiated for float
+// and double (the _f64 launch function).  The double kernels evaluate
+// the screening exactly, erfc and exp as the float64 plain version does,
+// where the float ones take the degree-10 fit; they stage 32-byte rows
+// (two shared loads a test), and the reach kernel's double instantiation
+// asks for 4 resident blocks, not 8, so that its registers need not
+// spill.  Its staged rows (4 warps × 256 rows × 32 bytes) and queues
+// take 38.5 KB of static shared memory, under the 48 KB limit.  In
+// double the sweep is bound by FP64 operations (half the FP32 rate).
 #include <cuda_runtime.h>
+
+#include <cmath>
 
 #define NCOEF 11
 #define U_MAX 21.16f  // (4.6)², the fit range of the screening polynomial
@@ -73,6 +85,42 @@ struct GCoef {
 
 enum { KERNEL_PLUMMER = 0, KERNEL_SPLINE = 1, KERNEL_NONE = 2 };
 
+// The scalar type's staged row (x, y, z and a pad, one 16-byte load in
+// float), its NaN and its round-to-nearest product and sum.
+template <typename T>
+struct Num;
+
+template <>
+struct Num<float> {
+  using Row = float4;
+  static __device__ __forceinline__ float4 row(float x, float y, float z) {
+    return make_float4(x, y, z, 0.0f);
+  }
+  static __device__ __forceinline__ float nan() { return __int_as_float(0x7fffffff); }
+  static __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+  static __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+};
+
+template <>
+struct Num<double> {
+  struct __align__(16) Row {
+    double x, y, z, w;
+  };
+  static __device__ __forceinline__ Row row(double x, double y, double z) {
+    Row r;
+    r.x = x;
+    r.y = y;
+    r.z = z;
+    r.w = 0.0;
+    return r;
+  }
+  static __device__ __forceinline__ double nan() {
+    return __longlong_as_double(0x7fffffffffffffffLL);
+  }
+  static __device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
+  static __device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
+};
+
 __device__ __forceinline__ float screening_g(float u, const GCoef& gc) {
   // g(u) = (S(√u) − 1)/√u, u clamped into the fit (keeps sentinels finite)
   const float t = fminf(2.0f * u / U_MAX - 1.0f, 1.0f);
@@ -82,14 +130,15 @@ __device__ __forceinline__ float screening_g(float u, const GCoef& gc) {
   return g;
 }
 
+template <typename T>
 struct ForceLaw {
   int kernel;
-  float inv_scale, inv_scale2, h2, inv_h;
-  float soft2;
+  T inv_scale, inv_scale2, h2, inv_h;
+  T soft2;
 };
 
 // −S(r/rₛ)·r⁻³_soft for a pair inside the cutoff (_make_accum)
-__device__ __forceinline__ float pair_factor(float r2, const ForceLaw& L,
+__device__ __forceinline__ float pair_factor(float r2, const ForceLaw<float>& L,
                                              const GCoef& gc) {
   if (L.kernel == KERNEL_PLUMMER) {
     const float r2s = r2 + L.soft2;
@@ -117,10 +166,31 @@ __device__ __forceinline__ float pair_factor(float r2, const ForceLaw& L,
   return f;
 }
 
+// The same in double with the exact screening S(x) = erfc(x/2) +
+// x/√π·e^(−x²/4), in the float64 plain version's form: S at the softened
+// r for 'plummer', else S·r⁻³_soft (the GADGET-2 spline below h).
+__device__ __forceinline__ double pair_factor(double r2, const ForceLaw<double>& L,
+                                              const GCoef&) {
+  const double r2s = L.kernel == KERNEL_PLUMMER ? r2 + L.soft2 : fmax(r2, 1e-30);
+  const double inv_r = rsqrt(r2s);
+  const double r = r2s * inv_r;
+  const double x = r * L.inv_scale;
+  const double S = erfc(0.5 * x) + x * 0.56418958354775628695 * exp(-0.25 * x * x);
+  double r3 = inv_r * inv_r * inv_r;
+  if (L.kernel == KERNEL_SPLINE && r2 < L.h2) {
+    const double u = r * L.inv_h;
+    r3 = u < 0.5 ? 32.0 * L.inv_h * L.inv_h * L.inv_h * (1.0 / 3.0 + u * u * (-6.0 / 5.0 + u))
+                 : (32.0 / 3.0) * r3 *
+                       (u * u * u * (2.0 + u * (-4.5 + u * (3.6 - u))) - 3.0 / 480.0);
+  }
+  return -S * r3;
+}
+
 // unfused, in the plain version's order
-__device__ __forceinline__ float dist2(float dx, float dy, float dz) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                   __fmul_rn(dz, dz));
+template <typename T>
+__device__ __forceinline__ T dist2(T dx, T dy, T dz) {
+  using N = Num<T>;
+  return N::add(N::add(N::mul(dx, dx), N::mul(dy, dy)), N::mul(dz, dz));
 }
 
 #define THREADS 256      // ±1 kernel: receiver rows per pass, at most
@@ -136,46 +206,51 @@ struct Offsets {
   signed char d[3 * MAX_OFFSETS];  // (di, dj, dk) triples
 };
 
+template <typename T>
 struct Geometry {
-  const float* sup;
+  const T* sup;
   long long sup_cs, C;
   int K_s, n;
   const int* sb;
-  float boxsize;
+  T boxsize;
 };
 
 // Column id and ±box shift of the neighbour c + d of column (ci, cj, ck).
-__device__ __forceinline__ int neighbour(const Geometry& G, int ci, int cj,
+template <typename T>
+__device__ __forceinline__ int neighbour(const Geometry<T>& G, int ci, int cj,
                                          int ck, const signed char* d,
-                                         float& hx, float& hy, float& hz) {
+                                         T& hx, T& hy, T& hz) {
   const int n = G.n;
   int ni = ci + d[0], nj = cj + d[1], nk = ck + d[2];
-  hx = ni < 0 ? -G.boxsize : (ni >= n ? G.boxsize : 0.0f);
-  hy = nj < 0 ? -G.boxsize : (nj >= n ? G.boxsize : 0.0f);
-  hz = nk < 0 ? -G.boxsize : (nk >= n ? G.boxsize : 0.0f);
+  hx = ni < 0 ? -G.boxsize : (ni >= n ? G.boxsize : T(0));
+  hy = nj < 0 ? -G.boxsize : (nj >= n ? G.boxsize : T(0));
+  hz = nk < 0 ? -G.boxsize : (nk >= n ? G.boxsize : T(0));
   ni = (ni + n) % n;
   nj = (nj + n) % n;
   nk = (nk + n) % n;
   return (ni * n + nj) * n + nk;
 }
 
-__device__ __forceinline__ void stage_row(const Geometry& G, int row, int col,
-                                          float hx, float hy, float hz,
-                                          float4* q, int at) {
+template <typename T>
+__device__ __forceinline__ void stage_row(const Geometry<T>& G, int row, int col,
+                                          T hx, T hy, T hz,
+                                          typename Num<T>::Row* q, int at) {
   const long long a = (long long)row * G.C + col;
-  q[at] = make_float4(G.sup[a] + hx, G.sup[G.sup_cs + a] + hy,
-                      G.sup[2 * G.sup_cs + a] + hz, 0.0f);
+  q[at] = Num<T>::row(G.sup[a] + hx, G.sup[G.sup_cs + a] + hy,
+                      G.sup[2 * G.sup_cs + a] + hz);
 }
 
 // A lane's receiver and its sum.  A lane without a receiver holds NaN,
 // which fails every test.
+template <typename T>
 struct Receiver {
-  float ox, oy, oz, ax, ay, az;
+  using Row = typename Num<T>::Row;
+  T ox, oy, oz, ax, ay, az;
 
-  __device__ __forceinline__ Receiver(const float* recv, long long cs,
+  __device__ __forceinline__ Receiver(const T* recv, long long cs,
                                       long long at, bool own)
-      : ax(0.0f), ay(0.0f), az(0.0f) {
-    ox = oy = oz = __int_as_float(0x7fffffff);
+      : ax(0), ay(0), az(0) {
+    ox = oy = oz = Num<T>::nan();
     if (own) {
       ox = recv[at];
       oy = recv[cs + at];
@@ -184,16 +259,16 @@ struct Receiver {
   }
 
   // bit u of m is set for a pair with the staged row p inside the cutoff
-  __device__ __forceinline__ void test(float4 p, float cutoff2, int u,
+  __device__ __forceinline__ void test(Row p, T cutoff2, int u,
                                        unsigned& m) const {
-    const float r2 = dist2(ox - p.x, oy - p.y, oz - p.z);
-    if (r2 < cutoff2 && r2 > 0.0f) m |= 1u << u;
+    const T r2 = dist2(ox - p.x, oy - p.y, oz - p.z);
+    if (r2 < cutoff2 && r2 > T(0)) m |= 1u << u;
   }
 
-  __device__ __forceinline__ void add(float4 p, const ForceLaw& law,
+  __device__ __forceinline__ void add(Row p, const ForceLaw<T>& law,
                                       const GCoef& gc) {
-    const float dx = ox - p.x, dy = oy - p.y, dz = oz - p.z;
-    const float f = pair_factor(dist2(dx, dy, dz), law, gc);
+    const T dx = ox - p.x, dy = oy - p.y, dz = oz - p.z;
+    const T f = pair_factor(dist2(dx, dy, dz), law, gc);
     ax += f * dx;
     ay += f * dy;
     az += f * dz;
@@ -220,8 +295,10 @@ struct Queue {
   // the queue; bit u of a block at s0 is the staged row s0 + u·step + off.
   // One pair an iteration of one loop, each lane at its own pace (nested
   // loops over entries and bits would reconverge after every entry).
-  __device__ __forceinline__ void drain(int step, int off, const float4* q,
-                                        Receiver& R, const ForceLaw& law,
+  template <typename T>
+  __device__ __forceinline__ void drain(int step, int off,
+                                        const typename Num<T>::Row* q,
+                                        Receiver<T>& R, const ForceLaw<T>& law,
                                         const GCoef& gc) {
     int e = 0, s0 = 0;
     unsigned m = 0;
@@ -245,11 +322,12 @@ struct Queue {
 // compacted by sb, TILE rows at a time, and every warp that holds a
 // receiver tests all of them (a broadcast read).  Dynamic shared memory:
 // the lanes' queues, QUEUE × blockDim entries of 6 bytes.
+template <typename T>
 __global__ void __launch_bounds__(THREADS) pair_sweep_kernel(
-    const float* __restrict__ recv, long long recv_cs, int K_r, Geometry G,
-    const int* __restrict__ rbound, float* __restrict__ out, float cutoff2,
-    ForceLaw law, GCoef gc, Offsets offs) {
-  __shared__ float4 tile[TILE];
+    const T* __restrict__ recv, long long recv_cs, int K_r, Geometry<T> G,
+    const int* __restrict__ rbound, T* __restrict__ out, T cutoff2,
+    ForceLaw<T> law, GCoef gc, Offsets offs) {
+  __shared__ typename Num<T>::Row tile[TILE];
   __shared__ signed char table[3 * MAX_OFFSETS];
   __shared__ int nrows[MAX_OFFSETS];
   extern __shared__ unsigned queue_mem[];
@@ -265,7 +343,7 @@ __global__ void __launch_bounds__(THREADS) pair_sweep_kernel(
             ck = (int)(c % n);
   // the neighbour columns and their supplier rows, read all at once
   for (int j = threadIdx.x; j < n_off; j += blockDim.x) {
-    float hx, hy, hz;
+    T hx, hy, hz;
     const int col = neighbour(G, ci, cj, ck, table + 3 * j, hx, hy, hz);
     nrows[j] = G.sb ? min(G.sb[col], G.K_s) : G.K_s;
   }
@@ -273,24 +351,24 @@ __global__ void __launch_bounds__(THREADS) pair_sweep_kernel(
   const int rb = rbound ? max(0, min(rbound[c], K_r)) : K_r;
   // rows at or beyond the bound write exactly 0
   for (int r = rb + threadIdx.x; r < K_r; r += blockDim.x) {
-    out[(long long)r * C + c] = 0.0f;
-    out[oc + (long long)r * C + c] = 0.0f;
-    out[2 * oc + (long long)r * C + c] = 0.0f;
+    out[(long long)r * C + c] = T(0);
+    out[oc + (long long)r * C + c] = T(0);
+    out[2 * oc + (long long)r * C + c] = T(0);
   }
   Queue Q{queue_mem + threadIdx.x,
           (unsigned short*)(queue_mem + QUEUE * blockDim.x) + threadIdx.x,
           (int)blockDim.x, 0};
-  const float far = 1e30f;  // pads a tile to whole 32-blocks
+  const T far = T(1e30);  // pads a tile to whole 32-blocks
   for (int r0 = 0; r0 < rb; r0 += blockDim.x) {
     const long long r = r0 + threadIdx.x;
     // warps with no receiver in this pass only help to stage
     const bool warp_live = r0 + (int)(threadIdx.x & ~31u) < rb;
-    Receiver R(recv, recv_cs, r * C + c, r < rb);
+    Receiver<T> R(recv, recv_cs, r * C + c, r < rb);
     int nb = 0, row = 0;
     while (nb < n_off) {
       int total = 0;
       while (nb < n_off && total < TILE) {  // uniform over the block
-        float hx, hy, hz;
+        T hx, hy, hz;
         const int col = neighbour(G, ci, cj, ck, table + 3 * nb, hx, hy, hz);
         const int left = nrows[nb] - row;
         const int take = max(0, min(left, TILE - total));
@@ -306,7 +384,7 @@ __global__ void __launch_bounds__(THREADS) pair_sweep_kernel(
       }
       const int padded = (total + 31) & ~31;
       for (int t = total + threadIdx.x; t < padded; t += blockDim.x)
-        tile[t] = make_float4(far, far, far, 0.0f);
+        tile[t] = Num<T>::row(far, far, far);
       __syncthreads();
       if (warp_live) {
         for (int s0 = 0; s0 < padded; s0 += 32) {
@@ -333,13 +411,14 @@ __global__ void __launch_bounds__(THREADS) pair_sweep_kernel(
 // Stages the supplier rows of the neighbour columns from neighbour nb's
 // row `row` on into the warp's buffer, at most CAP rows; advances nb and
 // row (warp-uniform) past what it staged.  Returns the rows staged.
-__device__ int stage(const Geometry& G, int ci, int cj, int ck,
+template <typename T>
+__device__ int stage(const Geometry<T>& G, int ci, int cj, int ck,
                      const signed char* table, int n_off, int& nb, int& row,
-                     float4* q, int lane) {
+                     typename Num<T>::Row* q, int lane) {
   int total = 0;
   while (nb < n_off && total < CAP) {
     const int avail = min(32, n_off - nb);
-    float hx = 0.0f, hy = 0.0f, hz = 0.0f;
+    T hx = 0, hy = 0, hz = 0;
     int col = 0, cnt = 0;
     if (lane < avail) {
       col = neighbour(G, ci, cj, ck, table + 3 * (nb + lane), hx, hy, hz);
@@ -372,9 +451,9 @@ __device__ int stage(const Geometry& G, int ci, int cj, int ck,
         const int jcol = __shfl_sync(FULL, col, j);
         const int jfirst = __shfl_sync(FULL, first, j);
         const int jat = __shfl_sync(FULL, at, j);
-        const float jhx = __shfl_sync(FULL, hx, j);
-        const float jhy = __shfl_sync(FULL, hy, j);
-        const float jhz = __shfl_sync(FULL, hz, j);
+        const T jhx = __shfl_sync(FULL, hx, j);
+        const T jhy = __shfl_sync(FULL, hy, j);
+        const T jhz = __shfl_sync(FULL, hz, j);
         for (int t = lane; t < jcnt; t += 32)
           stage_row(G, jfirst + t, jcol, jhx, jhy, jhz, q, jat + t);
       }
@@ -384,9 +463,9 @@ __device__ int stage(const Geometry& G, int ci, int cj, int ck,
       // neighbour nb + nfit does not fit whole: stage the rows that do
       const int part = CAP - total;
       const int pcol = __shfl_sync(FULL, col, nfit);
-      const float phx = __shfl_sync(FULL, hx, nfit);
-      const float phy = __shfl_sync(FULL, hy, nfit);
-      const float phz = __shfl_sync(FULL, hz, nfit);
+      const T phx = __shfl_sync(FULL, hx, nfit);
+      const T phy = __shfl_sync(FULL, hy, nfit);
+      const T phz = __shfl_sync(FULL, hz, nfit);
       const int pfirst = nfit == 0 ? row : 0;
       for (int t = lane; t < part; t += 32)
         stage_row(G, pfirst + t, pcol, phx, phy, phz, q, total + t);
@@ -403,12 +482,14 @@ __device__ int stage(const Geometry& G, int ci, int cj, int ck,
 }
 
 // The reach table (117 columns of ~8 rows at the 4-mesh-cell layout): a
-// warp per receiver column, WARPS columns a block.
-__global__ void __launch_bounds__(WARPS * 32, 8) pair_sweep_kernel_reach(
-    const float* __restrict__ recv, long long recv_cs, int K_r, Geometry G,
-    const int* __restrict__ rbound, float* __restrict__ out, float cutoff2,
-    ForceLaw law, GCoef gc, Offsets offs) {
-  __shared__ float4 staged[WARPS][CAP];
+// warp per receiver column, WARPS columns a block, at least MIN_BLOCKS
+// blocks resident on an SM (8 in float, 4 in double).
+template <typename T, int MIN_BLOCKS>
+__global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS) pair_sweep_kernel_reach(
+    const T* __restrict__ recv, long long recv_cs, int K_r, Geometry<T> G,
+    const int* __restrict__ rbound, T* __restrict__ out, T cutoff2,
+    ForceLaw<T> law, GCoef gc, Offsets offs) {
+  __shared__ typename Num<T>::Row staged[WARPS][CAP];
   __shared__ unsigned qmask[QUEUE][WARPS * 32];
   __shared__ unsigned short qbase[QUEUE][WARPS * 32];
   __shared__ signed char table[3 * MAX_OFFSETS];
@@ -427,11 +508,11 @@ __global__ void __launch_bounds__(WARPS * 32, 8) pair_sweep_kernel_reach(
   const int rb = rbound ? max(0, min(rbound[c], K_r)) : K_r;
   // rows at or beyond the bound write exactly 0
   for (int r = rb + lane; r < K_r; r += 32) {
-    out[(long long)r * C + c] = 0.0f;
-    out[oc + (long long)r * C + c] = 0.0f;
-    out[2 * oc + (long long)r * C + c] = 0.0f;
+    out[(long long)r * C + c] = T(0);
+    out[oc + (long long)r * C + c] = T(0);
+    out[2 * oc + (long long)r * C + c] = T(0);
   }
-  float4* q = staged[w];
+  typename Num<T>::Row* q = staged[w];
   Queue Q{&qmask[0][threadIdx.x], &qbase[0][threadIdx.x], WARPS * 32, 0};
 
   for (int r0 = 0; r0 < rb; r0 += 32) {
@@ -440,7 +521,7 @@ __global__ void __launch_bounds__(WARPS * 32, 8) pair_sweep_kernel_reach(
     const int Gr = 32 / R;
     const int rho = lane % R, g = lane / R;
     const long long r = r0 + rho;
-    Receiver Rc(recv, recv_cs, r * C + c, g < Gr);
+    Receiver<T> Rc(recv, recv_cs, r * C + c, g < Gr);
     int nb = 0, row = 0;
     while (nb < n_off) {
       const int total = stage(G, ci, cj, ck, table, n_off, nb, row, q, lane);
@@ -460,12 +541,12 @@ __global__ void __launch_bounds__(WARPS * 32, 8) pair_sweep_kernel_reach(
       __syncwarp();  // the staged rows are consumed before the next staging
     }
     // add the groups' sums into the lanes of group 0
-    float ax = Rc.ax, ay = Rc.ay, az = Rc.az;
+    T ax = Rc.ax, ay = Rc.ay, az = Rc.az;
     for (int k = 1; k < Gr; ++k) {
       const int src = min(lane + k * R, 31);
-      const float tx = __shfl_sync(FULL, ax, src);
-      const float ty = __shfl_sync(FULL, ay, src);
-      const float tz = __shfl_sync(FULL, az, src);
+      const T tx = __shfl_sync(FULL, ax, src);
+      const T ty = __shfl_sync(FULL, ay, src);
+      const T tz = __shfl_sync(FULL, az, src);
       if (lane < R) {
         ax += tx;
         ay += ty;
@@ -478,6 +559,48 @@ __global__ void __launch_bounds__(WARPS * 32, 8) pair_sweep_kernel_reach(
       out[2 * oc + r * C + c] = az;
     }
   }
+}
+
+template <typename T, int REACH_BLOCKS>
+static int launch(const T* recv, long long recv_cs, int K_r, const T* sup, long long sup_cs,
+                  int K_s, int n, const int* rb, const int* sb, T* out, T boxsize, T inv_scale,
+                  T cutoff2, T soft2, int kernel, const float* coef,
+                  const signed char* offsets, int n_offsets, void* stream) {
+  if (n_offsets < 1 || n_offsets > MAX_OFFSETS) return (int)cudaErrorInvalidValue;
+  GCoef gc;
+  for (int i = 0; i < NCOEF; ++i) gc.c[i] = coef ? coef[i] : 0.0f;
+  Offsets offs;
+  offs.count = n_offsets;
+  for (int i = 0; i < 3 * n_offsets; ++i) offs.d[i] = offsets[i];
+  // GADGET-2 spline: h = 2.8ε (soft2 = ε²)
+  const T h = T(2.8) * std::sqrt(soft2);
+  ForceLaw<T> law;
+  law.kernel = kernel;
+  law.inv_scale = inv_scale;
+  law.inv_scale2 = inv_scale * inv_scale;
+  law.h2 = T(7.84) * soft2;
+  law.inv_h = h > T(0) ? T(1) / std::fmax(h, T(1e-30)) : T(1e30);
+  law.soft2 = soft2;
+  Geometry<T> G;
+  G.sup = sup;
+  G.sup_cs = sup_cs;
+  G.C = (long long)n * n * n;
+  G.K_s = K_s;
+  G.n = n;
+  G.sb = sb;
+  G.boxsize = boxsize;
+  if (n_offsets <= 27) {
+    const int rows = ((K_r + 31) / 32) * 32;
+    const int threads = rows < THREADS ? rows : THREADS;
+    pair_sweep_kernel<T><<<(unsigned)G.C, threads, 6 * QUEUE * threads,
+                           (cudaStream_t)stream>>>(recv, recv_cs, K_r, G, rb, out,
+                                                   cutoff2, law, gc, offs);
+  } else {
+    pair_sweep_kernel_reach<T, REACH_BLOCKS>
+        <<<(unsigned)((G.C + WARPS - 1) / WARPS), WARPS * 32, 0, (cudaStream_t)stream>>>(
+            recv, recv_cs, K_r, G, rb, out, cutoff2, law, gc, offs);
+  }
+  return (int)cudaGetLastError();
 }
 
 // recv (3, K_r, C) and sup (3, K_s, C) float32, rows contiguous with row
@@ -494,39 +617,19 @@ extern "C" int pair_sweep_launch(const float* recv, long long recv_cs, int K_r,
                                  float cutoff2, float soft2, int kernel,
                                  const float* coef, const signed char* offsets,
                                  int n_offsets, void* stream) {
-  if (n_offsets < 1 || n_offsets > MAX_OFFSETS) return (int)cudaErrorInvalidValue;
-  GCoef gc;
-  for (int i = 0; i < NCOEF; ++i) gc.c[i] = coef[i];
-  Offsets offs;
-  offs.count = n_offsets;
-  for (int i = 0; i < 3 * n_offsets; ++i) offs.d[i] = offsets[i];
-  // GADGET-2 spline: h = 2.8ε (soft2 = ε²)
-  const float h = 2.8f * sqrtf(soft2);
-  ForceLaw law;
-  law.kernel = kernel;
-  law.inv_scale = inv_scale;
-  law.inv_scale2 = inv_scale * inv_scale;
-  law.h2 = 7.84f * soft2;
-  law.inv_h = h > 0.0f ? 1.0f / fmaxf(h, 1e-30f) : 1e30f;
-  law.soft2 = soft2;
-  Geometry G;
-  G.sup = sup;
-  G.sup_cs = sup_cs;
-  G.C = (long long)n * n * n;
-  G.K_s = K_s;
-  G.n = n;
-  G.sb = sb;
-  G.boxsize = boxsize;
-  if (n_offsets <= 27) {
-    const int rows = ((K_r + 31) / 32) * 32;
-    const int threads = rows < THREADS ? rows : THREADS;
-    pair_sweep_kernel<<<(unsigned)G.C, threads, 6 * QUEUE * threads,
-                        (cudaStream_t)stream>>>(recv, recv_cs, K_r, G, rb, out,
-                                                cutoff2, law, gc, offs);
-  } else {
-    pair_sweep_kernel_reach<<<(unsigned)((G.C + WARPS - 1) / WARPS), WARPS * 32, 0,
-                              (cudaStream_t)stream>>>(recv, recv_cs, K_r, G, rb,
-                                                      out, cutoff2, law, gc, offs);
-  }
-  return (int)cudaGetLastError();
+  return launch<float, 8>(recv, recv_cs, K_r, sup, sup_cs, K_s, n, rb, sb, out, boxsize,
+                          inv_scale, cutoff2, soft2, kernel, coef, offsets, n_offsets, stream);
+}
+
+// The same in double: every array float64, the screening exact (no
+// coefficients).
+extern "C" int pair_sweep_launch_f64(const double* recv, long long recv_cs, int K_r,
+                                     const double* sup, long long sup_cs, int K_s, int n,
+                                     const int* rb, const int* sb, double* out,
+                                     double boxsize, double inv_scale, double cutoff2,
+                                     double soft2, int kernel, const signed char* offsets,
+                                     int n_offsets, void* stream) {
+  return launch<double, 4>(recv, recv_cs, K_r, sup, sup_cs, K_s, n, rb, sb, out, boxsize,
+                           inv_scale, cutoff2, soft2, kernel, nullptr, offsets, n_offsets,
+                           stream);
 }

@@ -50,12 +50,29 @@
 // dimension, whose halo wraps onto itself (its halo cells map to global
 // cells with the wrap, and atomics add the copies).  Atomics add in no
 // fixed order.
+//
+// Both kernels are templates on the scalar type of the fractions,
+// weights and meshes, instantiated for float and double (the _f64 launch
+// functions).  The double kernels keep the float tiles: their halos take
+// twice the bytes (25 KB for the deposit, 43 KB for the gather at
+// D = 3), the mesh takes scalar atomicAdd(double*), native since sm_60,
+// and cp.async copies 8 bytes a cell.
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 constexpr int kThreads = 256;
 
 __device__ __forceinline__ int wrap(int i, int n) { return i < 0 ? i + n : (i >= n ? i - n : i); }
+
+// The dynamic shared memory as the scalar type's halo (one name a type).
+__device__ __forceinline__ float* shared_halo(float*) {
+  extern __shared__ float halo_f[];
+  return halo_f;
+}
+__device__ __forceinline__ double* shared_halo(double*) {
+  extern __shared__ double halo_d[];
+  return halo_d;
+}
 
 template <int TX, int TY, int TZ>
 struct Tile {
@@ -164,20 +181,20 @@ struct Tile {
   }
 };
 
-template <int TX, int TY, int TZ>
+template <typename F, int TX, int TY, int TZ>
 __global__ void __launch_bounds__(kThreads)
-pm_deposit_kernel(const int* __restrict__ lidx, const float* __restrict__ fx,
-                  const float* __restrict__ fy, const float* __restrict__ fz,
-                  const float* __restrict__ q, const int* __restrict__ starts,
-                  const int* __restrict__ counts, int N, int nb, float* __restrict__ grid) {
+pm_deposit_kernel(const int* __restrict__ lidx, const F* __restrict__ fx,
+                  const F* __restrict__ fy, const F* __restrict__ fz,
+                  const F* __restrict__ q, const int* __restrict__ starts,
+                  const int* __restrict__ counts, int N, int nb, F* __restrict__ grid) {
   using T = Tile<TX, TY, TZ>;
   __shared__ int pre_s[T::kBlocks + 1], first_s[T::kBlocks], cut_s[T::kBlocks];
   __shared__ int warp_s[kThreads / 32];
-  extern __shared__ float halo[];  // kCells
+  F* halo = shared_halo(static_cast<F*>(nullptr));  // kCells
   T tile;
   tile.load(starts, counts, N, nb, pre_s, first_s, cut_s, warp_s);
   if (tile.P == 0) return;
-  for (int s = threadIdx.x; s < T::kCells; s += kThreads) halo[s] = 0.0f;
+  for (int s = threadIdx.x; s < T::kCells; s += kThreads) halo[s] = F(0);
   __syncthreads();
   for (int j = threadIdx.x; j < tile.P; j += kThreads) {
     const int b = tile.block_of(j);
@@ -185,17 +202,17 @@ pm_deposit_kernel(const int* __restrict__ lidx, const float* __restrict__ fx,
     if (r >= tile.cut[b]) continue;
     const int i = tile.first[b] + r;
     const int a = tile.anchor(b, lidx[i]);
-    const float f[3] = {fx[i], fy[i], fz[i]};
-    const float qv = q[i];
+    const F f[3] = {fx[i], fy[i], fz[i]};
+    const F qv = q[i];
 #pragma unroll
     for (int cx = 0; cx < 2; ++cx) {
-      const float wx = cx ? f[0] : 1.0f - f[0];
+      const F wx = cx ? f[0] : F(1) - f[0];
 #pragma unroll
       for (int cy = 0; cy < 2; ++cy) {
-        const float wy = cy ? f[1] : 1.0f - f[1];
+        const F wy = cy ? f[1] : F(1) - f[1];
 #pragma unroll
         for (int cz = 0; cz < 2; ++cz) {
-          const float wz = cz ? f[2] : 1.0f - f[2];
+          const F wz = cz ? f[2] : F(1) - f[2];
           atomicAdd(halo + a + (cx * T::HY + cy) * T::HZ + cz, (wx * wy * wz) * qv);
         }
       }
@@ -205,21 +222,21 @@ pm_deposit_kernel(const int* __restrict__ lidx, const float* __restrict__ fx,
   const int n = 2 * nb;
   for (int s = threadIdx.x; s < T::kCells; s += kThreads) {
     long long g;
-    const float v = halo[s];
-    if (v != 0.0f && tile.cell(s, n, &g)) atomicAdd(grid + g, v);
+    const F v = halo[s];
+    if (v != F(0) && tile.cell(s, n, &g)) atomicAdd(grid + g, v);
   }
 }
 
-template <int TX, int TY, int TZ>
+template <typename F, int TX, int TY, int TZ>
 __global__ void __launch_bounds__(kThreads)
-pm_gather_kernel(const int* __restrict__ lidx, const float* __restrict__ fx,
-                 const float* __restrict__ fy, const float* __restrict__ fz,
+pm_gather_kernel(const int* __restrict__ lidx, const F* __restrict__ fx,
+                 const F* __restrict__ fy, const F* __restrict__ fz,
                  const int* __restrict__ starts, const int* __restrict__ counts, int N, int nb,
-                 const float* __restrict__ grids, int D, float* __restrict__ out) {
+                 const F* __restrict__ grids, int D, F* __restrict__ out) {
   using T = Tile<TX, TY, TZ>;
   __shared__ int pre_s[T::kBlocks + 1], first_s[T::kBlocks], cut_s[T::kBlocks];
   __shared__ int warp_s[kThreads / 32];
-  extern __shared__ float halo[];  // D × kCells
+  F* halo = shared_halo(static_cast<F*>(nullptr));  // D × kCells
   T tile;
   tile.load(starts, counts, N, nb, pre_s, first_s, cut_s, warp_s);
   if (tile.P == 0) return;
@@ -231,7 +248,7 @@ pm_gather_kernel(const int* __restrict__ lidx, const float* __restrict__ fx,
     long long g;
     if (!tile.cell(s, n, &g)) continue;
     for (int d = 0; d < D; ++d)
-      __pipeline_memcpy_async(halo + d * T::kCells + s, grids + d * n3 + g, sizeof(float));
+      __pipeline_memcpy_async(halo + d * T::kCells + s, grids + d * n3 + g, sizeof(F));
   }
   __pipeline_commit();
   __pipeline_wait_prior(0);
@@ -241,23 +258,23 @@ pm_gather_kernel(const int* __restrict__ lidx, const float* __restrict__ fx,
     const int r = j - tile.pre[b];
     const int i = tile.first[b] + r;
     if (r >= tile.cut[b]) {
-      for (int d = 0; d < D; ++d) out[d * (long long)N + i] = 0.0f;
+      for (int d = 0; d < D; ++d) out[d * (long long)N + i] = F(0);
       continue;
     }
     const int a = tile.anchor(b, lidx[i]);
-    const float f[3] = {fx[i], fy[i], fz[i]};
+    const F f[3] = {fx[i], fy[i], fz[i]};
     // the 8 corners' halo offsets and weights, shared by the D fields
     int off[8];
-    float wt[8];
+    F wt[8];
 #pragma unroll
     for (int cx = 0; cx < 2; ++cx) {
-      const float wx = cx ? f[0] : 1.0f - f[0];
+      const F wx = cx ? f[0] : F(1) - f[0];
 #pragma unroll
       for (int cy = 0; cy < 2; ++cy) {
-        const float wy = cy ? f[1] : 1.0f - f[1];
+        const F wy = cy ? f[1] : F(1) - f[1];
 #pragma unroll
         for (int cz = 0; cz < 2; ++cz) {
-          const float wz = cz ? f[2] : 1.0f - f[2];
+          const F wz = cz ? f[2] : F(1) - f[2];
           const int k = (cx * 2 + cy) * 2 + cz;
           off[k] = a + (cx * T::HY + cy) * T::HZ + cz;
           wt[k] = wx * wy * wz;
@@ -265,8 +282,8 @@ pm_gather_kernel(const int* __restrict__ lidx, const float* __restrict__ fx,
       }
     }
     for (int d = 0; d < D; ++d) {
-      const float* S = halo + d * T::kCells;
-      float v = 0.0f;
+      const F* S = halo + d * T::kCells;
+      F v = 0;
 #pragma unroll
       for (int k = 0; k < 8; ++k) v += wt[k] * S[off[k]];
       out[d * (long long)N + i] = v;
@@ -285,13 +302,13 @@ static int shared_bytes(Kernel kernel, size_t bytes, size_t& allowed) {
   return err;
 }
 
-template <int TX, int TY, int TZ>
-static int deposit_launch(const int* lidx, const float* fx, const float* fy, const float* fz,
-                          const float* q, const int* starts, const int* counts, int N, int nb,
-                          float* grid, cudaStream_t stream) {
+template <typename F, int TX, int TY, int TZ>
+static int deposit_launch(const int* lidx, const F* fx, const F* fy, const F* fz, const F* q,
+                          const int* starts, const int* counts, int N, int nb, F* grid,
+                          cudaStream_t stream) {
   using T = Tile<TX, TY, TZ>;
-  const size_t bytes = sizeof(float) * T::kCells;
-  auto kernel = pm_deposit_kernel<TX, TY, TZ>;
+  const size_t bytes = sizeof(F) * T::kCells;
+  auto kernel = pm_deposit_kernel<F, TX, TY, TZ>;
   static size_t allowed = 0;
   if (int err = shared_bytes(kernel, bytes, allowed)) return err;
   kernel<<<T::count(nb), kThreads, bytes, stream>>>(lidx, fx, fy, fz, q, starts, counts, N, nb,
@@ -299,13 +316,13 @@ static int deposit_launch(const int* lidx, const float* fx, const float* fy, con
   return (int)cudaGetLastError();
 }
 
-template <int TX, int TY, int TZ>
-static int gather_launch(const int* lidx, const float* fx, const float* fy, const float* fz,
-                         const int* starts, const int* counts, int N, int nb,
-                         const float* grids, int D, float* out, cudaStream_t stream) {
+template <typename F, int TX, int TY, int TZ>
+static int gather_launch(const int* lidx, const F* fx, const F* fy, const F* fz,
+                         const int* starts, const int* counts, int N, int nb, const F* grids,
+                         int D, F* out, cudaStream_t stream) {
   using T = Tile<TX, TY, TZ>;
-  const size_t bytes = sizeof(float) * D * T::kCells;
-  auto kernel = pm_gather_kernel<TX, TY, TZ>;
+  const size_t bytes = sizeof(F) * D * T::kCells;
+  auto kernel = pm_gather_kernel<F, TX, TY, TZ>;
   static size_t allowed = 0;
   if (int err = shared_bytes(kernel, bytes, allowed)) return err;
   kernel<<<T::count(nb), kThreads, bytes, stream>>>(lidx, fx, fy, fz, starts, counts, N, nb,
@@ -319,8 +336,8 @@ static int gather_launch(const int* lidx, const float* fx, const float* fy, cons
 extern "C" int pm_deposit_launch(const int* lidx, const float* fx, const float* fy,
                                  const float* fz, const float* q, const int* starts,
                                  const int* counts, int N, int nb, float* grid, void* stream) {
-  return deposit_launch<4, 8, 8>(lidx, fx, fy, fz, q, starts, counts, N, nb, grid,
-                                           (cudaStream_t)stream);
+  return deposit_launch<float, 4, 8, 8>(lidx, fx, fy, fz, q, starts, counts, N, nb, grid,
+                                        (cudaStream_t)stream);
 }
 
 // the same particle and block arrays; grids (D, n, n, n) contiguous; out
@@ -328,6 +345,23 @@ extern "C" int pm_deposit_launch(const int* lidx, const float* fx, const float* 
 extern "C" int pm_gather_launch(const int* lidx, const float* fx, const float* fy,
                                 const float* fz, const int* starts, const int* counts, int N,
                                 int nb, const float* grids, int D, float* out, void* stream) {
-  return gather_launch<4, 4, 8>(lidx, fx, fy, fz, starts, counts, N, nb, grids, D, out,
-                                 (cudaStream_t)stream);
+  return gather_launch<float, 4, 4, 8>(lidx, fx, fy, fz, starts, counts, N, nb, grids, D, out,
+                                       (cudaStream_t)stream);
+}
+
+// The same two in double: fractions, weights and meshes float64.
+extern "C" int pm_deposit_launch_f64(const int* lidx, const double* fx, const double* fy,
+                                     const double* fz, const double* q, const int* starts,
+                                     const int* counts, int N, int nb, double* grid,
+                                     void* stream) {
+  return deposit_launch<double, 4, 8, 8>(lidx, fx, fy, fz, q, starts, counts, N, nb, grid,
+                                         (cudaStream_t)stream);
+}
+
+extern "C" int pm_gather_launch_f64(const int* lidx, const double* fx, const double* fy,
+                                    const double* fz, const int* starts, const int* counts,
+                                    int N, int nb, const double* grids, int D, double* out,
+                                    void* stream) {
+  return gather_launch<double, 4, 4, 8>(lidx, fx, fy, fz, starts, counts, N, nb, grids, D,
+                                        out, (cudaStream_t)stream);
 }

@@ -2,16 +2,14 @@
 
 Entry points run on the card unless the caller asks for the CPU: the
 default device is ``cuda``, and a missing card is an error, never a
-silent fall-back.  Arrays are float32; float64 (``enable_float64``) is
-honoured on the CPU only, because the hand-written kernels are float32.
+silent fall-back.  Arrays are float32, or float64 under
+``enable_float64`` on either device: every CUDA kernel has a double
+instantiation.
 """
 
 from __future__ import annotations
 
 import torch
-
-FLOAT64_ITEM = "ROADMAP Queue 1 item 1: float64 kernels"
-
 
 def resolve_device(device=None) -> torch.device:
     """``None``/``'cuda'`` → the current CUDA device (raises when CUDA is
@@ -33,11 +31,5 @@ def resolve_device(device=None) -> torch.device:
 
 
 def resolve_dtype(device: torch.device, enable_float64: bool = False):
-    """float32, or float64 on the CPU under ``enable_float64``."""
-    if not enable_float64:
-        return torch.float32
-    if device.type == "cuda":
-        raise NotImplementedError(
-            f"enable_float64 on the GPU: the kernels are float32 ({FLOAT64_ITEM})"
-        )
-    return torch.float64
+    """float64 under ``enable_float64``, else float32, on either device."""
+    return torch.float64 if enable_float64 else torch.float32

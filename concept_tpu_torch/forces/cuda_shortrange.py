@@ -21,9 +21,12 @@ bound come out exactly 0; the supplier rows of a neighbour column at or
 beyond its own supplier bound are skipped.  The TPU reach kernel takes
 no bounds; with bounds that hold the valid slots the output is the same
 on every row that carries a force.  They launch the one kernel and
-count their launches apart.
+count their launches apart: ``launches`` for the float kernel,
+``launches_f64`` for the double one.
 
-On a CPU tensor they run :func:`pair_sweep_plain`; on a CUDA tensor they
+recv and sup are float32 (the float kernel, the fitted screening) or
+float64 (the double kernel, the exact screening), both of one dtype.  On
+a CPU tensor they run :func:`pair_sweep_plain`; on a CUDA tensor they
 launch the kernel or raise.
 """
 
@@ -36,7 +39,6 @@ import numpy as np
 import torch
 
 from concept_tpu_torch import _build
-from concept_tpu_torch.device import FLOAT64_ITEM
 from concept_tpu_torch.forces.shortrange import (
     _G_COEF, SENTINEL, shortrange_force_factor,
 )
@@ -139,27 +141,32 @@ def pair_sweep_plain(recv, sup, n_cells: int, boxsize: float, scale: float,
     return out
 
 
-def _lib():
-    fn = _build.load("pair_sweep").pair_sweep_launch
+def _lib(f64: bool):
+    lib = _build.load("pair_sweep")
+    fn = lib.pair_sweep_launch_f64 if f64 else lib.pair_sweep_launch
     if fn.argtypes is None:
-        P, L, I, F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [P, L, I, P, L, I, I, P, P, P, F, F, F, F, I, P, P, I, P]
+        P, L, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        if f64:
+            D = ctypes.c_double
+            fn.argtypes = [P, L, I, P, L, I, I, P, P, P, D, D, D, D, I, P, I, P]
+        else:
+            F = ctypes.c_float
+            fn.argtypes = [P, L, I, P, L, I, I, P, P, P, F, F, F, F, I, P, P, I, P]
         fn.restype = ctypes.c_int
     return fn
 
 
 def _check_cuda_rows(t, C: int, what: str):
-    if t.dtype != torch.float32:
-        raise NotImplementedError(f"{what} is {t.dtype}; the kernels are "
-                                  f"float32 ({FLOAT64_ITEM})")
     if t.stride(2) != 1 or t.stride(1) != C:
         raise ValueError(f"{what} rows must be contiguous with row stride C")
 
 
 def _launch(recv, sup, n_cells: int, boxsize: float, scale: float,
             cutoff2: float, soft2: float, kernel: str, rext, sext, offsets):
-    """Check the CUDA inputs, launch the kernel, return its output."""
+    """Check the CUDA inputs, launch the float or the double kernel,
+    return its output."""
     _check(recv, sup, n_cells, kernel, offsets)
+    dtype = _build.scalar_dtype("pair_sweep", recv, sup)
     _, K_r, C = recv.shape
     K_s = sup.shape[1]
     _check_cuda_rows(recv, C, "recv")
@@ -173,17 +180,20 @@ def _launch(recv, sup, n_cells: int, boxsize: float, scale: float,
             raise ValueError("rext/sext must be contiguous int32 on the "
                              "receivers' device")
     rb, sb = (None if e is None else e.data_ptr() for e in bounds)
-    out = torch.empty((3, K_r, C), dtype=torch.float32, device=recv.device)
-    coef = np.ascontiguousarray(_G_COEF, np.float32)
+    out = torch.empty((3, K_r, C), dtype=dtype, device=recv.device)
     table = np.ascontiguousarray(offsets, np.int8)
-    inv_scale = float(np.float32(1.0) / np.float32(scale))
-    err = _lib()(
-        recv.data_ptr(), recv.stride(0), K_r, sup.data_ptr(), sup.stride(0),
-        K_s, n_cells, rb, sb, out.data_ptr(),
-        boxsize, inv_scale, cutoff2, soft2, KERNEL_IDS[kernel],
-        coef.ctypes.data, table.ctypes.data, len(offsets),
-        torch.cuda.current_stream(recv.device).cuda_stream,
-    )
+    stream = torch.cuda.current_stream(recv.device).cuda_stream
+    head = (recv.data_ptr(), recv.stride(0), K_r, sup.data_ptr(), sup.stride(0),
+            K_s, n_cells, rb, sb, out.data_ptr())
+    if dtype == torch.float64:
+        # the double kernel evaluates the screening exactly from the scale
+        err = _lib(True)(*head, boxsize, 1.0 / scale, cutoff2, soft2,
+                         KERNEL_IDS[kernel], table.ctypes.data, len(offsets), stream)
+    else:
+        coef = np.ascontiguousarray(_G_COEF, np.float32)
+        inv_scale = float(np.float32(1.0) / np.float32(scale))
+        err = _lib(False)(*head, boxsize, inv_scale, cutoff2, soft2, KERNEL_IDS[kernel],
+                          coef.ctypes.data, table.ctypes.data, len(offsets), stream)
     _build.check(err, "pair_sweep")
     return out
 
@@ -194,11 +204,12 @@ def pair_sweep(recv, sup, n_cells: int, boxsize: float, scale: float,
     """The ±1 sweep: the CUDA kernel for CUDA tensors, the plain version
     for CPU tensors (see the module docstring for the contract)."""
     if recv.device.type == "cpu":
+        _build.scalar_dtype("pair_sweep", recv, sup)
         return pair_sweep_plain(recv, sup, n_cells, boxsize, scale, cutoff2,
                                 soft2, kernel, rext, sext)
     out = _launch(recv, sup, n_cells, boxsize, scale, cutoff2, soft2, kernel,
                   rext, sext, OFFSETS_27)
-    pair_sweep.launches += 1
+    _build.count_launch(pair_sweep, out.dtype)
     return out
 
 
@@ -209,11 +220,12 @@ def pair_sweep_subset(recv, sup, n_cells: int, boxsize: float, scale: float,
     ``_make_pair_kernel_flat``, PERF.md row 2): the kernel of
     :func:`pair_sweep`, its launches counted apart."""
     if recv.device.type == "cpu":
+        _build.scalar_dtype("pair_sweep_subset", recv, sup)
         return pair_sweep_plain(recv, sup, n_cells, boxsize, scale, cutoff2,
                                 soft2, kernel)
     out = _launch(recv, sup, n_cells, boxsize, scale, cutoff2, soft2, kernel,
                   None, None, OFFSETS_27)
-    pair_sweep_subset.launches += 1
+    _build.count_launch(pair_sweep_subset, out.dtype)
     return out
 
 
@@ -227,14 +239,14 @@ def pair_sweep_reach(recv, sup, n_cells: int, boxsize: float, scale: float,
     are the port's own (see the module docstring)."""
     offsets = tuple(tuple(int(d) for d in off) for off in offsets)
     if recv.device.type == "cpu":
+        _build.scalar_dtype("pair_sweep_reach", recv, sup)
         return pair_sweep_plain(recv, sup, n_cells, boxsize, scale, cutoff2,
                                 soft2, kernel, rext, sext, offsets)
     out = _launch(recv, sup, n_cells, boxsize, scale, cutoff2, soft2, kernel,
                   rext, sext, offsets)
-    pair_sweep_reach.launches += 1
+    _build.count_launch(pair_sweep_reach, out.dtype)
     return out
 
 
-pair_sweep.launches = 0
-pair_sweep_subset.launches = 0
-pair_sweep_reach.launches = 0
+for _fn in (pair_sweep, pair_sweep_subset, pair_sweep_reach):
+    _fn.launches = _fn.launches_f64 = 0

@@ -6,11 +6,13 @@ The pair force is
 
     F(r) = −G·m²·r⃗ · S(r/rₛ) · r⁻³_soft,   S(x) = erfc(x/2) + x/√π·e^(−x²/4)
 
-(reference gravity.py:373 get_shortrange_table).  The screening is
-evaluated as S = 1 + x·g(x²) with a degree-10 polynomial fit of g in
-u = r²/rₛ² (``_G_COEF``) — the same polynomial the CUDA sweep kernel
-evaluates (csrc/pair_sweep.cu), so the plain sweep here and the kernel
-compute one function.  ``_sweep_pair`` is the one-sided sweep with the
+(reference gravity.py:373 get_shortrange_table).  In float32 the
+screening is evaluated as S = 1 + x·g(x²) with a degree-10 polynomial fit
+of g in u = r²/rₛ² (``_G_COEF``, ~8.5e-7 absolute) — the same polynomial
+the float CUDA sweep kernel evaluates (csrc/pair_sweep.cu), so the plain
+sweep here and the kernel compute one function.  In float64 it is
+evaluated exactly through erfc and exp, as the JAX package's CPU paths
+and the double sweep kernel evaluate it.  ``_sweep_pair`` is the one-sided sweep with the
 valid-mask contract of the JAX ``_sweep_pair``; it sentinels the invalid
 slots and hands them to ``cuda_shortrange.pair_sweep``.
 """
@@ -21,6 +23,8 @@ import math
 
 import numpy as np
 import torch
+
+from concept_tpu_torch import _build
 
 # Fit range of the screening polynomial: x = r/rₛ ∈ [0, 4.6] (the cutoff
 # is 4.5·rₛ; beyond the fit the argument is clamped and the cutoff mask
@@ -89,11 +93,15 @@ def softened_r3inv(r2: torch.Tensor, softening: float, kernel: str):
 
 def shortrange_force_factor(r2: torch.Tensor, scale: float, softening2: float,
                             kernel: str = "plummer") -> torch.Tensor:
-    """−S(r/rₛ)·r⁻³_softened with the fitted screening, in the form the
-    sweep kernels evaluate it (pallas_shortrange ``_make_accum``):
+    """−S(r/rₛ)·r⁻³_softened, in the form the sweep kernels evaluate it.
+    float32 (pallas_shortrange ``_make_accum``, the fitted screening):
     'plummer' evaluates S at the softened r; the other kernels take the
     unsoftened far field S·r⁻³ and, for 'spline', add the near-field
-    correction −S·(r⁻³_spline − r⁻³) where r < h = 2.8ε."""
+    correction −S·(r⁻³_spline − r⁻³) where r < h = 2.8ε.  float64 (the
+    JAX package's ``shortrange_force_factor``, exact screening): S at the
+    softened r for 'plummer', else S·``softened_r3inv``."""
+    if r2.dtype == torch.float64:
+        return _force_factor_exact(r2, scale, softening2, kernel)
     inv_scale = 1.0 / scale
     inv_scale2 = inv_scale * inv_scale
     if kernel == "plummer":
@@ -112,6 +120,24 @@ def shortrange_force_factor(r2: torch.Tensor, scale: float, softening2: float,
     S = 1.0 + (r2 * inv_r * inv_scale) * g
     near = softened_r3inv(r2, math.sqrt(softening2), kernel) - inv_r2 * inv_r
     return f - torch.where(r2 < 7.84 * softening2, S * near, 0.0)
+
+
+def _screening(x: torch.Tensor) -> torch.Tensor:
+    """S(x) = erfc(x/2) + x/√π·e^(−x²/4), exactly."""
+    return torch.special.erfc(0.5 * x) + x * (1 / math.sqrt(math.pi)) * torch.exp(-0.25 * x * x)
+
+
+def _force_factor_exact(r2, scale: float, softening2: float, kernel: str):
+    """The float64 factor, in the JAX package's form
+    (concept_tpu/forces/shortrange.py ``shortrange_force_factor``)."""
+    if kernel == "plummer":
+        r2s = r2 + softening2
+        r = torch.sqrt(r2s)
+        return -_screening(r / scale) / (r2s * r)
+    if kernel not in ("spline", "none"):
+        raise ValueError(f"unknown softening kernel {kernel!r}")
+    r = torch.sqrt(torch.clamp(r2, min=1e-30))
+    return -_screening(r / scale) * softened_r3inv(r2, math.sqrt(softening2), kernel)
 
 
 def kept_offsets(cell_width: float, cutoff: float, margin: float,
@@ -231,6 +257,13 @@ def f32_square(x: float) -> float:
     """x² rounded as the float32 kernels form it (f32(x)·f32(x))."""
     x = np.float32(x)
     return float(x * x)
+
+
+def dtype_square(x: float, dtype) -> float:
+    """x² as a sweep in ``dtype`` takes it: :func:`f32_square` in
+    float32, x·x in float64 (the JAX package squares in the state's
+    dtype)."""
+    return f32_square(x) if dtype == torch.float32 else x * x
 
 
 # ---------------------------------------------------------------------- #
@@ -414,8 +447,8 @@ def shortrange_momentum_updates(pos, mass: float, boxsize: float, scale: float,
     C = n**3
     K = capacity
     b = bucketize(pos, boxsize, n, K)
-    cutoff2 = f32_square(cutoff) if dtype == torch.float32 else cutoff**2
-    soft2 = f32_square(softening) if dtype == torch.float32 else softening**2
+    cutoff2 = dtype_square(cutoff, dtype)
+    soft2 = dtype_square(softening, dtype)
     valid = b["valid"]
     big = SENTINEL * boxsize
     n_overflow = N - int(valid.sum())
@@ -491,12 +524,9 @@ def shortrange_momentum_updates_on_subset(recv_pos, sup_pos, mass: float,
     del b_sup
     recv = torch.where(b_rec["valid"][None],
                        torch.stack([b_rec["hx"], b_rec["hy"], b_rec["hz"]]), big)
-    f32 = dtype == torch.float32
     sweep = pair_sweep_subset if n >= 3 else sweep_fold
-    acc = sweep(recv, sup, n, boxsize, scale,
-                f32_square(cutoff) if f32 else cutoff**2,
-                f32_square(softening) if f32 else softening**2,
-                kernel=softening_kernel)
+    acc = sweep(recv, sup, n, boxsize, scale, dtype_square(cutoff, dtype),
+                dtype_square(softening, dtype), kernel=softening_kernel)
     del recv, sup
     accf = torch.cat([acc.reshape(3, K_r * C),
                       torch.zeros((3, 1), dtype=dtype, device=acc.device)], 1)
@@ -520,11 +550,13 @@ def sweep_reach(hx, hy, hz, valid, n_cells: int, boxsize: float,
     slots = torch.where(valid[None], torch.stack([hx, hy, hz]),
                         SENTINEL * boxsize).contiguous()
     acc = pair_sweep_reach(slots, slots, n_cells, boxsize, scale,
-                           f32_square(cutoff), f32_square(softening),
+                           dtype_square(cutoff, slots.dtype),
+                           dtype_square(softening, slots.dtype),
                            reach_offsets(cell_width, margin), kernel=kernel)
     if slots.device.type == "cuda":
-        sweep_reach.launches += 1
+        _build.count_launch(sweep_reach, slots.dtype)
     return acc
 
 
 sweep_reach.launches = 0
+sweep_reach.launches_f64 = 0

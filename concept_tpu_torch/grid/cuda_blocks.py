@@ -11,12 +11,15 @@ periodic (see grid/cuda_cells.py), which keeps exactly the slots the TPU
 kernels keep whenever the blocks were built from wrapped positions, as
 forces/p3m.py builds them at every kick.
 
-On CPU tensors the wrappers run the plain versions; on CUDA tensors they
-launch the kernels or raise.
+Positions, weights and meshes are all float32 or all float64 (the
+kernels' double twins).  On CPU tensors the wrappers run the plain
+versions; on CUDA tensors they launch the kernels or raise.  Launches are
+counted as in grid/cuda_cells.py.
 """
 
 from __future__ import annotations
 
+from concept_tpu_torch import _build
 from concept_tpu_torch.grid.bucketed import B
 from concept_tpu_torch.grid.cuda_cells import (
     cut_rows, deposit_cells_plain, gather_cells_plain, launch_deposit, launch_gather,
@@ -41,9 +44,10 @@ def deposit_blocks(px, py, pz, w, gridsize: int, boxsize: float, ext=None):
     optional, cuts block c to its first ext[c] rows (the kernel then skips
     the rows past every block's extent)."""
     if px.device.type == "cpu":
+        _build.scalar_dtype("cic_deposit", px, py, pz, w)
         return deposit_blocks_plain(px, py, pz, cut_rows(w, ext), gridsize, boxsize)
     grid = launch_deposit((px, py, pz), w, gridsize, boxsize, B, zmajor=True, ext=ext)
-    deposit_blocks.launches += 1
+    _build.count_launch(deposit_blocks, grid.dtype)
     return grid
 
 
@@ -52,11 +56,12 @@ def gather_blocks(px, py, pz, w, grids, gridsize: int, boxsize: float, ext=None)
     (the validity): ``grids`` (D, n, n, n) → (D, K, C); ``ext`` as in
     :func:`deposit_blocks`."""
     if px.device.type == "cpu":
+        _build.scalar_dtype("cic_gather", px, py, pz, w, grids)
         return gather_blocks_plain(px, py, pz, cut_rows(w, ext), grids, gridsize, boxsize)
     out = launch_gather((px, py, pz), w, grids, gridsize, boxsize, B, zmajor=True, ext=ext)
-    gather_blocks.launches += 1
+    _build.count_launch(gather_blocks, out.dtype)
     return out
 
 
-deposit_blocks.launches = 0
-gather_blocks.launches = 0
+for _f in (deposit_blocks, gather_blocks):
+    _f.launches = _f.launches_f64 = 0

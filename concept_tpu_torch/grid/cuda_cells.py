@@ -14,11 +14,13 @@ rebucket is kept (the JAX kernels drop it until the next rebucket).
 (K, C) is the per-slot weight (mass·valid for the deposit, valid for the
 gather).
 
-On CPU tensors the wrappers run the plain versions; on CUDA tensors they
-launch the kernels or raise.  The kernels and the plain versions take the
-cell width and the column-id order as arguments: grid/cuda_blocks.py
-launches them on the global stepper's 2-mesh-cell blocks with z-major
-ids.
+Positions, weights and meshes are all float32 (the float kernels) or
+all float64 (their double twins).  On CPU tensors the wrappers run the
+plain versions; on CUDA tensors they launch the kernels or raise.  Each
+wrapper counts its launches, ``launches`` in float and ``launches_f64``
+in double.  The kernels and the plain versions take the cell width and
+the column-id order as arguments: grid/cuda_blocks.py launches them on
+the global stepper's 2-mesh-cell blocks with z-major ids.
 """
 
 from __future__ import annotations
@@ -28,7 +30,6 @@ import ctypes
 import torch
 
 from concept_tpu_torch import _build
-from concept_tpu_torch.device import FLOAT64_ITEM
 from concept_tpu_torch.grid.interp import cic_corners
 
 
@@ -125,19 +126,18 @@ def cut_rows(w, ext):
     return w * (rows < ext.to(w.device)[None, :])
 
 
-def _fn(name: str, argtypes: list):
-    fn = getattr(_build.load("cells"), name)
+def _fn(name: str, argtypes: list, dtype):
+    """The launch function ``name`` (its ``_f64`` twin for float64), with
+    ``_F`` in ``argtypes`` standing for the scalar type."""
+    f64 = dtype == torch.float64
+    fn = getattr(_build.load("cells"), name + ("_f64" if f64 else ""))
     if fn.argtypes is None:
-        fn.argtypes = argtypes
+        fn.argtypes = [(ctypes.c_double if f64 else _F) if a is _F else a for a in argtypes]
         fn.restype = ctypes.c_int
     return fn
 
 
 def _check_cuda(pos3, w):
-    for t in (*pos3, w):
-        if t.dtype != torch.float32:
-            raise NotImplementedError(f"{t.dtype} slot arrays; the kernels "
-                                      f"are float32 ({FLOAT64_ITEM})")
     for p in pos3:
         if p.stride(1) != 1 or p.stride(0) != w.shape[1] or p.device != w.device:
             raise ValueError("position rows must be contiguous with row stride "
@@ -168,14 +168,15 @@ def launch_deposit(pos3, w, gridsize: int, boxsize: float, cb: int,
     ``ext`` (C,) int32, optional, cuts column c to its first ext[c] rows.
     Returns the (n, n, n) mesh."""
     nc, K, C = _check(pos3, w, gridsize, cb)
+    dtype = _build.scalar_dtype("cic_deposit", *pos3, w)
     _check_cuda(pos3, w)
     if (cb, bool(zmajor)) not in ((8, False), (4, False), (2, True)):
         raise ValueError(f"the deposit kernel takes cells of cb 8 or 4 with x-major ids "
                          f"or blocks of cb 2 with z-major ids, not cb {cb}, zmajor {zmajor}")
     ext_ptr = _check_ext(ext, C, w.device)
     n = gridsize
-    grid = torch.zeros((n, n, n), dtype=torch.float32, device=w.device)
-    err = _fn("cic_deposit_launch", [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P])(
+    grid = torch.zeros((n, n, n), dtype=dtype, device=w.device)
+    err = _fn("cic_deposit_launch", [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P], dtype)(
         *(p.data_ptr() for p in pos3), w.data_ptr(), K, nc, cb, int(zmajor),
         float(n / boxsize), ext_ptr, grid.data_ptr(),
         torch.cuda.current_stream(w.device).cuda_stream,
@@ -190,20 +191,20 @@ def launch_gather(pos3, w, grids, gridsize: int, boxsize: float, cb: int,
     :func:`launch_deposit`): grids (D, n, n, n) → (D, K, C).  ``ext`` is
     taken on the blocks (cb 2, z-major) only."""
     nc, K, C = _check(pos3, w, gridsize, cb)
+    dtype = _build.scalar_dtype("cic_gather", *pos3, w, grids)
     _check_cuda(pos3, w)
     n = gridsize
     if grids.dim() != 4 or tuple(grids.shape[1:]) != (n, n, n) \
-            or not grids.is_contiguous() or grids.dtype != torch.float32 \
-            or grids.device != w.device:
-        raise ValueError(f"grids must be contiguous float32 (D, {n}, {n}, {n})"
-                         " on the positions' device")
+            or not grids.is_contiguous() or grids.device != w.device:
+        raise ValueError(f"grids must be contiguous (D, {n}, {n}, {n}) on the "
+                         "positions' device")
     if ext is not None and not (cb == 2 and zmajor):
         raise ValueError("the cells' gather takes no extents")
     ext_ptr = _check_ext(ext, C, w.device)
     D = grids.shape[0]
-    out = torch.empty((D, K, C), dtype=torch.float32, device=w.device)
+    out = torch.empty((D, K, C), dtype=dtype, device=w.device)
     err = _fn("cic_gather_launch",
-              [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _I, _P, _P])(
+              [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _I, _P, _P], dtype)(
         *(p.data_ptr() for p in pos3), w.data_ptr(), K, nc, cb, int(zmajor),
         float(n / boxsize), ext_ptr, grids.data_ptr(), D,
         out.data_ptr(), torch.cuda.current_stream(w.device).cuda_stream,
@@ -215,9 +216,10 @@ def launch_gather(pos3, w, grids, gridsize: int, boxsize: float, cb: int,
 def deposit_cells(pos3, w, gridsize: int, boxsize: float, cb: int = 8):
     """CIC deposit of the slot weights w onto the (n, n, n) mesh."""
     if pos3.device.type == "cpu":
+        _build.scalar_dtype("cic_deposit", pos3, w)
         return deposit_cells_plain(pos3, w, gridsize, boxsize, cb)
     grid = launch_deposit(pos3, w, gridsize, boxsize, cb, zmajor=False)
-    deposit_cells.launches += 1
+    _build.count_launch(deposit_cells, grid.dtype)
     return grid
 
 
@@ -225,11 +227,12 @@ def gather_cells(pos3, w, grids, gridsize: int, boxsize: float, cb: int = 8):
     """CIC interpolation of the D mesh fields ``grids`` (D, n, n, n) at
     every slot, times w: returns (D, K, C)."""
     if pos3.device.type == "cpu":
+        _build.scalar_dtype("cic_gather", pos3, w, grids)
         return gather_cells_plain(pos3, w, grids, gridsize, boxsize, cb)
     out = launch_gather(pos3, w, grids, gridsize, boxsize, cb, zmajor=False)
-    gather_cells.launches += 1
+    _build.count_launch(gather_cells, out.dtype)
     return out
 
 
-deposit_cells.launches = 0
-gather_cells.launches = 0
+for _f in (deposit_cells, gather_cells):
+    _f.launches = _f.launches_f64 = 0

@@ -18,8 +18,10 @@ clamped to a capacity K give the TPU kernels' bucket truncation, and the
 full counts take every particle.  A particle's global anchor is
 2·(bx, by, bz) − 1 + (lx, ly, lz), modulo n.
 
-On CPU tensors the wrappers run the plain versions; on CUDA tensors they
-launch the kernels or raise.
+The fractions, weights and meshes are all float32 or all float64 (the
+kernels' double twins).  On CPU tensors the wrappers run the plain
+versions; on CUDA tensors they launch the kernels or raise.  Each counts
+its launches, ``launches`` in float and ``launches_f64`` in double.
 """
 
 from __future__ import annotations
@@ -29,7 +31,6 @@ import ctypes
 import torch
 
 from concept_tpu_torch import _build
-from concept_tpu_torch.device import FLOAT64_ITEM
 from concept_tpu_torch.grid.bucketed import B, LDIM, _block_count
 from concept_tpu_torch.grid.cuda_cells import _chunk
 from concept_tpu_torch.grid.interp import cic_corners
@@ -93,8 +94,9 @@ def gather_pm_plain(lidx, fx, fy, fz, starts, counts, grids, gridsize: int):
     return out
 
 
-def _fn(name: str, argtypes: list):
-    fn = getattr(_build.load("pm_blocks"), name)
+def _fn(name: str, argtypes: list, dtype):
+    """The launch function ``name`` (its ``_f64`` twin for float64)."""
+    fn = getattr(_build.load("pm_blocks"), name + ("_f64" if dtype == torch.float64 else ""))
     if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -105,10 +107,6 @@ def _check_cuda(ints, floats):
     for t in ints:
         if t.dtype != torch.int32:
             raise ValueError(f"lidx, starts and counts must be int32, not {t.dtype}")
-    for t in floats:
-        if t.dtype != torch.float32:
-            raise NotImplementedError(f"{t.dtype} particle arrays; the kernels are "
-                                      f"float32 ({FLOAT64_ITEM})")
     dev = ints[0].device
     for t in (*ints, *floats):
         if not t.is_contiguous() or t.device != dev:
@@ -122,23 +120,25 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 def deposit_pm(lidx, fx, fy, fz, q, starts, counts, gridsize: int):
     """CIC deposit of the sorted particles' weights q onto the (n, n, n)
     mesh."""
+    dtype = _build.scalar_dtype("pm_deposit", fx, fy, fz, q)
     if q.device.type == "cpu":
         return deposit_pm_plain(lidx, fx, fy, fz, q, starts, counts, gridsize)
     nb, N = _check((lidx, fx, fy, fz, q), starts, counts, gridsize)
     _check_cuda((lidx, starts, counts), (fx, fy, fz, q))
     n = gridsize
-    grid = torch.zeros((n, n, n), dtype=torch.float32, device=q.device)
-    err = _fn("pm_deposit_launch", [_P] * 7 + [_I, _I, _P, _P])(
+    grid = torch.zeros((n, n, n), dtype=dtype, device=q.device)
+    err = _fn("pm_deposit_launch", [_P] * 7 + [_I, _I, _P, _P], dtype)(
         *(t.data_ptr() for t in (lidx, fx, fy, fz, q, starts, counts)), N, nb,
         grid.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "pm_deposit")
-    deposit_pm.launches += 1
+    _build.count_launch(deposit_pm, dtype)
     return grid
 
 
 def gather_pm(lidx, fx, fy, fz, starts, counts, grids, gridsize: int):
     """CIC interpolation of the D mesh fields ``grids`` (D, n, n, n) at
     every sorted particle, in one launch: returns (D, N)."""
+    dtype = _build.scalar_dtype("pm_gather", fx, fy, fz, grids)
     if grids.device.type == "cpu":
         return gather_pm_plain(lidx, fx, fy, fz, starts, counts, grids, gridsize)
     nb, N = _check((lidx, fx, fy, fz), starts, counts, gridsize)
@@ -147,15 +147,15 @@ def gather_pm(lidx, fx, fy, fz, starts, counts, grids, gridsize: int):
     if grids.dim() != 4 or tuple(grids.shape[1:]) != (n, n, n):
         raise ValueError(f"grids must be (D, {n}, {n}, {n}), not {tuple(grids.shape)}")
     D = grids.shape[0]
-    out = torch.empty((D, N), dtype=torch.float32, device=grids.device)
-    err = _fn("pm_gather_launch", [_P] * 6 + [_I, _I, _P, _I, _P, _P])(
+    out = torch.empty((D, N), dtype=dtype, device=grids.device)
+    err = _fn("pm_gather_launch", [_P] * 6 + [_I, _I, _P, _I, _P, _P], dtype)(
         *(t.data_ptr() for t in (lidx, fx, fy, fz, starts, counts)), N, nb,
         grids.data_ptr(), D, out.data_ptr(),
         torch.cuda.current_stream(grids.device).cuda_stream)
     _build.check(err, "pm_gather")
-    gather_pm.launches += 1
+    _build.count_launch(gather_pm, dtype)
     return out
 
 
-deposit_pm.launches = 0
-gather_pm.launches = 0
+for _f in (deposit_pm, gather_pm):
+    _f.launches = _f.launches_f64 = 0

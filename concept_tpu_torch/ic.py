@@ -8,7 +8,11 @@ threefry2x32 (jax_threefry_partitionable = True) under the key data
 output words xor-ed, the top 23 bits mapped to a uniform in (−1, 1) and
 that to a normal by √2·erfinv.  threefry2x32 runs here on int64 tensors
 masked to 32 bits; the bits and uniforms equal JAX's exactly, and erfinv
-uses XLA's float32 polynomial.
+uses XLA's float32 polynomial.  In float64 (``enable_float64``) it is
+``jax.random.normal(..., float64)`` as the JAX package draws it under x64:
+the two output words as one 64-bit integer, its top 52 bits a uniform,
+and torch's erfinv in double (XLA's double polynomial agrees to
+rounding).
 
 Conventions: δ_dft(k) = Σ_x δ(x) e^{−ikx}; ⟨|δ_dft(k)|²⟩ = N_cells²/V·P(k),
 so the realization amplitude is √(N/V)·√P(k) on unit-variance noise.
@@ -61,13 +65,20 @@ def threefry2x32(key: tuple[int, int], x0, x1):
     return x0, x1
 
 
-def random_bits(seed: int, n_elems: int, device="cpu"):
-    """JAX's partitionable 32-bit random bits of ``jax.random.key(seed)``
-    for n_elems elements (row-major), as int64 in [0, 2³²)."""
+def _threefry_words(seed: int, n_elems: int, device="cpu"):
+    """The two threefry2x32 output words of JAX's partitionable random
+    bits of ``jax.random.key(seed)`` for n_elems elements (row-major), as
+    int64 tensors in [0, 2³²)."""
     key = ((seed >> 32) & _M32, seed & _M32)
     lo = torch.arange(n_elems, dtype=torch.int64, device=device)
     hi = torch.zeros_like(lo) if n_elems <= 1 << 32 else lo >> 32
-    b0, b1 = threefry2x32(key, hi, lo & _M32)
+    return threefry2x32(key, hi, lo & _M32)
+
+
+def random_bits(seed: int, n_elems: int, device="cpu"):
+    """JAX's partitionable 32-bit random bits of ``jax.random.key(seed)``
+    for n_elems elements (row-major), as int64 in [0, 2³²)."""
+    b0, b1 = _threefry_words(seed, n_elems, device)
     return b0 ^ b1
 
 
@@ -94,8 +105,17 @@ def erfinv_f32(x: torch.Tensor) -> torch.Tensor:
     return p * x
 
 
-def normal_noise(seed: int, n: int, device="cpu"):
-    """``jax.random.normal(jax.random.key(seed), (n, n, n), float32)``."""
+def normal_noise(seed: int, n: int, device="cpu", dtype=torch.float32):
+    """``jax.random.normal(jax.random.key(seed), (n, n, n), dtype)``."""
+    if dtype == torch.float64:
+        # 64-bit bits (word 0 high, word 1 low), their top 52 bits → a
+        # double in [1, 2) → [0, 1) → (−1, 1)
+        b0, b1 = _threefry_words(seed, n**3, device)
+        one = 0x3FF0000000000000
+        floats = (((b0 << 20) | (b1 >> 12)) | one).view(torch.float64) - 1.0
+        lo = float(np.nextafter(-1.0, 0.0))
+        u = torch.clamp(floats * (1.0 - lo) + lo, min=lo)
+        return (math.sqrt(2.0) * torch.erfinv(u)).reshape(n, n, n)
     bits = random_bits(seed, n**3, device)
     # top 23 bits → a float in [1, 2) → [0, 1) → (−1, 1)
     one = 0x3F800000
@@ -181,7 +201,7 @@ def generate_primordial_noise(gridsize: int, seed: int = 0,
     partner of a pair; reference ic.py:1058-1105)."""
     n = gridsize
     if scheme == "simple":
-        R = rfft3(normal_noise(seed, n, device).to(dtype))
+        R = rfft3(normal_noise(seed, n, device, dtype))
     elif scheme == "distributed":
         R = _modewise_noise(n, seed, dtype, device)
     else:

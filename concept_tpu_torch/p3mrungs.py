@@ -57,7 +57,7 @@ import torch
 from concept_tpu_torch.components import periodic_wrap
 from concept_tpu_torch.forces.cuda_shortrange import pair_sweep_reach
 from concept_tpu_torch.forces.shortrange import (
-    SENTINEL, f32_square, reach_offsets, sweep_slots,
+    SENTINEL, dtype_square, reach_offsets, sweep_slots,
 )
 from concept_tpu_torch.p3msim import (
     margin_cell_count, pm_gradient_cells, pm_gradient_layout, pm_kick_cells_lean,
@@ -260,7 +260,8 @@ def rung_substep(state: RungState, mass: float, G: float, int_drift: float,
         # one shared sentinel array: suppliers (and the ±1 sweep's
         # receivers) are row slices
         pos_s = pos if sentinel_out else torch.where(state.valid[None], pos, big)
-        sweep_args = (nc, boxsize, scale, f32_square(cutoff), f32_square(softening))
+        sweep_args = (nc, boxsize, scale, dtype_square(cutoff, pos.dtype),
+                      dtype_square(softening, pos.dtype))
         if offsets is None:
             acc = sweep_slots(pos_s[:, :K_r], pos_s[:, :K_s], *sweep_args,
                               kernel=softening_kernel, rext=rext, sext=sext)

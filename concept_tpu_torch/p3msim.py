@@ -39,7 +39,7 @@ from concept_tpu_torch.components import periodic_wrap
 from concept_tpu_torch.forces.p3m import block_layout, block_pm, pm_gradient_blocks
 from concept_tpu_torch.forces.pm import gravity_potential_slab
 from concept_tpu_torch.forces.shortrange import (
-    SENTINEL, f32_square, grid_key, scatter_slots, slot_layout, sweep_slots,
+    SENTINEL, dtype_square, grid_key, scatter_slots, slot_layout, sweep_slots,
 )
 from concept_tpu_torch.grid import fourier
 from concept_tpu_torch.grid.cuda_cells import deposit_cells, gather_cells
@@ -271,12 +271,9 @@ def p3m_bucket_step(state: P3MState, mass: float, G: float, int_a1: float,
     largest |mom|² (0-dim), mass_sum the deposited mass (0-dim
     float64)."""
     dtype = state.pos.dtype
-    f32 = dtype == torch.float32
     slots = torch.where(state.valid[None], state.pos, SENTINEL * boxsize)
-    acc = sweep_slots(slots, slots, nc, boxsize, scale,
-                      f32_square(cutoff) if f32 else cutoff**2,
-                      f32_square(softening) if f32 else softening**2,
-                      kernel=softening_kernel)
+    acc = sweep_slots(slots, slots, nc, boxsize, scale, dtype_square(cutoff, dtype),
+                      dtype_square(softening, dtype), kernel=softening_kernel)
     del slots
     fd, n_over, mass_sum = pm_gradient_layout(
         state.pos, state.valid, mass, G, scale, boxsize, mesh, k_pm=k_pm,

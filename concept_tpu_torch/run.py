@@ -9,8 +9,9 @@ sim.Simulation), or with PM gravity, stepped globally whatever
 ``N_rungs`` says (as the JAX package does).  It starts from realized
 initial conditions or from a snapshot (CONCEPT-HDF5, GADGET-2, TIPSY),
 dumps power spectra, bispectra and snapshots, autosaves (periodically
-and on SIGINT/SIGTERM) and resumes from an autosave.  Multi-component
-and fluid runs, the renders and the PP methods raise
+and on SIGINT/SIGTERM) and resumes from an autosave.  PP gravity ('pp'
+with Ewald, 'ppnonperiodic') steps globally, as in the JAX package.
+Multi-component and fluid runs and the renders raise
 ``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 
@@ -34,7 +35,7 @@ from concept_tpu_torch.cosmology.linear import LinearCosmology
 from concept_tpu_torch.cosmology.primordial import PrimordialSpectrum
 from concept_tpu_torch.device import resolve_device, resolve_dtype
 from concept_tpu_torch.param import RunConfig, is_selected
-from concept_tpu_torch.sim import METHOD_ITEMS, SimConfig, Simulation
+from concept_tpu_torch.sim import METHODS, SimConfig, Simulation
 from concept_tpu_torch.units import UnitSystem
 from concept_tpu_torch.utils.terminal import abort, masterprint
 
@@ -335,9 +336,8 @@ def run(cfg: RunConfig, max_steps: int = 100000, seed: int | None = None,
     if source != "realize":
         spec, loaded = load_snapshot_component(cfg, source, units)
     method = spec.force_method("gravity") or "p3m"
-    if method not in ("pm", "p3m"):
-        raise NotImplementedError(
-            f"gravity {method!r} ({METHOD_ITEMS.get(method, 'not a method')})")
+    if method not in METHODS:
+        raise ValueError(f"gravity has no method {method!r} (available: {', '.join(METHODS)})")
     pot = cfg.potential_options
     gridsize = int(pot.get("gridsize_per_method", {}).get(method)
                    or pot.get("gridsize")
@@ -370,6 +370,7 @@ def run(cfg: RunConfig, max_steps: int = 100000, seed: int | None = None,
         deposit_method=deposit_method or "auto",
         softening=softening_length(cfg, spec, gridsize),
         softening_kernel=cfg.softening_kernel,
+        ewald_gridsize=cfg.ewald_gridsize,
         dt_base_background_factor=cfg.Delta_t_base_background_factor,
         dt_base_nonlinear_factor=cfg.Delta_t_base_nonlinear_factor,
         da_max_early=cfg.Delta_a_max_early, da_max_late=cfg.Delta_a_max_late,

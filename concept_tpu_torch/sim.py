@@ -1,6 +1,6 @@
 """Run configuration, the time-step limiter constants and the global
 stepper (port of ``SimConfig``, the ``FAC_*`` / ``DELTA_A_MAX_*``
-constants and ``Simulation`` for PM and P³M on one device,
+constants and ``Simulation`` for PM, P³M and PP on one device,
 concept_tpu/sim.py; reference main.py:214-461, 697-996, 2345-2433).
 
 The global stepper is leapfrog KDK with exact time integrals (reference
@@ -12,7 +12,9 @@ integration.py:712):
 Every particle takes the same Δt.  A P³M kick with CIC, Fourier
 gradients, no interlacing and deconvolution of order 4 is the fused kick
 of forces/p3m.py; every other PM or P³M kick is the generic PM of
-forces/pm.py (plus, for P³M, the short-range sweep).  The host advances
+forces/pm.py (plus, for P³M, the short-range sweep); 'pp' and
+'ppnonperiodic' sum every pair directly (forces/pp.py, with the Ewald
+correction for 'pp').  The host advances
 the scalars (t, a, Δt, the Δt hysteresis of timestep.py) and the
 fixed-size budgets.
 """
@@ -40,8 +42,7 @@ DELTA_A_MAX_EARLY = 0.00153
 DELTA_A_MAX_LATE = 0.022
 DT_INCREASE_MAX_FAC = 1.5
 
-METHOD_ITEMS = {"pp": "ROADMAP Queue 1 item 11: PP / Ewald",
-                "ppnonperiodic": "ROADMAP Queue 1 item 11: PP / Ewald"}
+METHODS = ("p3m", "pm", "pp", "ppnonperiodic")
 
 
 @dataclass(frozen=True)
@@ -72,6 +73,7 @@ class SimConfig:
     shortrange_scale: float | None = None
     shortrange_range: float | None = None
     shortrange_capacity: int = 0  # 0 → auto from the mean density
+    ewald_gridsize: int = 64  # reference default (example_explanatory:210)
     # Δt limiter prefactors (reference Δt_base_background_factor /
     # Δt_base_nonlinear_factor, main.py:2401-2424)
     dt_base_background_factor: float = 1.0
@@ -98,17 +100,19 @@ class Simulation:
         from concept_tpu_torch.forces.p3m import pm_block_capacity
         from concept_tpu_torch.forces.shortrange import auto_capacity, cell_grid_shape
 
-        if config.method not in ("pm", "p3m"):
-            if config.method in METHOD_ITEMS:
-                raise NotImplementedError(
-                    f"gravity {config.method!r} ({METHOD_ITEMS[config.method]})")
+        if config.method not in METHODS:
             raise ValueError(f"gravity has no method {config.method!r} "
-                             f"(available: p3m, pm, pp, ppnonperiodic)")
+                             f"(available: {', '.join(METHODS)})")
         self.spec = spec
         self.config = config
         self.bg = bg
         self.lin = lin
         cap = 0
+        self._ewald_table = None
+        if config.method == "pp":
+            from concept_tpu_torch.forces.pp import make_ewald_table
+
+            self._ewald_table = make_ewald_table(config.ewald_gridsize, config.device)
         if config.method == "p3m":
             # short-range state: PM-only steps have no short-range cells
             scale, rng = config.derived_shortrange()
@@ -154,6 +158,15 @@ class Simulation:
         count and has none (0 here; its count is in the stats)."""
         cfg = self.config
         pos = state.pos
+        if cfg.method in ("pp", "ppnonperiodic"):
+            from concept_tpu_torch.forces.pp import pp_momentum_updates
+
+            state.mom.add_(pp_momentum_updates(
+                pos, self.spec.mass, cfg.boxsize, int_a1, cfg.G, softening=cfg.softening,
+                ewald_table=self._ewald_table, periodic=cfg.method == "pp",
+                softening_kernel=cfg.softening_kernel))
+            self.stats["kicks"] += 1
+            return state, (0, 0)
         comps = (pos[:, 0], pos[:, 1], pos[:, 2])
         n_sr = 0
         if self._fused:
@@ -203,6 +216,17 @@ class Simulation:
         fac = int_a2 / self.spec.mass
         return state._replace(
             pos=periodic_wrap(state.pos + state.mom * fac, self.config.boxsize))
+
+    def kick(self, state: ParticleState, int_a1: float) -> ParticleState:
+        """One kick alone, as ``evolve`` begins it: for P³M the
+        short-range capacity is refreshed first, and the kick's overflow
+        counts are checked against the budgets.  The momenta are updated
+        in place."""
+        if self.config.method == "p3m":
+            self._refresh_shortrange_capacity(state)
+        state, (n_sr, n_pm) = self._kick(state, int_a1)
+        self._check_overflow_budgets(n_sr, n_pm)
+        return state
 
     def step(self, state: ParticleState, int_a1: float, int_a2: float):
         """One KDK-ordered update: kick(int_a1), then drift(int_a2).  The
@@ -268,7 +292,8 @@ class Simulation:
         """Base Δt_max and its bottleneck (reference
         get_base_timestep_size, main.py:697-996): dynamical time, Hubble
         time, Δa_max and, with the largest particle speed, the P³M
-        displacement bound fac_p3m·split scale per step."""
+        displacement bound fac_p3m·split scale per step, or for PM and PP
+        fac_pm·mesh cell."""
         bg = self.bg
         cfg = self.config
         H = float(bg.hubble_np(a))
@@ -301,6 +326,18 @@ class Simulation:
 
     def timestep_size(self, a: float, v_max: float | None = None) -> float:
         return self.base_timestep_size(a, v_max=v_max)[0]
+
+    def evolve_static(self, state: ParticleState, t_total: float, n_steps: int):
+        """Static-universe (enable_Hubble = False) leapfrog over cosmic
+        time t_total in n_steps equal steps (the reference's test/
+        drift_nohubble and kick_pp_without_ewald): a ≡ 1, so the kick and
+        drift integrals are plain Δt.  A half kick and a full drift, then
+        n_steps − 1 whole steps, then the closing half kick."""
+        dt = t_total / n_steps
+        state = self.step(state, 0.5 * dt, dt)
+        for _ in range(n_steps - 1):
+            state = self.step(state, dt, dt)
+        return self.step(state, 0.5 * dt, 0.0)
 
     def evolve(self, state: ParticleState, a_begin: float, a_end: float,
                max_steps: int = 100000, static_dt=None,

@@ -19,7 +19,7 @@ __global__ void deposit_slots_kernel(const float* __restrict__ px, const float* 
   const float q = w[i];
   if (q == 0.0f || W_ONLY) return;
   const int C = nc * nc * nc;
-  const Geometry g = cell_geometry(px[i], py[i], pz[i], (int)(i % C), nc, cb, zmajor, inv_h);
+  const Geometry<float> g = cell_geometry(px[i], py[i], pz[i], (int)(i % C), nc, cb, zmajor, inv_h);
   if (!g.in_halo) return;
   const int n = nc * cb;
   if (GEOMETRY_ONLY) {

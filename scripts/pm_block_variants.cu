@@ -184,7 +184,7 @@ static const struct {
   DepositFn fn;
   const char* name;
 } kDeposit[] = {
-    {deposit_launch<4, 8, 8>, "as built (4x8x8)"},
+    {deposit_launch<float, 4, 8, 8>, "as built (4x8x8)"},
     {deposit_variant_launch<4, 8, 8, true, 1, 0>, "4x8x8, plain stores inside"},
     {deposit_variant_launch<4, 8, 8, false, 8, 0>, "4x8x8, a halo copy per warp"},
     {deposit_variant_launch<4, 8, 8, false, 2, 0>, "4x8x8, two halo copies"},
@@ -202,7 +202,7 @@ static const struct {
   GatherFn fn;
   const char* name;
 } kGather[] = {
-    {gather_launch<4, 4, 8>, "as built (4x4x8, cp.async)"},
+    {gather_launch<float, 4, 4, 8>, "as built (4x4x8, cp.async)"},
     {gather_variant_launch<4, 4, 8, 0, 0>, "4x4x8, staging through registers"},
     {gather_variant_launch<4, 4, 16, 1, 0>, "4x4x16"},
     {gather_variant_launch<4, 8, 8, 1, 0>, "4x8x8"},

@@ -6,7 +6,9 @@ On a machine with the card and without JAX:
 
 Tolerances: the sweep max|Δ|/max|ref| < 1e-5 (summation order, FMA
 contraction in the force); deposit and gather rtol 2e-5 / atol
-1e-5·max|ref| (atomics add in no fixed order)."""
+1e-5·max|ref| (atomics add in no fixed order).  The double kernels
+(float64 inputs) within 1e-10 of the largest plain value: the same
+causes, in double."""
 
 import numpy as np
 import pytest
@@ -23,7 +25,7 @@ def dev():
     return torch.device("cuda")
 
 
-def _layout(rng, n, K, box):
+def _layout(rng, n, K, box, dtype=np.float32):
     """Random prefix-valid sentinel layout over n³ cells and its
     per-pencil extents (as tests/test_torch_shortrange.py)."""
     C = n**3
@@ -33,7 +35,7 @@ def _layout(rng, n, K, box):
     cw = box / n
     base = np.stack([cells // (n * n), (cells // n) % n, cells % n]) * cw
     pos = base[:, None, :] + rng.random((3, K, C)) * cw
-    s = np.where(valid[None], pos, 1e4 * box).astype(np.float32)
+    s = np.where(valid[None], pos, 1e4 * box).astype(dtype)
     ext = counts.reshape(n * n, n).max(axis=1).astype(np.int32)
     return s, valid, ext
 
@@ -302,12 +304,20 @@ def test_block_deposit_and_gather_match_plain(dev):
     assert float(got[0][0, 0].abs()) == 0.0
 
 
-def test_float64_on_the_card_raises(dev):
+def test_other_and_mixed_dtypes_on_the_card_raise(dev):
+    """A launch takes float32 or float64 inputs of one dtype, else raises
+    before any kernel runs (no fall-back to the plain version)."""
     from concept_tpu_torch.forces.cuda_shortrange import pair_sweep
+    from concept_tpu_torch.grid.cuda_cells import deposit_cells
 
-    s = torch.zeros((3, 8, 27), dtype=torch.float64, device=dev)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    s = torch.zeros((3, 8, 27), dtype=torch.float16, device=dev)
+    with pytest.raises(TypeError, match="float32 or float64"):
         pair_sweep(s, s, 3, 1.0, 0.1, 0.2, 0.0)
+    with pytest.raises(TypeError, match="mixed"):
+        pair_sweep(s.double(), s.float(), 3, 1.0, 0.1, 0.2, 0.0)
+    with pytest.raises(TypeError, match="mixed"):
+        deposit_cells(torch.zeros((3, 2, 8), dtype=torch.float64, device=dev),
+                      torch.zeros((2, 8), device=dev), 16, 1.0, 8)
 
 
 def _clumped_blocks(dev, n, N, clump, box=4.0, seed=9, face=0):
@@ -797,3 +807,207 @@ def test_lean_kick_on_the_card_matches_the_cpu(dev):
     assert sim.ucb == 8 and sim.pm_lean is None
     assert P3MRungSimulation(384, 1000.0, 1.0, 1.0, mesh=768, device="cuda",
                              pm_diff="spectral").pm_lean is False
+
+
+# ---------------------------------------------------------------------- #
+# The double kernels (float64 inputs) against their float64 plain
+# versions, within 1e-10 of the largest plain value; each launch counted
+# in ``launches_f64`` and none in ``launches``.
+
+F64_TOL = 1e-10
+
+
+def _close_f64(got, ref):
+    torch.cuda.synchronize()
+    assert got.dtype == ref.dtype == torch.float64
+    assert float((got - ref).abs().max()) <= F64_TOL * max(float(ref.abs().max()), 1e-300)
+
+
+def _counts(*fns):
+    return tuple((f.launches, f.launches_f64) for f in fns)
+
+
+@pytest.mark.parametrize("kernel", ["plummer", "spline", "none"])
+@pytest.mark.parametrize("case", ["occupancy", "unbounded", "deep", "subset"])
+def test_pair_sweep_f64_matches_plain(dev, kernel, case):
+    """The ±1 sweep's double instantiation (rows 1, 2, 6): with occupancy
+    row bounds, without (receivers = suppliers), over columns of 600 rows
+    (a third receiver pass, a second supplier tile, spline near-field
+    pairs) and through pair_sweep_subset; exact screening."""
+    from concept_tpu_torch.forces.cuda_shortrange import (
+        pair_sweep, pair_sweep_plain, pair_sweep_subset,
+    )
+
+    rng = np.random.default_rng(61)
+    box, soft = 1.0, 0.01
+    if case == "deep":
+        n, K = 4, 600
+        s, _, ext = _layout(rng, n, 8, box, np.float64)
+        s = np.concatenate([s, np.full((3, K - 8, n**3), 1e4 * box)], axis=1)
+        col = 21
+        base = np.array([col // 16, (col // 4) % 4, col % 4]) * (box / n)
+        s[:, :, col] = base[:, None] + np.clip(rng.normal(0.5, 0.08, (3, K)), 0, 0.999) * box / n
+        ext = ext.copy()
+        ext[col // 4] = K
+    else:
+        n, K = 6, 24
+        s, _, ext = _layout(rng, n, K, box, np.float64)
+    st = torch.as_tensor(s, device=dev)
+    e = torch.as_tensor(ext, device=dev) if case in ("occupancy", "deep") else None
+    args = (n, box, 0.04, 0.16**2, soft**2, kernel)
+    fn = pair_sweep_subset if case == "subset" else pair_sweep
+    before = _counts(fn)
+    if case == "subset":
+        got = pair_sweep_subset(st[:, :16].contiguous(), st, *args)
+        ref = pair_sweep_plain(st[:, :16].contiguous(), st, *args)
+    else:
+        got = pair_sweep(st, st, *args, rext=e, sext=e)
+        ref = pair_sweep_plain(st, st, *args, rext=e, sext=e)
+    assert _counts(fn) == ((before[0][0], before[0][1] + 1),)
+    _close_f64(got, ref)
+    if case == "deep":
+        assert float(got[:, 512:, col].abs().max()) > 0  # the third receiver pass ran
+
+
+@pytest.mark.parametrize("two_sided", [False, True])
+@pytest.mark.parametrize("kernel", ["plummer", "spline", "none"])
+def test_pair_sweep_reach_f64_matches_plain(dev, kernel, two_sided):
+    """The reach sweep's double instantiation (rows 5, 7) at n = 5 with a
+    clump of 600 slots, one-sided through pair_sweep_reach and two-sided
+    through sweep_reach."""
+    from concept_tpu_torch.forces.cuda_shortrange import pair_sweep_plain, pair_sweep_reach
+    from concept_tpu_torch.forces.shortrange import sweep_reach
+
+    rng = np.random.default_rng(43)
+    n, K, box, soft = 5, 600, 1.0, 0.004
+    C = n**3
+    cw = box / n
+    counts = rng.integers(0, 9, size=C)
+    counts[C // 2] = K
+    valid = np.arange(K)[:, None] < counts[None, :]
+    cells = np.arange(C)
+    base = np.stack([cells // (n * n), (cells // n) % n, cells % n]) * cw
+    frac = rng.random((3, K, C))
+    frac[:, :, C // 2] = np.clip(rng.normal(0.5, 0.05, (3, K)), 0.0, 0.999)
+    s = np.where(valid[None], base[:, None, :] + frac * cw, 1e4 * box)
+    st = torch.as_tensor(s, device=dev)
+    scale, _, offs = _reach_geometry(n, box)
+    cutoff = (4.5 * 1.25 / 4.0) * cw
+    before = _counts(pair_sweep_reach, sweep_reach)
+    if two_sided:
+        v = torch.as_tensor(valid, device=dev)
+        got = sweep_reach(*st, v, n, box, scale, cutoff, soft, cw, 0.55 * cw / 4.0,
+                          kernel=kernel)
+        ref = pair_sweep_plain(st, st, n, box, scale, cutoff**2, soft**2, kernel, offsets=offs)
+        want = ((before[0][0], before[0][1] + 1), (before[1][0], before[1][1] + 1))
+    else:
+        recv = torch.where(torch.as_tensor(valid, device=dev)[None], st, -1e4 * box)
+        got = pair_sweep_reach(recv, st, n, box, scale, cutoff**2, soft**2, offs,
+                               kernel=kernel)
+        ref = pair_sweep_plain(recv, st, n, box, scale, cutoff**2, soft**2, kernel,
+                               offsets=offs)
+        want = ((before[0][0], before[0][1] + 1), before[1])
+    assert _counts(pair_sweep_reach, sweep_reach) == want
+    _close_f64(got, ref)
+    assert float(got[:, 512:, C // 2].abs().max()) > 0
+
+
+@pytest.mark.parametrize("case", ["D3", "D1", "clump", "extents"])
+@pytest.mark.parametrize("n", [16, 32])
+@pytest.mark.parametrize("cb, zmajor", [(2, True), (8, False), (4, False)],
+                         ids=["blocks", "cells8", "cells4"])
+def test_slot_kernels_f64_match_plain(dev, cb, zmajor, n, case):
+    """The double deposit (rows 3, 8: shared double atomics, a scalar
+    double atomic a halo cell) and gathers (row 9 with cp.async of
+    doubles, row 4) on the cases of test_slot_kernels_match_plain."""
+    from concept_tpu_torch.grid.cuda_blocks import deposit_blocks, gather_blocks
+    from concept_tpu_torch.grid.cuda_cells import (
+        deposit_cells, deposit_cells_plain, gather_cells, gather_cells_plain, launch_deposit,
+        launch_gather,
+    )
+
+    rng = np.random.default_rng(n + cb + 100)
+    box = 4.0
+    K = 600 if case == "clump" else 12
+    s, w_np, _ = _slot_case(rng, n, cb, zmajor, K, box, clump=600 if case == "clump" else 0)
+    pos = torch.as_tensor(s.astype(np.float64), device=dev)
+    w = torch.as_tensor(w_np.astype(np.float64), device=dev)
+    C = w.shape[1]
+    ext = w_ref = None
+    if case == "extents" and cb == 2:
+        ext = torch.as_tensor(rng.integers(0, K + 1, size=C).astype(np.int32), device=dev)
+        w_ref = w * (torch.arange(K, device=dev)[:, None] < ext[None, :])
+    else:
+        w_ref = w
+    D = 1 if case == "D1" else 3
+    grids = torch.as_tensor(rng.standard_normal((D, n, n, n)), device=dev)
+    dep, gat = ((deposit_blocks, gather_blocks) if cb == 2 else (deposit_cells, gather_cells))
+    before = _counts(dep, gat)
+    if ext is not None:
+        got = launch_deposit(pos, w, n, box, cb, zmajor, ext=ext)
+        gat_got = launch_gather(pos, w, grids, n, box, cb, zmajor, ext=ext)
+    elif cb == 2:
+        got = deposit_blocks(*pos, w, n, box)
+        gat_got = gather_blocks(*pos, w, grids, n, box)
+    else:
+        got = deposit_cells(pos, w, n, box, cb)
+        gat_got = gather_cells(pos, w, grids, n, box, cb)
+    _close_f64(got, deposit_cells_plain(pos, w_ref, n, box, cb, zmajor))
+    _close_f64(gat_got, gather_cells_plain(pos, w_ref, grids, n, box, cb, zmajor))
+    counted = 0 if ext is not None else 1
+    assert _counts(dep, gat) == tuple((b[0], b[1] + counted) for b in before)
+
+
+@pytest.mark.parametrize("n, D, capacity", [(32, 3, None), (18, 1, None), (16, 3, 32)])
+def test_pm_block_kernels_f64_match_plain(dev, n, D, capacity):
+    """Rows 10 and 11 in double on block-sorted particles with a clump
+    of 600 in one block (nb below the tile along z at n = 16, counts
+    clamped to a capacity)."""
+    from concept_tpu_torch.grid.bucketed import sort_blocks
+    from concept_tpu_torch.grid.cuda_pm import (
+        deposit_pm, deposit_pm_plain, gather_pm, gather_pm_plain,
+    )
+
+    _, pos32 = _clumped_blocks(dev, n, 3 * n**3 // 8, 600)
+    sb = sort_blocks(pos32.double(), n, 4.0)
+    counts = sb["counts"] if capacity is None else torch.clamp(sb["counts"], max=capacity)
+    args = (sb["lidx"], sb["fx"], sb["fy"], sb["fz"])
+    assert sb["fx"].dtype == torch.float64
+    N = sb["lidx"].shape[0]
+    q = torch.full((N,), 1.3, dtype=torch.float64, device=dev)
+    grids = torch.as_tensor(np.random.default_rng(4).standard_normal((D, n, n, n)), device=dev)
+    before = _counts(deposit_pm, gather_pm)
+    got = deposit_pm(*args, q, sb["starts"], counts, n)
+    _close_f64(got, deposit_pm_plain(*args, q, sb["starts"], counts, n))
+    got = gather_pm(*args, sb["starts"], counts, grids, n)
+    _close_f64(got, gather_pm_plain(*args, sb["starts"], counts, grids, n))
+    assert _counts(deposit_pm, gather_pm) == tuple((b[0], b[1] + 1) for b in before)
+
+
+def test_p3m_step_f64_on_the_card_matches_the_cpu(dev):
+    """One global P³M step (the fused kick: rows 6, 8, 9) in float64 on the
+    card against the same step on the CPU, within 1e-10."""
+    from concept_tpu_torch.components import ComponentSpec, ParticleState
+    from concept_tpu_torch.cosmology.background import Background
+    from concept_tpu_torch.grid.cuda_blocks import deposit_blocks
+    from concept_tpu_torch.sim import SimConfig, Simulation
+
+    rng = np.random.default_rng(7)
+    N, box = 12**3, 64.0
+    pos = rng.uniform(0, box, (N, 3))
+    mom = rng.normal(0, 1e-3, (N, 3))
+    out = []
+    before = _counts(deposit_blocks)
+    for d in ("cuda", "cpu"):
+        cfg = SimConfig(boxsize=box, potential_gridsize=24, device=torch.device(d),
+                        dtype=torch.float64, G=1.0, softening=0.05, softening_kernel="spline")
+        sim = Simulation(ComponentSpec(name="m", species="matter", N=N, mass=1.0), cfg,
+                         Background(H0=0.07, Omega_m=0.3))
+        # copies: the kick updates the momenta in place
+        st = ParticleState(pos=torch.tensor(pos, device=d), mom=torch.tensor(mom, device=d))
+        st = sim.step(st, 1e-2, 1e-2)
+        out.append((st.pos.cpu(), st.mom.cpu()))
+    assert _counts(deposit_blocks)[0] == (before[0][0], before[0][1] + 1)
+    assert float((out[0][0] - out[1][0]).abs().max()) <= 1e-10 * box
+    dm = float((out[0][1] - out[1][1]).abs().max())
+    assert dm <= 1e-10 * float((out[1][1] - torch.as_tensor(mom)).abs().max())
