@@ -156,6 +156,22 @@ instantiation) and PP gravity:
     PP + Ewald kick on a realized 32³ state and on a clustered one (a 32³
     float64 rung run to a = 1), rms under 0.05.
 
+Then the rest of the cosmology:
+
+8.  ``nu``: ``param/example_nonlinnu.py``'s matter component as the param
+    gives it (80³ particles, grid 40, Σmν = 0.5 eV, 8 rungs) with the
+    internal Einstein-Boltzmann tables at the light settings of
+    tests/test_cli_e2e.py (8 modes).  The tables are solved on the host
+    into an empty cache directory through the process pool (seconds and
+    host CPUs printed), built again from that cache (read and gauge
+    transform timed), and the run goes from them on the card through
+    ``load_params`` and ``run``, a = 0.02 → ``NU_A_END``: it must launch
+    rows 1, 3 and 4 only and pass the checks of 3.  Prints σ8 of the
+    tables, the realized spectrum at a = 0.02 over the tables' linear
+    one in the lowest bins (their weighted mean must lie within a factor
+    of 2), and the ms per base step beside the same run without the
+    neutrinos on the analytic backend (EH).
+
 Before its last line it prints one JSON object ``{"kernels": [...]}`` and
 the card's name and power limit as nvidia-smi reports them (each kernel
 with its double instantiation's numbers under ``f64_*``); the last line
@@ -2314,6 +2330,138 @@ def pp_phase(n: int = 32, a_end: float = 0.023, device: str = "cuda") -> dict:
     return out
 
 
+NU_PARAM = os.path.join(ROOT, "param", "example_nonlinnu.py")
+# the light Boltzmann settings of tests/test_cli_e2e.py (8 modes,
+# k = 0.0105-3.0 /Mpc)
+NU_A_END = 0.2  # to a = 1 the 5³ cells of grid 40 clustered take ~3 min on an H100
+NU_OPTIONS = ("'modes_per_decade':3,'rtol':1e-4,'n_q':4,'l_max_ncdm':6,'l_max_ur':10,"
+              "'k_max':3.0")
+
+
+class _Timed:
+    """Adds the seconds of each call of ``owner.name`` to ``self.seconds``
+    while the context is open."""
+
+    def __init__(self, owner, name: str):
+        self.owner, self.name, self.seconds = owner, name, 0.0
+
+    def __enter__(self):
+        fn = self.orig = getattr(self.owner, self.name)
+
+        def timed(*args, **kw):
+            t0 = time.time()
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.seconds += time.time() - t0
+
+        setattr(self.owner, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.orig)
+
+
+def _build_timed(overrides: list) -> tuple:
+    """build_cosmology of example_nonlinnu: (lin, its seconds, the seconds
+    of tabulate_eb (the solve, or the cache's read), of to_gauge)."""
+    from concept_tpu_torch.cosmology import boltzmann, ebsolver
+    from concept_tpu_torch.param import load_params
+    from concept_tpu_torch.run import build_cosmology
+
+    cfg = load_params(NU_PARAM, overrides=overrides)
+    t0 = time.time()
+    with _Timed(ebsolver, "tabulate_eb") as tab, \
+            _Timed(boltzmann.TransferTables, "to_gauge") as gauge:
+        _, _, _, lin = build_cosmology(cfg)
+    return lin, time.time() - t0, tab.seconds, gauge.seconds
+
+
+def nu_cosmology(a_end: float = NU_A_END, n: int = 80, device: str = "cuda") -> dict:
+    """Phase 8: param/example_nonlinnu.py's matter component (80³
+    particles, grid 40, Σmν = 0.5 eV, 8 rungs) with the internal
+    Einstein-Boltzmann tables at the light settings of
+    tests/test_cli_e2e.py.  The tables are solved on the host into an
+    empty cache directory (the process pool over the 8 modes), built
+    again from that cache, and the run reads them on the card, a = 0.02
+    → ``a_end``; then the same run with the massive neutrinos removed and
+    the analytic backend (EH).  Fails unless both runs launch rows 1, 3
+    and 4 only, or where the realized spectrum's lowest bins stray from
+    the tables' linear spectrum by more than a factor of 2.  ``n`` other
+    than 80 takes the grid n/2, as the param does."""
+    import math
+
+    import numpy as np
+
+    cache = tempfile.mkdtemp(prefix="chip_smoke_eb_")
+    outdir = tempfile.mkdtemp(prefix="chip_smoke_nu_")
+    eh_dir = tempfile.mkdtemp(prefix="chip_smoke_nu_eh_")
+    out = {"a_end": a_end, "host_cpus": os.cpu_count(),
+           "eb_workers": min(int(os.environ.get("CONCEPT_TPU_EB_WORKERS",
+                                                os.cpu_count() or 1)), 8)}
+    try:
+        grid = [] if n == 80 else [f"potential_options={n // 2}"]
+        overrides = [f"initial_conditions={{'species':'matter','N':{n}**3}}", *grid,
+                     f"output_times={{'powerspec': [0.02, {a_end}]}}",
+                     f"boltzmann_options={{{NU_OPTIONS},'cache_dir':'{cache}'}}"]
+        lin, out["build_s"], out["solve_s"], out["gauge_s"] = _build_timed(overrides)
+        if len(os.listdir(cache)) != 1:
+            raise SystemExit(f"the EB solve left {os.listdir(cache)} in its cache")
+        _, out["rebuild_s"], out["read_s"], out["regauge_s"] = _build_timed(overrides)
+        n_modes = len(lin.tables.k)
+        print(f"nu: EB tables of {n_modes} modes × {len(lin.tables.a)} scale factors "
+              f"solved on the host in {out['solve_s']:.1f} s ({out['host_cpus']} CPUs, "
+              f"{out['eb_workers']} workers), gauge transform "
+              f"{out['gauge_s'] * 1e3:.0f} ms, build_cosmology {out['build_s']:.1f} s; "
+              f"from the cache: read {out['read_s'] * 1e3:.0f} ms, gauge transform "
+              f"{out['regauge_s'] * 1e3:.0f} ms, build_cosmology {out['rebuild_s']:.2f} s")
+        t0 = time.time()
+        sim, _, a, counts, seconds = _run(overrides, outdir, RUNG_KERNELS, device,
+                                          param=NU_PARAM)
+        if sim.lin.tables is None or a < a_end * (1 - 1e-9):
+            raise SystemExit(f"the ν run ended at a = {a} without tables")
+        steps = sim.hysteresis.get("step_count", 0)
+        out.update(phase_run_s=time.time() - t0, wall_s=seconds,
+                   evolve_s=sim.timings["evolve_s"], base_steps=steps,
+                   ms_per_base_step=1e3 * sim.timings["evolve_s"] / max(steps, 1),
+                   launches=counts, sigma8=sim.lin.sigma8(),
+                   pm_mass_deficit_max=sim.inner.stats["pm_mass_deficit_max"])
+        # the raw spectrum (a lattice has no Poisson shot noise) against
+        # the P_linear column, which the run computes from the tables
+        first = np.loadtxt(os.path.join(outdir, "powerspec_a=0.02.txt"))
+        k, modes, P, P_lin = first[:4, 0], first[:4, 1], first[:4, 2], first[:4, 4]
+        ratio = P / P_lin
+        out["lowest_bins"] = {"k_per_Mpc": k.tolist(), "modes": modes.tolist(),
+                              "P_over_P_linear": ratio.tolist()}
+        mean = float(np.sum(modes * ratio) / np.sum(modes))
+        out["P_over_P_linear_mean"] = mean
+        if not (0.5 < mean < 2.0 and np.all(np.isfinite(ratio))):
+            raise SystemExit(f"the realized spectrum strays from the tables': {ratio}")
+        sim_eh, _, _, counts_eh, seconds_eh = _run(
+            [f"initial_conditions={{'species':'matter','N':{n}**3}}",
+             f"output_times={{'powerspec': [{a_end}]}}", "class_params={}",
+             "boltzmann_backend='eh'", *grid], eh_dir, RUNG_KERNELS, device, param=NU_PARAM)
+        steps_eh = sim_eh.hysteresis.get("step_count", 0)
+        out["eh"] = {"wall_s": seconds_eh, "evolve_s": sim_eh.timings["evolve_s"],
+                     "base_steps": steps_eh, "launches": counts_eh,
+                     "ms_per_base_step": 1e3 * sim_eh.timings["evolve_s"] / max(steps_eh, 1),
+                     "sigma8": sim_eh.lin.sigma8()}
+        print(f"nu: example_nonlinnu's matter ({n}³, grid {n // 2}, Σmν = 0.5 eV) on {device}, "
+              f"a 0.02 → {a:.4g}: {steps} base steps, {out['evolve_s']:.2f} s of evolution "
+              f"({out['ms_per_base_step']:.1f} ms per base step; without ν, EH: "
+              f"{steps_eh} steps, {out['eh']['ms_per_base_step']:.1f} ms per base step), "
+              f"wall {seconds:.1f} s, launches {counts}; σ8 {out['sigma8']:.4f} from the "
+              f"tables ({out['eh']['sigma8']:.4f} without ν, EH); realized P / linear P at "
+              f"a = 0.02 in the lowest bins {[round(r, 3) for r in ratio]} "
+              f"(modes {modes.astype(int).tolist()}, weighted mean {mean:.3f})")
+        if not math.isfinite(out["sigma8"]):
+            raise SystemExit("σ8 of the tables is not finite")
+    finally:
+        for d in (cache, outdir, eh_dir):
+            shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
 # (name, counter, phase with its check, key, source, the TPU kernel's
 # definition, the newest path that launches the kernel (its launch count)
 # or None where no path runs it)
@@ -2388,6 +2536,7 @@ def main(argv=None) -> int:
     results["f64_global_rungs"] = global_rungs(dtype=torch.float64)
     results["f64_realistic"] = realistic(f64=True)
     results["pp"] = pp_phase()
+    results["nu"] = nu_cosmology()
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
@@ -2420,9 +2569,10 @@ def main(argv=None) -> int:
             "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")})
     byname["pair_sweep"].update(tight_launches=results["tight_main_path"]["launches"]
                                 ["pair_sweep"])
-    # the snapshot-started run of the files phase (rows 1, 3, 4)
+    # the snapshot-started run of the files phase and the ν run (rows 1, 3, 4)
     for name in RUNG_KERNELS:
         byname[name]["files_launches"] = results["files"]["launches"][name]
+        byname[name]["nu_launches"] = results["nu"]["launches"][name]
     # the earlier paths' launches of the kernels whose newest path is above
     for name, counter, phase in (("deposit_cells", "deposit_cells", "main_path"),
                                  ("gather_cells", "gather_cells", "main_path"),

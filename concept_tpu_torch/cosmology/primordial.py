@@ -10,6 +10,7 @@ import math
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 
 @dataclass(frozen=True)
@@ -20,12 +21,16 @@ class PrimordialSpectrum:
     pivot: float = 0.05  # in units of 1/Mpc by convention; store in internal units
 
     def zeta_power(self, k):
-        """P_ζ(k); k in the same (internal) units as self.pivot."""
-        k = np.asarray(k)
-        lnkp = np.log(k / self.pivot)
+        """P_ζ(k); k in the same (internal) units as self.pivot: a tensor
+        (computed in its dtype, on its device) or array-like."""
+        xp = torch if isinstance(k, torch.Tensor) else np
+        if xp is np:
+            k = np.asarray(k)
+        lnkp = xp.log(k / self.pivot)
         exponent = self.n_s - 1.0 + 0.5 * self.alpha_s * lnkp
-        return (2 * math.pi**2) / k**3 * self.A_s * np.exp(exponent * lnkp)
+        return (2 * math.pi**2) / k**3 * self.A_s * xp.exp(exponent * lnkp)
 
     def zeta_amplitude(self, k):
         """√P_ζ(k)."""
-        return np.sqrt(self.zeta_power(k))
+        p = self.zeta_power(k)
+        return p.sqrt() if isinstance(p, torch.Tensor) else np.sqrt(p)

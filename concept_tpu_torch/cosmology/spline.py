@@ -102,3 +102,18 @@ class Spline:
         return np.exp(val) if self.logy else val
 
     __call__ = eval_np
+
+    def eval_torch(self, xq):
+        """Evaluate on a tensor, in its dtype and on its device.  Clamps
+        to the tabulated range."""
+        import torch
+
+        knots = torch.as_tensor(self._np_knots, dtype=xq.dtype, device=xq.device)
+        coeffs = torch.as_tensor(self._np_coeffs, dtype=xq.dtype, device=xq.device)
+        t = torch.log(xq) if self.logx else xq
+        t = t.clamp(knots[0], knots[-1])
+        i = (torch.searchsorted(knots, t, right=True) - 1).clamp(0, len(knots) - 2)
+        dt = t - knots[i]
+        a, b, c, d = (coeffs[j, i] for j in range(4))
+        val = a + dt * (b + dt * (c + dt * d))
+        return torch.exp(val) if self.logy else val

@@ -212,44 +212,62 @@ def generate_primordial_noise(gridsize: int, seed: int = 0,
     return R
 
 
-def _by_k2(fn, gridsize: int, boxsize: float, dtype, device):
-    """fn(|k|) (float64, on the host) evaluated once per integer |k|² of
-    the rfft layout and indexed onto it; 0 at k = 0."""
+def _by_k2(fn, gridsize: int, boxsize: float, dtype, device, on_device: bool = False):
+    """fn(|k|) evaluated once per integer |k|² of the rfft layout and
+    indexed onto it; 0 at k = 0.  fn takes the |k| values as a float64
+    NumPy array, or, ``on_device``, as a tensor of ``dtype`` on
+    ``device`` (the Boltzmann tables' interpolation runs there)."""
     n = gridsize
     k2 = fourier.k2_int_grid(n, device)
     kmag = (2 * math.pi / boxsize) * np.sqrt(
         np.arange(int(3 * (n // 2) ** 2) + 1, dtype=np.float64))
+    if on_device:
+        vals = fn(torch.as_tensor(kmag[1:], device=device).to(dtype)).to(dtype)
+        return torch.cat([vals.new_zeros(1), vals])[k2]
     vals = np.zeros_like(kmag)
     vals[1:] = fn(kmag[1:])
     return torch.as_tensor(vals, dtype=dtype, device=device)[k2]
+
+
+def _tabulated(lin, species: str) -> bool:
+    """True where lin's Boltzmann tables hold the species' δ."""
+    from concept_tpu_torch.cosmology.linear import _species_key
+
+    tables = getattr(lin, "tables", None)
+    return tables is not None and tables.has(_species_key(species), "delta")
 
 
 def realize_delta_slab(lin, gridsize: int, boxsize: float, a: float,
                        seed: int = 0, fixed_amplitude: bool = False,
                        phase_shift: float = 0.0, dtype=torch.float32,
                        device="cpu", nongaussianity: float = 0.0,
-                       scheme: str = "simple", backscale: bool = False):
+                       scheme: str = "simple", backscale: bool = False,
+                       species: str = "matter"):
     """δ(k) in DFT normalisation at scale factor a (reference ic.py:542
     get_amplitudes + ic.py:670 realize_grid).  ``nongaussianity`` f_NL
     adds the local-type term ζ → ζ + (3/5)f_NL(ζ² − ⟨ζ²⟩) to the
     primordial field; ``backscale`` realizes the a = 1 spectrum scaled
-    back by D1(a) (the classic N-body convention)."""
+    back by D1(a) (the classic N-body convention).  ``species`` selects
+    the transfer function (matter / cb / nu — reference TransferFunction
+    species, linear.py:3517); where lin holds Boltzmann tables of it they
+    are interpolated on ``device``."""
     n = gridsize
     norm = math.sqrt(n**3 / boxsize**3)
     bs_fac = float(lin.bg.growth_np("D1", a)) if backscale else 1.0
     a_amp = 1.0 if backscale else a
+    on_device = _tabulated(lin, species)
     R = generate_primordial_noise(n, seed, fixed_amplitude, phase_shift, dtype,
                                   scheme, device)
     if nongaussianity == 0.0:
-        return R * _by_k2(lambda k: lin.delta_amplitude(k, a_amp) * bs_fac * norm,
-                          n, boxsize, dtype, device)
+        return R * _by_k2(lambda k: lin.delta_amplitude(k, a_amp, species) * bs_fac * norm,
+                          n, boxsize, dtype, device, on_device)
     zeta_k = R * _by_k2(lambda k: lin.primordial.zeta_amplitude(k) * norm,
                         n, boxsize, dtype, device)
     zeta_x = irfft3(zeta_k, n)
     zeta_k = zeta_k + rfft3((3.0 / 5.0) * nongaussianity
                             * (zeta_x**2 - (zeta_x**2).mean()))
-    return zeta_k * _by_k2(lambda k: lin.transfer_delta(k, a_amp) * bs_fac,
-                           n, boxsize, dtype, device)
+    return zeta_k * _by_k2(lambda k: lin.transfer_delta(k, a_amp, species) * bs_fac,
+                           n, boxsize, dtype, device, on_device)
 
 
 def dealias_gridsize(n: int) -> int:
@@ -365,12 +383,14 @@ def realize_particles(lin, spec: ComponentSpec, boxsize: float, a: float,
                       scheme: str = "simple", fixed_amplitude: bool = False,
                       phase_shift: float = 0.0, nongaussianity: float = 0.0,
                       dealias: bool = False, backscale: bool = False,
-                      delta_k=None, lattice: str | None = None) -> ParticleState:
+                      delta_k=None, lattice: str | None = None,
+                      species: str = "matter") -> ParticleState:
     """LPT particle ICs of order ``lpt_order`` (1-3) at scale factor a on
     the sc, bcc or fcc lattice (``lattice`` None: the one N implies),
     reference ic.py:1199-2058.  ``delta_k`` overrides the realized
-    density; the other options go to :func:`realize_delta_slab`; with
-    ``dealias`` the LPT products are 3/2-padded."""
+    density; the other options, ``species`` among them, go to
+    :func:`realize_delta_slab`; with ``dealias`` the LPT products are
+    3/2-padded."""
     if lattice is None:
         lattice = preic_lattice_of(spec.N)
     per_site = {"sc": 1, "bcc": 2, "fcc": 4}[lattice]
@@ -385,7 +405,7 @@ def realize_particles(lin, spec: ComponentSpec, boxsize: float, a: float,
     if delta_k is None:
         delta_k = realize_delta_slab(lin, n, boxsize, a, seed, fixed_amplitude,
                                      phase_shift, dtype, device, nongaussianity,
-                                     scheme, backscale)
+                                     scheme, backscale, species)
     psi_k = [_grad_inv_laplacian(delta_k, n, boxsize, d) for d in range(3)]
     psi = torch.stack([irfft3(pk, n) for pk in psi_k])
     vel = (H * float(bg.growth_np("f1", a))) * psi

@@ -11,8 +11,13 @@ initial conditions or from a snapshot (CONCEPT-HDF5, GADGET-2, TIPSY),
 dumps power spectra, bispectra and snapshots, autosaves (periodically
 and on SIGINT/SIGTERM) and resumes from an autosave.  PP gravity ('pp'
 with Ewald, 'ppnonperiodic') steps globally, as in the JAX package.
-Multi-component and fluid runs and the renders raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+The cosmology (:func:`build_cosmology`) takes massive neutrinos,
+curvature, a CPL dark-energy fluid and decaying dark matter from
+``class_params``, and the linear Boltzmann tables of the resolved
+backend (the internal Einstein-Boltzmann solver where the run needs
+species-resolved transfer functions).  Multi-component and fluid runs
+and the renders raise ``NotImplementedError`` naming the ROADMAP item
+that brings them.
 """
 
 from __future__ import annotations
@@ -30,8 +35,9 @@ from concept_tpu_torch.components import (
     ComponentSpec, ParticleState, particle_mass, periodic_wrap,
 )
 from concept_tpu_torch.cosmology.background import Background
-from concept_tpu_torch.cosmology.backend import select_backend
+from concept_tpu_torch.cosmology.backend import build_tables
 from concept_tpu_torch.cosmology.linear import LinearCosmology
+from concept_tpu_torch.cosmology.neutrino import NeutrinoBackground
 from concept_tpu_torch.cosmology.primordial import PrimordialSpectrum
 from concept_tpu_torch.device import resolve_device, resolve_dtype
 from concept_tpu_torch.param import RunConfig, is_selected
@@ -41,31 +47,83 @@ from concept_tpu_torch.utils.terminal import abort, masterprint
 
 MULTI_ITEM = "multi-component runs (ROADMAP Queue 1 item 12)"
 
-_EXOTIC_KEYS = ("N_ncdm", "Omega_k", "Omega_fld", "w0_fld", "wa_fld",
-                "Omega_dcdm", "Gamma_dcdm", "Omega_ini_dcdm", "Omega_Lambda")
-
-
 def build_cosmology(cfg: RunConfig):
-    """Units, constants, background and linear layer (EH transfer)."""
+    """Units, constants, background and linear layer, with the Boltzmann
+    tables of the resolved backend installed (port of
+    concept_tpu/run.py:28-107)."""
     units = cfg.units or UnitSystem(cfg.unit_length, cfg.unit_time, cfg.unit_mass)
     c = units.constants()
+    # massive neutrinos from class_params (reference cosmology passthrough,
+    # param/example_nonlinnu: N_ncdm/deg_ncdm/m_ncdm): the exact
+    # Fermi-Dirac background (cosmology/neutrino.py) supplies Ω_ν and
+    # w(a)/w_eff(a), in the Friedmann equation and not lumped into Ω_m
+    nubg = None
+    Omega_nu = 0.0
     cp = cfg.class_params or {}
-    exotic = [k for k in _EXOTIC_KEYS if k in cp]
-    if exotic:
-        raise NotImplementedError(
-            f"class_params {exotic}: massive neutrinos and exotic sectors "
-            f"(ROADMAP Queue 1 item 5)")
+    if cp.get("N_ncdm"):
+        deg = int(cp.get("deg_ncdm", 1))
+        m_ncdm = float(cp.get("m_ncdm", 0.0))
+        nubg = NeutrinoBackground(m_nu_eV=m_ncdm, N_nu=deg)
+        km_per_s = c.light_speed / 299792.458
+        h = cfg.H0 / (100 * km_per_s / units.Mpc)
+        Omega_nu = nubg.omega_nu_h2() / h**2
+    # Exotic sectors via class_params, CLASS key conventions (reference
+    # passes these straight to CLASS, linear.py:3517-3595): Omega_k,
+    # Omega_fld/w0_fld/wa_fld (with Omega_Lambda: 0 to trade Λ for the
+    # fluid), Omega_dcdm or Omega_ini_dcdm + Gamma_dcdm [km/s/Mpc].
+    km_s_Mpc = (c.light_speed / 299792.458) / units.Mpc
+    exotic = dict(
+        Omega_k=float(cp.get("Omega_k", 0.0)),
+        Omega_fld=float(cp.get("Omega_fld", 0.0)),
+        w0_fld=float(cp.get("w0_fld", -1.0)),
+        wa_fld=float(cp.get("wa_fld", 0.0)),
+        Omega_dcdm=float(cp.get("Omega_dcdm", 0.0)),
+        Gamma_dcdm=float(cp.get("Gamma_dcdm", 0.0)) * km_s_Mpc,
+        Omega_ini_dcdm=(
+            float(cp["Omega_ini_dcdm"]) if "Omega_ini_dcdm" in cp else None
+        ),
+    )
+    if "Omega_Lambda" in cp:
+        OL = float(cp["Omega_Lambda"])
+        if OL == 0.0 and not exotic["Omega_fld"]:
+            # CLASS convention: Omega_Lambda: 0 with fld unspecified ⇒
+            # the fld closes the budget
+            if exotic["Gamma_dcdm"]:
+                # the budget would also need the decay radiation Ω_dr at
+                # a=1, which is only known after solving the dcdm decay
+                # history — silently omitting it overcloses the
+                # background, so reject the combination explicitly
+                raise ValueError(
+                    "Omega_Lambda: 0 fld-closure cannot be combined with "
+                    "Gamma_dcdm > 0 (the closure budget would need the "
+                    "solved decay-radiation Omega_dr); give Omega_fld "
+                    "explicitly instead"
+                )
+            exotic["Omega_fld"] = (
+                1.0 - cfg.Omega_m - Omega_nu - exotic["Omega_k"]
+                - exotic["Omega_dcdm"]
+            )
+        exotic["Omega_lambda"] = OL
     bg = Background(H0=cfg.H0, Omega_m=cfg.Omega_m,
-                    enable_Hubble=cfg.enable_Hubble)
+                    Omega_nu=Omega_nu, nu_background=nubg,
+                    enable_Hubble=cfg.enable_Hubble, **exotic)
     prim = PrimordialSpectrum(
         A_s=cfg.primordial["A_s"], n_s=cfg.primordial["n_s"],
         alpha_s=cfg.primordial.get("alpha_s", 0.0),
         pivot=cfg.primordial.get("pivot") or 0.05 / units.Mpc,
     )
-    lin = LinearCosmology(bg, prim, Omega_b=cfg.Omega_b,
-                          Omega_cdm=cfg.Omega_cdm, light_speed=c.light_speed,
-                          Mpc=units.Mpc)
-    masterprint(f"Linear backend: {select_backend(cfg)}")
+    lin = LinearCosmology(
+        bg, prim, Omega_b=cfg.Omega_b, Omega_cdm=cfg.Omega_cdm,
+        light_speed=c.light_speed, Mpc=units.Mpc,
+        Omega_nu=Omega_nu, N_nu=int(cp.get("deg_ncdm", 3)) if nubg else 3,
+    )
+    lin.nu_background = nubg
+    # the linear Boltzmann backend (cosmology/backend.py): classy where it
+    # imports, else the internal Einstein-Boltzmann solver for runs that
+    # need species-resolved tables, else the analytic EH layer; installed
+    # tables override the analytic transfer path of LinearCosmology
+    backend = build_tables(cfg, units, c, bg, lin, nubg=nubg)
+    masterprint(f"Linear backend: {backend}")
     return units, c, bg, lin
 
 
@@ -313,7 +371,18 @@ def run(cfg: RunConfig, max_steps: int = 100000, seed: int | None = None,
 
     An autosave of this parameter file (see :func:`autosave_path`) is
     resumed.  SIGINT and SIGTERM during the time loop write an autosave
-    and exit with 128 + signum (:class:`SignalTrap`)."""
+    and exit with 128 + signum (:class:`SignalTrap`).
+
+    Departures from the JAX package, which ignores both settings without
+    a word when it steps by rungs (``N_rungs > 1``): the rung stepper
+    raises ``NotImplementedError``, before anything is realized, for
+    ``shortrange_params`` whose scale or range differ from its own
+    (1.25·boxsize/gridsize and 4.5·scale), and for a
+    ``static_timestepping`` that records (a file that does not exist
+    yet); replaying a recorded file works.  The component is realized
+    with its own species' transfer function (``spec.species``) where
+    the JAX package's single-component run takes 'matter' for every
+    component; the two agree for species 'matter'."""
     from concept_tpu_torch.p3mrungs import RungSimulationAdapter
     from concept_tpu_torch.timestep import prepare_static_timestepping
     from concept_tpu_torch.utils.terminal import set_formatting, set_suppress_output
@@ -407,6 +476,7 @@ def run(cfg: RunConfig, max_steps: int = 100000, seed: int | None = None,
             nongaussianity=float(cfg.realization_options.get("nongaussianity", 0.0)),
             dealias=bool(cfg.realization_options.get("dealias", False)),
             backscale=bool(cfg.realization_options.get("backscale", False)),
+            species=spec.species,
         )
         masterprint("done")
     t_realize = _time.time() - t_realize

@@ -3,8 +3,8 @@ concept_tpu/utilities.py; reference src/utilities.py: delegate :67,
 powerspec :465, info :617, convert :125, and the util/* wrappers).
 
 The measurements (powerspec, bispec) run on the device the CLI names
-(``--device``, the card by default).  render2D, render3D and class are
-not ported yet and raise.
+(``--device``, the card by default); class runs on the host.  render2D
+and render3D are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -139,7 +139,78 @@ def util_render3d(paths: list[str], cli_args) -> int:
 
 
 def util_class(args: list[str], cli_args) -> int:
-    raise NotImplementedError("-u class: the Boltzmann backends (ROADMAP Queue 1 item 5)")
+    """Dump the processed background + linear perturbations to HDF5
+    (reference utilities.py:923 'class' utility; option surface of
+    util/class: --kmin/--kmax/--modes/--times/--gauge).  Uses the
+    configured Boltzmann backend (classy / internal EB solver / EH), on
+    the host.  Needs h5py."""
+    import argparse
+
+    import h5py
+
+    from concept_tpu_torch.param import load_params
+    from concept_tpu_torch.run import build_cosmology
+
+    ap = argparse.ArgumentParser(prog="-u class", add_help=False)
+    ap.add_argument("output", nargs="?", default="class_processed.hdf5")
+    ap.add_argument("--kmin", type=float, default=None,
+                    help="minimum k in 1/<unit_length> (default 1e-4/Mpc)")
+    ap.add_argument("--kmax", type=float, default=None,
+                    help="maximum k (default 10/Mpc)")
+    ap.add_argument("--modes", type=int, default=256,
+                    help="number of log-spaced k modes")
+    ap.add_argument("--times", default="0.01,0.1,0.5,1.0",
+                    help="comma-separated scale factors to dump at")
+    ap.add_argument("--gauge", default=None,
+                    choices=("nbody", "synchronous"),
+                    help="realization gauge override for the tables")
+    ns = ap.parse_args(args)
+
+    overrides = []
+    if ns.gauge:
+        overrides.append(
+            f"realization_options = {{'gauge': {ns.gauge!r}}}"
+        )
+    cfg = (load_params(cli_args.param, overrides=overrides)
+           if cli_args.param else load_params(
+               text="H0 = 67*km/(s*Mpc)\nΩb = 0.049\nΩcdm = 0.27\n"
+                    + "\n".join(overrides)))
+    units_, consts, bg, lin = build_cosmology(cfg)
+    out = ns.output
+    kmin = ns.kmin if ns.kmin is not None else 1e-4 / units_.Mpc
+    kmax = ns.kmax if ns.kmax is not None else 10 / units_.Mpc
+    nk = ns.modes
+    a_outs = [float(x) for x in str(ns.times).split(",") if x]
+    k = np.exp(np.linspace(np.log(kmin), np.log(kmax), nk))
+    k32 = k.astype(np.float32)  # the JAX package evaluates at float32 k
+    with h5py.File(out, "w") as f:
+        f.attrs["H0"] = cfg.H0
+        f.attrs["Ωb"] = cfg.Omega_b
+        f.attrs["Ωcdm"] = cfg.Omega_cdm
+        f.attrs["gauge"] = ns.gauge or str(
+            (cfg.realization_options or {}).get("gauge", "nbody"))
+        bgrp = f.create_group("background")
+        a_tab = np.exp(np.linspace(np.log(1e-6), 0, 512))
+        bgrp.create_dataset("a", data=a_tab)
+        bgrp.create_dataset("t", data=bg.t_of_a_np(a_tab))
+        bgrp.create_dataset("H", data=bg.hubble_np(a_tab))
+        bgrp.create_dataset("D1", data=bg.growth_np("D1", a_tab))
+        bgrp.create_dataset("f1", data=bg.growth_np("f1", a_tab))
+        pgrp = f.create_group("perturbations")
+        pgrp.create_dataset("k", data=k)
+        for a_out in a_outs:
+            g = pgrp.create_group(f"a={a_out}")
+            g.create_dataset(
+                "delta_m",
+                data=np.asarray(lin.transfer_delta(k32, a_out), np.float32),
+            )
+            g.create_dataset(
+                "theta_m",
+                data=np.asarray(lin.transfer_theta(k32, a_out), np.float32),
+            )
+    masterprint(f"Saved {out}")
+    return 0
+
 
 
 def util_play(args: list[str], cli_args) -> int:

@@ -95,6 +95,6 @@ def test_default_run_selects_eh():
 
     path = os.path.join(ROOT, "param", "example_basic.py")
     assert select_backend(load_params(path)) == jax_select(jax_load(path)) == "eh"
-    cfg = load_params(path, overrides=["boltzmann_backend = 'eb'"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        select_backend(cfg)
+    eb = ["boltzmann_backend = 'eb'"]
+    assert select_backend(load_params(path, overrides=eb)) == jax_select(
+        jax_load(path, overrides=eb)) == "eb"

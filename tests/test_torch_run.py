@@ -75,3 +75,26 @@ def test_pm_kicks_cover_the_run_once_across_dumps(tmp_path, monkeypatch):
     total = sum(bg.integrals_np(lo, hi, keys=("a**(-1)",))["a**(-1)"]
                 for lo, hi in zip(ts[:-1], ts[1:]))
     assert sum(ints) == pytest.approx(total, rel=1e-6)
+
+
+@pytest.mark.parametrize("override, match", [
+    ("shortrange_params={'gravity': {'scale': '2*boxsize/gridsize'}}", "shortrange_params"),
+    ("static_timestepping='{tmp}/dt.txt'", "static_timestepping"),
+], ids=["shortrange_params", "static_timestepping"])
+def test_rung_stepper_refuses_what_it_would_ignore(tmp_path, monkeypatch, override, match):
+    """With N_rungs > 1 the JAX package ignores shortrange_params overrides
+    and never records a static_timestepping file; the port refuses both
+    (a departure, see run.run) before anything is realized."""
+    from concept_tpu_torch import ic
+    from concept_tpu_torch.param import load_params
+    from concept_tpu_torch.run import run
+
+    cfg = load_params(os.path.join(ROOT, "param", "example_basic.py"), overrides=[
+        SHRUNK[1], SHRUNK[3], override.replace("{tmp}", str(tmp_path)),
+        f"output_dirs='{tmp_path}'"])
+    assert cfg.N_rungs > 1
+    realized = []
+    monkeypatch.setattr(ic, "realize_particles", lambda *a, **kw: realized.append(1))
+    with pytest.raises(NotImplementedError, match=match):
+        run(cfg, device="cpu")
+    assert not realized
