@@ -315,11 +315,11 @@ def _example(n: int, mesh: int, extra=()):
 
 
 def _realized_layout(N: int, mesh: int, device: str, unified_cb: int | None = None,
-                     dtype=None):
+                     dtype=None, lpt_order: int = 1):
     """A realized example_basic state at N particles on the mesh-`mesh`
     rung layout (the device's choice, or the unified layout with cells
-    `unified_cb` mesh cells wide), in float32 or ``dtype``: (adapter,
-    RungState)."""
+    `unified_cb` mesh cells wide), in float32 or ``dtype``, realized by
+    ``lpt_order``-LPT on the device: (adapter, RungState)."""
     import torch
 
     from concept_tpu_torch.p3mrungs import P3MRungSimulation, RungSimulationAdapter
@@ -339,7 +339,7 @@ def _realized_layout(N: int, mesh: int, device: str, unified_cb: int | None = No
             N_rungs=cfg.N_rungs, softening=config.softening,
             softening_kernel=config.softening_kernel, unified=True,
             unified_cb=unified_cb, device=dev)
-    flat = adapter.initial_state(cfg.a_begin, seed=0)
+    flat = adapter.initial_state(cfg.a_begin, seed=0, lpt_order=lpt_order)
     return adapter, adapter._to_layout(flat)
 
 
@@ -577,7 +577,8 @@ def check_kernels(N: int = 128**3, mesh: int = 256, device: str = "cuda", dtype=
 
     # B, C: the CIC deposit of w = mass·valid and the gather of the three
     # PM force components
-    out.update(_check_slot_pm("cells", pos, valid, sim.mass, sim.G, sim.scale, mesh, box, 8))
+    out.update(_check_slot_pm("cells", pos, valid, sim.mass, sim.G, sim.scale, mesh, box, 8,
+                              ext))
     return out
 
 
@@ -778,7 +779,7 @@ def check_reach_kernels(N: int = 128**3, mesh: int = 256, device: str = "cuda",
         out[f"reach_{reach.replace('-', '_')}_unbounded"] = _check_sweep(
             reach, pos_s, sim, (None, None), 10, 1, reach=reach)
     del pos_s
-    pm = _check_slot_pm("cells", pos, valid, sim.mass, sim.G, sim.scale, mesh, box, 4)
+    pm = _check_slot_pm("cells", pos, valid, sim.mass, sim.G, sim.scale, mesh, box, 4, ext)
     out.update({f"{k}_cb4": v for k, v in pm.items()})
     return out
 
@@ -788,8 +789,10 @@ def _check_slot_pm(tag: str, pos, valid, mass: float, G: float, scale, mesh: int
     """The slot-layout deposit and gather (at D, as in _check_pm_kernels)
     against their plain versions on the slots pos (3, K, C): the cells'
     kernels (rows 3-4) for cb 8 or 4 with x-major ids, the blocks' (rows
-    8-9) for cb 2 with z-major ids and the blocks' row extents ``ext``
-    where the caller passes them, with bounds and library calls as in 2."""
+    8-9) for cb 2 with z-major ids, with the per-column row extents
+    ``ext`` where the caller passes them as its path does (the blocks'
+    deposit and gather, the cells' gather), with bounds and library calls
+    as in 2."""
     from concept_tpu_torch.grid.cuda_blocks import (
         deposit_blocks, deposit_blocks_plain, gather_blocks, gather_blocks_plain,
     )
@@ -810,14 +813,16 @@ def _check_slot_pm(tag: str, pos, valid, mass: float, G: float, scale, mesh: int
         kernels = ("deposit_cells", "gather_cells",
                    lambda w: deposit_cells(pos, w, mesh, box, cb),
                    lambda w: deposit_cells_plain(pos, w, mesh, box, cb),
-                   lambda wv, g: gather_cells(pos, wv, g, mesh, box, cb),
+                   lambda wv, g: gather_cells(pos, wv, g, mesh, box, cb, ext),
                    lambda wv, g: gather_cells_plain(pos, wv, g, mesh, box, cb))
     nbytes = None
     if ext is not None:
         # with extents the kernels read the extents and the live rows' w
+        # (the cells' deposit takes none: all of w)
         live = int(valid.sum())
         b = pos.element_size()
-        nbytes = (4 * C + b * (4 * live + mesh**3),
+        dep_w = live if cb == 2 else K * C
+        nbytes = (4 * C * (cb == 2) + b * (dep_w + 3 * live + mesh**3),
                   lambda D: 4 * C + b * (4 * live + D * mesh**3 + D * K * C))
     out = _check_pm_kernels(kernels[:2], pos, valid, mass, G, scale, mesh, box, cb, cb == 2,
                             *kernels[2:], nbytes=nbytes, D=D, dtype=pos.dtype)
@@ -829,14 +834,15 @@ def _rung_pm_slots(inner, layout):
     """The slots the rung stepper's PM kick deposits from on a layout: its
     leading K_occ rows on the cell layouts (cb = ucb), or on the tight
     layout the valid slots in the 2-mesh-cell blocks of
-    p3msim.pm_gradient_layout.  Returns (pos (3, K, C), valid, cb, the
-    blocks' row extents or None)."""
+    p3msim.pm_gradient_layout.  Returns (pos (3, K, C), valid, cb, the row
+    extents the kick passes: the cells' occupancy extents, the blocks'
+    counts)."""
     from concept_tpu_torch.forces.p3m import block_layout
 
     K = inner._K_occ
     pos, valid = layout.pos[:, :K], layout.valid[:K]
     if inner.ucb:
-        return pos, valid, inner.ucb, None
+        return pos, valid, inner.ucb, inner._ext_occ
     flat = pos.reshape(3, -1)[:, valid.reshape(-1)]
     lay = block_layout(*flat, inner.mesh, inner.boxsize, inner.k_pm)
     return lay["slots"], lay["valid"], 2, lay["ext"]
@@ -1097,16 +1103,17 @@ def _layout_main_path(tag: str, n: int, mesh: int, ucb: int, kernels) -> dict:
 
 
 def realistic(a_end: float = 0.023, n: int = 256, mesh: int = 512, ucb: int = 8,
-              kernels=RUNG_KERNELS, f64: bool = False) -> dict:
+              kernels=RUNG_KERNELS, f64: bool = False, check_pm: bool = False) -> dict:
     """The realistic size of a rung layout: n³ particles on grid `mesh`
     (example_basic's widths) to an early output time (in float64 with
-    ``f64``)."""
+    ``f64``); with ``check_pm``, the PM deposit and gather against their
+    plain versions on the run's final slots."""
     import torch
 
     torch.cuda.reset_peak_memory_stats()
     outdir = tempfile.mkdtemp(prefix="chip_smoke_big_")
     try:
-        sim, _, a, counts, seconds = _run([
+        sim, state, a, counts, seconds = _run([
             f"initial_conditions={{'species':'matter','N':{n}**3}}",
             f"potential_options={mesh}",
             f"output_times={{'powerspec': [{a_end}]}}"], outdir, kernels, f64=f64)
@@ -1129,18 +1136,26 @@ def realistic(a_end: float = 0.023, n: int = 256, mesh: int = 512, ucb: int = 8,
           f"{peak / 2**30:.2f} GiB, realization {sim.timings['realize_s']:.1f} s, "
           f"largest deposit deficit {st['pm_mass_deficit_max']:.3g} particle masses")
     print("realistic-size launches: " + ", ".join(f"{k}={v}" for k, v in counts.items()))
-    return {"a_end": a, "base_steps": steps, "substeps": st["substeps"],
-            "max_rung": st["max_rung"], "evolve_s": ev, "ms_per_base_step": 1e3 * ev / steps,
-            "particle_updates_per_s": N * steps / ev, "peak_bytes": peak,
-            "realize_s": sim.timings["realize_s"], "launches": counts,
-            "pm_mass_deficit_max": st["pm_mass_deficit_max"],
-            "budget_warnings": st["budget_warnings"]}
+    out = {"a_end": a, "base_steps": steps, "substeps": st["substeps"],
+           "max_rung": st["max_rung"], "evolve_s": ev, "ms_per_base_step": 1e3 * ev / steps,
+           "particle_updates_per_s": N * steps / ev, "peak_bytes": peak,
+           "realize_s": sim.timings["realize_s"], "launches": counts,
+           "pm_mass_deficit_max": st["pm_mass_deficit_max"],
+           "budget_warnings": st["budget_warnings"]}
+    if check_pm:
+        inner = sim.inner
+        pos, valid, cb, ext = _rung_pm_slots(inner, sim._to_layout(state))
+        del state
+        out["pm_final"] = _check_slot_pm("PM kernels vs plain on the final slots", pos, valid,
+                                         inner.mass, inner.G, inner.scale, inner.mesh,
+                                         inner.boxsize, cb, ext)
+    return out
 
 
 # device-time groups of a profiled run, by kernel name (first match)
 PROFILE_GROUPS = (("pair_sweep", ("pair_sweep_kernel",)),
                   ("CIC deposit", ("deposit_tile_kernel",)),
-                  ("CIC gather", ("gather_tile_kernel", "gather_cells_kernel")),
+                  ("CIC gather", ("gather_tile_kernel", "gather_columns_kernel")),
                   ("cuFFT", ("fft", "FFT")),
                   ("sort", ("Sort", "sort")),
                   ("index, scatter, gather", ("index", "scatter", "gather")))
@@ -1689,7 +1704,7 @@ def lean_kick(n: int = 384, mesh: int = 768, device: str = "cuda") -> dict:
     import torch
 
     from concept_tpu_torch import p3msim
-    from concept_tpu_torch.grid.cuda_cells import deposit_cells_plain, gather_cells_plain
+    from concept_tpu_torch.grid.cuda_cells import cut_rows, deposit_cells_plain, gather_cells_plain
     from concept_tpu_torch.p3mrungs import pm_kick_rungs
 
     adapter, state = _realized_layout(n**3, mesh, device)
@@ -1733,8 +1748,11 @@ def lean_kick(n: int = 384, mesh: int = 768, device: str = "cuda") -> dict:
     # the same lean kick through the plain deposit and gather: what the
     # kernels add to its difference from the spectral kick
     state.mom.zero_()
+    def gather_plain(pos3, w, grids, n, box, cb, ext=None):
+        return gather_cells_plain(pos3, cut_rows(w, ext), grids, n, box, cb)
+
     with mock.patch.object(p3msim, "deposit_cells", deposit_cells_plain), \
-            mock.patch.object(p3msim, "gather_cells", gather_cells_plain):
+            mock.patch.object(p3msim, "gather_cells", gather_plain):
         _reset_counts()
         state, _, _ = inner._pm_kick(state, int_pm, k_rows=K)
         _check_launches(_read_counts(), ())
@@ -1769,7 +1787,7 @@ def lean_kick(n: int = 384, mesh: int = 768, device: str = "cuda") -> dict:
     # at the lean kick's D = 1 and at the spectral kick's D = 3
     out.update(_check_slot_pm("cells of the lean kick", state.pos[:, :K], state.valid[:K],
                               inner.mass, inner.G, inner.scale, mesh, inner.boxsize, 8,
-                              D=(1, 3)))
+                              inner._ext_occ, D=(1, 3)))
     return out
 
 
@@ -2512,7 +2530,7 @@ def main(argv=None) -> int:
     results.update(build())
     results["check"] = check_kernels()
     results["main_path"] = main_path()
-    results["realistic"] = realistic()
+    results["realistic"] = realistic(check_pm=True)
     results["check_global"] = check_global_kernels()
     results["global_main_path"] = global_main_path()
     results["global_realistic"] = global_realistic()
@@ -2615,6 +2633,8 @@ def main(argv=None) -> int:
             ("gather_cells", "clustered", "main_path", "pm_clustered"),
             ("deposit_cells", "cb4_clustered", "reach_main_path", "pm_clustered"),
             ("gather_cells", "cb4_clustered", "reach_main_path", "pm_clustered"),
+            ("deposit_cells", "realistic", "realistic", "pm_final"),
+            ("gather_cells", "realistic", "realistic", "pm_final"),
             ("deposit_blocks", "clustered", "bucket_sustained", "final_slots"),
             ("gather_blocks", "clustered", "bucket_sustained", "final_slots"),
             ("deposit_blocks", "global_clustered", "global_main_path", "pm_clustered"),

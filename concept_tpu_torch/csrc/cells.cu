@@ -55,23 +55,34 @@
 //     read: one launch for the three gradient components.
 // A per-column extent ext (C,) int32 may cut each column's rows: rows
 // r ≥ ext[c] count as w = 0 (optional; the block P³M path passes its
-// block counts, which spares reading the empty rows' w).  The last tiles
+// block counts, the rung stepper its occupancy extents to the cells'
+// gather, which spares reading the empty rows' w).  The last tiles
 // along a dimension are clipped to the mesh; a mesh smaller than a tile
 // is one clipped tile along that dimension, whose halo wraps onto itself
 // (its halo cells map to global cells with the wrap, and atomics add the
 // copies).  Atomics add in no fixed order.
 //
-// The cells' gather (cb 8 and 4, PERF.md row 4) keeps the first design,
-// one thread per slot reading its corners from the mesh, neighbouring
-// threads on neighbouring columns: it reaches half its bound there, and
-// the tiled gather was slower on the cells (staging a halo for few live
-// slots).  Measured beside the alternatives: PERF.md §6,
-// scripts/cells_variants.py.
+// The cells' gather (cb 8 and 4, PERF.md row 4) reads its corners from
+// the mesh, through L1 and L2, in column slabs (gather_columns_kernel).
+// The first design's thread per slot, neighbouring threads on
+// neighbouring columns, swept every column of a row before the next row:
+// with the mesh above L2 (grid ≥ 512) a live slot fetched its ~4 sectors
+// a field anew, and the mesh reads were 75-91 % of its time (w and the
+// positions alone: 0.65 of 3.49 ms at 384³ / grid 768, D = 1).  A warp
+// now takes 32 slots of two neighbouring columns, which share their
+// halos' sectors: 2.2-3.4× faster at grid 512-768, 16-20 % faster at the
+// 128³ / grid 256 check, 60-82 % of the bytes bound at grid ≥ 512.
+// Staging each column's halo in shared memory and the tiled gather
+// (gather_tile_kernel on the cells' tiles) were slower everywhere (they
+// fetch the whole halo for ~64 slots, or fewer).
+// Measured beside the alternatives: PERF.md §6,
+// scripts/cells_variants.py --row4.
 //
 // Every kernel is a template on the scalar type, instantiated for float
 // and double (the _f64 launch functions).  The double kernels keep the
 // float tiles: their shared halos take twice the bytes (the largest, the
-// blocks' gather at D = 3, 82 KB of the 227 KB), the round-to-nearest
+// blocks' gather at D = 3, 82 KB of the 227 KB; the cells' gather's slab
+// 4 × 16 × 34 doubles, 17 KB), the round-to-nearest
 // intrinsics are the double ones (__dmul_rn, __dadd_rn, __dsub_rn), so a
 // slot on a cell edge takes the plain version's cell, and a halo flushes
 // by a scalar atomicAdd(double*) a nonzero cell, as there are no vector
@@ -444,32 +455,78 @@ gather_tile_kernel(const T* __restrict__ px, const T* __restrict__ py,
   }
 }
 
-// The first design, one thread per slot: the cells' gather (row 4).
-template <typename T>
-__global__ void gather_cells_kernel(const T* __restrict__ px,
-                                    const T* __restrict__ py,
-                                    const T* __restrict__ pz,
-                                    const T* __restrict__ w, long long KC, int nc,
-                                    int cb, bool zmajor, T inv_h,
-                                    const T* __restrict__ grids, int D,
-                                    T* __restrict__ out) {
-  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= KC) return;
+// The cells' gather (row 4, cb 8 and 4 with x-major ids).  A CTA takes
+// kGroup = 32 consecutive column ids and a chunk of ROWS rows: a slab
+// (ROWS = 16 as built; 8 and 32 were slower on most states measured).
+// Its threads first read the slab's w, coalesced along the row
+// (neighbouring threads on neighbouring columns), and the positions of
+// its live slots, into shared memory; rows r ≥ ext[c] read nothing and
+// count as w = 0.  Then each warp walks its share of the slab 32 slots a
+// pass, 32 / ROWS neighbouring columns with the lanes down their rows, so
+// that one load instruction's corners fall in those columns' (cb + 2)³
+// halos and share their sectors.  The D ≤ 3 results replace the
+// positions in shared memory and go out coalesced along the row.  Chunks
+// run next to each other in blockIdx.x, so that a deep column's chunks
+// read its halo from L2 close in time.  A slab with no live slot writes
+// its zeros.
+constexpr int kGroup = 32;
+constexpr int kWarps = kThreads / 32;
+
+template <int ROWS>
+struct ColumnSlab {
+  // a slab row's pitch: the lanes of a warp's pass hit distinct banks
+  static constexpr int kPitch = kGroup + kGroup / ROWS;
+  static constexpr int kSize = ROWS * kPitch;
+  static_assert(32 % ROWS == 0 && ROWS % kWarps == 0, "a pass holds whole columns");
+  // w, then px, py, pz (after the gather: the D outputs)
+  template <typename T>
+  static constexpr size_t bytes() { return 4 * kSize * sizeof(T); }
+};
+
+template <typename T, int CB, int ROWS>
+__global__ void __launch_bounds__(kThreads)
+gather_columns_kernel(const T* __restrict__ px, const T* __restrict__ py,
+                      const T* __restrict__ pz, const T* __restrict__ w, int K, int nc,
+                      T inv_h, const int* __restrict__ ext, const T* __restrict__ grids,
+                      int D, T* __restrict__ out) {
+  using Slab = ColumnSlab<ROWS>;
+  constexpr int P = Slab::kPitch, S = Slab::kSize;
+  T* sw = shared_halo(static_cast<T*>(nullptr));  // 4 × S
   const int C = nc * nc * nc;
-  // slots of weight 0 (invalid ones may hold the far sentinel) skip the
-  // geometry and gather 0
-  T q = w[i];
-  Geometry<T> g = {};
-  if (q != T(0)) {
-    g = cell_geometry(px[i], py[i], pz[i], (int)(i % C), nc, cb, zmajor, inv_h);
-    if (!g.in_halo) q = T(0);
-  }
-  const int n = nc * cb;
-  const long long n3 = (long long)n * n * n;
-  for (int dd = 0; dd < D; ++dd) {
-    T v = 0;
+  const int chunks = (K + ROWS - 1) / ROWS;
+  const int r0 = (blockIdx.x % chunks) * ROWS;
+  const int c0 = (blockIdx.x / chunks) * kGroup;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int c = c0 + lane;  // this lane's column while reading and writing
+  const int kend = c < C ? (ext ? min(K, ext[c]) : K) : 0;
+  bool live = false;
+  for (int j = warp; j < ROWS; j += kWarps) {
+    const int r = r0 + j;
+    const long long i = (long long)r * C + c;
+    const T q = r < kend ? w[i] : T(0);
+    sw[j * P + lane] = q;
     if (q != T(0)) {
-      const T* G = grids + dd * n3;
+      sw[S + j * P + lane] = px[i];
+      sw[2 * S + j * P + lane] = py[i];
+      sw[3 * S + j * P + lane] = pz[i];
+      live = true;
+    }
+  }
+  if (__syncthreads_or(live)) {
+    const int n = nc * CB;
+    const long long n3 = (long long)n * n * n;
+    for (int it = warp; it < ROWS; it += kWarps) {  // 32 slots a pass
+      const int col = it * (32 / ROWS) + lane / ROWS, k = (lane % ROWS) * P + col;
+      const T q = sw[k];
+      if (q == T(0)) continue;
+      const Geometry<T> g =
+          cell_geometry(sw[S + k], sw[2 * S + k], sw[3 * S + k], c0 + col, nc, CB, false, inv_h);
+      if (!g.in_halo) {
+        sw[k] = T(0);
+        continue;
+      }
+      long long off[8];
+      T wt[8];
 #pragma unroll
       for (int a = 0; a < 2; ++a) {
         const T wx = a ? g.fx : T(1) - g.fx;
@@ -479,15 +536,32 @@ __global__ void gather_cells_kernel(const T* __restrict__ px,
           const T wy = b ? g.fy : T(1) - g.fy;
           const long long oy = (ox + wrap(g.iy + b, n)) * n;
 #pragma unroll
-          for (int d = 0; d < 2; ++d) {
-            const T wz = d ? g.fz : T(1) - g.fz;
-            v += ((wx * wy * wz) * q) * G[oy + wrap(g.iz + d, n)];
+          for (int e = 0; e < 2; ++e) {
+            const T wz = e ? g.fz : T(1) - g.fz;
+            off[(a * 2 + b) * 2 + e] = oy + wrap(g.iz + e, n);
+            wt[(a * 2 + b) * 2 + e] = (wx * wy * wz) * q;
           }
         }
       }
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        if (d >= D) break;
+        const T* G = grids + d * n3;
+        T v = 0;
+#pragma unroll
+        for (int m = 0; m < 8; ++m) v += wt[m] * G[off[m]];
+        sw[(1 + d) * S + k] = v;
+      }
     }
-    out[dd * KC + i] = v;
   }
+  __syncthreads();
+  if (c >= C) return;
+  const long long KC = (long long)K * C;
+  const int rows = min(ROWS, K - r0);
+  for (int d = 0; d < D; ++d)
+    for (int j = warp; j < rows; j += kWarps)
+      out[d * KC + (long long)(r0 + j) * C + c] =
+          sw[j * P + lane] != T(0) ? sw[(1 + d) * S + j * P + lane] : T(0);
 }
 
 // Allow the kernel `bytes` of dynamic shared memory: past 48 KB, static
@@ -534,16 +608,25 @@ static int gather_tiles(const T* px, const T* py, const T* pz, const T* w, int K
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-static int gather_slots(const T* px, const T* py, const T* pz, const T* w, int K, int nc,
-                        int cb, bool zmajor, T inv_h, const T* grids, int D, T* out,
-                        cudaStream_t stream) {
-  const long long KC = (long long)K * nc * nc * nc;
-  if (KC == 0) return 0;
-  const long long blocks = (KC + kThreads - 1) / kThreads;
-  gather_cells_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      px, py, pz, w, KC, nc, cb, zmajor, inv_h, grids, D, out);
-  return (int)cudaGetLastError();
+// The cells' gather: one launch for every 3 fields (the slab holds 3).
+template <typename T, int CB, int ROWS>
+static int gather_columns(const T* px, const T* py, const T* pz, const T* w, int K, int nc,
+                          T inv_h, const int* ext, const T* grids, int D, T* out,
+                          cudaStream_t stream) {
+  if (K <= 0 || nc <= 0) return 0;
+  const size_t bytes = ColumnSlab<ROWS>::template bytes<T>();
+  auto kernel = gather_columns_kernel<T, CB, ROWS>;
+  static size_t allowed = 0;
+  if (int err = shared_bytes(kernel, bytes, allowed)) return err;
+  const long long C = (long long)nc * nc * nc, n = (long long)nc * CB;
+  const long long blocks = (C + kGroup - 1) / kGroup * ((K + ROWS - 1) / ROWS);
+  for (int d0 = 0; d0 < D; d0 += 3) {
+    kernel<<<(unsigned)blocks, kThreads, bytes, stream>>>(
+        px, py, pz, w, K, nc, inv_h, ext, grids + d0 * n * n * n, min(3, D - d0),
+        out + d0 * K * C);
+    if (int err = (int)cudaGetLastError()) return err;
+  }
+  return 0;
 }
 
 // The tiles, chosen by scripts/cells_variants.py (PERF.md §6): cb 8 1 × 1
@@ -553,6 +636,8 @@ static int gather_slots(const T* px, const T* py, const T* pz, const T* w, int K
 #define CELLS8_TILE 8, false, true, 1, 1, 8, 8
 #define CELLS4_TILE 4, false, true, 2, 2, 8, 8
 #define BLOCKS_TILE 2, true, false, 8, 4, 8, 8
+// The cells' gather: slabs of 16 rows (32 columns).
+constexpr int kSlabRows = 16;
 
 template <typename T>
 static int deposit(const T* px, const T* py, const T* pz, const T* w, int K, int nc, int cb,
@@ -574,8 +659,11 @@ static int gather(const T* px, const T* py, const T* pz, const T* w, int K, int 
   const cudaStream_t s = (cudaStream_t)stream;
   if (cb == 2 && zmajor)
     return gather_tiles<T, BLOCKS_TILE>(px, py, pz, w, K, nc, inv_h, ext, grids, D, out, s);
-  if (ext) return (int)cudaErrorInvalidValue;
-  return gather_slots<T>(px, py, pz, w, K, nc, cb, zmajor != 0, inv_h, grids, D, out, s);
+  if (cb == 8 && !zmajor)
+    return gather_columns<T, 8, kSlabRows>(px, py, pz, w, K, nc, inv_h, ext, grids, D, out, s);
+  if (cb == 4 && !zmajor)
+    return gather_columns<T, 4, kSlabRows>(px, py, pz, w, K, nc, inv_h, ext, grids, D, out, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // px, py, pz, w: (K, C) float32 with rows contiguous (row stride C);
@@ -589,8 +677,8 @@ extern "C" int cic_deposit_launch(const float* px, const float* py, const float*
 }
 
 // grids (D, n, n, n) contiguous; out (D, K, C) contiguous, every entry
-// written.  The blocks (cb 2, z-major) take the tiled kernel; the cells
-// the first design, which takes no extents.
+// written.  The blocks (cb 2, z-major) take the tiled kernel, the cells
+// (cb 8 or 4, x-major) the column slabs; both take extents.
 extern "C" int cic_gather_launch(const float* px, const float* py, const float* pz,
                                  const float* w, int K, int nc, int cb, int zmajor,
                                  float inv_h, const int* ext, const float* grids, int D,

@@ -188,8 +188,9 @@ def launch_deposit(pos3, w, gridsize: int, boxsize: float, cb: int,
 def launch_gather(pos3, w, grids, gridsize: int, boxsize: float, cb: int,
                   zmajor: bool, ext=None):
     """Launch the gather kernel on CUDA tensors (layout as
-    :func:`launch_deposit`): grids (D, n, n, n) → (D, K, C).  ``ext`` is
-    taken on the blocks (cb 2, z-major) only."""
+    :func:`launch_deposit`): grids (D, n, n, n) → (D, K, C).  ``ext`` (C,)
+    int32, optional, cuts column c to its first ext[c] rows (the rows past
+    them gather 0)."""
     nc, K, C = _check(pos3, w, gridsize, cb)
     dtype = _build.scalar_dtype("cic_gather", *pos3, w, grids)
     _check_cuda(pos3, w)
@@ -198,8 +199,6 @@ def launch_gather(pos3, w, grids, gridsize: int, boxsize: float, cb: int,
             or not grids.is_contiguous() or grids.device != w.device:
         raise ValueError(f"grids must be contiguous (D, {n}, {n}, {n}) on the "
                          "positions' device")
-    if ext is not None and not (cb == 2 and zmajor):
-        raise ValueError("the cells' gather takes no extents")
     ext_ptr = _check_ext(ext, C, w.device)
     D = grids.shape[0]
     out = torch.empty((D, K, C), dtype=dtype, device=w.device)
@@ -223,13 +222,16 @@ def deposit_cells(pos3, w, gridsize: int, boxsize: float, cb: int = 8):
     return grid
 
 
-def gather_cells(pos3, w, grids, gridsize: int, boxsize: float, cb: int = 8):
+def gather_cells(pos3, w, grids, gridsize: int, boxsize: float, cb: int = 8,
+                 ext=None):
     """CIC interpolation of the D mesh fields ``grids`` (D, n, n, n) at
-    every slot, times w: returns (D, K, C)."""
+    every slot, times w: returns (D, K, C).  ``ext`` (C,) int32, optional:
+    column c's rows r ≥ ext[c] count as w = 0 (the kernel reads nothing
+    there)."""
     if pos3.device.type == "cpu":
         _build.scalar_dtype("cic_gather", pos3, w, grids)
-        return gather_cells_plain(pos3, w, grids, gridsize, boxsize, cb)
-    out = launch_gather(pos3, w, grids, gridsize, boxsize, cb, zmajor=False)
+        return gather_cells_plain(pos3, cut_rows(w, ext), grids, gridsize, boxsize, cb)
+    out = launch_gather(pos3, w, grids, gridsize, boxsize, cb, zmajor=False, ext=ext)
     _build.count_launch(gather_cells, out.dtype)
     return out
 

@@ -332,7 +332,7 @@ def resort_rungs_within_columns(state: RungState, acc, NR: int = 8):
 def pm_kick_rungs(state: RungState, mass: float, G: float, int_pm: float,
                   boxsize: float, mesh: int, scale: float, k_pm: int = 8,
                   pm_max_overflow: int = 262144, cells_cb: int = 0,
-                  k_rows: int | None = None, lean: bool | None = None):
+                  k_rows: int | None = None, lean: bool | None = None, ext=None):
     """Base-cadence PM long-range kick over the leading k_rows slot rows
     (rows beyond the max occupancy are invalid in every column).
     cells_cb > 0 (the unified layouts, cells cells_cb mesh cells wide):
@@ -342,6 +342,8 @@ def pm_kick_rungs(state: RungState, mass: float, G: float, int_pm: float,
     None takes it at mesh ≥ 768 on the card, as the JAX package does on
     the TPU.  cells_cb = 0: the block PM of pm_gradient_layout (block
     capacity k_pm, exact overflow up to pm_max_overflow particles).
+    ``ext`` (C,) int32, the layout's per-column occupancy extents, cuts
+    the cells' gather to each column's occupied rows.
     Updates the momenta in place (the JAX package donates them).  Returns
     (state, n_pm_overflow (an int, 0 on the unified layouts), mass_sum)."""
     K = state.valid.shape[0]
@@ -351,11 +353,12 @@ def pm_kick_rungs(state: RungState, mass: float, G: float, int_pm: float,
         lean = mesh >= 768 and pos.device.type == "cuda"
     if cells_cb > 0 and lean:
         _, mass_sum = pm_kick_cells_lean(pos, state.mom[:, :kr], valid, mass, G,
-                                         int_pm, scale, boxsize, mesh, cb=cells_cb)
+                                         int_pm, scale, boxsize, mesh, cb=cells_cb,
+                                         ext=ext)
         return state, 0, mass_sum
     if cells_cb > 0:
         fd3, mass_sum = pm_gradient_cells(pos, valid, mass, G, scale, boxsize,
-                                          mesh, cb=cells_cb)
+                                          mesh, cb=cells_cb, ext=ext)
         n_over = 0
     else:
         fd3, n_over, mass_sum = pm_gradient_layout(
@@ -639,10 +642,16 @@ class P3MRungSimulation:
         return state, vmax
 
     def _pm_kick(self, state: RungState, int_pm: float, k_rows=None):
+        # the cells' gather takes per-column extents (the sweep's bounds
+        # may also be per pencil)
+        ext = self._ext_occ
+        if ext is not None and ext.shape[-1] != state.valid.shape[1]:
+            ext = None
         return pm_kick_rungs(state, self.mass, self.G, int_pm, self.boxsize,
                              self.mesh, self.scale, k_pm=self.k_pm,
                              pm_max_overflow=self.pm_max_overflow,
-                             cells_cb=self.ucb, k_rows=k_rows, lean=self.pm_lean)
+                             cells_cb=self.ucb, k_rows=k_rows, lean=self.pm_lean,
+                             ext=ext)
 
     def _record_pm_mass(self, mass_sum: float, dtype: torch.dtype):
         """Records the deposit's deficit in masses of a particle as the

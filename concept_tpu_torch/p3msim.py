@@ -62,7 +62,7 @@ def margin_cell_count(boxsize: float, cutoff: float, margin_frac: float,
 
 
 def pm_gradient_cells(pos3, valid, mass: float, G: float, scale: float,
-                      boxsize: float, mesh: int, cb: int = 8):
+                      boxsize: float, mesh: int, cb: int = 8, ext=None):
     """∂φ/∂x at every slot of the (K, C) cell layout: deposit w =
     mass·valid, FFT, φ(k) with the long-range split and CIC deconvolution
     (order 4 = deposit + gather), Fourier gradient, gather.
@@ -70,7 +70,9 @@ def pm_gradient_cells(pos3, valid, mass: float, G: float, scale: float,
     Returns (fd (3, K, C), mass_sum).  Every valid slot deposits; one that
     drifted out of its cell's ±1-mesh-cell halo since the last rebucket
     is left out, and mass_sum (the deposited mass, a 0-dim tensor) then
-    falls short of N·mass — the host checks it."""
+    falls short of N·mass — the host checks it.  ``ext`` (C,) int32, the
+    layout's per-column extents (1 + the highest valid row), spares the
+    gather the rows past them."""
     K, C = valid.shape
     n = mesh
     wv = valid.to(pos3.dtype)
@@ -85,12 +87,12 @@ def pm_gradient_cells(pos3, valid, mass: float, G: float, scale: float,
     del slab
     grads = torch.stack([irfft3(fourier.fourier_diff(phi, n, boxsize, d), n)
                          for d in range(3)])
-    return gather_cells(pos3, wv, grads, n, boxsize, cb), mass_sum
+    return gather_cells(pos3, wv, grads, n, boxsize, cb, ext=ext), mass_sum
 
 
 def pm_kick_cells_lean(pos3, mom3, valid, mass: float, G: float,
                        int_pm: float, scale: float, boxsize: float, mesh: int,
-                       cb: int = 8, diff_order: int = 4):
+                       cb: int = 8, diff_order: int = 4, ext=None):
     """The memory-lean PM kick on the (K, C) cell layout, for meshes of
     768 and more: deposit, FFT, φ(k) as in :func:`pm_gradient_cells`, the
     real-space φ, then one component at a time its order-``diff_order``
@@ -102,7 +104,8 @@ def pm_kick_cells_lean(pos3, mom3, valid, mass: float, G: float,
     (param/example_explanatory:163-208; mesh.py:4874).
 
     Updates mom3 in place (invalid slots 0) and returns (mom3, mass_sum),
-    mass_sum the deposited mass (0-dim float64)."""
+    mass_sum the deposited mass (0-dim float64).  ``ext`` as in
+    :func:`pm_gradient_cells`."""
     n = mesh
     wv = valid.to(pos3.dtype)
     grid = deposit_cells(pos3, wv * mass, n, boxsize, cb)
@@ -116,7 +119,7 @@ def pm_kick_cells_lean(pos3, mom3, valid, mass: float, G: float,
     del phi_k
     for d in range(3):
         grad = diff_grid(phi, boxsize, d, order=diff_order)
-        fd = gather_cells(pos3, wv, grad[None], n, boxsize, cb)[0]
+        fd = gather_cells(pos3, wv, grad[None], n, boxsize, cb, ext=ext)[0]
         del grad
         mom3[d].add_(fd, alpha=-mass * int_pm)
     mom3.masked_fill_(~valid[None], 0.0)

@@ -1,9 +1,179 @@
 // Variants of the slot-layout CIC kernels (PERF.md rows 3, 4, 8 and 9) for
 // scripts/cells_variants.py: the kernels as built, the first design (one
-// thread per slot, 8 global atomics a particle) as "before", other tile
-// shapes and chunk depths, and splits that leave one part of the work out
-// (wrong results, for timing only).  The package does not use this file.
+// thread per slot, 8 global atomics a particle; the gather reading its
+// corners from the mesh) as "before", other tile shapes, chunk depths and
+// designs, and splits that leave one part of the work out (wrong results,
+// for timing only).  The package does not use this file.
 #include "../concept_tpu_torch/csrc/cells.cu"
+
+// The first design's gather (the cells' row 4, and the blocks' row 9
+// before their tiles): one thread per slot i = k·C + c, neighbouring
+// threads on neighbouring columns, each live slot reading its 8·D corners
+// from the mesh.  MODE: 0 complete; 1 read w and write it (no position,
+// no mesh read); 2 w and the geometry (the live slots' positions), no
+// mesh read.
+template <int MODE>
+__global__ void gather_cells_kernel(const float* __restrict__ px, const float* __restrict__ py,
+                                    const float* __restrict__ pz, const float* __restrict__ w,
+                                    long long KC, int nc, int cb, bool zmajor, float inv_h,
+                                    const float* __restrict__ grids, int D,
+                                    float* __restrict__ out) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= KC) return;
+  const int C = nc * nc * nc;
+  float q = w[i];
+  Geometry<float> g = {};
+  if (q != 0.0f && MODE != 1) {
+    g = cell_geometry(px[i], py[i], pz[i], (int)(i % C), nc, cb, zmajor, inv_h);
+    if (!g.in_halo) q = 0.0f;
+  }
+  const int n = nc * cb;
+  const long long n3 = (long long)n * n * n;
+  for (int dd = 0; dd < D; ++dd) {
+    float v = MODE == 1 ? q : (MODE == 2 ? q * g.fx : 0.0f);
+    if (MODE == 0 && q != 0.0f) {
+      const float* G = grids + dd * n3;
+#pragma unroll
+      for (int a = 0; a < 2; ++a) {
+        const float wx = a ? g.fx : 1.0f - g.fx;
+        const long long ox = (long long)wrap(g.ix + a, n) * n;
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+          const float wy = b ? g.fy : 1.0f - g.fy;
+          const long long oy = (ox + wrap(g.iy + b, n)) * n;
+#pragma unroll
+          for (int d = 0; d < 2; ++d) {
+            const float wz = d ? g.fz : 1.0f - g.fz;
+            v += ((wx * wy * wz) * q) * G[oy + wrap(g.iz + d, n)];
+          }
+        }
+      }
+    }
+    out[dd * KC + i] = v;
+  }
+}
+
+// Candidate (b): column slabs of ROWS rows × 32 columns read and written
+// as gather_columns_kernel does, each warp walking its columns one at a
+// time, lanes down the rows, every slot of the column at once; a warp
+// whose column holds at least STAGE_MIN live slots in the chunk (and at
+// least one) stages the column's (cb + 2)³ halo of each field in shared
+// memory by cp.async, and its lanes read their corners there; the other
+// columns read the mesh.
+
+template <int CB, int ROWS, int STAGE_MIN>
+__global__ void __launch_bounds__(kThreads)
+gather_columns_staged(const float* __restrict__ px, const float* __restrict__ py,
+                      const float* __restrict__ pz, const float* __restrict__ w, int K, int nc,
+                      float inv_h, const int* __restrict__ ext,
+                      const float* __restrict__ grids, int D, float* __restrict__ out) {
+  constexpr int P = kGroup + 1, S = ROWS * P, H = CB + 2, H3 = H * H * H;
+  constexpr int NS = ROWS / 32;  // a lane's slots in a column
+  extern __shared__ float smem[];
+  float* sw = smem;  // 4 × S, then a halo of H3 a warp
+  const int C = nc * nc * nc;
+  const int chunks = (K + ROWS - 1) / ROWS;
+  const int r0 = (blockIdx.x % chunks) * ROWS;
+  const int c0 = (blockIdx.x / chunks) * kGroup;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  float* halo = smem + 4 * S + warp * H3;
+  const int c = c0 + lane;
+  const int kend = c < C ? (ext ? min(K, ext[c]) : K) : 0;
+  bool live = false;
+  for (int j = warp; j < ROWS; j += kWarps) {
+    const int r = r0 + j;
+    const long long i = (long long)r * C + c;
+    const float q = r < kend ? w[i] : 0.0f;
+    sw[j * P + lane] = q;
+    if (q != 0.0f) {
+      sw[S + j * P + lane] = px[i];
+      sw[2 * S + j * P + lane] = py[i];
+      sw[3 * S + j * P + lane] = pz[i];
+      live = true;
+    }
+  }
+  if (__syncthreads_or(live)) {
+    const int n = nc * CB;
+    const long long n3 = (long long)n * n * n;
+    for (int col = warp; col < kGroup; col += kWarps) {
+      const int cc = c0 + col;
+      const int cz = cc % nc, cy = (cc / nc) % nc, cx = cc / (nc * nc);
+      Geometry<float> g[NS];
+      float q[NS];
+      int a[NS];  // the anchor's index in the column's halo, −1 if none
+      int nlive = 0;
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        const int k = (s * 32 + lane) * P + col;
+        q[s] = sw[k];
+        a[s] = -1;
+        if (q[s] != 0.0f) {
+          g[s] = cell_geometry(sw[S + k], sw[2 * S + k], sw[3 * S + k], cc, nc, CB, false,
+                               inv_h);
+          if (g[s].in_halo) {
+            const int lx = (g[s].ix - cx * CB + 1 + n) % n;
+            const int ly = (g[s].iy - cy * CB + 1 + n) % n;
+            const int lz = (g[s].iz - cz * CB + 1 + n) % n;
+            a[s] = (lx * H + ly) * H + lz;
+          } else {
+            sw[k] = 0.0f;
+          }
+        }
+        nlive += __popc(__ballot_sync(~0u, a[s] >= 0));
+      }
+      if (nlive == 0) continue;
+      const bool stage = nlive >= STAGE_MIN;
+      for (int d = 0; d < D; ++d) {
+        const float* G = grids + d * n3;
+        if (stage) {
+          __syncwarp();
+          for (int i = lane; i < H3; i += 32) {
+            const int hz = i % H, hy = (i / H) % H, hx = i / (H * H);
+            __pipeline_memcpy_async(
+                halo + i,
+                G + ((long long)wrap(cx * CB - 1 + hx, n) * n + wrap(cy * CB - 1 + hy, n)) * n +
+                    wrap(cz * CB - 1 + hz, n),
+                4);
+          }
+          __pipeline_commit();
+          __pipeline_wait_prior(0);
+          __syncwarp();
+        }
+#pragma unroll
+        for (int s = 0; s < NS; ++s) {
+          if (a[s] < 0) continue;
+          float v = 0.0f;
+#pragma unroll
+          for (int ca = 0; ca < 2; ++ca) {
+            const float wx = ca ? g[s].fx : 1.0f - g[s].fx;
+            const long long ox = (long long)wrap(g[s].ix + ca, n) * n;
+#pragma unroll
+            for (int cq = 0; cq < 2; ++cq) {
+              const float wy = cq ? g[s].fy : 1.0f - g[s].fy;
+              const long long oy = (ox + wrap(g[s].iy + cq, n)) * n;
+#pragma unroll
+              for (int ce = 0; ce < 2; ++ce) {
+                const float wz = ce ? g[s].fz : 1.0f - g[s].fz;
+                const float m = stage ? halo[a[s] + (ca * H + cq) * H + ce]
+                                      : G[oy + wrap(g[s].iz + ce, n)];
+                v += ((wx * wy * wz) * q[s]) * m;
+              }
+            }
+          }
+          sw[(1 + d) * S + (s * 32 + lane) * P + col] = v;
+        }
+      }
+    }
+  }
+  __syncthreads();
+  if (c >= C) return;
+  const long long KC = (long long)K * C;
+  const int rows = min(ROWS, K - r0);
+  for (int d = 0; d < D; ++d)
+    for (int j = warp; j < rows; j += kWarps)
+      out[d * KC + (long long)(r0 + j) * C + c] =
+          sw[j * P + lane] != 0.0f ? sw[(1 + d) * S + j * P + lane] : 0.0f;
+}
 
 // The first design's deposit: one thread per slot, the 8 corner
 // weights added straight to the mesh.  GEOMETRY_ONLY: no atomics (the
@@ -257,11 +427,45 @@ static int gather_built(const float* px, const float* py, const float* pz, const
   return cic_gather_launch(px, py, pz, w, K, nc, CB, ZMAJOR, inv_h, ext, grids, D, out, stream);
 }
 
-template <int CB, bool ZMAJOR>
+template <int CB, bool ZMAJOR, int MODE = 0>
 static int gather_before(const float* px, const float* py, const float* pz, const float* w,
                          int K, int nc, float inv_h, const int*, const float* grids, int D,
                          float* out, cudaStream_t stream) {
-  return gather_slots(px, py, pz, w, K, nc, CB, ZMAJOR, inv_h, grids, D, out, stream);
+  const long long KC = (long long)K * nc * nc * nc;
+  if (KC == 0) return 0;
+  const long long blocks = (KC + kThreads - 1) / kThreads;
+  gather_cells_kernel<MODE><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      px, py, pz, w, KC, nc, CB, ZMAJOR, inv_h, grids, D, out);
+  return (int)cudaGetLastError();
+}
+
+template <int CB, int ROWS>
+static int gather_slabs(const float* px, const float* py, const float* pz, const float* w,
+                        int K, int nc, float inv_h, const int* ext, const float* grids, int D,
+                        float* out, cudaStream_t stream) {
+  return gather_columns<float, CB, ROWS>(px, py, pz, w, K, nc, inv_h, ext, grids, D, out,
+                                         stream);
+}
+
+template <int CB, int ROWS, int STAGE_MIN>
+static int gather_staged(const float* px, const float* py, const float* pz, const float* w,
+                         int K, int nc, float inv_h, const int* ext, const float* grids, int D,
+                         float* out, cudaStream_t stream) {
+  if (K <= 0 || nc <= 0) return 0;
+  constexpr int H = CB + 2;
+  const size_t bytes = sizeof(float) * (4 * ROWS * (kGroup + 1) + kWarps * H * H * H);
+  auto kernel = gather_columns_staged<CB, ROWS, STAGE_MIN>;
+  static size_t allowed = 0;
+  if (int err = shared_bytes(kernel, bytes, allowed)) return err;
+  const long long C = (long long)nc * nc * nc, n = (long long)nc * CB;
+  const long long blocks = (C + kGroup - 1) / kGroup * ((K + ROWS - 1) / ROWS);
+  for (int d0 = 0; d0 < D; d0 += 3) {
+    kernel<<<(unsigned)blocks, kThreads, bytes, stream>>>(
+        px, py, pz, w, K, nc, inv_h, ext, grids + d0 * n * n * n, min(3, D - d0),
+        out + d0 * K * C);
+    if (int err = (int)cudaGetLastError()) return err;
+  }
+  return 0;
 }
 
 template <int CB, bool ZMAJOR, bool QUADS, int TS, int TM, int TF, int SLOTS, int MODE = 0,
@@ -292,6 +496,7 @@ struct GatherVariant {
   GatherFn fn;
   const char* name;
   int cb, zmajor;
+  int ext;  // 1: run with the per-column extents
 };
 
 // the splits of a tile's deposit: TILE = (CB, ZMAJOR, QUADS, TS, TM, TF)
@@ -328,24 +533,38 @@ static const DepositVariant kDeposit[] = {
     {deposit_tiled<2, true, false, 16, 8, 2, 8>, "z16 y8 x2 blocks", 2, true},
 };
 
+// the cells' gather (row 4): the first design and its splits, the column
+// slabs of each depth, the slabs walked column by column with staged
+// halos (STAGE_MIN live slots a column and more), the tiled gather
+#define GATHER_CELLS(CB, TILE)                                                             \
+  {gather_built<CB, false>, "as built (column slabs, 16 rows)", CB, false, 0},             \
+  {gather_before<CB, false>, "before (a thread per slot)", CB, false, 0},                  \
+  {gather_before<CB, false, 1>, "split, before: read w only", CB, false, 0},               \
+  {gather_before<CB, false, 2>, "split, before: w and geometry", CB, false, 0},            \
+  {gather_slabs<CB, 8>, "column slabs, 8 rows", CB, false, 0},                             \
+  {gather_slabs<CB, 32>, "column slabs, 32 rows", CB, false, 0},                           \
+  {gather_staged<CB, 64, 0>, "64-row slabs by column, halo staged always", CB, false, 0},  \
+  {gather_staged<CB, 64, 40>, "64-row slabs by column, staged at 40 live", CB, false, 0},   \
+  {gather_staged<CB, 64, 1 << 30>, "64-row slabs by column, never staged", CB, false, 0},   \
+  {gather_tiled<UNPAREN TILE, 8>, "tiled gather", CB, false, 0},                           \
+  {gather_tiled<UNPAREN TILE, 8>, "tiled gather, with extents", CB, false, 1}
+
 static const GatherVariant kGather[] = {
-    {gather_built<8, false>, "as built (a thread per slot)", 8, false},
-    {gather_tiled<8, false, true, 1, 1, 8, 8>, "tiled 1x1x8 columns, quads", 8, false},
-    {gather_tiled<8, false, true, 1, 1, 4, 8>, "tiled 1x1x4 columns, quads", 8, false},
-    {gather_built<4, false>, "as built (a thread per slot)", 4, false},
-    {gather_tiled<4, false, true, 2, 2, 8, 8>, "tiled 2x2x8 columns, quads", 4, false},
-    {gather_built<2, true>, "as built (z8 y4 x8 blocks, cell by cell)", 2, true},
-    {gather_before<2, true>, "before (a thread per slot)", 2, true},
-    {gather_tiled<2, true, false, 8, 4, 8, 4>, "4 slots a thread", 2, true},
-    {gather_tiled<2, true, false, 8, 4, 8, 16>, "16 slots a thread", 2, true},
-    {gather_tiled<2, true, false, 8, 4, 8, 8, 0, 0>, "staging through registers", 2, true},
-    {gather_tiled<2, true, true, 8, 4, 8, 8>, "z8 y4 x8 blocks, quads", 2, true},
-    {gather_tiled<2, true, false, 4, 4, 16, 8>, "z4 y4 x16 blocks", 2, true},
-    {gather_tiled<2, true, false, 16, 4, 4, 8>, "z16 y4 x4 blocks", 2, true},
-    {gather_tiled<2, true, false, 4, 8, 8, 8>, "z4 y8 x8 blocks", 2, true},
-    {gather_tiled<2, true, false, 8, 4, 8, 8, 1>, "split: no staging", 2, true},
-    {gather_tiled<2, true, false, 8, 4, 8, 8, 2>, "split: staging only", 2, true},
-    {gather_tiled<2, true, false, 8, 4, 8, 8, 3>, "split: read w only, zeros out", 2, true},
+    GATHER_CELLS(8, (8, false, true, 1, 1, 8)),
+    {gather_tiled<8, false, true, 1, 1, 4, 8>, "tiled gather, 1x1x4 columns", 8, false, 0},
+    GATHER_CELLS(4, (4, false, true, 2, 2, 8)),
+    {gather_built<2, true>, "as built (z8 y4 x8 blocks, cell by cell)", 2, true, 0},
+    {gather_before<2, true>, "before (a thread per slot)", 2, true, 0},
+    {gather_tiled<2, true, false, 8, 4, 8, 4>, "4 slots a thread", 2, true, 0},
+    {gather_tiled<2, true, false, 8, 4, 8, 16>, "16 slots a thread", 2, true, 0},
+    {gather_tiled<2, true, false, 8, 4, 8, 8, 0, 0>, "staging through registers", 2, true, 0},
+    {gather_tiled<2, true, true, 8, 4, 8, 8>, "z8 y4 x8 blocks, quads", 2, true, 0},
+    {gather_tiled<2, true, false, 4, 4, 16, 8>, "z4 y4 x16 blocks", 2, true, 0},
+    {gather_tiled<2, true, false, 16, 4, 4, 8>, "z16 y4 x4 blocks", 2, true, 0},
+    {gather_tiled<2, true, false, 4, 8, 8, 8>, "z4 y8 x8 blocks", 2, true, 0},
+    {gather_tiled<2, true, false, 8, 4, 8, 8, 1>, "split: no staging", 2, true, 0},
+    {gather_tiled<2, true, false, 8, 4, 8, 8, 2>, "split: staging only", 2, true, 0},
+    {gather_tiled<2, true, false, 8, 4, 8, 8, 3>, "split: read w only, zeros out", 2, true, 0},
 };
 
 extern "C" int deposit_variants() { return sizeof(kDeposit) / sizeof(kDeposit[0]); }
@@ -354,6 +573,7 @@ extern "C" const char* deposit_variant_name(int v) { return kDeposit[v].name; }
 extern "C" const char* gather_variant_name(int v) { return kGather[v].name; }
 extern "C" int deposit_variant_layout(int v) { return kDeposit[v].cb * 2 + kDeposit[v].zmajor; }
 extern "C" int gather_variant_layout(int v) { return kGather[v].cb * 2 + kGather[v].zmajor; }
+extern "C" int gather_variant_ext(int v) { return kGather[v].ext; }
 
 // The arguments of cic_deposit_launch / cic_gather_launch after the
 // variant, without the layout (the variant's own).

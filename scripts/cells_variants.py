@@ -2,6 +2,7 @@
 9) on one NVIDIA card.
 
     python3 scripts/cells_variants.py [--clustered] [--flagship] [--out variants.json]
+    python3 scripts/cells_variants.py --row4 [--out variants.json]
 
 Builds scripts/cells_variants.cu (csrc/cells.cu's kernels as built, the
 first design of one thread per slot as "before", other tile shapes and
@@ -21,7 +22,13 @@ and the mesh's zeroing alone:
 - with --flagship, bench.py's flagship 512³ lattice on grid 512 (8 full
   slots a block); then its bucket step with the first design's kernels
   and with the kernels as built, timed in turns (before, built, built,
-  before) and split by kernel with torch.profiler.
+  before) and split by kernel with torch.profiler;
+- with --row4 instead, the cells' gather (row 4) alone, on the states its
+  design was chosen on: the 128³ / grid 256 check in cells 8 and 4 mesh
+  cells wide, the final slots of example_basic's 8- and 4-mesh-cell runs,
+  the lean kick's realized 384³ / grid 768 slots at D = 1 and 3, and a
+  realized (2LPT) 256³ / grid 512 state in 8-mesh-cell cells, also cut
+  to its first 16 and 24 rows.
 
 Each variant is timed twice in turn (CUDA events, 20 launches after a
 warm-up; the deposit's time includes zeroing the mesh, as the wrapper's
@@ -69,6 +76,11 @@ def _variants(lib, kind: str, cb: int, zmajor: bool) -> list[tuple[int, str]]:
             if getattr(lib, f"{kind}_variant_layout")(v) == layout]
 
 
+def _takes_ext(lib, kind: str, v: int) -> bool:
+    """Whether variant v runs with the per-column extents."""
+    return kind == "gather" and bool(lib.gather_variant_ext(v))
+
+
 def _extents(valid):
     """1 + each column's last live row, (C,) int32."""
     import torch
@@ -110,9 +122,10 @@ def _gather(lib, v: int, pos3, w, grids, mesh: int, box: float, cb: int, ext=Non
     return out
 
 
-def _time_variants(lib, tag: str, pos, valid, mesh: int, box: float, cb: int) -> dict:
-    """Every deposit and gather variant of the layout on the slots, each
-    timed twice in turn."""
+def _time_variants(lib, tag: str, pos, valid, mesh: int, box: float, cb: int,
+                   kinds=("deposit", "gather"), widths=(3,)) -> dict:
+    """Every variant of ``kinds`` of the layout on the slots, the gathers
+    at each of D = ``widths``, each timed twice in turn."""
     import torch
 
     import chip_smoke as cs
@@ -123,13 +136,7 @@ def _time_variants(lib, tag: str, pos, valid, mesh: int, box: float, cb: int) ->
     _, K, C = pos.shape
     ext = _extents(valid)
     w = valid.to(torch.float32).contiguous()
-    grids = torch.randn((3, mesh, mesh, mesh), device="cuda")
-
-    def deposit(v, e=None):
-        return _deposit(lib, v, pos, w, mesh, box, cb, e)
-
-    def gather(v, e=None):
-        return _gather(lib, v, pos, w, grids, mesh, box, cb, e)
+    grids = torch.randn((max(widths), mesh, mesh, mesh), device="cuda")
 
     def close(got, ref):
         return bool(torch.allclose(got, ref, rtol=2e-5, atol=1e-5 * float(ref.abs().max())))
@@ -138,14 +145,23 @@ def _time_variants(lib, tag: str, pos, valid, mesh: int, box: float, cb: int) ->
           f"live, deepest column {int(ext.max())}, mesh {mesh}")
     res = {"shape": {"K": K, "C": C, "cb": cb, "live": int(valid.sum()),
                      "deepest": int(ext.max()), "mesh": mesh}}
-    for kind, run, ref in (
-            ("deposit", deposit, deposit_cells_plain(pos, w, mesh, box, cb, zmajor)),
-            ("gather", gather, gather_cells_plain(pos, w, grids, mesh, box, cb, zmajor))):
-        cases = [(name, (lambda v=v: run(v))) for v, name in _variants(lib, kind, cb, zmajor)]
-        built = next(v for v, name in _variants(lib, kind, cb, zmajor)
+    runs = []
+    if "deposit" in kinds:
+        runs.append(("deposit", lambda v, e=None: _deposit(lib, v, pos, w, mesh, box, cb, e),
+                     deposit_cells_plain(pos, w, mesh, box, cb, zmajor)))
+    if "gather" in kinds:
+        for D in widths:
+            g = grids[:D].contiguous()
+            runs.append((f"gather D={D}" if widths != (3,) else "gather",
+                         lambda v, e=None, g=g: _gather(lib, v, pos, w, g, mesh, box, cb, e),
+                         gather_cells_plain(pos, w, g, mesh, box, cb, zmajor)))
+    for kind, run, ref in runs:
+        kk = kind.split()[0]
+        cases = [(name, (lambda v=v: run(v, ext if _takes_ext(lib, kk, v) else None)))
+                 for v, name in _variants(lib, kk, cb, zmajor)]
+        built = next(v for v, name in _variants(lib, kk, cb, zmajor)
                      if name.startswith("as built"))
-        if kind == "deposit" or zmajor:
-            cases.insert(1, ("as built, with extents", lambda: run(built, ext)))
+        cases.insert(1, ("as built, with extents", lambda: run(built, ext)))
         if kind == "deposit":
             cases.append(("split: zero the mesh only",
                           lambda: torch.zeros((mesh, mesh, mesh), device="cuda")))
@@ -160,9 +176,58 @@ def _time_variants(lib, tag: str, pos, valid, mesh: int, box: float, cb: int) ->
             for name, fn in cases:
                 times[name].append(cs._time_ms(fn, 20))
         for name, ms in times.items():
-            print(f"  {kind:8s} {name:40s} " + " ".join(f"{t:.4f}" for t in ms) + " ms")
+            print(f"  {kind:10s} {name:40s} " + " ".join(f"{t:.4f}" for t in ms) + " ms")
         res[kind] = times
+        del ref
     return res
+
+
+def _row4_states(lib) -> dict:
+    """The cells' gather on the states of its choice (module docstring)."""
+    import torch
+
+    import chip_smoke as cs
+
+    out = {}
+    gather = ("gather",)
+    for cb in (8, 4):
+        adapter, state = cs._realized_layout(128**3, 256, "cuda", unified_cb=cb)
+        inner = adapter.inner
+        K = inner._K_occ
+        out[f"check_cb{cb}"] = _time_variants(lib, f"128³ / grid 256, cb {cb}",
+                                              state.pos[:, :K], state.valid[:K], 256,
+                                              inner.boxsize, cb, gather)
+        del adapter, state
+    for tag, overrides, kernels in (
+            ("rungs, cb 8", [], cs.RUNG_KERNELS),
+            ("rungs, cb 4", ["initial_conditions={'species':'matter','N':62**3}",
+                             "potential_options=124"], cs.REACH_KERNELS)):
+        outdir = tempfile.mkdtemp(prefix="cells_variants_")
+        try:
+            sim, state, _, _, _ = cs._run(overrides, outdir, kernels)
+        finally:
+            shutil.rmtree(outdir, ignore_errors=True)
+        inner = sim.inner
+        pos, valid, cb, _ = cs._rung_pm_slots(inner, sim._to_layout(state))
+        out[f"clustered {tag}"] = _time_variants(
+            lib, f"example_basic final slots, {tag}", pos, valid, inner.mesh, inner.boxsize,
+            cb, gather)
+        del sim, state, pos, valid
+    for tag, n, mesh, lpt, widths in (("lean 384³ / grid 768", 384, 768, 1, (1, 3)),
+                                      ("256³ / grid 512, 2LPT", 256, 512, 2, (3,))):
+        adapter, state = cs._realized_layout(n**3, mesh, "cuda", unified_cb=8, lpt_order=lpt)
+        inner = adapter.inner
+        K = inner._K_occ
+        out[tag] = _time_variants(lib, tag, state.pos[:, :K], state.valid[:K], mesh,
+                                  inner.boxsize, 8, gather, widths)
+        if n == 256:  # shallow columns, as at the start of a run
+            for k in (16, 24):
+                out[f"{tag}, first {k} rows"] = _time_variants(
+                    lib, f"{tag}, its first {k} rows", state.pos[:, :k].contiguous(),
+                    state.valid[:k], mesh, inner.boxsize, 8, gather)
+        del adapter, state
+        torch.cuda.empty_cache()
+    return out
 
 
 def _check_states(lib) -> dict:
@@ -305,6 +370,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--clustered", action="store_true")
     p.add_argument("--flagship", action="store_true")
+    p.add_argument("--row4", action="store_true",
+                   help="the cells' gather alone, on the states of its choice")
     p.add_argument("--out")
     args = p.parse_args(argv)
 
@@ -318,7 +385,10 @@ def main(argv=None) -> int:
     print(cs._nvidia_smi())
     lib = _build()
     torch.manual_seed(0)
-    out = {"card": cs._nvidia_smi(), "check": _check_states(lib)}
+    if args.row4:
+        out = {"card": cs._nvidia_smi(), "row4": _row4_states(lib)}
+    else:
+        out = {"card": cs._nvidia_smi(), "check": _check_states(lib)}
     if args.clustered:
         out["clustered"] = _clustered_states(lib)
     if args.flagship:

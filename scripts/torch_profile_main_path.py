@@ -32,7 +32,7 @@ PARAM = os.path.join(ROOT, "param", "example_basic.py")
 
 GROUPS = (("pair_sweep", ("pair_sweep_kernel",)),
           ("deposit_cells", ("deposit_tile_kernel",)),
-          ("gather_cells", ("gather_tile_kernel", "gather_cells_kernel")),
+          ("gather_cells", ("gather_tile_kernel", "gather_columns_kernel")),
           ("deposit_pm", ("pm_deposit_kernel",)),
           ("gather_pm", ("pm_gather_kernel",)),
           ("cufft", ("fft", "FFT")),

@@ -1,5 +1,6 @@
 """The port's CIC deposit and gather on the (K, C) cell layout
-(concept_tpu_torch.grid.cuda_cells, cells 8 mesh cells wide) vs the JAX
+(concept_tpu_torch.grid.cuda_cells, cells 8 mesh cells wide, and 4 for
+the gather) vs the JAX
 package's Pallas cell kernels in interpret mode (deposit_pallas_cells /
 gather_pallas_cells, cb = 8) and its exact scatter/gather interpolation
 (grid/interp.deposit / gather).
@@ -20,23 +21,29 @@ from concept_tpu.grid.pallas_cells import (  # noqa: E402
     LANES, deposit_pallas_cells, gather_pallas_cells,
 )
 from concept_tpu_torch.grid.cuda_cells import (  # noqa: E402
-    deposit_cells, gather_cells,
+    cut_rows, deposit_cells, gather_cells,
 )
 
 CB = 8
 TOL = dict(rtol=2e-5, atol=1e-5)
 
 
-def _layout(rng, n, box, per_cell):
+def _layout(rng, n, box, per_cell, cb=CB, clump=0):
     """Uniform particles bucketed into the (K, C) layout by the mesh-index
-    cell rule of the rung stepper (floor(p·n/box)//8, x-major ids).
-    Returns (pos (N, 3), slot positions (3, K, C), valid (K, C), slot of
-    each particle (N,) as (row, col))."""
-    nc = n // CB
+    cell rule of the rung stepper (floor(p·n/box)//cb, x-major ids), with
+    ``clump`` more particles in one cell.  Returns (pos (N, 3), slot
+    positions (3, K, C), valid (K, C), slot of each particle (N,) as
+    (row, col))."""
+    nc = n // cb
     C = nc**3
     N = per_cell * C
     pos = rng.uniform(0, box, (N, 3)).astype(np.float32)
-    ijk = np.clip(np.floor(pos * np.float32(n / box)).astype(np.int64) // CB,
+    if clump:  # the cell at (nc // 2, nc // 2, nc // 2): its columns run deep
+        lo = (nc // 2) * cb * box / n
+        more = lo + rng.uniform(0, cb * box / n, (clump, 3))
+        pos = np.concatenate([pos, more.astype(np.float32)])
+        N += clump
+    ijk = np.clip(np.floor(pos * np.float32(n / box)).astype(np.int64) // cb,
                   0, nc - 1)
     cell = (ijk[:, 0] * nc + ijk[:, 1]) * nc + ijk[:, 2]
     order = np.argsort(cell, kind="stable")
@@ -74,25 +81,65 @@ def test_deposit_matches_jax(n):
     np.testing.assert_allclose(got, exact, **TOL)
 
 
-@pytest.mark.parametrize("n", [16, 32])
-def test_gather_matches_jax(n):
+@pytest.mark.parametrize("n, cb, D, clump", [
+    pytest.param(16, 8, 3, 0, id="16"),
+    pytest.param(32, 8, 3, 0, id="32"),
+    # one column 70 particles deep: K = 80 rows, over five of the
+    # kernel's 16-row chunks, at the lean kick's D = 1 and the spectral
+    # kick's D = 3
+    pytest.param(16, 8, 1, 70, id="cb8-D1-clump"),
+    pytest.param(16, 8, 3, 70, id="cb8-D3-clump"),
+    pytest.param(16, 4, 1, 70, id="cb4-D1-clump"),
+    pytest.param(16, 4, 3, 70, id="cb4-D3-clump"),
+])
+def test_gather_matches_jax(n, cb, D, clump):
     box = 3.0
     rng = np.random.default_rng(7)
-    pos, slots, valid, (row, cell) = _layout(rng, n, box, per_cell=10)
-    grids = rng.standard_normal((3, n, n, n)).astype(np.float32)
+    pos, slots, valid, (row, cell) = _layout(rng, n, box, per_cell=10, cb=cb,
+                                             clump=clump)
+    grids = rng.standard_normal((D, n, n, n)).astype(np.float32)
     w = valid.astype(np.float32)
     got = gather_cells(torch.as_tensor(slots), torch.as_tensor(w),
-                       torch.as_tensor(grids), n, box, cb=CB).numpy()
+                       torch.as_tensor(grids), n, box, cb=cb).numpy()
     C = valid.shape[1]
+    if clump:
+        assert valid.shape[0] > 64
     pallas = gather_pallas_cells(*_jax_cells(slots, w),
                                  tuple(jnp.asarray(g) for g in grids), n, box,
-                                 cb=CB, interpret=True)
-    for d in range(3):
+                                 cb=cb, interpret=True)
+    for d in range(D):
         np.testing.assert_allclose(got[d], np.asarray(pallas[d])[:, :C], **TOL)
         exact = np.asarray(gather(jnp.asarray(grids[d]), jnp.asarray(pos), box,
                                   order=2))
         np.testing.assert_allclose(got[d][row, cell], exact, **TOL)
     assert np.all(got[:, ~valid] == 0)
+
+
+@pytest.mark.parametrize("cb", [8, 4])
+def test_gather_with_extents_matches_jax(cb):
+    """Per-column row extents (rows r ≥ ext[c] count as w = 0): the
+    gather with them equals the JAX gather on the weights cut to them,
+    for extents at the occupancy (the rung stepper's) and below it."""
+    n, box = 16, 3.0
+    rng = np.random.default_rng(9)
+    _, slots, valid, _ = _layout(rng, n, box, per_cell=10, cb=cb, clump=70)
+    K, C = valid.shape
+    rows1 = np.arange(1, K + 1)[:, None]
+    occ = np.where(valid, rows1, 0).max(axis=0)
+    cut = np.minimum(occ, rng.integers(0, K + 1, size=C))
+    grids = rng.standard_normal((3, n, n, n)).astype(np.float32)
+    w = valid.astype(np.float32)
+    for e in (occ, cut):
+        ext = torch.as_tensor(e.astype(np.int32))
+        got = gather_cells(torch.as_tensor(slots), torch.as_tensor(w),
+                           torch.as_tensor(grids), n, box, cb=cb, ext=ext).numpy()
+        wc = cut_rows(torch.as_tensor(w), ext).numpy()
+        pallas = gather_pallas_cells(*_jax_cells(slots, wc),
+                                     tuple(jnp.asarray(g) for g in grids), n, box,
+                                     cb=cb, interpret=True)
+        for d in range(3):
+            np.testing.assert_allclose(got[d], np.asarray(pallas[d])[:, :C], **TOL)
+        assert np.all(got[:, np.arange(K)[:, None] >= e[None, :]] == 0)
 
 
 def test_slot_outside_halo_is_dropped():

@@ -640,8 +640,9 @@ def _slot_case(rng, n, cb, zmajor, K, box=4.0, clump=0, empty=False):
 @pytest.mark.parametrize("cb, zmajor", [(2, True), (8, False), (4, False)],
                          ids=["blocks", "cells8", "cells4"])
 def test_slot_kernels_match_plain(dev, cb, zmajor, n, case):
-    """The tiled deposit (rows 3 and 8) and the gather (row 9 tiled on the
-    blocks, row 4 on the cells) against their plain versions: meshes of
+    """The tiled deposit (rows 3 and 8) and the gathers (row 9 tiled on
+    the blocks, row 4 in column slabs on the cells) against their plain
+    versions: meshes of
     16, 24 and 32 (clipped tiles; at 16 the mesh is smaller than a tile and
     its halo wraps onto itself), slots across every box face and outside
     their halo (dropped, gather 0), sentinel slots of w = 0, D = 3 and 1,
@@ -684,17 +685,12 @@ def test_slot_kernels_match_plain(dev, cb, zmajor, n, case):
     _, _, in_halo = cell_geometry(pos, slice(0, C), n // cb, cb, n / box, zmajor)
     kept = float((w_ref.double() * in_halo).sum())
     assert float(got.sum(dtype=torch.float64)) == pytest.approx(kept, rel=1e-6, abs=1e-30)
-    if ext is not None and cb != 2:
-        with pytest.raises(ValueError, match="no extents"):
-            launch_gather(pos, w, grids, n, box, cb, zmajor, ext=ext)
-        ext = None
-        w_ref = w
-    if ext is not None:
+    if ext is not None and cb == 2:
         got = launch_gather(pos, w, grids, n, box, cb, zmajor, ext=ext)
     elif cb == 2:
         got = gather_blocks(*pos, w, grids, n, box)
-    else:
-        got = gather_cells(pos, w, grids, n, box, cb)
+    else:  # the cells' wrapper takes the extents
+        got = gather_cells(pos, w, grids, n, box, cb, ext=ext)
     ref = gather_cells_plain(pos, w_ref, grids, n, box, cb, zmajor)
     assert got.shape == (D, K, C)
     torch.testing.assert_close(got, ref, rtol=2e-5,
@@ -703,8 +699,57 @@ def test_slot_kernels_match_plain(dev, cb, zmajor, n, case):
     if case != "empty":
         assert float(got.abs().max()) > 0.0 and kept > 0.0
     # the wrappers count their launches; launch_deposit / launch_gather do not
-    counted = (1 if case != "extents" else 0) + (1 if ext is None else 0)
+    counted = (1 if case != "extents" else 0) + (1 if ext is None or cb != 2 else 0)
     assert dep.launches + gat.launches - sum(before) == counted
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("D", [1, 3, 5])
+@pytest.mark.parametrize("K", [15, 16, 17, 32, 33, 300])
+@pytest.mark.parametrize("n, cb", [(16, 8), (40, 8), (24, 4), (36, 4)])
+def test_cells_gather_slab_edges(dev, n, cb, K, D, dtype):
+    """The cells' gather (row 4) in column slabs of 32 columns and 16 rows:
+    one column K rows deep on each side of a chunk's edge, and past
+    several chunks; column counts below one slab (mesh 16, cb 8: 8
+    columns; the mesh smaller than a tile), not a multiple of it (40 / 8:
+    125; 24 / 4: 216; 36 / 4: 729); empty columns; D = 5, two launches of
+    the kernel's 3 fields but one count; extents at the occupancy and cut
+    below it.  Against the plain version (float: rtol 2e-5, atol
+    1e-5·max|ref|; double: 1e-10 of max|ref|)."""
+    from concept_tpu_torch.grid.cuda_cells import cut_rows, gather_cells, gather_cells_plain
+
+    rng = np.random.default_rng(n * 1000 + K + D)
+    box = 4.0
+    s, w_np, counts = _slot_case(rng, n, cb, False, K, box, clump=K)
+    C = w_np.shape[1]
+    counts[rng.choice(C, size=max(1, C // 5), replace=False)] = 0  # empty columns
+    counts[C // 2] = K
+    valid = np.arange(K)[:, None] < counts[None, :]
+    w_np = np.where(valid, w_np, 0.0)
+    t = getattr(torch, dtype)
+    pos = torch.as_tensor(s, device=dev).to(t)
+    w = torch.as_tensor(w_np, device=dev).to(t)
+    grids = torch.as_tensor(rng.standard_normal((D, n, n, n)), device=dev).to(t)
+    occ = torch.as_tensor(np.where(valid, np.arange(1, K + 1)[:, None], 0).max(axis=0)
+                          .astype(np.int32), device=dev)
+    cut = torch.minimum(occ, torch.as_tensor(rng.integers(0, K + 1, size=C).astype(np.int32),
+                                             device=dev))
+    for ext in (None, occ, cut):
+        before = (gather_cells.launches, gather_cells.launches_f64)
+        got = gather_cells(pos, w, grids, n, box, cb, ext=ext)
+        ref = gather_cells_plain(pos, cut_rows(w, ext), grids, n, box, cb)
+        torch.cuda.synchronize()
+        assert got.shape == (D, K, C)
+        after = (gather_cells.launches, gather_cells.launches_f64)
+        assert after == ((before[0] + 1, before[1]) if dtype == "float32"
+                         else (before[0], before[1] + 1))
+        scale = float(ref.abs().max())
+        assert scale > 0
+        if dtype == "float64":
+            _close_f64(got, ref)
+        else:
+            torch.testing.assert_close(got, ref, rtol=2e-5, atol=1e-5 * scale)
+        assert not got[:, :, torch.as_tensor(counts == 0, device=dev)].any()
 
 
 @pytest.mark.parametrize("nc", [2, 5])
@@ -919,7 +964,8 @@ def test_pair_sweep_reach_f64_matches_plain(dev, kernel, two_sided):
 def test_slot_kernels_f64_match_plain(dev, cb, zmajor, n, case):
     """The double deposit (rows 3, 8: shared double atomics, a scalar
     double atomic a halo cell) and gathers (row 9 with cp.async of
-    doubles, row 4) on the cases of test_slot_kernels_match_plain."""
+    doubles, row 4 in column slabs of doubles) on the cases of
+    test_slot_kernels_match_plain."""
     from concept_tpu_torch.grid.cuda_blocks import deposit_blocks, gather_blocks
     from concept_tpu_torch.grid.cuda_cells import (
         deposit_cells, deposit_cells_plain, gather_cells, gather_cells_plain, launch_deposit,
@@ -934,7 +980,7 @@ def test_slot_kernels_f64_match_plain(dev, cb, zmajor, n, case):
     w = torch.as_tensor(w_np.astype(np.float64), device=dev)
     C = w.shape[1]
     ext = w_ref = None
-    if case == "extents" and cb == 2:
+    if case == "extents":
         ext = torch.as_tensor(rng.integers(0, K + 1, size=C).astype(np.int32), device=dev)
         w_ref = w * (torch.arange(K, device=dev)[:, None] < ext[None, :])
     else:
@@ -945,17 +991,20 @@ def test_slot_kernels_f64_match_plain(dev, cb, zmajor, n, case):
     before = _counts(dep, gat)
     if ext is not None:
         got = launch_deposit(pos, w, n, box, cb, zmajor, ext=ext)
-        gat_got = launch_gather(pos, w, grids, n, box, cb, zmajor, ext=ext)
     elif cb == 2:
         got = deposit_blocks(*pos, w, n, box)
-        gat_got = gather_blocks(*pos, w, grids, n, box)
     else:
         got = deposit_cells(pos, w, n, box, cb)
-        gat_got = gather_cells(pos, w, grids, n, box, cb)
+    if ext is not None and cb == 2:
+        gat_got = launch_gather(pos, w, grids, n, box, cb, zmajor, ext=ext)
+    elif cb == 2:
+        gat_got = gather_blocks(*pos, w, grids, n, box)
+    else:
+        gat_got = gather_cells(pos, w, grids, n, box, cb, ext=ext)
     _close_f64(got, deposit_cells_plain(pos, w_ref, n, box, cb, zmajor))
     _close_f64(gat_got, gather_cells_plain(pos, w_ref, grids, n, box, cb, zmajor))
-    counted = 0 if ext is not None else 1
-    assert _counts(dep, gat) == tuple((b[0], b[1] + counted) for b in before)
+    counted = (0 if ext is not None else 1, 0 if ext is not None and cb == 2 else 1)
+    assert _counts(dep, gat) == tuple((b[0], b[1] + k) for b, k in zip(before, counted))
 
 
 @pytest.mark.parametrize("n, D, capacity", [(32, 3, None), (18, 1, None), (16, 3, 32)])
