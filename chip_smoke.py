@@ -172,6 +172,32 @@ Then the rest of the cosmology:
     of 2), and the ms per base step beside the same run without the
     neutrinos on the analytic backend (EH).
 
+Then several components and fluids:
+
+9.  ``multi``: three runs through ``load_params`` and ``run`` at the
+    widths of their parameter files, each launching its rows only and
+    passing the checks of 3 (for every component and fluid).
+    (a) ``param/example_nonlinnu.py`` whole (80³ matter on P³M grid 40,
+    the ν fluid on grid 40 at Boltzmann order 1, KT), on the tables of
+    phase 8's cache, for ``MULTI_STEPS`` global steps (the ν Courant limit
+    sets Δt; the run's end is planned on the host, as is the count of
+    steps to a = 1): row 6 only; ms a step, then ``SPLIT_STEPS`` more
+    steps split by part (the PM kick, the row-6 sweep, the KT drift, the
+    host scalars; a sync between parts); the ν fluid's Σϱ within 1e-5;
+    row 6 against its plain version on the final slots (the first 64 rows
+    of each column: ~1500 a column), in float within twice the float32
+    plain version's own distance from float64 there, and in double.
+    (b) example_basic with cold dark matter and baryons, 64³ each, grid
+    128, to a = 1: rows 6 and 2 only; the spectra of each and of the
+    pair; rows 6 and 2 against their plain versions on the final state at
+    the run's softening 0 ('plummer'), and row 6 with 'spline' at
+    softening 0, in float and in double.  (c)
+    ``param/example_relativistic.py`` whole (128³ matter, the linear
+    radiation on grid 128 at order −1, re-realized at every kick) to
+    a = 0.02: row 6 only; the backend and any Einstein-Boltzmann solve's
+    seconds; the matter spectrum over that of the same matter without
+    the radiation (global steps, unfixed amplitudes) below k_Nyquist/4.
+
 Before its last line it prints one JSON object ``{"kernels": [...]}`` and
 the card's name and power limit as nvidia-smi reports them (each kernel
 with its double instantiation's numbers under ``f64_*``); the last line
@@ -238,6 +264,31 @@ def _max_rel(got, ref) -> tuple[float, float]:
     """(max |got − ref|, that over max |ref|)."""
     err = float((got - ref).abs().max())
     return err, err / max(float(ref.abs().max()), 1e-30)
+
+
+def _max_rel_recv(got, ref) -> float:
+    """max over the receivers i of |Δ_i| / max(|ref_i|, median |ref|), with
+    |·| the norm of a receiver's force (the leading axis of (3, K, C)) and
+    the median over the receivers that feel one: each force judged on its
+    own scale, the weak ones on the median force's.  (At softening 0 one
+    near pair can make max |ref| exceed the ordinary forces by ten orders
+    of magnitude, and max|Δ|/max|ref| then sees nothing else.)"""
+    d = (got - ref).double().norm(dim=0)
+    r = ref.double().norm(dim=0)
+    live = r[r > 0]
+    med = float(live.median()) if live.numel() else 1e-300
+    return float((d / r.clamp(min=med)).max())
+
+
+def _float32_floor(recv, sup, args, rext=None) -> float:
+    """The float32 plain sweep's own per-receiver distance (_max_rel_recv)
+    from the float64 plain sweep on the same slots and arguments: what
+    float32 sums alone leave on these forces."""
+    from concept_tpu_torch.forces.cuda_shortrange import pair_sweep_plain
+
+    p32 = pair_sweep_plain(recv, sup, *args, rext=rext)
+    p64 = pair_sweep_plain(recv.double(), sup.double(), *args, rext=rext)
+    return _max_rel_recv(p32, p64)
 
 
 def _nvidia_smi() -> str:
@@ -343,13 +394,14 @@ def _realized_layout(N: int, mesh: int, device: str, unified_cb: int | None = No
     return adapter, adapter._to_layout(flat)
 
 
-def _pair_work(pos_s, n, boxsize, cutoff2, soft2, offsets):
+def _pair_work(pos_s, n, boxsize, cutoff2, soft2, offsets, sup_s=None):
     """The work a sweep with receivers = suppliers = the sentinel-filled
-    slots pos_s (3, K, C) needs, whatever rows its launch visits: (pair
-    tests between valid slots of neighbouring cells, Σ_c n_c·Σ_nb n_nb
-    over the neighbour cells nb = c + d, d in ``offsets``, of each cell
-    c; pairs inside the cutoff; of those the pairs inside the spline's
-    near field r² < (2.8ε)²; valid slots)."""
+    slots pos_s (3, K, C) needs (or with the suppliers ``sup_s``),
+    whatever rows its launch visits: (pair tests between valid slots of
+    neighbouring cells, Σ_c n_c·Σ_nb n_nb over the neighbour cells
+    nb = c + d, d in ``offsets``, of each cell c; pairs inside the
+    cutoff; of those the pairs inside the spline's near field
+    r² < (2.8ε)²; valid slots, the suppliers' too where they differ)."""
     import torch
 
     from concept_tpu_torch.forces.shortrange import SENTINEL
@@ -358,12 +410,15 @@ def _pair_work(pos_s, n, boxsize, cutoff2, soft2, offsets):
     dev = pos_s.device
     valid = pos_s[0].abs() < 0.5 * SENTINEL * boxsize
     occ = valid.sum(0).reshape(n, n, n).to(torch.int64)
-    nbsum = sum(torch.roll(occ, (-di, -dj, -dk), (0, 1, 2)) for di, dj, dk in offsets)
+    sup = pos_s if sup_s is None else sup_s
+    sup_valid = sup[0].abs() < 0.5 * SENTINEL * boxsize
+    sup_occ = sup_valid.sum(0).reshape(n, n, n).to(torch.int64)
+    nbsum = sum(torch.roll(sup_occ, (-di, -dj, -dk), (0, 1, 2)) for di, dj, dk in offsets)
     tested = int((occ * nbsum).sum())
     cells = torch.arange(C, device=dev)
     ci, cj, ck = cells // (n * n), (cells // n) % n, cells % n
     within = near = 0
-    ch = max(1, (1 << 24) // (K * K))
+    ch = max(1, (1 << 24) // (K * sup.shape[1]))
     for c0 in range(0, C, ch):
         cols = slice(c0, min(C, c0 + ch))
         own = pos_s[:, :, cols][:, :, None, :]
@@ -375,13 +430,14 @@ def _pair_work(pos_s, n, boxsize, cutoff2, soft2, offsets):
                 shift.append(((m >= n).float() - (m < 0).float()) * boxsize)
                 ids.append(torch.remainder(m, n))
             col = (ids[0] * n + ids[1]) * n + ids[2]
-            nb = pos_s[:, :, col] + torch.stack(shift)[:, None, :]
+            nb = sup[:, :, col] + torch.stack(shift)[:, None, :]
             d = own - nb[:, None]
             r2 = (d * d).sum(0)
-            m = (r2 < cutoff2) & (r2 > 0) & vr & valid[:, col][None]
+            m = (r2 < cutoff2) & (r2 > 0) & vr & sup_valid[:, col][None]
             within += int(m.sum())
             near += int((m & (r2 < 7.84 * soft2)).sum())
-    return tested, within, near, int(valid.sum())
+    n_valid = int(valid.sum()) + (0 if sup_s is None else int(sup_valid.sum()))
+    return tested, within, near, n_valid
 
 
 def _visited(rb, sb, n: int, offsets) -> int:
@@ -395,7 +451,8 @@ def _visited(rb, sb, n: int, offsets) -> int:
 
 
 def _check_sweep(tag: str, pos_s, sim, bounds, reps: int, plain_reps: int,
-                 reach: str | None = None) -> dict:
+                 reach: str | None = None, sup_s=None, tol: float | None = None,
+                 per_receiver: bool = False) -> dict:
     """The pair sweep kernel against its plain version on the slot
     positions pos_s (3, K, C) of a layout with `sim`'s geometry (nc,
     boxsize, scale, cutoff, softening, softening_kernel), receivers =
@@ -405,11 +462,15 @@ def _check_sweep(tag: str, pos_s, sim, bounds, reps: int, plain_reps: int,
     "two-sided" sweeps `sim`'s reach-2 offsets (the 4-mesh-cell layout)
     instead of the ±1 columns: one-sided through pair_sweep_reach with the
     receivers at the negative sentinel, two-sided through sweep_reach (no
-    bounds).
+    bounds).  ``sup_s``: the suppliers of the "subset" sweep where they
+    are not pos_s (one component's slots against another's).
+    ``per_receiver``: judge the disagreement receiver by receiver
+    (_max_rel_recv) instead of by max|Δ|/max|ref|.
     The bound counts the work the function needs on these slots (see
     _pair_work), which row bounds do not change; the row pairs the launch
     visits are Σ_c rb[c]·Σ_d sb[c + d].  Fails on a disagreement beyond
-    max|Δ|/max|ref| ≤ 1e-5, or in float64 (the double kernel) 1e-10."""
+    max|Δ|/max|ref| (or the per-receiver measure) ≤ 1e-5, or in float64
+    (the double kernel) 1e-10, or ``tol`` where given."""
     import torch
 
     from concept_tpu_torch.forces.cuda_shortrange import (
@@ -423,14 +484,15 @@ def _check_sweep(tag: str, pos_s, sim, bounds, reps: int, plain_reps: int,
     args = (sim.nc, sim.boxsize, sim.scale, dtype_square(sim.cutoff, dtype),
             dtype_square(sim.softening, dtype), sim.softening_kernel)
     offsets = OFFSETS_27 if reach in (None, "subset") else sim.offsets
+    sup = pos_s if sup_s is None else sup_s
     if reach in (None, "subset"):
         def kern():
             if reach == "subset":
-                return pair_sweep_subset(pos_s, pos_s, *args)
+                return pair_sweep_subset(pos_s, sup, *args)
             return pair_sweep(pos_s, pos_s, *args, rext=bounds[0], sext=bounds[1])
 
         def plain():
-            return pair_sweep_plain(pos_s, pos_s, *args, rext=bounds[0], sext=bounds[1])
+            return pair_sweep_plain(pos_s, sup, *args, rext=bounds[0], sext=bounds[1])
     elif reach == "one-sided":
         recv = torch.where(pos_s.abs() < 0.5 * SENTINEL * sim.boxsize, pos_s,
                            -SENTINEL * sim.boxsize)
@@ -458,8 +520,9 @@ def _check_sweep(tag: str, pos_s, sim, bounds, reps: int, plain_reps: int,
 
     got, ref = kern(), plain()
     _sync()
-    err, rel = _max_rel(got, ref)
-    tol = F64_TOL if f64 else 1e-5
+    err, rel_max = _max_rel(got, ref)
+    rel = _max_rel_recv(got, ref) if per_receiver else rel_max
+    tol = tol or (F64_TOL if f64 else 1e-5)
     ok = rel <= tol
     del got, ref
     ms, plain_ms = _time_ms(kern, reps), _time_ms(plain, plain_reps)
@@ -468,7 +531,7 @@ def _check_sweep(tag: str, pos_s, sim, bounds, reps: int, plain_reps: int,
               torch.clamp(column_bounds(e, sim.nc).to(torch.int64), max=K) for e in bounds)
     visited = _visited(rb, sb, sim.nc, offsets)
     tested, within, near, n_valid = _pair_work(pos_s, sim.nc, sim.boxsize, args[3], args[4],
-                                               offsets)
+                                               offsets, sup_s)
     flops = FLOPS_PER_TESTED_PAIR * tested + (
         FLOPS_PER_PAIR_IN_CUTOFF_F64 if f64 else FLOPS_PER_PAIR_IN_CUTOFF) * within
     # valid positions read, the whole (3, K, C) result written, bounds read
@@ -477,8 +540,10 @@ def _check_sweep(tag: str, pos_s, sim, bounds, reps: int, plain_reps: int,
     peak = _fp_peak(dtype)
     bound_ms = 1e3 * max(flops / peak, nbytes / HBM_BYTES_PER_S)
     name = {None: "pair_sweep", "subset": "pair_sweep_subset"}.get(reach, "reach sweep")
-    print(f"  {name} ({tag}{', float64' if f64 else ''}): max |Δ| {err:.3e}, max|Δ|/max|ref| "
-          f"{rel:.3e} (tol {tol:g}) {'ok' if ok else 'FAIL'}; {ms:.3f} ms, plain {plain_ms:.1f} ms, "
+    measure = (f"max|Δ|/max|ref| {rel_max:.3e}, per receiver {rel:.3e}" if per_receiver
+               else f"max|Δ|/max|ref| {rel:.3e}")
+    print(f"  {name} ({tag}{', float64' if f64 else ''}): max |Δ| {err:.3e}, {measure} "
+          f"(tol {tol:g}) {'ok' if ok else 'FAIL'}; {ms:.3f} ms, plain {plain_ms:.1f} ms, "
           f"bound {bound_ms:.3f} ms; {tested} pair tests needed ({n_valid} valid "
           f"slots), {within} in the cutoff, {near} in the spline near field; the "
           f"launch visits {visited} row pairs (deepest receiver bound {int(rb.max())}, "
@@ -486,7 +551,8 @@ def _check_sweep(tag: str, pos_s, sim, bounds, reps: int, plain_reps: int,
     if not ok:
         raise SystemExit(f"{name} ({tag}) disagrees with its plain version")
     return dict(
-        max_abs_err=err, max_rel_err=rel, tol_rel=tol, ms=ms, plain_ms=plain_ms,
+        max_abs_err=err, max_rel_err=rel, tol_rel=tol, per_receiver=per_receiver,
+        max_rel_err_of_max=rel_max, ms=ms, plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by="operations" if flops / peak >
         nbytes / HBM_BYTES_PER_S else "bytes", flops=flops, bytes=nbytes,
         pairs_tested=tested, pairs_in_cutoff=within, pairs_near_field=near,
@@ -2395,7 +2461,8 @@ def _build_timed(overrides: list) -> tuple:
     return lin, time.time() - t0, tab.seconds, gauge.seconds
 
 
-def nu_cosmology(a_end: float = NU_A_END, n: int = 80, device: str = "cuda") -> dict:
+def nu_cosmology(a_end: float = NU_A_END, n: int = 80, device: str = "cuda",
+                 cache: str | None = None) -> dict:
     """Phase 8: param/example_nonlinnu.py's matter component (80³
     particles, grid 40, Σmν = 0.5 eV, 8 rungs) with the internal
     Einstein-Boltzmann tables at the light settings of
@@ -2406,12 +2473,15 @@ def nu_cosmology(a_end: float = NU_A_END, n: int = 80, device: str = "cuda") -> 
     the analytic backend (EH).  Fails unless both runs launch rows 1, 3
     and 4 only, or where the realized spectrum's lowest bins stray from
     the tables' linear spectrum by more than a factor of 2.  ``n`` other
-    than 80 takes the grid n/2, as the param does."""
+    than 80 takes the grid n/2, as the param does.  ``cache``: an empty
+    directory for the tables, which the caller keeps (the ``multi``
+    phase reads them); else a temporary one."""
     import math
 
     import numpy as np
 
-    cache = tempfile.mkdtemp(prefix="chip_smoke_eb_")
+    own_cache = cache is None
+    cache = cache or tempfile.mkdtemp(prefix="chip_smoke_eb_")
     outdir = tempfile.mkdtemp(prefix="chip_smoke_nu_")
     eh_dir = tempfile.mkdtemp(prefix="chip_smoke_nu_eh_")
     out = {"a_end": a_end, "host_cpus": os.cpu_count(),
@@ -2475,8 +2545,352 @@ def nu_cosmology(a_end: float = NU_A_END, n: int = 80, device: str = "cuda") -> 
         if not math.isfinite(out["sigma8"]):
             raise SystemExit("σ8 of the tables is not finite")
     finally:
-        for d in (cache, outdir, eh_dir):
+        for d in [outdir, eh_dir] + [cache] * own_cache:
             shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
+REL_PARAM = os.path.join(ROOT, "param", "example_relativistic.py")
+MULTI_STEPS = 200  # example_nonlinnu's global steps from a_begin (the ν Courant limit)
+SPLIT_STEPS = 16  # steps timed part by part after the counted run
+SWEEP_ROWS = ("pair_sweep",)
+PAIR_ROWS = ("pair_sweep", "pair_sweep_subset")
+ALL_PAIRS = "powerspec_select={'all': True, 'all combinations': True}"
+
+
+def _range_split(prof, steps: int) -> dict:
+    """ms a step of each ``multi.*`` record_function range of
+    MultiSimulation (pm, sweep, drift, host) from a torch.profiler run
+    over ``steps`` steps, no sync between parts: ``device_ms`` the time
+    of the device's kernels, copies and fills that start inside the
+    range's span on the device timeline (its gpu_user_annotation; the
+    kernels launched through ctypes have no CPU op to hang on),
+    ``span_ms`` that span, ``host_ms`` the range's host time under the
+    profiler."""
+    import bisect
+
+    from torch.autograd import DeviceType
+
+    spans, work, split = [], [], {}
+    for e in prof.events():
+        if e.name.startswith("multi."):
+            part = split.setdefault(e.name[6:], {"device_ms": 0.0, "span_ms": 0.0,
+                                                 "host_ms": 0.0})
+            if e.device_type == DeviceType.CPU:
+                part["host_ms"] += e.cpu_time_total / 1e3 / steps
+            else:
+                part["span_ms"] += e.time_range.elapsed_us() / 1e3 / steps
+                spans.append((e.time_range.start, e.time_range.end, e.name[6:]))
+        elif e.device_type == DeviceType.CUDA:
+            work.append((e.time_range.start, e.time_range.elapsed_us()))
+    spans.sort()
+    starts = [s0 for s0, _, _ in spans]
+    for t0, us in work:
+        i = bisect.bisect_right(starts, t0) - 1
+        if i >= 0 and t0 < spans[i][1]:
+            split[spans[i][2]]["device_ms"] += us / 1e3 / steps
+    return split
+
+
+def _multi_run(param: str, overrides: list, outdir: str, kernels, device: str = "cuda"):
+    """load_params + run of a configuration of several components, as the
+    CLI does: (sim, final MultiState, a, launch counts, host seconds,
+    {power spectrum file: columns}).  Fails unless each of ``kernels``
+    launched (in float) and no other kernel did, when
+    the deposit lost more than half a particle's mass at a step, or when
+    a spectrum or the final state is not finite.  (The multi path has no
+    overflow budget: its buckets hold each component's deepest cell.)"""
+    import numpy as np
+    import torch
+
+    from concept_tpu_torch.param import load_params
+    from concept_tpu_torch.run import run
+
+    cfg = load_params(param, overrides=overrides + [f"output_dirs='{outdir}'"])
+    _reset_counts()
+    t0 = time.time()
+    sim, state, a = run(cfg, device=device)
+    _sync()
+    seconds = time.time() - t0
+    counts, counts64 = _read_counts(), _read_counts_f64()
+    if torch.device(device).type == "cuda":
+        _check_launches(counts64, ())
+        _check_launches(counts, kernels)
+    spectra = {}
+    for f in sorted(os.listdir(outdir)):
+        if f.startswith("powerspec"):
+            data = np.loadtxt(os.path.join(outdir, f))
+            if data.ndim != 2 or not np.all(np.isfinite(data[:, :3])):
+                raise SystemExit(f"the power spectrum {f} is not finite")
+            spectra[f] = data
+    if not spectra:
+        raise SystemExit(f"no power spectrum written to {outdir}")
+    grids = [x for ps in state.particles.values() for x in (ps.pos, ps.mom)]
+    grids += [x for fs in state.fluids.values() for x in fs if x is not None]
+    if not all(bool(torch.isfinite(x).all()) for x in grids):
+        raise SystemExit("the final state is not finite")
+    if sim.stats["pm_mass_deficit_max"] > 0.5:
+        raise SystemExit(f"the PM deposit lost {sim.stats['pm_mass_deficit_max']:.3g} "
+                         "particle masses at a step")
+    return sim, state, a, counts, seconds, spectra
+
+
+def _component_slots(sim, pos):
+    """The sentinel-filled (3, K, C) short-range slots of one component's
+    positions pos (N, 3) on the run's cells, K its deepest cell."""
+    import torch
+
+    from concept_tpu_torch.forces.shortrange import SENTINEL, bucketize, cell_counts
+
+    box, n = sim.config.boxsize, sim._sr_ncells
+    K = int(cell_counts(pos, box, n).max())
+    b = bucketize(pos.unbind(1), box, n, K)
+    return torch.where(b["valid"][None], torch.stack([b["hx"], b["hy"], b["hz"]]),
+                       SENTINEL * box).contiguous()
+
+
+def _multi_nonlinnu(cache: str, device: str = "cuda", steps: int = MULTI_STEPS,
+                    n: int = 80, mesh: int | None = None) -> dict:
+    """(a) param/example_nonlinnu.py whole (80³ matter on P³M grid 40, the
+    ν fluid on grid 40 at Boltzmann order 1 with KT, the EB tables of
+    ``cache``) for ``steps`` global steps from a_begin: the run ends at
+    the middle of step ``steps`` (planned on the host), so it takes
+    exactly that many.  Then SPLIT_STEPS more steps under the profiler,
+    split by part, and row 6 on the final slots against its plain
+    version and the double kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from concept_tpu_torch import sim_multi
+    from concept_tpu_torch.device import resolve_device, resolve_dtype
+    from concept_tpu_torch.forces.cuda_shortrange import pair_sweep
+    from concept_tpu_torch.forces.shortrange import dtype_square
+    from concept_tpu_torch.param import load_params
+    from concept_tpu_torch.run import build_components, build_cosmology, make_multi
+
+    mesh = mesh or n // 2
+    base = [f"boltzmann_options={{{NU_OPTIONS},'cache_dir':'{cache}'}}"]
+    if n != 80 or mesh != 40:
+        base += [f"initial_conditions=[{{'species':'matter','N':{n}**3}},{{'species':"
+                 f"'neutrino','gridsize':{n // 2},'boltzmann order':1}}]",
+                 f"potential_options={mesh}"]
+    cfg = load_params(NU_PARAM, overrides=base)
+    units, consts, bg, lin = build_cosmology(cfg)
+    dev = resolve_device(device)
+    plan = make_multi(cfg, build_components(cfg, bg, consts), units, consts, bg, lin, dev,
+                      resolve_dtype(dev))
+    t0 = time.perf_counter()
+    to_one = plan.count_steps(cfg.a_begin, 1.0)
+    count_s = time.perf_counter() - t0
+    dt0, limiter = plan.timestep_limiter(cfg.a_begin)
+    for i, (t, dt, _, _) in enumerate(plan.schedule(cfg.a_begin, 1.0)):
+        if i == steps - 1:
+            a_out = float(bg.a_of_t_np(t + 0.5 * dt))
+            break
+    # Σϱ of the ν fluid as the run realizes it (the same call, seed, grid
+    # and dtype)
+    nu = plan.fspecs["neutrino"]
+    rho0 = float(sim_multi.realize_fluid_from_linear(
+        lin, nu, cfg.boxsize, cfg.a_begin, plan.fluid_Omegas[nu.name] * plan.rho_crit,
+        seed=int(cfg.random_seeds.get("primordial amplitudes", 0)), dtype=torch.float32,
+        device=dev, eos=plan.eos[nu.name]).varrho.double().sum())
+    outdir = tempfile.mkdtemp(prefix="chip_smoke_multi_nu_")
+    try:
+        sim, state, a, counts, seconds, spectra = _multi_run(
+            NU_PARAM, base + [f"output_times={{'powerspec': [{a_out!r}]}}", ALL_PAIRS],
+            outdir, SWEEP_ROWS, device)
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    done = sim.hysteresis["step_count"]
+    if done != steps or sim.lin.tables is None:
+        raise SystemExit(f"the ν run took {done} steps (planned {steps}) "
+                         f"{'with' if sim.lin.tables is not None else 'without'} tables")
+    drift = abs(float(state.fluids["neutrino"].varrho.double().sum()) / rho0 - 1)
+    if drift > 1e-5:
+        raise SystemExit(f"Σϱ of the ν fluid drifted by {drift:.3e} over {steps} steps")
+    ms_step = 1e3 * sim.timings["evolve_s"] / steps
+    # the split: SPLIT_STEPS more steps under the profiler, read from
+    # MultiSimulation's record_function ranges
+    t_now = float(bg.t_of_a_np(a))
+    a2 = float(bg.a_of_t_np(t_now + (SPLIT_STEPS + 0.5) * sim.timestep_size(a)))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, _ = sim.evolve(state, a, a2, resume=dict(sim.hysteresis))
+        _sync()
+    split_steps = sim.hysteresis["step_count"] - done
+    split = _range_split(prof, split_steps)
+    del prof
+    # row 6 on the final slots.  Near the lattice each force is a sum of
+    # ~6000 pairs in the cutoff that nearly cancel: the float32 sums carry
+    # a floor of their own, which the plain float32 version's distance
+    # from its float64 version measures on the first 64 rows of each
+    # column.  The bounded float32 launch on those rows is held to its
+    # plain version, and the run's own launch (every row, no bounds) to
+    # the double kernel's on the same slots, each within twice that floor
+    # (or 1e-5, the larger); the double kernel is held at 1e-10 of its
+    # plain version.  Every measure is per receiver (_max_rel_recv).
+    slots = _component_slots(sim, state.particles["matter"].pos)
+    geom = _sweep_geometry(sim)
+    K = slots.shape[1]
+    rows = torch.full((geom.nc**3,), min(64, K), dtype=torch.int32, device=slots.device)
+    args = (geom.nc, geom.boxsize, geom.scale, dtype_square(geom.cutoff, slots.dtype),
+            dtype_square(geom.softening, slots.dtype), geom.softening_kernel)
+    floor = _float32_floor(slots, slots, args, rext=rows)
+    tol = max(1e-5, 2 * floor)
+    tag = f"ν run's final slots, the first {min(64, K)} rows of each column"
+    check = _check_sweep(tag, slots, geom, (rows, None), 3, 1, tol=tol, per_receiver=True)
+    check["float32_floor"] = floor
+    s64 = slots.double()
+    check_f64 = _check_sweep(tag, s64, geom, (rows, None), 3, 1, per_receiver=True)
+    args64 = args[:3] + (dtype_square(geom.cutoff, s64.dtype),
+                         dtype_square(geom.softening, s64.dtype), geom.softening_kernel)
+    full = _max_rel_recv(pair_sweep(slots, slots, *args).double(),
+                         pair_sweep(s64, s64, *args64))
+    del s64
+    check["all_rows_vs_f64_kernel"] = full
+    check["ms_all_rows"] = _time_ms(lambda: pair_sweep(slots, slots, *args), 3)
+    print(f"multi (a) example_nonlinnu whole ({n}³ matter, P³M grid {mesh}, ν "
+          f"fluid grid {n // 2}, KT RK2) on {device}: {steps} global steps a {cfg.a_begin} → "
+          f"{a:.6g}, {sim.timings['evolve_s']:.2f} s of evolution ({ms_step:.2f} ms a step), "
+          f"wall {seconds:.1f} s; Δt set by '{limiter}' ({dt0:.3e} Gyr at a_begin); "
+          f"{to_one} steps to a = 1 (counted on the host in {count_s:.1f} s); Σϱ_ν drift "
+          f"{drift:.2e}; launches {counts}; ms a step by part over {split_steps} more steps "
+          f"(profiled: device time and span of each part's work, host time): "
+          f"{json.dumps({k: {q: round(v, 3) for q, v in d.items()} for k, d in split.items()})}; "
+          f"row 6 on the final slots (K = {K}, {geom.nc}³ cells): every row, as the run "
+          f"launches it, {check['ms_all_rows']:.3f} ms a launch, per receiver {full:.3e} from "
+          f"the double kernel (tol {tol:g}; the float32 plain version's own distance from "
+          f"float64 on the first 64 rows {floor:.2e})")
+    if not full <= tol:
+        raise SystemExit("row 6's float32 launch over every row of the ν run's slots "
+                         "disagrees with the double kernel")
+    return {"a_end": a, "steps": steps, "evolve_s": sim.timings["evolve_s"],
+            "ms_per_step": ms_step, "wall_s": seconds, "limiter": limiter,
+            "dt_limit_at_a_begin": dt0, "steps_to_a1": to_one, "count_s": count_s,
+            "nu_rho_drift": drift, "launches": counts, "ms_per_step_by_part": split,
+            "split_steps": split_steps, "spectra": sorted(spectra), "row6_final": check,
+            "row6_final_f64": check_f64,
+            "pm_mass_deficit_max": sim.stats["pm_mass_deficit_max"]}
+
+
+def _multi_cdm_baryon(device: str = "cuda", n: int = 64, mesh: int = 128) -> dict:
+    """(b) param/example_basic.py with cold dark matter and baryons, n³
+    particles each, P³M on grid `mesh`, to a = 1: the self sweeps (row 6)
+    and the component-pair sweeps (row 2) only.  Then rows 6 and 2
+    against their plain versions on the final state at the run's
+    softening 0 ('plummer'), in float and in double (the slots cast), and
+    row 6 with the 'spline' kernel at softening 0 in both dtypes, each
+    receiver judged on its own scale."""
+    from concept_tpu_torch.forces.shortrange import dtype_square
+
+    outdir = tempfile.mkdtemp(prefix="chip_smoke_multi_cb_")
+    try:
+        sim, state, a, counts, seconds, spectra = _multi_run(
+            PARAM, [f"initial_conditions=[{{'species':'cold dark matter','N':{n}**3}},"
+                    f"{{'species':'baryon','N':{n}**3}}]", f"potential_options={mesh}",
+                    ALL_PAIRS], outdir, PAIR_ROWS, device)
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    steps = sim.hysteresis["step_count"]
+    if a < 1 - 1e-9 or len(spectra) != 3:
+        raise SystemExit(f"the CDM + baryon run ended at a = {a} with spectra {sorted(spectra)}")
+    geom = _sweep_geometry(sim)
+    cdm = _component_slots(sim, state.particles["cold dark matter"].pos)
+    bar = _component_slots(sim, state.particles["baryon"].pos)
+    out = {"a_end": a, "steps": steps, "wall_s": seconds, "evolve_s": sim.timings["evolve_s"],
+           "ms_per_step": 1e3 * sim.timings["evolve_s"] / max(steps, 1), "launches": counts,
+           "spectra": sorted(spectra), "pm_mass_deficit_max": sim.stats["pm_mass_deficit_max"],
+           "K_cdm": cdm.shape[1], "K_baryon": bar.shape[1]}
+    print(f"multi (b) CDM + baryons ({n}³ each, P³M grid {mesh}, {geom.nc}³ short-range "
+          f"cells) on {device}: a 0.02 → {a:.4g} in {steps} global steps, "
+          f"{out['evolve_s']:.2f} s of evolution ({out['ms_per_step']:.1f} ms a step), wall "
+          f"{seconds:.1f} s; finite spectra {sorted(spectra)}; launches {counts}; rows 6 and "
+          f"2 on the final state at softening 0 (K = {cdm.shape[1]} / {bar.shape[1]}):")
+    # each receiver on its own scale (_max_rel_recv): CDM-baryon twins at
+    # rounding distance feel ~1e15 where the ordinary forces are ~1e4.
+    # float32 at 1e-5, float64 at 1e-10; the float32 plain version's own
+    # distance from float64 on the same slots is recorded beside
+    spline = SimpleNamespace(**{**vars(geom), "softening_kernel": "spline"})
+    cases = (("row6_final", "CDM's final slots, softening 0", geom, None),
+             ("row2_final", "CDM receivers, baryon suppliers, softening 0", geom, "subset"),
+             ("row6_spline", "CDM's final slots, spline at softening 0", spline, None))
+    for key, tag, g, reach in cases:
+        sup = bar if reach else cdm
+        args = (g.nc, g.boxsize, g.scale, dtype_square(g.cutoff, cdm.dtype),
+                dtype_square(g.softening, cdm.dtype), g.softening_kernel)
+        floor = _float32_floor(cdm, sup, args)
+        out[key] = _check_sweep(tag, cdm, g, (None, None), 3, 1, reach=reach,
+                                sup_s=bar if reach else None, per_receiver=True)
+        out[key]["float32_floor"] = floor
+        out[f"{key}_f64"] = _check_sweep(tag, cdm.double(), g, (None, None), 3, 1,
+                                         reach=reach, sup_s=bar.double() if reach else None,
+                                         per_receiver=True)
+    return out
+
+
+def _multi_relativistic(device: str = "cuda", a_end: float = 0.02, n: int = 128) -> dict:
+    """(c) param/example_relativistic.py whole (128³ matter on P³M grid
+    128, the linear radiation component on grid 128 at Boltzmann order
+    −1 with the 'class' closure, re-realized at every kick) to
+    ``a_end``: row 6 only.  Its backend is what build_cosmology selects
+    (the seconds of any Einstein-Boltzmann solve are printed).  Then the
+    same matter without the radiation (one component: the global
+    stepper, N_rungs = 1, with the multi path's unfixed amplitudes), and
+    the ratio of the matter spectra below a quarter of the Nyquist
+    wavenumber."""
+    import numpy as np
+
+    from concept_tpu_torch.cosmology import ebsolver
+
+    size = [] if n == 128 else [
+        f"initial_conditions=[{{'species':'matter','N':{n}**3}},{{'name':'linear','species':"
+        f"'radiation','gridsize':{n},'boltzmann order':-1,'boltzmann closure':'class'}}]",
+        f"potential_options={n}"]
+    outdir = tempfile.mkdtemp(prefix="chip_smoke_multi_rel_")
+    single = tempfile.mkdtemp(prefix="chip_smoke_multi_rel1_")
+    try:
+        with _Timed(ebsolver, "tabulate_eb") as eb:
+            sim, state, a, counts, seconds, spectra = _multi_run(
+                REL_PARAM, [f"output_times={{'powerspec': [{a_end}]}}", *size], outdir,
+                SWEEP_ROWS, device)
+        got = {}
+        _run([f"output_times={{'powerspec': [{a_end}]}}", "N_rungs=1",
+              "primordial_amplitude_fixed=False", *size[1:],
+              f"initial_conditions={{'species':'matter','N':{n}**3}}"], single, GLOBAL_KERNELS,
+             device, param=REL_PARAM, spectrum=got)
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+        shutil.rmtree(single, ignore_errors=True)
+    steps = sim.hysteresis["step_count"]
+    P = spectra[f"powerspec_matter_a={a_end:.4g}.txt"]
+    P1 = got["data"]
+    k_quarter = 0.25 * np.pi * sim.config.potential_gridsize / 1024  # the box is 1024 Mpc
+    sel = P[:, 0] <= k_quarter
+    if not np.allclose(P[:, 0], P1[:, 0], rtol=1e-6) or sel.sum() < 2:
+        raise SystemExit("the two relativistic runs binned k differently")
+    ratio = P[sel, 2] / P1[sel, 2]
+    backend = "eb" if sim.lin.tables is not None else "eh"
+    print(f"multi (c) example_relativistic whole ({n}³ matter, radiation grid {n}, order −1 "
+          f"'class') on {device}: a 0.01 → {a:.4g} in {steps} global steps, "
+          f"{sim.timings['evolve_s']:.2f} s of evolution, wall {seconds:.1f} s; backend "
+          f"{backend} (Einstein-Boltzmann solve {eb.seconds:.1f} s); launches {counts}; "
+          f"P(k) over the run without the radiation below k_Nyquist/4: min {ratio.min():.6f}, "
+          f"max {ratio.max():.6f} ({int(sel.sum())} bins)")
+    return {"a_end": a, "steps": steps, "wall_s": seconds, "evolve_s": sim.timings["evolve_s"],
+            "backend": backend, "eb_solve_s": eb.seconds, "launches": counts,
+            "ratio_to_matter_only": ratio.tolist(), "k_per_Mpc": P[sel, 0].tolist(),
+            "pm_mass_deficit_max": sim.stats["pm_mass_deficit_max"]}
+
+
+def multi(cache: str, device: str = "cuda") -> dict:
+    """Phase 9: several components and fluids through ``load_params`` and
+    ``run``, at the widths of their parameter files: (a)
+    example_nonlinnu, (b) CDM + baryons, (c) example_relativistic."""
+    t0 = time.time()
+    out = {"nonlinnu": _multi_nonlinnu(cache, device),
+           "cdm_baryon": _multi_cdm_baryon(device),
+           "relativistic": _multi_relativistic(device)}
+    out["seconds"] = time.time() - t0
+    print(f"multi: {out['seconds']:.1f} s")
     return out
 
 
@@ -2490,7 +2904,7 @@ KERNELS = (
     ("pair_sweep", "pair_sweep", "check", "pair_sweep_bounded", SWEEP_SRC,
      "concept_tpu/forces/pallas_shortrange.py:287", "main_path"),
     ("pair_sweep_subset", "pair_sweep_subset", "global_rungs", "subset_sweep", SWEEP_SRC,
-     "concept_tpu/forces/pallas_shortrange.py:540", "global_rungs"),
+     "concept_tpu/forces/pallas_shortrange.py:540", "multi_cdm_baryon"),
     ("deposit_cells", "deposit_cells", "lean_kick", "deposit_cells", CELLS_SRC,
      "concept_tpu/grid/pallas_cells.py:162", "lean_kick"),
     ("gather_cells", "gather_cells", "lean_kick", "gather_cells", CELLS_SRC,
@@ -2554,7 +2968,13 @@ def main(argv=None) -> int:
     results["f64_global_rungs"] = global_rungs(dtype=torch.float64)
     results["f64_realistic"] = realistic(f64=True)
     results["pp"] = pp_phase()
-    results["nu"] = nu_cosmology()
+    cache = tempfile.mkdtemp(prefix="chip_smoke_eb_")
+    try:
+        results["nu"] = nu_cosmology(cache=cache)
+        results["multi"] = multi(cache)
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+    results["multi_cdm_baryon"] = results["multi"]["cdm_baryon"]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
@@ -2600,6 +3020,31 @@ def main(argv=None) -> int:
         byname[name][f"{phase}_launches"] = results[phase]["launches"][counter]
     byname["pair_sweep_two_sided"]["global_rungs_launches"] = (
         results["global_rungs"]["launches"]["pair_sweep"])
+    byname["pair_sweep_subset"]["global_rungs_launches"] = (
+        results["global_rungs"]["launches"]["pair_sweep_subset"])
+    # the multi phase: rows 6 and 2 launched by its three runs, and held
+    # against their plain versions on the runs' final slots at softening 0
+    # (the run's 'plummer', and 'spline'), in float and in double
+    mp = results["multi"]
+    for run_name in ("nonlinnu", "cdm_baryon", "relativistic"):
+        byname["pair_sweep_two_sided"][f"multi_{run_name}_launches"] = (
+            mp[run_name]["launches"]["pair_sweep"])
+        byname["pair_sweep_subset"][f"multi_{run_name}_launches"] = (
+            mp[run_name]["launches"]["pair_sweep_subset"])
+    for name, prefix, run_name, key in (
+            ("pair_sweep_two_sided", "multi_nonlinnu_final", "nonlinnu", "row6_final"),
+            ("pair_sweep_two_sided", "multi_soft0", "cdm_baryon", "row6_final"),
+            ("pair_sweep_two_sided", "multi_soft0_spline", "cdm_baryon", "row6_spline"),
+            ("pair_sweep_two_sided", "f64_multi_soft0", "cdm_baryon", "row6_final_f64"),
+            ("pair_sweep_two_sided", "f64_multi_soft0_spline", "cdm_baryon",
+             "row6_spline_f64"),
+            ("pair_sweep_subset", "multi_soft0", "cdm_baryon", "row2_final"),
+            ("pair_sweep_subset", "f64_multi_soft0", "cdm_baryon", "row2_final_f64")):
+        c = mp[run_name][key]
+        byname[name].update({f"{prefix}_{k}": c[k] for k in (
+            "max_abs_err", "max_rel_err", "tol_rel", "ms", "plain_ms", "bound_ms")})
+    byname["pair_sweep_two_sided"]["multi_nonlinnu_all_rows_vs_f64_kernel"] = (
+        mp["nonlinnu"]["row6_final"]["all_rows_vs_f64_kernel"])
     for name in ("deposit_pm", "gather_pm"):
         byname[name]["global_rungs_launches"] = results["global_rungs"]["launches"][name]
     for name, phase, key in (("pair_sweep", "check", "pair_sweep_unbounded"),

@@ -1,8 +1,10 @@
-"""Component data model (port of concept_tpu/components.py, particles
-only; reference src/species.py).
+"""Component data model (port of concept_tpu/components.py; reference
+src/species.py).
 
-``ParticleState`` holds (N, 3) tensors; ``ComponentSpec`` is the static
-per-component metadata.
+``ParticleState`` holds (N, 3) tensors and ``FluidState`` a fluid's
+grids; ``ComponentSpec`` is the static per-component metadata,
+``EquationOfState`` a fluid's w(a) and w_eff(a), and ``SPECIES`` the
+species taxonomy (reference linear.py:3517-3595).
 """
 
 from __future__ import annotations
@@ -21,6 +23,22 @@ class ParticleState(NamedTuple):
     mom: torch.Tensor  # (N, 3)
     ids: torch.Tensor | None = None  # (N,) int, optional
     rungs: torch.Tensor | None = None  # (N,) int8, optional
+
+
+class FluidState(NamedTuple):
+    """Dynamic fluid data: the Boltzmann-hierarchy grids (reference
+    species.py:880-928 for boltzmann_order semantics).
+
+    varrho : (n, n, n)     comoving density ϱ = a^{3(1+w_eff)} ρ
+    J      : (3, n, n, n)  momentum density J = a⁴(ρ + c⁻²P)u
+    P      : (n, n, n)     pressure 𝒫 (order ≥ 2 or the 'class' closure)
+    sigma  : (6, n, n, n)  shear ς packed (xx, xy, xz, yy, yz, zz)
+    """
+
+    varrho: torch.Tensor
+    J: torch.Tensor | None = None
+    P: torch.Tensor | None = None
+    sigma: torch.Tensor | None = None
 
 
 @dataclass(frozen=True)
@@ -42,11 +60,70 @@ class ComponentSpec:
     decay_rate: float = 0.0
     decay_to: str | None = None
 
+    @property
+    def w_eff(self) -> float:
+        """The effective EoS; w for a species that does not decay."""
+        return self.w
+
     def force_method(self, force: str) -> str | None:
         for f, m in self.forces:
             if f == force:
                 return m
         return None
+
+
+class EquationOfState:
+    """w(a) and w_eff(a) of one component, constant or splined (the
+    reference's per-component splines, species.py:2940-3526): host
+    evaluation for the step integrals and the in-step factors."""
+
+    def __init__(self, w=0.0, w_spline=None, weff_spline=None):
+        self._w_const = float(w)
+        self._w_spline = w_spline
+        self._weff_spline = weff_spline
+
+    @classmethod
+    def constant(cls, w: float) -> "EquationOfState":
+        return cls(w=w)
+
+    @classmethod
+    def from_neutrino(cls, nubg) -> "EquationOfState":
+        """From a cosmology.neutrino.NeutrinoBackground (exact
+        Fermi-Dirac w(a) and w_eff(a))."""
+        return cls(w_spline=nubg._w_spline, weff_spline=nubg._weff_spline)
+
+    @property
+    def is_constant(self) -> bool:
+        return self._w_spline is None
+
+    def w_np(self, a) -> float:
+        if self._w_spline is None:
+            return self._w_const
+        return float(self._w_spline.eval_np(a))
+
+    def w_eff_np(self, a) -> float:
+        spl = self._weff_spline or self._w_spline
+        if spl is None:
+            return self._w_const
+        return float(spl.eval_np(a))
+
+
+# species → class of species (reference linear.py:3517-3595)
+SPECIES = {
+    "matter": dict(cls="matter"),
+    "baryon": dict(cls="matter"),
+    "cold dark matter": dict(cls="matter"),
+    "cdm": dict(cls="matter"),
+    "neutrino": dict(cls="neutrino"),
+    "massive neutrino": dict(cls="neutrino"),
+    "photon": dict(cls="radiation"),
+    "radiation": dict(cls="radiation"),
+    "dark energy": dict(cls="dark energy"),
+    "decaying cold dark matter": dict(cls="dcdm"),
+    "dcdm": dict(cls="dcdm"),
+    "metric": dict(cls="fictitious"),
+    "lapse": dict(cls="fictitious"),
+}
 
 
 def particle_mass(Omega: float, rho_crit: float, boxsize: float, N: int) -> float:

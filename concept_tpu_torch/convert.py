@@ -1,7 +1,9 @@
-"""Carry particle states between the JAX package and the port as numpy
-arrays, field for field (ParticleState: pos, mom, ids, rungs; RungState:
-pos, mom, valid, rungs, ids; P3MState and BucketState: pos, mom, valid),
-so that both can start from one state."""
+"""Carry states between the JAX package and the port as numpy arrays,
+field for field (ParticleState: pos, mom, ids, rungs; RungState: pos,
+mom, valid, rungs, ids; P3MState and BucketState: pos, mom, valid;
+FluidState: varrho, J, P, sigma; MultiState: {'particles': {name:
+fields}, 'fluids': {name: fields}}), so that both can start from one
+state."""
 
 from __future__ import annotations
 
@@ -9,7 +11,7 @@ import numpy as np
 import torch
 
 from concept_tpu_torch.bucketsim import BucketState
-from concept_tpu_torch.components import ParticleState
+from concept_tpu_torch.components import FluidState, ParticleState
 from concept_tpu_torch.p3mrungs import RungState
 from concept_tpu_torch.p3msim import P3MState
 
@@ -19,12 +21,24 @@ _INT_DTYPES = {"valid": torch.bool, "rungs": torch.int8, "ids": torch.int32}
 
 def from_jax_state(arrays: dict, device="cpu"):
     """{field: numpy array} of a JAX ``RungState`` (all five fields),
-    ``P3MState`` (pos, mom, valid) or ``ParticleState`` (pos, mom,
-    optional ids/rungs) → the port's state on ``device``.  Floating
-    fields keep their dtype."""
+    ``P3MState`` (pos, mom, valid), ``ParticleState`` (pos, mom,
+    optional ids/rungs) or ``FluidState`` (varrho, optional J, P, sigma;
+    a field that is None stays None), or {'particles': {...}, 'fluids':
+    {...}} of a ``MultiState`` → the port's state on ``device``.
+    Floating fields keep their dtype."""
     def conv(a, dtype=None):
         return torch.as_tensor(np.ascontiguousarray(a), device=device,
                                dtype=dtype)
+
+    if "particles" in arrays:
+        from concept_tpu_torch.sim_multi import MultiState
+
+        return MultiState(
+            particles={k: from_jax_state(v, device) for k, v in arrays["particles"].items()},
+            fluids={k: from_jax_state(v, device) for k, v in arrays["fluids"].items()})
+    if "varrho" in arrays:
+        return FluidState(*(None if arrays.get(k) is None else conv(arrays[k])
+                            for k in FluidState._fields))
 
     if "valid" in arrays and "rungs" in arrays:
         return RungState(**{k: conv(arrays[k], _INT_DTYPES.get(k))
@@ -38,8 +52,12 @@ def from_jax_state(arrays: dict, device="cpu"):
 
 
 def to_numpy(state) -> dict:
-    """The port's RungState, P3MState or ParticleState → {field: numpy array}
-    (fields that are None are left out)."""
+    """The port's RungState, P3MState, ParticleState or FluidState →
+    {field: numpy array} (fields that are None are left out); a
+    MultiState → {'particles': {name: ...}, 'fluids': {name: ...}}."""
+    if hasattr(state, "fluids"):
+        return {"particles": {k: to_numpy(v) for k, v in state.particles.items()},
+                "fluids": {k: to_numpy(v) for k, v in state.fluids.items()}}
     return {k: v.detach().cpu().numpy() for k, v in state._asdict().items()
             if v is not None}
 

@@ -270,6 +270,42 @@ def realize_delta_slab(lin, gridsize: int, boxsize: float, a: float,
                            n, boxsize, dtype, device, on_device)
 
 
+def realize_sigma_grids(lin, gridsize: int, boxsize: float, a: float, rho_plus_P: float,
+                        seed: int = 0, dtype=torch.float32, device="cpu",
+                        species: str = "nu"):
+    """The shear ςⁱⱼ = (ϱ̄ + c⁻²𝒫̄)·σⁱⱼ from the linear σ transfer function
+    (reference ic.py:670 rank-2 kernel K(k⃗) = (3/2)(δⁱⱼ/3 − kⁱkⱼ/k²),
+    ic.py:466 ς scaling), on the 'simple' noise of
+    :func:`realize_delta_slab` (the same seed shares the phases of the
+    component's δ and J).  ``rho_plus_P`` is the ϱ̄(1 + w) prefactor.
+    Returns the packed (6, n, n, n) components (xx, xy, xz, yy, yz, zz),
+    or None where lin has no σ table of the species (the analytic EH
+    layer)."""
+    if lin.transfer_sigma(torch.ones(1, dtype=dtype, device=device), a, species) is None:
+        return None
+    n = gridsize
+    norm = math.sqrt(n**3 / boxsize**3)
+    R = generate_primordial_noise(n, seed, False, 0.0, dtype, "simple", device)
+    base_k = R * _by_k2(lambda k: lin.transfer_sigma(k, a, species)
+                        * lin.primordial.zeta_amplitude(k) * norm,
+                        n, boxsize, dtype, device, on_device=True)
+    kfac = 2 * math.pi / boxsize
+    kvecs = [k.to(dtype) * kfac for k in fourier.k_int_vectors(n, device)]
+    k2 = fourier.k2_int_grid(n, device).to(dtype) * kfac**2
+    inv_k2 = torch.where(k2 > 0, 1.0 / torch.where(k2 > 0, k2, 1.0), 0.0)
+    grids = []
+    for i, j in ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2)):
+        Kij = 1.5 * ((1.0 if i == j else 0.0) / 3.0 - kvecs[i] * kvecs[j] * inv_k2)
+        grids.append(irfft3(Kij * base_k, n))
+    return rho_plus_P * torch.stack(grids).to(dtype)
+
+
+def displacement_from_delta(delta_slab, gridsize: int, boxsize: float):
+    """ψ_d(x) grids (3, n, n, n) from δ(k): ψ(k) = i k_d/k² δ(k)."""
+    return torch.stack([irfft3(_grad_inv_laplacian(delta_slab, gridsize, boxsize, d),
+                               gridsize) for d in range(3)])
+
+
 def dealias_gridsize(n: int) -> int:
     """The Orszag 3/2-rule padded grid size, even (reference
     ic.py:1322-1323)."""

@@ -15,7 +15,10 @@ the bytes: the CONCEPT-HDF5 layout (root attrs {'unit time', 'unit
 length', 'unit mass', 'H0', 'a', 'boxsize', 'Ωb', 'Ωcdm'}, groups
 components/<name> with attrs {'species', 'mass', 'N'}, float64 (N, 3)
 datasets pos/mom, int64 ids, int8 rungs where the state has them) and
-the GADGET-2 header, block markers and uint32 ids.
+the GADGET-2 header, block markers and uint32 ids.  A fluid component's
+group holds attrs {'species', 'gridsize', 'boltzmann_order',
+'boltzmann_closure', 'w'} and float64 datasets ϱ (n, n, n), J
+(3, n, n, n), 𝒫 and ς (6, n, n, n) where the state has them.
 
 Momentum conventions:
   CONCEPT: mom = a²·m·ẋ (internal = file)
@@ -31,9 +34,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from concept_tpu_torch.components import ComponentSpec, ParticleState
-
-FLUID_ITEM = "fluid components (ROADMAP Queue 1 item 12)"
+from concept_tpu_torch.components import ComponentSpec, FluidState, ParticleState
 _CHUNK_ROWS = 1 << 20  # rows converted and written at a time
 
 
@@ -72,10 +73,10 @@ def _is_fluid(spec, state) -> bool:
 # --------------------------------------------------------------------- #
 def save_concept(filename: str, meta: SnapshotMeta, components: dict,
                  select: dict | None = None):
-    """components: {name: (ComponentSpec, ParticleState)}.  ``select`` is
-    the snapshot_select save mask: {component name or 'all': bool or
-    {variable or 'all': bool}} (reference snapshot_select semantics,
-    param/example_explanatory:37-57)."""
+    """components: {name: (ComponentSpec, ParticleState | FluidState)}.
+    ``select`` is the snapshot_select save mask: {component name or
+    'all': bool or {variable or 'all': bool}} (reference snapshot_select
+    semantics, param/example_explanatory:37-57)."""
     import h5py
 
     def want(name, var):
@@ -92,9 +93,6 @@ def save_concept(filename: str, meta: SnapshotMeta, components: dict,
         for s in range(0, len(arr), _CHUNK_ROWS):
             ds[s:s + _CHUNK_ROWS] = arr[s:s + _CHUNK_ROWS].astype(dtype)
 
-    for name, (spec, state) in components.items():
-        if _is_fluid(spec, state):
-            raise NotImplementedError(f"saving {name!r}: {FLUID_ITEM}")
     os.makedirs(os.path.dirname(os.path.abspath(filename)), exist_ok=True)
     with h5py.File(filename, "w") as f:
         f.attrs["unit time"] = meta.unit_time
@@ -108,6 +106,16 @@ def save_concept(filename: str, meta: SnapshotMeta, components: dict,
         for name, (spec, state) in components.items():
             g = f.create_group(f"components/{name}")
             g.attrs["species"] = spec.species
+            if _is_fluid(spec, state):
+                g.attrs["gridsize"] = spec.gridsize or _host(state.varrho).shape[0]
+                g.attrs["boltzmann_order"] = spec.boltzmann_order
+                g.attrs["boltzmann_closure"] = spec.boltzmann_closure
+                g.attrs["w"] = spec.w
+                for var, x in (("ϱ", state.varrho), ("J", state.J), ("𝒫", state.P),
+                               ("ς", state.sigma)):
+                    if x is not None and want(name, var):
+                        write(g, var, x, np.float64)
+                continue
             g.attrs["mass"] = spec.mass
             g.attrs["N"] = spec.N
             if want(name, "pos"):
@@ -122,8 +130,8 @@ def save_concept(filename: str, meta: SnapshotMeta, components: dict,
 
 
 def load_concept(filename: str):
-    """→ (SnapshotMeta, {name: (ComponentSpec, ParticleState of numpy
-    arrays)}).  A fluid component raises."""
+    """→ (SnapshotMeta, {name: (ComponentSpec, ParticleState or
+    FluidState of numpy arrays)})."""
     import h5py
 
     components = {}
@@ -139,8 +147,16 @@ def load_concept(filename: str):
             unit_mass=str(f.attrs.get("unit mass", "10**10 m_sun")),
         )
         for name, g in f["components"].items():
-            if "gridsize" in g.attrs:
-                raise NotImplementedError(f"{filename}: component {name!r}: {FLUID_ITEM}")
+            if "gridsize" in g.attrs:  # a fluid component
+                spec = ComponentSpec(
+                    name=name, species=str(g.attrs["species"]), representation="fluid",
+                    gridsize=int(g.attrs["gridsize"]), w=float(g.attrs.get("w", 0.0)),
+                    boltzmann_order=int(g.attrs.get("boltzmann_order", 1)),
+                    boltzmann_closure=str(g.attrs.get("boltzmann_closure", "truncate")))
+                components[name] = (spec, FluidState(*(
+                    np.asarray(g[var], dtype=np.float64) if var in g else None
+                    for var in ("ϱ", "J", "𝒫", "ς"))))
+                continue
             spec = ComponentSpec(name=name, species=str(g.attrs["species"]),
                                  N=int(g.attrs["N"]), mass=float(g.attrs["mass"]))
             state = ParticleState(

@@ -15,9 +15,10 @@ The cosmology (:func:`build_cosmology`) takes massive neutrinos,
 curvature, a CPL dark-energy fluid and decaying dark matter from
 ``class_params``, and the linear Boltzmann tables of the resolved
 backend (the internal Einstein-Boltzmann solver where the run needs
-species-resolved transfer functions).  Multi-component and fluid runs
-and the renders raise ``NotImplementedError`` naming the ROADMAP item
-that brings them.
+species-resolved transfer functions).  Several components, fluids
+among them, run through :func:`run_multi` (sim_multi.MultiSimulation).
+The renders and plots raise ``NotImplementedError`` naming the ROADMAP
+item that brings them.
 """
 
 from __future__ import annotations
@@ -32,7 +33,8 @@ from types import SimpleNamespace
 import numpy as np
 
 from concept_tpu_torch.components import (
-    ComponentSpec, ParticleState, particle_mass, periodic_wrap,
+    ComponentSpec, EquationOfState, FluidState, ParticleState, particle_mass,
+    periodic_wrap,
 )
 from concept_tpu_torch.cosmology.background import Background
 from concept_tpu_torch.cosmology.backend import build_tables
@@ -44,8 +46,6 @@ from concept_tpu_torch.param import RunConfig, is_selected
 from concept_tpu_torch.sim import METHODS, SimConfig, Simulation
 from concept_tpu_torch.units import UnitSystem
 from concept_tpu_torch.utils.terminal import abort, masterprint
-
-MULTI_ITEM = "multi-component runs (ROADMAP Queue 1 item 12)"
 
 def build_cosmology(cfg: RunConfig):
     """Units, constants, background and linear layer, with the Boltzmann
@@ -135,8 +135,9 @@ def is_selected_force(cfg: RunConfig, name: str, species: str) -> str:
 
 def build_components(cfg: RunConfig, bg, constants):
     """cfg.initial_conditions → [(ComponentSpec, 'realize')] for particle
-    components and [(None, path)] for a snapshot (its file names the
-    components); fluids raise."""
+    components, [(ComponentSpec, 'realize-fluid')] for fluids (an entry
+    with a gridsize) and [(None, path)] for a snapshot (its file names the
+    components)."""
     ics = cfg.initial_conditions
     if ics is None:
         raise ValueError("no initial_conditions specified")
@@ -150,17 +151,81 @@ def build_components(cfg: RunConfig, bg, constants):
         species = entry["species"]
         name = entry.get("name", species)
         N = entry.get("N")
-        if not N:
-            raise NotImplementedError(
-                f"component {name!r} without N: fluids (ROADMAP Queue 1 item 12)")
-        Omega = cfg.Omega_m if species == "matter" else (
-            cfg.Omega_cdm if species in ("cdm", "cold dark matter") else cfg.Omega_b)
-        mass = entry.get("mass", particle_mass(Omega, rho_crit, cfg.boxsize, N))
-        out.append((ComponentSpec(
-            name=name, species=species, N=int(N), mass=float(mass),
-            forces=(("gravity", is_selected_force(cfg, name, species)),),
-        ), "realize"))
+        gridsize = entry.get("gridsize")
+        if N:
+            Omega = cfg.Omega_m if species == "matter" else (
+                cfg.Omega_cdm if species in ("cdm", "cold dark matter") else cfg.Omega_b)
+            mass = entry.get("mass", particle_mass(Omega, rho_crit, cfg.boxsize, N))
+            out.append((ComponentSpec(
+                name=name, species=species, N=int(N), mass=float(mass),
+                forces=(("gravity", is_selected_force(cfg, name, species)),),
+            ), "realize"))
+        elif gridsize:
+            out.append((_fluid_spec(cfg, entry, name, species, int(gridsize), constants),
+                        "realize-fluid"))
+        else:
+            raise ValueError(f"component entry needs N or gridsize: {entry}")
     return out
+
+
+def _fluid_spec(cfg: RunConfig, entry: dict, name: str, species: str, gridsize: int,
+                constants) -> ComponentSpec:
+    """A fluid entry of initial_conditions (reference gridsize form,
+    param/example_explanatory:18-25) → its ComponentSpec.  The selectors
+    select_eos_w, select_boltzmann_order / _closure fill in what the
+    entry does not give (reference species.py:2940-3526)."""
+    s = SimpleNamespace(name=name, species=species, representation="fluid")
+    w = entry.get("w")
+    if w is None:
+        w_sel = is_selected(s, cfg.select_eos_w, default="default")
+        if isinstance(w_sel, (int, float)):
+            w = float(w_sel)
+        elif isinstance(w_sel, str) and w_sel not in ("default", "class"):
+            w = float(eval(w_sel, {"__builtins__": {}}, {}))  # noqa: S307
+        else:
+            # 'default' / 'class': the species' constant w (ν gets the
+            # exact Fermi-Dirac spline in run_multi)
+            w = 1.0 / 3.0 if ("radiation" in species or "photon" in species) else 0.0
+    border = entry.get("boltzmann order", entry.get("boltzmann_order"))
+    if border is None:
+        border = is_selected(s, cfg.select_boltzmann_order, default=1)
+    bclosure = entry.get("boltzmann closure", entry.get("boltzmann_closure"))
+    if bclosure is None:
+        bclosure = is_selected(s, cfg.select_boltzmann_closure, default="truncate")
+    # decaying cold dark matter: Γ from the entry or from class_params'
+    # Gamma_dcdm [km/s/Mpc] (reference linear.py:3552-3560)
+    decay_rate = float(entry.get("decay rate", entry.get("decay_rate", 0.0)))
+    if not decay_rate and ("dcdm" in species or "decaying" in species):
+        gam = cfg.class_params.get("Gamma_dcdm")
+        if gam:
+            decay_rate = float(gam) * (constants.light_speed / 299792.458) / cfg.units.Mpc
+    return ComponentSpec(name=name, species=species, representation="fluid",
+                         gridsize=gridsize, w=float(w), boltzmann_order=int(border),
+                         boltzmann_closure=str(bclosure), decay_rate=decay_rate,
+                         decay_to=entry.get("decay to", entry.get("decay_to")))
+
+
+def p_eq_wrho_selected(cfg: RunConfig, spec) -> bool:
+    """select_approximations 'P=wρ' of a component (reference
+    species.py:1320-1351 spellings, :1657-1665: True where 𝒫 is no
+    variable of its own).  Default False (example_explanatory:367-371)."""
+    sel = is_selected(spec, cfg.select_approximations, default={})
+    val = False
+    if isinstance(sel, dict):
+        for key, v in sel.items():
+            k = str(key)
+            for ch in " *×^":
+                k = k.replace(ch, "")
+            for alias in ("\\rho", "rho"):
+                k = k.replace(alias, "ρ")
+            if k in ("P=wρ", "P=ρw", "wρ=P", "ρw=P"):
+                val = bool(v)
+    elif isinstance(sel, bool):
+        val = sel
+    if spec.boltzmann_order < 0 or (
+            spec.boltzmann_order == 0 and spec.boltzmann_closure == "truncate"):
+        return True
+    return val
 
 
 def shortrange_overrides(cfg: RunConfig, boxsize: float, gridsize: int) -> dict:
@@ -240,7 +305,7 @@ def check_autosave(cfg: RunConfig):
     """The autosave to resume from (reference main.py:1928-2010):
     (ParticleState of numpy arrays, a, remaining events, hysteresis, step
     total), or None where there is none.  A multi-component autosave is
-    not resumed by this path."""
+    :func:`check_autosave_multi`'s."""
     from concept_tpu_torch.io import snapshot as snap
 
     d = autosave_path(cfg)
@@ -251,12 +316,57 @@ def check_autosave(cfg: RunConfig):
     with open(aux) as f:
         info = json.load(f)
     if info.get("multi"):
-        masterprint(f"Not resuming from {d}: a multi-component autosave ({MULTI_ITEM})")
+        masterprint(f"Not resuming from {d} in a run of one component: a "
+                    f"multi-component autosave")
         return None
     _, comps = snap.load_concept(fn)
     (_, (_, state)), = comps.items()
     return (state, float(info["a"]), [tuple(e) for e in info["events"]],
             info.get("hysteresis"), int(info.get("step_total", 0)))
+
+
+def write_autosave_multi(cfg: RunConfig, sim, state, a: float, events,
+                         hysteresis: dict | None = None):
+    """The autosave of a run of several components: every particle and
+    fluid component in one CONCEPT snapshot, <dir>/snapshot.hdf5, and
+    <dir>/auxiliary.json with a, the events still to come (activations
+    and terminations among them), the time-stepping state and
+    ``"multi": true`` (reference main.py:1821-1927)."""
+    from concept_tpu_torch.io import snapshot as snap
+
+    d = autosave_path(cfg)
+    os.makedirs(d, exist_ok=True)
+    comps = {name: (sim.pspecs[name], ps) for name, ps in state.particles.items()}
+    comps.update({name: (sim.fspecs[name], fs) for name, fs in state.fluids.items()})
+    snap.save_concept(os.path.join(d, "snapshot.hdf5"), _snapshot_meta(cfg, a), comps)
+    aux = {"a": a, "events": [[e[0], list(e[1])] if isinstance(e[1], tuple) else [e[0], e[1]]
+                              for e in events], "multi": True}
+    if hysteresis:
+        aux["hysteresis"] = {k: float(v) if k in ("dt", "dt_min", "t_mom") else int(v)
+                             for k, v in hysteresis.items()}
+    with open(os.path.join(d, "auxiliary.json"), "w") as f:
+        json.dump(aux, f)
+    masterprint(f"Autosaved at a = {a:.6g} → {d}")
+
+
+def check_autosave_multi(cfg: RunConfig):
+    """A multi-component autosave to resume from: ({name: (spec, state of
+    numpy arrays)}, a, events, hysteresis), or None."""
+    from concept_tpu_torch.io import snapshot as snap
+
+    d = autosave_path(cfg)
+    fn = os.path.join(d, "snapshot.hdf5")
+    aux = os.path.join(d, "auxiliary.json")
+    if not (os.path.exists(fn) and os.path.exists(aux)):
+        return None
+    with open(aux) as f:
+        info = json.load(f)
+    if not info.get("multi"):
+        return None
+    _, comps = snap.load_concept(fn)
+    events = [(float(e0), tuple(e1) if isinstance(e1, list) else e1)
+              for e0, e1 in info["events"]]
+    return comps, float(info["a"]), events, info.get("hysteresis")
 
 
 def clear_autosave(cfg: RunConfig):
@@ -319,7 +429,9 @@ def load_snapshot_component(cfg: RunConfig, path: str, units):
 
     meta, loaded = snap.load(path, units, boxsize=cfg.boxsize, H0=cfg.H0)
     if len(loaded) != 1:
-        raise NotImplementedError(f"{path} holds {len(loaded)} components: {MULTI_ITEM}")
+        # as in the JAX package, which unpacks the one component
+        raise ValueError(f"{path} holds {len(loaded)} components: a run starts from "
+                         f"a snapshot of one particle component")
     (name, (spec, st)), = loaded.items()
     pos = st.pos
     # a float32 file may round a position up onto the box edge (it does
@@ -398,8 +510,9 @@ def run(cfg: RunConfig, max_steps: int = 100000, seed: int | None = None,
         set_formatting(False)
     units, consts, bg, lin = build_cosmology(cfg)
     comps = build_components(cfg, bg, consts)
-    if len(comps) > 1:
-        raise NotImplementedError(MULTI_ITEM)
+    if any(src == "realize-fluid" for _, src in comps) or len(comps) > 1:
+        return run_multi(cfg, comps, units, consts, bg, lin, dev, dtype,
+                         max_steps=max_steps, seed=seed)
     spec, source = comps[0]
     loaded = None
     if source != "realize":
@@ -537,6 +650,318 @@ def run(cfg: RunConfig, max_steps: int = 100000, seed: int | None = None,
     return sim, state, a
 
 
+def _state_to_device(st, dev, dtype, boxsize: float):
+    """A ParticleState or FluidState of numpy arrays (a snapshot's, an
+    autosave's) → tensors on ``dev`` in ``dtype``."""
+    import torch
+
+    if hasattr(st, "pos"):
+        return _to_device(st, dev, dtype, boxsize)
+    return FluidState(*(None if x is None else torch.as_tensor(np.asarray(x), device=dev).to(dtype)
+                        for x in st))
+
+
+def make_multi(cfg: RunConfig, comps, units, consts, bg, lin, dev, dtype,
+               seed: int | None = None):
+    """The MultiSimulation of a run of several components (the first
+    half of :func:`run_multi`): each component's life from select_lives,
+    the shared potential grid, softening 0 with the Plummer kernel (as
+    the JAX package's run_multi), and per fluid its Ω, EoS and noise
+    seed."""
+    from concept_tpu_torch.sim_multi import MultiSimulation
+
+    def with_life(spec):
+        life = is_selected(spec, cfg.select_lives, default=(0.0, float("inf")))
+        return ComponentSpec(**{**spec.__dict__, "life": tuple(life)})
+
+    pspecs = [with_life(s) for s, src in comps
+              if src == "realize" and s.representation == "particles"]
+    fspecs = [with_life(s) for s, src in comps if src == "realize-fluid"]
+    pot = cfg.potential_options
+    # the shared potential takes the 'pm' per-method size where one is
+    # given (reference multigrid, param/example_nonlinnu)
+    gridsize = int(pot.get("gridsize_per_method", {}).get("pm") or pot.get("gridsize")
+                   or max([2 * round(s.N ** (1 / 3)) for s in pspecs]
+                          + [s.gridsize for s in fspecs]))
+    sim_config = SimConfig(
+        boxsize=cfg.boxsize, potential_gridsize=gridsize, device=dev, dtype=dtype,
+        G=consts.G_Newton, interpolation_order=pot.get("interpolation", 2),
+        interlace=bool(pot.get("interlace", False)),
+        softening=0.0, softening_kernel="plummer",
+        da_max_early=cfg.Delta_a_max_early, da_max_late=cfg.Delta_a_max_late)
+    rho_crit = bg.rho_crit_of(consts.G_Newton)
+    seed_val = seed if seed is not None else int(
+        cfg.random_seeds.get("primordial amplitudes", 0))
+    # per fluid: Ω, the EoS (ν: the exact Fermi-Dirac spline of
+    # build_cosmology) and the noise seed of its linear re-realizations
+    km_per_s = consts.light_speed / 299792.458
+    h = cfg.H0 / (100 * km_per_s / units.Mpc)
+    Omega_r = 4.15e-5 / h**2  # photons + massless ν (T_CMB = 2.7255)
+    nubg = getattr(lin, "nu_background", None)
+    fluid_Omegas, eos = {}, {}
+    for s in fspecs:
+        if "neutrino" in s.species and nubg is not None:
+            fluid_Omegas[s.name] = lin.Omega_nu
+            eos[s.name] = EquationOfState.from_neutrino(nubg)
+        elif "radiation" in s.species or "photon" in s.species:
+            fluid_Omegas[s.name] = Omega_r
+            eos[s.name] = EquationOfState.constant(1.0 / 3.0)
+        else:
+            fluid_Omegas[s.name] = cfg.Omega_m
+    return MultiSimulation(
+        pspecs, fspecs, sim_config, bg, lin, light_speed=consts.light_speed,
+        fluid_Omegas=fluid_Omegas, rho_crit=rho_crit, eos=eos,
+        fluid_seeds={s.name: seed_val for s in fspecs},
+        fluid_options=cfg.fluid_options, fluid_scheme_select=cfg.fluid_scheme_select,
+        approximations={s.name: p_eq_wrho_selected(cfg, s) for s in fspecs})
+
+
+def run_multi(cfg: RunConfig, comps, units, consts, bg, lin, dev, dtype,
+              max_steps: int = 100000, seed: int | None = None):
+    """A run of several components, particles and fluids coupled through
+    one PM potential (port of concept_tpu/run.py:729-975; reference
+    general component loop, main.py:214-461), with the components'
+    lives (activation and termination events in life_output_order),
+    the periodic autosave and its resume, and the signal trap.  Returns
+    (sim, MultiState, a); the host seconds are in ``sim.timings``.
+
+    As in the JAX package the P³M sweeps take softening 0 and the
+    Plummer kernel whatever the parameter file says, the particle
+    components are realized with the matter transfer function and the
+    fluids without ``primordial_amplitude_fixed`` (ROADMAP Queue 3).
+    As the JAX package's, the components are realized in float32 (its
+    noise and arithmetic) and then take the run's dtype.  Departures: an
+    autosave resumes in the run's dtype (the JAX package in float32); the
+    signal trap writes the state of the last whole step, as
+    :func:`run`'s does (the JAX package's that of the last segment)."""
+    import torch
+
+    from concept_tpu_torch.ic import realize_particles
+    from concept_tpu_torch.sim_multi import MultiState, realize_fluid_from_linear
+    from concept_tpu_torch.timestep import prepare_static_timestepping
+
+    sim = make_multi(cfg, comps, units, consts, bg, lin, dev, dtype, seed=seed)
+    if dev.type == "cuda":
+        masterprint(f"Device: {dev} ({_device_name(dev)})")
+    rho_crit = sim.rho_crit
+    seed_val = seed if seed is not None else int(
+        cfg.random_seeds.get("primordial amplitudes", 0))
+    pspecs, fspecs = list(sim.pspecs.values()), list(sim.fspecs.values())
+    lpt = int(cfg.realization_options.get("lpt", 1))
+
+    def realize_p(pspec, a_at):
+        masterprint(f"Realizing {pspec.name} ({pspec.N} particles) at a = {a_at:.4g} ...")
+        st = realize_particles(
+            lin, pspec, cfg.boxsize, a_at, seed=seed_val, lpt_order=lpt, dtype=torch.float32,
+            device=dev, scheme=cfg.primordial_noise_imprinting,
+            dealias=bool(cfg.realization_options.get("dealias", False)),
+            backscale=bool(cfg.realization_options.get("backscale", False)))
+        masterprint("done")
+        return st._replace(pos=st.pos.to(dtype), mom=st.mom.to(dtype))
+
+    def realize_f(fspec, a_at):
+        masterprint(f"Realizing fluid {fspec.name} (gridsize {fspec.gridsize}) at "
+                    f"a = {a_at:.4g} ...")
+        st = realize_fluid_from_linear(lin, fspec, cfg.boxsize, a_at,
+                                       sim.fluid_Omegas[fspec.name] * rho_crit, seed=seed_val,
+                                       dtype=torch.float32, device=dev,
+                                       eos=sim.eos[fspec.name])
+        masterprint("done")
+        return FluidState(*(None if x is None else x.to(dtype) for x in st))
+
+    t_realize = _time.time()
+    resume = check_autosave_multi(cfg)
+    hysteresis = None
+    if resume is not None:
+        saved, a_resume, events_resume, hysteresis = resume
+        particles, fluids = {}, {}
+        for name, (_, st) in saved.items():
+            target = particles if hasattr(st, "pos") else fluids
+            target[name] = _state_to_device(st, dev, dtype, cfg.boxsize)
+        masterprint(f"Resumed from autosave at a = {a_resume:.6g}")
+    else:
+        particles = {s.name: realize_p(s, cfg.a_begin) for s in pspecs
+                     if s.life[0] <= cfg.a_begin}
+        fluids = {s.name: realize_f(s, cfg.a_begin) for s in fspecs
+                  if s.life[0] <= cfg.a_begin}
+    state = MultiState(particles=particles, fluids=fluids)
+    t_realize = _time.time() - t_realize
+
+    # events: the output dumps and the components' activations and
+    # terminations (reference activate_terminate, main.py:1726-1803),
+    # coincident ones in life_output_order
+    events = [(float(t), kind) for kind, times in cfg.output_times.get("a", {}).items()
+              for t in times]
+    for s in pspecs + fspecs:
+        if cfg.a_begin < s.life[0] < float("inf"):
+            events.append((float(s.life[0]), ("__activate__", s.name)))
+        if s.life[1] < float("inf"):
+            events.append((float(s.life[1]), ("__terminate__", s.name)))
+    order = {act: i for i, act in enumerate(cfg.life_output_order)}
+
+    def event_key(e):
+        act = "dump" if isinstance(e[1], str) else e[1][0].strip("_")
+        return (e[0], order.get(act, len(order)))
+
+    events.sort(key=event_key)
+    if resume is not None:
+        a, events = a_resume, events_resume
+    else:
+        a = cfg.a_begin
+        for _, kind in [e for e in events if e[0] <= a + 1e-12]:
+            if isinstance(kind, str):
+                dump_multi(cfg, sim, state, a, kind, units, lin)
+        events = [e for e in events if e[0] > a + 1e-12]
+    all_specs = {s.name: s for s in pspecs + fspecs}
+    static_dt = prepare_static_timestepping(cfg.static_timestepping)
+
+    t_wall0 = last_save = _time.time()
+    t_evolve = t_dump = 0.0
+    with SignalTrap() as trap:
+        def on_step(st, t, a_now, steps):
+            trap.exit_if_signalled(lambda: write_autosave_multi(
+                cfg, sim, st, a_now, events, dict(sim.hysteresis)))
+
+        while events:
+            a_next = events[0][0]
+            masterprint(f"Evolving to a = {a_next:.4g} ...")
+            t0 = _time.time()
+            state, a = sim.evolve(state, a, a_next, max_steps=max_steps,
+                                  static_dt=static_dt, resume=hysteresis, callback=on_step)
+            # Δt hysteresis carries across segments and into autosaves
+            hysteresis = dict(sim.hysteresis)
+            t_evolve += _time.time() - t0
+            masterprint("done")
+            if _time.time() - last_save > cfg.autosave_interval:
+                write_autosave_multi(cfg, sim, state, a, events, hysteresis=hysteresis)
+                last_save = _time.time()
+            t0 = _time.time()
+            while events and events[0][0] <= a + 1e-9:
+                _, kind = events.pop(0)
+                if isinstance(kind, str):
+                    dump_multi(cfg, sim, state, a, kind, units, lin)
+                    continue
+                action, name = kind
+                s = all_specs[name]
+                if action == "__activate__":
+                    if s.representation == "particles":
+                        state = state._replace(particles={**state.particles,
+                                                          name: realize_p(s, a)})
+                    else:
+                        state = state._replace(fluids={**state.fluids,
+                                                       name: realize_f(s, a)})
+                else:
+                    masterprint(f"Terminating component {name} at a = {a:.4g}")
+                    state = MultiState(
+                        particles={k: v for k, v in state.particles.items() if k != name},
+                        fluids={k: v for k, v in state.fluids.items() if k != name})
+            t_dump += _time.time() - t0
+            trap.exit_if_signalled(lambda: write_autosave_multi(
+                cfg, sim, state, a, events, hysteresis))
+    clear_autosave(cfg)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    step_total = sim.hysteresis.get("step_count", 0)
+    wall = _time.time() - t_wall0
+    if step_total:
+        masterprint(
+            f"Time-step summary: {step_total} steps, {t_evolve:.1f} s evolution "
+            f"({1e3 * t_evolve / step_total:.0f} ms/step), {t_dump:.1f} s output")
+    masterprint(f"Simulation complete: a = {a:.6g}, wall time {wall:.1f} s")
+    sim.timings = {"realize_s": t_realize, "evolve_s": t_evolve, "dump_s": t_dump}
+    return sim, state, a
+
+
+def _sel_on(val) -> bool:
+    """A powerspec_select value → on or off (a dict: its 'data' flag)."""
+    if isinstance(val, dict):
+        return bool(val.get("data", True))
+    return bool(val)
+
+
+def dump_multi(cfg: RunConfig, sim, state, a, kind, units, lin):
+    """Write one scheduled output of a run of several components (port
+    of concept_tpu/run.py:977-1188): 'powerspec' (each particle
+    component, each selected pair of components and each fluid's δ),
+    'bispec' (each particle component) or 'snapshot' (CONCEPT-HDF5 of
+    every component).  The renders raise (ROADMAP Queue 1 item 13)."""
+    base = cfg.output_bases.get(kind, kind)
+    dirname = cfg.output_dirs.get(kind, "output")
+    tag = f"a={a:.4g}"
+    if kind == "powerspec":
+        _dump_powerspec_multi(cfg, sim, state, a, base, dirname, tag, units)
+    elif kind == "bispec":
+        for name, pstate in state.particles.items():
+            _dump_bispec(cfg, sim, pstate, a, os.path.join(dirname, f"{base}_{name}_{tag}.txt"),
+                         lin, spec=sim.pspecs[name])
+    elif kind == "snapshot":
+        from concept_tpu_torch.io import snapshot as snap
+
+        fn = os.path.join(dirname, f"{base}_{tag}.hdf5")
+        comps = {name: (sim.pspecs[name], ps) for name, ps in state.particles.items()}
+        comps.update({name: (sim.fspecs[name], fs) for name, fs in state.fluids.items()})
+        snap.save_concept(fn, _snapshot_meta(cfg, a), comps,
+                          select=(cfg.snapshot_select or {}).get("save"))
+        masterprint(f"Saved snapshot: {fn}")
+    else:
+        raise NotImplementedError(f"{kind!r} output (ROADMAP Queue 1 item 13: renders)")
+
+
+def _dump_powerspec_multi(cfg, sim, state, a, base, dirname, tag, units):
+    import itertools
+
+    from concept_tpu_torch.analysis.output import save_powerspec_txt
+    from concept_tpu_torch.analysis.powerspec import (
+        combined_powerspec, combined_shotnoise, grid_powerspec, powerspec, powerspec_sigma,
+    )
+
+    opts = cfg.powerspec_options or {}
+    gridsize = int(opts.get("gridsize") or sim.config.potential_gridsize)
+    R = float(opts.get("tophat", 8 / cfg.h * units.Mpc))
+
+    def save(fn, pk, what):
+        save_powerspec_txt(fn, pk, a, cfg.boxsize, cfg.unit_length,
+                           powerspec_sigma(pk["k"], pk.get("power_corrected", pk["power"]), R),
+                           R)
+        masterprint(f"Saved {what}: {fn}")
+
+    for name, pstate in state.particles.items():
+        spec = sim.pspecs[name]
+        if _sel_on(is_selected(spec, cfg.powerspec_select, default=True)):
+            pk = powerspec(pstate.pos, gridsize, cfg.boxsize, spec.N,
+                           bins_per_decade=_bpd(opts), k_max=opts.get("k_max"))
+            save(os.path.join(dirname, f"{base}_{name}_{tag}.txt"), pk,
+                 f"power spectrum ({name})")
+    # the spectra of selected pairs of components (reference
+    # powerspec_select set keys / 'all combinations'): one mass-weighted
+    # field of the pair
+    all_specs = {**sim.pspecs, **sim.fspecs}
+    for na, nb in itertools.combinations(list(all_specs), 2):
+        if not _sel_on(is_selected((all_specs[na], all_specs[nb]), cfg.powerspec_select,
+                                   default=False)):
+            continue
+        p_names = [nm for nm in (na, nb) if nm in state.particles]
+        f_names = [nm for nm in (na, nb) if nm in state.fluids]
+        shot = None
+        if p_names and not f_names:
+            shot = combined_shotnoise([sim.pspecs[nm].mass for nm in p_names],
+                                      [sim.pspecs[nm].N for nm in p_names], cfg.boxsize)
+        pk = combined_powerspec(
+            [state.particles[nm].pos for nm in p_names],
+            [float(sim.pspecs[nm].mass) for nm in p_names],
+            [state.fluids[nm].varrho for nm in f_names], gridsize, cfg.boxsize,
+            order=int(opts.get("interpolation", 4)),
+            interlace=bool(opts.get("interlace", True)), bins_per_decade=_bpd(opts),
+            k_max=opts.get("k_max"), shotnoise=shot)
+        save(os.path.join(dirname, f"{base}_{na}+{nb}_{tag}.txt"), pk,
+             f"combined power spectrum ({na}+{nb})")
+    for name, f in state.fluids.items():
+        if _sel_on(is_selected(sim.fspecs[name], cfg.powerspec_select, default=True)):
+            pk = grid_powerspec(f.varrho / f.varrho.mean() - 1.0, cfg.boxsize)
+            save(os.path.join(dirname, f"{base}_{name}_{tag}.txt"), pk,
+                 f"fluid power spectrum ({name})")
+
+
 def _device_name(dev) -> str:
     import torch
 
@@ -631,10 +1056,10 @@ def _dump_powerspec(cfg, sim, state, a, fn, units, lin):
     masterprint(f"Saved power spectrum: {fn}")
 
 
-def _dump_bispec(cfg, sim, state, a, fn, lin):
+def _dump_bispec(cfg, sim, state, a, fn, lin, spec=None):
     from concept_tpu_torch.analysis.bispec import bispec, bispec_treelevel
 
-    flags = _output_flags(sim.spec, cfg.bispec_select,
+    flags = _output_flags(spec or sim.spec, cfg.bispec_select,
                           ("data", "reduced", "treelevel", "plot"), "data")
     opts = cfg.bispec_options or {}
     if flags["plot"] or opts.get("plot", False):

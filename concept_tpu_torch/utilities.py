@@ -63,8 +63,13 @@ def util_info(paths: list[str], cli_args) -> int:
         print(f"  a = {meta.a}, boxsize = {meta.boxsize}, H0 = {meta.H0}")
         print(f"  Ωb = {meta.Omega_b}, Ωcdm = {meta.Omega_cdm}")
         for name, (spec, _) in comps.items():
-            print(f"  component {name!r}: species={spec.species}, N={spec.N}, "
-                  f"mass={spec.mass}")
+            if spec.representation == "fluid":
+                print(f"  component {name!r}: species={spec.species}, fluid gridsize="
+                      f"{spec.gridsize}, w={spec.w}, boltzmann order={spec.boltzmann_order} "
+                      f"({spec.boltzmann_closure})")
+            else:
+                print(f"  component {name!r}: species={spec.species}, N={spec.N}, "
+                      f"mass={spec.mass}")
         if generate:
             pf = path + ".params.py"
             with open(pf, "w") as f:

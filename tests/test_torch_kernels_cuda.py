@@ -1060,3 +1060,55 @@ def test_p3m_step_f64_on_the_card_matches_the_cpu(dev):
     assert float((out[0][0] - out[1][0]).abs().max()) <= 1e-10 * box
     dm = float((out[0][1] - out[1][1]).abs().max())
     assert dm <= 1e-10 * float((out[1][1] - torch.as_tensor(mom)).abs().max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("kernel", ["plummer", "spline", "none"])
+@pytest.mark.parametrize("row", ["two_sided", "subset"])
+def test_sweeps_at_zero_softening_match_plain(dev, row, kernel, dtype):
+    """Rows 6 (receivers = suppliers, no bounds) and 2 (one component's
+    slots against another's, ``pair_sweep_subset``) at soft2 = 0, as a
+    run of several components sweeps (softening 0, the Plummer kernel):
+    near pairs at 1e-4 of a cell feel the unsoftened force, and the
+    pairs of coincident particles (one of each component on the same
+    point, r = 0) none.  The near pairs' forces exceed the others' by
+    ~1e8, so each receiver is judged on its own scale
+    (_close_per_receiver), within 1e-5 in float32 and 1e-10 in float64."""
+    from concept_tpu_torch.forces.cuda_shortrange import (
+        pair_sweep, pair_sweep_plain, pair_sweep_subset,
+    )
+
+    np_dtype = np.float64 if dtype == "float64" else np.float32
+    rng = np.random.default_rng(71)
+    n, K, box = 5, 24, 1.0
+    s, valid, _ = _layout(rng, n, K, box, np_dtype)
+    # a near pair in every column that holds two slots
+    two = valid[1]
+    s[:, 1, two] = s[:, 0, two] + np_dtype(1e-4 * box / n)
+    other = s.copy()
+    other[:, :, ::2] = s[:, :, ::2] + rng.normal(0, 0.01, (3, K, 1)).astype(np_dtype) * valid[
+        :, ::2][None]
+    st, so = torch.as_tensor(s, device=dev), torch.as_tensor(other, device=dev)
+    args = (n, box, 0.05, float(np_dtype(0.2) ** 2), 0.0, kernel)
+    fn = pair_sweep if row == "two_sided" else pair_sweep_subset
+    before = _counts(fn)
+    if row == "two_sided":
+        got, ref = pair_sweep(st, st, *args), pair_sweep_plain(st, st, *args)
+    else:
+        got, ref = pair_sweep_subset(st, so, *args), pair_sweep_plain(st, so, *args)
+    f64 = dtype == "float64"
+    assert _counts(fn) == ((before[0][0] + (not f64), before[0][1] + f64),)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    _close_per_receiver(got, ref, F64_TOL if f64 else 1e-5)
+
+
+def _close_per_receiver(got, ref, tol):
+    """|Δ_i| ≤ tol·max(|ref_i|, median |ref|) for every receiver i, with
+    |·| the norm of a receiver's force (the leading axis of (3, K, C))
+    and the median over the receivers that feel one."""
+    d = (got - ref).double().norm(dim=0)
+    r = ref.double().norm(dim=0)
+    med = float(r[r > 0].median())
+    worst = float((d / r.clamp(min=med)).max())
+    assert worst <= tol, worst

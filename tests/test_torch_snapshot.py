@@ -190,13 +190,21 @@ def test_tipsy_loads_alike(tmp_path, endian, with_units):
 
 
 def test_fluid_components_name_their_item(tmp_path):
+    """A JAX-written fluid component loads in the port (it raised, naming
+    ROADMAP Queue 1 item 12, before the port had fluids): the same spec
+    and grids, the missing ones None."""
     spec = JSpec(name="nu", species="neutrino", representation="fluid", gridsize=4)
     from concept_tpu.components import FluidState
 
     fn = str(tmp_path / "fluid.hdf5")
-    jsnap.save_concept(fn, _meta(jsnap), {"nu": (spec, FluidState(varrho=np.ones((4, 4, 4))))})
-    with pytest.raises(NotImplementedError, match="item 12"):
-        snap.load(fn)
+    rho = np.random.default_rng(1).uniform(1, 2, (4, 4, 4))
+    jsnap.save_concept(fn, _meta(jsnap), {"nu": (spec, FluidState(varrho=rho))})
+    _, comps = snap.load(fn)
+    (got_spec, got), = comps.values()
+    (want_spec, want), = jsnap.load_concept(fn)[1].values()
+    assert got_spec.__dict__ == want_spec.__dict__
+    np.testing.assert_array_equal(got.varrho, want.varrho)
+    assert got.J is got.P is got.sigma is None
 
 
 def _ids_sorted_positions(fn):
