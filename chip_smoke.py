@@ -198,6 +198,20 @@ Then several components and fluids:
     seconds; the matter spectrum over that of the same matter without
     the radiation (global steps, unfixed amplitudes) below k_Nyquist/4.
 
+Then the renders and the first part of multi-GPU, on the 256³ / grid 512
+state of phase 4 (example_basic realized at a = 0.02):
+
+10. ``render``: the projected density at grid 512 on the card against
+    the same function on a CPU copy of the positions, and the 3D render's
+    per-particle density of 1M particles against the JAX package's numpy
+    arithmetic (seconds and peak memory of each); then the files that
+    matplotlib and h5py allow here, each made or named as not made.
+11. ``parallel``: a world of one ``nccl`` rank: sort_to_slabs, the halo
+    deposit, the slab FFT, a PM and a P³M step through
+    ``Simulation(dist=...)`` against one device's (the P³M step launches
+    row 6 only), the ms of the PM kick over the ranks beside one
+    device's, and ``-n 2`` raising ValueError on one card.
+
 Before its last line it prints one JSON object ``{"kernels": [...]}`` and
 the card's name and power limit as nvidia-smi reports them (each kernel
 with its double instantiation's numbers under ``f64_*``); the last line
@@ -2894,6 +2908,232 @@ def multi(cache: str, device: str = "cuda") -> dict:
     return out
 
 
+# --------------------------------------------------------------------- #
+# the renders, and the slab decomposition at world size 1
+def _cic_density_numpy(p, gridsize: int, boxsize: float):
+    """concept_tpu/graphics/render.py:_cic_density_at_particles, the JAX
+    package's host arithmetic (np.add.at over the 8 corners), copied: this
+    script imports nothing of the JAX package."""
+    import numpy as np
+
+    n = gridsize
+    u = p / (boxsize / n) - 0.5
+    i0 = np.floor(u).astype(np.int64)
+    f = u - i0
+    grid = np.zeros((n, n, n))
+    for cx in (0, 1):
+        for cy in (0, 1):
+            for cz in (0, 1):
+                w = ((1 - f[:, 0] if cx == 0 else f[:, 0])
+                     * (1 - f[:, 1] if cy == 0 else f[:, 1])
+                     * (1 - f[:, 2] if cz == 0 else f[:, 2]))
+                np.add.at(grid, ((i0[:, 0] + cx) % n, (i0[:, 1] + cy) % n,
+                                 (i0[:, 2] + cz) % n), w)
+    idx = np.clip(np.round(u).astype(np.int64), 0, None) % n
+    return grid[idx[:, 0], idx[:, 1], idx[:, 2]]
+
+
+def _timed_peak(fn):
+    """(fn(), host seconds to a synchronised end, peak device bytes above
+    what was allocated before)."""
+    import torch
+
+    _sync()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    out = fn()
+    _sync()
+    return out, time.time() - t0, torch.cuda.max_memory_allocated() - base
+
+
+def render(sim, state, mesh: int = 512, n_sub: int = 1_000_000) -> dict:
+    """Phase 10: the renders' device work on the 256³ state of phase 4
+    (example_basic realized at a = 0.02): the projected density at grid
+    ``mesh`` against the same function on a CPU copy of the positions
+    (max |Δ| within mesh·2⁻²⁴ of the largest pixel: the bound of a float32
+    sum of the mesh cells along the axis, which both devices sum in
+    another order; the image sums to N within half a particle), the per-particle
+    CIC density of 1M particles (render3D's subsample and density grid)
+    against the JAX package's numpy arithmetic (within 1e-12 of the
+    largest: float64 atomics in another order), each with its seconds and
+    peak device memory; then the files that matplotlib and h5py allow on
+    this machine (no exception of a render is caught)."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from concept_tpu_torch.analysis.powerspec import powerspec
+    from concept_tpu_torch.graphics import render as r
+
+    pos, box, N = state.pos, sim.config.boxsize, state.pos.shape[0]
+    img, s_img, peak_img = _timed_peak(lambda: r.project_density(pos, mesh, box))
+    t0 = time.time()
+    ref = r.project_density(pos.cpu(), mesh, box)
+    s_cpu = time.time() - t0
+    err_img = float(np.abs(img - ref).max() / np.abs(ref).max())
+    total = float(img.sum(dtype=np.float64))
+    if err_img > mesh * 2.0**-24 or abs(total - N) > 0.5:
+        raise SystemExit(f"project_density: max |Δ| {err_img:.3g} of the largest pixel "
+                         f"(bound {mesh * 2.0**-24:.3g}), sum − N = {total - N:.4g}")
+    idx = np.random.default_rng(0).choice(N, n_sub, replace=False)
+    sub = pos[torch.as_tensor(idx, device=pos.device)]
+    ng = max(16, min(128, round(n_sub ** (1 / 3))))
+    rho, s_rho, peak_rho = _timed_peak(lambda: r._cic_density_at_particles(sub, ng, box))
+    t0 = time.time()
+    rho_np = _cic_density_numpy(sub.cpu().numpy(), ng, box)
+    s_np = time.time() - t0
+    err_rho = float(np.abs(rho.cpu().numpy() - rho_np).max() / np.abs(rho_np).max())
+    if err_rho > 1e-12:
+        raise SystemExit(f"_cic_density_at_particles: max |Δ| {err_rho:.3g} of the largest")
+    print(f"render: project_density {N} particles on grid {mesh}: {s_img:.3f} s, peak "
+          f"{peak_img / 2**30:.2f} GiB above the state (the CPU copy {s_cpu:.2f} s), max |Δ| "
+          f"{err_img:.3g} of the largest pixel, sum − N = {total - N:.3g}; "
+          f"_cic_density_at_particles {n_sub} particles on grid {ng} (float64): {s_rho:.3f} s, "
+          f"peak {peak_rho / 2**20:.0f} MiB (numpy {s_np:.2f} s), max |Δ| {err_rho:.3g}")
+    mpl = importlib.util.find_spec("matplotlib") is not None
+    h5 = importlib.util.find_spec("h5py") is not None
+    outdir = tempfile.mkdtemp(prefix="chip_smoke_render_")
+    made, not_made = [], []
+    try:
+        fn = os.path.join(outdir, "render2D.png")
+        if mpl or h5:
+            enhanced = r.render2D(pos, mesh, box, filename=fn if mpl else None, save_data=h5,
+                                  data_filename=fn.replace(".png", ".hdf5"))
+            made += ["render2D PNG"] * mpl + ["render2D HDF5 data"] * h5
+        if mpl:
+            made.append(f"terminal image ({len(r.terminal_render(enhanced, 80))} characters)")
+            r.render3D(pos, box, os.path.join(outdir, "render3D.png"), resolution=1080)
+            pk = powerspec(pos, mesh, box, N)
+            r.plot_powerspec(pk, os.path.join(outdir, "powerspec.png"), a=0.02)
+            made += ["render3D PNG", "power-spectrum plot"]
+        else:
+            not_made += [f"{what} (no matplotlib)" for what in (
+                "render2D PNG", "terminal image", "render3D PNG", "spectrum plots")]
+        if not h5:
+            not_made.append("render2D HDF5 data (no h5py)")
+        made_files = sorted(os.listdir(outdir))
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    print(f"render outputs made: {made or 'none'} {made_files}; not made: {not_made or 'none'}")
+    return {"project_density_s": s_img, "project_density_peak_bytes": peak_img,
+            "project_density_cpu_s": s_cpu, "project_density_max_rel_err": err_img,
+            "project_density_sum_minus_N": total - N, "cic_density_s": s_rho,
+            "cic_density_peak_bytes": peak_rho, "cic_density_numpy_s": s_np,
+            "cic_density_max_rel_err": err_rho, "made": made, "not_made": not_made}
+
+
+def parallel(sim, state) -> dict:
+    """Phase 11: the slab decomposition on a world of one ``nccl`` rank
+    (built here: ``make_distribution(1)`` gives None), on the 256³ /
+    grid 512 state of phase 10: sort_to_slabs (every particle, in index
+    order), the halo deposit against the one-device deposit (1e-5 of the
+    largest cell; the mass within half a particle), the slab FFT round
+    trip (1e-5 of the largest mode / value), and one PM step through
+    ``Simulation(dist=...)`` against the one-device step (the row 10-11
+    kernels) at the JAX test's float32 tolerance (positions atol 1e-4,
+    momenta 1e-5 of the largest; tests/test_distributed.py:36-43), with
+    the ms and peak memory of each kick; then one P³M step through
+    ``Simulation(dist=...)``, which must launch row 6 (the sweep over the
+    all-gathered positions) and no other kernel, against the one-device
+    fused step; and ``run`` with ``-n 2`` on this one card must raise
+    ValueError.  Two ranks on one card are not shown: NCCL refuses two
+    ranks on one GPU."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as tdist
+
+    from concept_tpu_torch.components import ParticleState
+    from concept_tpu_torch.forces.pm import pm_gravity_momentum_updates
+    from concept_tpu_torch.grid.fft import GridDistribution, irfft3, rfft3
+    from concept_tpu_torch.grid.interp import deposit
+    from concept_tpu_torch.param import load_params
+    from concept_tpu_torch.parallel import step
+    from concept_tpu_torch.run import run
+    from concept_tpu_torch.sim import Simulation
+
+    cfg, bg, m = sim.config, sim.bg, sim.spec.mass
+    pos, box, mesh, N = state.pos, cfg.boxsize, cfg.potential_gridsize, state.pos.shape[0]
+    t0, t1 = float(bg.t_of_a_np(0.02)), float(bg.t_of_a_np(0.021))
+    int1 = bg.integrals_np(t0, t1, keys=("a**(-1)",))["a**(-1)"]
+    int2 = bg.integrals_np(t0, t1, keys=("a**(-2)",))["a**(-2)"]
+    store = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    tdist.init_process_group("nccl", store=tdist.FileStore(os.path.join(store, "store"), 1),
+                             rank=0, world_size=1)
+    try:
+        dist = GridDistribution()
+        out = {"sort_ms": _time_ms(lambda: step.sort_to_slabs(pos, dist, box), 3)}
+        slabbed, w, idx, n_over = step.sort_to_slabs(pos, dist, box)
+        if n_over or not torch.equal(idx, torch.arange(N, device=idx.device)):
+            raise SystemExit("sort_to_slabs at world size 1 lost or reordered particles")
+        grid = step.deposit_distributed_halo(slabbed, w, m, mesh, box, 2, dist)
+        _, out["deposit_max_rel_err"] = _max_rel(grid, deposit(pos, m, mesh, box))
+        # in particle masses as the deposit holds them (m in float32)
+        deficit = abs(float(grid.sum(dtype=torch.float64))
+                      / float(torch.tensor(m, dtype=pos.dtype)) - N)
+        slab = rfft3(grid, dist)
+        _, out["fft_max_rel_err"] = _max_rel(slab, torch.fft.rfftn(grid))
+        _, out["ifft_max_rel_err"] = _max_rel(irfft3(slab, mesh, dist), grid)
+        del grid, slab, slabbed, w, idx
+        if (out["deposit_max_rel_err"] > 1e-5 or deficit > 0.5
+                or max(out["fft_max_rel_err"], out["ifft_max_rel_err"]) > 1e-5):
+            raise SystemExit(f"the slab deposit or FFT disagrees: {out}, deficit {deficit:.3g}")
+        kicks = {
+            "distributed": lambda: step.pm_momentum_updates_distributed_halo(
+                pos, m, mesh, box, cfg.G, int1, dist),
+            "single": lambda: pm_gravity_momentum_updates([pos], [m], mesh, box, cfg.G, int1,
+                                                          deposit_method="auto")}
+        for name, kick in kicks.items():
+            _, _, out[f"{name}_kick_peak_bytes"] = _timed_peak(kick)
+            out[f"{name}_kick_ms"] = _time_ms(kick, 5)
+        steps = {}
+        for method in ("pm", "p3m"):
+            config = dataclasses.replace(cfg, method=method)
+            for tag, dd in (("single", None), ("distributed", dist)):
+                s = Simulation(sim.spec, config, bg, sim.lin, dist=dd)
+                st = ParticleState(pos=pos.clone(), mom=state.mom.clone())
+                _reset_counts()
+                st, seconds, _ = _timed_peak(lambda s=s, st=st: s.step(st, int1, int2))
+                steps[method, tag] = (st, seconds, _read_counts())
+            (p1, s1, _), (pd, sd, counts) = steps[method, "single"], steps[method, "distributed"]
+            d = (pd.pos - p1.pos).abs()
+            dpos = float(torch.minimum(d, box - d).max())
+            _, dmom = _max_rel(pd.mom, p1.mom)
+            out[method] = {"step_s": sd, "single_step_s": s1, "max_dpos": dpos,
+                           "max_dmom_rel": dmom, "launches": counts}
+            if dpos > 1e-4 or dmom > 1e-5:
+                raise SystemExit(f"the {method} step over the ranks differs from one device's: "
+                                 f"positions {dpos:.3g}, momenta {dmom:.3g} of the largest")
+            _check_launches(counts, ("pair_sweep",) if method == "p3m" else ())
+        del steps
+        try:
+            run(load_params(PARAM), n_devices=2)
+        except ValueError as e:
+            out["n2_error"] = str(e)
+        else:
+            raise SystemExit("-n 2 on one card did not raise ValueError")
+    finally:
+        tdist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    print(f"parallel (world of 1 nccl rank, {N} particles, grid {mesh}): sort_to_slabs "
+          f"{out['sort_ms']:.2f} ms; halo deposit max |Δ| {out['deposit_max_rel_err']:.3g}, "
+          f"slab FFT {out['fft_max_rel_err']:.3g} / {out['ifft_max_rel_err']:.3g}; PM kick "
+          f"{out['distributed_kick_ms']:.2f} ms over the ranks against "
+          f"{out['single_kick_ms']:.2f} ms on one device (peak "
+          f"{out['distributed_kick_peak_bytes'] / 2**30:.2f} / "
+          f"{out['single_kick_peak_bytes'] / 2**30:.2f} GiB); steps over the ranks against one "
+          f"device: PM {out['pm']['step_s']:.3f} / {out['pm']['single_step_s']:.3f} s "
+          f"(Δpos {out['pm']['max_dpos']:.3g}, Δmom {out['pm']['max_dmom_rel']:.3g}), P³M "
+          f"{out['p3m']['step_s']:.3f} / {out['p3m']['single_step_s']:.3f} s (Δpos "
+          f"{out['p3m']['max_dpos']:.3g}, Δmom {out['p3m']['max_dmom_rel']:.3g}, launches "
+          f"{out['p3m']['launches']}); -n 2: ValueError({out['n2_error']!r})")
+    print("parallel: two ranks are not run on this one card: NCCL refuses two ranks on one "
+          "GPU (tests/test_torch_parallel_ranks.py runs 2 and 4 gloo ranks on the CPU)")
+    return out
+
+
 # (name, counter, phase with its check, key, source, the TPU kernel's
 # definition, the newest path that launches the kernel (its launch count)
 # or None where no path runs it)
@@ -2975,6 +3215,10 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(cache, ignore_errors=True)
     results["multi_cdm_baryon"] = results["multi"]["cdm_baryon"]
+    sim, state = _global_sim(256**3, 512, "cuda", method="pm")
+    results["render"] = render(sim, state)
+    results["parallel"] = parallel(sim, state)
+    del sim, state
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
@@ -3043,6 +3287,8 @@ def main(argv=None) -> int:
         c = mp[run_name][key]
         byname[name].update({f"{prefix}_{k}": c[k] for k in (
             "max_abs_err", "max_rel_err", "tol_rel", "ms", "plain_ms", "bound_ms")})
+    byname["pair_sweep_two_sided"]["parallel_launches"] = (
+        results["parallel"]["p3m"]["launches"]["pair_sweep"])
     byname["pair_sweep_two_sided"]["multi_nonlinnu_all_rows_vs_f64_kernel"] = (
         mp["nonlinnu"]["row6_final"]["all_rows_vs_f64_kernel"])
     for name in ("deposit_pm", "gather_pm"):

@@ -9,6 +9,13 @@ bins-per-decade dict (the log-nearest running bin centre).  Shot noise
 is subtracted into 'power_corrected'.  Combined spectra of several
 particle groups and fluid grids, and spectra of a real-space δ grid,
 use the same estimator.
+
+Over the slab decomposition (``dist``, grid/fft.GridDistribution) a
+component's spectrum is measured where its particles are: each rank
+deposits its shard (``parallel.step.deposit_distributed``), the FFT is
+the slab FFT, each rank bins the modes of its y-slab, and one
+``all_reduce`` sums the bins, so that every rank holds the whole
+spectrum.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from concept_tpu_torch.components import periodic_wrap
 from concept_tpu_torch.grid import fourier
 from concept_tpu_torch.grid.fft import rfft3
 from concept_tpu_torch.grid.interp import deposit, interpolation_order
+from concept_tpu_torch.parallel.step import deposit_distributed
 
 _K_LINEAR_MAX = 16
 
@@ -87,14 +95,14 @@ def running_bin_centers(k_min: float, k_max: float, bins_per_decade: dict,
 
 
 def bin_indices_and_k(gridsize: int, boxsize: float, bins_per_decade=40,
-                      device="cpu"):
-    """Per-mode bin index and physical |k|.  ``bins_per_decade`` an int:
-    integer-|k| bins up to 16·k_f, that many logarithmic bins per decade
-    above.  A dict: the running bins-per-decade centres, each mode in
-    the log-nearest one (k = 0 in the dropped bin 0).  Returns (bins,
-    k_phys, n_bins)."""
+                      device="cpu", y_rows=None):
+    """Per-mode bin index and physical |k| (``y_rows``: of a rank's
+    y-slab).  ``bins_per_decade`` an int: integer-|k| bins up to 16·k_f,
+    that many logarithmic bins per decade above.  A dict: the running
+    bins-per-decade centres, each mode in the log-nearest one (k = 0 in
+    the dropped bin 0).  Returns (bins, k_phys, n_bins)."""
     n = gridsize
-    k2 = fourier.k2_int_grid(n, device)
+    k2 = fourier.k2_int_grid(n, device, y_rows)
     if isinstance(bins_per_decade, dict):
         k_f = 2 * math.pi / boxsize
         centers = running_bin_centers(k_f, k_f * math.sqrt(3) * (n // 2),
@@ -120,22 +128,23 @@ def bin_indices_and_k(gridsize: int, boxsize: float, bins_per_decade=40,
     return bins, (2 * math.pi / boxsize) * kmag_int, _K_LINEAR_MAX + 1 + n_log
 
 
-def _binned(p2, n: int, boxsize: float, bins_per_decade=40, k_max=None) -> dict:
-    """Bin |δ_dft|² (the rfft layout) into {k, modes, power}: P̂(bin) =
-    (V/N_cells²)·Σ_bin w_herm|δ_dft|² / Σ_bin w_herm, the k = 0 bin and
-    the empty bins dropped, and those above ``k_max``."""
+def _binned(p2, n: int, boxsize: float, bins_per_decade=40, k_max=None,
+            dist=None) -> dict:
+    """Bin |δ_dft|² (the rfft layout; with ``dist`` this rank's y-slab)
+    into {k, modes, power}: P̂(bin) = (V/N_cells²)·Σ_bin w_herm|δ_dft|² /
+    Σ_bin w_herm, the k = 0 bin and the empty bins dropped, and those
+    above ``k_max``."""
     p2 = p2.to(torch.float64)
-    bins, k_phys, nbins = bin_indices_and_k(n, boxsize, bins_per_decade, p2.device)
+    bins, k_phys, nbins = bin_indices_and_k(n, boxsize, bins_per_decade, p2.device,
+                                            None if dist is None else dist.slab(n))
     mult = fourier.hermitian_multiplicity(n, torch.float64, p2.device).expand_as(p2)
     bflat = torch.clamp(bins, 0, nbins).reshape(-1)
-
-    def binsum(vals):
-        return torch.bincount(bflat, weights=vals.reshape(-1),
-                              minlength=nbins + 1)[:nbins].cpu().numpy()
-
-    wsum = binsum(mult * p2)
-    counts = binsum(mult)
-    ksum = binsum(mult * k_phys.to(torch.float64))
+    sums = torch.stack([
+        torch.bincount(bflat, weights=v.reshape(-1), minlength=nbins + 1)[:nbins]
+        for v in (mult * p2, mult, mult * k_phys.to(torch.float64))])
+    if dist is not None:
+        torch.distributed.all_reduce(sums, group=dist.group)
+    wsum, counts, ksum = sums.cpu().numpy()
     power = (boxsize**3 / n**6) * wsum / np.maximum(counts, 1)
     k_mean = ksum / np.maximum(counts, 1)
     sel = counts > 0
@@ -146,42 +155,51 @@ def _binned(p2, n: int, boxsize: float, bins_per_decade=40, k_max=None) -> dict:
 
 
 def _interlaced_slab(dep, n: int, boxsize: float, order: int, deconvolve: bool,
-                     interlace, dtype, device):
+                     interlace, dtype, device, dist=None):
     """rfft of ``dep(offset)`` (the grid deposited with the particles
     shifted by ``offset``, None for none), averaged over the interlacing
     lattice's shifts with their phases and deconvolved."""
     from concept_tpu_torch.forces.pm import INTERLACE_SHIFTS, interlace_lattice
 
+    y_rows = None if dist is None else dist.slab(n)
     shifts = INTERLACE_SHIFTS[interlace_lattice(interlace)]
-    slab = rfft3(dep(None))
+    slab = rfft3(dep(None), dist)
     h = boxsize / n
     for shift in shifts[1:]:
         off = torch.as_tensor(shift, dtype=dtype, device=device) * h
-        slab = slab + rfft3(dep(off)) * fourier.interlace_phase(
-            n, tuple(-c for c in shift), dtype, device)
+        slab = slab + rfft3(dep(off), dist) * fourier.interlace_phase(
+            n, tuple(-c for c in shift), dtype, device, y_rows)
     if len(shifts) > 1:
         slab = slab / len(shifts)
     if deconvolve:
-        slab = slab * fourier.deconvolution_factor(n, order, dtype, device)
+        slab = slab * fourier.deconvolution_factor(n, order, dtype, device, y_rows)
     return slab
 
 
 def delta_power_grid(pos, gridsize: int, boxsize: float, order: int = 4,
-                     deconvolve: bool = True, interlace=True):
-    """|δ(k)|² over the rfft layout, interlaced and deconvolved."""
+                     deconvolve: bool = True, interlace=True, dist=None):
+    """|δ(k)|² over the rfft layout (with ``dist`` this rank's y-slab,
+    from its particle shard), interlaced and deconvolved."""
     n = gridsize
     mean = None
 
     def dep(off):
         nonlocal mean
         p = pos if off is None else periodic_wrap(pos + off, boxsize)
-        grid = deposit(p, 1.0, n, boxsize, order)
-        if mean is None:
-            mean = grid.mean()
+        if dist is None:
+            grid = deposit(p, 1.0, n, boxsize, order)
+            if mean is None:
+                mean = grid.mean()
+        else:
+            grid = deposit_distributed(p, 1.0, n, boxsize, order, dist)
+            if mean is None:
+                mean = grid.sum()
+                torch.distributed.all_reduce(mean, group=dist.group)
+                mean = mean / n**3
         return grid / mean - 1.0
 
     return _interlaced_slab(dep, n, boxsize, order, deconvolve, interlace,
-                            pos.dtype, pos.device).abs() ** 2
+                            pos.dtype, pos.device, dist).abs() ** 2
 
 
 def particle_mass_slab(pos_list, weight_list, gridsize: int, boxsize: float,
@@ -274,13 +292,15 @@ def powerspec_sigma(k, power, tophat_R: float) -> float:
 
 def powerspec(pos, gridsize: int, boxsize: float, n_particles: int,
               order=4, deconvolve: bool = True, interlace=True,
-              bins_per_decade=40, k_max: float | None = None):
+              bins_per_decade=40, k_max: float | None = None, dist=None):
     """Measure P(k) of one particle component.  Returns a dict of numpy
     arrays k, modes, power, power_corrected (shot noise V/N
-    subtracted).  ``bins_per_decade``: an int or the running dict."""
+    subtracted).  ``bins_per_decade``: an int or the running dict.  With
+    ``dist`` each rank passes its particle shard and gets the whole
+    spectrum."""
     n = gridsize
     p2 = delta_power_grid(pos, n, boxsize, interpolation_order(order), deconvolve,
-                          interlace)
-    out = _binned(p2, n, boxsize, bins_per_decade, k_max)
+                          interlace, dist)
+    out = _binned(p2, n, boxsize, bins_per_decade, k_max, dist)
     out["power_corrected"] = out["power"] - boxsize**3 / n_particles
     return out

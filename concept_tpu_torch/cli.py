@@ -56,7 +56,8 @@ def make_parser():
                    help="run a utility: powerspec|bispec|info|convert|gadget|watch|"
                         "play|update <args>")
     p.add_argument("-n", "--nprocs", default="1",
-                   help="device count: 1 (default) or 0 (all) run on the one card")
+                   help="ranks: N processes, one a card (with --device cpu, on the "
+                        "CPU), for global-step PM, P³M and PP; 0 = every visible card")
     p.add_argument("-m", "--main", dest="main_script", default=None,
                    help="run a Python script instead of the time loop, with the "
                         "loaded RunConfig as `cfg` and the unit system as `units`")

@@ -1,5 +1,4 @@
-"""Particle-mesh (PM) gravity (port of concept_tpu/forces/pm.py on one
-device; reference src/interactions.py:1985-2415 particle_mesh and
+"""Particle-mesh (PM) gravity (port of concept_tpu/forces/pm.py; reference src/interactions.py:1985-2415 particle_mesh and
 apply_particle_mesh_force, the potential factor −4πG/|k|² at
 interactions.py:2092-2113, the long-range cutoff exp(−rₛ²k²) for P³M).
 
@@ -15,6 +14,13 @@ particle goes through them, and the gather reads the three gradient
 components in one launch.
 ``deposit_method`` chooses (grid/interp.resolve_deposit_method); the
 potential and its gradients do not depend on the choice.
+
+Over the slab decomposition (``dist``, grid/fft.GridDistribution) the
+generic pair runs as in the JAX package: each rank deposits its particles
+(``parallel.step.deposit_distributed``), the potential lives on its
+y-slab, and each gradient grid is replicated for the gather.  The halo
+form that replicates nothing is ``parallel.step.
+pm_momentum_updates_distributed_halo``.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from concept_tpu_torch.grid.interp import (
     deposit, gather, interpolation_order, resolve_deposit_method,
 )
 from concept_tpu_torch.grid.stencil import diff_grid
+from concept_tpu_torch.parallel.step import deposit_distributed, replicate
 
 # Interlacing lattices (reference mesh.py:78-183 Lattice): shifts in cell
 # units applied to the particles; each shifted deposit is phase-rotated
@@ -81,22 +88,28 @@ def _shifted(p, shift, h: float, boxsize: float, sign: float = 1.0):
     return periodic_wrap(p + sign * off, boxsize)
 
 
-def _phase(slab, n: int, shift):
+def _phase(slab, n: int, shift, y_rows=None):
     """The slab of a grid sampled at the +shift-cell points: F̂·e^{+ik·sh}."""
     if not any(shift):
         return slab
     return slab * fourier.interlace_phase(n, tuple(-c for c in shift),
-                                          slab.real.dtype, slab.device)
+                                          slab.real.dtype, slab.device, y_rows)
+
+
+def _y_rows(dist, n: int):
+    return None if dist is None else dist.slab(n)
 
 
 def density_slab(pos, masses, gridsize: int, boxsize: float, order: int = 2,
-                 interlace=False, info: dict | None = None):
-    """Deposit particles → the comoving density ϱ(k) (rfft layout).
+                 interlace=False, info: dict | None = None, dist=None):
+    """Deposit particles → the comoving density ϱ(k) (rfft layout; with
+    ``dist`` this rank's y-slab of it, from its particle shard).
 
     pos: (N, 3) or a list of them; masses: a scalar or a list.
     ``interlace``: False/'sc', True/'bcc' or 'fcc' — shifted deposits
     combined in k-space (reference Lattice interlacing, mesh.py:77-183).
-    ``info`` receives the unshifted deposit's mass ('mass_sum', float64)."""
+    ``info`` receives the unshifted deposit's mass ('mass_sum', float64,
+    over every rank)."""
     n = gridsize
     h = boxsize / n
     pos_list = pos if isinstance(pos, (list, tuple)) else [pos]
@@ -106,48 +119,63 @@ def density_slab(pos, masses, gridsize: int, boxsize: float, order: int = 2,
     for shift in shifts:
         grid = None
         for p, m in zip(pos_list, mass_list):
-            g = deposit(_shifted(p, shift, h, boxsize), m, n, boxsize, order=order)
+            p = _shifted(p, shift, h, boxsize)
+            g = (deposit(p, m, n, boxsize, order=order) if dist is None
+                 else deposit_distributed(p, m, n, boxsize, order, dist))
             grid = g if grid is None else grid + g
         if info is not None and not any(shift):
             info["mass_sum"] = grid.sum(dtype=torch.float64)
-        s = _phase(rfft3(grid / h**3), n, shift)  # undo the particle shift
+            if dist is not None:
+                torch.distributed.all_reduce(info["mass_sum"], group=dist.group)
+        # undo the particle shift
+        s = _phase(rfft3(grid / h**3, dist), n, shift, _y_rows(dist, n))
         slab = s if slab is None else slab + s
     return slab / len(shifts)
 
 
 def gravity_potential_slab(rho_slab, gridsize: int, boxsize: float, G: float,
                            deconv_order: int = 0,
-                           longrange_scale: float | None = None):
+                           longrange_scale: float | None = None, y_rows=None):
     """φ(k) = −4πG ϱ(k)/|k|² (·exp(−rₛ²|k|²) for the P³M long-range
     part), times the sinc deconvolution of total power ``deconv_order``
     (upstream + downstream, promoted to one global factor as in reference
-    interactions.py:2060-2080).  The k = 0 mode is zeroed."""
+    interactions.py:2060-2080).  The k = 0 mode is zeroed.  ``y_rows``:
+    the kj rows of a rank's y-slab (grid/fourier.py)."""
     n = gridsize
     dtype = rho_slab.real.dtype
     dev = rho_slab.device
-    k2 = (2 * math.pi / boxsize) ** 2 * fourier.k2_int_grid(n, dev).to(dtype)
+    k2 = (2 * math.pi / boxsize) ** 2 * fourier.k2_int_grid(n, dev, y_rows).to(dtype)
     factor = torch.where(k2 > 0, -4 * math.pi * G / torch.where(k2 > 0, k2, 1.0),
                          0.0)
     if longrange_scale is not None:
         factor = factor * torch.exp(-(longrange_scale**2) * k2)
     if deconv_order:
         factor = factor * fourier.deconvolution_factor(n, deconv_order, dtype,
-                                                       dev)
+                                                       dev, y_rows)
     phi = rho_slab * factor
-    phi[0, 0, 0] = 0
+    if y_rows is None or y_rows[0] == 0:
+        phi[0, 0, 0] = 0
     return phi
 
 
 def potential_gradient_grids(phi_slab, gridsize: int, boxsize: float,
-                             differentiation="fourier"):
+                             differentiation="fourier", dist=None):
     """∂φ/∂x_d real grids (3, n, n, n): 'fourier' (order 0 in the
     reference's parlance, mesh.py:3466) or a real-space stencil of order
-    2/4/6/8 (reference diff_domaingrid, mesh.py:4874)."""
+    2/4/6/8 (reference diff_domaingrid, mesh.py:4874).  With ``dist``
+    (φ on this rank's y-slab) each rank gets the whole grids: the Fourier
+    gradients are replicated, and for a stencil the potential is."""
     n = gridsize
+    y_rows = _y_rows(dist, n)
+
+    def whole(real):
+        return real if dist is None else replicate(real, dist)
+
     if differentiation in ("fourier", 0):
-        return torch.stack([irfft3(fourier.fourier_diff(phi_slab, n, boxsize, d), n)
-                            for d in range(3)])
-    phi = irfft3(phi_slab, n)
+        return torch.stack([
+            whole(irfft3(fourier.fourier_diff(phi_slab, n, boxsize, d, y_rows), n, dist))
+            for d in range(3)])
+    phi = whole(irfft3(phi_slab, n, dist))
     return torch.stack([diff_grid(phi, boxsize, d, int(differentiation))
                         for d in range(3)])
 
@@ -182,9 +210,10 @@ def pm_gravity_momentum_updates(pos_list, mass_list, gridsize: int, boxsize: flo
                                 differentiation="fourier",
                                 deposit_method: str = "scatter",
                                 longrange_scale: float | None = None,
-                                interlace=False, info: dict | None = None):
+                                interlace=False, info: dict | None = None, dist=None):
     """The PM momentum updates Δmom, a list of (N_i, 3) aligned with
-    pos_list (positions (N_i, 3), masses scalars).
+    pos_list (positions (N_i, 3), masses scalars; with ``dist`` this
+    rank's shards, and each gradient grid replicated for the gather).
 
     kick_integral: ᔑa⁻¹dt (matter), the exact time integral of the
     potential's a-dependence over the kick.  deconvolve: (upstream,
@@ -200,17 +229,18 @@ def pm_gravity_momentum_updates(pos_list, mass_list, gridsize: int, boxsize: flo
     il_up, il_down = interlace_pair(interlace)
     n = gridsize
     h = boxsize / n
-    kernels = order == 2 and (il_up, il_down) == ("sc", "sc")
+    kernels = order == 2 and (il_up, il_down) == ("sc", "sc") and dist is None
+    y_rows = _y_rows(dist, n)
     sbs = None
     if resolve_deposit_method(deposit_method, pos_list[0].device, kernels) == "pallas":
         rho, sbs = _block_density_slab(pos_list, mass_list, n, boxsize, info)
     else:
         if info is not None:
             info["n_overflow"] = 0
-        rho = density_slab(pos_list, mass_list, n, boxsize, order, il_up, info)
+        rho = density_slab(pos_list, mass_list, n, boxsize, order, il_up, info, dist)
     phi = gravity_potential_slab(
         rho, n, boxsize, G, deconv_order=order * (int(deconvolve[0]) + int(deconvolve[1])),
-        longrange_scale=longrange_scale)
+        longrange_scale=longrange_scale, y_rows=y_rows)
     del rho
     if sbs is not None:
         # the three gradient grids first, then one row-11 launch gathers
@@ -242,8 +272,9 @@ def pm_gravity_momentum_updates(pos_list, mass_list, gridsize: int, boxsize: flo
 
             def grad_for(shift, d=d):
                 if shift not in grads:
-                    grads[shift] = irfft3(
-                        fourier.fourier_diff(_phase(phi, n, shift), n, boxsize, d), n)
+                    g = irfft3(fourier.fourier_diff(_phase(phi, n, shift, y_rows), n, boxsize,
+                                                    d, y_rows), n, dist)
+                    grads[shift] = g if dist is None else replicate(g, dist)
                 return grads[shift]
 
             for i, (p, m) in enumerate(zip(pos_list, mass_list)):
@@ -256,8 +287,8 @@ def pm_gravity_momentum_updates(pos_list, mass_list, gridsize: int, boxsize: flo
 
     def grads_for(shift):
         if shift not in grad_sets:
-            grad_sets[shift] = potential_gradient_grids(_phase(phi, n, shift), n,
-                                                        boxsize, differentiation)
+            grad_sets[shift] = potential_gradient_grids(_phase(phi, n, shift, y_rows), n,
+                                                        boxsize, differentiation, dist)
         return grad_sets[shift]
 
     for i, (p, m) in enumerate(zip(pos_list, mass_list)):

@@ -5,6 +5,8 @@ concept_tpu/grid/fourier.py; reference src/mesh.py:1018-1327,
 Conventions: a real grid (n, n, n) of cell width boxsize/n; its rfft
 slab (n, n, n//2+1) holds mode (ki, kj, kk) with ki, kj ∈ {0..n/2−1,
 −n/2..−1} and kk ∈ {0..n/2}; physical k = (2π/boxsize)·(ki, kj, kk).
+``y_rows`` = (first row, rows) restricts a factor to the kj rows of a
+rank's y-slab (grid/fft.py); None means all n.
 """
 
 from __future__ import annotations
@@ -15,18 +17,19 @@ import numpy as np
 import torch
 
 
-def k_int_vectors(gridsize: int, device="cpu"):
+def k_int_vectors(gridsize: int, device="cpu", y_rows=None):
     """Broadcastable integer mode vectors (ki, kj, kk), int64."""
     n = gridsize
     k1 = torch.as_tensor((np.fft.fftfreq(n) * n).astype(np.int64),
                          device=device)
+    kj = k1 if y_rows is None else k1[y_rows[0]:y_rows[0] + y_rows[1]]
     kk = torch.arange(n // 2 + 1, device=device)
-    return k1.reshape(n, 1, 1), k1.reshape(1, n, 1), kk.reshape(1, 1, n // 2 + 1)
+    return k1.reshape(n, 1, 1), kj.reshape(1, -1, 1), kk.reshape(1, 1, n // 2 + 1)
 
 
-def k2_int_grid(gridsize: int, device="cpu"):
+def k2_int_grid(gridsize: int, device="cpu", y_rows=None):
     """Integer |k|² = ki² + kj² + kk² over the rfft layout."""
-    ki, kj, kk = k_int_vectors(gridsize, device)
+    ki, kj, kk = k_int_vectors(gridsize, device, y_rows)
     return ki * ki + kj * kj + kk * kk
 
 
@@ -40,22 +43,22 @@ def hermitian_multiplicity(gridsize: int, dtype=torch.float32, device="cpu"):
 
 
 def deconvolution_factor(gridsize: int, order: int, dtype=torch.float32,
-                         device="cpu"):
+                         device="cpu", y_rows=None):
     """Π_dims sinc(π k_i/n)^(−order) (reference mesh.py:3327-3421)."""
     n = gridsize
     d = None
-    for k in k_int_vectors(n, device):
+    for k in k_int_vectors(n, device, y_rows):
         x = (math.pi / n) * k.to(dtype)
         s = torch.sinc(x / math.pi)  # sinc(y) = sin(πy)/(πy)
         d = s if d is None else d * s
     return d ** (-order)
 
 
-def fourier_diff(slab, gridsize: int, boxsize: float, dim: int):
+def fourier_diff(slab, gridsize: int, boxsize: float, dim: int, y_rows=None):
     """Multiply by i·k_dim, with the Nyquist plane along dim zeroed
     (reference mesh.py:3466-3544)."""
     n = gridsize
-    kvec = k_int_vectors(n, slab.device)[dim]
+    kvec = k_int_vectors(n, slab.device, y_rows)[dim]
     k_phys = (2 * math.pi / boxsize) * kvec.to(slab.real.dtype)
     out = slab * (1j * k_phys)
     nyq = (kvec == -(n // 2)) if dim < 2 else (kvec == n // 2)
@@ -64,11 +67,11 @@ def fourier_diff(slab, gridsize: int, boxsize: float, dim: int):
 
 
 def interlace_phase(gridsize: int, shift_cells, dtype=torch.float32,
-                    device="cpu"):
+                    device="cpu", y_rows=None):
     """exp(−i k·Δx) for a grid shifted by ``shift_cells`` cell widths
     (reference Lattice, mesh.py:77-183)."""
     n = gridsize
-    ki, kj, kk = k_int_vectors(n, device)
+    ki, kj, kk = k_int_vectors(n, device, y_rows)
     phase = (2 * math.pi / n) * (
         ki * shift_cells[0] + kj * shift_cells[1] + kk * shift_cells[2]
     )

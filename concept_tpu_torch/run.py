@@ -17,8 +17,11 @@ curvature, a CPL dark-energy fluid and decaying dark matter from
 backend (the internal Einstein-Boltzmann solver where the run needs
 species-resolved transfer functions).  Several components, fluids
 among them, run through :func:`run_multi` (sim_multi.MultiSimulation).
-The renders and plots raise ``NotImplementedError`` naming the ROADMAP
-item that brings them.
+It dumps the renders (2D projections with their data and terminal
+images, 3D scatter renders) and the spectra's plots (graphics/render.py).
+``-n N`` runs one component with global steps (PM, P³M with
+``N_rungs = 1``, PP) over N ranks (:func:`make_distribution`,
+parallel/ranks.py).
 """
 
 from __future__ import annotations
@@ -46,6 +49,42 @@ from concept_tpu_torch.param import RunConfig, is_selected
 from concept_tpu_torch.sim import METHODS, SimConfig, Simulation
 from concept_tpu_torch.units import UnitSystem
 from concept_tpu_torch.utils.terminal import abort, masterprint
+
+
+def rank_count(n_devices, device) -> int:
+    """The ranks of ``-n``: an integer N (0: every visible card, or the
+    CPU's cores on the CPU); more than are visible raise ValueError, the
+    2D form 'AxB' NotImplementedError (ROADMAP Queue 1 item 14b)."""
+    from concept_tpu_torch.parallel.ranks import visible_devices
+
+    if isinstance(n_devices, str) and "x" in n_devices.lower():
+        raise NotImplementedError(
+            f"-n {n_devices}: the 2D pencil decomposition (ROADMAP Queue 1 item 14b)")
+    n = int(n_devices)
+    avail = visible_devices(device)
+    if n == 0:
+        n = avail
+    if n < 1 or n > avail:
+        raise ValueError(f"-n {n_devices} requested but only {avail} device(s) available"
+                         f" ({device.type})")
+    return n
+
+
+def make_distribution(n_devices, device="cuda"):
+    """`-n N` → None for one rank, else the GridDistribution over the
+    process group of the N ranks that this process is one of (the JAX
+    package builds a device mesh here, concept_tpu/run.py:398-440)."""
+    import torch.distributed as tdist
+
+    from concept_tpu_torch.grid.fft import GridDistribution
+
+    n = rank_count(n_devices, resolve_device(device))
+    if n == 1:
+        return None
+    if not (tdist.is_initialized() and tdist.get_world_size() == n):
+        raise RuntimeError(f"-n {n_devices}: this process is no rank of a group of {n} "
+                           f"(run() starts the ranks)")
+    return GridDistribution()
 
 def build_cosmology(cfg: RunConfig):
     """Units, constants, background and linear layer, with the Boltzmann
@@ -408,15 +447,18 @@ class SignalTrap:
             raise SystemExit(128 + signum)
         self.signum = signum
 
-    def exit_if_signalled(self, save):
-        """Call ``save()`` and exit with 128 + signum if a signal came."""
-        if self.signum is None:
+    def exit_if_signalled(self, save, agree=None):
+        """Call ``save()`` and exit with 128 + signum if a signal came
+        (over the ranks of a run: to any of them, ``agree`` taking the
+        largest signal number of the ranks)."""
+        signum = self.signum if agree is None else int(agree(self.signum or 0)) or None
+        if signum is None:
             return
-        masterprint(f"Received signal {signal.Signals(self.signum).name}: "
+        masterprint(f"Received signal {signal.Signals(signum).name}: "
                     f"writing an autosave before exiting ...")
         save()
         masterprint("done")
-        raise SystemExit(128 + self.signum)
+        raise SystemExit(128 + signum)
 
 
 def load_snapshot_component(cfg: RunConfig, path: str, units):
@@ -470,16 +512,26 @@ def _to_device(st, dev, dtype, boxsize: float) -> ParticleState:
 
 
 def run(cfg: RunConfig, max_steps: int = 100000, seed: int | None = None,
-        device=None, deposit_method: str | None = None, n_devices=1):
+        device=None, deposit_method: str | None = None, n_devices=1, rank=None):
     """Run the simulation described by cfg on ``device`` (default: the
     CUDA card; a missing card raises).  ``deposit_method`` (default
     'auto') is the generic PM's, as in the JAX package: 'pallas' names the
     block kernels of PERF.md rows 10-11 (CUDA on the card, their plain
     versions on the CPU); 'auto' takes them on the card wherever they
-    apply and 'scatter' elsewhere (grid/interp.py).  ``n_devices``: 1 or
-    0 (all, which is the one card); more devices raise.  Returns (sim,
+    apply and 'scatter' elsewhere (grid/interp.py).  Returns (sim,
     state, a); the host seconds of realization, evolution and output are
     in ``sim.timings``.
+
+    ``n_devices`` (``-n``): the ranks of the run (see :func:`rank_count`).
+    With N > 1 this process becomes rank 0 on ``cuda:0`` (or the CPU) and
+    starts ranks 1 … N−1 (``rank``, (r, store), is theirs; parallel/
+    ranks.py); each realizes the single run's particles and keeps its
+    index shard, and the run steps globally (PM, P³M with ``N_rungs =
+    1``, PP) through ``Simulation(dist=...)``.  Rank 0 writes every file
+    under the single run's names and returns the whole state.  Before
+    anything is realized, ``NotImplementedError`` names the item of the
+    ROADMAP that brings what N > 1 does not run: rungs (``N_rungs > 1``)
+    and several components (item 14c); the other ranks are then ended.
 
     An autosave of this parameter file (see :func:`autosave_path`) is
     resumed.  SIGINT and SIGTERM during the time loop write an autosave
@@ -499,10 +551,17 @@ def run(cfg: RunConfig, max_steps: int = 100000, seed: int | None = None,
     from concept_tpu_torch.timestep import prepare_static_timestepping
     from concept_tpu_torch.utils.terminal import set_formatting, set_suppress_output
 
-    if str(n_devices) not in ("0", "1"):
-        raise NotImplementedError(
-            f"-n {n_devices}: multi-GPU runs (ROADMAP Queue 1 item 14)")
     dev = resolve_device(device)
+    n_ranks = rank_count(n_devices, dev)
+    if n_ranks > 1 and rank is None:
+        # the ranks start first (a spawned process takes seconds to import
+        # torch); each then checks what it can run, rank 0 in this process
+        from concept_tpu_torch.parallel.ranks import Ranks
+
+        with Ranks(n_ranks, dev) as ranks:
+            ranks.start(run, cfg, max_steps, seed, device, deposit_method, n_devices)
+            return run(cfg, max_steps, seed, device, deposit_method, n_devices,
+                       rank=(0, ranks.store))
     dtype = resolve_dtype(dev, cfg.enable_float64)
     if cfg.suppress_output:
         set_suppress_output(cfg.suppress_output)
@@ -511,6 +570,10 @@ def run(cfg: RunConfig, max_steps: int = 100000, seed: int | None = None,
     units, consts, bg, lin = build_cosmology(cfg)
     comps = build_components(cfg, bg, consts)
     if any(src == "realize-fluid" for _, src in comps) or len(comps) > 1:
+        if n_ranks > 1:
+            raise NotImplementedError(
+                f"-n {n_devices} with several components or a fluid: the multi-component "
+                f"state over ranks (ROADMAP Queue 1 item 14c)")
         return run_multi(cfg, comps, units, consts, bg, lin, dev, dtype,
                          max_steps=max_steps, seed=seed)
     spec, source = comps[0]
@@ -540,6 +603,20 @@ def run(cfg: RunConfig, max_steps: int = 100000, seed: int | None = None,
                 "recording static_timestepping with rungs: the rung stepper "
                 "replays a recorded file, the global stepper (N_rungs = 1) "
                 "records it")
+        if n_ranks > 1:
+            raise NotImplementedError(
+                f"-n {n_devices} with rungs (N_rungs = {cfg.N_rungs}): the rung stepper's "
+                f"cell-axis sharding (ROADMAP Queue 1 item 14c); N_rungs = 1 steps globally "
+                f"over the ranks")
+    dist = None
+    if n_ranks > 1:
+        from concept_tpu_torch.parallel.ranks import init_rank
+
+        dev = init_rank(rank[0], n_ranks, rank[1], dev)
+        dist = make_distribution(n_devices, dev)
+        masterprint(f"Ranks: {n_ranks} ({'nccl' if dev.type == 'cuda' else 'gloo'})")
+        if dist.rank and static_dt is not None and static_dt.records:
+            static_dt = None  # rank 0 records the steps, which all ranks take
     if dev.type == "cuda":
         masterprint(f"Device: {dev} ({_device_name(dev)})")
     sim_config = SimConfig(
@@ -563,7 +640,24 @@ def run(cfg: RunConfig, max_steps: int = 100000, seed: int | None = None,
                                     N_rungs=cfg.N_rungs,
                                     fac_rung=cfg.Delta_t_rung_factor)
     else:
-        sim = Simulation(spec, sim_config, bg, lin)
+        sim = Simulation(spec, sim_config, bg, lin, dist=dist)
+    rank0 = dist is None or dist.rank == 0
+
+    def agree(value: float) -> float:
+        """The largest of the ranks' values (the value on one device):
+        the ranks take each decision that leads to a collective together."""
+        if dist is None:
+            return value
+        import torch
+
+        return float(sim.reduce(torch.tensor(float(value), device=dev),
+                                 torch.distributed.ReduceOp.MAX))
+
+    def autosave(st, a_now, events, hyst, steps):
+        if dist is not None:
+            st = sim.whole(st)
+        if rank0:
+            write_autosave(cfg, sim, st, a_now, events, hyst, steps)
 
     t_realize = _time.time()
     resume = check_autosave(cfg)
@@ -592,6 +686,8 @@ def run(cfg: RunConfig, max_steps: int = 100000, seed: int | None = None,
             species=spec.species,
         )
         masterprint("done")
+    if dist is not None and (resume is not None or loaded is not None):
+        state = sim.shard(state)  # realize_particles shards in initial_state
     t_realize = _time.time() - t_realize
 
     if resume is None:
@@ -612,8 +708,8 @@ def run(cfg: RunConfig, max_steps: int = 100000, seed: int | None = None,
     with SignalTrap() as trap:
         def on_step(flat_state, t, a_now, steps):
             # after a whole base step: its state, momenta at its t_mom
-            trap.exit_if_signalled(lambda: write_autosave(
-                cfg, sim, flat_state(), a_now, events, dict(sim.hysteresis), steps))
+            trap.exit_if_signalled(lambda: autosave(
+                flat_state(), a_now, events, dict(sim.hysteresis), steps), agree)
 
         while events:
             a_next = events[0][0]
@@ -633,12 +729,15 @@ def run(cfg: RunConfig, max_steps: int = 100000, seed: int | None = None,
                 dump(cfg, sim, state, a, kind, units, lin)
             t_dump += _time.time() - t0
             steps = hysteresis.get("step_count", 0)
-            trap.exit_if_signalled(lambda: write_autosave(
-                cfg, sim, state, a, events, hysteresis, steps))
-            if events and _time.time() - last_autosave > cfg.autosave_interval:
-                write_autosave(cfg, sim, state, a, events, hysteresis, steps)
+            trap.exit_if_signalled(lambda: autosave(state, a, events, hysteresis, steps),
+                                   agree)
+            if events and agree(_time.time() - last_autosave > cfg.autosave_interval):
+                autosave(state, a, events, hysteresis, steps)
                 last_autosave = _time.time()
-    clear_autosave(cfg)
+    if rank0:
+        clear_autosave(cfg)
+    if dist is not None:
+        state = sim.whole(state)
     step_total = sim.hysteresis.get("step_count", 0)
     wall = _time.time() - t_wall0
     if step_total:
@@ -883,8 +982,9 @@ def dump_multi(cfg: RunConfig, sim, state, a, kind, units, lin):
     """Write one scheduled output of a run of several components (port
     of concept_tpu/run.py:977-1188): 'powerspec' (each particle
     component, each selected pair of components and each fluid's δ),
-    'bispec' (each particle component) or 'snapshot' (CONCEPT-HDF5 of
-    every component).  The renders raise (ROADMAP Queue 1 item 13)."""
+    'bispec' (each particle component, with its plot), 'snapshot'
+    (CONCEPT-HDF5 of every component), 'render2D' (each particle
+    component) or 'render3D' (the particle components blended)."""
     base = cfg.output_bases.get(kind, kind)
     dirname = cfg.output_dirs.get(kind, "output")
     tag = f"a={a:.4g}"
@@ -903,8 +1003,40 @@ def dump_multi(cfg: RunConfig, sim, state, a, kind, units, lin):
         snap.save_concept(fn, _snapshot_meta(cfg, a), comps,
                           select=(cfg.snapshot_select or {}).get("save"))
         masterprint(f"Saved snapshot: {fn}")
+    elif kind == "render2D":
+        from concept_tpu_torch.graphics.render import render2D
+
+        n = sim.config.potential_gridsize
+        for name, pstate in state.particles.items():
+            flags = _output_flags(sim.pspecs[name], cfg.render2D_select,
+                                  ("data", "image", "terminal image"), "image")
+            if not any(flags.values()):
+                continue
+            fn = os.path.join(dirname, f"{base}_{name}_{tag}.png")
+            os.makedirs(dirname, exist_ok=True)
+            render2D(pstate.pos, n, cfg.boxsize, filename=fn if flags["image"] else None,
+                     terminal=flags["terminal image"], save_data=flags["data"],
+                     data_filename=fn.replace(".png", ".hdf5"))
+            masterprint(f"Saved render2D ({name}): {fn}")
+    elif kind == "render3D":
+        from concept_tpu_torch.graphics.render import render3D
+
+        opts = cfg.render3D_options or {}
+        fn = os.path.join(dirname, f"{base}_{tag}.png")
+        # particle components blended with distinct colormaps (reference
+        # multi-component render3D declarations, graphics.py:2230-2248)
+        cmaps = ("inferno", "viridis", "cividis", "plasma")
+        comps = {name: (pstate.pos, cmaps[i % len(cmaps)])
+                 for i, (name, pstate) in enumerate(state.particles.items())
+                 if _output_flags(sim.pspecs[name], cfg.render3D_select, ("image",),
+                                  "image")["image"]}
+        if comps:
+            render3D(None, cfg.boxsize, fn, components=comps,
+                     resolution=int(opts.get("resolution", 1080)),
+                     background=opts.get("background", "black"), label=f"a = {a:.4g}")
+            masterprint(f"Saved render3D: {fn}")
     else:
-        raise NotImplementedError(f"{kind!r} output (ROADMAP Queue 1 item 13: renders)")
+        raise ValueError(f"unknown output kind {kind!r}")
 
 
 def _dump_powerspec_multi(cfg, sim, state, a, base, dirname, tag, units):
@@ -999,15 +1131,23 @@ def _output_flags(spec, selector, keys, primary):
 
 
 def dump(cfg: RunConfig, sim, state, a, kind, units, lin):
-    """Write one scheduled output: 'powerspec', 'bispec' or 'snapshot'.
-    The renders and the plots raise (ROADMAP Queue 1 item 13)."""
+    """Write one scheduled output: 'powerspec' (with its plot),
+    'bispec', 'snapshot', 'render2D' or 'render3D'.  Over ranks every
+    rank calls it: the spectrum is measured over the ranks, the other
+    outputs from the whole state, and rank 0 writes."""
     base = cfg.output_bases.get(kind, kind)
     dirname = cfg.output_dirs.get(kind, "output")
     tag = f"a={a:.4g}" if cfg.enable_Hubble else f"t={a:.4g}"
+    dist = getattr(sim, "dist", None)
     if kind == "powerspec":
         _dump_powerspec(cfg, sim, state, a, os.path.join(dirname, f"{base}_{tag}.txt"),
                         units, lin)
-    elif kind == "bispec":
+        return
+    if dist is not None:
+        state = sim.whole(state)
+        if dist.rank:
+            return
+    if kind == "bispec":
         _dump_bispec(cfg, sim, state, a, os.path.join(dirname, f"{base}_{tag}.txt"), lin)
     elif kind == "snapshot":
         from concept_tpu_torch.io import snapshot as snap
@@ -1028,8 +1168,50 @@ def dump(cfg: RunConfig, sim, state, a, kind, units, lin):
             snap.save_concept(fn, meta, {sim.spec.name: (sim.spec, state)},
                               select=(cfg.snapshot_select or {}).get("save"))
         masterprint(f"Saved snapshot: {fn}")
+    elif kind == "render2D":
+        from concept_tpu_torch.graphics.render import render2D
+
+        flags = _output_flags(sim.spec, cfg.render2D_select,
+                              ("data", "image", "terminal image"), "image")
+        opts = cfg.render2D_options or {}
+        terminal = flags["terminal image"] or bool(
+            opts.get("terminal image", opts.get("terminal", False)))
+        save_data = flags["data"] or bool(opts.get("data", False))
+        if not (flags["image"] or terminal or save_data):
+            return
+        gridsize = int(opts.get("gridsize") or sim.config.potential_gridsize)
+        fn = os.path.join(dirname, f"{base}_{tag}.png")
+        render2D(state.pos, gridsize, cfg.boxsize,
+                 filename=fn if flags["image"] else None,
+                 axis={"x": 0, "y": 1, "z": 2}.get(opts.get("axis", "z"), 2),
+                 colormap=opts.get("colormap", "inferno"), terminal=terminal,
+                 terminal_resolution=int(opts.get("terminal resolution", 80)),
+                 save_data=save_data, data_filename=fn.replace(".png", ".hdf5"),
+                 extent=opts.get("extent"), enhancement=bool(opts.get("enhancement", True)))
+        masterprint(f"Saved render2D: {fn}")
+    elif kind == "render3D":
+        from concept_tpu_torch.graphics.render import render3D
+
+        if not _output_flags(sim.spec, cfg.render3D_select, ("image",), "image")["image"]:
+            return
+        opts = cfg.render3D_options or {}
+        fn = os.path.join(dirname, f"{base}_{tag}.png")
+        enh = opts.get("enhancement", 0.15)
+        render3D(state.pos, cfg.boxsize, fn,
+                 resolution=int(opts.get("resolution", 1080)),
+                 elevation=float(opts.get("elevation", 20.0)),
+                 azimuth=float(opts.get("azimuth", -60.0)), roll=float(opts.get("roll", 0.0)),
+                 zoom=float(opts.get("zoom", 1.0)),
+                 projection=str(opts.get("projection", "persp")), color=opts.get("color"),
+                 colormap=opts.get("colormap", "inferno"),
+                 background=opts.get("background", "black"),
+                 depthshade=bool(opts.get("depthshade", True)),
+                 enhance_target=float((enh or {}).get("brightness", 0.15)
+                                      if isinstance(enh, dict) else enh),
+                 label=f"a = {a:.4g}")
+        masterprint(f"Saved render3D: {fn}")
     else:
-        raise NotImplementedError(f"{kind!r} output (ROADMAP Queue 1 item 13: renders)")
+        raise ValueError(f"unknown output kind {kind!r}")
 
 
 def _dump_powerspec(cfg, sim, state, a, fn, units, lin):
@@ -1037,15 +1219,16 @@ def _dump_powerspec(cfg, sim, state, a, fn, units, lin):
     from concept_tpu_torch.analysis.powerspec import powerspec, powerspec_sigma
 
     opts = cfg.powerspec_options or {}
-    if opts.get("plot", False):
-        raise NotImplementedError("power spectrum plots (ROADMAP Queue 1 item 13)")
     gridsize = int(opts.get("gridsize") or sim.config.potential_gridsize)
+    dist = getattr(sim, "dist", None)
     pk = powerspec(
         state.pos, gridsize, cfg.boxsize, sim.spec.N,
         order=opts.get("interpolation", 4),
         interlace=bool(opts.get("interlace", True)),
-        bins_per_decade=_bpd(opts), k_max=opts.get("k_max"),
+        bins_per_decade=_bpd(opts), k_max=opts.get("k_max"), dist=dist,
     )
+    if dist is not None and dist.rank:
+        return
     lin_col = np.asarray(lin.power_delta(pk["k"], a)) if lin is not None else None
     R = float(opts.get("tophat", 8 / cfg.h * units.Mpc))
     sigma = powerspec_sigma(pk["k"], pk["power_corrected"], R)
@@ -1054,17 +1237,22 @@ def _dump_powerspec(cfg, sim, state, a, fn, units, lin):
                        lin_col, sigma_linear=sigma_lin,
                        significant_figures=int(opts.get("significant figures", 18)))
     masterprint(f"Saved power spectrum: {fn}")
+    if opts.get("plot", False):
+        from concept_tpu_torch.graphics.render import plot_powerspec
+
+        plot_powerspec(pk, fn.replace(".txt", ".png"), linear=lin_col, a=a)
 
 
 def _dump_bispec(cfg, sim, state, a, fn, lin, spec=None):
+    """The bispectrum's columns, and its plot where selected (the JAX
+    package's single-component dump plots B whatever
+    ``bispec_plot_prefer`` says; the port honours it in both runs)."""
     from concept_tpu_torch.analysis.bispec import bispec, bispec_treelevel
 
     flags = _output_flags(spec or sim.spec, cfg.bispec_select,
                           ("data", "reduced", "treelevel", "plot"), "data")
     opts = cfg.bispec_options or {}
-    if flags["plot"] or opts.get("plot", False):
-        raise NotImplementedError("bispectrum plots (ROADMAP Queue 1 item 13)")
-    if not flags["data"]:
+    if not (flags["data"] or flags["plot"]):
         return
     out = bispec([state.pos], [1.0],
                  int(opts.get("gridsize") or sim.config.potential_gridsize), cfg.boxsize,
@@ -1076,9 +1264,16 @@ def _dump_bispec(cfg, sim, state, a, fn, lin, spec=None):
     if flags["reduced"]:
         cols.append(out["Q"][:, None])
         header += " Q_reduced"
+    tree = None
     if lin is not None and flags["treelevel"]:
-        cols.append(bispec_treelevel(lin, out["triangles"], a)[:, None])
+        tree = bispec_treelevel(lin, out["triangles"], a)
+        cols.append(tree[:, None])
         header += " B_treelevel"
     os.makedirs(os.path.dirname(os.path.abspath(fn)), exist_ok=True)
     np.savetxt(fn, np.column_stack(cols), header=header)
     masterprint(f"Saved bispectrum: {fn}")
+    if flags["plot"] or opts.get("plot", False):
+        from concept_tpu_torch.graphics.render import plot_bispec
+
+        plot_bispec(out, fn.replace(".txt", ".png"), treelevel=tree, a=a,
+                    prefer=cfg.bispec_plot_prefer)

@@ -1,7 +1,8 @@
 """Run configuration, the time-step limiter constants and the global
 stepper (port of ``SimConfig``, the ``FAC_*`` / ``DELTA_A_MAX_*``
-constants and ``Simulation`` for PM, P³M and PP on one device,
-concept_tpu/sim.py; reference main.py:214-461, 697-996, 2345-2433).
+constants and ``Simulation`` for PM, P³M and PP, on one device or over
+the 1D slab decomposition, concept_tpu/sim.py; reference
+main.py:214-461, 697-996, 2345-2433).
 
 The global stepper is leapfrog KDK with exact time integrals (reference
 integration.py:712):
@@ -17,6 +18,16 @@ forces/pm.py (plus, for P³M, the short-range sweep); 'pp' and
 correction for 'pp').  The host advances
 the scalars (t, a, Δt, the Δt hysteresis of timestep.py) and the
 fixed-size budgets.
+
+With ``dist`` (grid/fft.GridDistribution, ``-n N``) each rank steps its
+index shard of the particles, and every quantity that sets Δt or a
+budget is reduced over the ranks, so that all ranks take the same steps.
+The PM part of a kick is ``parallel.step.pm_momentum_updates_
+distributed_halo`` (CIC or any order, Fourier gradients, no
+interlacing; the JAX package's condition), else the generic PM over the
+ranks.  The short-range and PP parts run on every rank over the
+all-gathered positions, and each rank keeps its own rows: the P³M sweep
+(PERF.md row 6 on the card) is computed d times (ROADMAP Queue 2).
 """
 
 from __future__ import annotations
@@ -27,10 +38,14 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+import torch.distributed as tdist
+
 from concept_tpu_torch.components import ParticleState, periodic_wrap
 from concept_tpu_torch.forces.pm import interlace_pair, pm_gravity_momentum_updates
 from concept_tpu_torch.forces.shortrange import shortrange_momentum_updates
+from concept_tpu_torch.grid.fft import check_distribution
 from concept_tpu_torch.grid.interp import interpolation_order
+from concept_tpu_torch.parallel.step import pm_momentum_updates_distributed_halo, replicate
 from concept_tpu_torch.utils.terminal import warn
 
 # Reference numeric defaults (main.py:2345-2433)
@@ -93,10 +108,10 @@ class SimConfig:
 
 
 class Simulation:
-    """One matter-like particle component with PM or P³M gravity and
-    global time stepping, on one device."""
+    """One matter-like particle component with PM, P³M or PP gravity and
+    global time stepping, on one device or over the ranks of ``dist``."""
 
-    def __init__(self, spec, config: SimConfig, bg, lin=None):
+    def __init__(self, spec, config: SimConfig, bg, lin=None, dist=None):
         from concept_tpu_torch.forces.p3m import pm_block_capacity
         from concept_tpu_torch.forces.shortrange import auto_capacity, cell_grid_shape
 
@@ -107,6 +122,7 @@ class Simulation:
         self.config = config
         self.bg = bg
         self.lin = lin
+        self.dist = check_distribution(dist)
         cap = 0
         self._ewald_table = None
         if config.method == "pp":
@@ -125,7 +141,7 @@ class Simulation:
             self._sr_max_overflow = max(2048, (spec.N or 0) // 1024)
         self._pm_max_overflow = 65536
         self._k_pm = pm_block_capacity(spec.N, config.potential_gridsize)
-        self._fused = (config.method == "p3m"
+        self._fused = (config.method == "p3m" and dist is None
                        and interpolation_order(config.interpolation_order) == 2
                        and config.differentiation in ("fourier", 0)
                        and interlace_pair(config.interlace) == ("sc", "sc")
@@ -144,10 +160,37 @@ class Simulation:
                       with_ids: bool = False, **kw) -> ParticleState:
         from concept_tpu_torch.ic import realize_particles
 
-        return realize_particles(
+        # over the ranks each realizes the whole state (the single run's
+        # particles, whatever d) and keeps its index shard
+        return self.shard(realize_particles(
             self.lin, self.spec, self.config.boxsize, a_begin, seed=seed,
             lpt_order=lpt_order, dtype=self.config.dtype,
-            device=self.config.device, with_ids=with_ids, **kw)
+            device=self.config.device, with_ids=with_ids, **kw))
+
+    def shard(self, state: ParticleState) -> ParticleState:
+        """This rank's index shard of a whole state (the state itself on
+        one device)."""
+        if self.dist is None:
+            return state
+        lo, hi = self.dist.shard(state.pos.shape[0])
+        return ParticleState(*(None if x is None else x[lo:hi].contiguous() for x in state))
+
+    def whole(self, state: ParticleState) -> ParticleState:
+        """The whole state, on every rank, from the ranks' shards (the
+        state itself on one device)."""
+        if self.dist is None:
+            return state
+        return ParticleState(*(None if x is None else replicate(x, self.dist)
+                               for x in state))
+
+    def _whole_pos(self, pos):
+        return pos if self.dist is None else replicate(pos, self.dist)
+
+    def reduce(self, x: torch.Tensor, op=tdist.ReduceOp.SUM) -> torch.Tensor:
+        """x reduced over the ranks (x itself on one device)."""
+        if self.dist is not None:
+            tdist.all_reduce(x, op=op, group=self.dist.group)
+        return x
 
     # ------------------------------------------------------------------ #
     def _kick(self, state: ParticleState, int_a1: float):
@@ -158,13 +201,17 @@ class Simulation:
         count and has none (0 here; its count is in the stats)."""
         cfg = self.config
         pos = state.pos
+        # the pair forces of a rank's particles need every position
+        own = slice(None)
+        if self.dist is not None:
+            own = slice(*self.dist.shard(pos.shape[0] * self.dist.n_devices))
         if cfg.method in ("pp", "ppnonperiodic"):
             from concept_tpu_torch.forces.pp import pp_momentum_updates
 
             state.mom.add_(pp_momentum_updates(
-                pos, self.spec.mass, cfg.boxsize, int_a1, cfg.G, softening=cfg.softening,
-                ewald_table=self._ewald_table, periodic=cfg.method == "pp",
-                softening_kernel=cfg.softening_kernel))
+                self._whole_pos(pos), self.spec.mass, cfg.boxsize, int_a1, cfg.G,
+                softening=cfg.softening, ewald_table=self._ewald_table,
+                periodic=cfg.method == "pp", softening_kernel=cfg.softening_kernel)[own])
             self.stats["kicks"] += 1
             return state, (0, 0)
         comps = (pos[:, 0], pos[:, 1], pos[:, 2])
@@ -185,21 +232,33 @@ class Simulation:
         else:
             info = {}
             p3m = cfg.method == "p3m"
-            (d,) = pm_gravity_momentum_updates(
-                [pos], [self.spec.mass], cfg.potential_gridsize, cfg.boxsize, cfg.G,
-                int_a1, order=cfg.interpolation_order, deconvolve=cfg.deconvolve,
-                differentiation=cfg.differentiation, deposit_method=cfg.deposit_method,
-                longrange_scale=self._sr_scale if p3m else None,
-                interlace=cfg.interlace, info=info)
+            scale = self._sr_scale if p3m else None
+            if (self.dist is not None and cfg.differentiation in ("fourier", 0)
+                    and interlace_pair(cfg.interlace) == ("sc", "sc")):
+                # the halo-resident kick: nothing replicated
+                d, _ = pm_momentum_updates_distributed_halo(
+                    pos, self.spec.mass, cfg.potential_gridsize, cfg.boxsize, cfg.G,
+                    int_a1, self.dist, order=cfg.interpolation_order,
+                    deconvolve=cfg.deconvolve, longrange_scale=scale, info=info)
+            else:
+                (d,) = pm_gravity_momentum_updates(
+                    [pos], [self.spec.mass], cfg.potential_gridsize, cfg.boxsize, cfg.G,
+                    int_a1, order=cfg.interpolation_order, deconvolve=cfg.deconvolve,
+                    differentiation=cfg.differentiation,
+                    deposit_method=cfg.deposit_method, longrange_scale=scale,
+                    interlace=cfg.interlace, info=info, dist=self.dist)
             dmom = d.unbind(1)
             if p3m:
+                if self.dist is not None:
+                    whole = self._whole_pos(pos)
+                    comps = (whole[:, 0], whole[:, 1], whole[:, 2])
                 dsr, n_sr = shortrange_momentum_updates(
                     comps, self.spec.mass, cfg.boxsize, self._sr_scale, self._sr_range,
                     int_a1, n_cells=self._sr_ncells, capacity=self._sr_capacity,
                     softening=cfg.softening, G=cfg.G,
                     max_overflow=self._sr_max_overflow,
                     softening_kernel=cfg.softening_kernel)
-                dmom = tuple(a + b for a, b in zip(dmom, dsr))
+                dmom = tuple(a + b[own] for a, b in zip(dmom, dsr))
             n_pm, mass_sum, budget_pm = info["n_overflow"], info["mass_sum"], 0
         for d in range(3):
             state.mom[:, d] += dmom[d]
@@ -269,8 +328,8 @@ class Simulation:
         most half full."""
         from concept_tpu_torch.forces.shortrange import cell_counts
 
-        counts = cell_counts(state.pos, self.config.boxsize,
-                             self._sr_ncells).cpu().numpy()
+        counts = self.reduce(cell_counts(state.pos, self.config.boxsize,
+                                          self._sr_ncells)).cpu().numpy()
         changed = False
         K = self._sr_capacity
         budget = self._sr_max_overflow // 2
@@ -388,7 +447,7 @@ class Simulation:
         def refresh_v(a_now, st):
             # velocity-based limiters, refreshed at period boundaries
             # (reference main.py:2380)
-            v2 = (st.mom * st.mom).sum(dim=1).max()
+            v2 = self.reduce((st.mom * st.mom).sum(dim=1).max(), tdist.ReduceOp.MAX)
             return math.sqrt(float(v2)) / (a_now * self.spec.mass)
 
         def record(a_now, dt_max):

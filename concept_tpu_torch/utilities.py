@@ -2,9 +2,9 @@
 concept_tpu/utilities.py; reference src/utilities.py: delegate :67,
 powerspec :465, info :617, convert :125, and the util/* wrappers).
 
-The measurements (powerspec, bispec) run on the device the CLI names
-(``--device``, the card by default); class runs on the host.  render2D
-and render3D are not ported yet and raise.
+The measurements (powerspec, bispec) and the renders' deposits
+(render2D, render3D) run on the device the CLI names (``--device``, the
+card by default); class and the images run on the host.
 """
 
 from __future__ import annotations
@@ -37,10 +37,13 @@ def _device(cli_args):
     return resolve_device(getattr(cli_args, "device", None))
 
 
-def _positions(state, dev):
+def _positions(state, dev, keep_dtype: bool = False):
+    """A snapshot's positions on ``dev``, as float32 (the JAX utilities'
+    jnp.float32) unless ``keep_dtype``."""
     import torch
 
-    return torch.as_tensor(np.asarray(state.pos), device=dev).to(torch.float32)
+    pos = torch.as_tensor(np.asarray(state.pos), device=dev)
+    return pos if keep_dtype else pos.to(torch.float32)
 
 
 def util_info(paths: list[str], cli_args) -> int:
@@ -136,11 +139,36 @@ def util_bispec(paths: list[str], cli_args) -> int:
 
 
 def util_render2d(paths: list[str], cli_args) -> int:
-    raise NotImplementedError("-u render2D (ROADMAP Queue 1 item 13: renders)")
+    """Project snapshots onto a grid of N^⅓ cells a side: a PNG and its
+    HDF5 data, <snapshot>_render2D_<component>.png/.hdf5 (reference
+    utilities.py:557)."""
+    from concept_tpu_torch.graphics.render import render2D
+    from concept_tpu_torch.io import snapshot as snap
+
+    dev = _device(cli_args)
+    for path in paths:
+        meta, comps = snap.load(path)
+        for name, (spec, state) in comps.items():
+            render2D(_positions(state, dev), round(spec.N ** (1 / 3)), meta.boxsize,
+                     filename=path + f"_render2D_{name}.png", save_data=True)
+            masterprint(f"Saved {path}_render2D_{name}.png")
+    return 0
 
 
 def util_render3d(paths: list[str], cli_args) -> int:
-    raise NotImplementedError("-u render3D (ROADMAP Queue 1 item 13: renders)")
+    """Render snapshots as 3D scatter PNGs, <snapshot>_render3D_<component>.png
+    (reference utilities.py:557)."""
+    from concept_tpu_torch.graphics.render import render3D
+    from concept_tpu_torch.io import snapshot as snap
+
+    dev = _device(cli_args)
+    for path in paths:
+        meta, comps = snap.load(path)
+        for name, (spec, state) in comps.items():
+            fn = render3D(_positions(state, dev, keep_dtype=True), meta.boxsize,
+                          path + f"_render3D_{name}.png")
+            masterprint(f"Saved {fn}")
+    return 0
 
 
 def util_class(args: list[str], cli_args) -> int:

@@ -65,3 +65,13 @@ def test_run_without_cuda_raises(monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             run(cfg, device=device)
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_the_scan_covers_every_subpackage():
+    """Every subpackage of the port is in the AST scan above, the renders
+    (graphics/) and the ranks (parallel/) among them."""
+    scanned = {os.path.dirname(os.path.relpath(p, ROOT)) for p in PORT_FILES}
+    subpackages = {os.path.relpath(os.path.dirname(p), ROOT) for p in glob.glob(
+        os.path.join(ROOT, "concept_tpu_torch", "*", "__init__.py"))}
+    assert {"concept_tpu_torch/graphics", "concept_tpu_torch/parallel"} <= subpackages
+    assert subpackages <= scanned

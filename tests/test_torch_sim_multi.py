@@ -21,8 +21,7 @@ tests/test_torch_multi_runs.py, which uses this file's configurations.
 - The multi autosave and its resume (equal to the uninterrupted run, in
   the run's dtype), component lives, fluid CONCEPT-HDF5 files across the
   packages with
-  ``-u info``, and the refusals that remain (renders: item 13; ``-n 2``:
-  item 14)."""
+  ``-u info``, and the refusals that remain (``-n 2``: item 14c)."""
 
 import math
 import os
@@ -514,16 +513,14 @@ def test_fluid_snapshots_cross_the_packages(tmp_path, capsys):
 
 
 def test_kept_refusals_name_their_items(tmp_path):
-    """A multi run's renders raise naming item 13, and ``-n 2`` item 14,
-    before anything is realized."""
+    """A multi run over ranks raises naming item 14c (``-n 2``) or 14b
+    (``-n 2x1``) before anything is realized.  Its renders (item 13) are
+    ported: tests/test_torch_render.py runs them."""
     from concept_tpu_torch import run as trun
     from concept_tpu_torch.param import load_params
 
     cfg = load_params(BASIC, overrides=SMALL + [f"output_dirs='{tmp_path}'"])
-    with pytest.raises(NotImplementedError, match="item 14"):
-        trun.run(cfg, device="cpu", n_devices=2)
-    sim = tsm.MultiSimulation([], [], None, None)
-    state = tsm.MultiState(particles={}, fluids={})
-    for kind in ("render2D", "render3D"):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            trun.dump_multi(cfg, sim, state, 0.5, kind, None, None)
+    for n, item in ((2, "item 14c"), ("2x1", "item 14b")):
+        with pytest.raises(NotImplementedError, match=item):
+            trun.run(cfg, device="cpu", n_devices=n)
+    assert not os.listdir(tmp_path)

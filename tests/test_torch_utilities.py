@@ -193,13 +193,14 @@ def test_submit_without_a_scheduler_writes_the_script(tmp_path, monkeypatch, cap
     assert "jobscript" in capsys.readouterr().err
 
 
-def test_renders_and_class_name_their_items(tmp_path):
-    """The renders still name their ROADMAP item; ``-u class`` is ported
-    (tests/test_torch_boltzmann.py holds it against the JAX package's)
-    and writes its file."""
-    for util, item in (("render2D", "item 13"), ("render3D", "item 13")):
-        with pytest.raises(NotImplementedError, match=item):
-            cli.main(["-u", util, "x"])
+def test_renders_and_class_name_their_items(snapshot, tmp_path):
+    """The renders (ROADMAP item 13, ported; tests/test_torch_render.py
+    holds them against the JAX package's) and ``-u class``
+    (tests/test_torch_boltzmann.py) write their files."""
+    pytest.importorskip("matplotlib")
+    for util in ("render2D", "render3D"):
+        assert cli.main(["--device", "cpu", "-u", util, snapshot]) == 0
+        assert os.path.exists(snapshot + f"_{util}_matter.png")
     pytest.importorskip("h5py")
     out = tmp_path / "class.hdf5"
     assert cli.main(["-u", "class", str(out), "--modes", "8"]) == 0
