@@ -211,6 +211,16 @@ state of phase 4 (example_basic realized at a = 0.02):
     ``Simulation(dist=...)`` against one device's (the P³M step launches
     row 6 only), the ms of the PM kick over the ranks beside one
     device's, and ``-n 2`` raising ValueError on one card.
+12. ``parallel_rungs``: the rung stepper over ranks on a world of one
+    ``nccl`` rank: rows 1, 3 and 4 over the rank's planes at the realized
+    256³ / grid 512 layout (the sweep at nx = 66 between the neighbour
+    planes, the cells on the slab with a halo row a side) against their
+    plain versions and the launches on the whole layout; 3 base steps of
+    ``P3MRungSimulation(dist=...)`` against one device's (mean |Δx|/box
+    < 1e-5, momenta 1e-5 of the largest; ms a base step and peak memory
+    both ways; rows 1, 3, 4 launched); example_basic 64³ / grid 128 from
+    a = 0.02 to 0.1 through ``RungSimulationAdapter(dist=...)``, its
+    spectrum within 1e-4 of one device's; ``-n 2`` raising ValueError.
 
 Before its last line it prints one JSON object ``{"kernels": [...]}`` and
 the card's name and power limit as nvidia-smi reports them (each kernel
@@ -272,6 +282,20 @@ def _time_ms(fn, reps: int) -> float:
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def _once_ms(fn):
+    """(fn(), its device milliseconds): one call between CUDA events, for
+    the plain versions that take seconds."""
+    import torch
+
+    _sync()
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = fn()
+    stop.record()
+    stop.synchronize()
+    return out, start.elapsed_time(stop)
 
 
 def _max_rel(got, ref) -> tuple[float, float]:
@@ -1828,8 +1852,8 @@ def lean_kick(n: int = 384, mesh: int = 768, device: str = "cuda") -> dict:
     # the same lean kick through the plain deposit and gather: what the
     # kernels add to its difference from the spectral kick
     state.mom.zero_()
-    def gather_plain(pos3, w, grids, n, box, cb, ext=None):
-        return gather_cells_plain(pos3, cut_rows(w, ext), grids, n, box, cb)
+    def gather_plain(pos3, w, grids, n, box, cb, ext=None, planes=None):
+        return gather_cells_plain(pos3, cut_rows(w, ext), grids, n, box, cb, planes=planes)
 
     with mock.patch.object(p3msim, "deposit_cells", deposit_cells_plain), \
             mock.patch.object(p3msim, "gather_cells", gather_plain):
@@ -3134,6 +3158,304 @@ def parallel(sim, state) -> dict:
     return out
 
 
+def _planes_sweep(tag: str, pos_s, sim, ext, dist) -> dict:
+    """Row 1 over a rank's planes of the layout pos_s (3, K, C) at world
+    size 1: the nc planes between their neighbour planes (nx = nc + 2,
+    the planes wrapped and shifted by ∓box, receiver bounds 0 there),
+    against its plain version at phase 2's tolerance (max|Δ|/max|ref| ≤
+    1e-5), and its own planes' rows against the launch at nx = nc."""
+    import torch
+
+    from concept_tpu_torch.forces.cuda_shortrange import (
+        OFFSETS_27, pair_sweep, pair_sweep_plain,
+    )
+    from concept_tpu_torch.forces.shortrange import SENTINEL, dtype_square
+    from concept_tpu_torch.parallel import step
+
+    nc, box = sim.nc, sim.boxsize
+    P = nc * nc
+    _, K, C = pos_s.shape
+    args = (nc, box, sim.scale, dtype_square(sim.cutoff, pos_s.dtype),
+            dtype_square(sim.softening, pos_s.dtype), sim.softening_kernel)
+    sup = step.halo_planes(pos_s, nc, box, dist)
+    zeros = torch.zeros((P,), dtype=torch.int32, device=pos_s.device)
+    rb = torch.cat([zeros, ext, zeros])
+    prev, nxt = step.neighbour_planes(ext, P, dist)
+    sb = torch.cat([prev, ext, nxt])
+
+    def kern():
+        return pair_sweep(sup, sup, *args, rext=rb, sext=sb, nx=nc + 2)
+
+    got = kern()
+    ref, plain_ms = _once_ms(lambda: pair_sweep_plain(sup, sup, *args, rext=rb, sext=sb,
+                                                      nx=nc + 2))
+    whole = pair_sweep(pos_s, pos_s, *args, rext=ext, sext=ext)
+    _sync()
+    err, rel = _max_rel(got, ref)
+    bitwise = bool(torch.equal(got[:, :, P:P + C], whole))
+    _, rel_whole = _max_rel(got[:, :, P:P + C], whole)
+    del got, ref, whole
+    ms = _time_ms(kern, 10)
+    whole_ms = _time_ms(lambda: pair_sweep(pos_s, pos_s, *args, rext=ext, sext=ext), 10)
+    tested, within, _, n_valid = _pair_work(pos_s, nc, box, args[3], args[4], OFFSETS_27)
+    flops = FLOPS_PER_TESTED_PAIR * tested + FLOPS_PER_PAIR_IN_CUTOFF * within
+    # the valid slots of the planes and their neighbour planes read, the
+    # (3, K, (nc + 2)·nc²) result written, the bounds read
+    n_sup = int((sup[0].abs() < 0.5 * SENTINEL * box).sum())
+    nbytes = pos_s.element_size() * (3 * n_sup + 3 * K * (C + 2 * P)) + 8 * (C + 2 * P)
+    bound_ms = 1e3 * max(flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S)
+    ok = rel <= 1e-5 and rel_whole <= 1e-5
+    print(f"  pair_sweep over planes ({tag}, nx = {nc + 2}): max |Δ| {err:.3e}, "
+          f"max|Δ|/max|ref| {rel:.3e} (tol 1e-5) {'ok' if ok else 'FAIL'}; its planes "
+          f"against nx = {nc}: {rel_whole:.3e} of max, bit for bit {bitwise}; {ms:.3f} ms "
+          f"(nx = {nc}: {whole_ms:.3f} ms), plain {plain_ms:.1f} ms, bound {bound_ms:.3f} ms")
+    if not ok:
+        raise SystemExit("pair_sweep over planes disagrees")
+    return dict(max_abs_err=err, max_rel_err=rel, vs_whole_rel=rel_whole,
+                bitwise_vs_whole=bitwise, ms=ms, whole_ms=whole_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by="operations" if flops / FP32_FLOPS >
+                nbytes / HBM_BYTES_PER_S else "bytes", nx=nc + 2)
+
+
+def _planes_cells(pos, valid, sim, ext, dist) -> dict:
+    """Rows 3 and 4 on a rank's planes at world size 1: the deposit into
+    the slab with a halo row a side (the nc planes, n + 2 rows), against
+    its plain version and, halo rows added, against the launch on the
+    whole mesh; the gather (D = 3 gradients) from the slab with the
+    neighbours' halo rows, against its plain version and the whole mesh's
+    gather.  Phase 2's tolerance: rtol 2e-5, atol 1e-5·max|ref|."""
+    import torch
+
+    from concept_tpu_torch.grid.cuda_cells import (
+        cut_rows, deposit_cells, deposit_cells_plain, gather_cells, gather_cells_plain,
+    )
+    from concept_tpu_torch.parallel import step
+
+    nc, box, mesh = sim.nc, sim.boxsize, sim.mesh
+    planes = (0, nc)
+    w = (valid.to(pos.dtype) * sim.mass).contiguous()
+    wv = valid.to(pos.dtype).contiguous()
+    b, live = pos.element_size(), int(valid.sum())
+    _, K, C = pos.shape
+
+    def close(got, ref):
+        err, rel = _max_rel(got, ref)
+        return err, rel, bool(torch.allclose(got, ref, rtol=2e-5,
+                                             atol=1e-5 * float(ref.abs().max())))
+
+    out = {}
+    slab = deposit_cells(pos, w, mesh, box, 8, planes=planes)
+    ref, plain_ms = _once_ms(lambda: deposit_cells_plain(pos, w, mesh, box, 8, planes=planes))
+    err, rel, ok = close(slab, ref)
+    del ref
+    whole = deposit_cells(pos, w, mesh, box, 8)
+    _, rel_whole, ok_whole = close(step.add_halo_rows(slab, 1, dist), whole)
+    rows = mesh + 2
+    dep_bytes = b * (w.numel() + 3 * live + rows * mesh**2)
+    out["deposit_cells"] = dict(
+        max_abs_err=err, max_rel_err=rel, vs_whole_rel=rel_whole,
+        ms=_time_ms(lambda: deposit_cells(pos, w, mesh, box, 8, planes=planes), 20),
+        whole_ms=_time_ms(lambda: deposit_cells(pos, w, mesh, box, 8), 20), plain_ms=plain_ms,
+        bound_ms=1e3 * max(dep_bytes / HBM_BYTES_PER_S, 60 * live / FP32_FLOPS),
+        bound_by="bytes", ok=ok and ok_whole)
+    # three distinct fields for the gather: the deposit rolled along each axis
+    grads = torch.stack([torch.roll(whole, k, dims=k) for k in range(3)]).contiguous()
+    del slab, whole
+    g_slab = step.with_halo_rows(grads, 1, dist).contiguous()
+    got = gather_cells(pos, wv, g_slab, mesh, box, 8, ext=ext, planes=planes)
+    ref, plain_ms = _once_ms(lambda: gather_cells_plain(pos, cut_rows(wv, ext), g_slab, mesh,
+                                                        box, 8, planes=planes))
+    err, rel, ok = close(got, ref)
+    _, rel_whole, ok_whole = close(got, gather_cells(pos, wv, grads, mesh, box, 8, ext=ext))
+    del got, ref
+    gat_bytes = 4 * C + b * (4 * live + 3 * rows * mesh**2 + 3 * K * C)
+    out["gather_cells"] = dict(
+        max_abs_err=err, max_rel_err=rel, vs_whole_rel=rel_whole,
+        ms=_time_ms(lambda: gather_cells(pos, wv, g_slab, mesh, box, 8, ext=ext,
+                                         planes=planes), 20),
+        whole_ms=_time_ms(lambda: gather_cells(pos, wv, grads, mesh, box, 8, ext=ext), 20),
+        plain_ms=plain_ms,
+        bound_ms=1e3 * max(gat_bytes / HBM_BYTES_PER_S, (12 + 72) * live / FP32_FLOPS),
+        bound_by="bytes", ok=ok and ok_whole)
+    for name, c in out.items():
+        print(f"  {name} over planes ({mesh + 2}-row slab): max |Δ| {c['max_abs_err']:.3e} "
+              f"({c['max_rel_err']:.3e} of max), against the whole mesh's "
+              f"{c['vs_whole_rel']:.3e} {'ok' if c['ok'] else 'FAIL'}; {c['ms']:.3f} ms "
+              f"(whole mesh {c['whole_ms']:.3f} ms), plain {c['plain_ms']:.1f} ms, bound "
+              f"{c['bound_ms']:.3f} ms")
+        if not c["ok"]:
+            raise SystemExit(f"{name} over planes disagrees")
+    return out
+
+
+def _rung_base_steps(sim, flat, a0: float, n_steps: int):
+    """``n_steps`` base steps of the rung stepper ``sim`` from the flat
+    state, as its evolve takes them (first rungs assigned, a rebucket when
+    the margin is spent): (layout, ms per base step, peak device bytes)."""
+    import torch
+
+    bg = sim.bg
+    st = sim.init_state(tuple(flat.pos[:, k] for k in range(3)),
+                        tuple(flat.mom[:, k] for k in range(3)), ids=flat.ids)
+    t = t_mom = float(bg.t_of_a_np(a0))
+    st = sim.assign_initial_rungs(st, sim._timestep(a0, 0.0))
+    v, seconds = 0.0, []
+    _sync()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    for _ in range(n_steps):
+        a = float(bg.a_of_t_np(t))
+        dt = sim._timestep(a, v)
+        t0 = time.time()
+        st, vmax = sim.base_step(st, t, dt, t_mom)
+        if sim.needs_rebucket:
+            st = sim.rebucket(st)
+        _sync()
+        seconds.append(time.time() - t0)
+        t_mom, t = t + 0.5 * dt, t + dt
+        v = vmax / (float(bg.a_of_t_np(t)) * sim.mass)
+    return st, 1e3 * sum(seconds) / n_steps, torch.cuda.max_memory_allocated() - base
+
+
+def _by_id(layout, field):
+    import torch
+
+    v = layout.valid.reshape(-1)
+    vals = getattr(layout, field).reshape(3, -1)[:, v].T
+    return vals[torch.argsort(layout.ids.reshape(-1)[v])]
+
+
+def parallel_rungs(n: int = 256, mesh: int = 512, n_steps: int = 3) -> dict:
+    """Phase 12: the rung stepper over ranks on a world of one ``nccl``
+    rank (built here: ``make_distribution(1)`` gives None).  (a) On the
+    realized n³ / grid ``mesh`` layout: rows 1, 3 and 4 over the rank's
+    planes (the sweep at nx = nc + 2, the cells on the slab with a halo
+    row a side) against their plain versions and the launches on the
+    whole layout.  (b) ``n_steps`` base steps of
+    ``P3MRungSimulation(dist=...)`` against the one-device stepper from the
+    same state: mean |Δx|/box < 1e-5 (tests/test_distributed_rungs.py:88),
+    momenta within 1e-5 of the largest; ms a base step and peak memory
+    both ways; rows 1, 3 and 4 launched.  (c) ``param/example_basic.py``
+    from a = 0.02 to 0.1 through ``RungSimulationAdapter(dist=...)``: its
+    spectrum within 1e-4 of the one-device adapter's; every count set to
+    0 just before, read just after.  (d) ``-n 2`` on this one card raises
+    ValueError.  Two ranks are not run: NCCL refuses two ranks on one
+    GPU."""
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+
+    from concept_tpu_torch.analysis.powerspec import powerspec
+    from concept_tpu_torch.forces.shortrange import SENTINEL
+    from concept_tpu_torch.grid.fft import GridDistribution
+    from concept_tpu_torch.p3mrungs import P3MRungSimulation, RungSimulationAdapter
+    from concept_tpu_torch.param import load_params
+    from concept_tpu_torch.run import run
+    from concept_tpu_torch.sim import SimConfig
+
+    t_phase = time.time()
+    store = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    tdist.init_process_group("nccl", store=tdist.FileStore(os.path.join(store, "store"), 1),
+                             rank=0, world_size=1)
+    try:
+        dist = GridDistribution()
+        # (a) the kernels over the planes
+        adapter, state = _realized_layout(n**3, mesh, "cuda")
+        sim = adapter.inner
+        K, ext = sim._K_occ, sim._ext_occ
+        print(f"parallel_rungs (world of 1 nccl rank): {n}³ particles, grid {mesh}, "
+              f"{sim.nc}³ cells, {K} slot rows")
+        pos_s = _sentineled(state, K, SENTINEL * sim.boxsize)
+        out = {"pair_sweep": _planes_sweep("realized", pos_s, sim, ext, dist)}
+        del pos_s
+        out.update(_planes_cells(state.pos[:, :K], state.valid[:K], sim, ext, dist))
+        flat = adapter._to_flat(state)
+        del state, adapter
+        # (b) base steps over the ranks against one device, each way twice
+        # in turn (the first pair warms up); the second pair is reported
+        steps, first = {}, {}
+        for tag, dd in (("single", None), ("ranks", dist)) * 2:
+            if tag in steps:
+                first[tag] = steps[tag][2:4]
+            s = P3MRungSimulation(n, sim.boxsize, sim.mass, sim.G, mesh=mesh, bg=sim.bg,
+                                  N_rungs=sim.NR, softening=sim.softening,
+                                  softening_kernel=sim.softening_kernel, device="cuda",
+                                  dist=dd)
+            _reset_counts()
+            layout, ms, peak = _rung_base_steps(s, flat, 0.02, n_steps)
+            steps[tag] = (_by_id(layout, "pos"), _by_id(layout, "mom"), ms, peak,
+                          _read_counts(), s.ucb)
+            del layout, s
+        (p1, m1, ms1, pk1, _, _), (pd, md, msd, pkd, counts, ucb) = (steps["single"],
+                                                                      steps["ranks"])
+        box = sim.boxsize
+        d = (pd - p1).abs().double()
+        d = torch.minimum(d, box - d).norm(dim=1) / box
+        _, dmom = _max_rel(md, m1)
+        out["base_steps"] = dict(
+            steps=n_steps, mean_dx=float(d.mean()), max_dx=float(d.max()), max_dmom_rel=dmom,
+            ms_per_step=msd, single_ms_per_step=ms1, peak_bytes=pkd, single_peak_bytes=pk1,
+            first_ms_and_peak={k: list(v) for k, v in first.items()}, launches=counts, ucb=ucb)
+        del steps, p1, m1, pd, md
+        bs = out["base_steps"]
+        print(f"  {n_steps} base steps over the ranks against one device: mean |Δx|/box "
+              f"{bs['mean_dx']:.3g}, max {bs['max_dx']:.3g}, max |Δp| {dmom:.3g} of the "
+              f"largest; {msd:.1f} ms a base step against {ms1:.1f}, peak "
+              f"{pkd / 2**30:.2f} / {pk1 / 2**30:.2f} GiB; launches {counts}")
+        if bs["mean_dx"] >= 1e-5 or dmom > 1e-5 or ucb != 8:
+            raise SystemExit("the rung stepper over the ranks differs from one device's")
+        _check_launches(counts, RUNG_KERNELS)
+        # (c) example_basic through the adapter over the ranks
+        cfg, consts, bg, lin, spec, soft = _example(64, 128)
+        config = SimConfig(boxsize=cfg.boxsize, potential_gridsize=128,
+                           device=torch.device("cuda"), dtype=torch.float32,
+                           G=consts.G_Newton, softening=soft,
+                           softening_kernel=cfg.softening_kernel)
+        spectra = {}
+        for tag, dd in (("single", None), ("ranks", dist)):
+            ad = RungSimulationAdapter(spec, config, bg, lin, N_rungs=cfg.N_rungs,
+                                       fac_rung=cfg.Delta_t_rung_factor, dist=dd)
+            flat = ad.initial_state(0.02, seed=0)
+            _reset_counts()
+            t0 = time.time()
+            flat, _ = ad.evolve(flat, 0.02, 0.1)
+            _sync()
+            seconds, counts = time.time() - t0, _read_counts()
+            pos = ad.whole(flat).pos
+            pk = powerspec(pos, 128, cfg.boxsize, spec.N)
+            spectra[tag] = (np.asarray(pk["power"]), seconds, counts,
+                            ad.inner.stats["base_steps"], ad.inner.stats["max_rung"])
+        (P1, s1, _, n1, _), (Pd, sd, counts, nd, rung) = spectra["single"], spectra["ranks"]
+        good = np.isfinite(P1) & (P1 > 0)
+        rel = float(np.abs(Pd[good] / P1[good] - 1).max())
+        out["example_basic"] = dict(spectrum_max_rel=rel, seconds=sd, single_seconds=s1,
+                                    base_steps=nd, single_base_steps=n1, max_rung=rung,
+                                    launches=counts)
+        print(f"  example_basic 64³ / grid 128, a = 0.02 → 0.1 through the adapter over the "
+              f"ranks: {nd} base steps in {sd:.2f} s (one device: {n1} in {s1:.2f} s), "
+              f"highest rung {rung}, spectrum within {rel:.3g} of one device's; launches "
+              f"{counts}")
+        if not rel <= 1e-4 or not np.isfinite(Pd[good]).all():
+            raise SystemExit("the spectrum over the ranks differs from one device's")
+        _check_launches(counts, RUNG_KERNELS)
+        # (d)
+        try:
+            run(load_params(PARAM), n_devices=2)
+        except ValueError as e:
+            out["n2_error"] = str(e)
+        else:
+            raise SystemExit("-n 2 on one card did not raise ValueError")
+    finally:
+        tdist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    out["seconds"] = time.time() - t_phase
+    print(f"parallel_rungs: -n 2 on one card: ValueError({out['n2_error']!r}); "
+          f"{out['seconds']:.1f} s")
+    print("parallel_rungs: multi-rank NCCL is not run on one H100 (NCCL refuses two ranks "
+          "on one card); tests/test_torch_parallel_rungs.py runs 2 and 4 gloo ranks on the CPU")
+    return out
+
+
 # (name, counter, phase with its check, key, source, the TPU kernel's
 # definition, the newest path that launches the kernel (its launch count)
 # or None where no path runs it)
@@ -3166,6 +3488,15 @@ KERNELS = (
 )
 
 
+def _timed(seconds: dict, name: str, fn, *args, **kw):
+    """fn(*args, **kw), its wall seconds printed and kept in ``seconds``."""
+    t0 = time.time()
+    out = fn(*args, **kw)
+    seconds[name] = time.time() - t0
+    print(f"[{name}: {seconds[name]:.1f} s]")
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", help="also write every measured number to this JSON file")
@@ -3181,44 +3512,51 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = _nvidia_smi()
     results = {"nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda}
+    seconds = results["phase_seconds"] = {}
     results.update(build())
-    results["check"] = check_kernels()
-    results["main_path"] = main_path()
-    results["realistic"] = realistic(check_pm=True)
-    results["check_global"] = check_global_kernels()
-    results["global_main_path"] = global_main_path()
-    results["global_realistic"] = global_realistic()
-    results["check_reach"] = check_reach_kernels()
-    results["reach_main_path"] = _layout_main_path("reach", 62, 124, 4, REACH_KERNELS)
-    results["tight_main_path"] = _layout_main_path("tight", 63, 126, 0, TIGHT_KERNELS)
-    results["reach_realistic"] = realistic(n=250, mesh=500, ucb=4, kernels=REACH_KERNELS)
-    results["tight_realistic"] = realistic(n=255, mesh=510, ucb=0, kernels=TIGHT_KERNELS)
-    results["check_pm_only"] = check_pm_only_kernels()
-    results["pm_only_main_path"] = pm_only_main_path()
-    results["pm_only_realistic"] = pm_only_realistic()
-    results["bucket_flagship"] = bucket_flagship()
-    results["bucket_sustained"] = bucket_sustained()
-    results["p3m_persistent"] = p3m_persistent()
-    results["global_rungs"] = global_rungs()
-    results["lean_kick"] = lean_kick()
-    results["lpt"] = lpt()
-    results["files"] = files()
-    results["check_f64"] = check_f64()
-    results["f64_paths"] = f64_main_paths(results)
-    results["f64_global_rungs"] = global_rungs(dtype=torch.float64)
-    results["f64_realistic"] = realistic(f64=True)
-    results["pp"] = pp_phase()
+    results["check"] = _timed(seconds, "check", check_kernels)
+    results["main_path"] = _timed(seconds, "main_path", main_path)
+    results["realistic"] = _timed(seconds, "realistic", realistic, check_pm=True)
+    results["check_global"] = _timed(seconds, "check_global", check_global_kernels)
+    results["global_main_path"] = _timed(seconds, "global_main_path", global_main_path)
+    results["global_realistic"] = _timed(seconds, "global_realistic", global_realistic)
+    results["check_reach"] = _timed(seconds, "check_reach", check_reach_kernels)
+    results["reach_main_path"] = _timed(
+        seconds, "reach_main_path", _layout_main_path, "reach", 62, 124, 4, REACH_KERNELS)
+    results["tight_main_path"] = _timed(
+        seconds, "tight_main_path", _layout_main_path, "tight", 63, 126, 0, TIGHT_KERNELS)
+    results["reach_realistic"] = _timed(
+        seconds, "reach_realistic", realistic, n=250, mesh=500, ucb=4, kernels=REACH_KERNELS)
+    results["tight_realistic"] = _timed(
+        seconds, "tight_realistic", realistic, n=255, mesh=510, ucb=0, kernels=TIGHT_KERNELS)
+    results["check_pm_only"] = _timed(seconds, "check_pm_only", check_pm_only_kernels)
+    results["pm_only_main_path"] = _timed(seconds, "pm_only_main_path", pm_only_main_path)
+    results["pm_only_realistic"] = _timed(seconds, "pm_only_realistic", pm_only_realistic)
+    results["bucket_flagship"] = _timed(seconds, "bucket_flagship", bucket_flagship)
+    results["bucket_sustained"] = _timed(seconds, "bucket_sustained", bucket_sustained)
+    results["p3m_persistent"] = _timed(seconds, "p3m_persistent", p3m_persistent)
+    results["global_rungs"] = _timed(seconds, "global_rungs", global_rungs)
+    results["lean_kick"] = _timed(seconds, "lean_kick", lean_kick)
+    results["lpt"] = _timed(seconds, "lpt", lpt)
+    results["files"] = _timed(seconds, "files", files)
+    results["check_f64"] = _timed(seconds, "check_f64", check_f64)
+    results["f64_paths"] = _timed(seconds, "f64_paths", f64_main_paths, results)
+    results["f64_global_rungs"] = _timed(
+        seconds, "f64_global_rungs", global_rungs, dtype=torch.float64)
+    results["f64_realistic"] = _timed(seconds, "f64_realistic", realistic, f64=True)
+    results["pp"] = _timed(seconds, "pp", pp_phase)
     cache = tempfile.mkdtemp(prefix="chip_smoke_eb_")
     try:
-        results["nu"] = nu_cosmology(cache=cache)
-        results["multi"] = multi(cache)
+        results["nu"] = _timed(seconds, "nu", nu_cosmology, cache=cache)
+        results["multi"] = _timed(seconds, "multi", multi, cache)
     finally:
         shutil.rmtree(cache, ignore_errors=True)
     results["multi_cdm_baryon"] = results["multi"]["cdm_baryon"]
     sim, state = _global_sim(256**3, 512, "cuda", method="pm")
-    results["render"] = render(sim, state)
-    results["parallel"] = parallel(sim, state)
+    results["render"] = _timed(seconds, "render", render, sim, state)
+    results["parallel"] = _timed(seconds, "parallel", parallel, sim, state)
     del sim, state
+    results["parallel_rungs"] = _timed(seconds, "parallel_rungs", parallel_rungs)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
@@ -3289,6 +3627,14 @@ def main(argv=None) -> int:
             "max_abs_err", "max_rel_err", "tol_rel", "ms", "plain_ms", "bound_ms")})
     byname["pair_sweep_two_sided"]["parallel_launches"] = (
         results["parallel"]["p3m"]["launches"]["pair_sweep"])
+    # rows 1, 3 and 4 over a rank's planes (phase 12): their checks, and
+    # their launches by the base steps and by example_basic over the ranks
+    pr = results["parallel_rungs"]
+    for name in RUNG_KERNELS:
+        byname[name].update({f"planes_{k}": pr[name][k] for k in (
+            "max_abs_err", "max_rel_err", "ms", "whole_ms", "plain_ms", "bound_ms")})
+        byname[name]["planes_launches"] = pr["example_basic"]["launches"][name]
+        byname[name]["planes_base_steps_launches"] = pr["base_steps"]["launches"][name]
     byname["pair_sweep_two_sided"]["multi_nonlinnu_all_rows_vs_f64_kernel"] = (
         mp["nonlinnu"]["row6_final"]["all_rows_vs_f64_kernel"])
     for name in ("deposit_pm", "gather_pm"):

@@ -10,7 +10,14 @@
 // Columns are cubes cb mesh cells wide, C = nc³ of them: the rung
 // stepper's cells (cb = 8 or 4, ids x-major: c = (cx·nc + cy)·nc + cz) or
 // the global and bucket steppers' PM blocks (cb = 2, ids z-major: c =
-// (cz·nc + cy)·nc + cx); both are launch arguments.  A slot takes part
+// (cz·nc + cy)·nc + cx); both are launch arguments.  The cells may also be
+// a rank's nx planes of columns from global plane x0 on (C = nx·nc², the
+// rung stepper over ranks): the mesh is then the rank's slab with one halo
+// row a side, nx·cb + 2 rows along x from global mesh row x0·cb − 1, not
+// wrapped along x (a slot's anchor row is its column's local plane·cb +
+// its offset in the column's halo, 0 to cb), and the caller adds the halo
+// rows to its neighbours' slabs (deposit) or fills them from there
+// (gather).  A slot takes part
 // only when its CIC cloud lies inside its column's ±1-mesh-cell halo, the
 // test of _cell_geometry (pallas_cells.py:133) and _slot_geometry
 // (pallas_pm.py:182): the TPU kernels fill a (cb+2)³ mini-grid per column
@@ -150,18 +157,21 @@ __device__ __forceinline__ void copy_quad(T* dst, const T* src) {
 template <typename T>
 struct Geometry {
   int ix, iy, iz;  // anchor mesh indices (unwrapped, ≥ −1)
+  int lx;          // the anchor's offset along x in the column's halo
   T fx, fy, fz;
   bool in_halo;
 };
 
+// Column c of a grid whose x planes start at global plane x0 (x-major ids;
+// x0 = 0 with z-major ids).
 template <typename T>
 __device__ __forceinline__ Geometry<T> cell_geometry(T px, T py, T pz, int c, int nc, int cb,
-                                                     bool zmajor, T inv_h) {
+                                                     bool zmajor, T inv_h, int x0 = 0) {
   // round-to-nearest intrinsics keep u = p·inv_h − ½ unfused, as the
   // reference and the plain version form it, so the halo test agrees
   using N = Num<T>;
   const int fast = c % nc, cy = (c / nc) % nc, slow = c / (nc * nc);
-  const int cx = zmajor ? fast : slow, cz = zmajor ? slow : fast;
+  const int cx = (zmajor ? fast : slow) + x0, cz = zmajor ? slow : fast;
   Geometry<T> g;
   const T ux = N::add(N::mul(px, inv_h), T(-0.5));
   const T uy = N::add(N::mul(py, inv_h), T(-0.5));
@@ -180,6 +190,7 @@ __device__ __forceinline__ Geometry<T> cell_geometry(T px, T py, T pz, int c, in
   const int lx = (g.ix - cx * cb + 1 + n) % n;
   const int ly = (g.iy - cy * cb + 1 + n) % n;
   const int lz = (g.iz - cz * cb + 1 + n) % n;
+  g.lx = lx;
   g.in_halo = lx <= cb && ly <= cb && lz <= cb;
   return g;
 }
@@ -212,32 +223,38 @@ struct SlotTile {
                 "a tile's columns divide the CTA's threads");
   static_assert(!QUADS || TZ * CB % 4 == 0, "a tile's rows along z hold whole quads");
 
-  int nc, n;
-  int cx0, cy0, cz0;  // the tile's first column along x, y, z
-  int ex, ey, ez;     // its extent inside the mesh, in columns
+  int nc, nx, x0, n;  // nx planes of columns along x from global plane x0
+  bool slab;          // the mesh: the planes' slab + a halo row a side
+  int cx0, cy0, cz0;  // the tile's first column along x (local), y, z
+  int ex, ey, ez;     // its extent inside the grid, in columns
   int lcx, lcy, lcz;  // this thread's column in the tile
   int row;            // this thread's first row in a chunk
-  bool inside;        // its column lies inside the mesh
+  bool inside;        // its column lies inside the grid
   long long c;        // its column id
 
-  static int count(int nc) {
-    return ((nc + TS - 1) / TS) * ((nc + TM - 1) / TM) * ((nc + TF - 1) / TF);
+  // the columns along the id's slow and fast axes (x is the slow axis of
+  // x-major ids; z-major ids take nx = nc)
+  static int count(int nc, int nx) {
+    const int ns = ZMAJOR ? nc : nx, nf = ZMAJOR ? nx : nc;
+    return ((ns + TS - 1) / TS) * ((nc + TM - 1) / TM) * ((nf + TF - 1) / TF);
   }
 
   // blockIdx.x's tile, fast axis fastest
-  __device__ explicit SlotTile(int nc_) : nc(nc_), n(nc_ * CB) {
-    const int nf = (nc + TF - 1) / TF, nm = (nc + TM - 1) / TM;
+  __device__ SlotTile(int nc_, int nx_, int x0_, bool slab_)
+      : nc(nc_), nx(nx_), x0(x0_), n(nc_ * CB), slab(slab_) {
+    const int NS = ZMAJOR ? nc : nx, NF = ZMAJOR ? nx : nc;
+    const int nf = (NF + TF - 1) / TF, nm = (nc + TM - 1) / TM;
     const int t = blockIdx.x;
     const int f0 = (t % nf) * TF, m0 = ((t / nf) % nm) * TM, s0 = (t / (nf * nm)) * TS;
     const int k = threadIdx.x % kCols;
     const int tf = k % TF, tm = (k / TF) % TM, ts = k / (TF * TM);
     row = threadIdx.x / kCols;
-    inside = s0 + ts < nc && m0 + tm < nc && f0 + tf < nc;
-    c = ((long long)(s0 + ts) * nc + m0 + tm) * nc + f0 + tf;
+    inside = s0 + ts < NS && m0 + tm < nc && f0 + tf < NF;
+    c = ((long long)(s0 + ts) * nc + m0 + tm) * NF + f0 + tf;
     cx0 = ZMAJOR ? f0 : s0;
     cy0 = m0;
     cz0 = ZMAJOR ? s0 : f0;
-    ex = min(TX, nc - cx0);
+    ex = min(TX, nx - cx0);
     ey = min(TM, nc - cy0);
     ez = min(TZ, nc - cz0);
     lcx = ZMAJOR ? tf : ts;
@@ -258,7 +275,7 @@ struct SlotTile {
     f[0] = N::sub(ux, ax);
     f[1] = N::sub(uy, ay);
     f[2] = N::sub(uz, az);
-    const int lx = ((int)ax - (cx0 + lcx) * CB + 1 + n) % n;
+    const int lx = ((int)ax - (x0 + cx0 + lcx) * CB + 1 + n) % n;
     const int ly = ((int)ay - (cy0 + lcy) * CB + 1 + n) % n;
     const int lz = ((int)az - (cz0 + lcz) * CB + 1 + n) % n;
     // unsigned: a negative remainder (a position far outside the box) is
@@ -276,8 +293,9 @@ struct SlotTile {
   }
 
   // Call quad(s, g) or scalar(s, g) on every run of the clipped tile's
-  // halo: s its first shared index, g its first global mesh index (the
-  // periodic wrap taken).  With QUADS the interior of a row along z goes
+  // halo: s its first shared index, g its first mesh index (the periodic
+  // wrap taken; along x none on a slab mesh, whose row 0 is the halo row
+  // below the first plane).  With QUADS the interior of a row along z goes
   // by aligned quads when ``vec`` (the mesh rows are 16-byte aligned:
   // n % 4 = 0); the rest cell by cell.
   template <class Scalar, class Quad>
@@ -286,8 +304,8 @@ struct SlotTile {
     for (int it = threadIdx.x; it < HX * HY * kItems; it += kThreads) {
       const int k = it % kItems, hy = (it / kItems) % HY, hx = it / (kItems * HY);
       if (hx > ex * CB + 1 || hy > ey * CB + 1) continue;
-      const long long row =
-          ((long long)wrap(cx0 * CB - 1 + hx, n) * n + wrap(cy0 * CB - 1 + hy, n)) * n;
+      const int gx = slab ? cx0 * CB + hx : wrap(cx0 * CB - 1 + hx, n);
+      const long long row = ((long long)gx * n + wrap(cy0 * CB - 1 + hy, n)) * n;
       int lo = k, hi = k + 1;
       if (QUADS) {
         lo = k == 0 ? 0 : (k <= kQuads ? 4 * k - 3 : HZ - 1);
@@ -308,7 +326,7 @@ struct SlotTile {
   __device__ __forceinline__ int weights(const T* __restrict__ w, int K,
                                          const int* __restrict__ ext, T q[SLOTS]) const {
     const int kend = !inside ? 0 : (ext ? min(K, ext[c]) : K);
-    const long long C = (long long)nc * nc * nc;
+    const long long C = (long long)nx * nc * nc;
     const int r0 = blockIdx.y * (SLOTS * kRowStep) + row;
 #pragma unroll
     for (int s = 0; s < SLOTS; ++s) {
@@ -323,11 +341,11 @@ template <typename T, int CB, bool ZMAJOR, bool QUADS, int TS, int TM, int TF, i
 __global__ void __launch_bounds__(kThreads)
 deposit_tile_kernel(const T* __restrict__ px, const T* __restrict__ py,
                     const T* __restrict__ pz, const T* __restrict__ w, int K, int nc,
-                    T inv_h, const int* __restrict__ ext, bool vec,
-                    T* __restrict__ grid) {
+                    int nx, int x0, bool slab, T inv_h, const int* __restrict__ ext,
+                    bool vec, T* __restrict__ grid) {
   using Tile = SlotTile<CB, ZMAJOR, QUADS, TS, TM, TF>;
   T* halo = shared_halo(static_cast<T*>(nullptr));  // kCells
-  const Tile tile(nc);
+  const Tile tile(nc, nx, x0, slab);
   T q[SLOTS];
   tile.template weights<SLOTS>(w, K, ext, q);
   bool live = false;
@@ -336,7 +354,7 @@ deposit_tile_kernel(const T* __restrict__ px, const T* __restrict__ py,
   if (!__syncthreads_or(live)) return;
   for (int s = threadIdx.x; s < Tile::kCells; s += kThreads) halo[s] = T(0);
   __syncthreads();
-  const long long C = (long long)nc * nc * nc;
+  const long long C = (long long)nx * nc * nc;
   const int r0 = blockIdx.y * (SLOTS * Tile::kRowStep) + tile.row;
 #pragma unroll
   for (int s = 0; s < SLOTS; ++s) {
@@ -376,7 +394,7 @@ gather_tile_kernel(const T* __restrict__ px, const T* __restrict__ py,
                    const T* __restrict__ grids, int D, T* __restrict__ out) {
   using Tile = SlotTile<CB, ZMAJOR, QUADS, TS, TM, TF>;
   T* halo = shared_halo(static_cast<T*>(nullptr));  // D × kCells
-  const Tile tile(nc);
+  const Tile tile(nc, nc, 0, false);  // the whole periodic mesh
   T q[SLOTS];
   const int kout = tile.template weights<SLOTS>(w, K, ext, q);  // rows written
   bool live = false;
@@ -487,12 +505,12 @@ template <typename T, int CB, int ROWS>
 __global__ void __launch_bounds__(kThreads)
 gather_columns_kernel(const T* __restrict__ px, const T* __restrict__ py,
                       const T* __restrict__ pz, const T* __restrict__ w, int K, int nc,
-                      T inv_h, const int* __restrict__ ext, const T* __restrict__ grids,
-                      int D, T* __restrict__ out) {
+                      int nx, int x0, bool slab, T inv_h, const int* __restrict__ ext,
+                      const T* __restrict__ grids, int D, T* __restrict__ out) {
   using Slab = ColumnSlab<ROWS>;
   constexpr int P = Slab::kPitch, S = Slab::kSize;
   T* sw = shared_halo(static_cast<T*>(nullptr));  // 4 × S
-  const int C = nc * nc * nc;
+  const int C = nx * nc * nc;
   const int chunks = (K + ROWS - 1) / ROWS;
   const int r0 = (blockIdx.x % chunks) * ROWS;
   const int c0 = (blockIdx.x / chunks) * kGroup;
@@ -514,13 +532,15 @@ gather_columns_kernel(const T* __restrict__ px, const T* __restrict__ py,
   }
   if (__syncthreads_or(live)) {
     const int n = nc * CB;
-    const long long n3 = (long long)n * n * n;
+    const long long n3 = (long long)(slab ? nx * CB + 2 : n) * n * n;
     for (int it = warp; it < ROWS; it += kWarps) {  // 32 slots a pass
       const int col = it * (32 / ROWS) + lane / ROWS, k = (lane % ROWS) * P + col;
       const T q = sw[k];
       if (q == T(0)) continue;
-      const Geometry<T> g =
-          cell_geometry(sw[S + k], sw[2 * S + k], sw[3 * S + k], c0 + col, nc, CB, false, inv_h);
+      const Geometry<T> g = cell_geometry(sw[S + k], sw[2 * S + k], sw[3 * S + k], c0 + col,
+                                          nc, CB, false, inv_h, x0);
+      // a slab mesh's rows: the column's local plane·cb + the halo offset
+      const int sx = (c0 + col) / (nc * nc) * CB + g.lx;
       if (!g.in_halo) {
         sw[k] = T(0);
         continue;
@@ -530,7 +550,7 @@ gather_columns_kernel(const T* __restrict__ px, const T* __restrict__ py,
 #pragma unroll
       for (int a = 0; a < 2; ++a) {
         const T wx = a ? g.fx : T(1) - g.fx;
-        const long long ox = (long long)wrap(g.ix + a, n) * n;
+        const long long ox = (long long)(slab ? sx + a : wrap(g.ix + a, n)) * n;
 #pragma unroll
         for (int b = 0; b < 2; ++b) {
           const T wy = b ? g.fy : T(1) - g.fy;
@@ -577,7 +597,8 @@ static int shared_bytes(Kernel kernel, size_t bytes, size_t& allowed) {
 
 template <typename T, int CB, bool ZMAJOR, bool QUADS, int TS, int TM, int TF, int SLOTS>
 static int deposit_tiles(const T* px, const T* py, const T* pz, const T* w, int K, int nc,
-                         T inv_h, const int* ext, T* grid, cudaStream_t stream) {
+                         int nx, int x0, bool slab, T inv_h, const int* ext, T* grid,
+                         cudaStream_t stream) {
   using Tile = SlotTile<CB, ZMAJOR, QUADS, TS, TM, TF>;
   if (K <= 0 || nc <= 0) return 0;
   const size_t bytes = sizeof(T) * Tile::kCells;
@@ -585,9 +606,9 @@ static int deposit_tiles(const T* px, const T* py, const T* pz, const T* w, int 
   static size_t allowed = 0;
   if (int err = shared_bytes(kernel, bytes, allowed)) return err;
   const int rows = SLOTS * Tile::kRowStep;
-  const dim3 grid_dims(Tile::count(nc), (K + rows - 1) / rows);
-  kernel<<<grid_dims, kThreads, bytes, stream>>>(px, py, pz, w, K, nc, inv_h, ext,
-                                                 nc * CB % 4 == 0, grid);
+  const dim3 grid_dims(Tile::count(nc, nx), (K + rows - 1) / rows);
+  kernel<<<grid_dims, kThreads, bytes, stream>>>(px, py, pz, w, K, nc, nx, x0, slab, inv_h,
+                                                 ext, nc * CB % 4 == 0, grid);
   return (int)cudaGetLastError();
 }
 
@@ -602,7 +623,7 @@ static int gather_tiles(const T* px, const T* py, const T* pz, const T* w, int K
   static size_t allowed = 0;
   if (int err = shared_bytes(kernel, bytes, allowed)) return err;
   const int rows = SLOTS * Tile::kRowStep;
-  const dim3 grid_dims(Tile::count(nc), (K + rows - 1) / rows);
+  const dim3 grid_dims(Tile::count(nc, nc), (K + rows - 1) / rows);
   kernel<<<grid_dims, kThreads, bytes, stream>>>(px, py, pz, w, K, nc, inv_h, ext,
                                                  nc * CB % 4 == 0, grids, D, out);
   return (int)cudaGetLastError();
@@ -611,18 +632,19 @@ static int gather_tiles(const T* px, const T* py, const T* pz, const T* w, int K
 // The cells' gather: one launch for every 3 fields (the slab holds 3).
 template <typename T, int CB, int ROWS>
 static int gather_columns(const T* px, const T* py, const T* pz, const T* w, int K, int nc,
-                          T inv_h, const int* ext, const T* grids, int D, T* out,
-                          cudaStream_t stream) {
+                          int nx, int x0, bool slab, T inv_h, const int* ext, const T* grids,
+                          int D, T* out, cudaStream_t stream) {
   if (K <= 0 || nc <= 0) return 0;
   const size_t bytes = ColumnSlab<ROWS>::template bytes<T>();
   auto kernel = gather_columns_kernel<T, CB, ROWS>;
   static size_t allowed = 0;
   if (int err = shared_bytes(kernel, bytes, allowed)) return err;
-  const long long C = (long long)nc * nc * nc, n = (long long)nc * CB;
+  const long long C = (long long)nx * nc * nc, n = (long long)nc * CB;
+  const long long mesh = (slab ? nx * CB + 2 : n) * n * n;
   const long long blocks = (C + kGroup - 1) / kGroup * ((K + ROWS - 1) / ROWS);
   for (int d0 = 0; d0 < D; d0 += 3) {
     kernel<<<(unsigned)blocks, kThreads, bytes, stream>>>(
-        px, py, pz, w, K, nc, inv_h, ext, grids + d0 * n * n * n, min(3, D - d0),
+        px, py, pz, w, K, nc, nx, x0, slab, inv_h, ext, grids + d0 * mesh, min(3, D - d0),
         out + d0 * K * C);
     if (int err = (int)cudaGetLastError()) return err;
   }
@@ -639,63 +661,87 @@ static int gather_columns(const T* px, const T* py, const T* pz, const T* w, int
 // The cells' gather: slabs of 16 rows (32 columns).
 constexpr int kSlabRows = 16;
 
+// The whole periodic mesh (slab 0: nx = nc, x0 = 0), or a rank's planes
+// on their slab mesh (slab 1, cells only).
+static bool planes_ok(int nc, int cb, int zmajor, int nx, int x0, int slab) {
+  if (!slab) return nx == nc && x0 == 0;
+  return !zmajor && (cb == 8 || cb == 4) && nx >= 1 && x0 >= 0 && x0 + nx <= nc;
+}
+
 template <typename T>
 static int deposit(const T* px, const T* py, const T* pz, const T* w, int K, int nc, int cb,
-                   int zmajor, T inv_h, const int* ext, T* grid, void* stream) {
+                   int zmajor, int nx, int x0, int slab, T inv_h, const int* ext, T* grid,
+                   void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
+  if (!planes_ok(nc, cb, zmajor, nx, x0, slab)) return (int)cudaErrorInvalidValue;
   if (cb == 8 && !zmajor)
-    return deposit_tiles<T, CELLS8_TILE>(px, py, pz, w, K, nc, inv_h, ext, grid, s);
+    return deposit_tiles<T, CELLS8_TILE>(px, py, pz, w, K, nc, nx, x0, slab, inv_h, ext, grid,
+                                         s);
   if (cb == 4 && !zmajor)
-    return deposit_tiles<T, CELLS4_TILE>(px, py, pz, w, K, nc, inv_h, ext, grid, s);
+    return deposit_tiles<T, CELLS4_TILE>(px, py, pz, w, K, nc, nx, x0, slab, inv_h, ext, grid,
+                                         s);
   if (cb == 2 && zmajor)
-    return deposit_tiles<T, BLOCKS_TILE>(px, py, pz, w, K, nc, inv_h, ext, grid, s);
+    return deposit_tiles<T, BLOCKS_TILE>(px, py, pz, w, K, nc, nc, 0, false, inv_h, ext, grid,
+                                         s);
   return (int)cudaErrorInvalidValue;
 }
 
 template <typename T>
 static int gather(const T* px, const T* py, const T* pz, const T* w, int K, int nc, int cb,
-                  int zmajor, T inv_h, const int* ext, const T* grids, int D, T* out,
-                  void* stream) {
+                  int zmajor, int nx, int x0, int slab, T inv_h, const int* ext,
+                  const T* grids, int D, T* out, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
+  if (!planes_ok(nc, cb, zmajor, nx, x0, slab)) return (int)cudaErrorInvalidValue;
   if (cb == 2 && zmajor)
     return gather_tiles<T, BLOCKS_TILE>(px, py, pz, w, K, nc, inv_h, ext, grids, D, out, s);
   if (cb == 8 && !zmajor)
-    return gather_columns<T, 8, kSlabRows>(px, py, pz, w, K, nc, inv_h, ext, grids, D, out, s);
+    return gather_columns<T, 8, kSlabRows>(px, py, pz, w, K, nc, nx, x0, slab, inv_h, ext,
+                                           grids, D, out, s);
   if (cb == 4 && !zmajor)
-    return gather_columns<T, 4, kSlabRows>(px, py, pz, w, K, nc, inv_h, ext, grids, D, out, s);
+    return gather_columns<T, 4, kSlabRows>(px, py, pz, w, K, nc, nx, x0, slab, inv_h, ext,
+                                           grids, D, out, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// px, py, pz, w: (K, C) float32 with rows contiguous (row stride C);
-// ext: (C,) int32 row extents or null; grid (n, n, n) contiguous, zeroed
-// by the caller.  Columns: cb 8 or 4 with x-major ids (zmajor 0), or cb 2
-// with z-major ids (zmajor 1).  Returns the cudaError_t of the launch.
+// px, py, pz, w: (K, C) float32 with rows contiguous (row stride C), C =
+// nx·nc²; ext: (C,) int32 row extents or null; grid contiguous, zeroed by
+// the caller: (n, n, n) with slab 0 (nx = nc, x0 = 0), (nx·cb + 2, n, n)
+// with slab 1.  Columns: cb 8 or 4 with x-major ids (zmajor 0), or cb 2
+// with z-major ids (zmajor 1, slab 0).  Returns the cudaError_t of the
+// launch.
 extern "C" int cic_deposit_launch(const float* px, const float* py, const float* pz,
-                                  const float* w, int K, int nc, int cb, int zmajor,
-                                  float inv_h, const int* ext, float* grid, void* stream) {
-  return deposit<float>(px, py, pz, w, K, nc, cb, zmajor, inv_h, ext, grid, stream);
+                                  const float* w, int K, int nc, int cb, int zmajor, int nx,
+                                  int x0, int slab, float inv_h, const int* ext, float* grid,
+                                  void* stream) {
+  return deposit<float>(px, py, pz, w, K, nc, cb, zmajor, nx, x0, slab, inv_h, ext, grid,
+                        stream);
 }
 
-// grids (D, n, n, n) contiguous; out (D, K, C) contiguous, every entry
-// written.  The blocks (cb 2, z-major) take the tiled kernel, the cells
-// (cb 8 or 4, x-major) the column slabs; both take extents.
+// grids (D, mesh) contiguous, mesh as the deposit's; out (D, K, C)
+// contiguous, every entry written.  The blocks (cb 2, z-major) take the
+// tiled kernel, the cells (cb 8 or 4, x-major) the column slabs; both take
+// extents.
 extern "C" int cic_gather_launch(const float* px, const float* py, const float* pz,
-                                 const float* w, int K, int nc, int cb, int zmajor,
-                                 float inv_h, const int* ext, const float* grids, int D,
-                                 float* out, void* stream) {
-  return gather<float>(px, py, pz, w, K, nc, cb, zmajor, inv_h, ext, grids, D, out, stream);
+                                 const float* w, int K, int nc, int cb, int zmajor, int nx,
+                                 int x0, int slab, float inv_h, const int* ext,
+                                 const float* grids, int D, float* out, void* stream) {
+  return gather<float>(px, py, pz, w, K, nc, cb, zmajor, nx, x0, slab, inv_h, ext, grids, D,
+                       out, stream);
 }
 
 // The same two in double: every position, weight and mesh array float64.
 extern "C" int cic_deposit_launch_f64(const double* px, const double* py, const double* pz,
                                       const double* w, int K, int nc, int cb, int zmajor,
-                                      double inv_h, const int* ext, double* grid, void* stream) {
-  return deposit<double>(px, py, pz, w, K, nc, cb, zmajor, inv_h, ext, grid, stream);
+                                      int nx, int x0, int slab, double inv_h, const int* ext,
+                                      double* grid, void* stream) {
+  return deposit<double>(px, py, pz, w, K, nc, cb, zmajor, nx, x0, slab, inv_h, ext, grid,
+                         stream);
 }
 
 extern "C" int cic_gather_launch_f64(const double* px, const double* py, const double* pz,
                                      const double* w, int K, int nc, int cb, int zmajor,
-                                     double inv_h, const int* ext, const double* grids, int D,
-                                     double* out, void* stream) {
-  return gather<double>(px, py, pz, w, K, nc, cb, zmajor, inv_h, ext, grids, D, out, stream);
+                                     int nx, int x0, int slab, double inv_h, const int* ext,
+                                     const double* grids, int D, double* out, void* stream) {
+  return gather<double>(px, py, pz, w, K, nc, cb, zmajor, nx, x0, slab, inv_h, ext, grids, D,
+                        out, stream);
 }

@@ -14,9 +14,12 @@
 // offsets of |d| ≤ 1 for cells at least a cutoff wide, or the kept
 // offsets of |d| ≤ 2 (kept_offsets: 117 of 125) for the rung stepper's
 // cells 4 mesh cells wide, which are narrower than the cutoff.  Columns
-// are cells of an n³ grid with x-major, z-fastest ids; a neighbour across
-// a box face is seen at ±boxsize (for |d| ≤ 2 and n ≥ 5 every offset of
-// a column names a distinct column).  Invalid slots hold a far sentinel
+// are cells of an nx × n × n grid with x-major, z-fastest ids (nx = n: the
+// whole box; nx = n/d + 2: a rank's planes of columns between the two
+// neighbour planes it received, which the rank's row bounds leave without
+// receivers, so that no kept receiver reaches the wrap along x); a
+// neighbour across a face of the grid is seen at ±boxsize (for |d| ≤ 2 and
+// n, nx ≥ 5 every offset of a column names a distinct column).  Invalid slots hold a far sentinel
 // (±1e4·boxsize), so the cutoff mask removes them; coincident sentinels
 // give r² = 0, removed by r² > 0.  Optional per-column row bounds rb, sb
 // (C,): rows of column c at or beyond rb[c] output exactly 0, and the
@@ -210,7 +213,7 @@ template <typename T>
 struct Geometry {
   const T* sup;
   long long sup_cs, C;
-  int K_s, n;
+  int K_s, n, nx;  // C = nx·n² columns
   const int* sb;
   T boxsize;
 };
@@ -220,12 +223,12 @@ template <typename T>
 __device__ __forceinline__ int neighbour(const Geometry<T>& G, int ci, int cj,
                                          int ck, const signed char* d,
                                          T& hx, T& hy, T& hz) {
-  const int n = G.n;
+  const int n = G.n, nx = G.nx;
   int ni = ci + d[0], nj = cj + d[1], nk = ck + d[2];
-  hx = ni < 0 ? -G.boxsize : (ni >= n ? G.boxsize : T(0));
+  hx = ni < 0 ? -G.boxsize : (ni >= nx ? G.boxsize : T(0));
   hy = nj < 0 ? -G.boxsize : (nj >= n ? G.boxsize : T(0));
   hz = nk < 0 ? -G.boxsize : (nk >= n ? G.boxsize : T(0));
-  ni = (ni + n) % n;
+  ni = (ni + nx) % nx;
   nj = (nj + n) % n;
   nk = (nk + n) % n;
   return (ni * n + nj) * n + nk;
@@ -563,7 +566,8 @@ __global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS) pair_sweep_kernel_reac
 
 template <typename T, int REACH_BLOCKS>
 static int launch(const T* recv, long long recv_cs, int K_r, const T* sup, long long sup_cs,
-                  int K_s, int n, const int* rb, const int* sb, T* out, T boxsize, T inv_scale,
+                  int K_s, int n, int nx, const int* rb, const int* sb, T* out, T boxsize,
+                  T inv_scale,
                   T cutoff2, T soft2, int kernel, const float* coef,
                   const signed char* offsets, int n_offsets, void* stream) {
   if (n_offsets < 1 || n_offsets > MAX_OFFSETS) return (int)cudaErrorInvalidValue;
@@ -584,9 +588,10 @@ static int launch(const T* recv, long long recv_cs, int K_r, const T* sup, long 
   Geometry<T> G;
   G.sup = sup;
   G.sup_cs = sup_cs;
-  G.C = (long long)n * n * n;
+  G.C = (long long)nx * n * n;
   G.K_s = K_s;
   G.n = n;
+  G.nx = nx;
   G.sb = sb;
   G.boxsize = boxsize;
   if (n_offsets <= 27) {
@@ -603,21 +608,21 @@ static int launch(const T* recv, long long recv_cs, int K_r, const T* sup, long 
   return (int)cudaGetLastError();
 }
 
-// recv (3, K_r, C) and sup (3, K_s, C) float32, rows contiguous with row
-// stride C and component strides recv_cs / sup_cs; out (3, K_r, C)
-// contiguous.  rb/sb: (C,) int32 device arrays of per-column row bounds,
+// recv (3, K_r, C) and sup (3, K_s, C) float32, C = nx·n² columns, rows
+// contiguous with row stride C and component strides recv_cs / sup_cs;
+// out (3, K_r, C) contiguous.  rb/sb: (C,) int32 device arrays of per-column row bounds,
 // each may be null (no bound).  coef: host array of NCOEF floats;
 // offsets: host array of n_offsets (di, dj, dk) triples, n_offsets ≤
 // MAX_OFFSETS.  Returns the cudaError_t of the launch
 // (cudaErrorInvalidValue for a table that does not fit).
 extern "C" int pair_sweep_launch(const float* recv, long long recv_cs, int K_r,
                                  const float* sup, long long sup_cs, int K_s,
-                                 int n, const int* rb, const int* sb,
+                                 int n, int nx, const int* rb, const int* sb,
                                  float* out, float boxsize, float inv_scale,
                                  float cutoff2, float soft2, int kernel,
                                  const float* coef, const signed char* offsets,
                                  int n_offsets, void* stream) {
-  return launch<float, 8>(recv, recv_cs, K_r, sup, sup_cs, K_s, n, rb, sb, out, boxsize,
+  return launch<float, 8>(recv, recv_cs, K_r, sup, sup_cs, K_s, n, nx, rb, sb, out, boxsize,
                           inv_scale, cutoff2, soft2, kernel, coef, offsets, n_offsets, stream);
 }
 
@@ -625,11 +630,11 @@ extern "C" int pair_sweep_launch(const float* recv, long long recv_cs, int K_r,
 // coefficients).
 extern "C" int pair_sweep_launch_f64(const double* recv, long long recv_cs, int K_r,
                                      const double* sup, long long sup_cs, int K_s, int n,
-                                     const int* rb, const int* sb, double* out,
+                                     int nx, const int* rb, const int* sb, double* out,
                                      double boxsize, double inv_scale, double cutoff2,
                                      double soft2, int kernel, const signed char* offsets,
                                      int n_offsets, void* stream) {
-  return launch<double, 4>(recv, recv_cs, K_r, sup, sup_cs, K_s, n, rb, sb, out, boxsize,
+  return launch<double, 4>(recv, recv_cs, K_r, sup, sup_cs, K_s, n, nx, rb, sb, out, boxsize,
                            inv_scale, cutoff2, soft2, kernel, nullptr, offsets, n_offsets,
                            stream);
 }

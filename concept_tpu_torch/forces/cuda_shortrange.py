@@ -5,8 +5,12 @@ Port of ``sweep_pallas_pair`` (flat and row-bounded) and
 ``sweep_pallas_pair_reach`` (concept_tpu/forces/pallas_shortrange.py).
 Contract: ``recv`` (3, K_r, C) and ``sup`` (3, K_s, C) slot positions
 with invalid slots at a far sentinel ``±SENTINEL·boxsize`` (typically row
-slices of one sentinel-filled (3, K, C) array); C = n³ cells, ids
-x-major and z-fastest.  Returns the accelerations (3, K_r, C); the
+slices of one sentinel-filled (3, K, C) array); C = nx·n² cells of an
+nx × n × n column grid, ids x-major and z-fastest: nx = n (the default)
+for the whole box, or a rank's planes of columns between the two
+neighbour planes it received (nx = n/d + 2, the rung stepper over ranks),
+whose receiver bounds are 0 there.  A neighbour across a face of the
+grid is seen at ±boxsize.  Returns the accelerations (3, K_r, C); the
 caller applies G·m.
 
 :func:`pair_sweep` sweeps the 27 neighbour columns of |d| ≤ 1 (cells at
@@ -14,7 +18,7 @@ least a cutoff wide), :func:`pair_sweep_reach` a given offset table (the
 kept reach-2 offsets of the 4-mesh-cell layout,
 ``shortrange.reach_offsets``).  Both take optional int32 row bounds
 ``rext`` (receivers) and ``sext`` (suppliers), per column (C,) or per
-pencil (n²,), p = ci·n + cj, which stands for the same bound on each
+pencil (nx·n,), p = ci·n + cj, which stands for the same bound on each
 column of the pencil: every valid receiver (supplier) of a column lies
 in a row below its bound.  Rows of a column at or beyond its receiver
 bound come out exactly 0; the supplier rows of a neighbour column at or
@@ -50,7 +54,8 @@ OFFSETS_27 = tuple((i, j, k) for i in (-1, 0, 1) for j in (-1, 0, 1)
 MAX_OFFSETS = 125  # csrc/pair_sweep.cu: the offsets of |d| ≤ 2
 
 
-def _check(recv, sup, n: int, kernel: str, offsets=OFFSETS_27):
+def _check(recv, sup, n: int, kernel: str, offsets=OFFSETS_27, nx: int | None = None):
+    nx = n if nx is None else nx
     if recv.dim() != 3 or sup.dim() != 3 or recv.shape[0] != 3 \
             or sup.shape[0] != 3 or recv.shape[2] != sup.shape[2]:
         raise ValueError(f"recv {tuple(recv.shape)} / sup {tuple(sup.shape)}"
@@ -60,35 +65,38 @@ def _check(recv, sup, n: int, kernel: str, offsets=OFFSETS_27):
                          f"{MAX_OFFSETS}")
     # every offset of a column must name a distinct column
     side = 2 * max(abs(d) for off in offsets for d in off) + 1
-    if n < max(3, side) or recv.shape[2] != n**3:
-        raise ValueError(f"C = {recv.shape[2]} is not n³ with n = {n} ≥ "
+    if min(n, nx) < max(3, side) or recv.shape[2] != nx * n * n:
+        raise ValueError(f"C = {recv.shape[2]} is not nx·n² with n = {n}, nx = {nx} ≥ "
                          f"{max(3, side)}")
     if kernel not in KERNEL_IDS:
         raise ValueError(f"unknown softening kernel {kernel!r}")
 
 
-def column_bounds(ext, n: int):
+def column_bounds(ext, n: int, nx: int | None = None):
     """Row bounds per column (C,) from bounds per column (C,) or per
-    pencil (n²,); None stays None."""
-    if ext is None or ext.numel() == n**3:
+    pencil (nx·n,) of an nx × n × n grid (nx = n by default); None stays
+    None."""
+    C = (n if nx is None else nx) * n * n
+    if ext is None or ext.numel() == C:
         return ext
-    if ext.numel() != n * n:
+    if ext.numel() != C // n:
         raise ValueError(f"row bounds of {ext.numel()} entries: per column "
-                         f"({n**3}) or per pencil ({n * n})")
-    return ext[torch.arange(n**3, device=ext.device) // n]
+                         f"({C}) or per pencil ({C // n})")
+    return ext[torch.arange(C, device=ext.device) // n]
 
 
 def pair_sweep_plain(recv, sup, n_cells: int, boxsize: float, scale: float,
                      cutoff2: float, soft2: float, kernel: str = "plummer",
-                     rext=None, sext=None, offsets=OFFSETS_27):
+                     rext=None, sext=None, offsets=OFFSETS_27, nx: int | None = None):
     """Plain PyTorch version of the sweep kernel over the neighbour
     ``offsets``, on a list of pairs: every receiver that can feel a force
     (in its row bound and off the sentinel; the others come out 0, as
     from the kernel) with every supplier off the sentinel in its
     neighbour columns, below that column's supplier bound.  Receivers go in chunks whose pairs
     stay near 2²⁴ on the card and 2²¹ on the CPU."""
-    _check(recv, sup, n_cells, kernel, offsets)
+    _check(recv, sup, n_cells, kernel, offsets, nx)
     n = n_cells
+    nx = n if nx is None else nx
     _, K_r, C = recv.shape
     K_s = sup.shape[1]
     dev = recv.device
@@ -97,13 +105,13 @@ def pair_sweep_plain(recv, sup, n_cells: int, boxsize: float, scale: float,
     out = torch.zeros((3, K_r, C), dtype=recv.dtype, device=dev)
     live = recv[0].abs() < far
     if rext is not None:
-        live &= torch.arange(K_r, device=dev)[:, None] < column_bounds(rext, n)[None]
+        live &= torch.arange(K_r, device=dev)[:, None] < column_bounds(rext, n, nx)[None]
     r_row, r_col = torch.nonzero(live, as_tuple=True)
     # suppliers off the sentinel and below their column's bound, column
     # by column
     supplies = sup[0].abs() < far
     if sext is not None:
-        supplies &= torch.arange(K_s, device=dev)[:, None] < column_bounds(sext, n)[None]
+        supplies &= torch.arange(K_s, device=dev)[:, None] < column_bounds(sext, n, nx)[None]
     s_col, s_row = torch.nonzero(supplies.T, as_tuple=True)
     s_pos = sup[:, s_row, s_col]
     counts = torch.bincount(s_col, minlength=C)
@@ -112,11 +120,11 @@ def pair_sweep_plain(recv, sup, n_cells: int, boxsize: float, scale: float,
     n_off = offs.shape[0]
     cc = (r_col // (n * n), (r_col // n) % n, r_col % n)
     nb = [c[:, None] + offs[None, :, d] for d, c in enumerate(cc)]  # (N_r, n_off)
-    nb_col = ((torch.remainder(nb[0], n) * n + torch.remainder(nb[1], n)) * n
+    nb_col = ((torch.remainder(nb[0], nx) * n + torch.remainder(nb[1], n)) * n
               + torch.remainder(nb[2], n))
-    # a neighbour across a box face sits at ±boxsize
-    shift = torch.stack([((m >= n).to(sup.dtype) - (m < 0).to(sup.dtype)) * boxsize
-                         for m in nb])  # (3, N_r, n_off)
+    # a neighbour across a face of the grid sits at ±boxsize
+    shift = torch.stack([((m >= e).to(sup.dtype) - (m < 0).to(sup.dtype)) * boxsize
+                         for m, e in zip(nb, (nx, n, n))])  # (3, N_r, n_off)
     n_pairs = counts[nb_col].sum(dim=1)  # per receiver
     ends = torch.cumsum(n_pairs, 0).tolist()
     i0 = 0
@@ -148,10 +156,10 @@ def _lib(f64: bool):
         P, L, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         if f64:
             D = ctypes.c_double
-            fn.argtypes = [P, L, I, P, L, I, I, P, P, P, D, D, D, D, I, P, I, P]
+            fn.argtypes = [P, L, I, P, L, I, I, I, P, P, P, D, D, D, D, I, P, I, P]
         else:
             F = ctypes.c_float
-            fn.argtypes = [P, L, I, P, L, I, I, P, P, P, F, F, F, F, I, P, P, I, P]
+            fn.argtypes = [P, L, I, P, L, I, I, I, P, P, P, F, F, F, F, I, P, P, I, P]
         fn.restype = ctypes.c_int
     return fn
 
@@ -162,10 +170,11 @@ def _check_cuda_rows(t, C: int, what: str):
 
 
 def _launch(recv, sup, n_cells: int, boxsize: float, scale: float,
-            cutoff2: float, soft2: float, kernel: str, rext, sext, offsets):
+            cutoff2: float, soft2: float, kernel: str, rext, sext, offsets, nx=None):
     """Check the CUDA inputs, launch the float or the double kernel,
     return its output."""
-    _check(recv, sup, n_cells, kernel, offsets)
+    _check(recv, sup, n_cells, kernel, offsets, nx)
+    nx = n_cells if nx is None else nx
     dtype = _build.scalar_dtype("pair_sweep", recv, sup)
     _, K_r, C = recv.shape
     K_s = sup.shape[1]
@@ -173,7 +182,7 @@ def _launch(recv, sup, n_cells: int, boxsize: float, scale: float,
     _check_cuda_rows(sup, C, "sup")
     if sup.device != recv.device or K_r < 1:
         raise ValueError("recv and sup must share a device; K_r ≥ 1")
-    bounds = [column_bounds(e, n_cells) for e in (rext, sext)]
+    bounds = [column_bounds(e, n_cells, nx) for e in (rext, sext)]
     for e in bounds:
         if e is not None and (e.dtype != torch.int32 or not e.is_contiguous()
                               or e.device != recv.device):
@@ -184,7 +193,7 @@ def _launch(recv, sup, n_cells: int, boxsize: float, scale: float,
     table = np.ascontiguousarray(offsets, np.int8)
     stream = torch.cuda.current_stream(recv.device).cuda_stream
     head = (recv.data_ptr(), recv.stride(0), K_r, sup.data_ptr(), sup.stride(0),
-            K_s, n_cells, rb, sb, out.data_ptr())
+            K_s, n_cells, nx, rb, sb, out.data_ptr())
     if dtype == torch.float64:
         # the double kernel evaluates the screening exactly from the scale
         err = _lib(True)(*head, boxsize, 1.0 / scale, cutoff2, soft2,
@@ -200,15 +209,16 @@ def _launch(recv, sup, n_cells: int, boxsize: float, scale: float,
 
 def pair_sweep(recv, sup, n_cells: int, boxsize: float, scale: float,
                cutoff2: float, soft2: float, kernel: str = "plummer",
-               rext=None, sext=None):
+               rext=None, sext=None, nx: int | None = None):
     """The ±1 sweep: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors (see the module docstring for the contract)."""
+    for CPU tensors (see the module docstring for the contract; ``nx``
+    the column planes along x, n_cells by default)."""
     if recv.device.type == "cpu":
         _build.scalar_dtype("pair_sweep", recv, sup)
         return pair_sweep_plain(recv, sup, n_cells, boxsize, scale, cutoff2,
-                                soft2, kernel, rext, sext)
+                                soft2, kernel, rext, sext, nx=nx)
     out = _launch(recv, sup, n_cells, boxsize, scale, cutoff2, soft2, kernel,
-                  rext, sext, OFFSETS_27)
+                  rext, sext, OFFSETS_27, nx)
     _build.count_launch(pair_sweep, out.dtype)
     return out
 

@@ -218,13 +218,17 @@ def sweep_fold(recv, sup, n_cells: int, boxsize: float, scale: float,
 
 def sweep_slots(recv, sup, n_cells: int, boxsize: float, scale: float,
                 cutoff2: float, soft2: float, kernel: str = "plummer",
-                rext=None, sext=None):
+                rext=None, sext=None, nx: int | None = None):
     """The ±1 sweep of ``cuda_shortrange.pair_sweep`` (the CUDA kernel on
     the card) where there are at least 3 cells a side, else the folded
     plain sweep (:func:`sweep_fold`), chosen by n_cells as the JAX
-    package chooses its engine."""
+    package chooses its engine.  ``nx`` (a rank's planes with their two
+    neighbour planes) takes the kernel's nx × n × n column grid."""
     from concept_tpu_torch.forces.cuda_shortrange import pair_sweep
 
+    if nx is not None:
+        return pair_sweep(recv, sup, n_cells, boxsize, scale, cutoff2, soft2,
+                          kernel=kernel, rext=rext, sext=sext, nx=nx)
     sweep = pair_sweep if n_cells >= 3 else sweep_fold
     return sweep(recv, sup, n_cells, boxsize, scale, cutoff2, soft2,
                  kernel=kernel, rext=rext, sext=sext)

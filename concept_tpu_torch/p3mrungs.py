@@ -44,6 +44,23 @@ acceleration.
 Every integer result (slot order, valid, rungs, K_act, tight, _K_occ)
 equals the JAX package's: its sorts are stable ``torch.sort`` on the same
 composite keys.
+
+Over ranks (``dist``, ``-n N``; the 8-mesh-cell layout only) each rank
+holds the columns of its x-planes (parallel/step.rank_planes), a (K,
+C_r) layout of C_r = nc²·nc/d columns whose mesh rows are its x-slab.
+Its sweep takes the two neighbour planes' supplier slots from the ring
+(the kernel's nx = nc/d + 2 column grid, no receivers on those planes),
+its PM deposits and gathers on its slab with a halo row a side
+(p3msim.pm_gradient_cells), and a rebucket sends every particle to the
+rank of its new plane.  The capacity K, the occupancy row extent K_occ,
+the highest rung, v_max and the kept count are agreed over the ranks
+(all-reduced) before anything depends on them; the receiver rows K_r and
+the per-column extents stay each rank's own (the rows past them hold no
+active slot).  A rebucket orders the slots of a column as the one-device
+stepper does (by key, then by the old slot's place in the whole layout),
+so that the ranks' layouts are the one-device layout's planes until a
+resort within columns, which each rank decides alone.  The other layouts
+and nc % d ≠ 0 raise ``NotImplementedError`` (ROADMAP Queue 1 item 14e).
 """
 
 from __future__ import annotations
@@ -59,6 +76,7 @@ from concept_tpu_torch.forces.cuda_shortrange import pair_sweep_reach
 from concept_tpu_torch.forces.shortrange import (
     SENTINEL, dtype_square, reach_offsets, sweep_slots,
 )
+from concept_tpu_torch.grid.fft import check_distribution
 from concept_tpu_torch.p3msim import (
     margin_cell_count, pm_gradient_cells, pm_gradient_layout, pm_kick_cells_lean,
 )
@@ -227,7 +245,7 @@ def rung_substep(state: RungState, mass: float, G: float, int_drift: float,
                  acc_cache=None, return_acc: bool = False,
                  sentinel_out: bool = False, K_s: int | None = None,
                  skip_drift: bool = False, rext=None, sext=None,
-                 offsets=None):
+                 offsets=None, dist=None, sext_halo=None):
     """One rung boundary: drift all slots by int_drift (ᔑa⁻² over the
     sub-interval ending here), then kick each fired rung by its
     straddling integral kick_ints[rung] ((NR,) tensor).
@@ -240,8 +258,11 @@ def rung_substep(state: RungState, mass: float, G: float, int_drift: float,
     instead of 0.  ``offsets`` (the 4-mesh-cell layout's reach-2 table)
     selects the reach sweep, else the ±1 sweep (folded below 3 cells a
     side); either takes the row bounds rext/sext (per column, or per
-    pencil).  Returns (state, (K_act, tight, vmax2)[, acc]); the momenta
-    are updated in place (the JAX package donates them)."""
+    pencil).  ``dist``: the state is this rank's planes of columns, swept
+    between its neighbours' planes (:func:`_sweep_planes`; ``sext_halo``
+    their supplier bounds).  Returns (state, (K_act, tight,
+    vmax2)[, acc]), each rank's own; the momenta are updated in place
+    (the JAX package donates them)."""
     K, C = state.valid.shape
     K_s = K if K_s is None else K_s
     if not K_r <= K_s <= K:
@@ -262,7 +283,10 @@ def rung_substep(state: RungState, mass: float, G: float, int_drift: float,
         pos_s = pos if sentinel_out else torch.where(state.valid[None], pos, big)
         sweep_args = (nc, boxsize, scale, dtype_square(cutoff, pos.dtype),
                       dtype_square(softening, pos.dtype))
-        if offsets is None:
+        if dist is not None:
+            acc = _sweep_planes(pos_s, K_r, K_s, sweep_args, softening_kernel, rext, sext,
+                                sext_halo, dist)
+        elif offsets is None:
             acc = sweep_slots(pos_s[:, :K_r], pos_s[:, :K_s], *sweep_args,
                               kernel=softening_kernel, rext=rext, sext=sext)
         else:
@@ -299,6 +323,29 @@ def rung_substep(state: RungState, mass: float, G: float, int_drift: float,
     return out + (acc,) if return_acc else out
 
 
+def _sweep_planes(pos_s, K_r: int, K_s: int, sweep_args, kernel: str, rext, sext,
+                  sext_halo, dist):
+    """The ±1 sweep of this rank's planes of columns (3, K_r, C_r) over
+    the nx = C_r/nc² + 2 planes of its own and its neighbours' supplier
+    slots (parallel/step.halo_planes): row bounds 0 on the neighbour
+    planes, whose bounds as suppliers are ``sext_halo`` (their owners'
+    occupancy extents)."""
+    from concept_tpu_torch.parallel import step
+
+    nc, boxsize = sweep_args[0], sweep_args[1]
+    P = nc * nc
+    C_r = pos_s.shape[-1]
+    sup = step.halo_planes(pos_s[:, :K_s], nc, boxsize, dist)
+    zeros = torch.zeros((P,), dtype=torch.int32, device=pos_s.device)
+    if rext is None:
+        rext = torch.full((C_r,), K_r, dtype=torch.int32, device=pos_s.device)
+    rb = torch.cat([zeros, rext, zeros])
+    sb = None if sext is None else torch.cat([sext_halo[0], sext, sext_halo[1]])
+    acc = sweep_slots(sup[:, :K_r], sup, *sweep_args, kernel=kernel, rext=rb, sext=sb,
+                      nx=C_r // P + 2)
+    return acc[:, :, P:P + C_r].contiguous()
+
+
 def resort_rungs_within_columns(state: RungState, acc, NR: int = 8):
     """Re-establish rung-major row order WITHIN each cell column (a stable
     sort along the row axis; cell membership is untouched).  Only the
@@ -332,7 +379,8 @@ def resort_rungs_within_columns(state: RungState, acc, NR: int = 8):
 def pm_kick_rungs(state: RungState, mass: float, G: float, int_pm: float,
                   boxsize: float, mesh: int, scale: float, k_pm: int = 8,
                   pm_max_overflow: int = 262144, cells_cb: int = 0,
-                  k_rows: int | None = None, lean: bool | None = None, ext=None):
+                  k_rows: int | None = None, lean: bool | None = None, ext=None,
+                  dist=None):
     """Base-cadence PM long-range kick over the leading k_rows slot rows
     (rows beyond the max occupancy are invalid in every column).
     cells_cb > 0 (the unified layouts, cells cells_cb mesh cells wide):
@@ -343,7 +391,9 @@ def pm_kick_rungs(state: RungState, mass: float, G: float, int_pm: float,
     the TPU.  cells_cb = 0: the block PM of pm_gradient_layout (block
     capacity k_pm, exact overflow up to pm_max_overflow particles).
     ``ext`` (C,) int32, the layout's per-column occupancy extents, cuts
-    the cells' gather to each column's occupied rows.
+    the cells' gather to each column's occupied rows.  ``dist``: the
+    cells of this rank's planes (the unified layouts), mass_sum the
+    ranks'.
     Updates the momenta in place (the JAX package donates them).  Returns
     (state, n_pm_overflow (an int, 0 on the unified layouts), mass_sum)."""
     K = state.valid.shape[0]
@@ -354,11 +404,11 @@ def pm_kick_rungs(state: RungState, mass: float, G: float, int_pm: float,
     if cells_cb > 0 and lean:
         _, mass_sum = pm_kick_cells_lean(pos, state.mom[:, :kr], valid, mass, G,
                                          int_pm, scale, boxsize, mesh, cb=cells_cb,
-                                         ext=ext)
+                                         ext=ext, dist=dist)
         return state, 0, mass_sum
     if cells_cb > 0:
         fd3, mass_sum = pm_gradient_cells(pos, valid, mass, G, scale, boxsize,
-                                          mesh, cb=cells_cb, ext=ext)
+                                          mesh, cb=cells_cb, ext=ext, dist=dist)
         n_over = 0
     else:
         fd3, n_over, mass_sum = pm_gradient_layout(
@@ -390,6 +440,24 @@ def _layout_cells(mesh: int, unified, unified_cb, device_type: str) -> int:
         return 4
     raise ValueError(f"mesh {mesh}: the unified layout needs mesh % 8 == 0 "
                      f"(mesh ≥ 24) or mesh % 4 == 0 (mesh ≥ 20)")
+
+
+def check_rank_layout(mesh: int, n_ranks: int, unified=None, unified_cb=None):
+    """The rung stepper over ``n_ranks`` ranks takes the 8-mesh-cell
+    layout whatever the device (mesh % 8 == 0, mesh ≥ 24), with the nc =
+    mesh/8 planes of columns split evenly; anything else raises
+    NotImplementedError (ROADMAP Queue 1 item 14e)."""
+    what = None
+    if unified is False or unified_cb not in (None, 8):
+        what = "the tight and the 4-mesh-cell layouts"
+    elif mesh % 8 or mesh // 8 < 3:
+        what = (f"grid {mesh}, which takes no 8-mesh-cell layout (mesh % 8 == 0, "
+                f"mesh ≥ 24): the tight and the 4-mesh-cell layouts")
+    elif (mesh // 8) % n_ranks:
+        what = f"{mesh // 8} planes of cells that do not split over {n_ranks} ranks"
+    if what:
+        raise NotImplementedError(
+            f"rungs over {n_ranks} ranks with {what} (ROADMAP Queue 1 item 14e)")
 
 
 def _quantize_K(k_act: int, K: int) -> int:
@@ -430,7 +498,9 @@ class P3MRungSimulation:
     cannot take raises.  There is no fall-back to another layout.
     ``pm_diff`` picks the unified layouts' PM gradients: 'spectral'
     (Fourier), 'lean' (order-4 stencil, one component at a time) or
-    'auto' (lean at mesh ≥ 768 on the card).
+    'auto' (lean at mesh ≥ 768 on the card).  ``dist`` steps this rank's
+    planes of columns (see the module docstring): the 8-mesh-cell layout
+    on both devices, :func:`check_rank_layout`.
     """
 
     def __init__(self, n_part: int, boxsize: float, mass: float, G: float,
@@ -441,7 +511,7 @@ class P3MRungSimulation:
                  rebucket_every_max: int = 64, unified: bool | None = None,
                  unified_cb: int | None = None, n_total: int | None = None,
                  pm_max_overflow: int = 262144, device=None,
-                 pm_diff: str = "auto"):
+                 pm_diff: str = "auto", dist=None):
         if n_total is not None:
             self.N = int(n_total)
             if mesh is None:
@@ -458,6 +528,10 @@ class P3MRungSimulation:
         self.cutoff = 4.5 * self.scale
         self.margin_frac = margin_frac
         mesh_h = boxsize / self.mesh
+        self.dist = check_distribution(dist)
+        if self.dist is not None:
+            check_rank_layout(self.mesh, self.dist.n_devices, unified, unified_cb)
+            unified, unified_cb = True, 8
         self.ucb = _layout_cells(self.mesh, unified, unified_cb,
                                  torch.device(device or "cuda").type)
         self.unified = self.ucb > 0
@@ -506,6 +580,14 @@ class P3MRungSimulation:
         self._ext_occ = None
         self._ext_rung = None
         self._acc_cache = None  # (3, K_occ, C) SR acc at current positions
+        # over ranks: this rank's planes and its neighbour planes' supplier
+        # bounds (their _ext_occ), refreshed with every layout
+        self._planes = None
+        self._sext_halo = None
+        if self.dist is not None:
+            from concept_tpu_torch.parallel.step import rank_planes
+
+            self._planes = rank_planes(self.nc, self.dist)
         # pm_mass_deficit_max: the largest |deposited − N·m| of the run,
         # in particle masses; budget_warnings: PM block-overflow budgets
         # exceeded (the tight layout)
@@ -515,14 +597,31 @@ class P3MRungSimulation:
         self.hysteresis = {}  # step count, Δt, kick sync point (evolve)
 
     # -------------------------------------------------------------- #
-    def init_state(self, pos, mom, ids=None):
+    def _agree(self, x, op=torch.distributed.ReduceOp.MAX):
+        """An int, or an integer array element by element, reduced over the
+        ranks (x itself on one device)."""
+        if self.dist is None:
+            return x
+        t = torch.as_tensor(np.asarray(x, np.int64), device=self._device)
+        torch.distributed.all_reduce(t, op=op, group=self.dist.group)
+        return t.cpu().numpy() if t.dim() else int(t)
+
+    def init_state(self, pos, mom, ids=None, rungs=None):
         """pos/mom: 3-tuples of (N,) tensors.  Sizes the capacity from the
-        measured max cell occupancy and bucketizes with rung 0."""
+        measured max cell occupancy and bucketizes with rung 0 (or the
+        given rungs (N,)).  Over ranks each rank passes its index shard
+        (ids default to the shard's global indices) and receives the
+        particles of its planes."""
         N = pos[0].shape[0]
         dev = pos[0].device
+        self._device = dev
         if ids is None:
-            ids = torch.arange(N, dtype=torch.int32, device=dev)
-        rungs = torch.zeros((N,), dtype=torch.int8, device=dev)
+            lo = 0 if self.dist is None else self.dist.shard(self.N)[0]
+            ids = torch.arange(lo, lo + N, dtype=torch.int32, device=dev)
+        if rungs is None:
+            rungs = torch.zeros((N,), dtype=torch.int8, device=dev)
+        if self.dist is not None:
+            return self._init_state_ranks(pos, mom, ids, rungs)
         counts = torch.bincount(_cell_of(pos, self.nc, self.boxsize, self.ucb),
                                 minlength=self.nc**3)
         max_count = int(counts.max())
@@ -530,13 +629,70 @@ class P3MRungSimulation:
         # rows ≥ K_occ are invalid in every column until the next
         # rebucket; 12 % headroom and a ratchet (see rebucket)
         self._K_occ = _pad16(int(max_count * 1.12), self.capacity)
-        state, kept = bucketize_rungs(pos, mom, rungs, ids, self.boxsize,
+        state, kept = bucketize_rungs(pos, mom, rungs.to(torch.int8), ids, self.boxsize,
                                       self.nc, self.capacity, self.NR, self.ucb)
         if kept != N:
             raise RuntimeError(f"bucketize kept {kept} of {N} particles")
         self._drift_used = 0.0
+        self._set_extents(state)
+        return state
+
+    def _set_extents(self, state: RungState):
+        """The per-column extents of a new layout (over ranks also the
+        neighbour planes' occupancy extents, the sweep's supplier bounds
+        there)."""
         self._ext_occ = _column_occ_ext(state.valid)
         self._ext_rung = _column_rung_ext(state.rungs, state.valid, self.NR)
+        if self.dist is not None:
+            from concept_tpu_torch.parallel.step import neighbour_planes
+
+            self._sext_halo = neighbour_planes(self._ext_occ, self.nc**2, self.dist)
+
+    # -------------------------------------------------------------- #
+    # over ranks: the layout of this rank's planes
+    def _to_planes(self, floats, ints, order):
+        """Send each particle to the rank of its x-plane: floats (n, 6)
+        positions and momenta, ints (n, 2) ids and rungs, order (n,) int64
+        its place in the one-device order.  Returns (floats, ints, order,
+        local column (m,)) of this rank's particles, and the largest
+        column count of all ranks."""
+        from concept_tpu_torch.parallel.step import exchange
+
+        nc, (x0, npl) = self.nc, self._planes
+        cell = _cell_of(floats[:, :3].T, nc, self.boxsize, self.ucb)
+        dest = torch.div(cell, nc * nc * npl, rounding_mode="floor")
+        floats, ints, order = exchange([floats, ints, order], dest, self.dist)
+        col = _cell_of(floats[:, :3].T, nc, self.boxsize, self.ucb) - x0 * nc * nc
+        counts = torch.bincount(col, minlength=npl * nc * nc)
+        return floats, ints, order, col, self._agree(int(counts.max()) if col.numel() else 0)
+
+    def _layout_planes(self, floats, ints, order, col):
+        """This rank's (K, C_r) layout of its particles, in the one-device
+        order within each column (key, then ``order``); checks that the
+        ranks kept every particle."""
+        NR, C_r = self.NR, self._planes[1] * self.nc**2
+        perm = torch.argsort(order)
+        floats, ints, col = floats[perm], ints[perm], col[perm]
+        key = col * NR + (NR - 1 - ints[:, 1].to(torch.int64))
+        state, kept = _column_layout(key, [*floats.T, ints[:, 0]], NR, C_r,
+                                     self.capacity, key.shape[0])
+        kept = self._agree(kept, torch.distributed.ReduceOp.SUM)
+        if kept != self.N:
+            raise RuntimeError(f"the ranks' layouts kept {kept} of {self.N} particles")
+        return state
+
+    def _init_state_ranks(self, pos, mom, ids, rungs):
+        lo = self.dist.shard(self.N)[0]
+        order = torch.arange(lo, lo + pos[0].shape[0], dtype=torch.int64,
+                             device=pos[0].device)
+        floats = torch.stack([*pos, *mom], dim=1)
+        ints = torch.stack([ids.to(torch.int32), rungs.to(torch.int32)], dim=1)
+        floats, ints, order, col, max_count = self._to_planes(floats, ints, order)
+        self.capacity = max(self.capacity, _pad8(max_count, 1 << 30))
+        self._K_occ = _pad16(int(max_count * 1.12), self.capacity)
+        state = self._layout_planes(floats, ints, order, col)
+        self._drift_used = 0.0
+        self._set_extents(state)
         return state
 
     def _substep(self, state, int_drift, kick, K_r, **kw):
@@ -547,7 +703,7 @@ class P3MRungSimulation:
             self.boxsize, self.nc, self.scale, self.cutoff, self.softening,
             K_r=K_r, softening_kernel=self.softening_kernel, NR=self.NR,
             eps_rung=self.eps_rung, fac_rung=self.fac_rung,
-            offsets=self.offsets, **kw)
+            offsets=self.offsets, dist=self.dist, sext_halo=self._sext_halo, **kw)
 
     def assign_initial_rungs(self, state: RungState, dt_base: float):
         """Probe sweep (no drift, no kick) → initial rungs + K_act."""
@@ -568,7 +724,9 @@ class P3MRungSimulation:
         K = state.valid.shape[0]
         K_act = self._K_act
         K_occ = self._K_occ if self._K_occ is not None else K
-        max_rung = int(np.max(np.nonzero(K_act)[0])) if np.any(K_act) else 0
+        # the substep schedule is every rank's: the highest rung of all
+        K_all = self._agree(K_act)
+        max_rung = int(np.max(np.nonzero(K_all)[0])) if np.any(K_all) else 0
         self.stats["max_rung"] = max(self.stats["max_rung"], max_rung)
         self.stats["base_steps"] += 1
         n_sub = 1 << max_rung
@@ -619,6 +777,9 @@ class P3MRungSimulation:
                     self._K_act = K_act_np
                 # reused at the next base step's boundary 0
                 self._acc_cache = acc
+                if self.dist is not None:
+                    torch.distributed.all_reduce(v2, op=torch.distributed.ReduceOp.MAX,
+                                                 group=self.dist.group)
                 vmax2 = float(v2)
             else:
                 state = out[0]
@@ -651,7 +812,7 @@ class P3MRungSimulation:
                              self.mesh, self.scale, k_pm=self.k_pm,
                              pm_max_overflow=self.pm_max_overflow,
                              cells_cb=self.ucb, k_rows=k_rows, lean=self.pm_lean,
-                             ext=ext)
+                             ext=ext, dist=self.dist)
 
     def _record_pm_mass(self, mass_sum: float, dtype: torch.dtype):
         """Records the deposit's deficit in masses of a particle as the
@@ -710,6 +871,8 @@ class P3MRungSimulation:
         return self._drift_used > 0.45 * self.margin
 
     def rebucket(self, state: RungState) -> RungState:
+        if self.dist is not None:
+            return self._rebucket_ranks(state)
         max_count, K_act = occupancy_and_activity(state, self.boxsize, self.nc,
                                                   self.NR, self.ucb)
         need = max(8, ((max_count + 7) // 8) * 8)
@@ -726,9 +889,38 @@ class P3MRungSimulation:
         if self._K_occ is None or max_count > self._K_occ:
             self._K_occ = _pad16(int(max_count * 1.12), self.capacity)
         self._K_occ = min(self._K_occ, self.capacity)
-        self._ext_occ = _column_occ_ext(new_state.valid)
-        self._ext_rung = _column_rung_ext(new_state.rungs, new_state.valid, self.NR)
+        self._set_extents(new_state)
         self._acc_cache = None  # layout permuted
+        self._drift_used = 0.0
+        return new_state
+
+    def _rebucket_ranks(self, state: RungState) -> RungState:
+        """The rebucket over ranks: every valid slot goes to the rank of
+        its new plane with its place in the whole layout (row·C + global
+        column, the one-device stepper's sort order for equal keys); the
+        capacity and K_occ follow the largest column count of all ranks,
+        K_act is this rank's."""
+        K, C_r = state.valid.shape
+        nc = self.nc
+        src = torch.nonzero(state.valid.reshape(-1)).reshape(-1)
+        order = (torch.div(src, C_r, rounding_mode="floor") * nc**3
+                 + self._planes[0] * nc * nc + src % C_r)
+        floats = torch.cat([state.pos.reshape(3, -1)[:, src],
+                            state.mom.reshape(3, -1)[:, src]]).T
+        ints = torch.stack([state.ids.reshape(-1)[src].to(torch.int32),
+                            state.rungs.reshape(-1)[src].to(torch.int32)], dim=1)
+        floats, ints, order, col, max_count = self._to_planes(floats, ints, order)
+        need = max(8, ((max_count + 7) // 8) * 8)
+        if need > 0.87 * self.capacity:
+            self.capacity = max(8, int(math.ceil(1.3 * need / 8)) * 8)
+        new_state = self._layout_planes(floats, ints, order, col)
+        # the rung-major layout's K_act: the deepest column's count of rung ≥ k
+        self._K_act = _rung_tight(new_state.rungs, new_state.valid, self.NR).cpu().numpy()
+        if self._K_occ is None or max_count > self._K_occ:
+            self._K_occ = _pad16(int(max_count * 1.12), self.capacity)
+        self._K_occ = min(self._K_occ, self.capacity)
+        self._set_extents(new_state)
+        self._acc_cache = None
         self._drift_used = 0.0
         return new_state
 
@@ -823,14 +1015,21 @@ class RungSimulationAdapter:
     CLI: .spec, .config, .bg, .lin, initial_state(), evolve(state, a0,
     a1) over flat ParticleStates.  The (K, C) layout is cached between
     evolve() calls (keyed on the ParticleState this adapter returned),
-    so consecutive dump segments skip the flat → layout bucketize."""
+    so consecutive dump segments skip the flat → layout bucketize.
+
+    ``dist`` (``-n N``, as the JAX package's ``dist``) steps over the
+    ranks (see the module docstring).  The flat states are then each
+    rank's index shard, as ``sim.Simulation``'s over ranks: the shard of
+    the state in id order (``shard``, ``whole`` and ``reduce`` as
+    there)."""
 
     def __init__(self, spec, config, bg, lin=None, N_rungs: int = 8,
-                 fac_rung: float = 1.0):
+                 fac_rung: float = 1.0, dist=None):
         self.spec = spec
         self.config = config
         self.bg = bg
         self.lin = lin
+        self.dist = check_distribution(dist)
         n_part = round(spec.N ** (1 / 3))
         self.inner = P3MRungSimulation(
             n_part, config.boxsize, spec.mass, config.G,
@@ -838,51 +1037,83 @@ class RungSimulationAdapter:
             softening=config.softening,
             softening_kernel=config.softening_kernel, fac_rung=fac_rung,
             n_total=spec.N if n_part**3 != spec.N else None,
-            device=config.device,
+            device=config.device, dist=dist,
         )
         self._cached_flat = None
         self._cached_layout = None
 
     def initial_state(self, a_begin: float, seed: int = 0, lpt_order: int = 1,
                       with_ids: bool = True, **kw):
+        """The realized state (over ranks each realizes the whole state,
+        the single run's particles, and keeps its index shard)."""
         from concept_tpu_torch.ic import realize_particles
 
-        return realize_particles(
+        return self.shard(realize_particles(
             self.lin, self.spec, self.config.boxsize, a_begin, seed=seed,
             lpt_order=lpt_order, dtype=self.config.dtype,
-            device=self.config.device, with_ids=with_ids, **kw)
+            device=self.config.device, with_ids=with_ids, **kw))
+
+    def shard(self, state):
+        """This rank's index shard of a whole flat state (the state itself
+        on one device)."""
+        from concept_tpu_torch.components import ParticleState
+
+        if self.dist is None:
+            return state
+        lo, hi = self.dist.shard(state.pos.shape[0])
+        return ParticleState(*(None if x is None else x[lo:hi].contiguous() for x in state))
+
+    def whole(self, state):
+        """The whole flat state on every rank from the ranks' shards."""
+        from concept_tpu_torch.components import ParticleState
+        from concept_tpu_torch.parallel.step import replicate
+
+        if self.dist is None:
+            return state
+        return ParticleState(*(None if x is None else replicate(x, self.dist)
+                               for x in state))
+
+    def reduce(self, x: torch.Tensor, op=torch.distributed.ReduceOp.SUM) -> torch.Tensor:
+        """x reduced over the ranks (x itself on one device)."""
+        if self.dist is not None:
+            torch.distributed.all_reduce(x, op=op, group=self.dist.group)
+        return x
 
     def _to_layout(self, state) -> RungState:
+        """The layout of a flat state (over ranks, of the ranks' shards):
+        bucketized with its carried rungs, if any, and then re-sorted
+        rung-major by a rebucket."""
         if state is self._cached_flat and self._cached_layout is not None:
             return self._cached_layout
-        N = state.pos.shape[0]
-        dev = state.pos.device
-        ids = state.ids
-        if ids is None:
-            ids = torch.arange(N, dtype=torch.int32, device=dev)
+        ids = None if state.ids is None else state.ids.to(torch.int32)
+        if ids is None and self.dist is None:
+            ids = torch.arange(state.pos.shape[0], dtype=torch.int32,
+                               device=state.pos.device)
         st = self.inner.init_state(tuple(state.pos[:, d] for d in range(3)),
                                    tuple(state.mom[:, d] for d in range(3)),
-                                   ids=ids.to(torch.int32))
+                                   ids=ids, rungs=state.rungs)
         if state.rungs is not None:
-            # install the carried rung populations (in id order), then
-            # re-sort rung-major
-            rungs_by_id = state.rungs.to(torch.int8)
-            safe_ids = torch.clamp(st.ids, min=0).to(torch.int64)
-            st = st._replace(rungs=torch.where(st.valid, rungs_by_id[safe_ids], 0)
-                             .to(torch.int8))
             st = self.inner.rebucket(st)
         return st
 
     def _to_flat(self, layout: RungState):
+        """The flat state of a layout in id order, with its rungs; over
+        ranks every rank gathers the whole state and keeps its index
+        shard."""
         from concept_tpu_torch.components import ParticleState
+        from concept_tpu_torch.parallel.step import gather_rows
 
-        pos, mom, ids = extract_flat(layout, self.spec.N)
-        order = torch.argsort(ids)
         M = layout.valid.numel()
         src = torch.nonzero(layout.valid.reshape(M)).reshape(-1)[:self.spec.N]
-        rungs = layout.rungs.reshape(M)[src][order]
-        return ParticleState(pos=pos[order], mom=mom[order], ids=ids[order],
-                             rungs=rungs)
+        cols = [layout.pos.reshape(3, M)[:, src].T, layout.mom.reshape(3, M)[:, src].T,
+                layout.ids.reshape(M)[src], layout.rungs.reshape(M)[src]]
+        if self.dist is not None:
+            cols = gather_rows(cols, self.dist)
+        order = torch.argsort(cols[2])
+        if self.dist is not None:
+            order = order[slice(*self.dist.shard(self.spec.N))]
+        pos, mom, ids, rungs = (c[order] for c in cols)
+        return ParticleState(pos=pos, mom=mom, ids=ids, rungs=rungs)
 
     @property
     def hysteresis(self) -> dict:

@@ -21,6 +21,11 @@ force gather run on the sweep's slot arrays (grid/cuda_cells.py, rows
 ``pm_kick_cells_lean`` with stencil gradients one at a time.  The tight
 layout's cells are no multiple of the mesh: its valid slots go through
 the block PM of the global stepper (forces/p3m.pm_gradient_blocks).
+Over ranks (``dist``) the cells' PM deposits each rank's planes of
+columns into its x-slab plus a halo row a side and adds the halo rows to
+the neighbours' slabs, transforms as slabs (grid/fft.py), and gathers
+from its slab of each gradient with a halo row of each neighbour's
+(parallel/step.py).
 
 Invalid slots hold zeros at the module boundary, as in the JAX package;
 the sweep's far sentinel is put in for the sweep call only.
@@ -44,7 +49,7 @@ from concept_tpu_torch.forces.shortrange import (
 from concept_tpu_torch.grid import fourier
 from concept_tpu_torch.grid.cuda_cells import deposit_cells, gather_cells
 from concept_tpu_torch.grid.fft import irfft3, rfft3
-from concept_tpu_torch.grid.stencil import diff_grid
+from concept_tpu_torch.grid.stencil import _COEFFS, diff_grid
 from concept_tpu_torch.utils.terminal import warn
 
 
@@ -61,8 +66,27 @@ def margin_cell_count(boxsize: float, cutoff: float, margin_frac: float,
     return max(1, min(n, max_cells))
 
 
+def _deposit_cells_mass(pos3, wv, mass: float, boxsize: float, mesh: int, cb: int,
+                        dist):
+    """The cells' deposit of mass·wv and its total (0-dim float64): the
+    whole mesh, or over ranks this rank's slab and the ranks' total."""
+    from concept_tpu_torch.parallel import step
+
+    if dist is None:
+        grid = deposit_cells(pos3, wv * mass, mesh, boxsize, cb)
+        # summed in float64: a float32 total of 2²⁴ = 256³ particle masses
+        # cannot resolve one particle's mass
+        return grid, grid.sum(dtype=torch.float64), None
+    planes = step.rank_planes(mesh // cb, dist)
+    grid = step.add_halo_rows(
+        deposit_cells(pos3, wv * mass, mesh, boxsize, cb, planes=planes), 1, dist)
+    mass_sum = grid.sum(dtype=torch.float64)
+    torch.distributed.all_reduce(mass_sum, group=dist.group)
+    return grid, mass_sum, planes
+
+
 def pm_gradient_cells(pos3, valid, mass: float, G: float, scale: float,
-                      boxsize: float, mesh: int, cb: int = 8, ext=None):
+                      boxsize: float, mesh: int, cb: int = 8, ext=None, dist=None):
     """∂φ/∂x at every slot of the (K, C) cell layout: deposit w =
     mass·valid, FFT, φ(k) with the long-range split and CIC deconvolution
     (order 4 = deposit + gather), Fourier gradient, gather.
@@ -72,27 +96,39 @@ def pm_gradient_cells(pos3, valid, mass: float, G: float, scale: float,
     is left out, and mass_sum (the deposited mass, a 0-dim tensor) then
     falls short of N·mass — the host checks it.  ``ext`` (C,) int32, the
     layout's per-column extents (1 + the highest valid row), spares the
-    gather the rows past them."""
-    K, C = valid.shape
+    gather the rows past them.  ``dist``: the slots are this rank's
+    planes of columns (step.rank_planes), mass_sum is the ranks'."""
+    from concept_tpu_torch.parallel import step
+
     n = mesh
     wv = valid.to(pos3.dtype)
-    grid = deposit_cells(pos3, wv * mass, n, boxsize, cb)
-    # summed in float64: a float32 total of 2²⁴ = 256³ particle masses
-    # cannot resolve one particle's mass
-    mass_sum = grid.sum(dtype=torch.float64)
-    slab = rfft3(grid / (boxsize / n) ** 3)
+    grid, mass_sum, planes = _deposit_cells_mass(pos3, wv, mass, boxsize, n, cb, dist)
+    slab = rfft3(grid / (boxsize / n) ** 3, dist)
     del grid
+    y_rows = None if dist is None else dist.slab(n)
     phi = gravity_potential_slab(slab, n, boxsize, G, deconv_order=4,
-                                 longrange_scale=scale)
+                                 longrange_scale=scale, y_rows=y_rows)
     del slab
-    grads = torch.stack([irfft3(fourier.fourier_diff(phi, n, boxsize, d), n)
+    grads = torch.stack([irfft3(fourier.fourier_diff(phi, n, boxsize, d, y_rows), n, dist)
                          for d in range(3)])
-    return gather_cells(pos3, wv, grads, n, boxsize, cb, ext=ext), mass_sum
+    if dist is not None:
+        grads = step.with_halo_rows(grads, 1, dist)
+    return gather_cells(pos3, wv, grads, n, boxsize, cb, ext=ext, planes=planes), mass_sum
+
+
+def _diff_x_slab(phi_ext, boxsize: float, n: int, halo: int, order: int):
+    """diff_grid along x of a slab given with ``halo`` rows of its
+    neighbours a side: the slab's rows, in diff_grid's arithmetic."""
+    rows = phi_ext.shape[0] - 2 * halo
+    out = torch.zeros_like(phi_ext[halo:halo + rows])
+    for i, c in enumerate(_COEFFS[order], start=1):
+        out += c * (phi_ext[halo + i:halo + i + rows] - phi_ext[halo - i:halo - i + rows])
+    return out / (boxsize / n)
 
 
 def pm_kick_cells_lean(pos3, mom3, valid, mass: float, G: float,
                        int_pm: float, scale: float, boxsize: float, mesh: int,
-                       cb: int = 8, diff_order: int = 4, ext=None):
+                       cb: int = 8, diff_order: int = 4, ext=None, dist=None):
     """The memory-lean PM kick on the (K, C) cell layout, for meshes of
     768 and more: deposit, FFT, φ(k) as in :func:`pm_gradient_cells`, the
     real-space φ, then one component at a time its order-``diff_order``
@@ -104,22 +140,34 @@ def pm_kick_cells_lean(pos3, mom3, valid, mass: float, G: float,
     (param/example_explanatory:163-208; mesh.py:4874).
 
     Updates mom3 in place (invalid slots 0) and returns (mom3, mass_sum),
-    mass_sum the deposited mass (0-dim float64).  ``ext`` as in
-    :func:`pm_gradient_cells`."""
+    mass_sum the deposited mass (0-dim float64).  ``ext`` and ``dist`` as
+    in :func:`pm_gradient_cells`; over ranks the x stencil reads
+    diff_order/2 rows of each neighbour's slab of φ, and each gradient
+    takes a halo row of the neighbours' for the gather: the arithmetic of
+    one device."""
+    from concept_tpu_torch.parallel import step
+
     n = mesh
     wv = valid.to(pos3.dtype)
-    grid = deposit_cells(pos3, wv * mass, n, boxsize, cb)
-    mass_sum = grid.sum(dtype=torch.float64)
-    slab = rfft3(grid / (boxsize / n) ** 3)
+    grid, mass_sum, planes = _deposit_cells_mass(pos3, wv, mass, boxsize, n, cb, dist)
+    slab = rfft3(grid / (boxsize / n) ** 3, dist)
     del grid
+    y_rows = None if dist is None else dist.slab(n)
     phi_k = gravity_potential_slab(slab, n, boxsize, G, deconv_order=4,
-                                   longrange_scale=scale)
+                                   longrange_scale=scale, y_rows=y_rows)
     del slab
-    phi = irfft3(phi_k, n)
+    phi = irfft3(phi_k, n, dist)
     del phi_k
+    reach = len(_COEFFS[diff_order])
+    phi_ext = None if dist is None else step.with_halo_rows(phi, reach, dist)
     for d in range(3):
-        grad = diff_grid(phi, boxsize, d, order=diff_order)
-        fd = gather_cells(pos3, wv, grad[None], n, boxsize, cb, ext=ext)[0]
+        if dist is None:
+            grad = diff_grid(phi, boxsize, d, order=diff_order)
+        else:
+            grad = step.with_halo_rows(
+                _diff_x_slab(phi_ext, boxsize, n, reach, diff_order) if d == 0
+                else diff_grid(phi, boxsize, d, order=diff_order), 1, dist)
+        fd = gather_cells(pos3, wv, grad[None], n, boxsize, cb, ext=ext, planes=planes)[0]
         del grad
         mom3[d].add_(fd, alpha=-mass * int_pm)
     mom3.masked_fill_(~valid[None], 0.0)

@@ -18,10 +18,20 @@ package writes these steps for GSPMD (``shard_map``, ``psum_scatter``,
   * :func:`deposit_distributed_halo` / :func:`gather_distributed_halo`:
     a deposit into (and a gather from) the rank's slab extended by
     ``halo`` planes a side, the boundary planes sent to the ring
-    neighbours with ``batch_isend_irecv``.  At world size 1 the
-    neighbour is the rank itself and the planes wrap periodically (the
-    JAX halo deposit counts them twice there, a layout its
-    ``make_distribution`` never builds).
+    neighbours with ``batch_isend_irecv`` (:func:`add_halo_rows`,
+    :func:`with_halo_rows`).  At world size 1 the neighbour is the rank
+    itself and the planes wrap periodically (the JAX halo deposit counts
+    them twice there, a layout its ``make_distribution`` never builds).
+
+The rung stepper over ranks (p3mrungs.py) splits its (K, C) cell layout
+by x-planes of columns: rank r owns the planes :func:`rank_planes` gives
+it, whose mesh rows are its x-slab.  Its sweep receives the two
+neighbour planes' supplier slots (:func:`neighbour_planes`), its PM
+deposits into its slab plus a halo row a side (:func:`add_halo_rows`)
+and gathers from there (:func:`with_halo_rows`), and its rebucket sends
+each particle to the rank of its new plane (:func:`exchange`).  The JAX
+package shards the same layout along its cell axis and lets GSPMD insert
+these collectives.
 """
 
 from __future__ import annotations
@@ -62,7 +72,7 @@ def replicate(arr, dist: GridDistribution):
     return out
 
 
-def _exchange(rows: list, dest, dist: GridDistribution) -> list:
+def exchange(rows: list, dest, dist: GridDistribution) -> list:
     """Send row i of each tensor in ``rows`` to rank ``dest[i]``: the
     rows received, stacked by source rank, each source's rows in its own
     order (a stable sort by destination)."""
@@ -94,7 +104,7 @@ def sort_to_slabs(pos, dist: GridDistribution, boxsize: float):
     lo, _ = dist.shard(pos.shape[0] * d)
     owner = torch.clamp((pos[:, 0] / (boxsize / d)).to(torch.int64), 0, d - 1)
     idx = lo + torch.arange(pos.shape[0], device=pos.device)
-    slabbed, orig_idx = _exchange([pos, idx], owner, dist)
+    slabbed, orig_idx = exchange([pos, idx], owner, dist)
     return slabbed, torch.ones_like(slabbed[:, 0]), orig_idx, 0
 
 
@@ -159,14 +169,33 @@ def deposit_distributed_halo(pos, weight, quantity, gridsize: int, boxsize: floa
     ext = torch.zeros(m * n * n, dtype=pos.dtype, device=pos.device)
     for idx, w in _slab_corners(pos, n, boxsize, order, start - halo, m):
         ext.index_add_(0, idx, w * q)
-    ext = ext.reshape(m, n, n)
-    # my planes below the slab belong to rank r−1's last rows, those above
-    # to rank r+1's first rows
+    return add_halo_rows(ext.reshape(m, n, n), halo, dist)
+
+
+def add_halo_rows(ext, halo: int, dist: GridDistribution):
+    """A deposit on this rank's slab extended by ``halo`` rows a side
+    (rows + 2·halo, n, n) → the slab (rows, n, n) with every rank's halo
+    rows added: the rows below the slab belong to rank r−1's last rows,
+    those above to rank r+1's first rows."""
+    rows = ext.shape[0] - 2 * halo
+    if halo > rows:
+        raise ValueError(f"{rows} rows a rank hold no halo of {halo} planes")
     from_prev, from_next = _ring(ext[halo + rows:], ext[:halo], dist)
     own = ext[halo:halo + rows].clone()
     own[:halo] += from_prev
     own[rows - halo:] += from_next
     return own
+
+
+def with_halo_rows(grid, halo: int, dist: GridDistribution):
+    """This rank's slab of grids (..., rows, n, n) → (..., rows + 2·halo,
+    n, n), extended by ``halo`` rows of each ring neighbour's slab."""
+    rows = grid.shape[-3]
+    if halo > rows:
+        raise ValueError(f"{rows} rows a rank hold no halo of {halo} planes")
+    # rank r+1 needs my last rows below its slab, rank r−1 my first above
+    from_prev, from_next = _ring(grid[..., rows - halo:, :, :], grid[..., :halo, :, :], dist)
+    return torch.cat([from_prev, grid, from_next], dim=-3)
 
 
 def gather_distributed_halo(grad, pos, weight, boxsize: float, order,
@@ -178,11 +207,7 @@ def gather_distributed_halo(grad, pos, weight, boxsize: float, order,
     rows, n = grad.shape[0], grad.shape[1]
     start, _ = dist.slab(n)
     halo = _halo(order)
-    if halo > rows:
-        raise ValueError(f"{rows} rows a rank hold no halo of {halo} planes")
-    # rank r+1 needs my last planes below its slab, rank r−1 my first above
-    from_prev, from_next = _ring(grad[rows - halo:], grad[:halo], dist)
-    ext = torch.cat([from_prev, grad, from_next]).reshape(-1)
+    ext = with_halo_rows(grad, halo, dist).reshape(-1)
     out = torch.zeros(pos.shape[0], dtype=grad.dtype, device=grad.device)
     for idx, w in _slab_corners(pos, n, boxsize, order, start - halo, rows + 2 * halo):
         out += ext[idx] * w
@@ -221,8 +246,60 @@ def pm_momentum_updates_distributed_halo(pos, mass, gridsize: int, boxsize: floa
         gather_distributed_halo(irfft3(fourier_diff(phi, n, boxsize, d, y_rows), n, dist),
                                 slabbed, w, boxsize, order, dist) for d in range(3)], dim=1)
     lo, hi = dist.shard(pos.shape[0] * dist.n_devices)
-    back, idx = _exchange([(-mass * kick_integral) * vals, orig_idx],
-                          torch.div(orig_idx, hi - lo, rounding_mode="floor"), dist)
+    back, idx = exchange([(-mass * kick_integral) * vals, orig_idx],
+                         torch.div(orig_idx, hi - lo, rounding_mode="floor"), dist)
     dmom = torch.empty_like(pos)
     dmom[idx - lo] = back
     return dmom, n_over
+
+
+def rank_planes(nc: int, dist: GridDistribution) -> tuple[int, int]:
+    """(first plane, planes) of this rank's x-planes of an nc-plane
+    column grid: nc/d each, in rank order (the mesh rows of its planes
+    are its x-slab, ``dist.slab``)."""
+    d = dist.n_devices
+    if nc % d:
+        raise ValueError(f"{nc} planes of columns do not split over the {d} ranks")
+    return dist.rank * (nc // d), nc // d
+
+
+def neighbour_planes(cols, plane: int, dist: GridDistribution):
+    """(the last ``plane`` columns of rank r−1, the first of rank r+1) of
+    the per-column arrays ``cols`` (..., C_r): the planes of columns
+    either side of this rank's (``plane`` = nc² columns a plane)."""
+    return _ring(cols[..., -plane:], cols[..., :plane], dist)
+
+
+def halo_planes(sup, nc: int, boxsize: float, dist: GridDistribution):
+    """This rank's supplier slots (3, K_s, C_r) → (3, K_s, (C_r/nc² + 2)·
+    nc²): the neighbour planes before and after its own.  A neighbour
+    plane across a face of the box (rank 0's first, the last rank's
+    second; both at world size 1) is shifted by ∓boxsize along x, as the
+    one-device sweep shifts a neighbour column across that face, so that
+    the sweep over these planes sees every pair as the whole box's sweep
+    does."""
+    prev, nxt = neighbour_planes(sup, nc * nc, dist)
+    shift = torch.zeros((3, 1, 1), dtype=sup.dtype, device=sup.device)
+    shift[0] = boxsize
+    if dist.rank == 0:
+        prev = prev - shift
+    if dist.rank == dist.n_devices - 1:
+        nxt = nxt + shift
+    return torch.cat([prev, sup, nxt], dim=-1)
+
+
+def gather_rows(rows: list, dist: GridDistribution) -> list:
+    """Every rank's rows of each tensor in ``rows`` (equal in their first
+    dimension on a rank, which may differ between ranks), stacked by rank
+    on every rank: an ``all_gather`` of the rows padded to the longest."""
+    dev = rows[0].device
+    n = torch.tensor([rows[0].shape[0]], dtype=torch.int64, device=dev)
+    counts = replicate(n, dist).tolist()
+    m = max(counts)
+    out = []
+    for x in rows:
+        pad = torch.zeros((m, *x.shape[1:]), dtype=x.dtype, device=dev)
+        pad[:x.shape[0]] = x
+        g = replicate(pad, dist)
+        out.append(torch.cat([g[r * m:r * m + c] for r, c in enumerate(counts)]))
+    return out

@@ -19,9 +19,10 @@ species-resolved transfer functions).  Several components, fluids
 among them, run through :func:`run_multi` (sim_multi.MultiSimulation).
 It dumps the renders (2D projections with their data and terminal
 images, 3D scatter renders) and the spectra's plots (graphics/render.py).
-``-n N`` runs one component with global steps (PM, P³M with
-``N_rungs = 1``, PP) over N ranks (:func:`make_distribution`,
-parallel/ranks.py).
+``-n N`` runs one component over N ranks (:func:`make_distribution`,
+parallel/ranks.py): global steps (PM, P³M with ``N_rungs = 1``, PP), or
+the rung stepper on the 8-mesh-cell layout, each rank stepping its own
+x-planes of cells (p3mrungs.py).
 """
 
 from __future__ import annotations
@@ -527,11 +528,15 @@ def run(cfg: RunConfig, max_steps: int = 100000, seed: int | None = None,
     starts ranks 1 … N−1 (``rank``, (r, store), is theirs; parallel/
     ranks.py); each realizes the single run's particles and keeps its
     index shard, and the run steps globally (PM, P³M with ``N_rungs =
-    1``, PP) through ``Simulation(dist=...)``.  Rank 0 writes every file
+    1``, PP) through ``Simulation(dist=...)``, or by rungs through
+    ``RungSimulationAdapter(dist=...)`` (the 8-mesh-cell layout, each
+    rank stepping its x-planes of cells).  Rank 0 writes every file
     under the single run's names and returns the whole state.  Before
     anything is realized, ``NotImplementedError`` names the item of the
-    ROADMAP that brings what N > 1 does not run: rungs (``N_rungs > 1``)
-    and several components (item 14c); the other ranks are then ended.
+    ROADMAP that brings what N > 1 does not run: rungs on another layout
+    or with planes of cells that do not split over the ranks (item 14e,
+    p3mrungs.check_rank_layout) and several components (item 14d); the
+    other ranks are then ended.
 
     An autosave of this parameter file (see :func:`autosave_path`) is
     resumed.  SIGINT and SIGTERM during the time loop write an autosave
@@ -547,7 +552,7 @@ def run(cfg: RunConfig, max_steps: int = 100000, seed: int | None = None,
     with its own species' transfer function (``spec.species``) where
     the JAX package's single-component run takes 'matter' for every
     component; the two agree for species 'matter'."""
-    from concept_tpu_torch.p3mrungs import RungSimulationAdapter
+    from concept_tpu_torch.p3mrungs import RungSimulationAdapter, check_rank_layout
     from concept_tpu_torch.timestep import prepare_static_timestepping
     from concept_tpu_torch.utils.terminal import set_formatting, set_suppress_output
 
@@ -573,7 +578,7 @@ def run(cfg: RunConfig, max_steps: int = 100000, seed: int | None = None,
         if n_ranks > 1:
             raise NotImplementedError(
                 f"-n {n_devices} with several components or a fluid: the multi-component "
-                f"state over ranks (ROADMAP Queue 1 item 14c)")
+                f"state over ranks (ROADMAP Queue 1 item 14d)")
         return run_multi(cfg, comps, units, consts, bg, lin, dev, dtype,
                          max_steps=max_steps, seed=seed)
     spec, source = comps[0]
@@ -604,10 +609,7 @@ def run(cfg: RunConfig, max_steps: int = 100000, seed: int | None = None,
                 "replays a recorded file, the global stepper (N_rungs = 1) "
                 "records it")
         if n_ranks > 1:
-            raise NotImplementedError(
-                f"-n {n_devices} with rungs (N_rungs = {cfg.N_rungs}): the rung stepper's "
-                f"cell-axis sharding (ROADMAP Queue 1 item 14c); N_rungs = 1 steps globally "
-                f"over the ranks")
+            check_rank_layout(gridsize, n_ranks)
     dist = None
     if n_ranks > 1:
         from concept_tpu_torch.parallel.ranks import init_rank
@@ -638,7 +640,7 @@ def run(cfg: RunConfig, max_steps: int = 100000, seed: int | None = None,
     if rungs:
         sim = RungSimulationAdapter(spec, sim_config, bg, lin,
                                     N_rungs=cfg.N_rungs,
-                                    fac_rung=cfg.Delta_t_rung_factor)
+                                    fac_rung=cfg.Delta_t_rung_factor, dist=dist)
     else:
         sim = Simulation(spec, sim_config, bg, lin, dist=dist)
     rank0 = dist is None or dist.rank == 0

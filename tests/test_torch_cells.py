@@ -200,3 +200,54 @@ def test_slot_across_box_face_is_kept():
     ref = np.asarray(gather(jnp.asarray(grids[0]), jnp.asarray(pos[i:i + 1]),
                             box, order=2))
     np.testing.assert_allclose(g[0, r, c], ref[0], **TOL)
+
+
+@pytest.mark.parametrize("d", [1, 2, 4])
+def test_planes_deposit_and_gather_equal_the_whole(d):
+    """The cells' nx contract (the rung stepper over d ranks): rank r's
+    nc/d planes of columns deposit into their slab with a halo row a side
+    and gather from it; the slabs summed into the whole mesh (halo rows
+    wrapped onto the neighbours' rows) are the whole layout's deposit, and
+    each rank's gather is its planes' part of the whole gather.  The
+    anchors and the halo test are exact; slots of the first and last
+    planes sit across the box faces, so that the low and the high halo
+    rows take mass."""
+    from concept_tpu_torch.grid.cuda_cells import cell_geometry
+
+    rng = np.random.default_rng(13)
+    n, box, mass = 32, 2.0, 1.3
+    nc, h, P = n // CB, box / n, (n // CB) ** 2
+    _, slots, valid, _ = _layout(rng, n, box, per_cell=12)
+    K, C = valid.shape
+    plane = np.arange(C) // P
+    slots[0][valid & (plane == 0)[None] & (rng.random((K, C)) < 0.3)] = box - 0.3 * h
+    slots[0][valid & (plane == nc - 1)[None] & (rng.random((K, C)) < 0.3)] = 0.2 * h
+    s, wv = torch.as_tensor(slots), torch.as_tensor(valid.astype(np.float32))
+    grids = torch.as_tensor(rng.standard_normal((3, n, n, n)).astype(np.float32))
+    whole = deposit_cells(s, wv * mass, n, box, cb=CB)
+    whole_g = gather_cells(s, wv, grids, n, box, cb=CB)
+    anchors, _, in_halo = cell_geometry(s, slice(0, C), nc, CB, n / box)
+    summed = torch.zeros_like(whole)
+    npl = nc // d
+    for r in range(d):
+        x0 = r * npl
+        cols = slice(x0 * P, (x0 + npl) * P)
+        part, wp = s[:, :, cols].contiguous(), wv[:, cols].contiguous()
+        rows = torch.remainder(torch.arange(npl * CB + 2) + x0 * CB - 1, n)
+        summed.index_add_(0, rows, deposit_cells(part, wp * mass, n, box, cb=CB,
+                                                 planes=(x0, npl)))
+        got = gather_cells(part, wp, grids[:, rows].contiguous(), n, box, cb=CB,
+                           planes=(x0, npl))
+        np.testing.assert_allclose(got.numpy(), whole_g[:, :, cols].numpy(), rtol=1e-6,
+                                   atol=1e-6 * float(whole_g.abs().max()))
+        pa, _, ph = cell_geometry(part, slice(0, npl * P), nc, CB, n / box, x0=x0)
+        assert torch.equal(ph, in_halo[:, cols])
+        # the slab's row: the local plane·cb + the offset in the column's halo
+        lp = torch.arange(npl * P) // P
+        assert torch.equal(pa[0][ph], (lp * CB + torch.remainder(
+            anchors[0][:, cols] - ((lp + x0) * CB - 1), n))[ph])
+        assert all(torch.equal(pa[k], anchors[k][:, cols]) for k in (1, 2))
+    # the faces' slots reached the halo rows
+    assert float(summed.sum()) == pytest.approx(float(valid.sum()) * mass, rel=1e-6)
+    np.testing.assert_allclose(summed.numpy(), whole.numpy(), rtol=1e-6,
+                               atol=1e-6 * float(whole.abs().max()))

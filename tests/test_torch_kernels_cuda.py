@@ -1112,3 +1112,113 @@ def _close_per_receiver(got, ref, tol):
     med = float(r[r > 0].median())
     worst = float((d / r.clamp(min=med)).max())
     assert worst <= tol, worst
+
+
+def _planes_case(dev, dtype, n=8, cb=8, K=24, seed=21):
+    """A random (K, C) cell layout over nc = n planes of cells (n mesh
+    cells·cb a side), a third of its first and last planes' slots across
+    the box faces, as the rung stepper over ranks meets them."""
+    rng = np.random.default_rng(seed)
+    box, C, P = 4.0, n**3, n * n
+    counts = rng.integers(0, K + 1, size=C)
+    valid = np.arange(K)[:, None] < counts[None, :]
+    cells = np.arange(C)
+    cw = box / n
+    base = np.stack([cells // P, (cells // n) % n, cells % n]) * cw
+    pos = base[:, None, :] + rng.random((3, K, C)) * cw
+    h = box / (n * cb)
+    plane = cells // P
+    pos[0][valid & (plane == 0)[None] & (rng.random((K, C)) < 0.3)] = box - 0.3 * h
+    pos[0][valid & (plane == n - 1)[None] & (rng.random((K, C)) < 0.3)] = 0.2 * h
+    t = torch.as_tensor(pos.astype(dtype), device=dev)
+    return t, torch.as_tensor(valid, device=dev), counts.astype(np.int32), box
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("d", [1, 2, 4])
+def test_pair_sweep_over_planes_matches_plain(dev, d, dtype):
+    """Row 1 at nx = n/d + 2 (a rank's planes between its neighbour
+    planes, receiver bounds 0 there) against its plain version, and at
+    nx = n bit for bit the launch without nx."""
+    from concept_tpu_torch.forces.cuda_shortrange import pair_sweep, pair_sweep_plain
+
+    n, P = 8, 64
+    pos, valid, occ, box = _planes_case(dev, np.dtype(dtype))
+    s = torch.where(valid[None], pos, 1e4 * box)
+    args = (n, box, 0.06, 0.24**2, 0.02**2, "spline")
+    occ_t = torch.as_tensor(occ, device=dev)
+    whole = pair_sweep(s, s, *args, rext=occ_t, sext=occ_t)
+    assert torch.equal(pair_sweep(s, s, *args, rext=occ_t, sext=occ_t, nx=n), whole)
+    npl = n // d
+    for r in range(d):
+        x0 = r * npl
+        idx = torch.cat([(x0 - 1) % n * P + torch.arange(P), x0 * P + torch.arange(npl * P),
+                         (x0 + npl) % n * P + torch.arange(P)]).to(dev)
+        sup = s[:, :, idx].clone()
+        if r == 0:
+            sup[0, :, :P] -= box
+        if r == d - 1:
+            sup[0, :, -P:] += box
+        rb = occ_t[idx].clone()
+        rb[:P] = rb[-P:] = 0
+        before = pair_sweep.launches + pair_sweep.launches_f64
+        got = pair_sweep(sup[:, :16], sup, *args, rext=rb, sext=occ_t[idx], nx=npl + 2)
+        assert pair_sweep.launches + pair_sweep.launches_f64 == before + 1
+        ref = pair_sweep_plain(sup[:, :16], sup, *args, rext=rb, sext=occ_t[idx], nx=npl + 2)
+        torch.cuda.synchronize()
+        tol = 1e-10 if dtype == "float64" else 1e-5
+        assert float((got - ref).abs().max()) <= tol * float(ref.abs().max())
+        assert float((got[:, :, P:-P] - whole[:, :16, x0 * P:(x0 + npl) * P]).abs().max()) \
+            <= tol * float(whole.abs().max())
+        assert bool((got[:, :, :P] == 0).all()) and bool((got[:, :, -P:] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("d", [1, 2, 4])
+def test_cells_over_planes_match_plain(dev, d, dtype):
+    """Rows 3 and 4 on a rank's planes (the slab mesh with a halo row a
+    side) against their plain versions; summed over the ranks (halo rows
+    wrapped) the deposits are the whole mesh's deposit and the gathers the
+    parts of its gather.  (At nx = nc the kernels' outputs against the
+    parent commit's: scripts/nx_parity.py.)"""
+    from concept_tpu_torch.grid.cuda_cells import (
+        deposit_cells, deposit_cells_plain, gather_cells, gather_cells_plain,
+    )
+
+    n, cb, P = 8, 8, 64
+    m = n * cb
+    pos, valid, occ, box = _planes_case(dev, np.dtype(dtype), n=n, cb=cb)
+    w = valid.to(pos.dtype)
+    occ_t = torch.as_tensor(occ, device=dev)
+    grids = torch.randn((3, m, m, m), dtype=pos.dtype, device=dev,
+                        generator=torch.Generator(dev).manual_seed(3))
+    whole = deposit_cells(pos, w, m, box, cb)
+    whole_g = gather_cells(pos, w, grids, m, box, cb, ext=occ_t)
+    tol = dict(rtol=1e-10, atol=1e-10) if dtype == "float64" else dict(rtol=2e-5, atol=1e-5)
+
+    def close(got, ref):
+        ref = ref.cpu().numpy()
+        np.testing.assert_allclose(got.cpu().numpy(), ref, rtol=tol["rtol"],
+                                   atol=tol["atol"] * np.abs(ref).max())
+
+    close(whole, deposit_cells_plain(pos, w, m, box, cb))
+    summed = torch.zeros_like(whole)
+    npl = n // d
+    for r in range(d):
+        x0 = r * npl
+        cols = slice(x0 * P, (x0 + npl) * P)
+        part, wp = pos[:, :, cols].contiguous(), w[:, cols].contiguous()
+        rows = torch.remainder(torch.arange(npl * cb + 2, device=dev) + x0 * cb - 1, m)
+        before = deposit_cells.launches + deposit_cells.launches_f64
+        slab = deposit_cells(part, wp, m, box, cb, planes=(x0, npl))
+        assert deposit_cells.launches + deposit_cells.launches_f64 == before + 1
+        close(slab, deposit_cells_plain(part, wp, m, box, cb, planes=(x0, npl)))
+        summed.index_add_(0, rows, slab)
+        g = grids[:, rows].contiguous()
+        got = gather_cells(part, wp, g, m, box, cb, ext=occ_t[cols].contiguous(),
+                           planes=(x0, npl))
+        close(got, gather_cells_plain(part, wp * (torch.arange(wp.shape[0], device=dev)[:, None]
+                                                  < occ_t[cols][None]), g, m, box, cb,
+                                      planes=(x0, npl)))
+        close(got, whole_g[:, :, cols])
+    close(summed, whole)

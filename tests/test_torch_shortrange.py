@@ -288,3 +288,46 @@ def test_on_subset_matches_jax(nc):
             torch.as_tensor(recv), torch.as_tensor(sup), 2.0, box, scale, cutoff,
             **kw).numpy()
         assert _maxrel(got, ref) < TOL
+
+
+@pytest.mark.parametrize("d", [1, 2, 4])
+def test_planes_sweep_equals_the_whole(d):
+    """The sweep's nx contract (the rung stepper over d ranks): rank r's
+    nc/d planes of columns between its two neighbour planes (nx = nc/d +
+    2, each neighbour plane across the box face shifted by ∓box, receiver
+    bounds 0 there, supplier bounds the owners') give its planes' rows of
+    the whole nc³ sweep.  Slots of the first and last planes sit across
+    the faces (wrapped to the far side since their bucketing), as a drift
+    leaves them."""
+    rng = np.random.default_rng(7)
+    n, K, box = 4, 8, 1.0
+    scale, cutoff, soft = 0.06, 0.24, 0.02
+    s, valid, _ = _layout(rng, n, K, box)
+    P = n * n
+    plane = np.arange(n**3) // P
+    s[0][valid & (plane == 0)[None] & (rng.random((K, n**3)) < 0.3)] = box - 0.01
+    s[0][valid & (plane == n - 1)[None] & (rng.random((K, n**3)) < 0.3)] = 0.01
+    occ = valid.sum(0).astype(np.int32)
+    st = torch.as_tensor(s)
+    args = (box, scale, float(np.float32(cutoff) ** 2), float(np.float32(soft) ** 2))
+    whole = pair_sweep(st, st, n, *args, kernel="spline", rext=torch.as_tensor(occ),
+                       sext=torch.as_tensor(occ)).numpy()
+    npl = n // d
+    for r in range(d):
+        x0 = r * npl
+        idx = np.concatenate([(x0 - 1) % n * P + np.arange(P), x0 * P + np.arange(npl * P),
+                              (x0 + npl) % n * P + np.arange(P)])
+        sup = s[:, :, idx].copy()
+        if r == 0:
+            sup[0, :, :P] -= box
+        if r == d - 1:
+            sup[0, :, -P:] += box
+        rext = occ[idx].copy()
+        rext[:P] = rext[-P:] = 0
+        sup_t = torch.as_tensor(sup)
+        got = pair_sweep(sup_t, sup_t, n, *args, kernel="spline", rext=torch.as_tensor(rext),
+                         sext=torch.as_tensor(occ[idx]), nx=npl + 2).numpy()
+        ref = whole[:, :, x0 * P:(x0 + npl) * P]
+        np.testing.assert_allclose(got[:, :, P:-P], ref, rtol=1e-6,
+                                   atol=1e-6 * np.abs(whole).max())
+        assert np.all(got[:, :, :P] == 0) and np.all(got[:, :, -P:] == 0)

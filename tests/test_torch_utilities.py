@@ -120,8 +120,9 @@ def test_interactive_session_without_a_run():
 
 def test_more_than_one_device_names_its_item(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
+    # grid 20 takes no 8-mesh-cell layout: rungs over ranks refuse it
     with pytest.raises(NotImplementedError, match="item 14"):
-        cli.main(["-p", PARAM, "-n", "2", "--device", "cpu"])
+        cli.main(["-p", PARAM, "-n", "2", "--device", "cpu", "-c", "potential_options=20"])
 
 
 def test_concept_env_var_mirrors(monkeypatch):
