@@ -218,7 +218,12 @@ state of phase 4 (example_basic realized at a = 0.02):
     plain versions and the launches on the whole layout; 3 base steps of
     ``P3MRungSimulation(dist=...)`` against one device's (mean |Δx|/box
     < 1e-5, momenta 1e-5 of the largest; ms a base step and peak memory
-    both ways; rows 1, 3, 4 launched); example_basic 64³ / grid 128 from
+    both ways; rows 1, 3, 4 launched); the same at 62³ / grid 124 (the
+    4-mesh-cell layout: row 5 at nx = nc + 4 against its plain version
+    and, its planes' rows bit for bit, the whole launch; rows 5, 3, 4)
+    and at 63³ / grid 126 (the tight layout: row 1 over planes, rows 8
+    and 9 over the PM blocks' planes against their plain versions and
+    the whole mesh's; rows 1, 8, 9); example_basic 64³ / grid 128 from
     a = 0.02 to 0.1 through ``RungSimulationAdapter(dist=...)``, its
     spectrum within 1e-4 of one device's; ``-n 2`` raising ValueError.
 
@@ -3159,62 +3164,179 @@ def parallel(sim, state) -> dict:
 
 
 def _planes_sweep(tag: str, pos_s, sim, ext, dist) -> dict:
-    """Row 1 over a rank's planes of the layout pos_s (3, K, C) at world
-    size 1: the nc planes between their neighbour planes (nx = nc + 2,
-    the planes wrapped and shifted by ∓box, receiver bounds 0 there),
-    against its plain version at phase 2's tolerance (max|Δ|/max|ref| ≤
-    1e-5), and its own planes' rows against the launch at nx = nc."""
+    """Row 1 (the ±1 sweep), or row 5 (the reach-2 sweep over
+    ``sim.offsets``, the 4-mesh-cell layout), over a rank's planes of the
+    layout pos_s (3, K, C) at world size 1: the nc planes between their
+    neighbour planes (one a side for row 1, nx = nc + 2; two for row 5,
+    nx = nc + 4, receivers at the negative sentinel; the planes wrapped
+    and shifted by ∓box, receiver bounds 0 there), against its plain
+    version at phase 2's tolerance (max|Δ|/max|ref| ≤ 1e-5), and its own
+    planes' rows against the launch at nx = nc (bit for bit expected)."""
     import torch
 
     from concept_tpu_torch.forces.cuda_shortrange import (
-        OFFSETS_27, pair_sweep, pair_sweep_plain,
+        OFFSETS_27, pair_sweep, pair_sweep_plain, pair_sweep_reach,
     )
     from concept_tpu_torch.forces.shortrange import SENTINEL, dtype_square
     from concept_tpu_torch.parallel import step
 
     nc, box = sim.nc, sim.boxsize
-    P = nc * nc
+    reach = sim.offsets is not None
+    width = 2 if reach else 1
+    W = width * nc * nc
+    nx = nc + 2 * width
     _, K, C = pos_s.shape
+    big = SENTINEL * box
     args = (nc, box, sim.scale, dtype_square(sim.cutoff, pos_s.dtype),
-            dtype_square(sim.softening, pos_s.dtype), sim.softening_kernel)
-    sup = step.halo_planes(pos_s, nc, box, dist)
-    zeros = torch.zeros((P,), dtype=torch.int32, device=pos_s.device)
+            dtype_square(sim.softening, pos_s.dtype))
+    kind = sim.softening_kernel
+    sup = step.halo_planes(pos_s, nc, box, dist, width=width)
+    zeros = torch.zeros((W,), dtype=torch.int32, device=pos_s.device)
     rb = torch.cat([zeros, ext, zeros])
-    prev, nxt = step.neighbour_planes(ext, P, dist)
+    prev, nxt = step.neighbour_planes(ext, W, dist)
     sb = torch.cat([prev, ext, nxt])
+    if reach:
+        offsets = sim.offsets
+        recv = torch.where(pos_s.abs() < 0.5 * big, pos_s, -big)
+        rcv = torch.full((3, K, nx * nc * nc), -big, dtype=pos_s.dtype, device=pos_s.device)
+        rcv[:, :, W:W + C] = recv
 
-    def kern():
-        return pair_sweep(sup, sup, *args, rext=rb, sext=sb, nx=nc + 2)
+        def kern():
+            return pair_sweep_reach(rcv, sup, *args, offsets, kernel=kind, rext=rb, sext=sb,
+                                    nx=nx)
 
+        def plain():
+            return pair_sweep_plain(rcv, sup, *args, kind, rb, sb, offsets, nx=nx)
+
+        def whole_launch():
+            return pair_sweep_reach(recv, pos_s, *args, offsets, kernel=kind, rext=ext,
+                                    sext=ext)
+    else:
+        offsets = OFFSETS_27
+
+        def kern():
+            return pair_sweep(sup, sup, *args, kind, rext=rb, sext=sb, nx=nx)
+
+        def plain():
+            return pair_sweep_plain(sup, sup, *args, kind, rext=rb, sext=sb, nx=nx)
+
+        def whole_launch():
+            return pair_sweep(pos_s, pos_s, *args, kind, rext=ext, sext=ext)
+    name = "pair_sweep_reach" if reach else "pair_sweep"
     got = kern()
-    ref, plain_ms = _once_ms(lambda: pair_sweep_plain(sup, sup, *args, rext=rb, sext=sb,
-                                                      nx=nc + 2))
-    whole = pair_sweep(pos_s, pos_s, *args, rext=ext, sext=ext)
+    ref, plain_ms = _once_ms(plain)
+    whole = whole_launch()
     _sync()
     err, rel = _max_rel(got, ref)
-    bitwise = bool(torch.equal(got[:, :, P:P + C], whole))
-    _, rel_whole = _max_rel(got[:, :, P:P + C], whole)
+    bitwise = bool(torch.equal(got[:, :, W:W + C], whole))
+    _, rel_whole = _max_rel(got[:, :, W:W + C], whole)
     del got, ref, whole
     ms = _time_ms(kern, 10)
-    whole_ms = _time_ms(lambda: pair_sweep(pos_s, pos_s, *args, rext=ext, sext=ext), 10)
-    tested, within, _, n_valid = _pair_work(pos_s, nc, box, args[3], args[4], OFFSETS_27)
+    whole_ms = _time_ms(whole_launch, 10)
+    tested, within, _, n_valid = _pair_work(pos_s, nc, box, args[3], args[4], offsets)
     flops = FLOPS_PER_TESTED_PAIR * tested + FLOPS_PER_PAIR_IN_CUTOFF * within
     # the valid slots of the planes and their neighbour planes read, the
-    # (3, K, (nc + 2)·nc²) result written, the bounds read
-    n_sup = int((sup[0].abs() < 0.5 * SENTINEL * box).sum())
-    nbytes = pos_s.element_size() * (3 * n_sup + 3 * K * (C + 2 * P)) + 8 * (C + 2 * P)
+    # (3, K, nx·nc²) result written, the bounds read
+    n_sup = int((sup[0].abs() < 0.5 * big).sum())
+    nbytes = pos_s.element_size() * (3 * n_sup + 3 * K * (C + 2 * W)) + 8 * (C + 2 * W)
     bound_ms = 1e3 * max(flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S)
     ok = rel <= 1e-5 and rel_whole <= 1e-5
-    print(f"  pair_sweep over planes ({tag}, nx = {nc + 2}): max |Δ| {err:.3e}, "
+    print(f"  {name} over planes ({tag}, nx = {nx}): max |Δ| {err:.3e}, "
           f"max|Δ|/max|ref| {rel:.3e} (tol 1e-5) {'ok' if ok else 'FAIL'}; its planes "
           f"against nx = {nc}: {rel_whole:.3e} of max, bit for bit {bitwise}; {ms:.3f} ms "
           f"(nx = {nc}: {whole_ms:.3f} ms), plain {plain_ms:.1f} ms, bound {bound_ms:.3f} ms")
     if not ok:
-        raise SystemExit("pair_sweep over planes disagrees")
+        raise SystemExit(f"{name} over planes disagrees")
     return dict(max_abs_err=err, max_rel_err=rel, vs_whole_rel=rel_whole,
                 bitwise_vs_whole=bitwise, ms=ms, whole_ms=whole_ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by="operations" if flops / FP32_FLOPS >
-                nbytes / HBM_BYTES_PER_S else "bytes", nx=nc + 2)
+                nbytes / HBM_BYTES_PER_S else "bytes", nx=nx)
+
+
+def _planes_blocks(layout, sim, dist) -> dict:
+    """Rows 8 and 9 on the tight layout's PM blocks as its kick over the
+    ranks lays them out, at world size 1: the valid slots in the planes of
+    all n/2 block planes (z-major ids over the planes, the same slots as
+    the whole layout's at one rank), the deposit onto the slab mesh with a
+    halo row a side against its plain version and, moved onto the slab
+    (parallel/step.add_span_rows), against the launch on the whole mesh;
+    the gather (D = 3 gradients) from the slab rows brought back
+    (step.span_rows) against its plain version and the whole mesh's
+    gather.  Phase 2's tolerance: rtol 2e-5, atol 1e-5·max|ref|."""
+    import torch
+
+    from concept_tpu_torch.forces.p3m import block_layout
+    from concept_tpu_torch.grid.cuda_blocks import (
+        deposit_blocks, deposit_blocks_plain, gather_blocks, gather_blocks_plain,
+    )
+    from concept_tpu_torch.grid.cuda_cells import cut_rows
+    from concept_tpu_torch.parallel import step
+
+    box, mesh = sim.boxsize, sim.mesh
+    nb = mesh // 2
+    K = sim._K_occ
+    flat = layout.pos[:, :K].reshape(3, -1)[:, layout.valid[:K].reshape(-1)]
+    planes = step.rank_planes(nb, dist)
+    spans = [step.plane_rows(nb, 2, dist, r) for r in range(dist.n_devices)]
+    lay = block_layout(*flat, mesh, box, sim.k_pm, planes=planes)
+    pos, ext = lay["slots"], lay["ext"]
+    w = (lay["valid"].to(pos.dtype) * sim.mass).contiguous()
+    wv = lay["valid"].to(pos.dtype).contiguous()
+    b, live = pos.element_size(), int(lay["valid"].sum())
+    _, Kb, C = pos.shape
+
+    def close(got, ref):
+        err, rel = _max_rel(got, ref)
+        return err, rel, bool(torch.allclose(got, ref, rtol=2e-5,
+                                             atol=1e-5 * float(ref.abs().max())))
+
+    out = {}
+    slab = deposit_blocks(*pos, w, mesh, box, ext, planes=planes)
+    ref, plain_ms = _once_ms(lambda: deposit_blocks_plain(*pos, cut_rows(w, ext), mesh, box,
+                                                          planes))
+    err, rel, ok = close(slab, ref)
+    del ref
+    whole = deposit_blocks(*pos, w, mesh, box, ext)
+    _, rel_whole, ok_whole = close(step.add_span_rows(slab, spans, dist), whole)
+    rows = mesh + 2
+    dep_bytes = 4 * C + b * (live + 3 * live + rows * mesh**2)
+    out["deposit_blocks"] = dict(
+        max_abs_err=err, max_rel_err=rel, vs_whole_rel=rel_whole,
+        ms=_time_ms(lambda: deposit_blocks(*pos, w, mesh, box, ext, planes=planes), 20),
+        whole_ms=_time_ms(lambda: deposit_blocks(*pos, w, mesh, box, ext), 20),
+        plain_ms=plain_ms,
+        bound_ms=1e3 * max(dep_bytes / HBM_BYTES_PER_S, 60 * live / FP32_FLOPS),
+        bound_by="bytes", ok=ok and ok_whole)
+    # three distinct fields for the gather: the deposit rolled along each axis
+    grads = torch.stack([torch.roll(whole, k, dims=k) for k in range(3)]).contiguous()
+    del slab, whole
+    g_slab = step.span_rows(grads, spans, dist).contiguous()
+    got = gather_blocks(*pos, wv, g_slab, mesh, box, ext, planes=planes)
+    ref, plain_ms = _once_ms(lambda: gather_blocks_plain(*pos, cut_rows(wv, ext), g_slab, mesh,
+                                                         box, planes))
+    err, rel, ok = close(got, ref)
+    _, rel_whole, ok_whole = close(got, gather_blocks(*pos, wv, grads, mesh, box, ext))
+    del got, ref
+    gat_bytes = 4 * C + b * (4 * live + 3 * rows * mesh**2 + 3 * Kb * C)
+    out["gather_blocks"] = dict(
+        max_abs_err=err, max_rel_err=rel, vs_whole_rel=rel_whole,
+        ms=_time_ms(lambda: gather_blocks(*pos, wv, g_slab, mesh, box, ext, planes=planes),
+                    20),
+        whole_ms=_time_ms(lambda: gather_blocks(*pos, wv, grads, mesh, box, ext), 20),
+        plain_ms=plain_ms,
+        bound_ms=1e3 * max(gat_bytes / HBM_BYTES_PER_S, (12 + 72) * live / FP32_FLOPS),
+        bound_by="bytes", ok=ok and ok_whole)
+    for name, c in out.items():
+        print(f"  {name} over block planes ({rows}-row slab, {Kb} rows × {C} blocks, "
+              f"{live} live): max |Δ| {c['max_abs_err']:.3e} "
+              f"({c['max_rel_err']:.3e} of max), "
+              f"against the whole mesh's {c['vs_whole_rel']:.3e} "
+              f"{'ok' if c['ok'] else 'FAIL'}; {c['ms']:.3f} ms (whole mesh "
+              f"{c['whole_ms']:.3f} ms), plain {c['plain_ms']:.1f} ms, bound "
+              f"{c['bound_ms']:.3f} ms")
+        if not c["ok"]:
+            raise SystemExit(f"{name} over block planes disagrees")
+    return out
 
 
 def _planes_cells(pos, valid, sim, ext, dist) -> dict:
@@ -3249,7 +3371,8 @@ def _planes_cells(pos, valid, sim, ext, dist) -> dict:
     err, rel, ok = close(slab, ref)
     del ref
     whole = deposit_cells(pos, w, mesh, box, 8)
-    _, rel_whole, ok_whole = close(step.add_halo_rows(slab, 1, dist), whole)
+    spans = [step.plane_rows(nc, 8, dist, r) for r in range(dist.n_devices)]
+    _, rel_whole, ok_whole = close(step.add_span_rows(slab, spans, dist), whole)
     rows = mesh + 2
     dep_bytes = b * (w.numel() + 3 * live + rows * mesh**2)
     out["deposit_cells"] = dict(
@@ -3261,7 +3384,7 @@ def _planes_cells(pos, valid, sim, ext, dist) -> dict:
     # three distinct fields for the gather: the deposit rolled along each axis
     grads = torch.stack([torch.roll(whole, k, dims=k) for k in range(3)]).contiguous()
     del slab, whole
-    g_slab = step.with_halo_rows(grads, 1, dist).contiguous()
+    g_slab = step.span_rows(grads, spans, dist).contiguous()
     got = gather_cells(pos, wv, g_slab, mesh, box, 8, ext=ext, planes=planes)
     ref, plain_ms = _once_ms(lambda: gather_cells_plain(pos, cut_rows(wv, ext), g_slab, mesh,
                                                         box, 8, planes=planes))
@@ -3325,6 +3448,103 @@ def _by_id(layout, field):
     return vals[torch.argsort(layout.ids.reshape(-1)[v])]
 
 
+def _tight_pm_over_ranks(layout, sim, dist) -> dict:
+    """The tight layout's PM over the ranks as its kick runs it (the block
+    PM on the ranks' planes of blocks: rows 8 and 9, the exchange to the
+    block planes and back, the row mover, the slab FFT;
+    p3msim.pm_gradient_layout with ``dist``) against one device's block
+    PM and against the global steps' generic halo PM over the ranks
+    (``index_add_``, parallel/step.pm_momentum_updates_distributed_halo)
+    on the same particles: each call's ms (mean of 5 after a warm-up) and
+    the momentum updates' largest difference from one device's over the
+    largest (the PM bound of tests/test_distributed.py:40-43, 1e-5, for
+    the path's)."""
+    from concept_tpu_torch.p3msim import pm_gradient_layout
+    from concept_tpu_torch.parallel.step import pm_momentum_updates_distributed_halo
+
+    K = sim._K_occ
+    pos, valid = layout.pos[:, :K], layout.valid[:K]
+    args = (sim.mass, sim.G, sim.scale, sim.boxsize, sim.mesh)
+    sel = valid.reshape(-1)
+    flat = pos.reshape(3, -1)[:, sel].T.contiguous()
+
+    def ranks():
+        return pm_gradient_layout(pos, valid, *args, k_pm=sim.k_pm, dist=dist)[0]
+
+    def one():
+        return pm_gradient_layout(pos, valid, *args, k_pm=sim.k_pm)[0]
+
+    def generic():
+        return pm_momentum_updates_distributed_halo(flat, sim.mass, sim.mesh, sim.boxsize,
+                                                    sim.G, 1.0, dist, order=2,
+                                                    longrange_scale=sim.scale)[0]
+
+    ref = (-sim.mass * one().reshape(3, -1)[:, sel]).T
+    _, rel = _max_rel((-sim.mass * ranks().reshape(3, -1)[:, sel]).T, ref)
+    _, rel_generic = _max_rel(generic(), ref)
+    out = {"max_rel_err": rel, "generic_max_rel_err": rel_generic}
+    out.update({f"{k}_ms": _time_ms(f, 5) for k, f in (("ranks", ranks), ("one_device", one),
+                                                        ("generic", generic))})
+    print(f"  tight PM over the ranks (block PM, rows 8-9): {out['ranks_ms']:.3f} ms a "
+          f"gradient against {out['one_device_ms']:.3f} on one device, {rel:.3g} of the "
+          f"largest update off (tol 1e-5); the generic halo PM (index_add_) "
+          f"{out['generic_ms']:.3f} ms, {rel_generic:.3g} off")
+    if not rel <= 1e-5:
+        raise SystemExit("the tight layout's PM over the ranks differs from one device's")
+    return out
+
+
+# phase 12's other layouts over planes: (tag, n, grid, cells' width in mesh
+# cells (0: tight), the kernels their base steps launch)
+PLANES_LAYOUTS = (("reach", 62, 124, 4, REACH_KERNELS), ("tight", 63, 126, 0, TIGHT_KERNELS))
+
+
+def _steps_over_ranks(n: int, mesh: int, sim, flat, dist, n_steps: int, ucb: int,
+                      kernels) -> dict:
+    """``n_steps`` base steps of ``P3MRungSimulation(dist=...)`` against the
+    one-device stepper from the flat state, each way twice in turn (the
+    first pair warms up; the second is reported): mean |Δx|/box < 1e-5
+    (tests/test_distributed_rungs.py:88), momenta within 1e-5 of the
+    largest, the layout ``ucb`` taken; ms a base step and peak memory both
+    ways; ``kernels`` launched and no other."""
+    import torch
+
+    from concept_tpu_torch.p3mrungs import P3MRungSimulation
+
+    steps, first = {}, {}
+    for tag, dd in (("single", None), ("ranks", dist)) * 2:
+        if tag in steps:
+            first[tag] = steps[tag][2:4]
+        s = P3MRungSimulation(n, sim.boxsize, sim.mass, sim.G, mesh=mesh, bg=sim.bg,
+                              N_rungs=sim.NR, softening=sim.softening,
+                              softening_kernel=sim.softening_kernel, device="cuda",
+                              dist=dd)
+        _reset_counts()
+        layout, ms, peak = _rung_base_steps(s, flat, 0.02, n_steps)
+        steps[tag] = (_by_id(layout, "pos"), _by_id(layout, "mom"), ms, peak,
+                      _read_counts(), s.ucb)
+        del layout, s
+    (p1, m1, ms1, pk1, _, _), (pd, md, msd, pkd, counts, got_ucb) = (steps["single"],
+                                                                      steps["ranks"])
+    box = sim.boxsize
+    d = (pd - p1).abs().double()
+    d = torch.minimum(d, box - d).norm(dim=1) / box
+    _, dmom = _max_rel(md, m1)
+    bs = dict(steps=n_steps, mean_dx=float(d.mean()), max_dx=float(d.max()), max_dmom_rel=dmom,
+              ms_per_step=msd, single_ms_per_step=ms1, peak_bytes=pkd, single_peak_bytes=pk1,
+              first_ms_and_peak={k: list(v) for k, v in first.items()}, launches=counts,
+              ucb=got_ucb)
+    print(f"  {n}³ / grid {mesh}: {n_steps} base steps over the ranks against one device: "
+          f"mean |Δx|/box {bs['mean_dx']:.3g}, max {bs['max_dx']:.3g}, max |Δp| {dmom:.3g} "
+          f"of "
+          f"the largest; {msd:.1f} ms a base step against {ms1:.1f}, peak "
+          f"{pkd / 2**30:.2f} / {pk1 / 2**30:.2f} GiB; launches {counts}")
+    if bs["mean_dx"] >= 1e-5 or dmom > 1e-5 or got_ucb != ucb:
+        raise SystemExit("the rung stepper over the ranks differs from one device's")
+    _check_launches(counts, kernels)
+    return bs
+
+
 def parallel_rungs(n: int = 256, mesh: int = 512, n_steps: int = 3) -> dict:
     """Phase 12: the rung stepper over ranks on a world of one ``nccl``
     rank (built here: ``make_distribution(1)`` gives None).  (a) On the
@@ -3335,12 +3555,20 @@ def parallel_rungs(n: int = 256, mesh: int = 512, n_steps: int = 3) -> dict:
     ``P3MRungSimulation(dist=...)`` against the one-device stepper from the
     same state: mean |Δx|/box < 1e-5 (tests/test_distributed_rungs.py:88),
     momenta within 1e-5 of the largest; ms a base step and peak memory
-    both ways; rows 1, 3 and 4 launched.  (c) ``param/example_basic.py``
-    from a = 0.02 to 0.1 through ``RungSimulationAdapter(dist=...)``: its
-    spectrum within 1e-4 of the one-device adapter's; every count set to
-    0 just before, read just after.  (d) ``-n 2`` on this one card raises
-    ValueError.  Two ranks are not run: NCCL refuses two ranks on one
-    GPU."""
+    both ways; rows 1, 3 and 4 launched (:func:`_steps_over_ranks`).  (e)
+    The 4-mesh-cell layout at 62³ / grid 124 (31 planes): row 5 over the
+    rank's planes between two neighbour planes a side (nx = nc + 4)
+    against its plain version and, bit for bit, the whole launch; 3 base
+    steps as in (b), rows 5, 3, 4 launched.  (f) The tight layout at 63³ /
+    grid 126 (19 planes): row 1 over planes as in (a), rows 8 and 9 over
+    the planes of the PM blocks (:func:`_planes_blocks`), its PM over the
+    ranks beside one device's and the generic halo PM
+    (:func:`_tight_pm_over_ranks`), 3 base steps, rows 1, 8, 9 launched.
+    (c) ``param/example_basic.py`` from a = 0.02 to 0.1 through
+    ``RungSimulationAdapter(dist=...)``: its spectrum within 1e-4 of the
+    one-device adapter's; every count set to 0 just before, read just
+    after.  (d) ``-n 2`` on this one card raises ValueError.  Two ranks
+    are not run: NCCL refuses two ranks on one GPU."""
     import numpy as np
     import torch
     import torch.distributed as tdist
@@ -3348,7 +3576,7 @@ def parallel_rungs(n: int = 256, mesh: int = 512, n_steps: int = 3) -> dict:
     from concept_tpu_torch.analysis.powerspec import powerspec
     from concept_tpu_torch.forces.shortrange import SENTINEL
     from concept_tpu_torch.grid.fft import GridDistribution
-    from concept_tpu_torch.p3mrungs import P3MRungSimulation, RungSimulationAdapter
+    from concept_tpu_torch.p3mrungs import RungSimulationAdapter
     from concept_tpu_torch.param import load_params
     from concept_tpu_torch.run import run
     from concept_tpu_torch.sim import SimConfig
@@ -3371,40 +3599,34 @@ def parallel_rungs(n: int = 256, mesh: int = 512, n_steps: int = 3) -> dict:
         out.update(_planes_cells(state.pos[:, :K], state.valid[:K], sim, ext, dist))
         flat = adapter._to_flat(state)
         del state, adapter
-        # (b) base steps over the ranks against one device, each way twice
-        # in turn (the first pair warms up); the second pair is reported
-        steps, first = {}, {}
-        for tag, dd in (("single", None), ("ranks", dist)) * 2:
-            if tag in steps:
-                first[tag] = steps[tag][2:4]
-            s = P3MRungSimulation(n, sim.boxsize, sim.mass, sim.G, mesh=mesh, bg=sim.bg,
-                                  N_rungs=sim.NR, softening=sim.softening,
-                                  softening_kernel=sim.softening_kernel, device="cuda",
-                                  dist=dd)
-            _reset_counts()
-            layout, ms, peak = _rung_base_steps(s, flat, 0.02, n_steps)
-            steps[tag] = (_by_id(layout, "pos"), _by_id(layout, "mom"), ms, peak,
-                          _read_counts(), s.ucb)
-            del layout, s
-        (p1, m1, ms1, pk1, _, _), (pd, md, msd, pkd, counts, ucb) = (steps["single"],
-                                                                      steps["ranks"])
-        box = sim.boxsize
-        d = (pd - p1).abs().double()
-        d = torch.minimum(d, box - d).norm(dim=1) / box
-        _, dmom = _max_rel(md, m1)
-        out["base_steps"] = dict(
-            steps=n_steps, mean_dx=float(d.mean()), max_dx=float(d.max()), max_dmom_rel=dmom,
-            ms_per_step=msd, single_ms_per_step=ms1, peak_bytes=pkd, single_peak_bytes=pk1,
-            first_ms_and_peak={k: list(v) for k, v in first.items()}, launches=counts, ucb=ucb)
-        del steps, p1, m1, pd, md
-        bs = out["base_steps"]
-        print(f"  {n_steps} base steps over the ranks against one device: mean |Δx|/box "
-              f"{bs['mean_dx']:.3g}, max {bs['max_dx']:.3g}, max |Δp| {dmom:.3g} of the "
-              f"largest; {msd:.1f} ms a base step against {ms1:.1f}, peak "
-              f"{pkd / 2**30:.2f} / {pk1 / 2**30:.2f} GiB; launches {counts}")
-        if bs["mean_dx"] >= 1e-5 or dmom > 1e-5 or ucb != 8:
-            raise SystemExit("the rung stepper over the ranks differs from one device's")
-        _check_launches(counts, RUNG_KERNELS)
+        # (b) base steps over the ranks against one device
+        out["base_steps"] = _steps_over_ranks(n, mesh, sim, flat, dist, n_steps, 8,
+                                              RUNG_KERNELS)
+        del flat
+        # (e) the 4-mesh-cell layout (row 5 over planes: nx = nc + 4) and
+        # (f) the tight one (row 1 over planes, rows 8 and 9 over the
+        # blocks' planes), each on a realized layout and for base steps
+        for tag, nn, mm, ucb, kernels in PLANES_LAYOUTS:
+            adapter, state = _realized_layout(nn**3, mm, "cuda")
+            lsim = adapter.inner
+            K, ext = lsim._K_occ, lsim._ext_occ
+            print(f"parallel_rungs, {tag} layout: {nn}³ particles, grid {mm}, {lsim.nc}³ "
+                  f"cells, {K} slot rows")
+            if lsim.ucb != ucb:
+                raise SystemExit(f"grid {mm} took cells {lsim.ucb} mesh cells wide, not {ucb}")
+            pos_s = _sentineled(state, K, SENTINEL * lsim.boxsize)
+            res = {"pair_sweep_reach" if ucb else "pair_sweep":
+                   _planes_sweep(f"{tag}, realized", pos_s, lsim, ext, dist)}
+            del pos_s
+            if not ucb:
+                res.update(_planes_blocks(state, lsim, dist))
+                res["pm"] = _tight_pm_over_ranks(state, lsim, dist)
+            flat = adapter._to_flat(state)
+            del state, adapter
+            res["base_steps"] = _steps_over_ranks(nn, mm, lsim, flat, dist, n_steps, ucb,
+                                                  kernels)
+            del flat
+            out[tag] = res
         # (c) example_basic through the adapter over the ranks
         cfg, consts, bg, lin, spec, soft = _example(64, 128)
         config = SimConfig(boxsize=cfg.boxsize, potential_gridsize=128,
@@ -3497,70 +3719,10 @@ def _timed(seconds: dict, name: str, fn, *args, **kw):
     return out
 
 
-def main(argv=None) -> int:
-    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--out", help="also write every measured number to this JSON file")
-    args = p.parse_args(argv)
-
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available; the port's smoke run needs a card",
-              file=sys.stderr)
-        return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    smi = _nvidia_smi()
-    results = {"nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda}
-    seconds = results["phase_seconds"] = {}
-    results.update(build())
-    results["check"] = _timed(seconds, "check", check_kernels)
-    results["main_path"] = _timed(seconds, "main_path", main_path)
-    results["realistic"] = _timed(seconds, "realistic", realistic, check_pm=True)
-    results["check_global"] = _timed(seconds, "check_global", check_global_kernels)
-    results["global_main_path"] = _timed(seconds, "global_main_path", global_main_path)
-    results["global_realistic"] = _timed(seconds, "global_realistic", global_realistic)
-    results["check_reach"] = _timed(seconds, "check_reach", check_reach_kernels)
-    results["reach_main_path"] = _timed(
-        seconds, "reach_main_path", _layout_main_path, "reach", 62, 124, 4, REACH_KERNELS)
-    results["tight_main_path"] = _timed(
-        seconds, "tight_main_path", _layout_main_path, "tight", 63, 126, 0, TIGHT_KERNELS)
-    results["reach_realistic"] = _timed(
-        seconds, "reach_realistic", realistic, n=250, mesh=500, ucb=4, kernels=REACH_KERNELS)
-    results["tight_realistic"] = _timed(
-        seconds, "tight_realistic", realistic, n=255, mesh=510, ucb=0, kernels=TIGHT_KERNELS)
-    results["check_pm_only"] = _timed(seconds, "check_pm_only", check_pm_only_kernels)
-    results["pm_only_main_path"] = _timed(seconds, "pm_only_main_path", pm_only_main_path)
-    results["pm_only_realistic"] = _timed(seconds, "pm_only_realistic", pm_only_realistic)
-    results["bucket_flagship"] = _timed(seconds, "bucket_flagship", bucket_flagship)
-    results["bucket_sustained"] = _timed(seconds, "bucket_sustained", bucket_sustained)
-    results["p3m_persistent"] = _timed(seconds, "p3m_persistent", p3m_persistent)
-    results["global_rungs"] = _timed(seconds, "global_rungs", global_rungs)
-    results["lean_kick"] = _timed(seconds, "lean_kick", lean_kick)
-    results["lpt"] = _timed(seconds, "lpt", lpt)
-    results["files"] = _timed(seconds, "files", files)
-    results["check_f64"] = _timed(seconds, "check_f64", check_f64)
-    results["f64_paths"] = _timed(seconds, "f64_paths", f64_main_paths, results)
-    results["f64_global_rungs"] = _timed(
-        seconds, "f64_global_rungs", global_rungs, dtype=torch.float64)
-    results["f64_realistic"] = _timed(seconds, "f64_realistic", realistic, f64=True)
-    results["pp"] = _timed(seconds, "pp", pp_phase)
-    cache = tempfile.mkdtemp(prefix="chip_smoke_eb_")
-    try:
-        results["nu"] = _timed(seconds, "nu", nu_cosmology, cache=cache)
-        results["multi"] = _timed(seconds, "multi", multi, cache)
-    finally:
-        shutil.rmtree(cache, ignore_errors=True)
-    results["multi_cdm_baryon"] = results["multi"]["cdm_baryon"]
-    sim, state = _global_sim(256**3, 512, "cuda", method="pm")
-    results["render"] = _timed(seconds, "render", render, sim, state)
-    results["parallel"] = _timed(seconds, "parallel", parallel, sim, state)
-    del sim, state
-    results["parallel_rungs"] = _timed(seconds, "parallel_rungs", parallel_rungs)
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        with open(args.out, "w") as f:
-            json.dump(results, f, indent=1)
+def kernels_line(results: dict) -> list:
+    """The ``kernels`` list of the line before the last, from the phases'
+    results (every row of KERNELS, with the numbers of each path that
+    runs it)."""
     kernels = []
     for name, counter, phase, key, source, replaces, path in KERNELS:
         c = results[phase][key]
@@ -3630,11 +3792,22 @@ def main(argv=None) -> int:
     # rows 1, 3 and 4 over a rank's planes (phase 12): their checks, and
     # their launches by the base steps and by example_basic over the ranks
     pr = results["parallel_rungs"]
+    planes_keys = ("max_abs_err", "max_rel_err", "ms", "whole_ms", "plain_ms", "bound_ms")
     for name in RUNG_KERNELS:
-        byname[name].update({f"planes_{k}": pr[name][k] for k in (
-            "max_abs_err", "max_rel_err", "ms", "whole_ms", "plain_ms", "bound_ms")})
+        byname[name].update({f"planes_{k}": pr[name][k] for k in planes_keys})
         byname[name]["planes_launches"] = pr["example_basic"]["launches"][name]
         byname[name]["planes_base_steps_launches"] = pr["base_steps"]["launches"][name]
+    byname["deposit_blocks"]["tight_pm_over_ranks"] = pr["tight"]["pm"]
+    # rows 5, 1, 8 and 9 over the planes of the 4-mesh-cell and tight
+    # layouts (prefixes planes_reach_, planes_tight_), and the launches of
+    # their base steps over the ranks (rows 3 and 4 at cb = 4 too)
+    for tag, names in (("reach", REACH_KERNELS), ("tight", TIGHT_KERNELS)):
+        for name in names:
+            if name in pr[tag]:
+                byname[name].update({f"planes_{tag}_{k}": pr[tag][name][k]
+                                     for k in planes_keys})
+            byname[name][f"planes_{tag}_base_steps_launches"] = (
+                pr[tag]["base_steps"]["launches"][name])
     byname["pair_sweep_two_sided"]["multi_nonlinnu_all_rows_vs_f64_kernel"] = (
         mp["nonlinnu"]["row6_final"]["all_rows_vs_f64_kernel"])
     for name in ("deposit_pm", "gather_pm"):
@@ -3711,6 +3884,74 @@ def main(argv=None) -> int:
         byname[name].update({f"f64_{k}": c.get(k) for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
         byname[name]["f64_launches"] = launches
+    return kernels
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--out", help="also write every measured number to this JSON file")
+    args = p.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; the port's smoke run needs a card",
+              file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = _nvidia_smi()
+    results = {"nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda}
+    seconds = results["phase_seconds"] = {}
+    results.update(build())
+    results["check"] = _timed(seconds, "check", check_kernels)
+    results["main_path"] = _timed(seconds, "main_path", main_path)
+    results["realistic"] = _timed(seconds, "realistic", realistic, check_pm=True)
+    results["check_global"] = _timed(seconds, "check_global", check_global_kernels)
+    results["global_main_path"] = _timed(seconds, "global_main_path", global_main_path)
+    results["global_realistic"] = _timed(seconds, "global_realistic", global_realistic)
+    results["check_reach"] = _timed(seconds, "check_reach", check_reach_kernels)
+    results["reach_main_path"] = _timed(
+        seconds, "reach_main_path", _layout_main_path, "reach", 62, 124, 4, REACH_KERNELS)
+    results["tight_main_path"] = _timed(
+        seconds, "tight_main_path", _layout_main_path, "tight", 63, 126, 0, TIGHT_KERNELS)
+    results["reach_realistic"] = _timed(
+        seconds, "reach_realistic", realistic, n=250, mesh=500, ucb=4, kernels=REACH_KERNELS)
+    results["tight_realistic"] = _timed(
+        seconds, "tight_realistic", realistic, n=255, mesh=510, ucb=0, kernels=TIGHT_KERNELS)
+    results["check_pm_only"] = _timed(seconds, "check_pm_only", check_pm_only_kernels)
+    results["pm_only_main_path"] = _timed(seconds, "pm_only_main_path", pm_only_main_path)
+    results["pm_only_realistic"] = _timed(seconds, "pm_only_realistic", pm_only_realistic)
+    results["bucket_flagship"] = _timed(seconds, "bucket_flagship", bucket_flagship)
+    results["bucket_sustained"] = _timed(seconds, "bucket_sustained", bucket_sustained)
+    results["p3m_persistent"] = _timed(seconds, "p3m_persistent", p3m_persistent)
+    results["global_rungs"] = _timed(seconds, "global_rungs", global_rungs)
+    results["lean_kick"] = _timed(seconds, "lean_kick", lean_kick)
+    results["lpt"] = _timed(seconds, "lpt", lpt)
+    results["files"] = _timed(seconds, "files", files)
+    results["check_f64"] = _timed(seconds, "check_f64", check_f64)
+    results["f64_paths"] = _timed(seconds, "f64_paths", f64_main_paths, results)
+    results["f64_global_rungs"] = _timed(
+        seconds, "f64_global_rungs", global_rungs, dtype=torch.float64)
+    results["f64_realistic"] = _timed(seconds, "f64_realistic", realistic, f64=True)
+    results["pp"] = _timed(seconds, "pp", pp_phase)
+    cache = tempfile.mkdtemp(prefix="chip_smoke_eb_")
+    try:
+        results["nu"] = _timed(seconds, "nu", nu_cosmology, cache=cache)
+        results["multi"] = _timed(seconds, "multi", multi, cache)
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+    results["multi_cdm_baryon"] = results["multi"]["cdm_baryon"]
+    sim, state = _global_sim(256**3, 512, "cuda", method="pm")
+    results["render"] = _timed(seconds, "render", render, sim, state)
+    results["parallel"] = _timed(seconds, "parallel", parallel, sim, state)
+    del sim, state
+    results["parallel_rungs"] = _timed(seconds, "parallel_rungs", parallel_rungs)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(results, f, indent=1)
+    kernels = kernels_line(results)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

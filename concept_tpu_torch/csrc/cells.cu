@@ -10,14 +10,15 @@
 // Columns are cubes cb mesh cells wide, C = nc³ of them: the rung
 // stepper's cells (cb = 8 or 4, ids x-major: c = (cx·nc + cy)·nc + cz) or
 // the global and bucket steppers' PM blocks (cb = 2, ids z-major: c =
-// (cz·nc + cy)·nc + cx); both are launch arguments.  The cells may also be
-// a rank's nx planes of columns from global plane x0 on (C = nx·nc², the
-// rung stepper over ranks): the mesh is then the rank's slab with one halo
-// row a side, nx·cb + 2 rows along x from global mesh row x0·cb − 1, not
-// wrapped along x (a slot's anchor row is its column's local plane·cb +
-// its offset in the column's halo, 0 to cb), and the caller adds the halo
-// rows to its neighbours' slabs (deposit) or fills them from there
-// (gather).  A slot takes part
+// (cz·nc + cy)·nc + cx); both are launch arguments.  The columns may also
+// be a rank's nx planes of them from global plane x0 on (C = nx·nc², the
+// rung stepper over ranks: its planes of cells, or on the tight layout the
+// blocks' planes of its PM, ids (cz·nc + cy)·nx + cx − x0): the mesh is
+// then the planes' rows with one halo row a side, nx·cb + 2 rows along x
+// from global mesh row x0·cb − 1, not wrapped along x (a slot's anchor
+// row is its column's local plane·cb + its offset in the column's halo, 0
+// to cb), and the caller moves these rows onto the ranks' FFT slabs
+// (deposit) or fills them from there (gather).  A slot takes part
 // only when its CIC cloud lies inside its column's ±1-mesh-cell halo, the
 // test of _cell_geometry (pallas_cells.py:133) and _slot_geometry
 // (pallas_pm.py:182): the TPU kernels fill a (cb+2)³ mini-grid per column
@@ -233,7 +234,7 @@ struct SlotTile {
   long long c;        // its column id
 
   // the columns along the id's slow and fast axes (x is the slow axis of
-  // x-major ids; z-major ids take nx = nc)
+  // x-major ids and the fast axis of z-major ones)
   static int count(int nc, int nx) {
     const int ns = ZMAJOR ? nc : nx, nf = ZMAJOR ? nx : nc;
     return ((ns + TS - 1) / TS) * ((nc + TM - 1) / TM) * ((nf + TF - 1) / TF);
@@ -390,17 +391,17 @@ template <typename T, int CB, bool ZMAJOR, bool QUADS, int TS, int TM, int TF, i
 __global__ void __launch_bounds__(kThreads)
 gather_tile_kernel(const T* __restrict__ px, const T* __restrict__ py,
                    const T* __restrict__ pz, const T* __restrict__ w, int K, int nc,
-                   T inv_h, const int* __restrict__ ext, bool vec,
-                   const T* __restrict__ grids, int D, T* __restrict__ out) {
+                   int nx, int x0, bool slab, T inv_h, const int* __restrict__ ext,
+                   bool vec, const T* __restrict__ grids, int D, T* __restrict__ out) {
   using Tile = SlotTile<CB, ZMAJOR, QUADS, TS, TM, TF>;
   T* halo = shared_halo(static_cast<T*>(nullptr));  // D × kCells
-  const Tile tile(nc, nc, 0, false);  // the whole periodic mesh
+  const Tile tile(nc, nx, x0, slab);
   T q[SLOTS];
   const int kout = tile.template weights<SLOTS>(w, K, ext, q);  // rows written
   bool live = false;
 #pragma unroll
   for (int s = 0; s < SLOTS; ++s) live |= q[s] != T(0);
-  const long long C = (long long)nc * nc * nc, KC = K * C;
+  const long long C = (long long)nx * nc * nc, KC = K * C;
   const int r0 = blockIdx.y * (SLOTS * Tile::kRowStep) + tile.row;
   if (!__syncthreads_or(live)) {
 #pragma unroll
@@ -412,7 +413,7 @@ gather_tile_kernel(const T* __restrict__ px, const T* __restrict__ py,
     return;
   }
   const int n = nc * CB;
-  const long long n3 = (long long)n * n * n;
+  const long long n3 = (long long)(slab ? nx * CB + 2 : n) * n * n;  // a field's mesh
   // asynchronous copies (cp.async): every load of the halo in flight at
   // once, none through registers
   tile.for_halo(
@@ -614,8 +615,8 @@ static int deposit_tiles(const T* px, const T* py, const T* pz, const T* w, int 
 
 template <typename T, int CB, bool ZMAJOR, bool QUADS, int TS, int TM, int TF, int SLOTS>
 static int gather_tiles(const T* px, const T* py, const T* pz, const T* w, int K, int nc,
-                        T inv_h, const int* ext, const T* grids, int D, T* out,
-                        cudaStream_t stream) {
+                        int nx, int x0, bool slab, T inv_h, const int* ext, const T* grids,
+                        int D, T* out, cudaStream_t stream) {
   using Tile = SlotTile<CB, ZMAJOR, QUADS, TS, TM, TF>;
   if (K <= 0 || nc <= 0) return 0;
   const size_t bytes = sizeof(T) * D * Tile::kCells;
@@ -623,9 +624,9 @@ static int gather_tiles(const T* px, const T* py, const T* pz, const T* w, int K
   static size_t allowed = 0;
   if (int err = shared_bytes(kernel, bytes, allowed)) return err;
   const int rows = SLOTS * Tile::kRowStep;
-  const dim3 grid_dims(Tile::count(nc, nc), (K + rows - 1) / rows);
-  kernel<<<grid_dims, kThreads, bytes, stream>>>(px, py, pz, w, K, nc, inv_h, ext,
-                                                 nc * CB % 4 == 0, grids, D, out);
+  const dim3 grid_dims(Tile::count(nc, nx), (K + rows - 1) / rows);
+  kernel<<<grid_dims, kThreads, bytes, stream>>>(px, py, pz, w, K, nc, nx, x0, slab, inv_h,
+                                                 ext, nc * CB % 4 == 0, grids, D, out);
   return (int)cudaGetLastError();
 }
 
@@ -662,10 +663,11 @@ static int gather_columns(const T* px, const T* py, const T* pz, const T* w, int
 constexpr int kSlabRows = 16;
 
 // The whole periodic mesh (slab 0: nx = nc, x0 = 0), or a rank's planes
-// on their slab mesh (slab 1, cells only).
+// on their slab mesh (slab 1: planes of cells, x-major, or of blocks,
+// z-major, whose ids then take nx along x: c = (cz·nc + cy)·nx + cx − x0).
 static bool planes_ok(int nc, int cb, int zmajor, int nx, int x0, int slab) {
   if (!slab) return nx == nc && x0 == 0;
-  return !zmajor && (cb == 8 || cb == 4) && nx >= 1 && x0 >= 0 && x0 + nx <= nc;
+  return nx >= 1 && x0 >= 0 && x0 + nx <= nc;
 }
 
 template <typename T>
@@ -681,7 +683,7 @@ static int deposit(const T* px, const T* py, const T* pz, const T* w, int K, int
     return deposit_tiles<T, CELLS4_TILE>(px, py, pz, w, K, nc, nx, x0, slab, inv_h, ext, grid,
                                          s);
   if (cb == 2 && zmajor)
-    return deposit_tiles<T, BLOCKS_TILE>(px, py, pz, w, K, nc, nc, 0, false, inv_h, ext, grid,
+    return deposit_tiles<T, BLOCKS_TILE>(px, py, pz, w, K, nc, nx, x0, slab, inv_h, ext, grid,
                                          s);
   return (int)cudaErrorInvalidValue;
 }
@@ -693,7 +695,8 @@ static int gather(const T* px, const T* py, const T* pz, const T* w, int K, int 
   const cudaStream_t s = (cudaStream_t)stream;
   if (!planes_ok(nc, cb, zmajor, nx, x0, slab)) return (int)cudaErrorInvalidValue;
   if (cb == 2 && zmajor)
-    return gather_tiles<T, BLOCKS_TILE>(px, py, pz, w, K, nc, inv_h, ext, grids, D, out, s);
+    return gather_tiles<T, BLOCKS_TILE>(px, py, pz, w, K, nc, nx, x0, slab, inv_h, ext, grids,
+                                        D, out, s);
   if (cb == 8 && !zmajor)
     return gather_columns<T, 8, kSlabRows>(px, py, pz, w, K, nc, nx, x0, slab, inv_h, ext,
                                            grids, D, out, s);
@@ -707,8 +710,7 @@ static int gather(const T* px, const T* py, const T* pz, const T* w, int K, int 
 // nx·nc²; ext: (C,) int32 row extents or null; grid contiguous, zeroed by
 // the caller: (n, n, n) with slab 0 (nx = nc, x0 = 0), (nx·cb + 2, n, n)
 // with slab 1.  Columns: cb 8 or 4 with x-major ids (zmajor 0), or cb 2
-// with z-major ids (zmajor 1, slab 0).  Returns the cudaError_t of the
-// launch.
+// with z-major ids (zmajor 1).  Returns the cudaError_t of the launch.
 extern "C" int cic_deposit_launch(const float* px, const float* py, const float* pz,
                                   const float* w, int K, int nc, int cb, int zmajor, int nx,
                                   int x0, int slab, float inv_h, const int* ext, float* grid,

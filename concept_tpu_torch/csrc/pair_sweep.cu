@@ -15,11 +15,13 @@
 // offsets of |d| ≤ 2 (kept_offsets: 117 of 125) for the rung stepper's
 // cells 4 mesh cells wide, which are narrower than the cutoff.  Columns
 // are cells of an nx × n × n grid with x-major, z-fastest ids (nx = n: the
-// whole box; nx = n/d + 2: a rank's planes of columns between the two
-// neighbour planes it received, which the rank's row bounds leave without
-// receivers, so that no kept receiver reaches the wrap along x); a
-// neighbour across a face of the grid is seen at ±boxsize (for |d| ≤ 2 and
-// n, nx ≥ 5 every offset of a column names a distinct column).  Invalid slots hold a far sentinel
+// whole box; else a rank's planes of columns between the neighbour planes
+// it received, one a side for the ±1 table (nx = planes + 2) and two for
+// the reach table (nx = planes + 4), which the rank's row bounds leave
+// without receivers, so that no kept receiver reaches the wrap along x);
+// a neighbour across a face of the grid is seen at ±boxsize (for |d| ≤ 2
+// and n, nx ≥ 5 every offset of a column names a distinct column: a rank
+// holds at least 2 planes of the reach layout, so nx ≥ 6).  Invalid slots hold a far sentinel
 // (±1e4·boxsize), so the cutoff mask removes them; coincident sentinels
 // give r² = 0, removed by r² > 0.  Optional per-column row bounds rb, sb
 // (C,): rows of column c at or beyond rb[c] output exactly 0, and the

@@ -7,9 +7,10 @@ Contract: ``recv`` (3, K_r, C) and ``sup`` (3, K_s, C) slot positions
 with invalid slots at a far sentinel ``±SENTINEL·boxsize`` (typically row
 slices of one sentinel-filled (3, K, C) array); C = nx·n² cells of an
 nx × n × n column grid, ids x-major and z-fastest: nx = n (the default)
-for the whole box, or a rank's planes of columns between the two
-neighbour planes it received (nx = n/d + 2, the rung stepper over ranks),
-whose receiver bounds are 0 there.  A neighbour across a face of the
+for the whole box, or a rank's planes of columns between the neighbour
+planes it received (the rung stepper over ranks: one a side for the ±1
+sweep, nx = planes + 2, two for the reach sweep, nx = planes + 4), whose
+receiver bounds are 0 there.  A neighbour across a face of the
 grid is seen at ±boxsize.  Returns the accelerations (3, K_r, C); the
 caller applies G·m.
 
@@ -93,7 +94,12 @@ def pair_sweep_plain(recv, sup, n_cells: int, boxsize: float, scale: float,
     (in its row bound and off the sentinel; the others come out 0, as
     from the kernel) with every supplier off the sentinel in its
     neighbour columns, below that column's supplier bound.  Receivers go in chunks whose pairs
-    stay near 2²⁴ on the card and 2²¹ on the CPU."""
+    stay near 2²⁴ on the card and 2²¹ on the CPU.  Each receiver's pair
+    forces, computed in the input's dtype, are summed in float64 and
+    rounded once: on the card index_add_ adds in no fixed order, and a
+    float32 sum whose terms cancel (a receiver between two near
+    suppliers at softening 0) then moved by up to 1e-5 of the force from
+    one call to the next."""
     _check(recv, sup, n_cells, kernel, offsets, nx)
     n = n_cells
     nx = n if nx is None else nx
@@ -142,9 +148,9 @@ def pair_sweep_plain(recv, sup, n_cells: int, boxsize: float, scale: float,
         r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
         m = (r2 < cutoff2) & (r2 > 0)
         f = torch.where(m, shortrange_force_factor(r2, scale, soft2, kernel), 0.0)
-        acc = torch.zeros((3, i1 - i0), dtype=recv.dtype, device=dev)
-        acc.index_add_(1, ri - i0, f[None] * d)
-        out[:, r_row[i0:i1], r_col[i0:i1]] = acc
+        acc = torch.zeros((3, i1 - i0), dtype=torch.float64, device=dev)
+        acc.index_add_(1, ri - i0, (f[None] * d).double())
+        out[:, r_row[i0:i1], r_col[i0:i1]] = acc.to(recv.dtype)
         i0 = i1
     return out
 
@@ -241,19 +247,21 @@ def pair_sweep_subset(recv, sup, n_cells: int, boxsize: float, scale: float,
 
 def pair_sweep_reach(recv, sup, n_cells: int, boxsize: float, scale: float,
                      cutoff2: float, soft2: float, offsets,
-                     kernel: str = "plummer", rext=None, sext=None):
-    """The sweep over the neighbour ``offsets`` (|d| ≤ 2, n ≥ 5): the
+                     kernel: str = "plummer", rext=None, sext=None, nx: int | None = None):
+    """The sweep over the neighbour ``offsets`` (|d| ≤ 2, n, nx ≥ 5): the
     CUDA kernel for CUDA tensors, the plain version for CPU tensors.
     Port of ``sweep_pallas_pair_reach``, whose receivers sit at
     −SENTINEL·boxsize and suppliers at +SENTINEL·boxsize; the row bounds
-    are the port's own (see the module docstring)."""
+    are the port's own (see the module docstring).  ``nx`` as in
+    :func:`pair_sweep`: a rank's planes between two neighbour planes a
+    side (nx = planes + 4)."""
     offsets = tuple(tuple(int(d) for d in off) for off in offsets)
     if recv.device.type == "cpu":
         _build.scalar_dtype("pair_sweep_reach", recv, sup)
         return pair_sweep_plain(recv, sup, n_cells, boxsize, scale, cutoff2,
-                                soft2, kernel, rext, sext, offsets)
+                                soft2, kernel, rext, sext, offsets, nx=nx)
     out = _launch(recv, sup, n_cells, boxsize, scale, cutoff2, soft2, kernel,
-                  rext, sext, offsets)
+                  rext, sext, offsets, nx)
     _build.count_launch(pair_sweep_reach, out.dtype)
     return out
 

@@ -223,10 +223,15 @@ def sweep_slots(recv, sup, n_cells: int, boxsize: float, scale: float,
     the card) where there are at least 3 cells a side, else the folded
     plain sweep (:func:`sweep_fold`), chosen by n_cells as the JAX
     package chooses its engine.  ``nx`` (a rank's planes with their two
-    neighbour planes) takes the kernel's nx × n × n column grid."""
+    neighbour planes) takes the kernel's nx × n × n column grid; the
+    folded sweep has no such form (below 3 cells a side the ±1 offsets of
+    a plane alias, and a rank's planes cannot stand for the box's), so
+    planes of fewer than 3 cells a side raise ValueError."""
     from concept_tpu_torch.forces.cuda_shortrange import pair_sweep
 
     if nx is not None:
+        if n_cells < 3:
+            raise ValueError(f"{n_cells} cells a side: the folded sweep takes no planes")
         return pair_sweep(recv, sup, n_cells, boxsize, scale, cutoff2, soft2,
                           kernel=kernel, rext=rext, sext=sext, nx=nx)
     sweep = pair_sweep if n_cells >= 3 else sweep_fold

@@ -16,13 +16,15 @@ gather).
 
 ``planes`` = (x0, nx) takes a rank's nx planes of columns from global
 plane x0 on (C = nx·nc², the rung stepper over ranks; positions stay
-global): the mesh is then the planes' slab with one halo row a side,
+global): the mesh is then the planes' rows with one halo row a side,
 (nx·cb + 2, n, n) from global mesh row x0·cb − 1, not wrapped along x.
 A slot's anchor row there is its column's local plane·cb plus its offset
 in the column's (periodic) halo, so that a slot of the first plane that
-drifted below x = 0 lands in the low halo row.  The caller adds the halo
-rows to the neighbouring slabs (deposit) or fills them from there
-(gather): parallel/step.py.
+drifted below x = 0 lands in the low halo row.  The caller moves these
+rows onto the ranks' FFT slabs (deposit) or fills them from there
+(gather): parallel/step.add_span_rows and span_rows.  Z-major ids over
+planes (grid/cuda_blocks.py) run x fastest over the nx planes: c =
+(cz·nc + cy)·nx + cx − x0.
 
 Positions, weights and meshes are all float32 (the float kernels) or
 all float64 (their double twins).  On CPU tensors the wrappers run the
@@ -65,21 +67,23 @@ def mesh_rows(gridsize: int, cb: int, planes=None) -> int:
 
 
 def cell_geometry(pos3, cols, nc: int, cb: int, inv_h: float,
-                  zmajor: bool = False, x0: int | None = None):
+                  zmajor: bool = False, x0: int | None = None, nx: int | None = None):
     """CIC anchors, fractions and the halo test of slots in columns
     ``cols``: ((ix, iy, iz) int64, (fx, fy, fz), in_halo), each (K, cols).
     Column ids are x-major (c = (cx·nc + cy)·nc + cz), or z-major with
     ``zmajor``.  The halo test is periodic: a slot that crossed a box face
     since the last rebucket sits at the far side of the box in
     [0, boxsize), and its anchor lies in its cell's halo modulo the
-    mesh.  With ``x0`` the columns are planes from global plane x0 on
-    (x-major), and ix is the anchor's row on their slab mesh (0 outside
-    the halo; see the module docstring)."""
+    mesh.  With ``x0`` the columns are ``nx`` planes from global plane x0
+    on, and ix is the anchor's row on their slab mesh (0 outside the
+    halo; see the module docstring)."""
     n = nc * cb
+    nx = nc if nx is None else nx
     cells = torch.arange(cols.start, cols.stop, device=pos3[0].device)
-    coords = (cells // (nc * nc), (cells // nc) % nc, cells % nc)
     if zmajor:
-        coords = coords[::-1]
+        coords = (cells % nx, (cells // nx) % nc, cells // (nx * nc))
+    else:
+        coords = (cells // (nc * nc), (cells // nc) % nc, cells % nc)
     anchors, fracs, in_halo = [], [], None
     for d, cc in enumerate(coords):
         u = pos3[d][:, cols] * inv_h - 0.5
@@ -123,13 +127,13 @@ def deposit_cells_plain(pos3, w, gridsize: int, boxsize: float, cb: int = 8,
     """Plain PyTorch version of the deposit kernel."""
     nc, K, C = _check(pos3, w, gridsize, cb, planes)
     n = gridsize
-    x0 = None if planes is None else planes[0]
+    x0, nx = (None, None) if planes is None else planes
     inv_h = float(n / boxsize)
     grid = torch.zeros(mesh_rows(n, cb, planes) * n * n, dtype=w.dtype, device=w.device)
     ch = _chunk(K, w.device)
     for c0 in range(0, C, ch):
         cols = slice(c0, min(C, c0 + ch))
-        anchors, fracs, in_halo = cell_geometry(pos3, cols, nc, cb, inv_h, zmajor, x0)
+        anchors, fracs, in_halo = cell_geometry(pos3, cols, nc, cb, inv_h, zmajor, x0, nx)
         q = w[:, cols] * in_halo.to(w.dtype)
         for idx, wt in _corners(anchors, fracs, n, x0 is not None):
             grid.index_add_(0, idx.reshape(-1), (wt * q).reshape(-1))
@@ -143,7 +147,7 @@ def gather_cells_plain(pos3, w, grids, gridsize: int, boxsize: float,
     w = 0 or outside the halo."""
     nc, K, C = _check(pos3, w, gridsize, cb, planes)
     n = gridsize
-    x0 = None if planes is None else planes[0]
+    x0, nx = (None, None) if planes is None else planes
     inv_h = float(n / boxsize)
     D = grids.shape[0]
     flat = grids.reshape(D, -1)
@@ -151,7 +155,7 @@ def gather_cells_plain(pos3, w, grids, gridsize: int, boxsize: float,
     ch = _chunk(K, w.device)
     for c0 in range(0, C, ch):
         cols = slice(c0, min(C, c0 + ch))
-        anchors, fracs, in_halo = cell_geometry(pos3, cols, nc, cb, inv_h, zmajor, x0)
+        anchors, fracs, in_halo = cell_geometry(pos3, cols, nc, cb, inv_h, zmajor, x0, nx)
         q = w[:, cols] * in_halo.to(w.dtype)
         vals = torch.zeros((D,) + q.shape, dtype=grids.dtype,
                            device=grids.device)
@@ -210,16 +214,14 @@ def launch_deposit(pos3, w, gridsize: int, boxsize: float, cb: int,
     or three (K, C) tensors, columns cb mesh cells wide: the rung cells
     (cb 8 or 4, x-major ids) or the PM blocks (cb 2, z-major ids).
     ``ext`` (C,) int32, optional, cuts column c to its first ext[c] rows.
-    Returns the (n, n, n) mesh, or with ``planes`` (the cells only) the
-    (nx·cb + 2, n, n) slab mesh."""
+    Returns the (n, n, n) mesh, or with ``planes`` the (nx·cb + 2, n, n)
+    slab mesh."""
     nc, K, C = _check(pos3, w, gridsize, cb, planes)
     dtype = _build.scalar_dtype("cic_deposit", *pos3, w)
     _check_cuda(pos3, w)
     if (cb, bool(zmajor)) not in ((8, False), (4, False), (2, True)):
         raise ValueError(f"the deposit kernel takes cells of cb 8 or 4 with x-major ids "
                          f"or blocks of cb 2 with z-major ids, not cb {cb}, zmajor {zmajor}")
-    if planes is not None and zmajor:
-        raise ValueError("planes are the cells' (x-major ids)")
     ext_ptr = _check_ext(ext, C, w.device)
     n = gridsize
     x0, nx = (0, nc) if planes is None else planes
@@ -249,8 +251,6 @@ def launch_gather(pos3, w, grids, gridsize: int, boxsize: float, cb: int,
             or not grids.is_contiguous() or grids.device != w.device:
         raise ValueError(f"grids must be contiguous (D, {m}, {n}, {n}) on the "
                          "positions' device")
-    if planes is not None and zmajor:
-        raise ValueError("planes are the cells' (x-major ids)")
     ext_ptr = _check_ext(ext, C, w.device)
     D = grids.shape[0]
     x0, nx = (0, nc) if planes is None else planes

@@ -55,6 +55,13 @@ class GridDistribution:
             raise ValueError(f"{N} particles do not split evenly over the {d} ranks")
         return self.rank * (N // d), (self.rank + 1) * (N // d)
 
+    def split(self, N: int, rank: int | None = None) -> tuple[int, int]:
+        """[lo, hi) of a rank's indices of N, which need not split evenly:
+        rank r takes [⌊r·N/d⌋, ⌊(r+1)·N/d⌋), :meth:`shard` wherever that
+        applies (the rung stepper's flat states over ranks)."""
+        d, r = self.n_devices, self.rank if rank is None else rank
+        return r * N // d, (r + 1) * N // d
+
 
 def check_distribution(dist):
     """None (one device) or a :class:`GridDistribution`; any other kind

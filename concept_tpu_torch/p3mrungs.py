@@ -45,22 +45,30 @@ Every integer result (slot order, valid, rungs, K_act, tight, _K_occ)
 equals the JAX package's: its sorts are stable ``torch.sort`` on the same
 composite keys.
 
-Over ranks (``dist``, ``-n N``; the 8-mesh-cell layout only) each rank
-holds the columns of its x-planes (parallel/step.rank_planes), a (K,
-C_r) layout of C_r = nc²·nc/d columns whose mesh rows are its x-slab.
-Its sweep takes the two neighbour planes' supplier slots from the ring
-(the kernel's nx = nc/d + 2 column grid, no receivers on those planes),
-its PM deposits and gathers on its slab with a halo row a side
-(p3msim.pm_gradient_cells), and a rebucket sends every particle to the
-rank of its new plane.  The capacity K, the occupancy row extent K_occ,
-the highest rung, v_max and the kept count are agreed over the ranks
-(all-reduced) before anything depends on them; the receiver rows K_r and
-the per-column extents stay each rank's own (the rows past them hold no
-active slot).  A rebucket orders the slots of a column as the one-device
-stepper does (by key, then by the old slot's place in the whole layout),
-so that the ranks' layouts are the one-device layout's planes until a
-resort within columns, which each rank decides alone.  The other layouts
-and nc % d ≠ 0 raise ``NotImplementedError`` (ROADMAP Queue 1 item 14e).
+Over ranks (``dist``, ``-n N``) the stepper takes the layout one device
+takes, and each rank holds the columns of its x-planes
+(parallel/step.rank_planes: ⌊r·nc/d + ½⌋ on, so nc need not divide by
+d), a (K, C_r) layout of C_r = nc²·planes columns.  Its sweep takes its
+neighbours' supplier slots from the ring, one plane a side for the ±1
+sweep (the kernel's nx = planes + 2 column grid) and two for the reach-2
+sweep (nx = planes + 4), with no receivers on those planes.  The unified
+layouts' PM deposits and gathers on the planes' mesh rows with a halo
+row a side, moved onto and back from the FFT slabs
+(p3msim.pm_gradient_cells, parallel/step.add_span_rows); the tight
+layout's block PM sends each valid slot to the rank of its block's plane
+and its gradient back (forces/p3m.pm_gradient_blocks).  A rebucket sends
+every particle to the rank of its new plane.  The capacity K, the
+occupancy row extent K_occ, the highest rung, v_max and the kept count
+are agreed over the ranks (all-reduced) before anything depends on them;
+the receiver rows K_r and the per-column extents stay each rank's own
+(the rows past them hold no active slot).  A rebucket orders the slots
+of a column as the one-device stepper does (by key, then by the old
+slot's place in the whole layout), so that the ranks' layouts are the
+one-device layout's planes until a resort within columns, which each
+rank decides alone.  A mesh that d does not divide (the slab FFT), fewer
+planes a rank than the sweep's reach (2 at the 4-mesh-cell layout, else
+1) and a tight layout of fewer than 3 cells a side (the folded sweep)
+raise ValueError (:func:`check_rank_layout`).
 """
 
 from __future__ import annotations
@@ -284,8 +292,8 @@ def rung_substep(state: RungState, mass: float, G: float, int_drift: float,
         sweep_args = (nc, boxsize, scale, dtype_square(cutoff, pos.dtype),
                       dtype_square(softening, pos.dtype))
         if dist is not None:
-            acc = _sweep_planes(pos_s, K_r, K_s, sweep_args, softening_kernel, rext, sext,
-                                sext_halo, dist)
+            acc = _sweep_planes(pos_s, state.valid, K_r, K_s, sweep_args, softening_kernel,
+                                rext, sext, sext_halo, dist, offsets)
         elif offsets is None:
             acc = sweep_slots(pos_s[:, :K_r], pos_s[:, :K_s], *sweep_args,
                               kernel=softening_kernel, rext=rext, sext=sext)
@@ -323,27 +331,39 @@ def rung_substep(state: RungState, mass: float, G: float, int_drift: float,
     return out + (acc,) if return_acc else out
 
 
-def _sweep_planes(pos_s, K_r: int, K_s: int, sweep_args, kernel: str, rext, sext,
-                  sext_halo, dist):
-    """The ±1 sweep of this rank's planes of columns (3, K_r, C_r) over
-    the nx = C_r/nc² + 2 planes of its own and its neighbours' supplier
-    slots (parallel/step.halo_planes): row bounds 0 on the neighbour
-    planes, whose bounds as suppliers are ``sext_halo`` (their owners'
-    occupancy extents)."""
+def _sweep_planes(pos_s, valid, K_r: int, K_s: int, sweep_args, kernel: str, rext, sext,
+                  sext_halo, dist, offsets=None):
+    """The sweep of this rank's planes of columns (3, K_r, C_r) over its
+    own and its neighbours' supplier slots (parallel/step.halo_planes):
+    one plane a side for the ±1 sweep (nx = planes + 2), two for the
+    reach-2 sweep over ``offsets`` (nx = planes + 4), whose receivers sit
+    at the opposite sentinel.  Row bounds are 0 on the neighbour planes,
+    whose bounds as suppliers are ``sext_halo`` (their owners' occupancy
+    extents)."""
     from concept_tpu_torch.parallel import step
 
     nc, boxsize = sweep_args[0], sweep_args[1]
-    P = nc * nc
+    width = 1 if offsets is None else 2
+    W = width * nc * nc
     C_r = pos_s.shape[-1]
-    sup = step.halo_planes(pos_s[:, :K_s], nc, boxsize, dist)
-    zeros = torch.zeros((P,), dtype=torch.int32, device=pos_s.device)
+    nx = C_r // (nc * nc) + 2 * width
+    sup = step.halo_planes(pos_s[:, :K_s], nc, boxsize, dist, width=width)
+    zeros = torch.zeros((W,), dtype=torch.int32, device=pos_s.device)
     if rext is None:
         rext = torch.full((C_r,), K_r, dtype=torch.int32, device=pos_s.device)
     rb = torch.cat([zeros, rext, zeros])
     sb = None if sext is None else torch.cat([sext_halo[0], sext, sext_halo[1]])
-    acc = sweep_slots(sup[:, :K_r], sup, *sweep_args, kernel=kernel, rext=rb, sext=sb,
-                      nx=C_r // P + 2)
-    return acc[:, :, P:P + C_r].contiguous()
+    if offsets is None:
+        acc = sweep_slots(sup[:, :K_r], sup, *sweep_args, kernel=kernel, rext=rb, sext=sb,
+                          nx=nx)
+    else:
+        big = SENTINEL * boxsize
+        recv = torch.full((3, K_r, nx * nc * nc), -big, dtype=pos_s.dtype,
+                          device=pos_s.device)
+        recv[:, :, W:W + C_r] = torch.where(valid[:K_r][None], pos_s[:, :K_r], -big)
+        acc = pair_sweep_reach(recv, sup, *sweep_args, offsets, kernel=kernel, rext=rb,
+                               sext=sb, nx=nx)
+    return acc[:, :, W:W + C_r].contiguous()
 
 
 def resort_rungs_within_columns(state: RungState, acc, NR: int = 8):
@@ -392,7 +412,7 @@ def pm_kick_rungs(state: RungState, mass: float, G: float, int_pm: float,
     capacity k_pm, exact overflow up to pm_max_overflow particles).
     ``ext`` (C,) int32, the layout's per-column occupancy extents, cuts
     the cells' gather to each column's occupied rows.  ``dist``: the
-    cells of this rank's planes (the unified layouts), mass_sum the
+    cells of this rank's planes, mass_sum and n_pm_overflow the
     ranks'.
     Updates the momenta in place (the JAX package donates them).  Returns
     (state, n_pm_overflow (an int, 0 on the unified layouts), mass_sum)."""
@@ -413,7 +433,7 @@ def pm_kick_rungs(state: RungState, mass: float, G: float, int_pm: float,
     else:
         fd3, n_over, mass_sum = pm_gradient_layout(
             pos, valid, mass, G, scale, boxsize, mesh, k_pm=k_pm,
-            pm_max_overflow=pm_max_overflow)
+            pm_max_overflow=pm_max_overflow, dist=dist)
     state.mom[:, :kr].add_(fd3, alpha=-mass * int_pm)
     state.mom.masked_fill_(~state.valid[None], 0.0)
     return state, n_over, mass_sum
@@ -442,22 +462,42 @@ def _layout_cells(mesh: int, unified, unified_cb, device_type: str) -> int:
                      f"(mesh ≥ 24) or mesh % 4 == 0 (mesh ≥ 20)")
 
 
-def check_rank_layout(mesh: int, n_ranks: int, unified=None, unified_cb=None):
-    """The rung stepper over ``n_ranks`` ranks takes the 8-mesh-cell
-    layout whatever the device (mesh % 8 == 0, mesh ≥ 24), with the nc =
-    mesh/8 planes of columns split evenly; anything else raises
-    NotImplementedError (ROADMAP Queue 1 item 14e)."""
-    what = None
-    if unified is False or unified_cb not in (None, 8):
-        what = "the tight and the 4-mesh-cell layouts"
-    elif mesh % 8 or mesh // 8 < 3:
-        what = (f"grid {mesh}, which takes no 8-mesh-cell layout (mesh % 8 == 0, "
-                f"mesh ≥ 24): the tight and the 4-mesh-cell layouts")
-    elif (mesh // 8) % n_ranks:
-        what = f"{mesh // 8} planes of cells that do not split over {n_ranks} ranks"
-    if what:
-        raise NotImplementedError(
-            f"rungs over {n_ranks} ranks with {what} (ROADMAP Queue 1 item 14e)")
+def layout_planes(mesh: int, boxsize: float, device_type: str, unified=None,
+                  unified_cb=None, margin_frac: float = 0.12) -> tuple[int, int]:
+    """(the layout's cell width in mesh cells (0: tight), its cells a
+    side nc) as :class:`P3MRungSimulation` chooses them."""
+    ucb = _layout_cells(mesh, unified, unified_cb, device_type)
+    if ucb:
+        return ucb, mesh // ucb
+    cutoff = 4.5 * (1.25 * boxsize / mesh)
+    return 0, margin_cell_count(boxsize, cutoff, margin_frac)
+
+
+def check_rank_layout(mesh: int, n_ranks: int, device_type: str = "cuda", unified=None,
+                      unified_cb=None, boxsize: float = 1.0, margin_frac: float = 0.12):
+    """The rung stepper over ``n_ranks`` ranks takes the layout of one
+    device (:func:`layout_planes`), its nc planes of cells split as
+    parallel/step.rank_planes splits them.  ValueError where it cannot:
+    a mesh the ranks do not divide (the slab FFT), a rank with fewer
+    planes than the sweep reaches (2 on the 4-mesh-cell layout, else 1),
+    or a tight layout of fewer than 3 cells a side (the folded sweep has
+    no planes form).  Returns (ucb, nc)."""
+    ucb, nc = layout_planes(mesh, boxsize, device_type, unified, unified_cb, margin_frac)
+    if mesh % n_ranks:
+        raise ValueError(f"grid {mesh} does not split over {n_ranks} ranks: the slab FFT "
+                         f"needs gridsize % ranks == 0")
+    from concept_tpu_torch.parallel.step import plane_starts
+
+    need = 2 if ucb == 4 else 1
+    starts = plane_starts(nc, n_ranks)
+    fewest = min(b - a for a, b in zip(starts[:-1], starts[1:]))
+    if fewest < need:
+        raise ValueError(f"{nc} planes of cells over {n_ranks} ranks leave a rank "
+                         f"{fewest}; the sweep reaches {need} a side")
+    if ucb == 0 and nc < 3:
+        raise ValueError(f"the tight layout's {nc} cells a side take the folded sweep, "
+                         f"which does not run over ranks (3 cells a side or more)")
+    return ucb, nc
 
 
 def _quantize_K(k_act: int, K: int) -> int:
@@ -499,8 +539,8 @@ class P3MRungSimulation:
     ``pm_diff`` picks the unified layouts' PM gradients: 'spectral'
     (Fourier), 'lean' (order-4 stencil, one component at a time) or
     'auto' (lean at mesh ≥ 768 on the card).  ``dist`` steps this rank's
-    planes of columns (see the module docstring): the 8-mesh-cell layout
-    on both devices, :func:`check_rank_layout`.
+    planes of columns of the same layout (see the module docstring;
+    :func:`check_rank_layout` says what it refuses).
     """
 
     def __init__(self, n_part: int, boxsize: float, mass: float, G: float,
@@ -529,11 +569,11 @@ class P3MRungSimulation:
         self.margin_frac = margin_frac
         mesh_h = boxsize / self.mesh
         self.dist = check_distribution(dist)
+        device_type = torch.device(device or "cuda").type
         if self.dist is not None:
-            check_rank_layout(self.mesh, self.dist.n_devices, unified, unified_cb)
-            unified, unified_cb = True, 8
-        self.ucb = _layout_cells(self.mesh, unified, unified_cb,
-                                 torch.device(device or "cuda").type)
+            check_rank_layout(self.mesh, self.dist.n_devices, device_type, unified,
+                              unified_cb, boxsize, margin_frac)
+        self.ucb = _layout_cells(self.mesh, unified, unified_cb, device_type)
         self.unified = self.ucb > 0
         self.offsets = None  # the ±1 sweep
         if self.ucb:
@@ -616,7 +656,7 @@ class P3MRungSimulation:
         dev = pos[0].device
         self._device = dev
         if ids is None:
-            lo = 0 if self.dist is None else self.dist.shard(self.N)[0]
+            lo = 0 if self.dist is None else self.dist.split(self.N)[0]
             ids = torch.arange(lo, lo + N, dtype=torch.int32, device=dev)
         if rungs is None:
             rungs = torch.zeros((N,), dtype=torch.int8, device=dev)
@@ -646,7 +686,8 @@ class P3MRungSimulation:
         if self.dist is not None:
             from concept_tpu_torch.parallel.step import neighbour_planes
 
-            self._sext_halo = neighbour_planes(self._ext_occ, self.nc**2, self.dist)
+            width = 1 if self.offsets is None else 2  # the sweep's reach in planes
+            self._sext_halo = neighbour_planes(self._ext_occ, width * self.nc**2, self.dist)
 
     # -------------------------------------------------------------- #
     # over ranks: the layout of this rank's planes
@@ -656,11 +697,12 @@ class P3MRungSimulation:
         its place in the one-device order.  Returns (floats, ints, order,
         local column (m,)) of this rank's particles, and the largest
         column count of all ranks."""
-        from concept_tpu_torch.parallel.step import exchange
+        from concept_tpu_torch.parallel.step import exchange, plane_owner
 
         nc, (x0, npl) = self.nc, self._planes
         cell = _cell_of(floats[:, :3].T, nc, self.boxsize, self.ucb)
-        dest = torch.div(cell, nc * nc * npl, rounding_mode="floor")
+        dest = plane_owner(nc, self.dist, cell.device)[torch.div(cell, nc * nc,
+                                                                  rounding_mode="floor")]
         floats, ints, order = exchange([floats, ints, order], dest, self.dist)
         col = _cell_of(floats[:, :3].T, nc, self.boxsize, self.ucb) - x0 * nc * nc
         counts = torch.bincount(col, minlength=npl * nc * nc)
@@ -682,7 +724,7 @@ class P3MRungSimulation:
         return state
 
     def _init_state_ranks(self, pos, mom, ids, rungs):
-        lo = self.dist.shard(self.N)[0]
+        lo = self.dist.split(self.N)[0]
         order = torch.arange(lo, lo + pos[0].shape[0], dtype=torch.int64,
                              device=pos[0].device)
         floats = torch.stack([*pos, *mom], dim=1)
@@ -1020,8 +1062,8 @@ class RungSimulationAdapter:
     ``dist`` (``-n N``, as the JAX package's ``dist``) steps over the
     ranks (see the module docstring).  The flat states are then each
     rank's index shard, as ``sim.Simulation``'s over ranks: the shard of
-    the state in id order (``shard``, ``whole`` and ``reduce`` as
-    there)."""
+    the state in id order (``shard``, ``whole`` and ``reduce`` as there),
+    split by ``GridDistribution.split`` where N does not divide by d."""
 
     def __init__(self, spec, config, bg, lin=None, N_rungs: int = 8,
                  fac_rung: float = 1.0, dist=None):
@@ -1060,18 +1102,19 @@ class RungSimulationAdapter:
 
         if self.dist is None:
             return state
-        lo, hi = self.dist.shard(state.pos.shape[0])
+        lo, hi = self.dist.split(state.pos.shape[0])
         return ParticleState(*(None if x is None else x[lo:hi].contiguous() for x in state))
 
     def whole(self, state):
         """The whole flat state on every rank from the ranks' shards."""
         from concept_tpu_torch.components import ParticleState
-        from concept_tpu_torch.parallel.step import replicate
+        from concept_tpu_torch.parallel.step import gather_rows
 
         if self.dist is None:
             return state
-        return ParticleState(*(None if x is None else replicate(x, self.dist)
-                               for x in state))
+        present = [x for x in state if x is not None]
+        got = iter(gather_rows(present, self.dist))
+        return ParticleState(*(None if x is None else next(got) for x in state))
 
     def reduce(self, x: torch.Tensor, op=torch.distributed.ReduceOp.SUM) -> torch.Tensor:
         """x reduced over the ranks (x itself on one device)."""
@@ -1111,7 +1154,7 @@ class RungSimulationAdapter:
             cols = gather_rows(cols, self.dist)
         order = torch.argsort(cols[2])
         if self.dist is not None:
-            order = order[slice(*self.dist.shard(self.spec.N))]
+            order = order[slice(*self.dist.split(self.spec.N))]
         pos, mom, ids, rungs = (c[order] for c in cols)
         return ParticleState(pos=pos, mom=mom, ids=ids, rungs=rungs)
 

@@ -22,10 +22,12 @@ force gather run on the sweep's slot arrays (grid/cuda_cells.py, rows
 layout's cells are no multiple of the mesh: its valid slots go through
 the block PM of the global stepper (forces/p3m.pm_gradient_blocks).
 Over ranks (``dist``) the cells' PM deposits each rank's planes of
-columns into its x-slab plus a halo row a side and adds the halo rows to
-the neighbours' slabs, transforms as slabs (grid/fft.py), and gathers
-from its slab of each gradient with a halo row of each neighbour's
-(parallel/step.py).
+columns onto their mesh rows plus a halo row a side, moves those rows
+onto the ranks' FFT slabs (parallel/step.add_span_rows: the planes need
+not split evenly, and then differ from the slabs by up to half a cell
+at each end), transforms as slabs (grid/fft.py), and gathers from each
+gradient's rows brought back (step.span_rows).  The tight layout's block
+PM over ranks is forces/p3m.pm_gradient_blocks(dist=...).
 
 Invalid slots hold zeros at the module boundary, as in the JAX package;
 the sweep's far sentinel is put in for the sweep call only.
@@ -76,13 +78,15 @@ def _deposit_cells_mass(pos3, wv, mass: float, boxsize: float, mesh: int, cb: in
         grid = deposit_cells(pos3, wv * mass, mesh, boxsize, cb)
         # summed in float64: a float32 total of 2²⁴ = 256³ particle masses
         # cannot resolve one particle's mass
-        return grid, grid.sum(dtype=torch.float64), None
-    planes = step.rank_planes(mesh // cb, dist)
-    grid = step.add_halo_rows(
-        deposit_cells(pos3, wv * mass, mesh, boxsize, cb, planes=planes), 1, dist)
+        return grid, grid.sum(dtype=torch.float64), None, None
+    nc = mesh // cb
+    planes = step.rank_planes(nc, dist)
+    spans = [step.plane_rows(nc, cb, dist, r) for r in range(dist.n_devices)]
+    grid = step.add_span_rows(
+        deposit_cells(pos3, wv * mass, mesh, boxsize, cb, planes=planes), spans, dist)
     mass_sum = grid.sum(dtype=torch.float64)
     torch.distributed.all_reduce(mass_sum, group=dist.group)
-    return grid, mass_sum, planes
+    return grid, mass_sum, planes, spans
 
 
 def pm_gradient_cells(pos3, valid, mass: float, G: float, scale: float,
@@ -102,7 +106,7 @@ def pm_gradient_cells(pos3, valid, mass: float, G: float, scale: float,
 
     n = mesh
     wv = valid.to(pos3.dtype)
-    grid, mass_sum, planes = _deposit_cells_mass(pos3, wv, mass, boxsize, n, cb, dist)
+    grid, mass_sum, planes, spans = _deposit_cells_mass(pos3, wv, mass, boxsize, n, cb, dist)
     slab = rfft3(grid / (boxsize / n) ** 3, dist)
     del grid
     y_rows = None if dist is None else dist.slab(n)
@@ -112,7 +116,7 @@ def pm_gradient_cells(pos3, valid, mass: float, G: float, scale: float,
     grads = torch.stack([irfft3(fourier.fourier_diff(phi, n, boxsize, d, y_rows), n, dist)
                          for d in range(3)])
     if dist is not None:
-        grads = step.with_halo_rows(grads, 1, dist)
+        grads = step.span_rows(grads, spans, dist).contiguous()
     return gather_cells(pos3, wv, grads, n, boxsize, cb, ext=ext, planes=planes), mass_sum
 
 
@@ -142,14 +146,14 @@ def pm_kick_cells_lean(pos3, mom3, valid, mass: float, G: float,
     Updates mom3 in place (invalid slots 0) and returns (mom3, mass_sum),
     mass_sum the deposited mass (0-dim float64).  ``ext`` and ``dist`` as
     in :func:`pm_gradient_cells`; over ranks the x stencil reads
-    diff_order/2 rows of each neighbour's slab of φ, and each gradient
-    takes a halo row of the neighbours' for the gather: the arithmetic of
-    one device."""
+    diff_order/2 rows of each neighbour's slab of φ, and each gradient's
+    rows of the rank's planes come from the slabs for the gather: the
+    arithmetic of one device."""
     from concept_tpu_torch.parallel import step
 
     n = mesh
     wv = valid.to(pos3.dtype)
-    grid, mass_sum, planes = _deposit_cells_mass(pos3, wv, mass, boxsize, n, cb, dist)
+    grid, mass_sum, planes, spans = _deposit_cells_mass(pos3, wv, mass, boxsize, n, cb, dist)
     slab = rfft3(grid / (boxsize / n) ** 3, dist)
     del grid
     y_rows = None if dist is None else dist.slab(n)
@@ -159,14 +163,15 @@ def pm_kick_cells_lean(pos3, mom3, valid, mass: float, G: float,
     phi = irfft3(phi_k, n, dist)
     del phi_k
     reach = len(_COEFFS[diff_order])
-    phi_ext = None if dist is None else step.with_halo_rows(phi, reach, dist)
+    phi_ext = (None if dist is None
+               else step.span_rows(phi, step.slab_spans(n, reach, dist), dist))
     for d in range(3):
         if dist is None:
             grad = diff_grid(phi, boxsize, d, order=diff_order)
         else:
-            grad = step.with_halo_rows(
+            grad = step.span_rows(
                 _diff_x_slab(phi_ext, boxsize, n, reach, diff_order) if d == 0
-                else diff_grid(phi, boxsize, d, order=diff_order), 1, dist)
+                else diff_grid(phi, boxsize, d, order=diff_order), spans, dist).contiguous()
         fd = gather_cells(pos3, wv, grad[None], n, boxsize, cb, ext=ext, planes=planes)[0]
         del grad
         mom3[d].add_(fd, alpha=-mass * int_pm)
@@ -176,7 +181,7 @@ def pm_kick_cells_lean(pos3, mom3, valid, mass: float, G: float,
 
 def pm_gradient_layout(pos3, valid, mass: float, G: float, scale: float,
                        boxsize: float, mesh: int, k_pm: int = 8,
-                       pm_max_overflow: int = 262144, binding=None):
+                       pm_max_overflow: int = 262144, binding=None, dist=None):
     """∂φ/∂x at every slot of a (3, K, C) layout whose cells are no
     multiple of the mesh (the tight rung layout, the persistent P³M
     stepper): the valid slots, flattened in slot order, go through the
@@ -185,10 +190,16 @@ def pm_gradient_layout(pos3, valid, mass: float, G: float, scale: float,
     split potential with deconvolution of order 4, Fourier gradient,
     block gather) and back to their slots; invalid slots get 0.  With a
     ``binding`` (:func:`build_pm_binding`) the positions flow through it
-    instead, with no sort (:func:`_pm_gradient_layout_mapped`).
+    instead, with no sort (:func:`_pm_gradient_layout_mapped`).  ``dist``:
+    the layout is this rank's planes of columns (the tight rung layout
+    over ranks), its valid slots go through the block PM over the ranks
+    (forces/p3m.pm_gradient_blocks), and n_overflow and mass_sum are the
+    ranks'; a binding is one device's only.
 
     Returns (fd (3, K, C), n_overflow (an int), mass_sum (0-dim
     float64))."""
+    if binding is not None and dist is not None:
+        raise ValueError("the persistent PM binding is one device's")
     if binding is not None:
         return _pm_gradient_layout_mapped(pos3, valid, mass, G, scale, boxsize,
                                           mesh, binding)
@@ -197,7 +208,7 @@ def pm_gradient_layout(pos3, valid, mass: float, G: float, scale: float,
     flat = pos3.reshape(3, K * C)[:, src]
     fd_v, n_over, mass_sum = pm_gradient_blocks(
         *flat, mass, G, scale, boxsize, mesh, k_pm=k_pm,
-        max_overflow=pm_max_overflow)
+        max_overflow=pm_max_overflow, dist=dist)
     fd = torch.zeros((3, K * C), dtype=pos3.dtype, device=pos3.device)
     fd[:, src] = fd_v
     return fd.reshape(3, K, C), n_over, mass_sum
@@ -208,8 +219,9 @@ def build_pm_binding(pos3, valid, boxsize: float, mesh: int, k_pm: int) -> dict:
     of ``build_pm_binding``): the valid slots sorted into the z-major
     2³-mesh-cell blocks of capacity k_pm once, to serve every step until
     the drift since nears a mesh cell (the block kernels keep a slot
-    whose CIC anchor stays within its block ±1 mesh cell).  Returns a
-    dict:
+    whose CIC anchor stays within its block ±1 mesh cell).  One device's
+    only: the rung stepper over ranks sorts its slots at every kick
+    (:func:`pm_gradient_layout` with ``dist``).  Returns a dict:
 
       src    : (B,) int64 the flat ids of the slots bound in a block
       dst    : (B,) int64 their block slots, rank·C_pm + block

@@ -18,20 +18,24 @@ package writes these steps for GSPMD (``shard_map``, ``psum_scatter``,
   * :func:`deposit_distributed_halo` / :func:`gather_distributed_halo`:
     a deposit into (and a gather from) the rank's slab extended by
     ``halo`` planes a side, the boundary planes sent to the ring
-    neighbours with ``batch_isend_irecv`` (:func:`add_halo_rows`,
-    :func:`with_halo_rows`).  At world size 1 the neighbour is the rank
-    itself and the planes wrap periodically (the JAX halo deposit counts
-    them twice there, a layout its ``make_distribution`` never builds).
+    neighbours with ``batch_isend_irecv`` (:func:`add_span_rows`,
+    :func:`span_rows` over :func:`slab_spans`).  At world size 1 the
+    neighbour is the rank itself and the planes wrap periodically (the
+    JAX halo deposit counts them twice there, a layout its
+    ``make_distribution`` never builds).
 
 The rung stepper over ranks (p3mrungs.py) splits its (K, C) cell layout
 by x-planes of columns: rank r owns the planes :func:`rank_planes` gives
-it, whose mesh rows are its x-slab.  Its sweep receives the two
-neighbour planes' supplier slots (:func:`neighbour_planes`), its PM
-deposits into its slab plus a halo row a side (:func:`add_halo_rows`)
-and gathers from there (:func:`with_halo_rows`), and its rebucket sends
-each particle to the rank of its new plane (:func:`exchange`).  The JAX
-package shards the same layout along its cell axis and lets GSPMD insert
-these collectives.
+it, ⌊r·nc/d + ½⌋ on, which need not split evenly, so that their mesh rows
+may differ from its x-slab by up to half a column at each end.  Its sweep
+receives one or two neighbour planes a side of supplier slots
+(:func:`halo_planes`), its PM deposits onto its planes' rows and a halo
+row a side and moves them onto the FFT slabs (:func:`add_span_rows`),
+and gathers from each gradient's rows brought back (:func:`span_rows`);
+its rebucket sends each particle to the rank of its new plane
+(:func:`exchange`).  The JAX package shards the same layout along its
+cell axis where d divides the cell count, and lets GSPMD insert these
+collectives; elsewhere it steps the whole layout on every device.
 """
 
 from __future__ import annotations
@@ -112,23 +116,28 @@ def _halo(order) -> int:
     return max(1, (interpolation_order(order) + 1) // 2)
 
 
-def _ring(to_next, to_prev, dist: GridDistribution):
+def _ring(to_next, to_prev, dist: GridDistribution, shapes=None):
     """Send ``to_next`` to rank r+1 and ``to_prev`` to rank r−1 (on the
     ring); returns (what r−1 sent forward, what r+1 sent back).  At world
-    size 1 both neighbours are the rank itself."""
+    size 1 both neighbours are the rank itself.  ``shapes`` (the shapes
+    of what r−1 and r+1 send) is needed where they differ from what this
+    rank sends; an empty piece is not sent (both ends know its shape)."""
     d = dist.n_devices
     if d == 1:
         return to_next, to_prev
     r = dist.rank
     nxt = tdist.get_global_rank(dist.group, (r + 1) % d) if dist.group else (r + 1) % d
     prv = tdist.get_global_rank(dist.group, (r - 1) % d) if dist.group else (r - 1) % d
-    from_prev = torch.empty_like(to_next)
-    from_next = torch.empty_like(to_prev)
-    ops = [tdist.P2POp(tdist.isend, to_next.contiguous(), nxt, dist.group, tag=0),
-           tdist.P2POp(tdist.irecv, from_prev, prv, dist.group, tag=0),
-           tdist.P2POp(tdist.isend, to_prev.contiguous(), prv, dist.group, tag=1),
-           tdist.P2POp(tdist.irecv, from_next, nxt, dist.group, tag=1)]
-    for req in tdist.batch_isend_irecv(ops):
+    sp, sn = shapes or (to_next.shape, to_prev.shape)
+    from_prev = to_next.new_empty(sp)
+    from_next = to_prev.new_empty(sn)
+    ops = []
+    for op, t, peer, tag in ((tdist.isend, to_next, nxt, 0), (tdist.irecv, from_prev, prv, 0),
+                             (tdist.isend, to_prev, prv, 1), (tdist.irecv, from_next, nxt, 1)):
+        if t.numel():
+            ops.append(tdist.P2POp(op, t.contiguous() if op is tdist.isend else t, peer,
+                                   dist.group, tag=tag))
+    for req in tdist.batch_isend_irecv(ops) if ops else ():
         req.wait()
     return from_prev, from_next
 
@@ -151,6 +160,31 @@ def _slab_corners(pos, n: int, boxsize: float, order: int, x0: int, m: int):
                 yield ib + torch.remainder(lows[2] + c, n), wxy * wz
 
 
+def span_deposit(pos, quantity, n: int, boxsize: float, order, span):
+    """The deposit of quantity (a scalar or (M,)) at particles (M, 3) whose
+    clouds lie in the global mesh rows [lo, hi) of ``span``, onto those
+    rows: (hi − lo, n, n), x not wrapped (:func:`_slab_corners`)."""
+    lo, hi = span
+    q = torch.as_tensor(quantity, dtype=pos.dtype, device=pos.device)
+    out = torch.zeros((hi - lo) * n * n, dtype=pos.dtype, device=pos.device)
+    for idx, w in _slab_corners(pos, n, boxsize, order, lo, hi - lo):
+        out.index_add_(0, idx, w * q)
+    return out.reshape(hi - lo, n, n)
+
+
+def span_gather(grids, pos, boxsize: float, order, span):
+    """Fields (D, hi − lo, n, n) on the global mesh rows [lo, hi) of
+    ``span`` interpolated at particles (M, 3) whose clouds lie there:
+    (D, M)."""
+    lo, hi = span
+    n = grids.shape[-1]
+    flat = grids.reshape(grids.shape[0], -1)
+    out = torch.zeros((grids.shape[0], pos.shape[0]), dtype=grids.dtype, device=grids.device)
+    for idx, w in _slab_corners(pos, n, boxsize, order, lo, hi - lo):
+        out += flat[:, idx] * w
+    return out
+
+
 def deposit_distributed_halo(pos, weight, quantity, gridsize: int, boxsize: float,
                              order, dist: GridDistribution):
     """Slab-resident particles (:func:`sort_to_slabs`) → this rank's
@@ -160,42 +194,10 @@ def deposit_distributed_halo(pos, weight, quantity, gridsize: int, boxsize: floa
     rank instead of the n³ of :func:`deposit_distributed`)."""
     n = gridsize
     order = interpolation_order(order)
-    start, rows = dist.slab(n)
-    halo = _halo(order)
-    if halo > rows:
-        raise ValueError(f"{rows} rows a rank hold no halo of {halo} planes")
-    m = rows + 2 * halo
+    spans = slab_spans(n, _halo(order), dist)
     q = torch.as_tensor(quantity, dtype=pos.dtype, device=pos.device) * weight
-    ext = torch.zeros(m * n * n, dtype=pos.dtype, device=pos.device)
-    for idx, w in _slab_corners(pos, n, boxsize, order, start - halo, m):
-        ext.index_add_(0, idx, w * q)
-    return add_halo_rows(ext.reshape(m, n, n), halo, dist)
-
-
-def add_halo_rows(ext, halo: int, dist: GridDistribution):
-    """A deposit on this rank's slab extended by ``halo`` rows a side
-    (rows + 2·halo, n, n) → the slab (rows, n, n) with every rank's halo
-    rows added: the rows below the slab belong to rank r−1's last rows,
-    those above to rank r+1's first rows."""
-    rows = ext.shape[0] - 2 * halo
-    if halo > rows:
-        raise ValueError(f"{rows} rows a rank hold no halo of {halo} planes")
-    from_prev, from_next = _ring(ext[halo + rows:], ext[:halo], dist)
-    own = ext[halo:halo + rows].clone()
-    own[:halo] += from_prev
-    own[rows - halo:] += from_next
-    return own
-
-
-def with_halo_rows(grid, halo: int, dist: GridDistribution):
-    """This rank's slab of grids (..., rows, n, n) → (..., rows + 2·halo,
-    n, n), extended by ``halo`` rows of each ring neighbour's slab."""
-    rows = grid.shape[-3]
-    if halo > rows:
-        raise ValueError(f"{rows} rows a rank hold no halo of {halo} planes")
-    # rank r+1 needs my last rows below its slab, rank r−1 my first above
-    from_prev, from_next = _ring(grid[..., rows - halo:, :, :], grid[..., :halo, :, :], dist)
-    return torch.cat([from_prev, grid, from_next], dim=-3)
+    return add_span_rows(span_deposit(pos, q, n, boxsize, order, spans[dist.rank]), spans,
+                         dist)
 
 
 def gather_distributed_halo(grad, pos, weight, boxsize: float, order,
@@ -204,14 +206,9 @@ def gather_distributed_halo(grad, pos, weight, boxsize: float, order,
     planes from each ring neighbour, interpolated at its slab-resident
     particles: (M,) values times ``weight``."""
     order = interpolation_order(order)
-    rows, n = grad.shape[0], grad.shape[1]
-    start, _ = dist.slab(n)
-    halo = _halo(order)
-    ext = with_halo_rows(grad, halo, dist).reshape(-1)
-    out = torch.zeros(pos.shape[0], dtype=grad.dtype, device=grad.device)
-    for idx, w in _slab_corners(pos, n, boxsize, order, start - halo, rows + 2 * halo):
-        out += ext[idx] * w
-    return out * weight
+    spans = slab_spans(grad.shape[1], _halo(order), dist)
+    ext = span_rows(grad, spans, dist)
+    return span_gather(ext[None], pos, boxsize, order, spans[dist.rank])[0] * weight
 
 
 def pm_momentum_updates_distributed_halo(pos, mass, gridsize: int, boxsize: float, G,
@@ -253,32 +250,124 @@ def pm_momentum_updates_distributed_halo(pos, mass, gridsize: int, boxsize: floa
     return dmom, n_over
 
 
-def rank_planes(nc: int, dist: GridDistribution) -> tuple[int, int]:
-    """(first plane, planes) of this rank's x-planes of an nc-plane
-    column grid: nc/d each, in rank order (the mesh rows of its planes
-    are its x-slab, ``dist.slab``)."""
+def plane_starts(nc: int, d: int) -> list:
+    """The first plane of each of d ranks' x-planes of an nc-plane column
+    grid, and nc: rank r takes planes [⌊r·nc/d + ½⌋, ⌊(r+1)·nc/d + ½⌋),
+    so that its mesh rows lie within half a column of its FFT slab at
+    each end."""
+    return [(2 * r * nc + d) // (2 * d) for r in range(d)] + [nc]
+
+
+def rank_planes(nc: int, dist: GridDistribution, rank: int | None = None) -> tuple[int, int]:
+    """(first plane, planes) of a rank's x-planes of an nc-plane column
+    grid (:func:`plane_starts`; nc/d each where d divides nc), in rank
+    order."""
     d = dist.n_devices
-    if nc % d:
-        raise ValueError(f"{nc} planes of columns do not split over the {d} ranks")
-    return dist.rank * (nc // d), nc // d
+    r = dist.rank if rank is None else rank
+    if nc < d:
+        raise ValueError(f"{nc} planes of columns leave a rank of the {d} without one")
+    starts = plane_starts(nc, d)
+    return starts[r], starts[r + 1] - starts[r]
+
+
+def plane_owner(nc: int, dist: GridDistribution, device=None):
+    """(nc,) int64: the rank of each plane (:func:`rank_planes`)."""
+    starts = plane_starts(nc, dist.n_devices)
+    return torch.tensor([r for r in range(dist.n_devices)
+                         for _ in range(starts[r + 1] - starts[r])], dtype=torch.int64,
+                        device=device)
+
+
+def plane_rows(nc: int, cb: int, dist: GridDistribution, rank: int | None = None):
+    """[lo, hi) of the global mesh rows of a rank's planes of columns cb
+    mesh cells wide with a halo row a side: the rows of its slab mesh
+    (grid/cuda_cells.py ``planes``; lo = −1 and hi = n + 1 wrap)."""
+    x0, nx = rank_planes(nc, dist, rank)
+    return x0 * cb - 1, (x0 + nx) * cb + 1
+
+
+def slab_spans(n: int, halo: int, dist: GridDistribution) -> list:
+    """Every rank's FFT slab of an n-row axis with ``halo`` rows a side,
+    as the spans of :func:`add_span_rows` and :func:`span_rows`."""
+    return [(s - halo, s + R + halo)
+            for s, R in (dist.slab(n, r) for r in range(dist.n_devices))]
+
+
+def _span_pieces(spans, n: int, dist: GridDistribution):
+    """Where the spans of rows meet the FFT slabs of n rows: (lo, hi) of
+    this rank's span, (s0, R) of its slab, and four counts of rows: its
+    span's below its slab and above it, rank r+1's span's below rank
+    r+1's slab (the last rows of this slab) and rank r−1's span's above
+    rank r−1's slab (the first rows of this slab)."""
+    d, r = dist.n_devices, dist.rank
+    s0, R = dist.slab(n)
+    lo, hi = spans[r]
+
+    def below(q):
+        return max(0, dist.slab(n, q % d)[0] - spans[q % d][0])
+
+    def above(q):
+        return max(0, spans[q % d][1] - dist.slab(n, q % d)[0] - R)
+
+    if not (lo < s0 + R and hi > s0 and below(r) <= R and above(r) <= R):
+        raise ValueError(f"rows [{lo}, {hi}) reach past the slabs either side of "
+                         f"[{s0}, {s0 + R})")
+    return (lo, hi), (s0, R), below(r), above(r), below(r + 1), above(r - 1)
+
+
+def add_span_rows(ext, spans, dist: GridDistribution):
+    """A deposit on the global mesh rows [lo, hi) of this rank's span
+    (``spans``: every rank's (lo, hi); lo may be −1 and hi n + 1, which
+    wrap) → this rank's FFT slab (R, n, n) with every rank's rows in it
+    added: a span's rows below its slab go to rank r−1's last rows, those
+    above to rank r+1's first rows, over the ring.  The spans are the
+    slabs with halo rows (:func:`slab_spans`), or the rung stepper's
+    planes of columns with a halo row, which need not split evenly and
+    then differ from the slabs (:func:`plane_rows`)."""
+    n = ext.shape[-1]
+    (lo, hi), (s0, R), below, above, from_next, from_prev = _span_pieces(spans, n, dist)
+    got_prev, got_next = _ring(ext[hi - lo - above:], ext[:below], dist,
+                               shapes=((from_prev, n, n), (from_next, n, n)))
+    a, b = max(lo, s0), min(hi, s0 + R)
+    own = ext.new_zeros((R, n, n))
+    own[a - s0:b - s0] += ext[a - lo:b - lo]
+    own[:from_prev] += got_prev
+    own[R - from_next:] += got_next
+    return own
+
+
+def span_rows(grid, spans, dist: GridDistribution):
+    """This rank's FFT slab of grids (..., R, n, n) → (..., hi − lo, n, n),
+    the rows of its span [lo, hi) (``spans`` as in :func:`add_span_rows`):
+    those below its slab from rank r−1's last rows, those above from rank
+    r+1's first."""
+    n = grid.shape[-1]
+    (lo, hi), (s0, R), below, above, to_next, to_prev = _span_pieces(spans, n, dist)
+    lead = tuple(grid.shape[:-3])
+    got_prev, got_next = _ring(grid[..., R - to_next:, :, :], grid[..., :to_prev, :, :], dist,
+                               shapes=((*lead, below, n, n), (*lead, above, n, n)))
+    a, b = max(lo, s0), min(hi, s0 + R)
+    return torch.cat([got_prev, grid[..., a - s0:b - s0, :, :], got_next], dim=-3)
 
 
 def neighbour_planes(cols, plane: int, dist: GridDistribution):
     """(the last ``plane`` columns of rank r−1, the first of rank r+1) of
     the per-column arrays ``cols`` (..., C_r): the planes of columns
-    either side of this rank's (``plane`` = nc² columns a plane)."""
+    either side of this rank's (``plane`` = w·nc² columns for w planes a
+    side; every rank holds at least w planes)."""
     return _ring(cols[..., -plane:], cols[..., :plane], dist)
 
 
-def halo_planes(sup, nc: int, boxsize: float, dist: GridDistribution):
-    """This rank's supplier slots (3, K_s, C_r) → (3, K_s, (C_r/nc² + 2)·
-    nc²): the neighbour planes before and after its own.  A neighbour
-    plane across a face of the box (rank 0's first, the last rank's
-    second; both at world size 1) is shifted by ∓boxsize along x, as the
+def halo_planes(sup, nc: int, boxsize: float, dist: GridDistribution, width: int = 1):
+    """This rank's supplier slots (3, K_s, C_r) → (3, K_s, (C_r/nc² +
+    2·width)·nc²): the ``width`` neighbour planes before and after its
+    own (1 for the ±1 sweep, 2 for the reach-2 sweep).  A neighbour plane
+    across a face of the box (rank 0's first, the last rank's second;
+    both at world size 1) is shifted by ∓boxsize along x, as the
     one-device sweep shifts a neighbour column across that face, so that
     the sweep over these planes sees every pair as the whole box's sweep
     does."""
-    prev, nxt = neighbour_planes(sup, nc * nc, dist)
+    prev, nxt = neighbour_planes(sup, width * nc * nc, dist)
     shift = torch.zeros((3, 1, 1), dtype=sup.dtype, device=sup.device)
     shift[0] = boxsize
     if dist.rank == 0:

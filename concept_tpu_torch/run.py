@@ -529,14 +529,16 @@ def run(cfg: RunConfig, max_steps: int = 100000, seed: int | None = None,
     ranks.py); each realizes the single run's particles and keeps its
     index shard, and the run steps globally (PM, P³M with ``N_rungs =
     1``, PP) through ``Simulation(dist=...)``, or by rungs through
-    ``RungSimulationAdapter(dist=...)`` (the 8-mesh-cell layout, each
-    rank stepping its x-planes of cells).  Rank 0 writes every file
-    under the single run's names and returns the whole state.  Before
-    anything is realized, ``NotImplementedError`` names the item of the
-    ROADMAP that brings what N > 1 does not run: rungs on another layout
-    or with planes of cells that do not split over the ranks (item 14e,
-    p3mrungs.check_rank_layout) and several components (item 14d); the
-    other ranks are then ended.
+    ``RungSimulationAdapter(dist=...)`` (the layout of one device, each
+    rank stepping its x-planes of cells, which need not split evenly).
+    Rank 0 writes every file under the single run's names and returns the
+    whole state.  Before anything is realized, rungs over ranks that
+    cannot run raise ValueError (p3mrungs.check_rank_layout: a grid the
+    ranks do not divide, too few planes of cells a rank for the sweep's
+    reach, a tight layout below 3 cells a side), and
+    ``NotImplementedError`` names the item of the ROADMAP that brings
+    several components over ranks (item 14d); the other ranks are then
+    ended.
 
     An autosave of this parameter file (see :func:`autosave_path`) is
     resumed.  SIGINT and SIGTERM during the time loop write an autosave
@@ -609,7 +611,7 @@ def run(cfg: RunConfig, max_steps: int = 100000, seed: int | None = None,
                 "replays a recorded file, the global stepper (N_rungs = 1) "
                 "records it")
         if n_ranks > 1:
-            check_rank_layout(gridsize, n_ranks)
+            check_rank_layout(gridsize, n_ranks, dev.type, boxsize=cfg.boxsize)
     dist = None
     if n_ranks > 1:
         from concept_tpu_torch.parallel.ranks import init_rank

@@ -202,52 +202,120 @@ def test_slot_across_box_face_is_kept():
     np.testing.assert_allclose(g[0, r, c], ref[0], **TOL)
 
 
-@pytest.mark.parametrize("d", [1, 2, 4])
-def test_planes_deposit_and_gather_equal_the_whole(d):
-    """The cells' nx contract (the rung stepper over d ranks): rank r's
-    nc/d planes of columns deposit into their slab with a halo row a side
-    and gather from it; the slabs summed into the whole mesh (halo rows
-    wrapped onto the neighbours' rows) are the whole layout's deposit, and
-    each rank's gather is its planes' part of the whole gather.  The
-    anchors and the halo test are exact; slots of the first and last
-    planes sit across the box faces, so that the low and the high halo
-    rows take mass."""
+def _planes_equal_the_whole(d, cb, n):
+    """Rank r's planes of columns cb mesh cells wide (d ranks,
+    parallel/step.plane_starts) deposit into their slab mesh with a halo
+    row a side and gather from it; the slabs summed into the whole mesh
+    (halo rows wrapped) are the whole layout's deposit, and each rank's
+    gather is its planes' part of the whole gather.  The anchors and the
+    halo test are exact; slots of the first and last planes sit across
+    the box faces, so that the low and the high halo rows take mass."""
     from concept_tpu_torch.grid.cuda_cells import cell_geometry
+    from concept_tpu_torch.parallel.step import plane_starts
 
     rng = np.random.default_rng(13)
-    n, box, mass = 32, 2.0, 1.3
-    nc, h, P = n // CB, box / n, (n // CB) ** 2
-    _, slots, valid, _ = _layout(rng, n, box, per_cell=12)
+    box, mass = 2.0, 1.3
+    nc, h, P = n // cb, box / n, (n // cb) ** 2
+    _, slots, valid, _ = _layout(rng, n, box, per_cell=12, cb=cb)
     K, C = valid.shape
     plane = np.arange(C) // P
     slots[0][valid & (plane == 0)[None] & (rng.random((K, C)) < 0.3)] = box - 0.3 * h
     slots[0][valid & (plane == nc - 1)[None] & (rng.random((K, C)) < 0.3)] = 0.2 * h
     s, wv = torch.as_tensor(slots), torch.as_tensor(valid.astype(np.float32))
     grids = torch.as_tensor(rng.standard_normal((3, n, n, n)).astype(np.float32))
-    whole = deposit_cells(s, wv * mass, n, box, cb=CB)
-    whole_g = gather_cells(s, wv, grids, n, box, cb=CB)
-    anchors, _, in_halo = cell_geometry(s, slice(0, C), nc, CB, n / box)
+    whole = deposit_cells(s, wv * mass, n, box, cb=cb)
+    whole_g = gather_cells(s, wv, grids, n, box, cb=cb)
+    anchors, _, in_halo = cell_geometry(s, slice(0, C), nc, cb, n / box)
     summed = torch.zeros_like(whole)
-    npl = nc // d
+    starts = plane_starts(nc, d)
     for r in range(d):
-        x0 = r * npl
+        x0, npl = starts[r], starts[r + 1] - starts[r]
         cols = slice(x0 * P, (x0 + npl) * P)
         part, wp = s[:, :, cols].contiguous(), wv[:, cols].contiguous()
-        rows = torch.remainder(torch.arange(npl * CB + 2) + x0 * CB - 1, n)
-        summed.index_add_(0, rows, deposit_cells(part, wp * mass, n, box, cb=CB,
+        rows = torch.remainder(torch.arange(npl * cb + 2) + x0 * cb - 1, n)
+        summed.index_add_(0, rows, deposit_cells(part, wp * mass, n, box, cb=cb,
                                                  planes=(x0, npl)))
-        got = gather_cells(part, wp, grids[:, rows].contiguous(), n, box, cb=CB,
+        got = gather_cells(part, wp, grids[:, rows].contiguous(), n, box, cb=cb,
                            planes=(x0, npl))
         np.testing.assert_allclose(got.numpy(), whole_g[:, :, cols].numpy(), rtol=1e-6,
                                    atol=1e-6 * float(whole_g.abs().max()))
-        pa, _, ph = cell_geometry(part, slice(0, npl * P), nc, CB, n / box, x0=x0)
+        pa, _, ph = cell_geometry(part, slice(0, npl * P), nc, cb, n / box, x0=x0, nx=npl)
         assert torch.equal(ph, in_halo[:, cols])
         # the slab's row: the local plane·cb + the offset in the column's halo
         lp = torch.arange(npl * P) // P
-        assert torch.equal(pa[0][ph], (lp * CB + torch.remainder(
-            anchors[0][:, cols] - ((lp + x0) * CB - 1), n))[ph])
+        assert torch.equal(pa[0][ph], (lp * cb + torch.remainder(
+            anchors[0][:, cols] - ((lp + x0) * cb - 1), n))[ph])
         assert all(torch.equal(pa[k], anchors[k][:, cols]) for k in (1, 2))
     # the faces' slots reached the halo rows
     assert float(summed.sum()) == pytest.approx(float(valid.sum()) * mass, rel=1e-6)
+    np.testing.assert_allclose(summed.numpy(), whole.numpy(), rtol=1e-6,
+                               atol=1e-6 * float(whole.abs().max()))
+
+
+@pytest.mark.parametrize("d", [1, 2, 4, 3])
+def test_planes_deposit_and_gather_equal_the_whole(d):
+    """The cells' nx contract (the rung stepper over d ranks) at cb = 8,
+    nc = 4: the planes nc/d, or 1 + 2 + 1 at d = 3
+    (:func:`_planes_equal_the_whole`)."""
+    _planes_equal_the_whole(d, CB, 32)
+
+
+@pytest.mark.parametrize("d", [2, 3])
+def test_cb4_planes_of_an_uneven_split_equal_the_whole(d):
+    """The same at cb = 4 on nc = 7 planes (grid 28): 4 + 3 and 2 + 3 + 2
+    planes, the 4-mesh-cell layout's PM over ranks."""
+    _planes_equal_the_whole(d, 4, 28)
+
+
+@pytest.mark.parametrize("d", [1, 3])
+def test_block_planes_deposit_and_gather_equal_the_whole(d):
+    """Rows 8 and 9 on planes of the 2-mesh-cell blocks (z-major ids over
+    the planes, the tight rung layout's PM over ranks): each rank's
+    particles of its block planes (n/2 = 16 planes: the whole at d = 1,
+    5 + 6 + 5 at d = 3), laid out by forces/p3m.block_layout, deposit
+    onto their slab mesh with a halo row a side; summed (halo rows
+    wrapped) they are the whole mesh's block deposit, and each slab's
+    gather gives every particle the whole gather's value.  Particles
+    within a mesh cell of both box faces reach the halo rows."""
+    from concept_tpu_torch.forces.p3m import block_layout
+    from concept_tpu_torch.grid.cuda_blocks import deposit_blocks, gather_blocks
+    from concept_tpu_torch.parallel.step import plane_starts
+
+    rng = np.random.default_rng(17)
+    n, box, mass, k_pm = 32, 2.0, 1.3, 24
+    h, nb = box / n, n // 2
+    pos = rng.uniform(0, box, (4000, 3)).astype(np.float32)
+    pos[:200, 0] = rng.uniform(0, 0.5 * h, 200)
+    pos[200:400, 0] = box - rng.uniform(0, 0.5 * h, 200)
+    p = torch.as_tensor(pos)
+    grids = torch.as_tensor(rng.standard_normal((3, n, n, n)).astype(np.float32))
+
+    def by_particle(lay, vals):
+        """(3, K, C) slot values → (3, N) in the layout's input order."""
+        out = torch.zeros((3, lay["order"].shape[0]))
+        out[:, lay["order"]] = vals.reshape(3, -1)[:, lay["slot"]]
+        return out
+
+    lay = block_layout(*p.T, n, box, k_pm)
+    assert int(lay["valid"].sum()) == p.shape[0]  # no particle beyond the capacity
+    w = lay["valid"].to(p.dtype)
+    whole = deposit_blocks(*lay["slots"], w * mass, n, box, ext=lay["ext"])
+    whole_g = by_particle(lay, gather_blocks(*lay["slots"], w, grids, n, box, ext=lay["ext"]))
+    summed = torch.zeros_like(whole)
+    starts = plane_starts(nb, d)
+    bx = torch.clamp((p[:, 0] / h).to(torch.int64), 0, n - 1) // 2
+    for r in range(d):
+        x0, npl = starts[r], starts[r + 1] - starts[r]
+        mine = torch.nonzero((bx >= x0) & (bx < x0 + npl)).reshape(-1)
+        pl = block_layout(*p[mine].T, n, box, k_pm, planes=(x0, npl))
+        wp = pl["valid"].to(p.dtype)
+        rows = torch.remainder(torch.arange(2 * npl + 2) + 2 * x0 - 1, n)
+        summed.index_add_(0, rows, deposit_blocks(*pl["slots"], wp * mass, n, box,
+                                                  ext=pl["ext"], planes=(x0, npl)))
+        got = gather_blocks(*pl["slots"], wp, grids[:, rows].contiguous(), n, box,
+                            ext=pl["ext"], planes=(x0, npl))
+        np.testing.assert_allclose(by_particle(pl, got).numpy(), whole_g[:, mine].numpy(),
+                                   rtol=1e-6, atol=1e-6 * float(whole_g.abs().max()))
+    assert float(summed.sum()) == pytest.approx(pos.shape[0] * mass, rel=1e-6)
     np.testing.assert_allclose(summed.numpy(), whole.numpy(), rtol=1e-6,
                                atol=1e-6 * float(whole.abs().max()))

@@ -1134,12 +1134,27 @@ def _planes_case(dev, dtype, n=8, cb=8, K=24, seed=21):
     return t, torch.as_tensor(valid, device=dev), counts.astype(np.int32), box
 
 
+def _rank_planes_idx(n, d, r, width, dev):
+    """(the columns of rank r's planes of an n³ column grid over d ranks,
+    parallel/step.plane_starts, between ``width`` neighbour planes a side;
+    each column's ∓box shift along x; first plane; planes)."""
+    from concept_tpu_torch.parallel.step import plane_starts
+
+    P = n * n
+    starts = plane_starts(n, d)
+    x0, npl = starts[r], starts[r + 1] - starts[r]
+    planes = torch.arange(x0 - width, x0 + npl + width)
+    idx = (torch.remainder(planes, n)[:, None] * P + torch.arange(P)[None]).reshape(-1)
+    shift = torch.repeat_interleave((planes >= n).double() - (planes < 0).double(), P)
+    return idx.to(dev), shift.to(dev), x0, npl
+
+
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
-@pytest.mark.parametrize("d", [1, 2, 4])
+@pytest.mark.parametrize("d", [1, 2, 4, 3])
 def test_pair_sweep_over_planes_matches_plain(dev, d, dtype):
-    """Row 1 at nx = n/d + 2 (a rank's planes between its neighbour
-    planes, receiver bounds 0 there) against its plain version, and at
-    nx = n bit for bit the launch without nx."""
+    """Row 1 at nx = planes + 2 (a rank's planes between its neighbour
+    planes, receiver bounds 0 there; 3 + 2 + 3 planes at d = 3) against
+    its plain version, and at nx = n bit for bit the launch without nx."""
     from concept_tpu_torch.forces.cuda_shortrange import pair_sweep, pair_sweep_plain
 
     n, P = 8, 64
@@ -1149,16 +1164,10 @@ def test_pair_sweep_over_planes_matches_plain(dev, d, dtype):
     occ_t = torch.as_tensor(occ, device=dev)
     whole = pair_sweep(s, s, *args, rext=occ_t, sext=occ_t)
     assert torch.equal(pair_sweep(s, s, *args, rext=occ_t, sext=occ_t, nx=n), whole)
-    npl = n // d
     for r in range(d):
-        x0 = r * npl
-        idx = torch.cat([(x0 - 1) % n * P + torch.arange(P), x0 * P + torch.arange(npl * P),
-                         (x0 + npl) % n * P + torch.arange(P)]).to(dev)
+        idx, shift, x0, npl = _rank_planes_idx(n, d, r, 1, dev)
         sup = s[:, :, idx].clone()
-        if r == 0:
-            sup[0, :, :P] -= box
-        if r == d - 1:
-            sup[0, :, -P:] += box
+        sup[0] += (shift * box).to(sup.dtype)[None]
         rb = occ_t[idx].clone()
         rb[:P] = rb[-P:] = 0
         before = pair_sweep.launches + pair_sweep.launches_f64
@@ -1174,18 +1183,60 @@ def test_pair_sweep_over_planes_matches_plain(dev, d, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
-@pytest.mark.parametrize("d", [1, 2, 4])
-def test_cells_over_planes_match_plain(dev, d, dtype):
-    """Rows 3 and 4 on a rank's planes (the slab mesh with a halo row a
+@pytest.mark.parametrize("d", [1, 2, 3])
+def test_reach_sweep_over_planes_matches_plain(dev, d, dtype):
+    """Row 5 at nx = planes + 4 (a rank's planes between two neighbour
+    planes a side, receivers at the opposite sentinel, receiver bounds 0
+    on the neighbour planes; 3 + 2 + 3 planes at d = 3) against its plain
+    version and against the whole launch's rows, and at nx = n bit for
+    bit the launch without nx."""
+    from concept_tpu_torch.forces.cuda_shortrange import pair_sweep_reach, pair_sweep_plain
+    from concept_tpu_torch.forces.shortrange import reach_offsets
+
+    n, P, K_r = 8, 64, 16
+    pos, valid, occ, box = _planes_case(dev, np.dtype(dtype), cb=4)
+    cw = box / n
+    offsets = reach_offsets(cw, 0.55 * cw / 4.0)
+    scale = 1.25 * cw / 4.0
+    args = (n, box, scale, (4.5 * scale) ** 2, (0.03 * cw) ** 2)
+    s = torch.where(valid[None], pos, 1e4 * box)
+    recv = torch.where(valid[None], pos, -1e4 * box)[:, :K_r].contiguous()
+    occ_t = torch.as_tensor(occ, device=dev)
+    whole = pair_sweep_reach(recv, s, *args, offsets, kernel="spline", rext=occ_t,
+                             sext=occ_t)
+    assert torch.equal(pair_sweep_reach(recv, s, *args, offsets, kernel="spline",
+                                        rext=occ_t, sext=occ_t, nx=n), whole)
+    tol = 1e-10 if dtype == "float64" else 1e-5
+    for r in range(d):
+        idx, shift, x0, npl = _rank_planes_idx(n, d, r, 2, dev)
+        sup = s[:, :, idx].clone()
+        sup[0] += (shift * box).to(sup.dtype)[None]
+        rcv = torch.where(sup.abs() < 5e3 * box, sup, -1e4 * box)[:, :K_r].contiguous()
+        rb = occ_t[idx].clone()
+        rb[:2 * P] = rb[-2 * P:] = 0
+        kw = dict(kernel="spline", rext=rb, sext=occ_t[idx], nx=npl + 4)
+        before = pair_sweep_reach.launches + pair_sweep_reach.launches_f64
+        got = pair_sweep_reach(rcv, sup, *args, offsets, **kw)
+        assert pair_sweep_reach.launches + pair_sweep_reach.launches_f64 == before + 1
+        ref = pair_sweep_plain(rcv, sup, *args, offsets=offsets, **kw)
+        torch.cuda.synchronize()
+        assert float((got - ref).abs().max()) <= tol * float(ref.abs().max())
+        assert float((got[:, :, 2 * P:-2 * P] - whole[:, :, x0 * P:(x0 + npl) * P]).abs()
+                     .max()) <= tol * float(whole.abs().max())
+        assert bool((got[:, :, :2 * P] == 0).all()) and bool((got[:, :, -2 * P:] == 0).all())
+
+
+def _cells_over_planes(dev, d, dtype, n, cb):
+    """Rows 3 and 4 on each rank's planes (the slab mesh with a halo row a
     side) against their plain versions; summed over the ranks (halo rows
     wrapped) the deposits are the whole mesh's deposit and the gathers the
-    parts of its gather.  (At nx = nc the kernels' outputs against the
-    parent commit's: scripts/nx_parity.py.)"""
+    parts of its gather."""
     from concept_tpu_torch.grid.cuda_cells import (
         deposit_cells, deposit_cells_plain, gather_cells, gather_cells_plain,
     )
+    from concept_tpu_torch.parallel.step import plane_starts
 
-    n, cb, P = 8, 8, 64
+    P = n * n
     m = n * cb
     pos, valid, occ, box = _planes_case(dev, np.dtype(dtype), n=n, cb=cb)
     w = valid.to(pos.dtype)
@@ -1203,9 +1254,9 @@ def test_cells_over_planes_match_plain(dev, d, dtype):
 
     close(whole, deposit_cells_plain(pos, w, m, box, cb))
     summed = torch.zeros_like(whole)
-    npl = n // d
+    starts = plane_starts(n, d)
     for r in range(d):
-        x0 = r * npl
+        x0, npl = starts[r], starts[r + 1] - starts[r]
         cols = slice(x0 * P, (x0 + npl) * P)
         part, wp = pos[:, :, cols].contiguous(), w[:, cols].contiguous()
         rows = torch.remainder(torch.arange(npl * cb + 2, device=dev) + x0 * cb - 1, m)
@@ -1221,4 +1272,86 @@ def test_cells_over_planes_match_plain(dev, d, dtype):
                                                   < occ_t[cols][None]), g, m, box, cb,
                                       planes=(x0, npl)))
         close(got, whole_g[:, :, cols])
+    close(summed, whole)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("d", [1, 2, 4])
+def test_cells_over_planes_match_plain(dev, d, dtype):
+    """Rows 3 and 4 at cb = 8 on n/d planes a rank (:func:`_cells_over_planes`).
+    (At nx = nc the kernels' outputs against the parent commit's:
+    scripts/nx_parity.py.)"""
+    _cells_over_planes(dev, d, dtype, 8, 8)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("d", [2, 3])
+def test_cb4_cells_over_uneven_planes_match_plain(dev, d, dtype):
+    """Rows 3 and 4 at cb = 4 on nc = 7 planes (4 + 3; 2 + 3 + 2), the
+    4-mesh-cell layout's PM over ranks."""
+    _cells_over_planes(dev, d, dtype, 7, 4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("d", [1, 3])
+def test_blocks_over_planes_match_plain(dev, d, dtype):
+    """Rows 8 and 9 on planes of the 2-mesh-cell blocks (the tight rung
+    layout's PM over ranks; the whole at d = 1, 5 + 6 + 5 of the 16 block
+    planes at d = 3) against their plain versions; summed over the ranks
+    (halo rows wrapped) the deposits are the whole mesh's block deposit,
+    and each particle's gathered value is the whole gather's."""
+    from concept_tpu_torch.forces.p3m import block_layout
+    from concept_tpu_torch.grid.cuda_blocks import (
+        deposit_blocks, deposit_blocks_plain, gather_blocks, gather_blocks_plain,
+    )
+    from concept_tpu_torch.grid.cuda_cells import cut_rows
+    from concept_tpu_torch.parallel.step import plane_starts
+
+    t = getattr(torch, dtype)
+    g = torch.Generator(dev).manual_seed(17)
+    n, box, k_pm = 64, 2.0, 8
+    h, nb = box / n, n // 2
+    p = torch.rand((60000, 3), dtype=t, device=dev, generator=g) * box
+    p[:2000, 0] *= 0.5 * h / box
+    p[2000:4000, 0] = box - p[2000:4000, 0] * (0.5 * h / box)
+    grids = torch.randn((3, n, n, n), dtype=t, device=dev, generator=g)
+    tol = dict(rtol=1e-10, atol=1e-10) if dtype == "float64" else dict(rtol=2e-5, atol=1e-5)
+
+    def close(got, ref):
+        ref = ref.cpu().numpy()
+        np.testing.assert_allclose(got.cpu().numpy(), ref, rtol=tol["rtol"],
+                                   atol=tol["atol"] * np.abs(ref).max())
+
+    def by_particle(lay, vals):
+        out = torch.zeros((3, lay["order"].shape[0]), dtype=t, device=dev)
+        keep = lay["slot"] < vals[0].numel()
+        out[:, lay["order"][keep]] = vals.reshape(3, -1)[:, lay["slot"][keep]]
+        return out
+
+    lay = block_layout(*p.T, n, box, k_pm)
+    w = lay["valid"].to(t)
+    whole = deposit_blocks(*lay["slots"], w, n, box, ext=lay["ext"])
+    whole_g = by_particle(lay, gather_blocks(*lay["slots"], w, grids, n, box, ext=lay["ext"]))
+    summed = torch.zeros_like(whole)
+    bx = torch.clamp((p[:, 0] / h).to(torch.int64), 0, n - 1) // 2
+    starts = plane_starts(nb, d)
+    for r in range(d):
+        x0, npl = starts[r], starts[r + 1] - starts[r]
+        mine = torch.nonzero((bx >= x0) & (bx < x0 + npl)).reshape(-1)
+        pl = block_layout(*p[mine].T, n, box, k_pm, planes=(x0, npl))
+        wp, ext, planes = pl["valid"].to(t), pl["ext"], (x0, npl)
+        rows = torch.remainder(torch.arange(2 * npl + 2, device=dev) + 2 * x0 - 1, n)
+        before = deposit_blocks.launches + deposit_blocks.launches_f64
+        slab = deposit_blocks(*pl["slots"], wp, n, box, ext=ext, planes=planes)
+        assert deposit_blocks.launches + deposit_blocks.launches_f64 == before + 1
+        close(slab, deposit_blocks_plain(*pl["slots"], cut_rows(wp, ext), n, box, planes))
+        summed.index_add_(0, rows, slab)
+        gs = grids[:, rows].contiguous()
+        before = gather_blocks.launches + gather_blocks.launches_f64
+        got = gather_blocks(*pl["slots"], wp, gs, n, box, ext=ext, planes=planes)
+        assert gather_blocks.launches + gather_blocks.launches_f64 == before + 1
+        close(got, gather_blocks_plain(*pl["slots"], cut_rows(wp, ext), gs, n, box, planes))
+        # the slots within the capacity, as in the whole layout
+        both = (by_particle(pl, got) != 0).any(0) & (whole_g[:, mine] != 0).any(0)
+        close(by_particle(pl, got)[:, both], whole_g[:, mine][:, both])
     close(summed, whole)

@@ -183,9 +183,11 @@ def _run_spectrum(tmp_path, tag, method, n_devices, jax=False):
 def test_run_over_two_ranks_matches_one_and_jax(tmp_path, monkeypatch):
     """run(cfg, n_devices=2) for PM and P³M (N_rungs = 1): its spectrum
     against the port's one rank, and P³M's (the halo PM kick and the
-    short range) against the JAX package's two devices; -n AxB, rungs on
-    a grid of no 8-mesh-cell layout and several components over ranks
-    raise before anything is realized."""
+    short range) against the JAX package's two devices; -n AxB and
+    several components over ranks raise NotImplementedError naming their
+    items, and rungs whose tight layout has 2 cells a side (grid 16 on the
+    CPU: the folded sweep, which does not run over ranks) ValueError,
+    before anything is realized."""
     from concept_tpu_torch import ic
     from concept_tpu_torch.param import load_params
     from concept_tpu_torch.run import run
@@ -202,12 +204,13 @@ def test_run_over_two_ranks_matches_one_and_jax(tmp_path, monkeypatch):
     monkeypatch.setattr(ic, "realize_particles", lambda *a, **kw: realized.append(1))
     small = ["initial_conditions={'species':'matter','N':8**3}", "potential_options=16",
              f"output_dirs='{tmp_path}'"]
-    for over, n, match in (
-            ([], "2x1", "item 14b"),
-            ([], 2, "item 14e"),  # N_rungs = 8, the default; grid 16 < 24
+    for over, n, error, match in (
+            ([], "2x1", NotImplementedError, "item 14b"),
+            # N_rungs = 8, the default
+            ([], 2, ValueError, "2 cells a side take the folded sweep"),
             (["initial_conditions=[{'species':'cdm','N':8**3},{'species':'baryon','N':8**3}]",
-              "N_rungs=1"], 2, "item 14d")):
-        with pytest.raises(NotImplementedError, match=match):
+              "N_rungs=1"], 2, NotImplementedError, "item 14d")):
+        with pytest.raises(error, match=match):
             run(load_params(PARAM, overrides=small + over), device="cpu", n_devices=n)
     assert not realized
 

@@ -7,6 +7,7 @@ tests/test_pallas_shortrange.py:41 (it absorbs the screening fit, ≤ 1e-6
 on S, and float32 summation order).  Rows beyond a receiver bound must
 be exactly 0."""
 
+import functools
 import os
 
 import numpy as np
@@ -25,7 +26,7 @@ from concept_tpu.forces.shortrange import (  # noqa: E402
     _sweep_pair as jax_sweep_pair, bucketize,
 )
 from concept_tpu_torch.forces.cuda_shortrange import (  # noqa: E402
-    OFFSETS_27, column_bounds, pair_sweep,
+    OFFSETS_27, column_bounds, pair_sweep, pair_sweep_reach,
 )
 from concept_tpu_torch.forces.shortrange import (  # noqa: E402
     _G_COEF, SENTINEL, _sweep_pair, screening_g,
@@ -120,6 +121,19 @@ def _layout(rng, n, K, box):
     return s, valid, ext
 
 
+@functools.lru_cache(maxsize=None)
+def _bounded_xla(kernel):
+    """The XLA ``_sweep_pair`` of test_bounded_sweep_matches_jax's layout,
+    which takes no bounds: computed once a kernel for its three bounds
+    cases (each call traces and compiles anew)."""
+    s, valid, _ = _layout(np.random.default_rng(3), 16, 16, 1.0)
+    sj = [jnp.asarray(a) for a in s]
+    vj = jnp.asarray(valid)
+    return np.asarray(jax_sweep_pair(
+        *sj, vj, *sj, vj, 16, jnp.float32(1.0), jnp.float32(0.012),
+        jnp.float32(0.054) ** 2, jnp.float32(0.004) ** 2, kernel=kernel))
+
+
 @pytest.mark.parametrize("kernel", ["plummer", "spline"])
 @pytest.mark.parametrize("bounds", ["full_K", "occupancy", "restricted"])
 def test_bounded_sweep_matches_jax(kernel, bounds):
@@ -145,9 +159,7 @@ def test_bounded_sweep_matches_jax(kernel, bounds):
         *sj, vj, *sj, vj, n, box, scale, cutoff, soft, interpret=True,
         kernel=kernel, sentineled=True, rext=jnp.asarray(rext),
         sext=jnp.asarray(sext)))
-    xla = np.asarray(jax_sweep_pair(
-        *sj, vj, *sj, vj, n, jnp.float32(box), jnp.float32(scale),
-        jnp.float32(cutoff) ** 2, jnp.float32(soft) ** 2, kernel=kernel))
+    xla = _bounded_xla(kernel)
     st = torch.as_tensor(s)
     got = pair_sweep(st, st, n, box, scale, float(np.float32(cutoff) ** 2),
                      float(np.float32(soft) ** 2), kernel=kernel,
@@ -290,15 +302,37 @@ def test_on_subset_matches_jax(nc):
         assert _maxrel(got, ref) < TOL
 
 
-@pytest.mark.parametrize("d", [1, 2, 4])
+def _rank_planes_slots(s, occ, n, d, r, width, box):
+    """Rank r's planes of the column layout s (3, K, n³) over d ranks
+    (parallel/step.plane_starts) between ``width`` neighbour planes a side,
+    those across a box face shifted by ∓box, as halo_planes gives them:
+    (slots, receiver bounds (0 on the neighbour planes), supplier bounds,
+    first plane, planes)."""
+    from concept_tpu_torch.parallel.step import plane_starts
+
+    P = n * n
+    starts = plane_starts(n, d)
+    x0, npl = starts[r], starts[r + 1] - starts[r]
+    planes = np.arange(x0 - width, x0 + npl + width)
+    idx = ((planes % n)[:, None] * P + np.arange(P)[None]).reshape(-1)
+    sup = s[:, :, idx].copy()
+    sup[0] += np.repeat(np.where(planes < 0, -box, np.where(planes >= n, box, 0.0)),
+                        P)[None].astype(sup.dtype)
+    rext = occ[idx].copy()
+    rext[:width * P] = rext[-width * P:] = 0
+    return sup, rext, occ[idx].copy(), x0, npl
+
+
+@pytest.mark.parametrize("d", [1, 2, 4, 3])
 def test_planes_sweep_equals_the_whole(d):
     """The sweep's nx contract (the rung stepper over d ranks): rank r's
-    nc/d planes of columns between its two neighbour planes (nx = nc/d +
-    2, each neighbour plane across the box face shifted by ∓box, receiver
-    bounds 0 there, supplier bounds the owners') give its planes' rows of
-    the whole nc³ sweep.  Slots of the first and last planes sit across
-    the faces (wrapped to the far side since their bucketing), as a drift
-    leaves them."""
+    planes of columns (nc/d, or split unevenly: 1 + 2 + 1 at d = 3)
+    between its two neighbour planes (nx = planes + 2, each neighbour
+    plane across the box face shifted by ∓box, receiver bounds 0 there,
+    supplier bounds the owners') give its planes' rows of the whole nc³
+    sweep.  Slots of the first and last planes sit across the faces
+    (wrapped to the far side since their bucketing), as a drift leaves
+    them."""
     rng = np.random.default_rng(7)
     n, K, box = 4, 8, 1.0
     scale, cutoff, soft = 0.06, 0.24, 0.02
@@ -312,22 +346,52 @@ def test_planes_sweep_equals_the_whole(d):
     args = (box, scale, float(np.float32(cutoff) ** 2), float(np.float32(soft) ** 2))
     whole = pair_sweep(st, st, n, *args, kernel="spline", rext=torch.as_tensor(occ),
                        sext=torch.as_tensor(occ)).numpy()
-    npl = n // d
     for r in range(d):
-        x0 = r * npl
-        idx = np.concatenate([(x0 - 1) % n * P + np.arange(P), x0 * P + np.arange(npl * P),
-                              (x0 + npl) % n * P + np.arange(P)])
-        sup = s[:, :, idx].copy()
-        if r == 0:
-            sup[0, :, :P] -= box
-        if r == d - 1:
-            sup[0, :, -P:] += box
-        rext = occ[idx].copy()
-        rext[:P] = rext[-P:] = 0
+        sup, rext, sext, x0, npl = _rank_planes_slots(s, occ, n, d, r, 1, box)
         sup_t = torch.as_tensor(sup)
         got = pair_sweep(sup_t, sup_t, n, *args, kernel="spline", rext=torch.as_tensor(rext),
-                         sext=torch.as_tensor(occ[idx]), nx=npl + 2).numpy()
+                         sext=torch.as_tensor(sext), nx=npl + 2).numpy()
         ref = whole[:, :, x0 * P:(x0 + npl) * P]
         np.testing.assert_allclose(got[:, :, P:-P], ref, rtol=1e-6,
                                    atol=1e-6 * np.abs(whole).max())
         assert np.all(got[:, :, :P] == 0) and np.all(got[:, :, -P:] == 0)
+
+
+@pytest.mark.parametrize("d", [1, 2, 3])
+def test_reach_planes_sweep_equals_the_whole(d):
+    """Row 5's nx contract (the 4-mesh-cell layout over d ranks): rank r's
+    planes of the nc = 7 columns a side (7; 4 + 3; 2 + 3 + 2) between two
+    neighbour planes a side (nx = planes + 4), receivers at the opposite
+    sentinel, give its planes' rows of the whole reach-2 sweep over the
+    117 kept offsets; slots of the first and last planes sit across both
+    faces."""
+    from concept_tpu_torch.forces.shortrange import reach_offsets
+
+    rng = np.random.default_rng(11)
+    n, K, box = 7, 8, 1.0
+    cw = box / n
+    offsets = reach_offsets(cw, 0.55 * cw / 4.0)
+    scale = 1.25 * cw / 4.0
+    cutoff, soft = 4.5 * scale, 0.03 * cw
+    s, valid, _ = _layout(rng, n, K, box)
+    P = n * n
+    plane = np.arange(n**3) // P
+    s[0][valid & (plane == 0)[None] & (rng.random((K, n**3)) < 0.3)] = box - 0.1 * cw
+    s[0][valid & (plane == n - 1)[None] & (rng.random((K, n**3)) < 0.3)] = 0.1 * cw
+    occ = valid.sum(0).astype(np.int32)
+    recv = np.where(valid[None], s, -SENTINEL * box).astype(np.float32)
+    args = (box, scale, float(np.float32(cutoff) ** 2), float(np.float32(soft) ** 2), offsets)
+    occ_t = torch.as_tensor(occ)
+    whole = pair_sweep_reach(torch.as_tensor(recv), torch.as_tensor(s), n, *args,
+                             kernel="spline", rext=occ_t, sext=occ_t).numpy()
+    assert np.abs(whole).max() > 0
+    for r in range(d):
+        sup, rext, sext, x0, npl = _rank_planes_slots(s, occ, n, d, r, 2, box)
+        rcv = np.where(np.abs(sup) < 0.5 * SENTINEL * box, sup, -SENTINEL * box)
+        got = pair_sweep_reach(torch.as_tensor(rcv), torch.as_tensor(sup), n, *args,
+                               kernel="spline", rext=torch.as_tensor(rext),
+                               sext=torch.as_tensor(sext), nx=npl + 4).numpy()
+        ref = whole[:, :, x0 * P:(x0 + npl) * P]
+        np.testing.assert_allclose(got[:, :, 2 * P:-2 * P], ref, rtol=1e-6,
+                                   atol=1e-6 * np.abs(whole).max())
+        assert np.all(got[:, :, :2 * P] == 0) and np.all(got[:, :, -2 * P:] == 0)

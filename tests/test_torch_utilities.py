@@ -120,9 +120,10 @@ def test_interactive_session_without_a_run():
 
 def test_more_than_one_device_names_its_item(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
-    # grid 20 takes no 8-mesh-cell layout: rungs over ranks refuse it
+    # several components over ranks are refused before anything is realized
     with pytest.raises(NotImplementedError, match="item 14"):
-        cli.main(["-p", PARAM, "-n", "2", "--device", "cpu", "-c", "potential_options=20"])
+        cli.main(["-p", PARAM, "-n", "2", "--device", "cpu", "-c",
+                  "initial_conditions=[{'species':'cdm','N':8**3},{'species':'baryon','N':8**3}]"])
 
 
 def test_concept_env_var_mirrors(monkeypatch):
