@@ -226,6 +226,13 @@ state of phase 4 (example_basic realized at a = 0.02):
     the whole mesh's; rows 1, 8, 9); example_basic 64³ / grid 128 from
     a = 0.02 to 0.1 through ``RungSimulationAdapter(dist=...)``, its
     spectrum within 1e-4 of one device's; ``-n 2`` raising ValueError.
+    The base steps start from the realization over the ranks.
+13. ``parallel_realize``: the realization over ranks on a world of one
+    ``nccl`` rank: 256³ by 2LPT and 3LPT through
+    ``RungSimulationAdapter(dist=...).initial_state`` against one
+    device's, per id (positions within 1e-5 of the largest displacement
+    plus a float32 position's rounding, momenta within 1e-5 of the
+    largest, every id once); seconds and peak device memory both ways.
 
 Before its last line it prints one JSON object ``{"kernels": [...]}`` and
 the card's name and power limit as nvidia-smi reports them (each kernel
@@ -3545,6 +3552,99 @@ def _steps_over_ranks(n: int, mesh: int, sim, flat, dist, n_steps: int, ucb: int
     return bs
 
 
+def _rung_adapter(n: int, mesh: int, dist):
+    """example_basic's ``RungSimulationAdapter`` at n³ particles on the
+    mesh-``mesh`` rung layout over the ranks of ``dist``: (adapter, its
+    a_begin)."""
+    import torch
+
+    from concept_tpu_torch.p3mrungs import RungSimulationAdapter
+    from concept_tpu_torch.sim import SimConfig
+
+    cfg, consts, bg, lin, spec, soft = _example(n, mesh)
+    config = SimConfig(boxsize=cfg.boxsize, potential_gridsize=mesh,
+                       device=torch.device("cuda"), dtype=torch.float32, G=consts.G_Newton,
+                       softening=soft, softening_kernel=cfg.softening_kernel)
+    return (RungSimulationAdapter(spec, config, bg, lin, N_rungs=cfg.N_rungs, dist=dist),
+            cfg.a_begin)
+
+
+def _realized_over_ranks(n: int, mesh: int, dist, lpt_order: int = 1):
+    """example_basic's n³ particles realized over the ranks of ``dist``
+    through ``RungSimulationAdapter(dist=...).initial_state`` on the
+    mesh-``mesh`` rung layout: the rank's flat index shard."""
+    adapter, a_begin = _rung_adapter(n, mesh, dist)
+    return adapter.initial_state(a_begin, seed=0, lpt_order=lpt_order)
+
+
+def parallel_realize(n: int = 256, mesh: int = 512) -> dict:
+    """Phase 13: the realization over ranks on a world of one ``nccl``
+    rank.  example_basic's n³ particles by 2LPT and 3LPT through
+    ``RungSimulationAdapter(dist=...).initial_state`` (the noise of the
+    rank's x-rows, the slab FFT, its lattice planes, the hand-off to its
+    index shard) against one device's ``initial_state``, per id:
+    positions within 1e-5 of one device's largest displacement |x − q|
+    plus 2·box·2⁻²⁴ (a stored float32 position's rounding), momenta
+    within 1e-5 of the largest, every id once.  Prints the seconds and
+    the peak device memory of each realization (the second of two calls
+    each way: the first makes the cuFFT plans)."""
+    import torch
+    import torch.distributed as tdist
+
+    from concept_tpu_torch.components import lattice_positions
+    from concept_tpu_torch.grid.fft import GridDistribution
+
+    t_phase = time.time()
+    store = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    tdist.init_process_group("nccl", store=tdist.FileStore(os.path.join(store, "store"), 1),
+                             rank=0, world_size=1)
+    out = {"N": n**3}
+    try:
+        dist = GridDistribution()
+        box = _example(n, mesh)[0].boxsize
+        for order in (2, 3):
+            runs = {}
+            for tag, dd in (("single", None), ("ranks", dist)) * 2:
+                adapter, a_begin = _rung_adapter(n, mesh, dd)
+                runs.pop(tag, None)
+                _sync()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                t0 = time.perf_counter()
+                flat = adapter.initial_state(a_begin, seed=0, lpt_order=order)
+                _sync()
+                runs[tag] = (flat, time.perf_counter() - t0,
+                             torch.cuda.max_memory_allocated() - base)
+                del flat
+            (one, s1, pk1), (got, sd, pkd) = runs["single"], runs["ranks"]
+            q = lattice_positions(n, box, "sc", torch.float64, "cuda")
+            disp = one.pos.double() - q
+            disp -= box * torch.round(disp / box)
+            pos_tol = 1e-5 * float(disp.abs().max()) + 2 * box * 2.0**-24
+            del q, disp
+            ids = got.ids.long()
+            dx = got.pos.double() - one.pos.double()[ids]
+            dx -= box * torch.round(dx / box)
+            dpos = float(dx.abs().max())
+            dmom = _max_rel(got.mom.double(), one.mom.double()[ids])[1]
+            ids_ok = bool(torch.equal(ids, torch.arange(n**3, device=ids.device)))
+            del dx, got, one
+            res = dict(seconds=sd, single_seconds=s1, peak_bytes=pkd, single_peak_bytes=pk1,
+                       max_dpos=dpos, pos_tol=pos_tol, max_dmom_rel=dmom, ids_ok=ids_ok)
+            out[f"lpt{order}"] = res
+            print(f"parallel_realize: {n}³ {order}LPT over a world of one rank: "
+                  f"{sd:.3f} s, peak {pkd / 2**30:.2f} GiB (one device {s1:.3f} s, "
+                  f"{pk1 / 2**30:.2f} GiB); max |Δx| {dpos:.3g} (bound {pos_tol:.3g}), "
+                  f"max |Δp| {dmom:.3g} of the largest; ids {'in order' if ids_ok else 'WRONG'}")
+            if not (dpos <= pos_tol and dmom <= 1e-5 and ids_ok):
+                raise SystemExit("the realization over the ranks differs from one device's")
+    finally:
+        tdist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    out["seconds"] = time.time() - t_phase
+    return out
+
+
 def parallel_rungs(n: int = 256, mesh: int = 512, n_steps: int = 3) -> dict:
     """Phase 12: the rung stepper over ranks on a world of one ``nccl``
     rank (built here: ``make_distribution(1)`` gives None).  (a) On the
@@ -3597,9 +3697,10 @@ def parallel_rungs(n: int = 256, mesh: int = 512, n_steps: int = 3) -> dict:
         out = {"pair_sweep": _planes_sweep("realized", pos_s, sim, ext, dist)}
         del pos_s
         out.update(_planes_cells(state.pos[:, :K], state.valid[:K], sim, ext, dist))
-        flat = adapter._to_flat(state)
         del state, adapter
-        # (b) base steps over the ranks against one device
+        # (b) base steps over the ranks against one device, from the
+        # realization over the ranks
+        flat = _realized_over_ranks(n, mesh, dist)
         out["base_steps"] = _steps_over_ranks(n, mesh, sim, flat, dist, n_steps, 8,
                                               RUNG_KERNELS)
         del flat
@@ -3621,8 +3722,8 @@ def parallel_rungs(n: int = 256, mesh: int = 512, n_steps: int = 3) -> dict:
             if not ucb:
                 res.update(_planes_blocks(state, lsim, dist))
                 res["pm"] = _tight_pm_over_ranks(state, lsim, dist)
-            flat = adapter._to_flat(state)
             del state, adapter
+            flat = _realized_over_ranks(nn, mm, dist)
             res["base_steps"] = _steps_over_ranks(nn, mm, lsim, flat, dist, n_steps, ucb,
                                                   kernels)
             del flat
@@ -3947,6 +4048,7 @@ def main(argv=None) -> int:
     results["parallel"] = _timed(seconds, "parallel", parallel, sim, state)
     del sim, state
     results["parallel_rungs"] = _timed(seconds, "parallel_rungs", parallel_rungs)
+    results["parallel_realize"] = _timed(seconds, "parallel_realize", parallel_realize)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -139,11 +139,13 @@ def periodic_wrap(x: torch.Tensor, boxsize: float) -> torch.Tensor:
 
 
 def lattice_positions(n_per_dim: int, boxsize: float, kind: str = "sc",
-                      dtype=torch.float32, device="cpu"):
+                      dtype=torch.float32, device="cpu", rows=None):
     """Pre-IC particle lattice (reference ic.py:1199-1446): sc gives n³
     particles at cell centers, bcc and fcc add 1 and 3 shifted copies.
     Returns (N, 3) positions, built on ``device`` in float64 as the JAX
-    package builds them with numpy."""
+    package builds them with numpy; with ``rows`` = (x0, count) only
+    those of the planes x ∈ [x0, x0 + count) of each copy, in the same
+    order (a rank's planes of the realization over ranks)."""
     n = n_per_dim
     h = boxsize / n
     shifts = {"sc": [[0, 0, 0]], "bcc": [[0, 0, 0], [0.5, 0.5, 0.5]],
@@ -151,7 +153,9 @@ def lattice_positions(n_per_dim: int, boxsize: float, kind: str = "sc",
     if kind not in shifts:
         raise ValueError(f"unknown lattice kind {kind!r}")
     i = torch.arange(n, dtype=torch.float64, device=device)
-    base = (torch.stack(torch.meshgrid(i, i, i, indexing="ij"), -1).reshape(-1, 3)
+    ix = i if rows is None else torch.arange(rows[0], rows[0] + rows[1], dtype=torch.float64,
+                                             device=device)
+    base = (torch.stack(torch.meshgrid(ix, i, i, indexing="ij"), -1).reshape(-1, 3)
             + 0.5) * h
     pos = torch.cat([base + torch.as_tensor(s, dtype=torch.float64, device=device) * h
                      for s in shifts[kind]])

@@ -11,8 +11,17 @@ reference and the JAX package lay them out (fft.c:34-73):
   real    : x-slab (n/d, n, n),         rows [r·n/d, (r+1)·n/d) of x
   fourier : y-slab (n, n/d, n//2+1),    rows [r·n/d, (r+1)·n/d) of y
 
-and the x↔y transpose is one ``all_to_all_single``.  The 2D pencil
-decomposition (``-n AxB``) is ROADMAP Queue 1 item 14b.
+and the x↔y transpose is one ``all_to_all_single``.  A grid whose n the
+ranks do not divide (the realization's lattice grid, ic.py) splits both
+axes by :func:`row_starts`, rank r taking rows [⌊r·n/d + ½⌋, ⌊(r+1)·n/d
++ ½⌋) (:meth:`GridDistribution.rows`; a rank may hold none), so the
+transposes take split sizes; where d divides n they are the even ones.
+The PM's mesh keeps the even rule (:meth:`GridDistribution.slab` raises
+otherwise).  :func:`exchange`, which sends each row of a tensor to the
+rank its destination names, is the one collective under both the
+transposes and the moves of grid rows and particles (grid/fourier.py,
+ic.py, parallel/step.py).  The 2D pencil decomposition (``-n AxB``) is
+ROADMAP Queue 1 item 14b.
 """
 
 from __future__ import annotations
@@ -21,6 +30,13 @@ from dataclasses import dataclass
 
 import torch
 import torch.distributed as tdist
+
+
+def row_starts(n: int, d: int) -> list:
+    """The first row of each of d ranks' rows of an n-row axis, and n:
+    rank r takes rows [⌊r·n/d + ½⌋, ⌊(r+1)·n/d + ½⌋), n/d each where d
+    divides n."""
+    return [(2 * r * n + d) // (2 * d) for r in range(d)] + [n]
 
 
 @dataclass(frozen=True)
@@ -48,6 +64,13 @@ class GridDistribution:
         rows = n // d
         return (self.rank if rank is None else rank) * rows, rows
 
+    def rows(self, n: int, rank: int | None = None) -> tuple[int, int]:
+        """(first row, rows) of a rank's rows of an n-row axis split by
+        :func:`row_starts`: :meth:`slab` wherever d divides n."""
+        starts = row_starts(n, self.n_devices)
+        r = self.rank if rank is None else rank
+        return starts[r], starts[r + 1] - starts[r]
+
     def shard(self, N: int) -> tuple[int, int]:
         """[lo, hi) of this rank's particle indices."""
         d = self.n_devices
@@ -73,43 +96,88 @@ def check_distribution(dist):
     return dist
 
 
-def all_to_all(x: torch.Tensor, dist: GridDistribution) -> torch.Tensor:
-    """Equal-split ``all_to_all_single`` along dim 0 (complex tensors as
-    their real views)."""
-    src = (torch.view_as_real(x) if x.is_complex() else x).contiguous()
-    out = torch.empty_like(src)
-    tdist.all_to_all_single(out, src, group=dist.group)
-    return torch.view_as_complex(out) if x.is_complex() else out
+def _a2a_rows(src: torch.Tensor, send: list, recv: list, dist: GridDistribution):
+    """``all_to_all_single`` of the rows (dim 0) of src, ``send[j]`` rows to
+    rank j, ``recv[i]`` rows from rank i, complex tensors as their real
+    views."""
+    x = (torch.view_as_real(src) if src.is_complex() else src).contiguous()
+    out = x.new_empty((sum(recv), *x.shape[1:]))
+    tdist.all_to_all_single(out, x, output_split_sizes=recv, input_split_sizes=send,
+                            group=dist.group)
+    return torch.view_as_complex(out) if src.is_complex() else out
+
+
+def exchange(rows: list, dest, dist: GridDistribution) -> list:
+    """Send row i of each tensor in ``rows`` to rank ``dest[i]``: the
+    rows received, stacked by source rank, each source's rows in its own
+    order (a stable sort by destination)."""
+    d = dist.n_devices
+    order = torch.argsort(dest, stable=True)
+    send = torch.bincount(dest, minlength=d)
+    recv = torch.empty_like(send)
+    tdist.all_to_all_single(recv, send, group=dist.group)
+    send_l, recv_l = send.tolist(), recv.tolist()
+    return [_a2a_rows(x[order], send_l, recv_l, dist) for x in rows]
 
 
 def rfft3(grid: torch.Tensor, dist: GridDistribution | None = None) -> torch.Tensor:
     """Forward real 3D FFT: (n, n, n) → (n, n, n//2+1), unnormalised.
-    With ``dist`` an x-slab (n/d, n, n) → its y-slab (n, n/d, n//2+1):
+    With ``dist`` an x-slab (rows, n, n) → its y-slab (n, cols, n//2+1):
     rfft along z, fft along y, the transpose, fft along x."""
     if check_distribution(dist) is None:
         return torch.fft.rfftn(grid, dim=(-3, -2, -1))
-    d = dist.n_devices
     rows, n = grid.shape[0], grid.shape[1]
-    f = torch.fft.fft(torch.fft.rfft(grid, dim=2), dim=1)
-    nk = f.shape[2]
-    # split y into d blocks, block j to rank j; the blocks received stack
-    # along x in rank order
-    f = all_to_all(f.reshape(rows, d, n // d, nk).transpose(0, 1), dist)
-    return torch.fft.fft(f.reshape(n, n // d, nk), dim=0)
+    nk = n // 2 + 1
+    sizes = [dist.rows(n, r)[1] for r in range(dist.n_devices)]
+    cols = sizes[dist.rank]
+    # rank j's y-rows of every x-row go to rank j, which stacks what it
+    # receives along x in rank order
+    if rows:
+        f = torch.fft.fft(torch.fft.rfft(grid, dim=2), dim=1)
+        f = torch.cat([b.reshape(-1, nk) for b in torch.split(f, sizes, dim=1)])
+    else:
+        f = grid.new_empty((0, nk), dtype=_complex(grid.dtype))
+    f = _a2a_rows(f, [rows * c for c in sizes], [x * cols for x in sizes], dist)
+    f = f.reshape(n, cols, nk)
+    return torch.fft.fft(f, dim=0) if cols else f
 
 
 def irfft3(slab: torch.Tensor, gridsize: int,
            dist: GridDistribution | None = None) -> torch.Tensor:
-    """Inverse of :func:`rfft3` (normalised like jnp.fft.irfftn).  On one
-    device a leading batch axis is transformed slab by slab."""
+    """Inverse of :func:`rfft3`, normalised by 1/n³ (numpy's convention);
+    with ``dist`` a y-slab → its x-slab, the steps of :func:`rfft3`
+    reversed."""
     n = gridsize
     if check_distribution(dist) is None:
         return torch.fft.irfftn(slab, s=(n, n, n), dim=(-3, -2, -1))
-    d = dist.n_devices
     cols, nk = slab.shape[1], slab.shape[2]
-    f = torch.fft.ifft(slab, dim=0)
-    # split x into d blocks, block j to rank j; the blocks received stack
-    # along y in rank order
-    f = all_to_all(f.reshape(d, n // d, cols, nk), dist)
-    f = f.transpose(0, 1).reshape(n // d, n, nk)
-    return torch.fft.irfft(torch.fft.ifft(f, dim=1), n=n, dim=2)
+    sizes = [dist.rows(n, r)[1] for r in range(dist.n_devices)]
+    rows = sizes[dist.rank]
+    # rank j's x-rows of every y-row go to rank j, which stacks what it
+    # receives along y in rank order
+    f = torch.fft.ifft(slab, dim=0) if cols else slab
+    recv = [rows * c for c in sizes]
+    f = _a2a_rows(f.reshape(n * cols, nk), [x * cols for x in sizes], recv, dist)
+    f = torch.cat([b.reshape(rows, c, nk) for b, c in zip(torch.split(f, recv), sizes)], dim=1)
+    if not rows:
+        return slab.real.new_empty((0, n, n))
+    return _irfft_z(torch.fft.ifft(f, dim=1), n)
+
+
+def _irfft_z(f: torch.Tensor, n: int) -> torch.Tensor:
+    """The c2r along the last axis of f (consumed) with numpy's meaning:
+    the imaginary parts of bins 0 and n/2, which a real signal's
+    transform cannot have, are dropped first.  The slab FFT's last step,
+    after the x- and y-transforms, where those bins hold what the kk = 0
+    and n/2 planes are not Hermitian in (the LPT grids' i·k·δ on a
+    Nyquist row).  numpy, the CPU's c2r and cuFFT's 3D c2r never read
+    them (on the CPU the result is the same bit for bit); cuFFT's float
+    1D c2r does at some lengths (scripts/c2r_probe.py)."""
+    f[..., 0].imag.zero_()
+    if n % 2 == 0:
+        f[..., n // 2].imag.zero_()
+    return torch.fft.irfft(f, n=n, dim=-1)
+
+
+def _complex(dtype: torch.dtype) -> torch.dtype:
+    return torch.complex128 if dtype == torch.float64 else torch.complex64

@@ -16,6 +16,8 @@ import math
 import numpy as np
 import torch
 
+from concept_tpu_torch.grid.fft import exchange, row_starts
+
 
 def k_int_vectors(gridsize: int, device="cpu", y_rows=None):
     """Broadcastable integer mode vectors (ki, kj, kk), int64."""
@@ -124,32 +126,65 @@ def nullify_beyond_sphere(slab, gridsize: int, k2_max_int: int):
 
 
 def copy_modes(slab_src, gridsize_src: int, gridsize_dst: int,
-               norm: bool = True, cell_centered: bool = True):
+               norm: bool = True, cell_centered: bool = True, dist=None):
     """Copy the integer modes two rfft layouts share (reference
     mesh.py:1018-1327 copy_modes / resize_grid).  Modes at or beyond the
     smaller grid's Nyquist are dropped (zero on the destination).
     ``norm`` rescales by (n_dst/n_src)³, so that the inverse transform
     keeps the physical amplitude; ``cell_centered`` re-centres the
     samples, which sit at (i+½)h, by the phase exp(iπk(1/n_dst −
-    1/n_src)) per axis."""
+    1/n_src)) per axis.  With ``dist`` (grid/fft.GridDistribution) the
+    slabs are the rank's y-slabs of the two grids (``rows`` of each n):
+    each kept kj row goes to the rank that holds it on the destination."""
     n1, n2 = gridsize_src, gridsize_dst
     if n1 == n2:
         return slab_src
     h = min(n1, n2) // 2  # modes |k| < h are kept
     pos, neg = h, h - 1  # rows 0..h−1 and the last h−1 rows
     src = slab_src
-    out = torch.zeros((n2, n2, n2 // 2 + 1), dtype=src.dtype, device=src.device)
-    out[:pos, :pos, :h + 1] = src[:pos, :pos, :h + 1]
-    out[:pos, -neg:, :h + 1] = src[:pos, -neg:, :h + 1]
-    out[-neg:, :pos, :h + 1] = src[-neg:, :pos, :h + 1]
-    out[-neg:, -neg:, :h + 1] = src[-neg:, -neg:, :h + 1]
+    y_rows = None
+    if dist is None:
+        out = torch.zeros((n2, n2, n2 // 2 + 1), dtype=src.dtype, device=src.device)
+        out[:pos, :pos, :h + 1] = src[:pos, :pos, :h + 1]
+        out[:pos, -neg:, :h + 1] = src[:pos, -neg:, :h + 1]
+        out[-neg:, :pos, :h + 1] = src[-neg:, :pos, :h + 1]
+        out[-neg:, -neg:, :h + 1] = src[-neg:, -neg:, :h + 1]
+    else:
+        out, y_rows = _copy_rows(src, n1, n2, h, dist)
     if norm:
         out = out * (n2 / n1) ** 3
     if cell_centered:
-        ki, kj, kk = k_int_vectors(n2, src.device)
+        ki, kj, kk = k_int_vectors(n2, src.device, y_rows)
         phase = (math.pi * (1.0 / n2 - 1.0 / n1)) * (ki + kj + kk).to(out.real.dtype)
         out = out * torch.exp(1j * phase)
     return out
+
+
+def _copy_rows(src, n1: int, n2: int, h: int, dist):
+    """:func:`copy_modes`' copy over the ranks: this rank's kept kj rows of
+    the n1-grid's y-slab src, each as a whole kj row of the n2-grid (x
+    and kk copied as on one device), sent to the rank that holds the row
+    of the n2-grid, which places what it receives.  Returns (this rank's
+    y-slab of the n2-grid, its rows)."""
+    y0, _ = dist.rows(n1)
+    j = y0 + torch.arange(src.shape[1], device=src.device)
+    keep = (j < h) | (j >= n1 - (h - 1))
+    j_dst = torch.where(j < h, j, j - n1 + n2)[keep]
+    part = src.transpose(0, 1)[keep]  # (kept, n1, nk1): kj first
+    rows = part.new_zeros((part.shape[0], n2, n2 // 2 + 1))
+    pos, neg = h, h - 1
+    rows[:, :pos, :h + 1] = part[:, :pos, :h + 1]
+    rows[:, -neg:, :h + 1] = part[:, -neg:, :h + 1]
+    del part
+    starts = torch.tensor(row_starts(n2, dist.n_devices)[1:-1], dtype=torch.int64,
+                          device=src.device)
+    dest = torch.bucketize(j_dst, starts, right=True)
+    got, got_j = exchange([rows, j_dst], dest, dist)
+    del rows
+    z0, cols = dist.rows(n2)
+    out = src.new_zeros((cols, n2, n2 // 2 + 1))
+    out[got_j - z0] = got
+    return out.transpose(0, 1), (z0, cols)
 
 
 def check_hermitian(slab, gridsize: int) -> float:

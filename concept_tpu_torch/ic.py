@@ -24,6 +24,13 @@ Zel'dovich: x = q + ψ(q), ψ(k) = i k/k² δ(k); mom = a²·m·H·f1·ψ.
 The 'distributed' noise is the JAX package's mode hash (a 32-bit integer
 hash of the seed and the mode's coordinates), computed on int64 tensors
 masked to 32 bits.
+
+Over the ranks of a grid/fft.GridDistribution (``dist``) each rank draws
+the noise of its x-rows of the lattice grid (the counters are the
+elements' own, so the rows are bit for bit the whole draw's), works on
+its y-slab in Fourier space and its x-slab in real space, realizes the
+particles of its lattice planes (parallel/step.realize_shard hands
+them to the ranks whose index shards hold their ids).
 """
 
 from __future__ import annotations
@@ -37,8 +44,8 @@ from concept_tpu_torch.components import (
     ComponentSpec, ParticleState, lattice_positions, periodic_wrap,
 )
 from concept_tpu_torch.grid import fourier
-from concept_tpu_torch.grid.fft import irfft3, rfft3
-from concept_tpu_torch.grid.interp import gather
+from concept_tpu_torch.grid.fft import exchange, irfft3, rfft3, row_starts
+from concept_tpu_torch.grid.interp import gather, spline_weights
 
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -65,20 +72,22 @@ def threefry2x32(key: tuple[int, int], x0, x1):
     return x0, x1
 
 
-def _threefry_words(seed: int, n_elems: int, device="cpu"):
+def _threefry_words(seed: int, n_elems: int, device="cpu", start: int = 0):
     """The two threefry2x32 output words of JAX's partitionable random
-    bits of ``jax.random.key(seed)`` for n_elems elements (row-major), as
-    int64 tensors in [0, 2³²)."""
+    bits of ``jax.random.key(seed)`` for the n_elems elements from
+    ``start`` on (row-major), as int64 tensors in [0, 2³²): the counter
+    of element i is i, its high word i >> 32."""
     key = ((seed >> 32) & _M32, seed & _M32)
-    lo = torch.arange(n_elems, dtype=torch.int64, device=device)
-    hi = torch.zeros_like(lo) if n_elems <= 1 << 32 else lo >> 32
+    lo = torch.arange(start, start + n_elems, dtype=torch.int64, device=device)
+    hi = torch.zeros_like(lo) if start + n_elems <= 1 << 32 else lo >> 32
     return threefry2x32(key, hi, lo & _M32)
 
 
-def random_bits(seed: int, n_elems: int, device="cpu"):
+def random_bits(seed: int, n_elems: int, device="cpu", start: int = 0):
     """JAX's partitionable 32-bit random bits of ``jax.random.key(seed)``
-    for n_elems elements (row-major), as int64 in [0, 2³²)."""
-    b0, b1 = _threefry_words(seed, n_elems, device)
+    for the n_elems elements from ``start`` on (row-major), as int64 in
+    [0, 2³²)."""
+    b0, b1 = _threefry_words(seed, n_elems, device, start)
     return b0 ^ b1
 
 
@@ -105,27 +114,50 @@ def erfinv_f32(x: torch.Tensor) -> torch.Tensor:
     return p * x
 
 
-def normal_noise(seed: int, n: int, device="cpu", dtype=torch.float32):
-    """``jax.random.normal(jax.random.key(seed), (n, n, n), dtype)``."""
+# elements of the noise drawn at a time where a draw is split (its int64
+# temporaries take ~60 bytes an element)
+NOISE_CHUNK = 1 << 25
+
+
+def _normal_values(seed: int, start: int, count: int, device, dtype):
+    """Elements [start, start + count) of ``jax.random.normal(
+    jax.random.key(seed), shape, dtype)`` (row-major), flat."""
     if dtype == torch.float64:
         # 64-bit bits (word 0 high, word 1 low), their top 52 bits → a
         # double in [1, 2) → [0, 1) → (−1, 1)
-        b0, b1 = _threefry_words(seed, n**3, device)
+        b0, b1 = _threefry_words(seed, count, device, start)
         one = 0x3FF0000000000000
         floats = (((b0 << 20) | (b1 >> 12)) | one).view(torch.float64) - 1.0
         lo = float(np.nextafter(-1.0, 0.0))
         u = torch.clamp(floats * (1.0 - lo) + lo, min=lo)
-        return (math.sqrt(2.0) * torch.erfinv(u)).reshape(n, n, n)
-    bits = random_bits(seed, n**3, device)
+        return math.sqrt(2.0) * torch.erfinv(u)
+    bits = random_bits(seed, count, device, start)
     # top 23 bits → a float in [1, 2) → [0, 1) → (−1, 1)
     one = 0x3F800000
     floats = ((bits >> 9) | one).to(torch.int32).view(torch.float32) - 1.0
     lo = float(np.nextafter(np.float32(-1.0), np.float32(1.0)))
     width = float(np.float32(1.0) - np.float32(lo))
     u = torch.clamp(floats * width + lo, min=lo)
-    return (math.sqrt(2.0) * erfinv_f32(u)).reshape(n, n, n)
+    return math.sqrt(2.0) * erfinv_f32(u)
 
 
+def normal_noise(seed: int, n: int, device="cpu", dtype=torch.float32, rows=None):
+    """``jax.random.normal(jax.random.key(seed), (n, n, n), dtype)``, or
+    with ``rows`` = (x0, count) its x-rows [x0, x0 + count): (count, n,
+    n), bit for bit those rows of the whole draw (the counters are the
+    elements' own).  A draw of more than ``NOISE_CHUNK`` elements is made
+    a chunk of x-rows at a time."""
+    x0, count = (0, n) if rows is None else rows
+    if count * n * n <= NOISE_CHUNK:
+        return _normal_values(seed, x0 * n * n, count * n * n, device, dtype).reshape(
+            count, n, n)
+    out = torch.empty((count, n, n), dtype=dtype, device=device)
+    step = max(1, NOISE_CHUNK // (n * n))
+    for a in range(0, count, step):
+        b = min(count, a + step)
+        out[a:b] = _normal_values(seed, (x0 + a) * n * n, (b - a) * n * n, device,
+                                  dtype).reshape(b - a, n, n)
+    return out
 
 
 def _mul32(x, c: int):
@@ -151,16 +183,19 @@ def _mode_hash(ki, kj, kk, key: tuple[int, int], salt: int):
     return x ^ (x >> 16)
 
 
-def _modewise_noise(gridsize: int, seed: int, dtype=torch.float32, device="cpu"):
+def _modewise_noise(gridsize: int, seed: int, dtype=torch.float32, device="cpu",
+                    y_rows=None):
     """Mode-indexed Gaussian noise over the rfft layout (port of
     ``_modewise_noise``): each mode's value is a function of (seed, ki,
     kj, kk) alone, the same at every grid size that holds the mode.
     Modes on the self-conjugate planes kk ∈ {0, n/2} take the conjugate
     of their canonical (lexicographically larger) partner; self-conjugate
-    points are real with unit variance.  Normalised to ⟨|R|²⟩ = n³."""
+    points are real with unit variance.  Normalised to ⟨|R|²⟩ = n³.
+    ``y_rows`` (first, rows) builds only those kj rows (a rank's y-slab)."""
     n = gridsize
-    shape = (n, n, n // 2 + 1)
-    ki, kj, kk = (k.expand(shape) for k in fourier.k_int_vectors(n, device))
+    ki, kj, kk = fourier.k_int_vectors(n, device, y_rows)
+    shape = (n, kj.shape[1], n // 2 + 1)
+    ki, kj, kk = (k.expand(shape) for k in (ki, kj, kk))
     on_plane = (kk == 0) | (kk == n // 2)
 
     def alias_neg(k):  # −k with the Nyquist aliasing −(−n/2) ≡ −n/2
@@ -192,18 +227,21 @@ def _modewise_noise(gridsize: int, seed: int, dtype=torch.float32, device="cpu")
 def generate_primordial_noise(gridsize: int, seed: int = 0,
                               fixed_amplitude: bool = False,
                               phase_shift: float = 0.0, dtype=torch.float32,
-                              scheme: str = "simple", device="cpu"):
+                              scheme: str = "simple", device="cpu", dist=None):
     """Unit white noise in the rfft layout with Hermitian symmetry,
     ⟨|R(k)|²⟩ = n³: 'simple' is the transform of JAX's real-space normal
     draw (:func:`normal_noise`), 'distributed' the mode hash
     (:func:`_modewise_noise`).  ``fixed_amplitude`` sets |R| = √n³ and
     keeps the phase; ``phase_shift`` is added to every phase (π for the
-    partner of a pair; reference ic.py:1058-1105)."""
+    partner of a pair; reference ic.py:1058-1105).  With ``dist``
+    (grid/fft.GridDistribution) the rank draws its x-rows and returns
+    its y-slab."""
     n = gridsize
     if scheme == "simple":
-        R = rfft3(normal_noise(seed, n, device, dtype))
+        rows = None if dist is None else dist.rows(n)
+        R = rfft3(normal_noise(seed, n, device, dtype, rows), dist)
     elif scheme == "distributed":
-        R = _modewise_noise(n, seed, dtype, device)
+        R = _modewise_noise(n, seed, dtype, device, None if dist is None else dist.rows(n))
     else:
         raise ValueError(f"unknown noise scheme {scheme!r}")
     if fixed_amplitude or phase_shift != 0.0:
@@ -212,13 +250,15 @@ def generate_primordial_noise(gridsize: int, seed: int = 0,
     return R
 
 
-def _by_k2(fn, gridsize: int, boxsize: float, dtype, device, on_device: bool = False):
+def _by_k2(fn, gridsize: int, boxsize: float, dtype, device, on_device: bool = False,
+           y_rows=None):
     """fn(|k|) evaluated once per integer |k|² of the rfft layout and
-    indexed onto it; 0 at k = 0.  fn takes the |k| values as a float64
-    NumPy array, or, ``on_device``, as a tensor of ``dtype`` on
-    ``device`` (the Boltzmann tables' interpolation runs there)."""
+    indexed onto it (onto the kj rows ``y_rows`` only, where given); 0 at
+    k = 0.  fn takes the |k| values as a float64 NumPy array, or,
+    ``on_device``, as a tensor of ``dtype`` on ``device`` (the Boltzmann
+    tables' interpolation runs there)."""
     n = gridsize
-    k2 = fourier.k2_int_grid(n, device)
+    k2 = fourier.k2_int_grid(n, device, y_rows)
     kmag = (2 * math.pi / boxsize) * np.sqrt(
         np.arange(int(3 * (n // 2) ** 2) + 1, dtype=np.float64))
     if on_device:
@@ -242,7 +282,7 @@ def realize_delta_slab(lin, gridsize: int, boxsize: float, a: float,
                        phase_shift: float = 0.0, dtype=torch.float32,
                        device="cpu", nongaussianity: float = 0.0,
                        scheme: str = "simple", backscale: bool = False,
-                       species: str = "matter"):
+                       species: str = "matter", dist=None):
     """δ(k) in DFT normalisation at scale factor a (reference ic.py:542
     get_amplitudes + ic.py:670 realize_grid).  ``nongaussianity`` f_NL
     adds the local-type term ζ → ζ + (3/5)f_NL(ζ² − ⟨ζ²⟩) to the
@@ -250,24 +290,33 @@ def realize_delta_slab(lin, gridsize: int, boxsize: float, a: float,
     back by D1(a) (the classic N-body convention).  ``species`` selects
     the transfer function (matter / cb / nu — reference TransferFunction
     species, linear.py:3517); where lin holds Boltzmann tables of it they
-    are interpolated on ``device``."""
+    are interpolated on ``device``.  With ``dist`` the rank's y-slab."""
     n = gridsize
     norm = math.sqrt(n**3 / boxsize**3)
     bs_fac = float(lin.bg.growth_np("D1", a)) if backscale else 1.0
     a_amp = 1.0 if backscale else a
     on_device = _tabulated(lin, species)
+    y_rows = None if dist is None else dist.rows(n)
     R = generate_primordial_noise(n, seed, fixed_amplitude, phase_shift, dtype,
-                                  scheme, device)
+                                  scheme, device, dist)
     if nongaussianity == 0.0:
         return R * _by_k2(lambda k: lin.delta_amplitude(k, a_amp, species) * bs_fac * norm,
-                          n, boxsize, dtype, device, on_device)
+                          n, boxsize, dtype, device, on_device, y_rows)
     zeta_k = R * _by_k2(lambda k: lin.primordial.zeta_amplitude(k) * norm,
-                        n, boxsize, dtype, device)
-    zeta_x = irfft3(zeta_k, n)
-    zeta_k = zeta_k + rfft3((3.0 / 5.0) * nongaussianity
-                            * (zeta_x**2 - (zeta_x**2).mean()))
+                        n, boxsize, dtype, device, y_rows=y_rows)
+    del R
+    zeta_x = irfft3(zeta_k, n, dist)
+    if dist is None:
+        mean = (zeta_x**2).mean()
+    else:
+        # ⟨ζ²⟩ of the whole grid: the ranks' sums over n³
+        mean = (zeta_x**2).sum()
+        torch.distributed.all_reduce(mean, group=dist.group)
+        mean = mean / n**3
+    zeta_k = zeta_k + rfft3((3.0 / 5.0) * nongaussianity * (zeta_x**2 - mean), dist)
+    del zeta_x
     return zeta_k * _by_k2(lambda k: lin.transfer_delta(k, a_amp, species) * bs_fac,
-                           n, boxsize, dtype, device, on_device)
+                           n, boxsize, dtype, device, on_device, y_rows)
 
 
 def realize_sigma_grids(lin, gridsize: int, boxsize: float, a: float, rho_plus_P: float,
@@ -300,10 +349,18 @@ def realize_sigma_grids(lin, gridsize: int, boxsize: float, a: float, rho_plus_P
     return rho_plus_P * torch.stack(grids).to(dtype)
 
 
-def displacement_from_delta(delta_slab, gridsize: int, boxsize: float):
-    """ψ_d(x) grids (3, n, n, n) from δ(k): ψ(k) = i k_d/k² δ(k)."""
-    return torch.stack([irfft3(_grad_inv_laplacian(delta_slab, gridsize, boxsize, d),
-                               gridsize) for d in range(3)])
+def _y_rows(n: int, dist):
+    """The kj rows (first, rows) of this rank's y-slab of an n-grid, or
+    None on one device."""
+    return None if dist is None else dist.rows(n)
+
+
+def displacement_from_delta(delta_slab, gridsize: int, boxsize: float, dist=None):
+    """ψ_d(x) grids (3, n, n, n) from δ(k): ψ(k) = i k_d/k² δ(k) (with
+    ``dist`` the rank's x-slabs of them from its y-slab of δ)."""
+    y_rows = _y_rows(gridsize, dist)
+    return torch.stack([irfft3(_grad_inv_laplacian(delta_slab, gridsize, boxsize, d, y_rows),
+                               gridsize, dist) for d in range(3)])
 
 
 def dealias_gridsize(n: int) -> int:
@@ -313,88 +370,125 @@ def dealias_gridsize(n: int) -> int:
     return m + (m & 1)
 
 
-def _hessian_real(psi_k, gridsize: int, boxsize: float, m: int | None = None):
+def _hessian_one(psi_k, i: int, j: int, n: int, boxsize: float, m: int, dist=None):
+    """∂ⱼψᵢ as a real m-grid (zero-padded in Fourier space where m > n)."""
+    dk = fourier.fourier_diff(psi_k[i], n, boxsize, j, _y_rows(n, dist))
+    if m != n:
+        dk = fourier.copy_modes(dk, n, m, dist=dist)
+    return irfft3(dk, m, dist)
+
+
+def _hessian_real(psi_k, gridsize: int, boxsize: float, m: int | None = None, dist=None):
     """The 6 distinct ∂ᵢψⱼ real grids of the Fourier components psi_k
     (ψ = ∇Φ, so ∂ᵢψⱼ = Φ,ᵢⱼ), on an m-grid zero-padded in Fourier space
     for dealiased products.  Keys (i, j), i ≤ j."""
     n = gridsize
     m = m or n
-    out = {}
-    for i in range(3):
-        for j in range(i, 3):
-            dk = fourier.fourier_diff(psi_k[i], n, boxsize, j)
-            if m != n:
-                dk = fourier.copy_modes(dk, n, m)
-            out[(i, j)] = irfft3(dk, m)
-    return out
+    return {(i, j): _hessian_one(psi_k, i, j, n, boxsize, m, dist)
+            for i in range(3) for j in range(i, 3)}
 
 
-def _truncate_product(S_m, n: int, m: int):
+def _truncate_product(S_m, n: int, m: int, dist=None):
     """A real m-grid product → the n-grid field (aliased modes dropped)."""
     if m == n:
         return S_m
-    return irfft3(fourier.copy_modes(rfft3(S_m), m, n), n)
+    return irfft3(fourier.copy_modes(rfft3(S_m, dist), m, n, dist=dist), n, dist)
 
 
-def lpt2_source(psi_k, gridsize: int, boxsize: float, dealias: bool = False):
+def lpt2_source(psi_k, gridsize: int, boxsize: float, dealias: bool = False, dist=None):
     """The 2LPT source S(x) = Σ_{i<j}(ψᵢ,ᵢψⱼ,ⱼ − ψᵢ,ⱼ²) of the Fourier ψ¹
     components (reference ic.py:1546-1718), the products on the 3/2-padded
-    grid with ``dealias`` (ic.py:1316-1325)."""
+    grid with ``dealias`` (ic.py:1316-1325).  The Hessian grids are made
+    as the sum needs them (at most four at a time), the sum in the order
+    of the expression above."""
     n = gridsize
     m = dealias_gridsize(n) if dealias else n
-    d = _hessian_real(psi_k, n, boxsize, m)
-    S = (d[(0, 0)] * d[(1, 1)] + d[(0, 0)] * d[(2, 2)] + d[(1, 1)] * d[(2, 2)]
-         - d[(0, 1)] ** 2 - d[(0, 2)] ** 2 - d[(1, 2)] ** 2)
-    return _truncate_product(S, n, m)
+
+    def hess(i, j):
+        return _hessian_one(psi_k, i, j, n, boxsize, m, dist)
+
+    d00, d11 = hess(0, 0), hess(1, 1)
+    S = d00 * d11
+    d22 = hess(2, 2)
+    S.add_(d00 * d22)
+    del d00
+    S.add_(d11 * d22)
+    del d11, d22
+    for i, j in ((0, 1), (0, 2), (1, 2)):
+        S.sub_(hess(i, j) ** 2)
+    return _truncate_product(S, n, m, dist)
 
 
-def _grad_inv_laplacian(src_k, gridsize: int, boxsize: float, d: int):
-    """i·k_d/k² · src(k) (0 at k = 0)."""
+def _grad_inv_laplacian(src_k, gridsize: int, boxsize: float, d: int, y_rows=None):
+    """i·k_d/k² · src(k) (0 at k = 0), on the kj rows ``y_rows``."""
     n = gridsize
     kfac = 2 * math.pi / boxsize
     dtype = src_k.real.dtype
-    k2 = fourier.k2_int_grid(n, src_k.device).to(dtype) * kfac**2
+    k2 = fourier.k2_int_grid(n, src_k.device, y_rows).to(dtype) * kfac**2
     inv_k2 = torch.where(k2 > 0, 1.0 / k2, 0.0)
-    kd = fourier.k_int_vectors(n, src_k.device)[d].to(dtype) * kfac
+    kd = fourier.k_int_vectors(n, src_k.device, y_rows)[d].to(dtype) * kfac
     return (1j * kd) * inv_k2 * src_k
 
 
 def lpt3_sources(psi_k, S2_k, fac2: float, gridsize: int, boxsize: float,
-                 dealias: bool = False):
+                 dealias: bool = False, dist=None):
     """The 3LPT sources from ψ¹(k) and the 2LPT source S₂(k): (S3a(x),
     S3b(x), [the transverse term's A3c sources, i = 0, 1, 2]) with the
     reference's term lists (ic.py:1630-1645 '3a', 1708-1741 '3b',
     1799-1830 '3c'), Φ² the full 2LPT potential at the realization epoch
     (fac2·∇⁻²S₂), so that the growth ratios outside are D3a/D1³ and
-    D3b/(D1·D2), D3c/(D1·D2)."""
+    D3b/(D1·D2), D3c/(D1·D2).  Each source is summed term by term in the
+    order of its expression and truncated to the n-grid at once.  The six
+    Hessian grids of ψ¹ are held throughout; each of ψ²'s is made where a
+    run of terms needs it and freed after (21 made for 6), so that at
+    most eight m-grids and a term's products are live, not twelve."""
     n = gridsize
     m = dealias_gridsize(n) if dealias else n
-    psi2_k = [_grad_inv_laplacian(fac2 * S2_k, n, boxsize, d) for d in range(3)]
-    d1 = _hessian_real(psi_k, n, boxsize, m)
-    d2 = _hessian_real(psi2_k, n, boxsize, m)
-    del psi2_k
+    y_rows = _y_rows(n, dist)
+    psi2_k = [_grad_inv_laplacian(fac2 * S2_k, n, boxsize, d, y_rows) for d in range(3)]
+    d1 = _hessian_real(psi_k, n, boxsize, m, dist)
+    held = {}
 
-    def g(d, i, j):
-        return d[(min(i, j), max(i, j))]
+    def h1(i, j):
+        return d1[(min(i, j), max(i, j))]
 
-    S3a = (g(d1, 2, 0) ** 2 * g(d1, 1, 1)
-           - g(d1, 1, 1) * g(d1, 2, 2) * g(d1, 0, 0)
-           + g(d1, 0, 0) * g(d1, 1, 2) ** 2
-           - 2 * g(d1, 1, 2) * g(d1, 2, 0) * g(d1, 0, 1)
-           + g(d1, 0, 1) ** 2 * g(d1, 2, 2))
-    S3b = (-0.5 * (g(d1, 2, 2) * g(d2, 0, 0) + g(d2, 0, 0) * g(d1, 1, 1)
-                   + g(d1, 1, 1) * g(d2, 2, 2) + g(d2, 2, 2) * g(d1, 0, 0)
-                   + g(d1, 0, 0) * g(d2, 1, 1) + g(d2, 1, 1) * g(d1, 2, 2))
-           + g(d2, 2, 0) * g(d1, 2, 0) + g(d2, 0, 1) * g(d1, 0, 1)
-           + g(d2, 1, 2) * g(d1, 1, 2))
+    def h2(i, j):
+        key = (min(i, j), max(i, j))
+        if key not in held:
+            held.clear()
+            held[key] = _hessian_one(psi2_k, *key, n, boxsize, m, dist)
+        return held[key]
+
+    def summed(terms):
+        # ((t0 ± t1) ± t2) …, the expression's own order of operations
+        S = terms[0][1]()
+        for sign, term in terms[1:]:
+            (S.add_ if sign > 0 else S.sub_)(term())
+        return S
+
+    S3a = _truncate_product(summed([
+        (1, lambda: h1(2, 0) ** 2 * h1(1, 1)),
+        (-1, lambda: h1(1, 1) * h1(2, 2) * h1(0, 0)),
+        (1, lambda: h1(0, 0) * h1(1, 2) ** 2),
+        (-1, lambda: 2 * h1(1, 2) * h1(2, 0) * h1(0, 1)),
+        (1, lambda: h1(0, 1) ** 2 * h1(2, 2))]), n, m, dist)
+    S = summed([
+        (1, lambda: h1(2, 2) * h2(0, 0)), (1, lambda: h2(0, 0) * h1(1, 1)),
+        (1, lambda: h1(1, 1) * h2(2, 2)), (1, lambda: h2(2, 2) * h1(0, 0)),
+        (1, lambda: h1(0, 0) * h2(1, 1)), (1, lambda: h2(1, 1) * h1(2, 2))])
+    S.mul_(-0.5)
+    for i, j in ((2, 0), (0, 1), (1, 2)):
+        S.add_(h2(i, j) * h1(i, j))
+    S3b = _truncate_product(S, n, m, dist)
+    del S
     A3c = []
     for i in range(3):
         j, k = (i + 1) % 3, (i + 2) % 3
-        A3c.append(g(d2, j, j) * g(d1, j, k) - g(d1, j, k) * g(d2, k, k)
-                   - g(d1, i, j) * g(d2, i, k) - g(d1, j, j) * g(d2, j, k)
-                   + g(d2, j, k) * g(d1, k, k) + g(d2, i, j) * g(d1, i, k))
-    return (_truncate_product(S3a, n, m), _truncate_product(S3b, n, m),
-            [_truncate_product(A, n, m) for A in A3c])
+        A3c.append(_truncate_product(summed([
+            (1, lambda: h2(j, j) * h1(j, k)), (-1, lambda: h1(j, k) * h2(k, k)),
+            (-1, lambda: h1(i, j) * h2(i, k)), (-1, lambda: h1(j, j) * h2(j, k)),
+            (1, lambda: h2(j, k) * h1(k, k)), (1, lambda: h2(i, j) * h1(i, k))]), n, m, dist))
+    return S3a, S3b, A3c
 
 
 def preic_lattice_of(N: int) -> str:
@@ -420,13 +514,23 @@ def realize_particles(lin, spec: ComponentSpec, boxsize: float, a: float,
                       phase_shift: float = 0.0, nongaussianity: float = 0.0,
                       dealias: bool = False, backscale: bool = False,
                       delta_k=None, lattice: str | None = None,
-                      species: str = "matter") -> ParticleState:
+                      species: str = "matter", dist=None) -> ParticleState:
     """LPT particle ICs of order ``lpt_order`` (1-3) at scale factor a on
     the sc, bcc or fcc lattice (``lattice`` None: the one N implies),
     reference ic.py:1199-2058.  ``delta_k`` overrides the realized
     density; the other options, ``species`` among them, go to
     :func:`realize_delta_slab`; with ``dealias`` the LPT products are
-    3/2-padded."""
+    3/2-padded.
+
+    With ``dist`` (grid/fft.GridDistribution) the rank realizes its part
+    on the slab FFT: the noise of its x-rows of the lattice grid (split
+    by ``dist.rows``, which need not be even), every Fourier product on
+    its y-slab, every ψ grid's x-slab, and the particles of its lattice
+    planes x ∈ [x0, x0 + rows) of every lattice copy, with their ids
+    (copy·n³ + (x·n + y)·n + z, the one-device ids) whatever
+    ``with_ids`` says.  ``delta_k`` is then the rank's y-slab.
+    parallel/step.realize_shard hands them to the steppers' index
+    shards."""
     if lattice is None:
         lattice = preic_lattice_of(spec.N)
     per_site = {"sc": 1, "bcc": 2, "fcc": 4}[lattice]
@@ -438,61 +542,147 @@ def realize_particles(lin, spec: ComponentSpec, boxsize: float, a: float,
         raise NotImplementedError(f"LPT order {lpt_order} (the reference's are 1-3)")
     bg = lin.bg
     H = float(bg.hubble_np(a))
+    y_rows = _y_rows(n, dist)
     if delta_k is None:
         delta_k = realize_delta_slab(lin, n, boxsize, a, seed, fixed_amplitude,
                                      phase_shift, dtype, device, nongaussianity,
-                                     scheme, backscale, species)
-    psi_k = [_grad_inv_laplacian(delta_k, n, boxsize, d) for d in range(3)]
-    psi = torch.stack([irfft3(pk, n) for pk in psi_k])
+                                     scheme, backscale, species, dist)
+    k_device = delta_k.device
+    psi_k = [_grad_inv_laplacian(delta_k, n, boxsize, d, y_rows) for d in range(3)]
+    del delta_k
+    psi = torch.stack([irfft3(pk, n, dist) for pk in psi_k])
     vel = (H * float(bg.growth_np("f1", a))) * psi
     if lpt_order >= 2:
         D1, D2 = float(bg.growth_np("D1", a)), float(bg.growth_np("D2", a))
-        S_k = rfft3(lpt2_source(psi_k, n, boxsize, dealias))
+        S_k = rfft3(lpt2_source(psi_k, n, boxsize, dealias, dist), dist)
+        if lpt_order < 3:
+            del psi_k
         # Ψ²(k) = +(D2/D1²)·ik/k²·S(k) with D2 = +3/7 a² in EdS (the
         # reference's growth convention), i.e. the standard
         # Ψ² = −(3/7)D1²∇φ⁽²⁾, ∇²φ⁽²⁾ = S
         fac2 = D2 / (D1 * D1)
         f2 = float(bg.growth_np("f2", a))
         for d in range(3):
-            psi2 = irfft3(_grad_inv_laplacian(fac2 * S_k, n, boxsize, d), n)
+            psi2 = irfft3(_grad_inv_laplacian(fac2 * S_k, n, boxsize, d, y_rows), n, dist)
             psi[d] += psi2
             vel[d] += (H * f2) * psi2
+        del psi2
     if lpt_order >= 3:
         gr = {k: float(bg.growth_np(k, a))
               for k in ("D3a", "D3b", "D3c", "f3a", "f3b", "f3c")}
-        S3a, S3b, A3c = lpt3_sources(psi_k, S_k, fac2, n, boxsize, dealias)
-        S3a_k = (gr["D3a"] / D1**3) * rfft3(S3a)
-        S3b_k = (gr["D3b"] / (D1 * D2)) * rfft3(S3b)
+        S3a, S3b, A3c = lpt3_sources(psi_k, S_k, fac2, n, boxsize, dealias, dist)
+        del psi_k, S_k
+        S3a_k = (gr["D3a"] / D1**3) * rfft3(S3a, dist)
+        S3b_k = (gr["D3b"] / (D1 * D2)) * rfft3(S3b, dist)
         del S3a, S3b
         for d in range(3):
-            p3a = irfft3(_grad_inv_laplacian(S3a_k, n, boxsize, d), n)
-            p3b = irfft3(_grad_inv_laplacian(S3b_k, n, boxsize, d), n)
+            p3a = irfft3(_grad_inv_laplacian(S3a_k, n, boxsize, d, y_rows), n, dist)
+            p3b = irfft3(_grad_inv_laplacian(S3b_k, n, boxsize, d, y_rows), n, dist)
             psi[d] += p3a + p3b
             vel[d] += H * (gr["f3a"] * p3a + gr["f3b"] * p3b)
+        del S3a_k, S3b_k, p3a, p3b
         # transverse: Ψ³ᶜ = ∇×A, ∇²Aᵢ = the A3c sources; Ψ³ᶜⱼ = ±∂ₖAᵢ with
         # + iff k == (j+1) mod 3 (reference ic.py:1844)
         kfac = 2 * math.pi / boxsize
-        k2 = fourier.k2_int_grid(n, delta_k.device).to(dtype) * kfac**2
+        k2 = fourier.k2_int_grid(n, k_device, y_rows).to(dtype) * kfac**2
         inv_k2 = torch.where(k2 > 0, 1.0 / k2, 0.0)
         for i in range(3):
-            A_k = inv_k2 * ((gr["D3c"] / (D1 * D2)) * rfft3(A3c[i]))
+            A_k = inv_k2 * ((gr["D3c"] / (D1 * D2)) * rfft3(A3c[i], dist))
+            A3c[i] = None
             for j in range(3):
                 if j == i:
                     continue
                 k_ax = 3 - i - j
                 sign = 1.0 if k_ax == (j + 1) % 3 else -1.0
-                p3c = sign * irfft3(fourier.fourier_diff(A_k, n, boxsize, k_ax), n)
+                p3c = sign * irfft3(fourier.fourier_diff(A_k, n, boxsize, k_ax, y_rows), n,
+                                    dist)
                 psi[j] += p3c
                 vel[j] += (H * gr["f3c"]) * p3c
-    q = lattice_positions(n, boxsize, lattice, dtype, device)
+    # this rank's lattice planes (all n on one device)
+    planes = (0, n) if dist is None else dist.rows(n)
+    q = lattice_positions(n, boxsize, lattice, dtype, device, rows=planes)
     if lattice == "sc":
         # the sc sites are the grid's cell centres
         disp, vel = psi.reshape(3, -1).T, vel.reshape(3, -1).T
-    else:
+    elif dist is None:
         # the shifted lattice copies sample ψ by CIC
         disp = torch.stack([gather(psi[d], q, boxsize, order=2) for d in range(3)], 1)
         vel = torch.stack([gather(vel[d], q, boxsize, order=2) for d in range(3)], 1)
+    else:
+        # their clouds reach the rows before and after the rank's: the
+        # ranks that hold them (periodic) send them
+        disp = _gather_planes(psi, _halo_rows(psi, n, dist), q, boxsize, planes[0])
+        vel = _gather_planes(vel, _halo_rows(vel, n, dist), q, boxsize, planes[0])
+    del psi
+    ids = None
+    if with_ids or dist is not None:
+        ids = lattice_ids(n, lattice, planes, device)
     pos = periodic_wrap(q + disp, boxsize)
     mom = (a * a * spec.mass) * vel
-    ids = torch.arange(spec.N, dtype=torch.int32, device=device) if with_ids else None
     return ParticleState(pos=pos, mom=mom.to(dtype), ids=ids)
+
+
+def lattice_ids(n: int, lattice: str, rows, device="cpu"):
+    """The ids (int32, as the one-device realization's) of the particles
+    of lattice planes [x0, x0 + rows) in :func:`components.
+    lattice_positions`' order: copy·n³ + (x·n + y)·n + z."""
+    x0, count = rows
+    plane = torch.arange(x0 * n * n, (x0 + count) * n * n, dtype=torch.int32, device=device)
+    per_site = {"sc": 1, "bcc": 2, "fcc": 4}[lattice]
+    return torch.cat([plane + c * n**3 for c in range(per_site)]) if per_site > 1 else plane
+
+
+def _halo_rows(grids, n: int, dist):
+    """Grids (G, rows, n, n), this rank's x-rows [x0, x0 + rows) of an
+    n-grid → (row x0 − 1, row x0 + rows), both mod n, each (G, n, n),
+    which the ranks that hold them send (None, None where this rank holds
+    no row).  Every rank with rows needs both; a rank may hold none."""
+    starts = row_starts(n, dist.n_devices)
+    x0, rows = dist.rows(n)
+    # (destination, local row, 0 for the row before its planes, 1 after)
+    sends = [(q, (want - x0) % n, side) for q in range(dist.n_devices)
+             if starts[q + 1] > starts[q]
+             for side, want in ((0, (starts[q] - 1) % n), (1, starts[q + 1] % n))
+             if (want - x0) % n < rows]
+    data = (torch.stack([grids[:, i] for _, i, _ in sends]) if sends
+            else grids.new_empty((0, grids.shape[0], n, n)))
+    dest = torch.tensor([q for q, _, _ in sends], dtype=torch.int64, device=grids.device)
+    side = torch.tensor([t for _, _, t in sends], dtype=torch.int64, device=grids.device)
+    got, got_side = exchange([data, side], dest, dist)
+    if not rows:
+        return None, None
+    return got[got_side == 0][0], got[got_side == 1][0]
+
+
+def _gather_planes(slabs, halo, pos, boxsize: float, x0: int):
+    """The CIC interpolation of n-grids at pos (M, 3), whose clouds lie in
+    their x-rows [x0 − 1, x0 + rows] (mod n), from this rank's rows (D,
+    rows, n, n) and the rows before and after them (:func:`_halo_rows`;
+    None where the rank holds no row, and then no particle): (M, D), bit
+    for bit grid/interp.gather of each whole grid (the same corners,
+    weights and sum).  A site on a plane's centre may round to just below
+    it in float32, and then its cloud reaches the row before with a
+    weight of a few float32 steps."""
+    D, rows, n = slabs.shape[0], slabs.shape[1], slabs.shape[2]
+    out = torch.zeros((D, pos.shape[0]), dtype=slabs.dtype, device=slabs.device)
+    if not pos.shape[0]:
+        return out.T
+    before, after = halo
+    u = pos / (boxsize / n) - 0.5
+    lows, weights = zip(*(spline_weights(u[:, k], 2) for k in range(3)))
+    for a, wx in enumerate(weights[0]):
+        ia = torch.remainder(torch.remainder(lows[0] + a, n) - x0, n)
+        own, is_after = ia < rows, ia == rows
+        ia = torch.clamp(ia, max=rows - 1) * (n * n)
+        for b, wy in enumerate(weights[1]):
+            ib = torch.remainder(lows[1] + b, n) * n
+            wxy = wx * wy
+            for c, wz in enumerate(weights[2]):
+                iyz = ib + torch.remainder(lows[2] + c, n)
+                w = wxy * wz
+                for d in range(D):
+                    halo_v = torch.where(is_after, after[d].reshape(-1)[iyz],
+                                         before[d].reshape(-1)[iyz])
+                    v = torch.where(own, slabs[d].reshape(-1)[ia + iyz], halo_v)
+                    out[d] += v * w
+    return out.T

@@ -1086,18 +1086,20 @@ class RungSimulationAdapter:
 
     def initial_state(self, a_begin: float, seed: int = 0, lpt_order: int = 1,
                       with_ids: bool = True, **kw):
-        """The realized state (over ranks each realizes the whole state,
-        the single run's particles, and keeps its index shard)."""
-        from concept_tpu_torch.ic import realize_particles
+        """The realized state (parallel/step.realize_shard): over the
+        ranks each realizes its slab of the lattice and hands its
+        particles to the ranks whose shards (``GridDistribution.split``)
+        hold their ids."""
+        from concept_tpu_torch.parallel.step import realize_shard
 
-        return self.shard(realize_particles(
-            self.lin, self.spec, self.config.boxsize, a_begin, seed=seed,
-            lpt_order=lpt_order, dtype=self.config.dtype,
-            device=self.config.device, with_ids=with_ids, **kw))
+        return realize_shard(self.lin, self.spec, self.config.boxsize, a_begin, self.dist,
+                             with_ids=with_ids, seed=seed, lpt_order=lpt_order,
+                             dtype=self.config.dtype, device=self.config.device, **kw)
 
     def shard(self, state):
         """This rank's index shard of a whole flat state (the state itself
-        on one device)."""
+        on one device): a snapshot's or an autosave's, which every rank
+        reads whole."""
         from concept_tpu_torch.components import ParticleState
 
         if self.dist is None:
@@ -1105,13 +1107,16 @@ class RungSimulationAdapter:
         lo, hi = self.dist.split(state.pos.shape[0])
         return ParticleState(*(None if x is None else x[lo:hi].contiguous() for x in state))
 
-    def whole(self, state):
-        """The whole flat state on every rank from the ranks' shards."""
+    def whole(self, state, root: int | None = None):
+        """The whole flat state from the ranks' shards, on every rank, or
+        with ``root`` on that rank alone (the others get no rows)."""
         from concept_tpu_torch.components import ParticleState
-        from concept_tpu_torch.parallel.step import gather_rows
+        from concept_tpu_torch.parallel.step import gather_rows, rows_to_root
 
         if self.dist is None:
             return state
+        if root is not None:
+            return rows_to_root(state, self.dist, root)
         present = [x for x in state if x is not None]
         got = iter(gather_rows(present, self.dist))
         return ParticleState(*(None if x is None else next(got) for x in state))
@@ -1141,22 +1146,22 @@ class RungSimulationAdapter:
 
     def _to_flat(self, layout: RungState):
         """The flat state of a layout in id order, with its rungs; over
-        ranks every rank gathers the whole state and keeps its index
-        shard."""
+        ranks each live slot goes to the rank whose index shard holds its
+        id (parallel/step.to_index_shard), which places it by id."""
         from concept_tpu_torch.components import ParticleState
-        from concept_tpu_torch.parallel.step import gather_rows
+        from concept_tpu_torch.parallel.step import to_index_shard
 
         M = layout.valid.numel()
         src = torch.nonzero(layout.valid.reshape(M)).reshape(-1)[:self.spec.N]
-        cols = [layout.pos.reshape(3, M)[:, src].T, layout.mom.reshape(3, M)[:, src].T,
-                layout.ids.reshape(M)[src], layout.rungs.reshape(M)[src]]
+        pos, mom = layout.pos.reshape(3, M)[:, src].T, layout.mom.reshape(3, M)[:, src].T
+        ids, rungs = layout.ids.reshape(M)[src], layout.rungs.reshape(M)[src]
         if self.dist is not None:
-            cols = gather_rows(cols, self.dist)
-        order = torch.argsort(cols[2])
-        if self.dist is not None:
-            order = order[slice(*self.dist.split(self.spec.N))]
-        pos, mom, ids, rungs = (c[order] for c in cols)
-        return ParticleState(pos=pos, mom=mom, ids=ids, rungs=rungs)
+            (pos, mom, rungs), own = to_index_shard([pos, mom, rungs], ids, self.spec.N,
+                                                    self.dist)
+            return ParticleState(pos=pos, mom=mom, ids=own.to(ids.dtype), rungs=rungs)
+        order = torch.argsort(ids)
+        return ParticleState(pos=pos[order], mom=mom[order], ids=ids[order],
+                             rungs=rungs[order])
 
     @property
     def hysteresis(self) -> dict:

@@ -33,9 +33,16 @@ receives one or two neighbour planes a side of supplier slots
 row a side and moves them onto the FFT slabs (:func:`add_span_rows`),
 and gathers from each gradient's rows brought back (:func:`span_rows`);
 its rebucket sends each particle to the rank of its new plane
-(:func:`exchange`).  The JAX package shards the same layout along its
-cell axis where d divides the cell count, and lets GSPMD insert these
-collectives; elsewhere it steps the whole layout on every device.
+(grid/fft.exchange).
+
+:func:`realize_shard` realizes a rank's lattice planes (ic.py) and hands
+them to the ranks whose index shards hold their ids (:func:`hand_off`,
+:func:`to_index_shard`), which is also how the rung adapter's flat state
+leaves its layout; :func:`rows_to_root` gives one rank the whole state
+to write, where ``replicate`` and :func:`gather_rows` give it to every
+rank.  The JAX package shards the same layout along its cell axis where
+d divides the cell count, and lets GSPMD insert these collectives;
+elsewhere it steps the whole layout on every device.
 """
 
 from __future__ import annotations
@@ -43,8 +50,12 @@ from __future__ import annotations
 import torch
 import torch.distributed as tdist
 
-from concept_tpu_torch.grid.fft import GridDistribution, irfft3, rfft3
+from concept_tpu_torch.components import ParticleState
+from concept_tpu_torch.grid.fft import (  # noqa: F401  (exchange: this layer's callers)
+    GridDistribution, exchange, irfft3, rfft3, row_starts,
+)
 from concept_tpu_torch.grid.interp import deposit, interpolation_order, spline_weights
+from concept_tpu_torch import ic
 
 # torch 2.13 renamed these two (the old names warn there; older torch has
 # only the old ones)
@@ -73,26 +84,6 @@ def replicate(arr, dist: GridDistribution):
     out = torch.empty((dist.n_devices * arr.shape[0], *arr.shape[1:]), dtype=arr.dtype,
                       device=arr.device)
     _all_gather(out, arr, group=dist.group)
-    return out
-
-
-def exchange(rows: list, dest, dist: GridDistribution) -> list:
-    """Send row i of each tensor in ``rows`` to rank ``dest[i]``: the
-    rows received, stacked by source rank, each source's rows in its own
-    order (a stable sort by destination)."""
-    d = dist.n_devices
-    order = torch.argsort(dest, stable=True)
-    send = torch.bincount(dest, minlength=d)
-    recv = torch.empty_like(send)
-    tdist.all_to_all_single(recv, send, group=dist.group)
-    send_l, recv_l = send.tolist(), recv.tolist()
-    out = []
-    for x in rows:
-        x = x[order].contiguous()
-        y = torch.empty((sum(recv_l), *x.shape[1:]), dtype=x.dtype, device=x.device)
-        tdist.all_to_all_single(y, x, output_split_sizes=recv_l, input_split_sizes=send_l,
-                                group=dist.group)
-        out.append(y)
     return out
 
 
@@ -254,8 +245,9 @@ def plane_starts(nc: int, d: int) -> list:
     """The first plane of each of d ranks' x-planes of an nc-plane column
     grid, and nc: rank r takes planes [⌊r·nc/d + ½⌋, ⌊(r+1)·nc/d + ½⌋),
     so that its mesh rows lie within half a column of its FFT slab at
-    each end."""
-    return [(2 * r * nc + d) // (2 * d) for r in range(d)] + [nc]
+    each end (grid/fft.row_starts, the rule of the realization's uneven
+    slabs)."""
+    return row_starts(nc, d)
 
 
 def rank_planes(nc: int, dist: GridDistribution, rank: int | None = None) -> tuple[int, int]:
@@ -392,3 +384,80 @@ def gather_rows(rows: list, dist: GridDistribution) -> list:
         g = replicate(pad, dist)
         out.append(torch.cat([g[r * m:r * m + c] for r, c in enumerate(counts)]))
     return out
+
+
+def split_owner(ids, N: int, dist: GridDistribution):
+    """The rank that holds each of ``ids`` (int, (M,)) in the index shards
+    of N particles (:meth:`GridDistribution.split`, which are
+    :meth:`GridDistribution.shard`'s wherever d divides N)."""
+    bounds = torch.tensor([dist.split(N, r)[0] for r in range(1, dist.n_devices)],
+                          dtype=torch.int64, device=ids.device)
+    return torch.bucketize(ids.to(torch.int64), bounds, right=True)
+
+
+def to_index_shard(rows: list, ids, N: int, dist: GridDistribution):
+    """Rows held anywhere (each tensor's row i the particle ``ids[i]``; every
+    id of [0, N) on one rank) → this rank's index shard of them in id
+    order: each row sent to the rank that holds its id
+    (:func:`split_owner`) and placed at id − lo.  Returns (the rows, the
+    shard's ids)."""
+    lo, hi = dist.split(N)
+    ids = ids.to(torch.int64)
+    *got, got_ids = exchange([*rows, ids], split_owner(ids, N, dist), dist)
+    if got_ids.shape[0] != hi - lo:
+        raise RuntimeError(f"rank {dist.rank} received {got_ids.shape[0]} particles for "
+                           f"its {hi - lo} ids")
+    at = got_ids - lo
+    out = []
+    for x in got:
+        y = torch.empty_like(x)
+        y[at] = x
+        out.append(y)
+    return out, torch.arange(lo, hi, dtype=torch.int64, device=ids.device)
+
+
+def rows_to_root(state: ParticleState, dist: GridDistribution, root: int = 0) -> ParticleState:
+    """Every rank's rows of each tensor of ``state`` stacked by rank on rank
+    ``root`` alone (the other ranks get no rows): an :func:`exchange` that
+    sends every row there, where :func:`gather_rows` and ``replicate``
+    send them to every rank."""
+    present = [x for x in state if x is not None]
+    dest = torch.full((present[0].shape[0],), root, dtype=torch.int64, device=present[0].device)
+    got = iter(exchange(present, dest, dist))
+    return ParticleState(*(None if x is None else next(got) for x in state))
+
+
+def hand_off(state: ParticleState, N: int, dist: GridDistribution, in_order: bool = False,
+             with_ids: bool = True) -> ParticleState:
+    """A realization's particles on this rank (ic.realize_particles(dist=):
+    its lattice planes, with their ids) → this rank's index shard of the N
+    particles in id order (:func:`to_index_shard`).  ``in_order``: the
+    rank's planes are already its shard in id order (sc on a lattice the
+    ranks divide), and nothing is sent."""
+    if in_order:
+        lo, hi = dist.split(N)
+        if state.ids.shape[0] != hi - lo:
+            raise RuntimeError(f"rank {dist.rank} realized {state.ids.shape[0]} particles "
+                               f"for its {hi - lo} ids")
+        pos, mom, ids = state.pos, state.mom, state.ids
+    else:
+        (pos, mom), ids = to_index_shard([state.pos, state.mom], state.ids, N, dist)
+    return ParticleState(pos=pos, mom=mom, ids=ids.to(torch.int32) if with_ids else None)
+
+
+def realize_shard(lin, spec, boxsize: float, a: float, dist=None, with_ids: bool = False,
+                  **kw) -> ParticleState:
+    """ic.realize_particles (``kw`` its options), over the ranks of
+    ``dist`` handed to this rank's index shard of the particles in id
+    order (:func:`hand_off`; ids kept only ``with_ids``): what
+    ``sim.Simulation`` and ``p3mrungs.RungSimulationAdapter`` start from.
+    No rank realizes or holds the whole state."""
+    st = ic.realize_particles(lin, spec, boxsize, a, with_ids=with_ids, dist=dist, **kw)
+    if dist is None:
+        return st
+    # each rank's planes are already its shard in id order on one rank,
+    # and for sc on n planes that the ranks divide: nothing to send
+    lattice = kw.get("lattice") or ic.preic_lattice_of(spec.N)
+    d = dist.n_devices
+    in_order = d == 1 or (lattice == "sc" and round(spec.N ** (1 / 3)) % d == 0)
+    return hand_off(st, spec.N, dist, in_order=in_order, with_ids=with_ids)

@@ -21,8 +21,9 @@ It dumps the renders (2D projections with their data and terminal
 images, 3D scatter renders) and the spectra's plots (graphics/render.py).
 ``-n N`` runs one component over N ranks (:func:`make_distribution`,
 parallel/ranks.py): global steps (PM, P³M with ``N_rungs = 1``, PP), or
-the rung stepper on the 8-mesh-cell layout, each rank stepping its own
-x-planes of cells (p3mrungs.py).
+the rung stepper on every layout, each rank stepping its own x-planes of
+cells (p3mrungs.py), from a realization that each rank makes of its slab
+of the lattice (ic.py).
 """
 
 from __future__ import annotations
@@ -526,13 +527,16 @@ def run(cfg: RunConfig, max_steps: int = 100000, seed: int | None = None,
     ``n_devices`` (``-n``): the ranks of the run (see :func:`rank_count`).
     With N > 1 this process becomes rank 0 on ``cuda:0`` (or the CPU) and
     starts ranks 1 … N−1 (``rank``, (r, store), is theirs; parallel/
-    ranks.py); each realizes the single run's particles and keeps its
-    index shard, and the run steps globally (PM, P³M with ``N_rungs =
+    ranks.py); each realizes its slab of the single run's lattice on the
+    slab FFT and hands the particles to the ranks whose index shards hold
+    their ids (ic.realize_particles(dist=), parallel/step.hand_off), and
+    the run steps globally (PM, P³M with ``N_rungs =
     1``, PP) through ``Simulation(dist=...)``, or by rungs through
     ``RungSimulationAdapter(dist=...)`` (the layout of one device, each
     rank stepping its x-planes of cells, which need not split evenly).
-    Rank 0 writes every file under the single run's names and returns the
-    whole state.  Before anything is realized, rungs over ranks that
+    Rank 0 writes every file under the single run's names (the dumps and
+    autosaves send it the rows it writes); every rank returns the whole
+    state.  Before anything is realized, rungs over ranks that
     cannot run raise ValueError (p3mrungs.check_rank_layout: a grid the
     ranks do not divide, too few planes of cells a rank for the sweep's
     reach, a tight layout below 3 cells a side), and
@@ -659,7 +663,7 @@ def run(cfg: RunConfig, max_steps: int = 100000, seed: int | None = None,
 
     def autosave(st, a_now, events, hyst, steps):
         if dist is not None:
-            st = sim.whole(st)
+            st = sim.whole(st, root=0)
         if rank0:
             write_autosave(cfg, sim, st, a_now, events, hyst, steps)
 
@@ -691,7 +695,9 @@ def run(cfg: RunConfig, max_steps: int = 100000, seed: int | None = None,
         )
         masterprint("done")
     if dist is not None and (resume is not None or loaded is not None):
-        state = sim.shard(state)  # realize_particles shards in initial_state
+        # every rank read the whole file; initial_state realizes each
+        # rank's shard alone
+        state = sim.shard(state)
     t_realize = _time.time() - t_realize
 
     if resume is None:
@@ -1138,7 +1144,8 @@ def dump(cfg: RunConfig, sim, state, a, kind, units, lin):
     """Write one scheduled output: 'powerspec' (with its plot),
     'bispec', 'snapshot', 'render2D' or 'render3D'.  Over ranks every
     rank calls it: the spectrum is measured over the ranks, the other
-    outputs from the whole state, and rank 0 writes."""
+    outputs from the whole state, which rank 0 alone receives, and rank 0
+    writes."""
     base = cfg.output_bases.get(kind, kind)
     dirname = cfg.output_dirs.get(kind, "output")
     tag = f"a={a:.4g}" if cfg.enable_Hubble else f"t={a:.4g}"
@@ -1148,7 +1155,7 @@ def dump(cfg: RunConfig, sim, state, a, kind, units, lin):
                         units, lin)
         return
     if dist is not None:
-        state = sim.whole(state)
+        state = sim.whole(state, root=0)
         if dist.rank:
             return
     if kind == "bispec":

@@ -20,7 +20,8 @@ the scalars (t, a, Δt, the Δt hysteresis of timestep.py) and the
 fixed-size budgets.
 
 With ``dist`` (grid/fft.GridDistribution, ``-n N``) each rank steps its
-index shard of the particles, and every quantity that sets Δt or a
+index shard of the particles, which it realizes on its slab
+(parallel/step.realize_shard), and every quantity that sets Δt or a
 budget is reduced over the ranks, so that all ranks take the same steps.
 The PM part of a kick is ``parallel.step.pm_momentum_updates_
 distributed_halo`` (CIC or any order, Fourier gradients, no
@@ -45,7 +46,9 @@ from concept_tpu_torch.forces.pm import interlace_pair, pm_gravity_momentum_upda
 from concept_tpu_torch.forces.shortrange import shortrange_momentum_updates
 from concept_tpu_torch.grid.fft import check_distribution
 from concept_tpu_torch.grid.interp import interpolation_order
-from concept_tpu_torch.parallel.step import pm_momentum_updates_distributed_halo, replicate
+from concept_tpu_torch.parallel.step import (
+    pm_momentum_updates_distributed_halo, realize_shard, replicate, rows_to_root,
+)
 from concept_tpu_torch.utils.terminal import warn
 
 # Reference numeric defaults (main.py:2345-2433)
@@ -158,28 +161,32 @@ class Simulation:
     # ------------------------------------------------------------------ #
     def initial_state(self, a_begin: float, seed: int = 0, lpt_order: int = 1,
                       with_ids: bool = False, **kw) -> ParticleState:
-        from concept_tpu_torch.ic import realize_particles
-
-        # over the ranks each realizes the whole state (the single run's
-        # particles, whatever d) and keeps its index shard
-        return self.shard(realize_particles(
-            self.lin, self.spec, self.config.boxsize, a_begin, seed=seed,
-            lpt_order=lpt_order, dtype=self.config.dtype,
-            device=self.config.device, with_ids=with_ids, **kw))
+        """The realized state (parallel/step.realize_shard): over the
+        ranks each realizes its slab of the lattice and hands its
+        particles to the ranks of their ids."""
+        if self.dist is not None:
+            self.dist.shard(self.spec.N)  # N/d particles a rank, or ValueError
+        return realize_shard(self.lin, self.spec, self.config.boxsize, a_begin, self.dist,
+                             with_ids=with_ids, seed=seed, lpt_order=lpt_order,
+                             dtype=self.config.dtype, device=self.config.device, **kw)
 
     def shard(self, state: ParticleState) -> ParticleState:
         """This rank's index shard of a whole state (the state itself on
-        one device)."""
+        one device): a snapshot's or an autosave's, which every rank
+        reads whole."""
         if self.dist is None:
             return state
         lo, hi = self.dist.shard(state.pos.shape[0])
         return ParticleState(*(None if x is None else x[lo:hi].contiguous() for x in state))
 
-    def whole(self, state: ParticleState) -> ParticleState:
-        """The whole state, on every rank, from the ranks' shards (the
-        state itself on one device)."""
+    def whole(self, state: ParticleState, root: int | None = None) -> ParticleState:
+        """The whole state from the ranks' shards, on every rank, or with
+        ``root`` on that rank alone (the others get no rows: what a dump
+        writes there); the state itself on one device."""
         if self.dist is None:
             return state
+        if root is not None:
+            return rows_to_root(state, self.dist, root)
         return ParticleState(*(None if x is None else replicate(x, self.dist)
                                for x in state))
 

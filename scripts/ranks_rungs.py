@@ -26,6 +26,24 @@ id).
 ``--ranks 2 4`` needs four cards.  ``--small`` runs 8³ on grid 32 and
 16³ on grid 64 for the 8-mesh-cell case, and 8³ on grid 28, 32 and 32
 for the others (the CPU).
+
+``--realize`` first realizes example_basic's particles through
+``RungSimulationAdapter(dist=...).initial_state`` (what ``run()`` calls;
+the rung layout of grid 2n, at least 32) at -n 1 and every N given: by
+2LPT 256³ and 512³, 62³ (planes that do not split evenly over 4), the
+bcc lattice 2·240³ (in float32 the unshifted sites of planes 60 and 120
+lie just below their centres, so that at -n 2 and 4 their clouds reach
+the row before the rank's planes), 512³ by 3LPT with the 3/2 dealiasing
+(grid 768 for the products), and 1024³ by 2LPT over the largest N alone (one 80 GB card
+cannot realize it).  Each realization is made
+twice (the first makes the cuFFT plans); the second's seconds (rank 0's
+clock, from the call to the last rank's synchronisation) and each rank's
+peak device memory above what it held before are reported, and each
+rank's shard is held by id against the -n 1 realization (sent to rank 0
+for that, after the measurement): positions within 1e-5 of the largest
+displacement plus 2·box·2⁻²⁴, momenta within 1e-5 of the largest, each
+rank exactly its shard's ids.  ``--small`` realizes 8³, 16³, 6³, bcc
+2·8³, 3LPT 8³ (and 24³ over the largest N).
 """
 
 from __future__ import annotations
@@ -104,6 +122,156 @@ def _run(n: int, mesh: int, a_end: float, more, ranks: int, device: str, outdir:
                 pos=state.pos[order].double().cpu().numpy(), power=pk[:, 2]), cfg.boxsize
 
 
+# (lattice n, lattice, LPT order, the rank counts besides -n 1 it runs at:
+# None for every N given, "max" for the largest alone, with no -n 1
+# reference), and at --small
+REALIZE = ([(256, "sc", 2, None), (512, "sc", 2, None), (62, "sc", 2, None),
+            (240, "bcc", 2, None), (512, "sc", 3, None), (1024, "sc", 2, "max")],
+           [(8, "sc", 2, None), (16, "sc", 2, None), (6, "sc", 2, None),
+            (8, "bcc", 2, None), (8, "sc", 3, None), (24, "sc", 2, "max")])
+PER_SITE = {"sc": 1, "bcc": 2, "fcc": 4}
+
+
+def _realize_once(n: int, lattice: str, lpt: int, device, dist):
+    """example_basic's particles on the n³ sc, bcc or fcc lattice by LPT
+    of order ``lpt`` (3: with the 3/2 dealiasing) through the adapter's
+    initial_state on grid 2n, twice: (flat state, seconds, peak bytes) of
+    the second."""
+    import torch
+
+    from concept_tpu_torch.p3mrungs import RungSimulationAdapter
+    from concept_tpu_torch.param import load_params
+    from concept_tpu_torch.run import build_components, build_cosmology
+    from concept_tpu_torch.sim import SimConfig
+
+    # the grid of example_basic's ratio, at least 32 (the CPU's tight layout
+    # needs 3 cells a side)
+    mesh = max(2 * n, 32)
+    N = PER_SITE[lattice] * n**3
+    cfg = load_params(PARAM, overrides=[f"initial_conditions={{'species':'matter','N':{N}}}",
+                                        f"potential_options={mesh}"])
+    _, consts, bg, lin = build_cosmology(cfg)
+    spec, _ = build_components(cfg, bg, consts)[0]
+    config = SimConfig(boxsize=cfg.boxsize, potential_gridsize=mesh, device=device,
+                       G=consts.G_Newton)
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    for _ in range(2):
+        adapter = RungSimulationAdapter(spec, config, bg, lin, N_rungs=cfg.N_rungs, dist=dist)
+        flat = None
+        sync()
+        if dist is not None:
+            torch.distributed.barrier(group=dist.group)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() if cuda else 0
+        t0 = time.perf_counter()
+        flat = adapter.initial_state(cfg.a_begin, seed=0, lpt_order=lpt, dealias=lpt == 3)
+        sync()
+        if dist is not None:
+            torch.distributed.barrier(group=dist.group)
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base if cuda else 0
+    return adapter, flat, seconds, peak, cfg.boxsize
+
+
+def _check_shard(flat, ref, box: float, n: int, lattice: str) -> dict:
+    """A state by id against the -n 1 flat state of the n³ lattice."""
+    import torch
+
+    from concept_tpu_torch.components import lattice_positions
+
+    q = lattice_positions(n, box, lattice, torch.float64, ref.pos.device)
+    disp = ref.pos.double() - q
+    disp -= box * torch.round(disp / box)
+    pos_tol = 1e-5 * float(disp.abs().max()) + 2 * box * 2.0**-24
+    del q, disp
+    ids = flat.ids.long().to(ref.pos.device)
+    dx = flat.pos.double().to(ref.pos.device) - ref.pos.double()[ids]
+    dx -= box * torch.round(dx / box)
+    dpos = float(dx.abs().max())
+    dmom = float((flat.mom.double().to(ref.pos.device) - ref.mom.double()[ids]).abs().max())
+    mom_tol = 1e-5 * float(ref.mom.abs().max())
+    return dict(max_dpos=dpos, pos_tol=pos_tol, max_dmom=dmom, mom_tol=mom_tol,
+                ok=dpos <= pos_tol and dmom <= mom_tol)
+
+
+def _realize_rank(n: int, lattice: str, lpt: int, ranks: int, device: str, ref, rank):
+    """A rank's part of ``--realize`` at -n ``ranks``: the realization,
+    the ranks' seconds and peaks to rank 0, and the shards by id against
+    ``ref`` (rank 0's -n 1 state, None elsewhere or where there is none)
+    on rank 0.  Returns (on rank 0) the case's results."""
+    import torch
+    import torch.distributed as tdist
+
+    from concept_tpu_torch.grid.fft import GridDistribution
+    from concept_tpu_torch.parallel.ranks import init_rank
+
+    dev = init_rank(rank[0], ranks, rank[1], torch.device(device))
+    dist = GridDistribution()
+    adapter, flat, seconds, peak, box = _realize_once(n, lattice, lpt, dev, dist)
+    lo, hi = dist.split(PER_SITE[lattice] * n**3)
+    ids_ok = bool(torch.equal(flat.ids.long(), torch.arange(lo, hi, device=flat.ids.device)))
+    finite = bool(torch.isfinite(flat.pos).all() and torch.isfinite(flat.mom).all())
+    stats = torch.tensor([seconds, peak, float(ids_ok and finite)], dtype=torch.float64,
+                         device=dev)
+    every = [torch.empty_like(stats) for _ in range(ranks)]
+    tdist.all_gather(every, stats)
+    has_ref = torch.tensor([int(ref is not None)], device=dev)
+    tdist.broadcast(has_ref, 0)
+    out = dict(seconds=float(every[0][0]), peak_bytes=[int(e[1]) for e in every],
+               shards_ok=all(bool(e[2]) for e in every))
+    if bool(has_ref):
+        whole = adapter.whole(flat, root=0)
+        del flat
+        if rank[0] == 0:
+            out.update(_check_shard(whole, ref, box, n, lattice))
+    return out
+
+
+def _realize(n: int, lattice: str, lpt: int, ranks: int, device: str, ref):
+    """-n ``ranks`` of ``--realize``: this process is rank 0."""
+    import torch
+
+    from concept_tpu_torch.parallel.ranks import Ranks
+
+    with Ranks(ranks, torch.device(device)) as started:
+        started.start(_realize_rank, n, lattice, lpt, ranks, device, None)
+        return _realize_rank(n, lattice, lpt, ranks, device, ref, rank=(0, started.store))
+
+
+def realize(rank_counts: list, device: str, small: bool) -> dict:
+    """``--realize``: every case at -n 1 and over the ranks."""
+    import torch
+
+    results = {}
+    for n, lattice, lpt, which in REALIZE[int(small)]:
+        tag = f"realize {lpt}LPT {'' if lattice == 'sc' else f'{lattice} '}{n}^3"
+        res = {}
+        ref = None
+        if which is None:
+            _, ref, seconds, peak, _ = _realize_once(n, lattice, lpt, torch.device(device), None)
+            res["1"] = dict(seconds=seconds, peak_bytes=[peak])
+            print(f"{tag} -n 1: {seconds:.3f} s, peak {peak / 2**30:.3f} GiB", flush=True)
+        for ranks in rank_counts if which is None else [max(rank_counts)]:
+            r = _realize(n, lattice, lpt, ranks, device, ref)
+            res[str(ranks)] = r
+            worst = max(r["peak_bytes"])
+            line = (f"{tag} -n {ranks}: {r['seconds']:.3f} s, peak a rank "
+                    f"{worst / 2**30:.3f} GiB (ranks: "
+                    f"{', '.join(f'{b / 2**30:.3f}' for b in r['peak_bytes'])})")
+            if ref is not None:
+                line += (f", {worst / max(res['1']['peak_bytes'][0], 1):.3f} of -n 1's; "
+                         f"max |Δx| {r['max_dpos']:.3g} (bound {r['pos_tol']:.3g}), max |Δp| "
+                         f"{r['max_dmom']:.3g} (bound {r['mom_tol']:.3g})")
+            print(line + f"; shards {'ok' if r['shards_ok'] else 'WRONG'}", flush=True)
+            if not r["shards_ok"] or not r.get("ok", True):
+                raise SystemExit(f"{tag} -n {ranks} differs from -n 1")
+        del ref
+        results[tag] = res
+    return results
+
+
 def main(argv=None) -> int:
     import numpy as np
 
@@ -112,6 +280,8 @@ def main(argv=None) -> int:
     p.add_argument("--layouts", nargs="+", default=["8"], choices=sorted(CASES))
     p.add_argument("--device", default="cuda")
     p.add_argument("--small", action="store_true")
+    p.add_argument("--realize", action="store_true",
+                   help="first the realizations at -n 1 and over the ranks")
     p.add_argument("--out", help="also write the JSON line to this file")
     a = p.parse_args(argv)
     if a.device == "cuda":
@@ -119,7 +289,7 @@ def main(argv=None) -> int:
                               "--format=csv,noheader"], capture_output=True, text=True,
                              check=True).stdout.strip().splitlines()
         print("\n".join(smi))
-    results = {}
+    results = realize(a.ranks, a.device, a.small) if a.realize else {}
     for layout in a.layouts:
         for n, mesh, a_end, more in CASES[layout][int(a.small)]:
             tag = f"{layout}: {n}^3/grid{mesh}"
