@@ -234,6 +234,21 @@ state of phase 4 (example_basic realized at a = 0.02):
     plus a float32 position's rounding, momenta within 1e-5 of the
     largest, every id once); seconds and peak device memory both ways.
 
+Then several components and fluids over ranks:
+
+14. ``parallel_multi``: on a world of one ``nccl`` rank,
+    ``MultiSimulation(dist=...)`` (each rank holding its particle shards
+    and its x-rows of every fluid grid) from the realization over the
+    rank: (a) example_nonlinnu at its parameter file's width for
+    ``MULTI_STEPS`` steps against one device's from the same state
+    (positions, momenta, the ν fluid's ϱ and J, Σϱ_ν; row 6 only; ms a
+    step by part and peak memory both ways); (b) CDM + baryons, 64³
+    each, grid 128, for a few steps (rows 6 and 2 only, each held per
+    receiver against its plain version on the rank's receivers, in float
+    and in double); (c) example_relativistic at 128³ for 3 steps, the
+    radiation re-realized on the rank's rows, against one device's; (d)
+    ``-n 2`` raising ValueError on one card.
+
 Before its last line it prints one JSON object ``{"kernels": [...]}`` and
 the card's name and power limit as nvidia-smi reports them (each kernel
 with its double instantiation's numbers under ``f64_*``); the last line
@@ -3779,6 +3794,280 @@ def parallel_rungs(n: int = 256, mesh: int = 512, n_steps: int = 3) -> dict:
     return out
 
 
+# --------------------------------------------------------------------- #
+# several components and fluids over ranks
+PARALLEL_MULTI_CB_STEPS = 4  # CDM + baryon steps over the rank
+
+
+def _multi_world(param: str, overrides: list, device: str = "cuda"):
+    """load_params, build_cosmology and the components of a configuration
+    of several components: (cfg, a function of ``dist`` that makes its
+    MultiSimulation (``run.make_multi``) over those ranks, or on one
+    device where ``dist`` is None)."""
+    from concept_tpu_torch.device import resolve_device, resolve_dtype
+    from concept_tpu_torch.param import load_params
+    from concept_tpu_torch.run import build_components, build_cosmology, make_multi
+
+    cfg = load_params(param, overrides=overrides)
+    units, consts, bg, lin = build_cosmology(cfg)
+    comps = build_components(cfg, bg, consts)
+    dev = resolve_device(device)
+    return cfg, lambda dist: make_multi(cfg, comps, units, consts, bg, lin, dev,
+                                        resolve_dtype(dev), dist=dist)
+
+
+def _realize_multi(cfg, sim):
+    """The components of a run at a_begin as run.run_multi realizes them
+    (over the rank of ``sim.dist``: its part alone)."""
+    from concept_tpu_torch.run import realize_multi_component
+    from concept_tpu_torch.sim_multi import MultiState
+
+    seed = int(cfg.random_seeds.get("primordial amplitudes", 0))
+    return MultiState(*({s.name: realize_multi_component(cfg, sim, s, cfg.a_begin, seed)
+                         for s in specs.values()} for specs in (sim.pspecs, sim.fspecs)))
+
+
+def _clone_multi(state):
+    from concept_tpu_torch.sim_multi import MultiState
+
+    def clone(t):
+        return type(t)(*(None if x is None else x.clone() for x in t))
+
+    return MultiState(particles={k: clone(v) for k, v in state.particles.items()},
+                      fluids={k: clone(v) for k, v in state.fluids.items()})
+
+
+def _a_after_steps(sim, a_begin: float, steps: int) -> float:
+    """The a at the middle of global step ``steps`` from a_begin (planned on
+    the host): an evolve to it takes exactly that many steps."""
+    for i, (t, dt, _, _) in enumerate(sim.schedule(a_begin, 1.0)):
+        if i == steps - 1:
+            return float(sim.bg.a_of_t_np(t + 0.5 * dt))
+    raise SystemExit(f"fewer than {steps} steps to a = 1")
+
+
+def _evolve_measured(sim, state, a0: float, a1: float):
+    """sim.evolve from a0 to a1: (state, a, seconds, peak device bytes
+    above what was allocated before).  The caller sets the counts."""
+    import torch
+
+    _sync()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    state, a = sim.evolve(state, a0, a1)
+    _sync()
+    return state, a, time.perf_counter() - t0, torch.cuda.max_memory_allocated() - base
+
+
+def _split_steps(sim, state, a: float, steps: int = SPLIT_STEPS) -> dict:
+    """ms a step by part (the ``multi.*`` ranges, :func:`_range_split`)
+    over ``steps`` more steps from a copy of state at a, under
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    done = sim.hysteresis["step_count"]
+    t_now = float(sim.bg.t_of_a_np(a))
+    a2 = float(sim.bg.a_of_t_np(t_now + (steps + 0.5) * sim.timestep_size(a)))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        sim.evolve(_clone_multi(state), a, a2, resume=dict(sim.hysteresis))
+        _sync()
+    return _range_split(prof, sim.hysteresis["step_count"] - done)
+
+
+def _multi_against_one(tag: str, got, want, box: float, fluid_tols: dict) -> dict:
+    """Each particle component's positions (mean |Δx|/box ≤ 1e-5,
+    tests/test_distributed_rungs.py:88) and momenta (max |Δ| ≤ 1e-5 of
+    the largest) and each fluid's grids (``fluid_tols``: field → bound
+    of the largest value) over the rank against one device's."""
+    out = {}
+    for name, ps in want.particles.items():
+        dx = got.particles[name].pos.double() - ps.pos.double()
+        dx -= box * (dx / box).round()
+        mean_dx = float(dx.norm(dim=1).mean()) / box
+        dmom = _max_rel(got.particles[name].mom.double(), ps.mom.double())[1]
+        out[name] = {"mean_dx_over_box": mean_dx, "max_dmom_rel": dmom}
+        if not (mean_dx <= 1e-5 and dmom <= 1e-5):
+            raise SystemExit(f"{tag}: {name} over the rank differs from one device's "
+                             f"(mean |Δx|/box {mean_dx:.3e}, max |Δp| {dmom:.3e})")
+    for name, fs in want.fluids.items():
+        for field, tol in fluid_tols.items():
+            w = getattr(fs, field)
+            if w is None:
+                continue
+            rel = _max_rel(getattr(got.fluids[name], field).double(), w.double())[1]
+            out[f"{name}.{field}"] = rel
+            if not rel <= tol:
+                raise SystemExit(f"{tag}: {name}'s {field} over the rank differs from one "
+                                 f"device's by {rel:.3e} of its largest (bound {tol:g})")
+    return out
+
+
+def _over_rank_and_one(tag: str, param: str, overrides: list, dist, steps: int,
+                       kernels, split: bool = False) -> dict:
+    """A configuration of several components realized over the rank, then
+    ``steps`` global steps through ``MultiSimulation(dist=...)`` (every
+    count set to 0 just before, read just after: ``kernels`` only) and
+    through one device's MultiSimulation from the same state; with
+    ``split`` SPLIT_STEPS more steps each way under the profiler.  Returns
+    the runs' numbers, with their sims and final states under '_sims' and
+    '_states' (over the rank, one device)."""
+    cfg, make = _multi_world(param, overrides)
+    sim_d, sim_1 = make(dist), make(None)
+    state = _realize_multi(cfg, sim_d)
+    a_end = _a_after_steps(sim_d, cfg.a_begin, steps)
+    sums0 = {k: float(f.varrho.double().sum()) for k, f in state.fluids.items()}
+    one = _evolve_measured(sim_1, _clone_multi(state), cfg.a_begin, a_end)
+    _reset_counts()
+    got = _evolve_measured(sim_d, state, cfg.a_begin, a_end)
+    counts, counts64 = _read_counts(), _read_counts_f64()
+    _check_launches(counts64, ())
+    _check_launches(counts, kernels)
+    if sim_d.hysteresis["step_count"] != steps or sim_1.hysteresis["step_count"] != steps:
+        raise SystemExit(f"{tag}: {sim_d.hysteresis['step_count']} steps over the rank, "
+                         f"{sim_1.hysteresis['step_count']} on one device (planned {steps})")
+    out = {"steps": steps, "a_begin": cfg.a_begin, "a_end": got[1], "launches": counts,
+           "seconds": got[2], "single_seconds": one[2],
+           "ms_per_step": 1e3 * got[2] / steps, "single_ms_per_step": 1e3 * one[2] / steps,
+           "peak_bytes": got[3], "single_peak_bytes": one[3],
+           "fluid_sum_drift": {k: abs(float(got[0].fluids[k].varrho.double().sum()) / v - 1)
+                               for k, v in sums0.items()},
+           "pm_mass_deficit_max": sim_d.stats["pm_mass_deficit_max"],
+           "_sims": (sim_d, sim_1), "_states": (got[0], one[0]), "_box": cfg.boxsize}
+    if sim_d.stats["pm_mass_deficit_max"] > 0.5:
+        raise SystemExit(f"{tag}: the deposit over the rank lost "
+                         f"{sim_d.stats['pm_mass_deficit_max']:.3g} particle masses")
+    if split:
+        out["ms_per_step_by_part"] = _split_steps(sim_d, got[0], got[1])
+        out["single_ms_per_step_by_part"] = _split_steps(sim_1, one[0], one[1])
+    return out
+
+
+def _public(res: dict) -> dict:
+    return {k: v for k, v in res.items() if not k.startswith("_")}
+
+
+def parallel_multi(cache: str, steps: int = MULTI_STEPS) -> dict:
+    """Phase 14: several components and fluids over ranks, on a world of
+    one ``nccl`` rank (``MultiSimulation(dist=...)``: each rank holds its
+    particle shards and its x-rows of every fluid grid).  (a)
+    example_nonlinnu at the width of its parameter file (80³ matter, P³M
+    grid 40, the ν fluid on grid 40 at order 1 with KT, phase 8's tables)
+    from the realization over the rank, ``steps`` global steps against
+    one device's from the same state: mean |Δx|/box ≤ 1e-5, momenta 1e-5
+    of the largest, ν ϱ 2e-6 and J 2e-5 of their largest, Σϱ_ν within
+    1e-5; row 6 only; ms a step by part (the ``multi.*`` ranges) and peak
+    memory both ways.  (b) CDM + baryons, 64³ each, grid 128, for
+    PARALLEL_MULTI_CB_STEPS steps: rows 6 and 2 only, each then held per
+    receiver against its plain version on the rank's receivers (phase 9
+    (b)'s measure; float 1e-5, double 1e-10).  (c) example_relativistic
+    at 128³ / grid 128 for 3 steps, the radiation re-realized on the
+    rank's rows at every kick, against one device's.  (d) ``-n 2`` on one
+    card raises ValueError.  NCCL refuses two ranks on one card:
+    scripts/ranks_multi.py runs 2 and 4 cards."""
+    import torch
+    import torch.distributed as tdist
+
+    from concept_tpu_torch.grid.fft import GridDistribution
+    from concept_tpu_torch.param import load_params
+    from concept_tpu_torch.parallel.step import replicate
+    from concept_tpu_torch.run import run
+
+    t_phase = time.time()
+    store = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    tdist.init_process_group("nccl", store=tdist.FileStore(os.path.join(store, "store"), 1),
+                             rank=0, world_size=1)
+    out = {}
+    try:
+        dist = GridDistribution()
+        # (a)
+        nu = _over_rank_and_one(
+            "ν over the rank", NU_PARAM,
+            [f"boltzmann_options={{{NU_OPTIONS},'cache_dir':'{cache}'}}"], dist, steps,
+            SWEEP_ROWS, split=True)
+        nu["against_one"] = _multi_against_one("ν over the rank", *nu["_states"], nu["_box"],
+                                               {"varrho": 2e-6, "J": 2e-5})
+        drift = nu["fluid_sum_drift"]["neutrino"]
+        if not drift <= 1e-5:
+            raise SystemExit(f"Σϱ of the ν fluid over the rank drifted by {drift:.3e}")
+        out["nonlinnu"] = _public(nu)
+        print(f"parallel_multi (a) example_nonlinnu (80³ matter, P³M grid 40, ν grid 40, KT) "
+              f"over a world of one nccl rank: {steps} steps a {nu['a_begin']} → "
+              f"{nu['a_end']:.6g}, {nu['ms_per_step']:.2f} ms a step, peak "
+              f"{nu['peak_bytes'] / 2**30:.3f} GiB (one device {nu['single_ms_per_step']:.2f} "
+              f"ms, {nu['single_peak_bytes'] / 2**30:.3f} GiB); against one device "
+              f"{json.dumps(nu['against_one'])}; Σϱ_ν drift {drift:.2e}; launches "
+              f"{nu['launches']}; ms a step by part over {SPLIT_STEPS} more steps, over the "
+              f"rank {json.dumps(_rounded(nu['ms_per_step_by_part']))}, one device "
+              f"{json.dumps(_rounded(nu['single_ms_per_step_by_part']))}")
+        del nu
+        # (b)
+        cb = _over_rank_and_one(
+            "CDM + baryons over the rank", PARAM,
+            ["initial_conditions=[{'species':'cold dark matter','N':64**3},"
+             "{'species':'baryon','N':64**3}]", "potential_options=128"], dist,
+            PARALLEL_MULTI_CB_STEPS, PAIR_ROWS)
+        sim = cb["_sims"][0]
+        final = cb["_states"][0]
+        geom = _sweep_geometry(sim)
+        # the rank's CDM receivers; its sweeps read the all-gathered
+        # positions of each component (the whole at world size 1)
+        cdm = _component_slots(sim, final.particles["cold dark matter"].pos)
+        cdm_all = _component_slots(sim, replicate(final.particles["cold dark matter"].pos,
+                                                  dist))
+        bar = _component_slots(sim, replicate(final.particles["baryon"].pos, dist))
+        print(f"parallel_multi (b) CDM + baryons (64³ each, P³M grid 128) over the rank: "
+              f"{PARALLEL_MULTI_CB_STEPS} steps, {cb['ms_per_step']:.2f} ms a step, peak "
+              f"{cb['peak_bytes'] / 2**30:.3f} GiB (one device {cb['single_ms_per_step']:.2f} "
+              f"ms, {cb['single_peak_bytes'] / 2**30:.3f} GiB); launches {cb['launches']}; "
+              f"rows 6 and 2 on the final state at softening 0:")
+        for key, tag, recv, reach in (
+                ("row6", "the whole CDM over the rank, softening 0", cdm_all, None),
+                ("row2", "the rank's CDM receivers, all baryons, softening 0", cdm, "subset")):
+            cb[key] = _check_sweep(tag, recv, geom, (None, None), 3, 1, reach=reach,
+                                   sup_s=bar if reach else None, per_receiver=True)
+            cb[f"{key}_f64"] = _check_sweep(tag, recv.double(), geom, (None, None), 3, 1,
+                                            reach=reach,
+                                            sup_s=bar.double() if reach else None,
+                                            per_receiver=True)
+        del cdm, cdm_all, bar, sim, final
+        out["cdm_baryon"] = _public(cb)
+        del cb
+        # (c)
+        rel = _over_rank_and_one("example_relativistic over the rank", REL_PARAM, [], dist, 3,
+                                 SWEEP_ROWS)
+        rel["against_one"] = _multi_against_one("example_relativistic over the rank",
+                                                *rel["_states"], rel["_box"],
+                                                {"varrho": 2e-6})
+        out["relativistic"] = _public(rel)
+        print(f"parallel_multi (c) example_relativistic (128³ matter, radiation grid 128 "
+              f"re-realized at every kick) over the rank: 3 steps, {rel['ms_per_step']:.2f} "
+              f"ms a step, peak {rel['peak_bytes'] / 2**30:.3f} GiB (one device "
+              f"{rel['single_ms_per_step']:.2f} ms, {rel['single_peak_bytes'] / 2**30:.3f} "
+              f"GiB); against one device {json.dumps(rel['against_one'])}; launches "
+              f"{rel['launches']}")
+        del rel
+        # (d)
+        try:
+            run(load_params(NU_PARAM), n_devices=2)
+        except ValueError as e:
+            out["n2_error"] = str(e)
+        else:
+            raise SystemExit("-n 2 on one card did not raise ValueError")
+        torch.cuda.empty_cache()
+    finally:
+        tdist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    out["seconds"] = time.time() - t_phase
+    print(f"parallel_multi: -n 2 on one card: ValueError({out['n2_error']!r}); "
+          f"{out['seconds']:.1f} s")
+    return out
+
+
+def _rounded(split: dict) -> dict:
+    return {k: {q: round(v, 3) for q, v in d.items()} for k, d in split.items()}
+
+
 # (name, counter, phase with its check, key, source, the TPU kernel's
 # definition, the newest path that launches the kernel (its launch count)
 # or None where no path runs it)
@@ -3890,6 +4179,19 @@ def kernels_line(results: dict) -> list:
             "max_abs_err", "max_rel_err", "tol_rel", "ms", "plain_ms", "bound_ms")})
     byname["pair_sweep_two_sided"]["parallel_launches"] = (
         results["parallel"]["p3m"]["launches"]["pair_sweep"])
+    # phase 14: rows 6 and 2 launched by the three runs over the rank, and
+    # held per receiver on the CDM + baryon run's final state there
+    pmu = results["parallel_multi"]
+    for run_name in ("nonlinnu", "cdm_baryon", "relativistic"):
+        for name, counter in (("pair_sweep_two_sided", "pair_sweep"),
+                              ("pair_sweep_subset", "pair_sweep_subset")):
+            byname[name][f"parallel_multi_{run_name}_launches"] = (
+                pmu[run_name]["launches"][counter])
+    for name, key in (("pair_sweep_two_sided", "row6"), ("pair_sweep_subset", "row2")):
+        for suffix, prefix in (("", "parallel_multi_soft0"), ("_f64", "f64_parallel_multi_soft0")):
+            c = pmu["cdm_baryon"][key + suffix]
+            byname[name].update({f"{prefix}_{k}": c[k] for k in (
+                "max_abs_err", "max_rel_err", "tol_rel", "ms", "plain_ms", "bound_ms")})
     # rows 1, 3 and 4 over a rank's planes (phase 12): their checks, and
     # their launches by the base steps and by example_basic over the ranks
     pr = results["parallel_rungs"]
@@ -4040,15 +4342,17 @@ def main(argv=None) -> int:
     try:
         results["nu"] = _timed(seconds, "nu", nu_cosmology, cache=cache)
         results["multi"] = _timed(seconds, "multi", multi, cache)
+        results["multi_cdm_baryon"] = results["multi"]["cdm_baryon"]
+        sim, state = _global_sim(256**3, 512, "cuda", method="pm")
+        results["render"] = _timed(seconds, "render", render, sim, state)
+        results["parallel"] = _timed(seconds, "parallel", parallel, sim, state)
+        del sim, state
+        results["parallel_rungs"] = _timed(seconds, "parallel_rungs", parallel_rungs)
+        results["parallel_realize"] = _timed(seconds, "parallel_realize", parallel_realize)
+        # phase 14 reads phase 8's ν tables
+        results["parallel_multi"] = _timed(seconds, "parallel_multi", parallel_multi, cache)
     finally:
         shutil.rmtree(cache, ignore_errors=True)
-    results["multi_cdm_baryon"] = results["multi"]["cdm_baryon"]
-    sim, state = _global_sim(256**3, 512, "cuda", method="pm")
-    results["render"] = _timed(seconds, "render", render, sim, state)
-    results["parallel"] = _timed(seconds, "parallel", parallel, sim, state)
-    del sim, state
-    results["parallel_rungs"] = _timed(seconds, "parallel_rungs", parallel_rungs)
-    results["parallel_realize"] = _timed(seconds, "parallel_realize", parallel_realize)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -15,7 +15,8 @@ component's spectrum is measured where its particles are: each rank
 deposits its shard (``parallel.step.deposit_distributed``), the FFT is
 the slab FFT, each rank bins the modes of its y-slab, and one
 ``all_reduce`` sums the bins, so that every rank holds the whole
-spectrum.
+spectrum.  Combined spectra take each rank's shards and fluid rows the
+same way, and so does the spectrum of a δ grid given by its x-rows.
 """
 
 from __future__ import annotations
@@ -136,7 +137,7 @@ def _binned(p2, n: int, boxsize: float, bins_per_decade=40, k_max=None,
     above ``k_max``."""
     p2 = p2.to(torch.float64)
     bins, k_phys, nbins = bin_indices_and_k(n, boxsize, bins_per_decade, p2.device,
-                                            None if dist is None else dist.slab(n))
+                                            None if dist is None else dist.rows(n))
     mult = fourier.hermitian_multiplicity(n, torch.float64, p2.device).expand_as(p2)
     bflat = torch.clamp(bins, 0, nbins).reshape(-1)
     sums = torch.stack([
@@ -203,11 +204,12 @@ def delta_power_grid(pos, gridsize: int, boxsize: float, order: int = 4,
 
 
 def particle_mass_slab(pos_list, weight_list, gridsize: int, boxsize: float,
-                       order: int = 4, deconvolve: bool = True, interlace=True):
+                       order: int = 4, deconvolve: bool = True, interlace=True, dist=None):
     """rfft slab of the unnormalised mass field of particle groups, at
     the conventions of :func:`powerspec` (interpolation, deconvolution,
     interlacing).  Kept in Fourier space: an irfft round trip would
-    drop the interlaced slab's non-Hermitian Nyquist components."""
+    drop the interlaced slab's non-Hermitian Nyquist components.  With
+    ``dist`` each rank passes its shards and gets its y-slab."""
     n = gridsize
     order = interpolation_order(order)
 
@@ -215,38 +217,48 @@ def particle_mass_slab(pos_list, weight_list, gridsize: int, boxsize: float,
         grid = None
         for p, w in zip(pos_list, weight_list):
             pp = p if off is None else periodic_wrap(p + off, boxsize)
-            g = deposit(pp, w, n, boxsize, order)
+            g = (deposit(pp, w, n, boxsize, order) if dist is None
+                 else deposit_distributed(pp, w, n, boxsize, order, dist))
             grid = g if grid is None else grid + g
         return grid
 
     p0 = pos_list[0]
     return _interlaced_slab(dep, n, boxsize, order, deconvolve, interlace,
-                            p0.dtype, p0.device)
+                            p0.dtype, p0.device, dist)
 
 
 def combined_powerspec(pos_list, weight_list, fluid_grids, gridsize: int,
                        boxsize: float, order: int = 4, deconvolve: bool = True,
                        interlace=True, bins_per_decade=40, k_max=None,
-                       shotnoise: float | None = None):
+                       shotnoise: float | None = None, dist=None):
     """P(k) of a combined mass-weighted field: particle groups (through
     :func:`particle_mass_slab`) plus fluid ϱ grids (their modes copied
     onto ``gridsize`` where they live on another mesh), δ normalised by
     the combined mean.  ``shotnoise`` is subtracted into
-    'power_corrected' when given (see :func:`combined_shotnoise`)."""
+    'power_corrected' when given (see :func:`combined_shotnoise`).  With
+    ``dist`` each rank passes its particle shards and its x-rows of the
+    fluid grids, and gets the whole spectrum."""
     n = gridsize
     slab = None
     if pos_list:
         # the fluid grids are densities: the deposit by the cell volume
         slab = particle_mass_slab(pos_list, weight_list, n, boxsize, order=order,
-                                  deconvolve=deconvolve, interlace=interlace)
+                                  deconvolve=deconvolve, interlace=interlace, dist=dist)
         slab = slab / ((boxsize / n) ** 3)
     for g in fluid_grids:
-        gs = rfft3(g)
-        if g.shape[0] != n:
-            gs = fourier.copy_modes(gs, g.shape[0], n)
+        gs = rfft3(g, dist)
+        if g.shape[-1] != n:
+            gs = fourier.copy_modes(gs, g.shape[-1], n, dist=dist)
         slab = gs if slab is None else slab + gs
-    mean = slab[0, 0, 0].real / n**3
-    out = _binned((slab / mean).abs() ** 2, n, boxsize, bins_per_decade, k_max)
+    if dist is None:
+        mean = slab[0, 0, 0].real / n**3
+    else:
+        # the k = 0 mode lies on the rank whose y-slab holds kj = 0
+        mean = slab.real.new_zeros(())
+        if dist.rows(n)[0] == 0 and slab.shape[1]:
+            mean = mean + slab[0, 0, 0].real / n**3
+        torch.distributed.all_reduce(mean, group=dist.group)
+    out = _binned((slab / mean).abs() ** 2, n, boxsize, bins_per_decade, k_max, dist)
     if shotnoise is not None:
         out["power_corrected"] = out["power"] - shotnoise
     return out
@@ -260,12 +272,13 @@ def combined_shotnoise(weights, counts, boxsize: float) -> float:
     return boxsize**3 * num / den if den else 0.0
 
 
-def grid_powerspec(delta, boxsize: float, n_particles: int | None = None):
+def grid_powerspec(delta, boxsize: float, n_particles: int | None = None, dist=None):
     """P(k) of a real-space δ grid, with the binning of
     :func:`powerspec`; V/n_particles is subtracted into
-    'power_corrected' when given."""
-    n = delta.shape[0]
-    out = _binned(rfft3(delta).abs() ** 2, n, boxsize)
+    'power_corrected' when given.  With ``dist`` each rank passes its
+    x-rows of the grid and gets the whole spectrum."""
+    n = delta.shape[-1]
+    out = _binned(rfft3(delta, dist).abs() ** 2, n, boxsize, dist=dist)
     if n_particles:
         out["power_corrected"] = out["power"] - boxsize**3 / n_particles
     return out

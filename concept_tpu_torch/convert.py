@@ -51,6 +51,17 @@ def from_jax_state(arrays: dict, device="cpu"):
                             if arrays.get(k) is not None})
 
 
+def from_jax_multi(state, device="cpu"):
+    """The JAX package's ``MultiState`` (each ``ParticleState`` and
+    ``FluidState`` with numpy or JAX arrays) → the port's MultiState on
+    ``device``, field for field (:func:`from_jax_state`)."""
+    def arrays(t):
+        return {k: None if v is None else np.asarray(v) for k, v in t._asdict().items()}
+
+    return from_jax_state({"particles": {k: arrays(v) for k, v in state.particles.items()},
+                           "fluids": {k: arrays(v) for k, v in state.fluids.items()}}, device)
+
+
 def to_numpy(state) -> dict:
     """The port's RungState, P3MState, ParticleState or FluidState →
     {field: numpy array} (fields that are None are left out); a

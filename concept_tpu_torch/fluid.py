@@ -18,11 +18,25 @@ staged as the reference does.  The fields that share an axis's
 reconstruction (ϱ, 𝒫, the three Jᵐ and ς) go through it stacked, one
 batch of elementwise passes a field set; each element's arithmetic is
 the JAX package's.  Coefficients and step sizes are host floats.
+
+Over the ranks of a ``-n N`` run (``dist``, grid/fft.GridDistribution)
+each rank holds its x-rows of every grid (``dist.rows``, which need not
+split evenly).  The solvers then run the same whole-grid arithmetic on
+the rows padded with the neighbours' rows (parallel/step.halo_rows) as
+far as one evaluation reaches along x, and crop the halo: 2 rows a KT
+evaluation (the interface state at i−½ reads i−2 … i+1, the divergence
+adds i+½), 1 a MacCormack stage, 2 a vacuum pass.  Each RK or
+predictor-corrector stage exchanges again on its own state, so every
+cell sees the values and the order of operations of the whole grid, and
+the rows are the whole grid's bit for bit.  The vacuum clamp
+(:func:`vacuum_correct`) is pointwise and needs no halo.
 """
 
 from __future__ import annotations
 
 import torch
+
+from concept_tpu_torch.parallel.step import halo_rows
 
 _EPS = 1e-30
 # packed shear components (xx, xy, xz, yy, yz, zz)
@@ -135,7 +149,7 @@ def kurganov_tadmor_update(varrho, J, P, dt, coef_flux: float, coef_pressure: fl
     soundspeed    = c·√w/a (global bound; reference fluid.py:131-137)
     c2_inv        = 1/c² (for ϱ + c⁻²𝒫 denominators)"""
     lim = FLUX_LIMITERS[limiter]
-    n = varrho.shape[0]
+    n = varrho.shape[-1]  # x may hold a rank's rows with their halo
     dx = boxsize / n
     J = torch.stack(list(J)) if isinstance(J, (list, tuple)) else J
     fields = [varrho[None], P[None], J]
@@ -172,23 +186,45 @@ def kurganov_tadmor_update(varrho, J, P, dt, coef_flux: float, coef_pressure: fl
     return drho, dJ
 
 
+def _on_rows(fn, fields: list, h: int, dist):
+    """fn(*fields) on one device; over the ranks of ``dist`` fn of the
+    fields' x-rows padded by h rows a side (:func:`halo_rows`, one
+    exchange for the stacked fields), its outputs cropped back to the
+    rows.  Each field is (R, n, n) or (c, R, n, n); None stays None."""
+    if dist is None:
+        return fn(*fields)
+    present = [f for f in fields if f is not None]
+    stacked = halo_rows(torch.cat([f.reshape(-1, *f.shape[-3:]) for f in present]), h, dist)
+    pieces = iter(torch.split(stacked, [f.reshape(-1, *f.shape[-3:]).shape[0]
+                                        for f in present]))
+    padded = [None if f is None else next(pieces).reshape(*f.shape[:-3], -1, *f.shape[-2:])
+              for f in fields]
+    R = fields[0].shape[-3]
+    return tuple(x[..., h:h + R, :, :] for x in fn(*padded))
+
+
 def kt_step(varrho, J, P, dt, coef_flux, coef_pressure, boxsize: float, soundspeed,
             c2_inv: float, limiter: str = "mc", rk_order: int = 2,
             approx_P_eq_wrho: bool = False, w: float = 0.0, light_speed: float = 1.0,
-            sigma=None):
+            sigma=None, dist=None):
     """A full KT drift step (reference fluid.py:103-228): RK order 1, or
     2 (half step onto the starred state, full step evaluated there).
     With ``approx_P_eq_wrho`` the pressure is w·c²·ϱ of each stage, else
     P as given; sigma (packed) enters the momentum fluxes.  Returns
-    (ϱ, J, 𝒫)."""
+    (ϱ, J, 𝒫).  With ``dist`` the grids are this rank's x-rows, and each
+    evaluation exchanges a halo of 2 rows of its own stage's state."""
     wc2 = w * light_speed**2
 
     def get_P(rho):
         return wc2 * rho if approx_P_eq_wrho else P
 
+    def evaluate(rho, JJ, PP, ss):
+        return kurganov_tadmor_update(rho, JJ, PP, dt, coef_flux, coef_pressure,
+                                      boxsize, soundspeed, c2_inv, limiter, sigma=ss)
+
     def update(rho, JJ):
-        return kurganov_tadmor_update(rho, JJ, get_P(rho), dt, coef_flux, coef_pressure,
-                                      boxsize, soundspeed, c2_inv, limiter, sigma=sigma)
+        JJ = torch.stack(list(JJ)) if isinstance(JJ, (list, tuple)) else JJ
+        return _on_rows(evaluate, [rho, JJ, get_P(rho), sigma], 2, dist)
 
     drho, dJ = update(varrho, J)
     if rk_order == 1:
@@ -227,12 +263,13 @@ def _mc_flux_divergence(varrho, J, P, coef_flux, coef_pressure, dx, c2_inv, dire
 
 def maccormack_step(varrho, J, P, dt, coef_flux, coef_pressure, boxsize: float,
                     c2_inv: float, step_parity: int = 0, approx_P_eq_wrho: bool = True,
-                    w: float = 0.0, light_speed: float = 1.0):
+                    w: float = 0.0, light_speed: float = 1.0, dist=None):
     """One MacCormack predictor-corrector drift step: forward differences
     in the predictor and backward in the corrector, swapped on odd
     ``step_parity`` (the reference alternates them across steps).
-    Returns (ϱ, J, 𝒫)."""
-    n = varrho.shape[0]
+    Returns (ϱ, J, 𝒫).  With ``dist`` the grids are this rank's x-rows,
+    and each stage exchanges a halo of 1 row of its own state."""
+    n = varrho.shape[-1]
     dx = boxsize / n
     wc2 = w * light_speed**2
 
@@ -241,12 +278,16 @@ def maccormack_step(varrho, J, P, dt, coef_flux, coef_pressure, boxsize: float,
 
     d_pred = [1 - 2 * (step_parity & 1)] * 3
     d_corr = [-d for d in d_pred]
-    drho, dJ = _mc_flux_divergence(varrho, J, get_P(varrho), coef_flux, coef_pressure,
-                                   dx, c2_inv, d_pred)
+
+    def stage(rho, JJ, directions):
+        return _on_rows(lambda r, j, p: _mc_flux_divergence(r, j, p, coef_flux, coef_pressure,
+                                                             dx, c2_inv, directions),
+                        [rho, JJ, get_P(rho)], 1, dist)
+
+    drho, dJ = stage(varrho, J, d_pred)
     rho_s = varrho + dt * drho
     J_s = J + dt * dJ
-    drho2, dJ2 = _mc_flux_divergence(rho_s, J_s, get_P(rho_s), coef_flux, coef_pressure,
-                                     dx, c2_inv, d_corr)
+    drho2, dJ2 = stage(rho_s, J_s, d_corr)
     rho1 = 0.5 * (varrho + rho_s + dt * drho2)
     J1 = 0.5 * (J + J_s + dt * dJ2)
     return rho1, J1, get_P(rho1)
@@ -259,29 +300,37 @@ def vacuum_correct(varrho, J, rho_floor):
     return torch.clamp(varrho, min=rho_floor), torch.where(ok[None], J, 0.0)
 
 
-def vacuum_redistribute(varrho, J, rho_vacuum, smoothing: float = 1.0, passes: int = 2):
+def vacuum_redistribute(varrho, J, rho_vacuum, smoothing: float = 1.0, passes: int = 2,
+                        dist=None):
     """Mass-conserving vacuum correction (reference MacCormack vacuum
     machinery, fluid.py:1079-1363): cells below ``rho_vacuum`` and their
     6 face neighbours exchange symmetric diffusion fluxes, J smoothed the
     same way, for a fixed number of ``passes``.  Σϱ is conserved exactly
     (antisymmetric pair fluxes); what stays below is clamped by the
-    caller."""
-    fac = smoothing / 12.0  # ≤ 1/12 per pair keeps the diffusion stable
+    caller.  With ``dist`` the grids are this rank's x-rows, and each
+    pass exchanges a halo of 2 rows (``need`` is read at ±2 along x)."""
     rho, Jc = varrho, J
     for _ in range(passes):
-        need = rho < rho_vacuum
-        act = need
-        for dim in (-3, -2, -1):
-            act = act | torch.roll(need, 1, dim) | torch.roll(need, -1, dim)
-        w = act.to(rho.dtype) * fac
-        new_rho, new_J = rho, Jc
-        for dim in (-3, -2, -1):
-            for shift in (1, -1):
-                w_pair = torch.maximum(w, torch.roll(w, shift, dim))
-                new_rho = new_rho + w_pair * (torch.roll(rho, shift, dim) - rho)
-                new_J = new_J + w_pair[None] * (torch.roll(Jc, shift, dim) - Jc)
-        rho, Jc = new_rho, new_J
+        rho, Jc = _on_rows(lambda r, j: _vacuum_pass(r, j, rho_vacuum, smoothing),
+                           [rho, Jc], 2, dist)
     return rho, Jc
+
+
+def _vacuum_pass(rho, Jc, rho_vacuum, smoothing: float):
+    """One pass of :func:`vacuum_redistribute` on whole (or padded) grids."""
+    fac = smoothing / 12.0  # ≤ 1/12 per pair keeps the diffusion stable
+    need = rho < rho_vacuum
+    act = need
+    for dim in (-3, -2, -1):
+        act = act | torch.roll(need, 1, dim) | torch.roll(need, -1, dim)
+    w = act.to(rho.dtype) * fac
+    new_rho, new_J = rho, Jc
+    for dim in (-3, -2, -1):
+        for shift in (1, -1):
+            w_pair = torch.maximum(w, torch.roll(w, shift, dim))
+            new_rho = new_rho + w_pair * (torch.roll(rho, shift, dim) - rho)
+            new_J = new_J + w_pair[None] * (torch.roll(Jc, shift, dim) - Jc)
+    return new_rho, new_J
 
 
 def hubble_source_rho(varrho, P, int_adot_over_a, w: float, c2_inv: float):

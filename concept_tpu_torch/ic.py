@@ -321,7 +321,7 @@ def realize_delta_slab(lin, gridsize: int, boxsize: float, a: float,
 
 def realize_sigma_grids(lin, gridsize: int, boxsize: float, a: float, rho_plus_P: float,
                         seed: int = 0, dtype=torch.float32, device="cpu",
-                        species: str = "nu"):
+                        species: str = "nu", dist=None):
     """The shear ςⁱⱼ = (ϱ̄ + c⁻²𝒫̄)·σⁱⱼ from the linear σ transfer function
     (reference ic.py:670 rank-2 kernel K(k⃗) = (3/2)(δⁱⱼ/3 − kⁱkⱼ/k²),
     ic.py:466 ς scaling), on the 'simple' noise of
@@ -329,23 +329,26 @@ def realize_sigma_grids(lin, gridsize: int, boxsize: float, a: float, rho_plus_P
     component's δ and J).  ``rho_plus_P`` is the ϱ̄(1 + w) prefactor.
     Returns the packed (6, n, n, n) components (xx, xy, xz, yy, yz, zz),
     or None where lin has no σ table of the species (the analytic EH
-    layer)."""
+    layer).  With ``dist`` the rank draws the noise of its x-rows, forms
+    the kernels on its y-slab and returns its x-rows (6, rows, n, n), as
+    :func:`realize_delta_slab` does."""
     if lin.transfer_sigma(torch.ones(1, dtype=dtype, device=device), a, species) is None:
         return None
     n = gridsize
     norm = math.sqrt(n**3 / boxsize**3)
-    R = generate_primordial_noise(n, seed, False, 0.0, dtype, "simple", device)
+    y_rows = _y_rows(n, dist)
+    R = generate_primordial_noise(n, seed, False, 0.0, dtype, "simple", device, dist)
     base_k = R * _by_k2(lambda k: lin.transfer_sigma(k, a, species)
                         * lin.primordial.zeta_amplitude(k) * norm,
-                        n, boxsize, dtype, device, on_device=True)
+                        n, boxsize, dtype, device, on_device=True, y_rows=y_rows)
     kfac = 2 * math.pi / boxsize
-    kvecs = [k.to(dtype) * kfac for k in fourier.k_int_vectors(n, device)]
-    k2 = fourier.k2_int_grid(n, device).to(dtype) * kfac**2
+    kvecs = [k.to(dtype) * kfac for k in fourier.k_int_vectors(n, device, y_rows)]
+    k2 = fourier.k2_int_grid(n, device, y_rows).to(dtype) * kfac**2
     inv_k2 = torch.where(k2 > 0, 1.0 / torch.where(k2 > 0, k2, 1.0), 0.0)
     grids = []
     for i, j in ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2)):
         Kij = 1.5 * ((1.0 if i == j else 0.0) / 3.0 - kvecs[i] * kvecs[j] * inv_k2)
-        grids.append(irfft3(Kij * base_k, n))
+        grids.append(irfft3(Kij * base_k, n, dist))
     return rho_plus_P * torch.stack(grids).to(dtype)
 
 

@@ -1123,9 +1123,9 @@ class RungSimulationAdapter:
 
     def reduce(self, x: torch.Tensor, op=torch.distributed.ReduceOp.SUM) -> torch.Tensor:
         """x reduced over the ranks (x itself on one device)."""
-        if self.dist is not None:
-            torch.distributed.all_reduce(x, op=op, group=self.dist.group)
-        return x
+        from concept_tpu_torch.parallel.step import reduce
+
+        return reduce(x, self.dist, op)
 
     def _to_layout(self, state) -> RungState:
         """The layout of a flat state (over ranks, of the ranks' shards):

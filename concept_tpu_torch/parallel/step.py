@@ -77,6 +77,14 @@ def deposit_distributed(pos, quantity, gridsize: int, boxsize: float, order,
     return out
 
 
+def reduce(x, dist, op=tdist.ReduceOp.SUM):
+    """x reduced in place over the ranks of ``dist`` (x itself where
+    ``dist`` is None): what each stepper's ``reduce`` does."""
+    if dist is not None:
+        tdist.all_reduce(x, op=op, group=dist.group)
+    return x
+
+
 def replicate(arr, dist: GridDistribution):
     """The whole array from each rank's equal block along dim 0 (an x-slab
     or a particle shard): ``all_gather``."""
@@ -214,7 +222,6 @@ def pm_momentum_updates_distributed_halo(pos, mass, gridsize: int, boxsize: floa
     0).  ``info`` receives 'mass_sum' (the whole deposit's mass, float64,
     summed over the ranks) and 'n_overflow'."""
     from concept_tpu_torch.forces.pm import gravity_potential_slab
-    from concept_tpu_torch.grid.fourier import fourier_diff
 
     n = gridsize
     order = interpolation_order(order)
@@ -224,21 +231,54 @@ def pm_momentum_updates_distributed_halo(pos, mass, gridsize: int, boxsize: floa
         total = grid.sum(dtype=torch.float64)
         tdist.all_reduce(total, group=dist.group)
         info.update(mass_sum=total, n_overflow=n_over)
-    y_rows = dist.slab(n)
     phi = gravity_potential_slab(
         rfft3(grid / (boxsize / n) ** 3, dist), n, boxsize, G,
         deconv_order=order * (int(deconvolve[0]) + int(deconvolve[1])),
-        longrange_scale=longrange_scale, y_rows=y_rows)
+        longrange_scale=longrange_scale, y_rows=dist.slab(n))
     del grid
     vals = torch.stack([
-        gather_distributed_halo(irfft3(fourier_diff(phi, n, boxsize, d, y_rows), n, dist),
-                                slabbed, w, boxsize, order, dist) for d in range(3)], dim=1)
-    lo, hi = dist.shard(pos.shape[0] * dist.n_devices)
-    back, idx = exchange([(-mass * kick_integral) * vals, orig_idx],
-                         torch.div(orig_idx, hi - lo, rounding_mode="floor"), dist)
-    dmom = torch.empty_like(pos)
-    dmom[idx - lo] = back
-    return dmom, n_over
+        gather_distributed_halo(slab_gradient(phi, n, boxsize, d, dist), slabbed, w, boxsize,
+                                order, dist) for d in range(3)], dim=1)
+    return to_shard_order((-mass * kick_integral) * vals, orig_idx, pos.shape[0], dist), n_over
+
+
+def slab_gradient(phi, n: int, boxsize: float, d: int, dist: GridDistribution):
+    """∂_d of the potential φ (this rank's y-slab of an n-grid) as this
+    rank's x-slab of the real grid: the Fourier derivative on the y-slab
+    and the slab FFT back."""
+    from concept_tpu_torch.grid.fourier import fourier_diff
+
+    return irfft3(fourier_diff(phi, n, boxsize, d, dist.rows(n)), n, dist)
+
+
+def to_shard_order(vals, orig_idx, n_own: int, dist: GridDistribution):
+    """Rows computed at the slab-resident particles of :func:`sort_to_slabs`
+    (``orig_idx`` their indices) → this rank's index shard of n_own
+    particles, in index order: each row sent back to the rank whose shard
+    holds its index."""
+    lo, hi = dist.shard(n_own * dist.n_devices)
+    back, idx = exchange([vals, orig_idx], torch.div(orig_idx, hi - lo, rounding_mode="floor"),
+                         dist)
+    out = vals.new_empty((n_own, *vals.shape[1:]))
+    out[idx - lo] = back
+    return out
+
+
+def halo_rows(grid, h: int, dist: GridDistribution):
+    """This rank's x-rows of a grid (..., R, n, n) padded along x with the
+    h rows before and after them, taken periodically from the ranks that
+    hold them (the ring of :func:`_ring`): (..., R + 2h, n, n).  At world
+    size 1 the halo is the rank's own rows wrapped, so that a stencil of
+    reach ≤ h on the padded rows, cropped, is the whole grid's.  A rank
+    must hold at least h rows (the rows split ⌊r·n/d + ½⌋ on,
+    grid/fft.row_starts): fewer raise ValueError, which run.run's layout
+    check raises before anything is realized."""
+    R = grid.shape[-3]
+    if R < h:
+        raise ValueError(f"rank {dist.rank} holds {R} rows of a grid whose stencil "
+                         f"reaches {h}")
+    got_prev, got_next = _ring(grid[..., R - h:, :, :], grid[..., :h, :, :], dist)
+    return torch.cat([got_prev, grid, got_next], dim=-3)
 
 
 def plane_starts(nc: int, d: int) -> list:

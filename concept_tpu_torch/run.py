@@ -23,7 +23,9 @@ images, 3D scatter renders) and the spectra's plots (graphics/render.py).
 parallel/ranks.py): global steps (PM, P³M with ``N_rungs = 1``, PP), or
 the rung stepper on every layout, each rank stepping its own x-planes of
 cells (p3mrungs.py), from a realization that each rank makes of its slab
-of the lattice (ic.py).
+of the lattice (ic.py); and runs of several components and fluids, each
+rank holding its particle shards and its x-rows of every fluid grid
+(sim_multi.py).
 """
 
 from __future__ import annotations
@@ -539,10 +541,10 @@ def run(cfg: RunConfig, max_steps: int = 100000, seed: int | None = None,
     state.  Before anything is realized, rungs over ranks that
     cannot run raise ValueError (p3mrungs.check_rank_layout: a grid the
     ranks do not divide, too few planes of cells a rank for the sweep's
-    reach, a tight layout below 3 cells a side), and
-    ``NotImplementedError`` names the item of the ROADMAP that brings
-    several components over ranks (item 14d); the other ranks are then
-    ended.
+    reach, a tight layout below 3 cells a side), and so do runs of
+    several components that cannot (:func:`check_multi_layout`); the
+    other ranks are then ended.  Several components and fluids run over
+    the ranks through :func:`run_multi`.
 
     An autosave of this parameter file (see :func:`autosave_path`) is
     resumed.  SIGINT and SIGTERM during the time loop write an autosave
@@ -581,12 +583,8 @@ def run(cfg: RunConfig, max_steps: int = 100000, seed: int | None = None,
     units, consts, bg, lin = build_cosmology(cfg)
     comps = build_components(cfg, bg, consts)
     if any(src == "realize-fluid" for _, src in comps) or len(comps) > 1:
-        if n_ranks > 1:
-            raise NotImplementedError(
-                f"-n {n_devices} with several components or a fluid: the multi-component "
-                f"state over ranks (ROADMAP Queue 1 item 14d)")
         return run_multi(cfg, comps, units, consts, bg, lin, dev, dtype,
-                         max_steps=max_steps, seed=seed)
+                         max_steps=max_steps, seed=seed, n_devices=n_devices, rank=rank)
     spec, source = comps[0]
     loaded = None
     if source != "realize":
@@ -669,6 +667,13 @@ def run(cfg: RunConfig, max_steps: int = 100000, seed: int | None = None,
 
     t_realize = _time.time()
     resume = check_autosave(cfg)
+    if dist is not None:
+        # every rank has read the autosave before rank 0 can clear it
+        # (a resume at the last output reaches the clear with no
+        # collective on the way)
+        import torch.distributed as tdist
+
+        tdist.barrier(group=dist.group)
     hysteresis = None
     if resume is not None:
         saved, a, events, hysteresis, _ = resume
@@ -771,12 +776,12 @@ def _state_to_device(st, dev, dtype, boxsize: float):
 
 
 def make_multi(cfg: RunConfig, comps, units, consts, bg, lin, dev, dtype,
-               seed: int | None = None):
+               seed: int | None = None, dist=None):
     """The MultiSimulation of a run of several components (the first
     half of :func:`run_multi`): each component's life from select_lives,
     the shared potential grid, softening 0 with the Plummer kernel (as
     the JAX package's run_multi), and per fluid its Ω, EoS and noise
-    seed."""
+    seed; over the ranks of ``dist``."""
     from concept_tpu_torch.sim_multi import MultiSimulation
 
     def with_life(spec):
@@ -822,17 +827,80 @@ def make_multi(cfg: RunConfig, comps, units, consts, bg, lin, dev, dtype,
         fluid_Omegas=fluid_Omegas, rho_crit=rho_crit, eos=eos,
         fluid_seeds={s.name: seed_val for s in fspecs},
         fluid_options=cfg.fluid_options, fluid_scheme_select=cfg.fluid_scheme_select,
-        approximations={s.name: p_eq_wrho_selected(cfg, s) for s in fspecs})
+        approximations={s.name: p_eq_wrho_selected(cfg, s) for s in fspecs}, dist=dist)
+
+
+def check_multi_layout(sim, d: int, powerspec_gridsize: int | None = None):
+    """Raise ValueError where a run of several components cannot run over
+    d ranks, before anything is realized: a potential grid (or a power
+    spectrum's grid) that d does not divide (the PM's slabs), a particle
+    component whose N the ranks do not share evenly (its index shards),
+    and a fluid grid that leaves a rank fewer x-rows than its stencil
+    reaches along x (parallel/step.halo_rows takes the halo from the
+    neighbours alone: 2 rows for Kurganov-Tadmor and the MacCormack
+    vacuum passes, 1 for MacCormack without them; a fluid that does not
+    drift, boltzmann order −1, needs none)."""
+    from concept_tpu_torch.grid.fft import row_starts
+
+    for what, n in (("potential grid", sim.config.potential_gridsize),
+                    ("power spectrum grid", powerspec_gridsize)):
+        if n and n % d:
+            raise ValueError(f"the {what} {n} does not split over {d} ranks")
+    for name, spec in sim.pspecs.items():
+        if spec.N % d:
+            raise ValueError(f"{spec.N} particles of {name!r} do not split evenly over "
+                             f"{d} ranks")
+    for name, spec in sim.fspecs.items():
+        if spec.boltzmann_order < 0:
+            continue
+        reach = 1 if sim.fluid_scheme[name] == "maccormack" and not sim._mc_vacuum else 2
+        starts = row_starts(spec.gridsize, d)
+        fewest = min(b - a for a, b in zip(starts, starts[1:]))
+        if fewest < reach:
+            raise ValueError(f"fluid grid {spec.gridsize} of {name!r} over {d} ranks leaves "
+                             f"a rank {fewest} rows; its stencil reaches {reach}")
+
+
+def realize_multi_component(cfg: RunConfig, sim, spec, a: float, seed: int):
+    """One component of a run of several (``sim`` its MultiSimulation) at
+    scale factor a, as :func:`run_multi` realizes it at the start and at
+    its activation: particles by ``parallel/step.realize_shard``, a fluid
+    by ``sim_multi.realize_fluid_from_linear``, in float32 and then in
+    the run's dtype, and over the ranks of ``sim.dist`` this rank's part
+    alone."""
+    import torch
+
+    from concept_tpu_torch import sim_multi
+    from concept_tpu_torch.parallel.step import realize_shard
+
+    dev, dtype = sim.config.device, sim.config.dtype
+    if spec.representation == "particles":
+        masterprint(f"Realizing {spec.name} ({spec.N} particles) at a = {a:.4g} ...")
+        st = realize_shard(
+            sim.lin, spec, cfg.boxsize, a, sim.dist, seed=seed,
+            lpt_order=int(cfg.realization_options.get("lpt", 1)), dtype=torch.float32,
+            device=dev, scheme=cfg.primordial_noise_imprinting,
+            dealias=bool(cfg.realization_options.get("dealias", False)),
+            backscale=bool(cfg.realization_options.get("backscale", False)))
+        masterprint("done")
+        return st._replace(pos=st.pos.to(dtype), mom=st.mom.to(dtype))
+    masterprint(f"Realizing fluid {spec.name} (gridsize {spec.gridsize}) at a = {a:.4g} ...")
+    st = sim_multi.realize_fluid_from_linear(
+        sim.lin, spec, cfg.boxsize, a, sim.fluid_Omegas[spec.name] * sim.rho_crit, seed=seed,
+        dtype=torch.float32, device=dev, eos=sim.eos[spec.name], dist=sim.dist)
+    masterprint("done")
+    return FluidState(*(None if x is None else x.to(dtype) for x in st))
 
 
 def run_multi(cfg: RunConfig, comps, units, consts, bg, lin, dev, dtype,
-              max_steps: int = 100000, seed: int | None = None):
+              max_steps: int = 100000, seed: int | None = None, n_devices=1, rank=None):
     """A run of several components, particles and fluids coupled through
     one PM potential (port of concept_tpu/run.py:729-975; reference
     general component loop, main.py:214-461), with the components'
     lives (activation and termination events in life_output_order),
     the periodic autosave and its resume, and the signal trap.  Returns
-    (sim, MultiState, a); the host seconds are in ``sim.timings``.
+    (sim, MultiState, a); the host seconds are in ``sim.timings``, each
+    rank's peak device memory in ``sim.stats['rank_peak_bytes']``.
 
     As in the JAX package the P³M sweeps take softening 0 and the
     Plummer kernel whatever the parameter file says, the particle
@@ -842,44 +910,65 @@ def run_multi(cfg: RunConfig, comps, units, consts, bg, lin, dev, dtype,
     noise and arithmetic) and then take the run's dtype.  Departures: an
     autosave resumes in the run's dtype (the JAX package in float32); the
     signal trap writes the state of the last whole step, as
-    :func:`run`'s does (the JAX package's that of the last segment)."""
+    :func:`run`'s does (the JAX package's that of the last segment).
+
+    Over the ranks of ``-n N`` (``rank``: this process's (r, store), as
+    :func:`run` starts them) each rank holds the index shard of every
+    particle component and its x-rows of every fluid grid
+    (sim_multi.MultiSimulation(dist=...)): it realizes its part alone
+    (parallel/step.realize_shard, realize_fluid_from_linear(dist=)), at
+    the start and at each activation.  What cannot run over the ranks
+    raises ValueError first (:func:`check_multi_layout`).  The ranks agree
+    on every decision that leads to a collective (a signal to any rank,
+    the autosave's interval), the dumps and autosaves send rank 0 the
+    rows it writes, and the returned state is gathered on every rank.
+    A resume reads the whole autosave on every rank and keeps its part
+    (reading by rank is ROADMAP Queue 1 item 14g)."""
     import torch
 
-    from concept_tpu_torch.ic import realize_particles
-    from concept_tpu_torch.sim_multi import MultiState, realize_fluid_from_linear
+    from concept_tpu_torch.parallel.step import replicate
+    from concept_tpu_torch.sim_multi import MultiState
     from concept_tpu_torch.timestep import prepare_static_timestepping
 
-    sim = make_multi(cfg, comps, units, consts, bg, lin, dev, dtype, seed=seed)
+    dist = None
+    n_ranks = 1 if rank is None else rank_count(n_devices, dev)
+    if n_ranks > 1:
+        from concept_tpu_torch.parallel.ranks import init_rank
+
+        dev = init_rank(rank[0], n_ranks, rank[1], dev)
+        dist = make_distribution(n_devices, dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    sim = make_multi(cfg, comps, units, consts, bg, lin, dev, dtype, seed=seed, dist=dist)
+    opts = cfg.powerspec_options or {}
+    if dist is not None:
+        check_multi_layout(sim, n_ranks, int(opts.get("gridsize") or 0) or None)
+        masterprint(f"Ranks: {n_ranks} ({'nccl' if dev.type == 'cuda' else 'gloo'})")
     if dev.type == "cuda":
         masterprint(f"Device: {dev} ({_device_name(dev)})")
-    rho_crit = sim.rho_crit
+    rank0 = dist is None or dist.rank == 0
     seed_val = seed if seed is not None else int(
         cfg.random_seeds.get("primordial amplitudes", 0))
     pspecs, fspecs = list(sim.pspecs.values()), list(sim.fspecs.values())
-    lpt = int(cfg.realization_options.get("lpt", 1))
 
-    def realize_p(pspec, a_at):
-        masterprint(f"Realizing {pspec.name} ({pspec.N} particles) at a = {a_at:.4g} ...")
-        st = realize_particles(
-            lin, pspec, cfg.boxsize, a_at, seed=seed_val, lpt_order=lpt, dtype=torch.float32,
-            device=dev, scheme=cfg.primordial_noise_imprinting,
-            dealias=bool(cfg.realization_options.get("dealias", False)),
-            backscale=bool(cfg.realization_options.get("backscale", False)))
-        masterprint("done")
-        return st._replace(pos=st.pos.to(dtype), mom=st.mom.to(dtype))
+    def agree(value: float) -> float:
+        """The largest of the ranks' values (the value on one device)."""
+        if dist is None:
+            return value
+        return float(sim.reduce(torch.tensor(float(value), device=dev),
+                                 torch.distributed.ReduceOp.MAX))
 
-    def realize_f(fspec, a_at):
-        masterprint(f"Realizing fluid {fspec.name} (gridsize {fspec.gridsize}) at "
-                    f"a = {a_at:.4g} ...")
-        st = realize_fluid_from_linear(lin, fspec, cfg.boxsize, a_at,
-                                       sim.fluid_Omegas[fspec.name] * rho_crit, seed=seed_val,
-                                       dtype=torch.float32, device=dev,
-                                       eos=sim.eos[fspec.name])
-        masterprint("done")
-        return FluidState(*(None if x is None else x.to(dtype) for x in st))
+    def autosave(st, a_now, events, hyst):
+        if dist is not None:
+            st = sim.whole(st, root=0)
+        if rank0:
+            write_autosave_multi(cfg, sim, st, a_now, events, hysteresis=hyst)
 
     t_realize = _time.time()
     resume = check_autosave_multi(cfg)
+    if dist is not None:
+        # every rank has read the autosave before rank 0 can clear it
+        torch.distributed.barrier(group=dist.group)
     hysteresis = None
     if resume is not None:
         saved, a_resume, events_resume, hysteresis = resume
@@ -887,13 +976,13 @@ def run_multi(cfg: RunConfig, comps, units, consts, bg, lin, dev, dtype,
         for name, (_, st) in saved.items():
             target = particles if hasattr(st, "pos") else fluids
             target[name] = _state_to_device(st, dev, dtype, cfg.boxsize)
+        # every rank read the whole autosave and keeps its part
+        state = sim.shard(MultiState(particles=particles, fluids=fluids))
         masterprint(f"Resumed from autosave at a = {a_resume:.6g}")
     else:
-        particles = {s.name: realize_p(s, cfg.a_begin) for s in pspecs
-                     if s.life[0] <= cfg.a_begin}
-        fluids = {s.name: realize_f(s, cfg.a_begin) for s in fspecs
-                  if s.life[0] <= cfg.a_begin}
-    state = MultiState(particles=particles, fluids=fluids)
+        state = MultiState(*({s.name: realize_multi_component(cfg, sim, s, cfg.a_begin, seed_val)
+                              for s in specs if s.life[0] <= cfg.a_begin}
+                             for specs in (pspecs, fspecs)))
     t_realize = _time.time() - t_realize
 
     # events: the output dumps and the components' activations and
@@ -923,13 +1012,15 @@ def run_multi(cfg: RunConfig, comps, units, consts, bg, lin, dev, dtype,
         events = [e for e in events if e[0] > a + 1e-12]
     all_specs = {s.name: s for s in pspecs + fspecs}
     static_dt = prepare_static_timestepping(cfg.static_timestepping)
+    if dist is not None and dist.rank and static_dt is not None and static_dt.records:
+        static_dt = None  # rank 0 records the steps, which all ranks take
 
     t_wall0 = last_save = _time.time()
     t_evolve = t_dump = 0.0
     with SignalTrap() as trap:
         def on_step(st, t, a_now, steps):
-            trap.exit_if_signalled(lambda: write_autosave_multi(
-                cfg, sim, st, a_now, events, dict(sim.hysteresis)))
+            trap.exit_if_signalled(lambda: autosave(st, a_now, events, dict(sim.hysteresis)),
+                                   agree)
 
         while events:
             a_next = events[0][0]
@@ -941,8 +1032,8 @@ def run_multi(cfg: RunConfig, comps, units, consts, bg, lin, dev, dtype,
             hysteresis = dict(sim.hysteresis)
             t_evolve += _time.time() - t0
             masterprint("done")
-            if _time.time() - last_save > cfg.autosave_interval:
-                write_autosave_multi(cfg, sim, state, a, events, hysteresis=hysteresis)
+            if agree(_time.time() - last_save > cfg.autosave_interval):
+                autosave(state, a, events, hysteresis)
                 last_save = _time.time()
             t0 = _time.time()
             while events and events[0][0] <= a + 1e-9:
@@ -953,21 +1044,28 @@ def run_multi(cfg: RunConfig, comps, units, consts, bg, lin, dev, dtype,
                 action, name = kind
                 s = all_specs[name]
                 if action == "__activate__":
+                    part = realize_multi_component(cfg, sim, s, a, seed_val)
                     if s.representation == "particles":
-                        state = state._replace(particles={**state.particles,
-                                                          name: realize_p(s, a)})
+                        state = state._replace(particles={**state.particles, name: part})
                     else:
-                        state = state._replace(fluids={**state.fluids,
-                                                       name: realize_f(s, a)})
+                        state = state._replace(fluids={**state.fluids, name: part})
                 else:
                     masterprint(f"Terminating component {name} at a = {a:.4g}")
                     state = MultiState(
                         particles={k: v for k, v in state.particles.items() if k != name},
                         fluids={k: v for k, v in state.fluids.items() if k != name})
             t_dump += _time.time() - t0
-            trap.exit_if_signalled(lambda: write_autosave_multi(
-                cfg, sim, state, a, events, hysteresis))
-    clear_autosave(cfg)
+            trap.exit_if_signalled(lambda: autosave(state, a, events, hysteresis), agree)
+    if rank0:
+        clear_autosave(cfg)
+    # each rank's peak device memory over the run (0 on the CPU), before
+    # the state is gathered
+    peak = torch.tensor([float(torch.cuda.max_memory_allocated(dev)) if dev.type == "cuda"
+                         else 0.0], device=dev)
+    sim.stats["rank_peak_bytes"] = [int(x) for x in (
+        peak if dist is None else replicate(peak, dist)).tolist()]
+    if dist is not None:
+        state = sim.whole(state)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     step_total = sim.hysteresis.get("step_count", 0)
@@ -994,13 +1092,22 @@ def dump_multi(cfg: RunConfig, sim, state, a, kind, units, lin):
     component, each selected pair of components and each fluid's δ),
     'bispec' (each particle component, with its plot), 'snapshot'
     (CONCEPT-HDF5 of every component), 'render2D' (each particle
-    component) or 'render3D' (the particle components blended)."""
+    component) or 'render3D' (the particle components blended).  Over
+    ranks every rank calls it: the spectra are measured over the ranks
+    (each component's shard and each fluid's rows), the other outputs
+    from the whole state, which rank 0 alone receives, and rank 0
+    writes."""
     base = cfg.output_bases.get(kind, kind)
     dirname = cfg.output_dirs.get(kind, "output")
     tag = f"a={a:.4g}"
     if kind == "powerspec":
         _dump_powerspec_multi(cfg, sim, state, a, base, dirname, tag, units)
-    elif kind == "bispec":
+        return
+    if sim.dist is not None:
+        state = sim.whole(state, root=0)
+        if sim.dist.rank:
+            return
+    if kind == "bispec":
         for name, pstate in state.particles.items():
             _dump_bispec(cfg, sim, pstate, a, os.path.join(dirname, f"{base}_{name}_{tag}.txt"),
                          lin, spec=sim.pspecs[name])
@@ -1060,8 +1167,11 @@ def _dump_powerspec_multi(cfg, sim, state, a, base, dirname, tag, units):
     opts = cfg.powerspec_options or {}
     gridsize = int(opts.get("gridsize") or sim.config.potential_gridsize)
     R = float(opts.get("tophat", 8 / cfg.h * units.Mpc))
+    dist = sim.dist
 
     def save(fn, pk, what):
+        if dist is not None and dist.rank:
+            return
         save_powerspec_txt(fn, pk, a, cfg.boxsize, cfg.unit_length,
                            powerspec_sigma(pk["k"], pk.get("power_corrected", pk["power"]), R),
                            R)
@@ -1071,7 +1181,7 @@ def _dump_powerspec_multi(cfg, sim, state, a, base, dirname, tag, units):
         spec = sim.pspecs[name]
         if _sel_on(is_selected(spec, cfg.powerspec_select, default=True)):
             pk = powerspec(pstate.pos, gridsize, cfg.boxsize, spec.N,
-                           bins_per_decade=_bpd(opts), k_max=opts.get("k_max"))
+                           bins_per_decade=_bpd(opts), k_max=opts.get("k_max"), dist=dist)
             save(os.path.join(dirname, f"{base}_{name}_{tag}.txt"), pk,
                  f"power spectrum ({name})")
     # the spectra of selected pairs of components (reference
@@ -1094,12 +1204,16 @@ def _dump_powerspec_multi(cfg, sim, state, a, base, dirname, tag, units):
             [state.fluids[nm].varrho for nm in f_names], gridsize, cfg.boxsize,
             order=int(opts.get("interpolation", 4)),
             interlace=bool(opts.get("interlace", True)), bins_per_decade=_bpd(opts),
-            k_max=opts.get("k_max"), shotnoise=shot)
+            k_max=opts.get("k_max"), shotnoise=shot, dist=dist)
         save(os.path.join(dirname, f"{base}_{na}+{nb}_{tag}.txt"), pk,
              f"combined power spectrum ({na}+{nb})")
     for name, f in state.fluids.items():
         if _sel_on(is_selected(sim.fspecs[name], cfg.powerspec_select, default=True)):
-            pk = grid_powerspec(f.varrho / f.varrho.mean() - 1.0, cfg.boxsize)
+            if dist is None:
+                mean = f.varrho.mean()
+            else:
+                mean = sim.reduce(f.varrho.sum()) / f.varrho.shape[-1] ** 3
+            pk = grid_powerspec(f.varrho / mean - 1.0, cfg.boxsize, dist=dist)
             save(os.path.join(dirname, f"{base}_{name}_{tag}.txt"), pk,
                  f"fluid power spectrum ({name})")
 

@@ -47,7 +47,7 @@ from concept_tpu_torch.forces.shortrange import shortrange_momentum_updates
 from concept_tpu_torch.grid.fft import check_distribution
 from concept_tpu_torch.grid.interp import interpolation_order
 from concept_tpu_torch.parallel.step import (
-    pm_momentum_updates_distributed_halo, realize_shard, replicate, rows_to_root,
+    pm_momentum_updates_distributed_halo, realize_shard, reduce, replicate, rows_to_root,
 )
 from concept_tpu_torch.utils.terminal import warn
 
@@ -195,9 +195,7 @@ class Simulation:
 
     def reduce(self, x: torch.Tensor, op=tdist.ReduceOp.SUM) -> torch.Tensor:
         """x reduced over the ranks (x itself on one device)."""
-        if self.dist is not None:
-            tdist.all_reduce(x, op=op, group=self.dist.group)
-        return x
+        return reduce(x, self.dist, op)
 
     # ------------------------------------------------------------------ #
     def _kick(self, state: ParticleState, int_a1: float):

@@ -24,6 +24,28 @@ CUDA kernels of PERF.md rows 6 and 2 (forces/shortrange.py).
 Departures from the JAX package: the vacuum warning of the MacCormack
 path reads its count on the host (one sync, that path only); a
 per-step ``callback`` lets the run autosave after any step.
+
+Over the ranks of a ``-n N`` run (``dist``, grid/fft.GridDistribution;
+:func:`shard_multi_state`) each rank holds the index shard of every
+particle component (N/d particles) and its x-rows of every fluid grid
+(``dist.rows``, which need not split evenly), and no rank holds a whole
+grid or component during the steps.  A kick sends each particle
+component's shard to the x-slabs (parallel/step.sort_to_slabs), deposits
+it with the halo deposit, adds the components and the fluids' rows
+(their slab FFTs, resampled by ``copy_modes(dist=)``) on the rank's
+y-slab, takes the potentials and gradients there, gathers each
+component's kick from the gradient slabs with the halo gather and sends
+it back to its index shard; each fluid takes its gradient on its own
+rows.  The P³M sweeps run on the component's positions all-gathered:
+row 6 over the whole component, each rank keeping its own receivers'
+rows, as sim.Simulation does (d times the work), row 2 with the rank's
+own receivers against the supplier's whole positions (no repeated
+work).  The drift runs the fluid solvers on each rank's rows with their
+halo (fluid.py), and every quantity a decision reads (the bucket
+capacities, the vacuum density and its residual count, the deposit's
+mass) is reduced over the ranks, so that every rank takes the same
+steps.  The JAX package shards the same state and lets GSPMD insert
+these collectives (concept_tpu/sim_multi.py:42).
 """
 
 from __future__ import annotations
@@ -33,6 +55,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as tdist
 from torch.profiler import record_function
 
 from concept_tpu_torch import timestep as tstep
@@ -49,9 +72,13 @@ from concept_tpu_torch.forces.shortrange import (
     shortrange_momentum_updates_on_subset,
 )
 from concept_tpu_torch.grid import fourier
-from concept_tpu_torch.grid.fft import irfft3, rfft3
+from concept_tpu_torch.grid.fft import check_distribution, exchange, irfft3, rfft3
 from concept_tpu_torch.grid.interp import deposit, gather
 from concept_tpu_torch.ic import displacement_from_delta, realize_delta_slab, realize_sigma_grids
+from concept_tpu_torch.parallel.step import (
+    deposit_distributed_halo, gather_distributed_halo, gather_rows, reduce, replicate,
+    rows_to_root, slab_gradient, sort_to_slabs, to_shard_order,
+)
 from concept_tpu_torch.param import is_selected
 from concept_tpu_torch.sim import (
     DT_INCREASE_MAX_FAC, FAC_DYNAMICAL, FAC_HUBBLE, SimConfig,
@@ -62,6 +89,35 @@ from concept_tpu_torch.utils.terminal import masterwarn
 class MultiState(NamedTuple):
     particles: dict  # name → ParticleState (may be empty)
     fluids: dict  # name → FluidState
+
+
+def _x_rows(f: FluidState, fn) -> FluidState:
+    """fn applied to each grid of a fluid with its x axis (−3) first, the
+    axis moved back after."""
+    return FluidState(*(None if x is None else fn(x.movedim(-3, 0)).movedim(0, -3)
+                        for x in f))
+
+
+def shard_multi_state(state: MultiState, dist) -> MultiState:
+    """A whole MultiState (a snapshot's, an autosave's, a test's) → this
+    rank's part of it over the ranks of ``dist`` (the state itself where
+    ``dist`` is None): each particle component's index shard
+    (:meth:`GridDistribution.shard`, N/d a rank) and each fluid grid's
+    x-rows (:meth:`GridDistribution.rows`, even or not).  The port's
+    counterpart of concept_tpu/sim_multi.py:42, which places the same
+    pieces on the devices of a mesh."""
+    if check_distribution(dist) is None:
+        return state
+    particles = {}
+    for name, ps in state.particles.items():
+        lo, hi = dist.shard(ps.pos.shape[0])
+        particles[name] = ps._replace(**{k: v[lo:hi].contiguous()
+                                         for k, v in ps._asdict().items() if v is not None})
+    fluids = {}
+    for name, f in state.fluids.items():
+        x0, rows = dist.rows(f.varrho.shape[-1])
+        fluids[name] = _x_rows(f, lambda x: x[x0:x0 + rows].contiguous())
+    return MultiState(particles=particles, fluids=fluids)
 
 
 def _first(sel, default):
@@ -83,14 +139,17 @@ def _options(fluid_options, scheme: str) -> dict:
 
 class MultiSimulation:
     """Particle components (PM or P³M gravity) and fluid components
-    (constant or splined w) on one device, one global Δt."""
+    (constant or splined w) on one device or over the ranks of ``dist``
+    (each holding its part of the state, :func:`shard_multi_state`), one
+    global Δt."""
 
     def __init__(self, particle_specs, fluid_specs, config: SimConfig, bg, lin=None,
                  light_speed: float = 1.0, fluid_Omegas: dict | None = None,
                  rho_crit: float | None = None, eos: dict | None = None,
                  fluid_seeds: dict | None = None, fluid_options: dict | None = None,
                  fluid_scheme_select: dict | None = None,
-                 approximations: dict | None = None):
+                 approximations: dict | None = None, dist=None):
+        self.dist = check_distribution(dist)
         if particle_specs is None:
             particle_specs = []
         elif isinstance(particle_specs, ComponentSpec):
@@ -169,20 +228,68 @@ class MultiSimulation:
 
     def _refresh_sr_capacities(self, state: MultiState):
         """The P³M buckets' capacity of each component: the largest cell
-        occupancy + 1, rounded up to 8 (at least 8), never shrinking."""
+        occupancy + 1, rounded up to 8 (at least 8), never shrinking.
+        Over the ranks the occupancies are the whole component's (the
+        ranks' counts summed), so that every rank takes the same."""
         for name in self.p3m_names:
             if name not in state.particles:
                 continue
-            counts = cell_counts(state.particles[name].pos, self.config.boxsize,
-                                 self._sr_ncells)
+            counts = self.reduce(cell_counts(state.particles[name].pos, self.config.boxsize,
+                                              self._sr_ncells))
             need = max(8, int(math.ceil((int(counts.max()) + 1) / 8)) * 8)
             if need > self._sr_caps.get(name, 0):
                 self._sr_caps[name] = need
 
+    def reduce(self, x, op=tdist.ReduceOp.SUM):
+        """x reduced over the ranks (x itself on one device)."""
+        return reduce(x, self.dist, op)
+
+    def _y_rows(self, n: int):
+        """The kj rows of this rank's y-slab of an n-grid (None on one
+        device)."""
+        return None if self.dist is None else self.dist.rows(n)
+
+    def _fluid_slab(self, rho, n: int):
+        """rfft of a fluid's ϱ grid (with ``dist`` its x-rows) resampled
+        onto the potential's n-grid (this rank's y-slab of it)."""
+        nf = rho.shape[-1]
+        rho_k = rfft3(rho, self.dist)
+        return rho_k if nf == n else fourier.copy_modes(rho_k, nf, n, dist=self.dist)
+
+    def shard(self, state: MultiState) -> MultiState:
+        """This rank's part of a whole state (:func:`shard_multi_state`)."""
+        return shard_multi_state(state, self.dist)
+
+    def whole(self, state: MultiState, root: int | None = None) -> MultiState:
+        """The whole state from the ranks' parts, on every rank, or with
+        ``root`` on that rank alone (the others get no rows: what a dump or
+        an autosave writes there); the state itself on one device."""
+        dist = self.dist
+        if dist is None:
+            return state
+        if root is not None:
+            def rows(x):
+                dest = torch.full((x.shape[0],), root, dtype=torch.int64, device=x.device)
+                return exchange([x], dest, dist)[0]
+
+            particles = {k: rows_to_root(ps, dist, root) for k, ps in state.particles.items()}
+        else:
+            def rows(x):
+                return gather_rows([x], dist)[0]
+
+            particles = {k: ps._replace(**{f: replicate(v, dist)
+                                           for f, v in ps._asdict().items() if v is not None})
+                         for k, ps in state.particles.items()}
+        return MultiState(particles=particles,
+                          fluids={k: _x_rows(f, rows) for k, f in state.fluids.items()})
+
     # ------------------------------------------------------------------ #
-    def _density_slab(self, state: MultiState, a: float, weff: dict):
+    def _density_slab(self, state: MultiState, a: float, weff: dict, slabbed=None):
         """The combined source slab Σ_s a^{−3w_eff,s}ϱ_s(k) (the a⁻¹ of the
-        Poisson factor is in the kick integral)."""
+        Poisson factor is in the kick integral); with ``dist`` this rank's
+        y-slab of it, the particle components deposited from their
+        slab-resident particles ``slabbed`` (name → :func:`sort_to_slabs`'
+        result) onto the rank's x-slab."""
         cfg = self.config
         n = cfg.potential_gridsize
         cell_volume = (cfg.boxsize / n) ** 3
@@ -192,23 +299,27 @@ class MultiSimulation:
             if name not in self.gravitating:
                 continue
             spec = self.pspecs[name]
-            g = deposit(pstate.pos, spec.mass, n, cfg.boxsize, order=cfg.interpolation_order)
+            if self.dist is None:
+                g = deposit(pstate.pos, spec.mass, n, cfg.boxsize,
+                            order=cfg.interpolation_order)
+            else:
+                pos_s, w_s, _, _ = slabbed[name]
+                g = deposit_distributed_halo(pos_s, w_s, spec.mass, n, cfg.boxsize,
+                                             cfg.interpolation_order, self.dist)
             m = float(torch.tensor(spec.mass, dtype=g.dtype))
-            deficit = (g.sum(dtype=torch.float64) / m - spec.N).abs()
+            deficit = (self.reduce(g.sum(dtype=torch.float64)) / m - spec.N).abs()
             self._deficit = deficit if self._deficit is None else torch.maximum(
                 self._deficit, deficit)
             grid_p = g if grid_p is None else grid_p + g
         if grid_p is not None:
             # the upstream deconvolution applies to the particle deposits
             # only (reference interactions.py:2060-2080)
-            slab = rfft3(grid_p / cell_volume) * fourier.deconvolution_factor(
-                n, cfg.interpolation_order, grid_p.dtype, grid_p.device)
+            slab = rfft3(grid_p / cell_volume, self.dist) * fourier.deconvolution_factor(
+                n, cfg.interpolation_order, grid_p.dtype, grid_p.device, self._y_rows(n))
         for name, f in state.fluids.items():
             if name not in self.gravitating:
                 continue
-            rho_k = rfft3(f.varrho * a ** (-3 * weff[name]))
-            if f.varrho.shape[0] != n:
-                rho_k = fourier.copy_modes(rho_k, f.varrho.shape[0], n)
+            rho_k = self._fluid_slab(f.varrho * a ** (-3 * weff[name]), n)
             slab = rho_k if slab is None else slab + rho_k
         return slab
 
@@ -221,19 +332,19 @@ class MultiSimulation:
         different a share their phases."""
         spec = self.fspecs[name]
         cfg = self.config
-        n = f.varrho.shape[0]
+        n = f.varrho.shape[-1]
         rho_mean = self._fluid_rho_mean(name)
         delta_k = realize_delta_slab(self.lin, n, cfg.boxsize, a,
                                      seed=self._fluid_seeds.get(name, 0), dtype=cfg.dtype,
                                      device=f.varrho.device,
-                                     species=fluid_species_key(spec.species))
-        varrho = rho_mean * (1.0 + irfft3(delta_k, n))
+                                     species=fluid_species_key(spec.species), dist=self.dist)
+        varrho = rho_mean * (1.0 + irfft3(delta_k, n, self.dist))
         J = f.J
         if want_J and f.J is not None:
             # the linear continuity closure θ = −aHf₁δ ⇒ J = ϱ̄ a^{2−3w_eff}Hf₁ψ
             H = float(self.bg.hubble_np(a))
             f1 = float(self.bg.growth_np("f1", a))
-            psi = displacement_from_delta(delta_k, n, cfg.boxsize)
+            psi = displacement_from_delta(delta_k, n, cfg.boxsize, self.dist)
             J = (rho_mean * a ** (2 - 3 * weff_val) * H * f1) * psi
         P = f.P
         if P is not None:
@@ -262,10 +373,11 @@ class MultiSimulation:
                     name, a, weff[name], w[name],
                     FluidState(varrho=f.varrho, J=None, P=f.P, sigma=None), want_J=False)
                 sigma = realize_sigma_grids(
-                    self.lin, f.varrho.shape[0], self.config.boxsize, a,
+                    self.lin, f.varrho.shape[-1], self.config.boxsize, a,
                     self._fluid_rho_mean(name) * (1.0 + w[name]),
                     seed=self._fluid_seeds.get(name, 0), dtype=self.config.dtype,
-                    device=f.varrho.device, species=fluid_species_key(spec.species))
+                    device=f.varrho.device, species=fluid_species_key(spec.species),
+                    dist=self.dist)
                 new_fluids[name] = f._replace(P=lin_state.P,
                                               sigma=sigma if sigma is not None else f.sigma)
         return MultiState(particles=state.particles, fluids=new_fluids)
@@ -296,66 +408,109 @@ class MultiSimulation:
         return Omega * self.rho_crit
 
     def _fluid_grad(self, phi, nf: int, d: int):
-        """∂_d φ on a fluid grid of size nf (φ resampled where nf differs)."""
+        """∂_d φ on a fluid grid of size nf (φ resampled where nf differs;
+        with ``dist`` from this rank's y-slab of φ to its x-rows of the
+        nf-grid)."""
         cfg = self.config
         n = cfg.potential_gridsize
-        phi_f = phi if nf == n else fourier.copy_modes(phi, n, nf, norm=True)
-        return irfft3(fourier.fourier_diff(phi_f, nf, cfg.boxsize, d), nf)
+        phi_f = phi if nf == n else fourier.copy_modes(phi, n, nf, norm=True, dist=self.dist)
+        return irfft3(fourier.fourier_diff(phi_f, nf, cfg.boxsize, d, self._y_rows(nf)), nf,
+                      self.dist)
+
+    def _grad(self, phi, d: int):
+        """∂_d φ on the potential's grid (with ``dist`` this rank's x-slab)."""
+        cfg = self.config
+        n = cfg.potential_gridsize
+        if self.dist is None:
+            return irfft3(fourier.fourier_diff(phi, n, cfg.boxsize, d), n)
+        return slab_gradient(phi, n, cfg.boxsize, d, self.dist)
+
+    def _interpolate(self, grid, name: str, pstate, slabbed):
+        """A potential-grid field at a particle component's positions (with
+        ``dist`` at its slab-resident particles, from the rank's x-slab
+        with the halo rows of its neighbours)."""
+        cfg = self.config
+        if self.dist is None:
+            return gather(grid, pstate.pos, cfg.boxsize, order=cfg.interpolation_order)
+        pos_s, w_s, _, _ = slabbed[name]
+        return gather_distributed_halo(grid, pos_s, w_s, cfg.boxsize, cfg.interpolation_order,
+                                       self.dist)
+
+    def _to_shard(self, vals, name: str, pstate, slabbed):
+        """Per-particle rows (M, …) from :meth:`_interpolate` → the
+        component's rows in its index order (with ``dist``: sent back from
+        the slabs to the index shard)."""
+        if self.dist is None:
+            return vals
+        return to_shard_order(vals, slabbed[name][2], pstate.pos.shape[0], self.dist)
 
     def _kick(self, state: MultiState, int_kick: float, a: float, weff: dict, w: dict,
               lapse_ints=None) -> MultiState:
         cfg = self.config
         n = cfg.potential_gridsize
         c2inv = 1.0 / self.light_speed**2
+        y_rows = self._y_rows(n)
         with record_function("multi.pm"):
             state = self._apply_realize_if_linear(state, a, weff, w)
-            slab = self._density_slab(state, a, weff)
-            phi = gravity_potential_slab(slab, n, cfg.boxsize, cfg.G, deconv_order=0)
+            # over the ranks each particle component's shard goes to the
+            # x-slabs once a kick: its deposit and its gathers read it there
+            slabbed = None if self.dist is None else {
+                name: sort_to_slabs(ps.pos, self.dist, cfg.boxsize)
+                for name, ps in state.particles.items()}
+            slab = self._density_slab(state, a, weff, slabbed)
+            phi = gravity_potential_slab(slab, n, cfg.boxsize, cfg.G, deconv_order=0,
+                                         y_rows=y_rows)
             deconv = fourier.deconvolution_factor(n, cfg.interpolation_order, phi.real.dtype,
-                                                  phi.device)
+                                                  phi.device, y_rows)
             # the downstream deconvolution applies to the particles'
             # gather only; P³M receivers take the screened long range
             methods = {self.p_methods.get(nm) for nm in state.particles}
             phi_p = phi * deconv if methods - {"p3m"} else None
             phi_p3m = (gravity_potential_slab(slab, n, cfg.boxsize, cfg.G, deconv_order=0,
-                                              longrange_scale=self._sr_scale) * deconv
+                                              longrange_scale=self._sr_scale,
+                                              y_rows=y_rows) * deconv
                        if "p3m" in methods else None)
             dmom = {name: [] for name in state.particles}
             fluid_dJ = {name: [] for name in state.fluids}
             for d in range(3):
-                grads = {m: irfft3(fourier.fourier_diff(p, n, cfg.boxsize, d), n)
-                         for m, p in (("pm", phi_p), ("p3m", phi_p3m)) if p is not None}
+                grads = {m: self._grad(p, d) for m, p in (("pm", phi_p), ("p3m", phi_p3m))
+                         if p is not None}
                 for name, pstate in state.particles.items():
                     g = grads["p3m" if self.p_methods.get(name) == "p3m" else "pm"]
-                    comp = gather(g, pstate.pos, cfg.boxsize, order=cfg.interpolation_order)
+                    comp = self._interpolate(g, name, pstate, slabbed)
                     dmom[name].append((-self.pspecs[name].mass * int_kick) * comp)
                 for name, f in state.fluids.items():
                     if name not in self.gravitating or f.J is None:
                         fluid_dJ[name] = None
                         continue
-                    gradf = self._fluid_grad(phi, f.varrho.shape[0], d)
+                    gradf = self._fluid_grad(phi, f.varrho.shape[-1], d)
                     P = f.P if f.P is not None else (w[name] * self.light_speed**2) * f.varrho
                     fluid_dJ[name].append(-(f.varrho + c2inv * P) * gradf * int_kick)
-            dmom = {name: torch.stack(v, 1) for name, v in dmom.items()}
+            dmom = {name: self._to_shard(torch.stack(v, 1), name, state.particles[name],
+                                         slabbed) for name, v in dmom.items()}
         # P³M short range: each component's self sweep (row 6) and its
-        # sweeps against every other P³M component (row 2)
+        # sweeps against every other P³M component (row 2); over the ranks
+        # on the all-gathered positions, each rank's receivers its own
         p3m_live = [nm for nm in state.particles if self.p_methods.get(nm) == "p3m"]
         with record_function("multi.sweep"):
+            whole = {nm: state.particles[nm].pos if self.dist is None
+                     else replicate(state.particles[nm].pos, self.dist) for nm in p3m_live}
             for r in p3m_live:
                 m_r = self.pspecs[r].mass
                 cap_r = self._sr_caps.get(r, 8)
-                pos_r = state.particles[r].pos
+                own = slice(None) if self.dist is None else slice(
+                    *self.dist.shard(whole[r].shape[0]))
                 for s_name in p3m_live:
                     if s_name == r:
                         dm, _ = shortrange_momentum_updates(
-                            pos_r.unbind(1), m_r, cfg.boxsize, self._sr_scale,
-                            self._sr_range, int_kick, n_cells=self._sr_ncells,
-                            capacity=cap_r, softening=cfg.softening, G=cfg.G,
+                            whole[r].unbind(1), m_r, cfg.boxsize, self._sr_scale,
+                            self._sr_range, int_kick, n_cells=self._sr_ncells, capacity=cap_r,
+                            softening=cfg.softening, G=cfg.G,
                             softening_kernel=cfg.softening_kernel)
-                        dmom[r] = dmom[r] + torch.stack(dm, 1)
+                        dmom[r] = dmom[r] + torch.stack(dm, 1)[own]
                     else:
                         dmom[r] = dmom[r] + shortrange_momentum_updates_on_subset(
-                            pos_r, state.particles[s_name].pos, m_r, cfg.boxsize,
+                            state.particles[r].pos, whole[s_name], m_r, cfg.boxsize,
                             self._sr_scale, self._sr_range, n_cells=self._sr_ncells,
                             capacity_recv=cap_r, capacity_sup=self._sr_caps.get(s_name, 8),
                             softening=cfg.softening, G=cfg.G,
@@ -366,26 +521,29 @@ class MultiSimulation:
         if self.lapse_supplier and lapse_ints and self.lapse_supplier in state.fluids:
             with record_function("multi.pm"):
                 fl = state.fluids[self.lapse_supplier]
-                slab_l = rfft3(fl.varrho * a ** (-3 * weff[self.lapse_supplier]))
-                if fl.varrho.shape[0] != n:
-                    slab_l = fourier.copy_modes(slab_l, fl.varrho.shape[0], n)
-                phi_l = gravity_potential_slab(slab_l, n, cfg.boxsize, cfg.G, deconv_order=0)
+                slab_l = self._fluid_slab(fl.varrho * a ** (-3 * weff[self.lapse_supplier]), n)
+                phi_l = gravity_potential_slab(slab_l, n, cfg.boxsize, cfg.G, deconv_order=0,
+                                               y_rows=y_rows)
+                lapse_p = {name: [] for name in lapse_ints if name in state.particles}
                 for d in range(3):
-                    grad_l = irfft3(fourier.fourier_diff(phi_l, n, cfg.boxsize, d), n)
+                    grad_l = self._grad(phi_l, d)
                     for name, li in lapse_ints.items():
                         if name in state.fluids and name != self.lapse_supplier:
                             f = state.fluids[name]
                             if f.J is None or fluid_dJ.get(name) is None:
                                 continue
-                            nf = f.varrho.shape[0]
+                            nf = f.varrho.shape[-1]
                             gl = grad_l if nf == n else self._fluid_grad(phi_l, nf, d)
                             P = f.P if f.P is not None else (
                                 w[name] * self.light_speed**2) * f.varrho
                             fluid_dJ[name][d] = fluid_dJ[name][d] - (f.varrho + c2inv * P) * gl * li
                         elif name in state.particles:
-                            comp = gather(grad_l, state.particles[name].pos, cfg.boxsize,
-                                          order=cfg.interpolation_order)
-                            dmom[name][:, d] += (-self.pspecs[name].mass * li) * comp
+                            comp = self._interpolate(grad_l, name, state.particles[name],
+                                                     slabbed)
+                            lapse_p[name].append((-self.pspecs[name].mass * li) * comp)
+                for name, v in lapse_p.items():
+                    dmom[name] = dmom[name] + self._to_shard(
+                        torch.stack(v, 1), name, state.particles[name], slabbed)
         new_particles = {name: ps._replace(mom=ps.mom + dmom[name])
                          for name, ps in state.particles.items()}
         new_fluids = dict(state.fluids)
@@ -417,14 +575,19 @@ class MultiSimulation:
                 rho, J, P = maccormack_step(
                     f.varrho, f.J, P_in, dt, coef_flux[name], coef_pressure[name],
                     cfg.boxsize, 1.0 / self.light_speed**2, step_parity=parity,
-                    approx_P_eq_wrho=not own_P, w=w[name], light_speed=self.light_speed)
+                    approx_P_eq_wrho=not own_P, w=w[name], light_speed=self.light_speed,
+                    dist=self.dist)
                 if self._mc_vacuum:
-                    rho_mean = rho.mean()
+                    if self.dist is None:
+                        rho_mean = rho.mean()
+                    else:
+                        rho_mean = self.reduce(rho.sum()) / rho.shape[-1] ** 3
                     rho_vac = 1e-2 * rho_mean  # the reference's ρ_vacuum scale
                     rho, J = vacuum_redistribute(rho, J, rho_vac, smoothing=self._mc_smoothing,
-                                                 passes=self._mc_vacuum_passes)
+                                                 passes=self._mc_vacuum_passes, dist=self.dist)
                     if name not in self._vacuum_warned:
-                        self._warn_vacuum_residual(int((rho < rho_vac).sum()), name)
+                        self._warn_vacuum_residual(
+                            int(self.reduce((rho < rho_vac).sum())), name)
                     rho, J = vacuum_correct(rho, J, 1e-6 * rho_mean)
             else:
                 rho, J, P = kt_step(
@@ -432,7 +595,7 @@ class MultiSimulation:
                     cfg.boxsize, self.light_speed * math.sqrt(abs(w[name])) / a,
                     1.0 / self.light_speed**2, limiter=self._kt_limiter,
                     rk_order=self._kt_rk_order, approx_P_eq_wrho=not own_P, w=w[name],
-                    light_speed=self.light_speed, sigma=f.sigma)
+                    light_speed=self.light_speed, sigma=f.sigma, dist=self.dist)
             if own_P and spec.boltzmann_order >= 2:
                 P = f.P  # frozen: no 𝒫 evolution equation (reference)
             new_fluids[name] = FluidState(varrho=rho, J=J, P=P, sigma=f.sigma)
@@ -691,30 +854,34 @@ def fluid_species_key(species: str) -> str:
 
 def realize_fluid_from_linear(lin, spec: ComponentSpec, boxsize: float, a: float,
                               rho_mean: float, seed: int = 0, dtype=torch.float32,
-                              device="cpu", eos=None) -> FluidState:
+                              device="cpu", eos=None, dist=None) -> FluidState:
     """A fluid component's grids from linear theory (reference ic.py:400
     realize_fluid): ϱ = ϱ̄(1+δ), 𝒫 = w c² ϱ, and for boltzmann_order > −1
     J = ϱ̄·a^{2−3w_eff}·H·f₁·ψ (the linear continuity relation θ = −aHf₁δ,
     ψ(k) = ik δ/k²); order ≥ 1 adds the linear shear ς = ϱ̄(1+w)σⁱⱼ from
-    the Boltzmann tables (None without them).  Order −1 holds ϱ only."""
+    the Boltzmann tables (None without them).  Order −1 holds ϱ only.
+    With ``dist`` the rank realizes its x-rows of each grid alone: the
+    noise of its rows, δ and ψ on its y-slab, the slab FFT back
+    (ic.realize_delta_slab, ic.displacement_from_delta,
+    ic.realize_sigma_grids with ``dist``)."""
     n = spec.gridsize
     species = fluid_species_key(spec.species)
     w = eos.w_np(a) if eos is not None else spec.w
     w_eff = eos.w_eff_np(a) if eos is not None else spec.w_eff
     delta_k = realize_delta_slab(lin, n, boxsize, a, seed=seed, dtype=dtype, device=device,
-                                 species=species)
-    varrho = (rho_mean * (1.0 + irfft3(delta_k, n))).to(dtype)
+                                 species=species, dist=dist)
+    varrho = (rho_mean * (1.0 + irfft3(delta_k, n, dist))).to(dtype)
     if spec.boltzmann_order <= -1:
         return FluidState(varrho=varrho)
     P = (w * lin.light_speed**2 * varrho).to(dtype)
     H = float(lin.bg.hubble_np(a))
     f1 = float(lin.bg.growth_np("f1", a))
     J = (rho_mean * a ** (2 - 3 * w_eff) * H * f1
-         * displacement_from_delta(delta_k, n, boxsize)).to(dtype)
+         * displacement_from_delta(delta_k, n, boxsize, dist)).to(dtype)
     sigma = None
     if spec.boltzmann_order >= 1:
         # order 1 'class' re-realizes it continuously; order ≥ 2 keeps this
         # realization frozen (reference species.py:880-928)
         sigma = realize_sigma_grids(lin, n, boxsize, a, rho_mean * (1.0 + w), seed=seed,
-                                    dtype=dtype, device=device, species=species)
+                                    dtype=dtype, device=device, species=species, dist=dist)
     return FluidState(varrho=varrho, J=J, P=P, sigma=sigma)

@@ -183,11 +183,12 @@ def _run_spectrum(tmp_path, tag, method, n_devices, jax=False):
 def test_run_over_two_ranks_matches_one_and_jax(tmp_path, monkeypatch):
     """run(cfg, n_devices=2) for PM and P³M (N_rungs = 1): its spectrum
     against the port's one rank, and P³M's (the halo PM kick and the
-    short range) against the JAX package's two devices; -n AxB and
-    several components over ranks raise NotImplementedError naming their
-    items, and rungs whose tight layout has 2 cells a side (grid 16 on the
-    CPU: the folded sweep, which does not run over ranks) ValueError,
-    before anything is realized."""
+    short range) against the JAX package's two devices; -n AxB raises
+    NotImplementedError naming its item, and ValueError rungs whose tight
+    layout has 2 cells a side (grid 16 on the CPU: the folded sweep, which
+    does not run over ranks) and several components on a potential grid
+    the ranks do not divide (run.check_multi_layout), before anything is
+    realized."""
     from concept_tpu_torch import ic
     from concept_tpu_torch.param import load_params
     from concept_tpu_torch.run import run
@@ -209,7 +210,8 @@ def test_run_over_two_ranks_matches_one_and_jax(tmp_path, monkeypatch):
             # N_rungs = 8, the default
             ([], 2, ValueError, "2 cells a side take the folded sweep"),
             (["initial_conditions=[{'species':'cdm','N':8**3},{'species':'baryon','N':8**3}]",
-              "N_rungs=1"], 2, NotImplementedError, "item 14d")):
+              "N_rungs=1", "potential_options=15"], 2, ValueError,
+             "the potential grid 15 does not split over 2 ranks")):
         with pytest.raises(error, match=match):
             run(load_params(PARAM, overrides=small + over), device="cpu", n_devices=n)
     assert not realized

@@ -29,8 +29,8 @@ spectrum lies within 1e-4 of ``-n 1``'s, and its autosave, made by
 SIGTERM mid-segment, resumes under ``-n 1`` and under ``-n 2`` within
 mean |Δx|/box 1e-5 of the uninterrupted ``-n 1`` run.  What the
 decomposition cannot run raises ValueError before anything is realized
-(p3mrungs.check_rank_layout), and several components
-``NotImplementedError`` naming item 14d.
+(p3mrungs.check_rank_layout), and so do several components whose
+particles the ranks cannot share evenly (run.check_multi_layout).
 
 The module fixture starts five ranks once (a start costs ~5 s here):
 rank 4 runs the JAX package's 4-mesh-cell stepper from the start; ranks
@@ -382,8 +382,8 @@ def test_run_over_two_ranks_with_rungs(ranks, tmp_path, monkeypatch):
             (["potential_options=33"], ValueError, "grid 33 does not split over 2 ranks"),
             (["potential_options=16"], ValueError, "2 cells a side take the folded sweep"),
             (["initial_conditions=[{'species':'cdm','N':8**3},"
-              "{'species':'baryon','N':8**3}]", "potential_options=32"],
-             NotImplementedError, "item 14d")):
+              "{'species':'baryon','N':5**3}]", "potential_options=32"],
+             ValueError, "125 particles of 'baryon' do not split evenly over 2 ranks")):
         with pytest.raises(error, match=match):
             run(load_params(PARAM, overrides=small + over), device="cpu", n_devices=2)
     for mesh, d, layout, match in ((24, 4, dict(unified_cb=8), "leave a rank 0"),

@@ -21,7 +21,8 @@ tests/test_torch_multi_runs.py, which uses this file's configurations.
 - The multi autosave and its resume (equal to the uninterrupted run, in
   the run's dtype), component lives, fluid CONCEPT-HDF5 files across the
   packages with
-  ``-u info``, and the refusals that remain (``-n 2``: item 14d)."""
+  ``-u info``, and the refusals that remain (``-n 2x1``: item 14b; a
+  fluid grid too narrow for its ranks)."""
 
 import math
 import os
@@ -513,14 +514,21 @@ def test_fluid_snapshots_cross_the_packages(tmp_path, capsys):
 
 
 def test_kept_refusals_name_their_items(tmp_path):
-    """A multi run over ranks raises naming item 14d (``-n 2``) or 14b
-    (``-n 2x1``) before anything is realized.  Its renders (item 13) are
+    """A multi run over ranks raises, before anything is realized,
+    NotImplementedError naming item 14b for ``-n 2x1``, and ValueError
+    for ``-n 2`` where a fluid grid leaves a rank fewer rows than its
+    stencil reaches (run.check_multi_layout; runs over ranks that can run
+    are tests/test_torch_parallel_multi.py's).  Its renders (item 13) are
     ported: tests/test_torch_render.py runs them."""
     from concept_tpu_torch import run as trun
     from concept_tpu_torch.param import load_params
 
     cfg = load_params(BASIC, overrides=SMALL + [f"output_dirs='{tmp_path}'"])
-    for n, item in ((2, "item 14d"), ("2x1", "item 14b")):
-        with pytest.raises(NotImplementedError, match=item):
-            trun.run(cfg, device="cpu", n_devices=n)
+    with pytest.raises(NotImplementedError, match="item 14b"):
+        trun.run(cfg, device="cpu", n_devices="2x1")
+    narrow = [SMALL[0].replace("'gridsize':8", "'gridsize':3")]
+    cfg = load_params(BASIC, overrides=SMALL + narrow + [f"output_dirs='{tmp_path}'"])
+    with pytest.raises(ValueError, match="fluid grid 3 of 'dust' over 2 ranks leaves a rank "
+                                         "1 rows"):
+        trun.run(cfg, device="cpu", n_devices=2)
     assert not os.listdir(tmp_path)

@@ -120,10 +120,13 @@ def test_interactive_session_without_a_run():
 
 def test_more_than_one_device_names_its_item(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
-    # several components over ranks are refused before anything is realized
-    with pytest.raises(NotImplementedError, match="item 14"):
-        cli.main(["-p", PARAM, "-n", "2", "--device", "cpu", "-c",
+    # the 2D decomposition over ranks is refused, naming its item, before
+    # anything is realized (several components over ranks run:
+    # tests/test_torch_parallel_multi.py)
+    with pytest.raises(NotImplementedError, match="item 14b"):
+        cli.main(["-p", PARAM, "-n", "2x1", "--device", "cpu", "-c",
                   "initial_conditions=[{'species':'cdm','N':8**3},{'species':'baryon','N':8**3}]"])
+    assert "output" not in os.listdir(tmp_path)
 
 
 def test_concept_env_var_mirrors(monkeypatch):
