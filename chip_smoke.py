@@ -249,6 +249,18 @@ Then several components and fluids over ranks:
     radiation re-realized on the rank's rows, against one device's; (d)
     ``-n 2`` raising ValueError on one card.
 
+Then the 2D pencils of ``-n AxB``:
+
+15. ``parallel_pencils``: on a world of one ``nccl`` rank as a 1 × 1
+    mesh of pencils (their groups and transposes run), from one realized
+    256³ state on grid 512: (a) the pencil FFT round trip against
+    ``rfftn``; (b) one global PM kick and one global P³M kick through
+    ``Simulation`` on the pencils against one device's (momenta within
+    1e-5 of the largest; ms a kick and peak memory both ways; rows 10
+    and 11, and row 6 for P³M, launched and no other kernel); (c) rows
+    10, 11 and 6 held against their plain versions on the kick's block
+    sort and slots; (d) ``-n 2x1`` raising ValueError on one card.
+
 Before its last line it prints one JSON object ``{"kernels": [...]}`` and
 the card's name and power limit as nvidia-smi reports them (each kernel
 with its double instantiation's numbers under ``f64_*``); the last line
@@ -4064,6 +4076,120 @@ def parallel_multi(cache: str, steps: int = MULTI_STEPS) -> dict:
     return out
 
 
+def parallel_pencils(n: int = 256, mesh: int = 512) -> dict:
+    """Phase 15: the 2D pencils of ``-n AxB`` on a world of one ``nccl``
+    rank as a 1 × 1 mesh (``grid/fft.make_pencils(1, 1)``: its B- and
+    A-groups and both transposes run; ``-n 1x1`` itself is one device, as
+    in the JAX package), from one realized n³ state on grid ``mesh``: (a)
+    the pencil FFT round trip against ``torch.fft.rfftn`` (1e-5 of the
+    largest mode / value) and its ms both ways; (b) one global PM kick and
+    one global P³M kick through ``Simulation`` on the pencils (the whole
+    local deposit through row 10 over the block sort, the two
+    reduce-scatters, the pencil FFT, the gradients made whole, row 11; for
+    P³M row 6 on the all-gathered positions) against one device's
+    (momenta within 1e-5 of the largest), ms a kick and peak device
+    memory both ways, each kernel of the path launched and no other; (c)
+    rows 10 and 11 held against their plain versions on the kick's block
+    sort (D = 3 and 1), row 6 on its short-range slots; (d) ``-n 2x1`` on
+    one card raises ValueError.  NCCL refuses two ranks on one card:
+    scripts/ranks_pencils.py runs 2 and 4 cards."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as tdist
+
+    from concept_tpu_torch.components import ParticleState
+    from concept_tpu_torch.grid.fft import irfft3, make_pencils, rfft3
+    from concept_tpu_torch.grid.interp import deposit
+    from concept_tpu_torch.param import load_params
+    from concept_tpu_torch.run import run
+    from concept_tpu_torch.sim import Simulation
+
+    t_phase = time.time()
+    sim, state = _global_sim(n**3, mesh, "cuda", method="p3m")
+    cfg, bg, m = sim.config, sim.bg, sim.spec.mass
+    pos, box = state.pos, cfg.boxsize
+    t0, t1 = float(bg.t_of_a_np(0.02)), float(bg.t_of_a_np(0.021))
+    int1 = bg.integrals_np(t0, t1, keys=("a**(-1)",))["a**(-1)"]
+    store = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    tdist.init_process_group("nccl", store=tdist.FileStore(os.path.join(store, "store"), 1),
+                             rank=0, world_size=1)
+    out = {"shape": {"N": n**3, "mesh": mesh}}
+    try:
+        pencils = make_pencils(1, 1)
+        # (a)
+        grid = deposit(pos, m, mesh, box)
+        f = rfft3(grid, pencils)
+        _, out["fft_max_rel_err"] = _max_rel(f[..., :mesh // 2 + 1], torch.fft.rfftn(grid))
+        _, out["ifft_max_rel_err"] = _max_rel(irfft3(f, mesh, pencils), grid)
+        out["fft_ms"] = _time_ms(lambda: rfft3(grid, pencils), 3)
+        out["rfftn_ms"] = _time_ms(lambda: torch.fft.rfftn(grid), 3)
+        del grid, f
+        if max(out["fft_max_rel_err"], out["ifft_max_rel_err"]) > 1e-5:
+            raise SystemExit(f"the pencil FFT disagrees with rfftn: {out}")
+        # (b)
+        for method in ("pm", "p3m"):
+            config = dataclasses.replace(cfg, method=method)
+            res = {}
+            for tag, dd in (("single", None), ("pencils", pencils)):
+                s = Simulation(sim.spec, config, bg, sim.lin, dist=dd)
+
+                def kick(s=s):
+                    st = ParticleState(pos=pos, mom=torch.zeros_like(pos))
+                    return s.kick(st, int1).mom
+
+                _reset_counts()
+                dmom, seconds, peak = _timed_peak(kick)
+                res[tag] = dict(dmom=dmom, counts=_read_counts(), peak_bytes=peak,
+                                first_s=seconds, sim=s)
+                res[tag]["ms"] = _time_ms(kick, 3)
+            _, err = _max_rel(res["pencils"]["dmom"], res["single"]["dmom"])
+            counts = res["pencils"]["counts"]
+            out[method] = {"max_dmom_rel": err, "launches": counts,
+                           "ms": res["pencils"]["ms"], "single_ms": res["single"]["ms"],
+                           "peak_bytes": res["pencils"]["peak_bytes"],
+                           "single_peak_bytes": res["single"]["peak_bytes"],
+                           "single_launches": res["single"]["counts"]}
+            if err > 1e-5:
+                raise SystemExit(f"the {method} kick on the pencils differs from one "
+                                 f"device's by {err:.3g} of the largest momentum change")
+            _check_launches(counts, PM_KERNELS + (("pair_sweep",) if method == "p3m" else ()))
+            if method == "p3m":
+                pencil_sim = res["pencils"]["sim"]
+            del res
+        # (c) the kernels on the path's inputs: the kick's block sort and
+        # its short-range slots (of the all-gathered positions, the whole
+        # state at world size 1)
+        out["pm_kernels"] = _check_pm_buckets(pos, m, cfg.G, mesh, box)
+        slots, n_over = _global_sweep_slots(pencil_sim, pos)
+        out["pair_sweep"] = _check_sweep("two-sided, on the pencils' kick", slots,
+                                         _sweep_geometry(pencil_sim), (None, None), 3, 1)
+        out["pair_sweep"]["stragglers"] = n_over
+        del slots, pencil_sim
+        # (d)
+        try:
+            run(load_params(PARAM), n_devices="2x1")
+        except ValueError as e:
+            out["n2x1_error"] = str(e)
+        else:
+            raise SystemExit("-n 2x1 on one card did not raise ValueError")
+        torch.cuda.empty_cache()
+    finally:
+        tdist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    out["seconds"] = time.time() - t_phase
+    print(f"parallel_pencils (world of 1 nccl rank as 1 x 1 pencils, {n}³ particles, grid "
+          f"{mesh}): pencil FFT {out['fft_max_rel_err']:.3g} / {out['ifft_max_rel_err']:.3g} "
+          f"of rfftn, {out['fft_ms']:.2f} ms against {out['rfftn_ms']:.2f}; kicks on the "
+          f"pencils against one device: " + "; ".join(
+              f"{k.upper()} {out[k]['ms']:.2f} ms against {out[k]['single_ms']:.2f}, peak "
+              f"{out[k]['peak_bytes'] / 2**30:.2f} / {out[k]['single_peak_bytes'] / 2**30:.2f} "
+              f"GiB, Δmom {out[k]['max_dmom_rel']:.3g}, launches {out[k]['launches']}"
+              for k in ("pm", "p3m"))
+          + f"; -n 2x1: ValueError({out['n2x1_error']!r}); {out['seconds']:.1f} s")
+    return out
+
+
 def _rounded(split: dict) -> dict:
     return {k: {q: round(v, 3) for q, v in d.items()} for k, d in split.items()}
 
@@ -4192,6 +4318,18 @@ def kernels_line(results: dict) -> list:
             c = pmu["cdm_baryon"][key + suffix]
             byname[name].update({f"{prefix}_{k}": c[k] for k in (
                 "max_abs_err", "max_rel_err", "tol_rel", "ms", "plain_ms", "bound_ms")})
+    # phase 15: rows 10, 11 and 6 launched by the PM and P³M kicks on the
+    # 1 x 1 pencils, and held on the kick's block sort and slots
+    pp = results["parallel_pencils"]
+    for name, counter in (("deposit_pm", "deposit_pm"), ("gather_pm", "gather_pm"),
+                          ("pair_sweep_two_sided", "pair_sweep")):
+        for method in ("pm", "p3m"):
+            byname[name][f"parallel_pencils_{method}_launches"] = pp[method]["launches"][counter]
+    for name, c in (("deposit_pm", pp["pm_kernels"]["deposit_pm"]),
+                    ("gather_pm", pp["pm_kernels"]["gather_pm"]),
+                    ("pair_sweep_two_sided", pp["pair_sweep"])):
+        byname[name].update({f"parallel_pencils_{k}": c.get(k) for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")})
     # rows 1, 3 and 4 over a rank's planes (phase 12): their checks, and
     # their launches by the base steps and by example_basic over the ranks
     pr = results["parallel_rungs"]
@@ -4353,6 +4491,7 @@ def main(argv=None) -> int:
         results["parallel_multi"] = _timed(seconds, "parallel_multi", parallel_multi, cache)
     finally:
         shutil.rmtree(cache, ignore_errors=True)
+    results["parallel_pencils"] = _timed(seconds, "parallel_pencils", parallel_pencils)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

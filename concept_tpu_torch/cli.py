@@ -57,7 +57,9 @@ def make_parser():
                         "play|update <args>")
     p.add_argument("-n", "--nprocs", default="1",
                    help="ranks: N processes, one a card (with --device cpu, on the "
-                        "CPU), for global-step PM, P³M and PP; 0 = every visible card")
+                        "CPU), each holding 1/N of the particles and grids; AxB = A·B "
+                        "ranks whose global-step PM and P³M kicks run on the 2D "
+                        "pencils of an A x B mesh (e.g. 2x2); 0 = every visible card")
     p.add_argument("-m", "--main", dest="main_script", default=None,
                    help="run a Python script instead of the time loop, with the "
                         "loaded RunConfig as `cfg` and the unit system as `units`")

@@ -135,25 +135,31 @@ def density_slab(pos, masses, gridsize: int, boxsize: float, order: int = 2,
 
 def gravity_potential_slab(rho_slab, gridsize: int, boxsize: float, G: float,
                            deconv_order: int = 0,
-                           longrange_scale: float | None = None, y_rows=None):
+                           longrange_scale: float | None = None, y_rows=None,
+                           z_cols=None):
     """φ(k) = −4πG ϱ(k)/|k|² (·exp(−rₛ²|k|²) for the P³M long-range
     part), times the sinc deconvolution of total power ``deconv_order``
     (upstream + downstream, promoted to one global factor as in reference
     interactions.py:2060-2080).  The k = 0 mode is zeroed.  ``y_rows``:
-    the kj rows of a rank's y-slab (grid/fourier.py)."""
+    the kj rows of a rank's y-slab, ``z_cols`` its kk columns of a
+    Fourier pencil (grid/fourier.py), whose padded columns (kk > n/2) are
+    set to zero."""
     n = gridsize
     dtype = rho_slab.real.dtype
     dev = rho_slab.device
-    k2 = (2 * math.pi / boxsize) ** 2 * fourier.k2_int_grid(n, dev, y_rows).to(dtype)
+    ki, kj, kk = fourier.k_int_vectors(n, dev, y_rows, z_cols)
+    k2 = (2 * math.pi / boxsize) ** 2 * (ki * ki + kj * kj + kk * kk).to(dtype)
     factor = torch.where(k2 > 0, -4 * math.pi * G / torch.where(k2 > 0, k2, 1.0),
                          0.0)
     if longrange_scale is not None:
         factor = factor * torch.exp(-(longrange_scale**2) * k2)
     if deconv_order:
         factor = factor * fourier.deconvolution_factor(n, deconv_order, dtype,
-                                                       dev, y_rows)
+                                                       dev, y_rows, z_cols)
     phi = rho_slab * factor
-    if y_rows is None or y_rows[0] == 0:
+    if z_cols is not None:
+        phi[..., max(0, n // 2 + 1 - z_cols[0]):] = 0
+    if (y_rows is None or y_rows[0] == 0) and (z_cols is None or z_cols[0] == 0):
         phi[0, 0, 0] = 0
     return phi
 

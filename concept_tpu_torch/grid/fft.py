@@ -20,8 +20,22 @@ The PM's mesh keeps the even rule (:meth:`GridDistribution.slab` raises
 otherwise).  :func:`exchange`, which sends each row of a tensor to the
 rank its destination names, is the one collective under both the
 transposes and the moves of grid rows and particles (grid/fourier.py,
-ic.py, parallel/step.py).  The 2D pencil decomposition (``-n AxB``) is
-ROADMAP Queue 1 item 14b.
+ic.py, parallel/step.py).
+
+The 2D pencil decomposition of ``-n AxB`` (:class:`GridDistribution2D`)
+splits the ranks into an A × B mesh, rank r at (a, b) = (r // B, r % B),
+and grids over both (the JAX package's ``GridDistribution2D``,
+concept_tpu/grid/fft.py:61-146):
+
+  real    : z-pencil (n/A, n/B, n),       x rows [a·n/A, …), y rows [b·n/B, …)
+  fourier : (n, n/A, nkp/B),              ky rows [a·n/A, …), kz columns
+                                          [b·nkp/B, …)
+
+with nkp = ⌈(n/2+1)/B⌉·B; the columns past n/2 are zero.  Its transforms
+take two ``all_to_all_single`` transposes, one within the B ranks that
+share a (split z, concat y), one within the A ranks that share b (split
+y, concat x).  Particles split by index over all A·B ranks, as over the
+1D decomposition of d = A·B ranks (:attr:`GridDistribution2D.flat`).
 """
 
 from __future__ import annotations
@@ -86,14 +100,128 @@ class GridDistribution:
         return r * N // d, (r + 1) * N // d
 
 
+@dataclass(frozen=True)
+class GridDistribution2D:
+    """The 2D pencil decomposition over an A × B mesh of ranks (``-n
+    AxB``; module docstring): this rank's place (a, b), the process groups
+    of the B ranks that share its a (``group_b``) and of the A ranks that
+    share its b (``group_a``), and ``flat``, the 1D distribution over all
+    A·B ranks, over which particles split by index.  Made by
+    :func:`make_pencils`."""
+
+    na: int
+    nb: int
+    a: int
+    b: int
+    group_a: object
+    group_b: object
+    flat: GridDistribution
+
+    @property
+    def n_devices(self) -> int:
+        return self.na * self.nb
+
+    @property
+    def rank(self) -> int:
+        return self.flat.rank
+
+    def check(self, n: int):
+        """ValueError unless A and B divide n (the tiled transposes)."""
+        for what, p in (("A", self.na), ("B", self.nb)):
+            if n % p:
+                raise ValueError(f"gridsize {n} is not divisible by {what} = {p} of the "
+                                 f"{self.na}x{self.nb} pencils")
+
+    def nk_pad(self, n: int) -> int:
+        """nkp: n/2+1 rounded up to a multiple of B."""
+        return -(-(n // 2 + 1) // self.nb) * self.nb
+
+    def x_rows(self, n: int) -> tuple[int, int]:
+        """(first row, rows) of this rank's x rows of a real pencil, and of
+        its ky rows of a Fourier pencil."""
+        return self.a * (n // self.na), n // self.na
+
+    def y_rows(self, n: int) -> tuple[int, int]:
+        """(first row, rows) of this rank's y rows of a real pencil."""
+        return self.b * (n // self.nb), n // self.nb
+
+    def z_cols(self, n: int) -> tuple[int, int]:
+        """(first column, columns) of this rank's kz columns of a Fourier
+        pencil, padded ones included."""
+        c = self.nk_pad(n) // self.nb
+        return self.b * c, c
+
+
+def make_pencils(na: int, nb: int) -> GridDistribution2D | None:
+    """The pencils of an na × nb mesh over the first na·nb ranks of the
+    default group, made by every rank of it (``new_group`` is collective:
+    the other ranks take part and get None).  Every rank creates the na
+    B-groups, the nb A-groups and, unless the mesh is the whole world,
+    the flat group, in that order."""
+    world = tdist.get_world_size()
+    if na < 1 or nb < 1 or na * nb > world:
+        raise ValueError(f"{na}x{nb} pencils need {na * nb} of the {world} ranks")
+    r = tdist.get_rank()
+    groups_b = [tdist.new_group([a * nb + b for b in range(nb)]) for a in range(na)]
+    groups_a = [tdist.new_group([a * nb + b for a in range(na)]) for b in range(nb)]
+    flat = None if na * nb == world else tdist.new_group(list(range(na * nb)))
+    if r >= na * nb:
+        return None
+    a, b = divmod(r, nb)
+    return GridDistribution2D(na, nb, a, b, groups_a[b], groups_b[a], GridDistribution(flat))
+
+
 def check_distribution(dist):
-    """None (one device) or a :class:`GridDistribution`; any other kind
-    of distribution (the 2D pencils of ``-n AxB``) raises."""
-    if dist is not None and not isinstance(dist, GridDistribution):
-        raise NotImplementedError(
-            f"{type(dist).__name__}: the 2D pencil decomposition (-n AxB) is "
-            "ROADMAP Queue 1 item 14b")
+    """None (one device), a :class:`GridDistribution` or a
+    :class:`GridDistribution2D`; anything else raises TypeError."""
+    if dist is not None and not isinstance(dist, (GridDistribution, GridDistribution2D)):
+        raise TypeError(f"{type(dist).__name__} is no grid distribution")
     return dist
+
+
+def _a2a(x: torch.Tensor, group) -> torch.Tensor:
+    """``all_to_all_single`` of equal blocks along dim 0 within ``group``,
+    complex tensors as their real views."""
+    v = (torch.view_as_real(x) if x.is_complex() else x).contiguous()
+    out = torch.empty_like(v)
+    tdist.all_to_all_single(out, v, group=group)
+    return torch.view_as_complex(out) if x.is_complex() else out
+
+
+def _rfft3_pencil(grid: torch.Tensor, dist: GridDistribution2D) -> torch.Tensor:
+    """A real z-pencil (n/A, n/B, n) → its Fourier pencil (n, n/A, nkp/B):
+    the rfft along z, padded to nkp; within the B-group split z and
+    concat y, the fft along y; within the A-group split y and concat x,
+    the fft along x."""
+    na, nb = dist.na, dist.nb
+    rx, ry, n = grid.shape
+    nk, nkp = n // 2 + 1, dist.nk_pad(n)
+    f = torch.fft.rfft(grid, dim=2)
+    f = torch.nn.functional.pad(torch.view_as_real(f), (0, 0, 0, nkp - nk))
+    f = torch.view_as_complex(f.contiguous())
+    c = nkp // nb
+    # block j: kz columns [j·c, (j+1)·c), sent to b = j; received block j:
+    # y rows of b = j
+    f = _a2a(f.reshape(rx, ry, nb, c).permute(2, 0, 1, 3), dist.group_b)
+    f = torch.fft.fft(f.permute(1, 0, 2, 3).reshape(rx, n, c), dim=1)
+    # block i: ky rows [i·n/A, …), sent to a = i; received block i: x rows
+    # of a = i
+    f = _a2a(f.reshape(rx, na, n // na, c).permute(1, 0, 2, 3), dist.group_a)
+    return torch.fft.fft(f.reshape(n, n // na, c), dim=0)
+
+
+def _irfft3_pencil(slab: torch.Tensor, n: int, dist: GridDistribution2D) -> torch.Tensor:
+    """Inverse of :func:`_rfft3_pencil`: the ifft along x; within the
+    A-group split x and concat ky; the ifft along y; within the B-group
+    split y and concat kz; the c2r along z (:func:`_irfft_z`)."""
+    na, nb = dist.na, dist.nb
+    ry, c = slab.shape[1], slab.shape[2]
+    rx = n // na
+    f = _a2a(torch.fft.ifft(slab, dim=0).reshape(na, rx, ry, c), dist.group_a)
+    f = torch.fft.ifft(f.permute(1, 0, 2, 3).reshape(rx, n, c), dim=1)
+    f = _a2a(f.reshape(rx, nb, n // nb, c).permute(1, 0, 2, 3), dist.group_b)
+    f = f.permute(1, 2, 0, 3).reshape(rx, n // nb, nb * c)
+    return _irfft_z(f[..., :n // 2 + 1].contiguous(), n)
 
 
 def _a2a_rows(src: torch.Tensor, send: list, recv: list, dist: GridDistribution):
@@ -123,9 +251,12 @@ def exchange(rows: list, dest, dist: GridDistribution) -> list:
 def rfft3(grid: torch.Tensor, dist: GridDistribution | None = None) -> torch.Tensor:
     """Forward real 3D FFT: (n, n, n) → (n, n, n//2+1), unnormalised.
     With ``dist`` an x-slab (rows, n, n) → its y-slab (n, cols, n//2+1):
-    rfft along z, fft along y, the transpose, fft along x."""
+    rfft along z, fft along y, the transpose, fft along x; with pencils
+    (:class:`GridDistribution2D`) a z-pencil → its Fourier pencil."""
     if check_distribution(dist) is None:
         return torch.fft.rfftn(grid, dim=(-3, -2, -1))
+    if isinstance(dist, GridDistribution2D):
+        return _rfft3_pencil(grid, dist)
     rows, n = grid.shape[0], grid.shape[1]
     nk = n // 2 + 1
     sizes = [dist.rows(n, r)[1] for r in range(dist.n_devices)]
@@ -145,11 +276,13 @@ def rfft3(grid: torch.Tensor, dist: GridDistribution | None = None) -> torch.Ten
 def irfft3(slab: torch.Tensor, gridsize: int,
            dist: GridDistribution | None = None) -> torch.Tensor:
     """Inverse of :func:`rfft3`, normalised by 1/n³ (numpy's convention);
-    with ``dist`` a y-slab → its x-slab, the steps of :func:`rfft3`
-    reversed."""
+    with ``dist`` a y-slab → its x-slab (a Fourier pencil → its
+    z-pencil), the steps of :func:`rfft3` reversed."""
     n = gridsize
     if check_distribution(dist) is None:
         return torch.fft.irfftn(slab, s=(n, n, n), dim=(-3, -2, -1))
+    if isinstance(dist, GridDistribution2D):
+        return _irfft3_pencil(slab, n, dist)
     cols, nk = slab.shape[1], slab.shape[2]
     sizes = [dist.rows(n, r)[1] for r in range(dist.n_devices)]
     rows = sizes[dist.rank]

@@ -6,7 +6,10 @@ Conventions: a real grid (n, n, n) of cell width boxsize/n; its rfft
 slab (n, n, n//2+1) holds mode (ki, kj, kk) with ki, kj ∈ {0..n/2−1,
 −n/2..−1} and kk ∈ {0..n/2}; physical k = (2π/boxsize)·(ki, kj, kk).
 ``y_rows`` = (first row, rows) restricts a factor to the kj rows of a
-rank's y-slab (grid/fft.py); None means all n.
+rank's y-slab (grid/fft.py); None means all n.  ``z_cols`` = (first
+column, columns) restricts it to the kk columns of a rank's Fourier
+pencil (grid/fft.GridDistribution2D), whose columns past n/2 are padding
+(kk > n/2): None means all n//2+1.
 """
 
 from __future__ import annotations
@@ -19,14 +22,15 @@ import torch
 from concept_tpu_torch.grid.fft import exchange, row_starts
 
 
-def k_int_vectors(gridsize: int, device="cpu", y_rows=None):
+def k_int_vectors(gridsize: int, device="cpu", y_rows=None, z_cols=None):
     """Broadcastable integer mode vectors (ki, kj, kk), int64."""
     n = gridsize
     k1 = torch.as_tensor((np.fft.fftfreq(n) * n).astype(np.int64),
                          device=device)
     kj = k1 if y_rows is None else k1[y_rows[0]:y_rows[0] + y_rows[1]]
-    kk = torch.arange(n // 2 + 1, device=device)
-    return k1.reshape(n, 1, 1), kj.reshape(1, -1, 1), kk.reshape(1, 1, n // 2 + 1)
+    z0, nz = (0, n // 2 + 1) if z_cols is None else z_cols
+    kk = torch.arange(z0, z0 + nz, device=device)
+    return k1.reshape(n, 1, 1), kj.reshape(1, -1, 1), kk.reshape(1, 1, -1)
 
 
 def k2_int_grid(gridsize: int, device="cpu", y_rows=None):
@@ -45,22 +49,22 @@ def hermitian_multiplicity(gridsize: int, dtype=torch.float32, device="cpu"):
 
 
 def deconvolution_factor(gridsize: int, order: int, dtype=torch.float32,
-                         device="cpu", y_rows=None):
+                         device="cpu", y_rows=None, z_cols=None):
     """Π_dims sinc(π k_i/n)^(−order) (reference mesh.py:3327-3421)."""
     n = gridsize
     d = None
-    for k in k_int_vectors(n, device, y_rows):
+    for k in k_int_vectors(n, device, y_rows, z_cols):
         x = (math.pi / n) * k.to(dtype)
         s = torch.sinc(x / math.pi)  # sinc(y) = sin(πy)/(πy)
         d = s if d is None else d * s
     return d ** (-order)
 
 
-def fourier_diff(slab, gridsize: int, boxsize: float, dim: int, y_rows=None):
+def fourier_diff(slab, gridsize: int, boxsize: float, dim: int, y_rows=None, z_cols=None):
     """Multiply by i·k_dim, with the Nyquist plane along dim zeroed
-    (reference mesh.py:3466-3544)."""
+    (reference mesh.py:3466-3544); a pencil's padded columns stay zero."""
     n = gridsize
-    kvec = k_int_vectors(n, slab.device, y_rows)[dim]
+    kvec = k_int_vectors(n, slab.device, y_rows, z_cols)[dim]
     k_phys = (2 * math.pi / boxsize) * kvec.to(slab.real.dtype)
     out = slab * (1j * k_phys)
     nyq = (kvec == -(n // 2)) if dim < 2 else (kvec == n // 2)

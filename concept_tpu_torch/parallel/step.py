@@ -1,6 +1,7 @@
 """The 1D slab decomposition's collectives over ``torch.distributed``
 (port of concept_tpu/parallel/step.py:38-279; reference
-communication.py:135 exchange, :563 communicate_ghosts).
+communication.py:135 exchange, :563 communicate_ghosts), and the PM kick
+on the 2D pencils of ``-n AxB`` (port of :282-340).
 
 Each rank holds N/d particles by index (grid/fft.GridDistribution), an
 x-slab of every real grid and a y-slab of every Fourier grid.  The JAX
@@ -43,6 +44,15 @@ to write, where ``replicate`` and :func:`gather_rows` give it to every
 rank.  The JAX package shards the same layout along its cell axis where
 d divides the cell count, and lets GSPMD insert these collectives;
 elsewhere it steps the whole layout on every device.
+
+On the pencils (grid/fft.GridDistribution2D) the particles keep their
+index shards over the A·B ranks; :func:`deposit_distributed_2d` deposits
+a rank's shard onto a whole local grid and leaves its z-pencil by two
+``reduce_scatter``s (along x among the A ranks that share its b, along y
+among the B that share its a), and :func:`pm_momentum_updates_distributed_2d`
+transforms on the pencils and makes each gradient whole on every rank
+(:func:`whole_from_pencil`, two ``all_gather``s) for the gather, as the
+JAX package does: whole grids on every rank, no halo.
 """
 
 from __future__ import annotations
@@ -240,6 +250,101 @@ def pm_momentum_updates_distributed_halo(pos, mass, gridsize: int, boxsize: floa
         gather_distributed_halo(slab_gradient(phi, n, boxsize, d, dist), slabbed, w, boxsize,
                                 order, dist) for d in range(3)], dim=1)
     return to_shard_order((-mass * kick_integral) * vals, orig_idx, pos.shape[0], dist), n_over
+
+
+def deposit_distributed_2d(pos, mass, gridsize: int, boxsize: float, order, dist2d,
+                           deposit_method: str = "auto"):
+    """This rank's particle shard → its z-pencil (n/A, n/B, n) of the
+    whole deposit of ``mass`` a particle (grid/fft.GridDistribution2D;
+    port of concept_tpu/parallel/step.py:282-306): a deposit onto a whole
+    local grid (through the row-10 kernel over the block-sorted particles
+    where ``deposit_method`` resolves to it: CIC on the card, as
+    forces/pm.py's one-device PM; else ``grid/interp.deposit``), then one
+    ``reduce_scatter`` along x within the A ranks that share b and one
+    along y within the B ranks that share a.  Returns (the pencil, the
+    deposited mass of all ranks in float64, the block-sorted particles
+    that the row-11 gather reads again, or None where row 10 did not
+    deposit)."""
+    from concept_tpu_torch.grid.bucketed import deposit_bucketed, sort_blocks
+    from concept_tpu_torch.grid.interp import resolve_deposit_method
+
+    n = gridsize
+    dist2d.check(n)
+    order = interpolation_order(order)
+    sb = None
+    if resolve_deposit_method(deposit_method, pos.device, order == 2) == "pallas":
+        sb = sort_blocks(pos, n, boxsize)
+        g = deposit_bucketed(sb, mass, n)
+    else:
+        g = deposit(pos, mass, n, boxsize, order=order)
+    total = g.sum(dtype=torch.float64)
+    tdist.all_reduce(total, group=dist2d.flat.group)
+    # x split over the A ranks sharing b, then y (made the leading dim)
+    # over the B ranks sharing a
+    rx, ry = n // dist2d.na, n // dist2d.nb
+    gx = g.new_empty((rx, n, n))
+    _reduce_scatter(gx, g, group=dist2d.group_a)
+    del g
+    gy = gx.new_empty((ry, rx, n))
+    _reduce_scatter(gy, gx.transpose(0, 1).contiguous(), group=dist2d.group_b)
+    return gy.transpose(0, 1).contiguous(), total, sb
+
+
+def whole_from_pencil(pencil, dist2d, out=None):
+    """A real z-pencil (n/A, n/B, n) → the whole grid (n, n, n) on every
+    rank (into ``out`` where given): an ``all_gather`` along y within the
+    B ranks that share a, then along x within the A ranks that share b."""
+    rx, ry, n = pencil.shape
+    gy = pencil.new_empty((n, rx, n))
+    _all_gather(gy, pencil.transpose(0, 1).contiguous(), group=dist2d.group_b)
+    out = pencil.new_empty((n, n, n)) if out is None else out
+    _all_gather(out, gy.transpose(0, 1).contiguous(), group=dist2d.group_a)
+    return out
+
+
+def pm_momentum_updates_distributed_2d(pos, mass, gridsize: int, boxsize: float, G,
+                                       kick_integral, dist2d, order=2,
+                                       deconvolve=(True, True), longrange_scale=None,
+                                       deposit_method: str = "auto",
+                                       info: dict | None = None):
+    """One PM kick's momentum updates over the 2D pencils (port of
+    concept_tpu/parallel/step.py:309-340): :func:`deposit_distributed_2d`,
+    the pencil ``rfft3``, the potential on the Fourier pencil
+    (``longrange_scale`` for P³M), its three Fourier gradients back to
+    z-pencils, each made whole on every rank (:func:`whole_from_pencil`)
+    and gathered at the rank's particles (through the row-11 kernel on
+    the deposit's block sort where the row-10 kernel deposited, else
+    ``grid/interp.gather``).  Returns Δmom (N/(A·B), 3) of this rank's
+    shard.  ``info`` receives 'mass_sum' (float64, all ranks) and
+    'n_overflow' (0).  The JAX package deconvolves by 2·order whatever
+    ``deconvolve`` says; this honours it (the same at its default)."""
+    from concept_tpu_torch.forces.pm import gravity_potential_slab
+    from concept_tpu_torch.grid.bucketed import gather_bucketed
+    from concept_tpu_torch.grid.fourier import fourier_diff
+    from concept_tpu_torch.grid.interp import gather
+
+    n = gridsize
+    order = interpolation_order(order)
+    grid, total, sb = deposit_distributed_2d(pos, mass, n, boxsize, order, dist2d,
+                                             deposit_method)
+    if info is not None:
+        info.update(mass_sum=total, n_overflow=0)
+    rows, cols = dist2d.x_rows(n), dist2d.z_cols(n)
+    phi = gravity_potential_slab(
+        rfft3(grid / (boxsize / n) ** 3, dist2d), n, boxsize, G,
+        deconv_order=order * (int(deconvolve[0]) + int(deconvolve[1])),
+        longrange_scale=longrange_scale, y_rows=rows, z_cols=cols)
+    grads = grid.new_empty((3, n, n, n))
+    del grid
+    for d in range(3):
+        whole_from_pencil(irfft3(fourier_diff(phi, n, boxsize, d, rows, cols), n, dist2d),
+                          dist2d, out=grads[d])
+    del phi
+    coef = -mass * kick_integral
+    if sb is not None:
+        return coef * gather_bucketed(sb, grads, n)
+    return coef * torch.stack([gather(grads[d], pos, boxsize, order=order)
+                               for d in range(3)], dim=1)
 
 
 def slab_gradient(phi, n: int, boxsize: float, d: int, dist: GridDistribution):

@@ -25,7 +25,10 @@ the rung stepper on every layout, each rank stepping its own x-planes of
 cells (p3mrungs.py), from a realization that each rank makes of its slab
 of the lattice (ic.py); and runs of several components and fluids, each
 rank holding its particle shards and its x-rows of every fluid grid
-(sim_multi.py).
+(sim_multi.py).  ``-n AxB`` runs the same over A·B ranks, the global
+stepper's PM and P³M kicks on the 2D pencils of an A × B mesh
+(grid/fft.GridDistribution2D, parallel/step.pm_momentum_updates_
+distributed_2d).
 """
 
 from __future__ import annotations
@@ -49,24 +52,36 @@ from concept_tpu_torch.cosmology.linear import LinearCosmology
 from concept_tpu_torch.cosmology.neutrino import NeutrinoBackground
 from concept_tpu_torch.cosmology.primordial import PrimordialSpectrum
 from concept_tpu_torch.device import resolve_device, resolve_dtype
+from concept_tpu_torch.forces.pm import interlace_pair
 from concept_tpu_torch.param import RunConfig, is_selected
 from concept_tpu_torch.sim import METHODS, SimConfig, Simulation
 from concept_tpu_torch.units import UnitSystem
 from concept_tpu_torch.utils.terminal import abort, masterprint
 
 
+def pencil_shape(n_devices):
+    """(A, B) of ``-n AxB`` (A, B ≥ 1), None for an integer ``-n``."""
+    if not (isinstance(n_devices, str) and "x" in n_devices.lower()):
+        return None
+    try:
+        na, nb = (int(v) for v in n_devices.lower().split("x"))
+    except ValueError:
+        raise ValueError(f"-n {n_devices}: expected N or AxB") from None
+    if na < 1 or nb < 1:
+        raise ValueError(f"-n {n_devices}: A and B must be at least 1")
+    return na, nb
+
+
 def rank_count(n_devices, device) -> int:
     """The ranks of ``-n``: an integer N (0: every visible card, or the
-    CPU's cores on the CPU); more than are visible raise ValueError, the
-    2D form 'AxB' NotImplementedError (ROADMAP Queue 1 item 14b)."""
+    CPU's cores on the CPU), or A·B for the 2D pencils 'AxB'; more than
+    are visible raise ValueError."""
     from concept_tpu_torch.parallel.ranks import visible_devices
 
-    if isinstance(n_devices, str) and "x" in n_devices.lower():
-        raise NotImplementedError(
-            f"-n {n_devices}: the 2D pencil decomposition (ROADMAP Queue 1 item 14b)")
-    n = int(n_devices)
+    shape = pencil_shape(n_devices)
+    n = shape[0] * shape[1] if shape else int(n_devices)
     avail = visible_devices(device)
-    if n == 0:
+    if n == 0 and not shape:
         n = avail
     if n < 1 or n > avail:
         raise ValueError(f"-n {n_devices} requested but only {avail} device(s) available"
@@ -76,11 +91,13 @@ def rank_count(n_devices, device) -> int:
 
 def make_distribution(n_devices, device="cuda"):
     """`-n N` → None for one rank, else the GridDistribution over the
-    process group of the N ranks that this process is one of (the JAX
-    package builds a device mesh here, concept_tpu/run.py:398-440)."""
+    process group of the N ranks that this process is one of; `-n AxB`
+    → the GridDistribution2D of an A × B mesh of those ranks (every rank
+    makes its groups here), None for 1x1 (the JAX package builds a device
+    mesh here, concept_tpu/run.py:398-440)."""
     import torch.distributed as tdist
 
-    from concept_tpu_torch.grid.fft import GridDistribution
+    from concept_tpu_torch.grid.fft import GridDistribution, make_pencils
 
     n = rank_count(n_devices, resolve_device(device))
     if n == 1:
@@ -88,7 +105,29 @@ def make_distribution(n_devices, device="cuda"):
     if not (tdist.is_initialized() and tdist.get_world_size() == n):
         raise RuntimeError(f"-n {n_devices}: this process is no rank of a group of {n} "
                            f"(run() starts the ranks)")
-    return GridDistribution()
+    shape = pencil_shape(n_devices)
+    return make_pencils(*shape) if shape else GridDistribution()
+
+
+def check_pencil_layout(n_devices, gridsize: int, N: int, mesh: str | None):
+    """Raise ValueError where one component cannot run on the pencils of
+    ``-n AxB``, before anything is realized: where the kick runs on the
+    pencils (``mesh`` 'pencils'), a potential grid that A or B does not
+    divide (the pencil FFT's tiled transposes); where it takes the 1D
+    slab paths over the A·B ranks ('slabs': rungs, interlacing, a
+    stencil), a grid that A·B does not divide (their slabs); and an N
+    that A·B does not divide (the particles' index shards).  PP (``mesh``
+    None) has no grid."""
+    na, nb = pencil_shape(n_devices)
+    split = {"pencils": (("A", na), ("B", nb)), "slabs": (("A·B", na * nb),), None: ()}[mesh]
+    for what, p in split:
+        if gridsize % p:
+            raise ValueError(f"the potential grid {gridsize} does not split over {what} = "
+                             f"{p} of -n {n_devices}")
+    if N % (na * nb):
+        raise ValueError(f"{N} particles do not split evenly over the {na * nb} ranks of "
+                         f"-n {n_devices}")
+
 
 def build_cosmology(cfg: RunConfig):
     """Units, constants, background and linear layer, with the Boltzmann
@@ -524,7 +563,8 @@ def run(cfg: RunConfig, max_steps: int = 100000, seed: int | None = None,
     versions on the CPU); 'auto' takes them on the card wherever they
     apply and 'scatter' elsewhere (grid/interp.py).  Returns (sim,
     state, a); the host seconds of realization, evolution and output are
-    in ``sim.timings``.
+    in ``sim.timings``, each rank's peak device memory in
+    ``sim.rank_peak_bytes``.
 
     ``n_devices`` (``-n``): the ranks of the run (see :func:`rank_count`).
     With N > 1 this process becomes rank 0 on ``cuda:0`` (or the CPU) and
@@ -536,6 +576,13 @@ def run(cfg: RunConfig, max_steps: int = 100000, seed: int | None = None,
     1``, PP) through ``Simulation(dist=...)``, or by rungs through
     ``RungSimulationAdapter(dist=...)`` (the layout of one device, each
     rank stepping its x-planes of cells, which need not split evenly).
+    ``-n AxB`` runs the A·B ranks as ``-n A·B`` does, but for the global
+    stepper's PM and P³M kicks with Fourier gradients and no
+    interlacing, which deposit, transform and differentiate on the 2D
+    pencils of an A × B mesh of the ranks (``1x1``: one device, as in
+    the JAX package); a grid that A or B does not divide, and an N that
+    A·B does not divide, raise ValueError before anything is realized
+    (:func:`check_pencil_layout`).
     Rank 0 writes every file under the single run's names (the dumps and
     autosaves send it the rows it writes); every rank returns the whole
     state.  Before anything is realized, rungs over ranks that
@@ -614,16 +661,31 @@ def run(cfg: RunConfig, max_steps: int = 100000, seed: int | None = None,
                 "records it")
         if n_ranks > 1:
             check_rank_layout(gridsize, n_ranks, dev.type, boxsize=cfg.boxsize)
-    dist = None
+    if n_ranks > 1 and pencil_shape(n_devices):
+        # the kicks that Simulation runs on the pencils; the others take
+        # the slabs of the A·B ranks
+        mesh = None if method not in ("pm", "p3m") else "pencils" if (
+            not rungs and pot.get("differentiation", "fourier") in ("fourier", 0)
+            and interlace_pair(pot.get("interlace", False)) == ("sc", "sc")) else "slabs"
+        check_pencil_layout(n_devices, gridsize, spec.N, mesh)
+    dist = pencils = None
     if n_ranks > 1:
         from concept_tpu_torch.parallel.ranks import init_rank
 
         dev = init_rank(rank[0], n_ranks, rank[1], dev)
         dist = make_distribution(n_devices, dev)
-        masterprint(f"Ranks: {n_ranks} ({'nccl' if dev.type == 'cuda' else 'gloo'})")
+        if pencil_shape(n_devices):
+            # the global stepper's PM kick runs on the pencils, everything
+            # else over the A·B ranks as -n A·B does
+            pencils, dist = dist, dist.flat
+        masterprint(f"Ranks: {n_devices if pencils else n_ranks} "
+                    f"({'nccl' if dev.type == 'cuda' else 'gloo'})")
         if dist.rank and static_dt is not None and static_dt.records:
             static_dt = None  # rank 0 records the steps, which all ranks take
     if dev.type == "cuda":
+        import torch
+
+        torch.cuda.reset_peak_memory_stats(dev)
         masterprint(f"Device: {dev} ({_device_name(dev)})")
     sim_config = SimConfig(
         boxsize=cfg.boxsize, potential_gridsize=gridsize, device=dev,
@@ -646,7 +708,7 @@ def run(cfg: RunConfig, max_steps: int = 100000, seed: int | None = None,
                                     N_rungs=cfg.N_rungs,
                                     fac_rung=cfg.Delta_t_rung_factor, dist=dist)
     else:
-        sim = Simulation(spec, sim_config, bg, lin, dist=dist)
+        sim = Simulation(spec, sim_config, bg, lin, dist=pencils or dist)
     rank0 = dist is None or dist.rank == 0
 
     def agree(value: float) -> float:
@@ -751,6 +813,7 @@ def run(cfg: RunConfig, max_steps: int = 100000, seed: int | None = None,
                 last_autosave = _time.time()
     if rank0:
         clear_autosave(cfg)
+    sim.rank_peak_bytes = _rank_peaks(dev, dist)
     if dist is not None:
         state = sim.whole(state)
     step_total = sim.hysteresis.get("step_count", 0)
@@ -762,6 +825,18 @@ def run(cfg: RunConfig, max_steps: int = 100000, seed: int | None = None,
     masterprint(f"Simulation complete: a = {a:.6g}, wall time {wall:.1f} s")
     sim.timings = {"realize_s": t_realize, "evolve_s": t_evolve, "dump_s": t_dump}
     return sim, state, a
+
+
+def _rank_peaks(dev, dist) -> list:
+    """Each rank's peak device memory over the run (0 on the CPU), on
+    every rank, taken before the state is gathered."""
+    import torch
+
+    from concept_tpu_torch.parallel.step import replicate
+
+    peak = torch.tensor([float(torch.cuda.max_memory_allocated(dev)) if dev.type == "cuda"
+                         else 0.0], device=dev)
+    return [int(x) for x in (peak if dist is None else replicate(peak, dist)).tolist()]
 
 
 def _state_to_device(st, dev, dtype, boxsize: float):
@@ -926,7 +1001,6 @@ def run_multi(cfg: RunConfig, comps, units, consts, bg, lin, dev, dtype,
     (reading by rank is ROADMAP Queue 1 item 14g)."""
     import torch
 
-    from concept_tpu_torch.parallel.step import replicate
     from concept_tpu_torch.sim_multi import MultiState
     from concept_tpu_torch.timestep import prepare_static_timestepping
 
@@ -937,6 +1011,8 @@ def run_multi(cfg: RunConfig, comps, units, consts, bg, lin, dev, dtype,
 
         dev = init_rank(rank[0], n_ranks, rank[1], dev)
         dist = make_distribution(n_devices, dev)
+        # several components run over the A·B ranks of -n AxB as -n A·B
+        dist = getattr(dist, "flat", dist)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     sim = make_multi(cfg, comps, units, consts, bg, lin, dev, dtype, seed=seed, dist=dist)
@@ -1058,12 +1134,7 @@ def run_multi(cfg: RunConfig, comps, units, consts, bg, lin, dev, dtype,
             trap.exit_if_signalled(lambda: autosave(state, a, events, hysteresis), agree)
     if rank0:
         clear_autosave(cfg)
-    # each rank's peak device memory over the run (0 on the CPU), before
-    # the state is gathered
-    peak = torch.tensor([float(torch.cuda.max_memory_allocated(dev)) if dev.type == "cuda"
-                         else 0.0], device=dev)
-    sim.stats["rank_peak_bytes"] = [int(x) for x in (
-        peak if dist is None else replicate(peak, dist)).tolist()]
+    sim.stats["rank_peak_bytes"] = _rank_peaks(dev, dist)
     if dist is not None:
         state = sim.whole(state)
     if dev.type == "cuda":

@@ -29,6 +29,15 @@ interlacing; the JAX package's condition), else the generic PM over the
 ranks.  The short-range and PP parts run on every rank over the
 all-gathered positions, and each rank keeps its own rows: the P³M sweep
 (PERF.md row 6 on the card) is computed d times (ROADMAP Queue 2).
+
+With the 2D pencils of ``-n AxB`` (grid/fft.GridDistribution2D) the
+ranks step as the A·B ranks of ``-n A·B`` do (``self.dist`` is the
+pencils' ``flat``), and the PM part of a PM or P³M kick with Fourier
+gradients and no interlacing is ``parallel.step.pm_momentum_updates_
+distributed_2d`` on the pencils (the JAX package's branch,
+concept_tpu/sim.py:191-225); an interlaced or stencil kick runs the
+1D paths over ``flat`` (the JAX package's reads the 1D ``dist.axis``
+there, which its pencils lack: ROADMAP Queue 3).
 """
 
 from __future__ import annotations
@@ -44,10 +53,11 @@ import torch.distributed as tdist
 from concept_tpu_torch.components import ParticleState, periodic_wrap
 from concept_tpu_torch.forces.pm import interlace_pair, pm_gravity_momentum_updates
 from concept_tpu_torch.forces.shortrange import shortrange_momentum_updates
-from concept_tpu_torch.grid.fft import check_distribution
+from concept_tpu_torch.grid.fft import GridDistribution2D, check_distribution
 from concept_tpu_torch.grid.interp import interpolation_order
 from concept_tpu_torch.parallel.step import (
-    pm_momentum_updates_distributed_halo, realize_shard, reduce, replicate, rows_to_root,
+    pm_momentum_updates_distributed_2d, pm_momentum_updates_distributed_halo, realize_shard,
+    reduce, replicate, rows_to_root,
 )
 from concept_tpu_torch.utils.terminal import warn
 
@@ -125,7 +135,10 @@ class Simulation:
         self.config = config
         self.bg = bg
         self.lin = lin
-        self.dist = check_distribution(dist)
+        # the pencils of -n AxB (None otherwise); everything but their PM
+        # kick runs over the A·B ranks as -n A·B does
+        self.pencils = dist if isinstance(check_distribution(dist), GridDistribution2D) else None
+        self.dist = dist.flat if self.pencils is not None else dist
         cap = 0
         self._ewald_table = None
         if config.method == "pp":
@@ -238,8 +251,16 @@ class Simulation:
             info = {}
             p3m = cfg.method == "p3m"
             scale = self._sr_scale if p3m else None
-            if (self.dist is not None and cfg.differentiation in ("fourier", 0)
-                    and interlace_pair(cfg.interlace) == ("sc", "sc")):
+            spectral = (cfg.differentiation in ("fourier", 0)
+                        and interlace_pair(cfg.interlace) == ("sc", "sc"))
+            if self.pencils is not None and spectral:
+                # the pencil kick: whole local deposits and gradients
+                d = pm_momentum_updates_distributed_2d(
+                    pos, self.spec.mass, cfg.potential_gridsize, cfg.boxsize, cfg.G,
+                    int_a1, self.pencils, order=cfg.interpolation_order,
+                    deconvolve=cfg.deconvolve, longrange_scale=scale,
+                    deposit_method=cfg.deposit_method, info=info)
+            elif self.dist is not None and spectral:
                 # the halo-resident kick: nothing replicated
                 d, _ = pm_momentum_updates_distributed_halo(
                     pos, self.spec.mass, cfg.potential_gridsize, cfg.boxsize, cfg.G,

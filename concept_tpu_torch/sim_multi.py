@@ -718,8 +718,8 @@ class MultiSimulation:
                  resume: dict | None = None, max_steps: int = 100000):
         """The global steps from a_begin to a_end, as ``evolve`` takes
         them (the Δt hysteresis of reference main.py:920-983; Δt does not
-        depend on the state): yields (t, Δt, t_mom, t_mid) per step and
-        keeps ``self.hysteresis`` current after each; ``self._end`` holds
+        depend on the state): yields (t, Δt, t_mom, t_mid) per step, with
+        ``self.hysteresis`` already that after the step; ``self._end`` holds
         (t, a, t_mom) when it ends.  Iterated alone it counts the steps
         on the host."""
         bg = self.bg
@@ -773,12 +773,16 @@ class MultiSimulation:
                 step_last_sync = steps
             dt = min(dt, t_end - t)
             t_mid = min(t + 0.5 * dt, t_end)
-            yield t, dt, t_mom, t_mid
+            this = (t, dt, t_mom, t_mid)
+            # kept before the step is taken, so that what runs after it
+            # (evolve's callback: the trap's autosave) saves the
+            # hysteresis of the state it saves
             t_mom = t_mid
             t += dt
             a = float(bg.a_of_t_np(t))
             steps += 1
             keep()
+            yield this
             if steps >= max_steps:
                 raise RuntimeError("max_steps exceeded")
         self._end = (t, a, t_mom, t_end)
@@ -817,11 +821,11 @@ class MultiSimulation:
                     self._refresh_sr_capacities(state)
             state = self._step(state, int_kick, int_a2, dt, coef_flux, coef_pressure,
                                a_kick, weff, wv, decay_fac, decay_gain,
-                               parity=self.hysteresis["step_count"] & 1,
+                               parity=(self.hysteresis["step_count"] - 1) & 1,
                                lapse_ints=lapse_ints)
             if callback is not None:
                 callback(state, t + dt, float(bg.a_of_t_np(t + dt)),
-                         self.hysteresis["step_count"] + 1)
+                         self.hysteresis["step_count"])
         t, a, t_mom, t_end = self._end
         if t_mom < t_end - 1e-12 * abs(t_end):
             # the closing half kick (the JAX package's: no decay, no lapse)

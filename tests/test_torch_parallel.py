@@ -209,9 +209,14 @@ def test_make_distribution_counts_and_refuses(dist):
     assert rank_count(0, cpu) == os.cpu_count()
     with pytest.raises(ValueError, match="only"):
         rank_count(os.cpu_count() + 1, cpu)
-    with pytest.raises(NotImplementedError, match="item 14b"):
+    # -n AxB: A·B ranks, 1x1 one device; pencils are made by the ranks of
+    # a run (tests/test_torch_parallel_pencils.py)
+    assert rank_count("2x2", cpu) == 4 and make_distribution("1x1", "cpu") is None
+    with pytest.raises(ValueError, match="only"):
+        rank_count(f"{os.cpu_count()}x2", cpu)
+    with pytest.raises(RuntimeError, match="no rank of a group of 4"):
         make_distribution("2x2", "cpu")
-    with pytest.raises(NotImplementedError, match="item 14b"):
+    with pytest.raises(TypeError, match="no grid distribution"):
         rfft3(torch.zeros(4, 4, 4), dist=object())
     with pytest.raises(RuntimeError, match="no rank of a group of 2"):
         make_distribution(2, "cpu")

@@ -183,8 +183,8 @@ def _run_spectrum(tmp_path, tag, method, n_devices, jax=False):
 def test_run_over_two_ranks_matches_one_and_jax(tmp_path, monkeypatch):
     """run(cfg, n_devices=2) for PM and P³M (N_rungs = 1): its spectrum
     against the port's one rank, and P³M's (the halo PM kick and the
-    short range) against the JAX package's two devices; -n AxB raises
-    NotImplementedError naming its item, and ValueError rungs whose tight
+    short range) against the JAX package's two devices; ValueError for
+    -n 2x1 on a grid A = 2 does not divide (run.check_pencil_layout), rungs whose tight
     layout has 2 cells a side (grid 16 on the CPU: the folded sweep, which
     does not run over ranks) and several components on a potential grid
     the ranks do not divide (run.check_multi_layout), before anything is
@@ -206,7 +206,9 @@ def test_run_over_two_ranks_matches_one_and_jax(tmp_path, monkeypatch):
     small = ["initial_conditions={'species':'matter','N':8**3}", "potential_options=16",
              f"output_dirs='{tmp_path}'"]
     for over, n, error, match in (
-            ([], "2x1", NotImplementedError, "item 14b"),
+            # -n AxB: the pencils' layout check (A = 2 does not divide 15)
+            (["N_rungs=1", "potential_options=15"], "2x1", ValueError,
+             "potential grid 15 does not split over A = 2 of -n 2x1"),
             # N_rungs = 8, the default
             ([], 2, ValueError, "2 cells a side take the folded sweep"),
             (["initial_conditions=[{'species':'cdm','N':8**3},{'species':'baryon','N':8**3}]",

@@ -21,8 +21,8 @@ tests/test_torch_multi_runs.py, which uses this file's configurations.
 - The multi autosave and its resume (equal to the uninterrupted run, in
   the run's dtype), component lives, fluid CONCEPT-HDF5 files across the
   packages with
-  ``-u info``, and the refusals that remain (``-n 2x1``: item 14b; a
-  fluid grid too narrow for its ranks)."""
+  ``-u info``, and the refusals that remain (a fluid grid too narrow for
+  its ranks, under ``-n 2`` and ``-n 2x1`` alike)."""
 
 import math
 import os
@@ -443,6 +443,48 @@ def test_multi_autosave_resumes_exactly(tmp_path, monkeypatch, f64):
     assert (sorted(os.listdir(tmp_path / "cut")) == sorted(os.listdir(tmp_path / "ref")))
 
 
+def test_multi_trap_resumes_mid_segment_exactly(tmp_path, monkeypatch):
+    """SIGTERM after the 5th step of the first segment: the trap's
+    autosave holds that step's state and that step's Δt hysteresis (the
+    step count and the kick sync point t_mom), and the resumed run ends
+    where the uninterrupted run ends, bit for bit.  The hysteresis was
+    one step behind the state once, which moved the resumed run by 8.4e-5
+    of the box at softening 0 (CDM 8³ + baryons 4³ + a fluid)."""
+    import signal
+
+    from concept_tpu_torch import run as trun
+    from concept_tpu_torch.param import load_params
+
+    def cfg(out):
+        return load_params(BASIC, overrides=SMALL[:-1] + [
+            f"output_dirs={{'powerspec': '{out}', 'autosave': '{tmp_path}/autosave'}}"])
+
+    sim, ref, _ = trun.run(cfg(tmp_path / "ref"), device="cpu")
+    step, calls = tsm.MultiSimulation._step, [0]
+
+    def hooked(self, *args, **kw):
+        out = step(self, *args, **kw)
+        calls[0] += 1
+        if calls[0] == 5:
+            signal.raise_signal(signal.SIGTERM)
+        return out
+
+    monkeypatch.setattr(tsm.MultiSimulation, "_step", hooked)
+    with pytest.raises(SystemExit):
+        trun.run(cfg(tmp_path / "cut"), device="cpu")
+    monkeypatch.setattr(tsm.MultiSimulation, "_step", step)
+    saved = trun.check_autosave_multi(cfg(tmp_path))
+    assert saved[1] < 0.025 and saved[3]["step_count"] == 5
+    sim2, got, a = trun.run(cfg(tmp_path / "cut"), device="cpu")
+    assert a == pytest.approx(0.03) and sim2.hysteresis == sim.hysteresis
+    for field in ("pos", "mom"):
+        assert torch.equal(getattr(got.particles["matter"], field),
+                           getattr(ref.particles["matter"], field)), field
+    for field in ("varrho", "J", "P"):
+        assert torch.equal(getattr(got.fluids["dust"], field),
+                           getattr(ref.fluids["dust"], field)), field
+
+
 def test_component_lives_activate_and_terminate(tmp_path):
     """select_lives: a fluid alive from a = 0.025 to 0.035 is realized at
     its activation, dumped at 0.03 and gone at 0.04 (the JAX package's
@@ -514,21 +556,21 @@ def test_fluid_snapshots_cross_the_packages(tmp_path, capsys):
 
 
 def test_kept_refusals_name_their_items(tmp_path):
-    """A multi run over ranks raises, before anything is realized,
-    NotImplementedError naming item 14b for ``-n 2x1``, and ValueError
-    for ``-n 2`` where a fluid grid leaves a rank fewer rows than its
-    stencil reaches (run.check_multi_layout; runs over ranks that can run
-    are tests/test_torch_parallel_multi.py's).  Its renders (item 13) are
+    """A multi run over ranks raises ValueError, before anything is
+    realized, where a fluid grid leaves a rank fewer rows than its stencil
+    reaches (run.check_multi_layout), under ``-n 2x1`` as under ``-n 2``:
+    several components run over the A·B ranks of ``-n AxB`` as over those
+    of ``-n A·B`` (runs over ranks that can run are
+    tests/test_torch_parallel_multi.py's and
+    tests/test_torch_parallel_pencils.py's).  Its renders (item 13) are
     ported: tests/test_torch_render.py runs them."""
     from concept_tpu_torch import run as trun
     from concept_tpu_torch.param import load_params
 
-    cfg = load_params(BASIC, overrides=SMALL + [f"output_dirs='{tmp_path}'"])
-    with pytest.raises(NotImplementedError, match="item 14b"):
-        trun.run(cfg, device="cpu", n_devices="2x1")
     narrow = [SMALL[0].replace("'gridsize':8", "'gridsize':3")]
     cfg = load_params(BASIC, overrides=SMALL + narrow + [f"output_dirs='{tmp_path}'"])
-    with pytest.raises(ValueError, match="fluid grid 3 of 'dust' over 2 ranks leaves a rank "
-                                         "1 rows"):
-        trun.run(cfg, device="cpu", n_devices=2)
+    for n in ("2x1", 2):
+        with pytest.raises(ValueError, match="fluid grid 3 of 'dust' over 2 ranks leaves a "
+                                             "rank 1 rows"):
+            trun.run(cfg, device="cpu", n_devices=n)
     assert not os.listdir(tmp_path)

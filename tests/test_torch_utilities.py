@@ -120,12 +120,14 @@ def test_interactive_session_without_a_run():
 
 def test_more_than_one_device_names_its_item(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
-    # the 2D decomposition over ranks is refused, naming its item, before
-    # anything is realized (several components over ranks run:
-    # tests/test_torch_parallel_multi.py)
-    with pytest.raises(NotImplementedError, match="item 14b"):
+    # -n AxB reaches the run through the CLI: several components over its
+    # A·B ranks, whose layout check refuses 5³ baryons over 2 ranks before
+    # anything is realized (runs that can run:
+    # tests/test_torch_parallel_multi.py, tests/test_torch_parallel_pencils.py)
+    with pytest.raises(ValueError, match="125 particles of 'baryon' do not split evenly "
+                                         "over 2 ranks"):
         cli.main(["-p", PARAM, "-n", "2x1", "--device", "cpu", "-c",
-                  "initial_conditions=[{'species':'cdm','N':8**3},{'species':'baryon','N':8**3}]"])
+                  "initial_conditions=[{'species':'cdm','N':8**3},{'species':'baryon','N':5**3}]"])
     assert "output" not in os.listdir(tmp_path)
 
 
