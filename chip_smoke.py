@@ -32,8 +32,9 @@ Phases, each of which fails loudly:
 Then the same for the global stepper (``N_rungs = 1``):
 
 2b. Each of its kernels against its plain version at the shapes of a
-    realized 128³ state on grid 256: the two-sided pair sweep on the
-    45³-cell slot layout (receivers = suppliers, no bounds), and the CIC
+    realized 128³ state on grid 256: the global pair sweep (row 6) on the
+    45³-cell slot layout (receivers = suppliers, with the layout's
+    occupancy bounds, as the stepper launches it), and the CIC
     deposit and gather (D = 3) on the 128³ blocks of 2³ mesh cells, with
     the library calls as in 2.
 3b. ``param/example_basic.py`` with ``-c "N_rungs=1"`` (64³, grid 128,
@@ -261,6 +262,13 @@ Then the 2D pencils of ``-n AxB``:
     10, 11 and 6 held against their plain versions on the kick's block
     sort and slots; (d) ``-n 2x1`` raising ValueError on one card.
 
+Wherever rows 6 and 2 (the global kernel) are held against their plain
+version, they are also held bit for bit against the unbounded launch of
+row 1's kernel (what they launched before they had a kernel of their
+own) on the rows below the receiver bounds, that launch is timed beside
+them, and the row pairs the launch visits are printed beside the pair
+tests the slots need.
+
 Before its last line it prints one JSON object ``{"kernels": [...]}`` and
 the card's name and power limit as nvidia-smi reports them (each kernel
 with its double instantiation's numbers under ``f64_*``); the last line
@@ -377,7 +385,7 @@ def _nvidia_smi() -> str:
 
 def _counters():
     from concept_tpu_torch.forces.cuda_shortrange import (
-        pair_sweep, pair_sweep_reach, pair_sweep_subset,
+        pair_sweep, pair_sweep_global, pair_sweep_reach, pair_sweep_subset,
     )
     from concept_tpu_torch.forces.shortrange import sweep_reach
     from concept_tpu_torch.grid.cuda_blocks import deposit_blocks, gather_blocks
@@ -388,7 +396,8 @@ def _counters():
             "sweep_reach": sweep_reach, "deposit_cells": deposit_cells,
             "gather_cells": gather_cells, "deposit_blocks": deposit_blocks,
             "gather_blocks": gather_blocks, "deposit_pm": deposit_pm,
-            "gather_pm": gather_pm, "pair_sweep_subset": pair_sweep_subset}
+            "gather_pm": gather_pm, "pair_sweep_subset": pair_sweep_subset,
+            "pair_sweep_global": pair_sweep_global}
 
 
 def _reset_counts():
@@ -517,6 +526,16 @@ def _pair_work(pos_s, n, boxsize, cutoff2, soft2, offsets, sup_s=None):
     return tested, within, near, n_valid
 
 
+def _occ(pos_s, box: float):
+    """The per-column occupancy extents (C,) int32 of sentinel-filled
+    slots (3, K, C): the row bounds the global callers pass (min(counts,
+    K) of a bucketize, p3mrungs._column_occ_ext of a persistent layout)."""
+    from concept_tpu_torch.forces.shortrange import SENTINEL
+    from concept_tpu_torch.p3mrungs import _column_occ_ext
+
+    return _column_occ_ext(pos_s[0].abs() < 0.5 * SENTINEL * box)
+
+
 def _visited(rb, sb, n: int, offsets) -> int:
     """Row pairs a sweep launch visits under per-column bounds rb, sb (C,):
     Σ_c rb[c]·Σ_d sb[c + d] over the offsets d (periodic)."""
@@ -534,8 +553,13 @@ def _check_sweep(tag: str, pos_s, sim, bounds, reps: int, plain_reps: int,
     positions pos_s (3, K, C) of a layout with `sim`'s geometry (nc,
     boxsize, scale, cutoff, softening, softening_kernel), receivers =
     suppliers, with per-column row bounds (rext, sext) or (None, None):
-    errors, times and bound.  ``reach`` = "subset" sweeps the ±1 columns
-    through pair_sweep_subset (row 2, no bounds); "one-sided" or
+    errors, times and bound.  ``reach`` = "global" sweeps the ±1 columns
+    through pair_sweep_global (row 6), "subset" through pair_sweep_subset
+    (row 2): both are also held bit for bit against the unbounded launch
+    of row 1's kernel (pair_sweep without bounds, which rows 6 and 2
+    launched before they had a kernel of their own) on the rows below the
+    receiver bounds, with 0 beyond them, and that launch is timed beside
+    them.  "one-sided" or
     "two-sided" sweeps `sim`'s reach-2 offsets (the 4-mesh-cell layout)
     instead of the ±1 columns: one-sided through pair_sweep_reach with the
     receivers at the negative sentinel, two-sided through sweep_reach (no
@@ -551,8 +575,8 @@ def _check_sweep(tag: str, pos_s, sim, bounds, reps: int, plain_reps: int,
     import torch
 
     from concept_tpu_torch.forces.cuda_shortrange import (
-        OFFSETS_27, column_bounds, pair_sweep, pair_sweep_plain, pair_sweep_reach,
-        pair_sweep_subset,
+        OFFSETS_27, column_bounds, pair_sweep, pair_sweep_global, pair_sweep_plain,
+        pair_sweep_reach, pair_sweep_subset,
     )
     from concept_tpu_torch.forces.shortrange import SENTINEL, dtype_square, sweep_reach
 
@@ -560,12 +584,15 @@ def _check_sweep(tag: str, pos_s, sim, bounds, reps: int, plain_reps: int,
     f64 = dtype == torch.float64
     args = (sim.nc, sim.boxsize, sim.scale, dtype_square(sim.cutoff, dtype),
             dtype_square(sim.softening, dtype), sim.softening_kernel)
-    offsets = OFFSETS_27 if reach in (None, "subset") else sim.offsets
+    pm1 = (None, "global", "subset")
+    offsets = OFFSETS_27 if reach in pm1 else sim.offsets
     sup = pos_s if sup_s is None else sup_s
-    if reach in (None, "subset"):
+    if reach in pm1:
         def kern():
             if reach == "subset":
-                return pair_sweep_subset(pos_s, sup, *args)
+                return pair_sweep_subset(pos_s, sup, *args, rext=bounds[0], sext=bounds[1])
+            if reach == "global":
+                return pair_sweep_global(pos_s, pos_s, *args, rext=bounds[0], sext=bounds[1])
             return pair_sweep(pos_s, pos_s, *args, rext=bounds[0], sext=bounds[1])
 
         def plain():
@@ -601,11 +628,24 @@ def _check_sweep(tag: str, pos_s, sim, bounds, reps: int, plain_reps: int,
     rel = _max_rel_recv(got, ref) if per_receiver else rel_max
     tol = tol or (F64_TOL if f64 else 1e-5)
     ok = rel <= tol
-    del got, ref
-    ms, plain_ms = _time_ms(kern, reps), _time_ms(plain, plain_reps)
+    del ref
     _, K, C = pos_s.shape
-    rb, sb = (torch.full((C,), K, device=pos_s.device) if e is None else
-              torch.clamp(column_bounds(e, sim.nc).to(torch.int64), max=K) for e in bounds)
+    rb, sb = (torch.full((C,), k, device=pos_s.device) if e is None else
+              torch.clamp(column_bounds(e, sim.nc).to(torch.int64), max=k)
+              for e, k in zip(bounds, (K, sup.shape[1])))
+    vs_unbounded = {}
+    if reach in ("global", "subset"):
+        def unbounded():
+            return pair_sweep(pos_s, sup, *args)
+
+        below = torch.arange(K, device=pos_s.device)[:, None] < rb[None, :]
+        ub = torch.where(below[None], unbounded(), 0)
+        d = float((got - ub).abs().max())
+        vs_unbounded = dict(bitwise_equal_unbounded=bool(torch.equal(got, ub)),
+                            max_abs_vs_unbounded=d, unbounded_ms=_time_ms(unbounded, reps))
+        del ub, below
+    del got
+    ms, plain_ms = _time_ms(kern, reps), _time_ms(plain, plain_reps)
     visited = _visited(rb, sb, sim.nc, offsets)
     tested, within, near, n_valid = _pair_work(pos_s, sim.nc, sim.boxsize, args[3], args[4],
                                                offsets, sup_s)
@@ -616,18 +656,22 @@ def _check_sweep(tag: str, pos_s, sim, bounds, reps: int, plain_reps: int,
         4 * e.numel() for e in bounds if e is not None)
     peak = _fp_peak(dtype)
     bound_ms = 1e3 * max(flops / peak, nbytes / HBM_BYTES_PER_S)
-    name = {None: "pair_sweep", "subset": "pair_sweep_subset"}.get(reach, "reach sweep")
+    name = {None: "pair_sweep", "global": "pair_sweep_global",
+            "subset": "pair_sweep_subset"}.get(reach, "reach sweep")
     measure = (f"max|Δ|/max|ref| {rel_max:.3e}, per receiver {rel:.3e}" if per_receiver
                else f"max|Δ|/max|ref| {rel:.3e}")
+    against = (f"; against the unbounded launch {vs_unbounded['unbounded_ms']:.3f} ms: "
+               f"{'bit for bit' if vs_unbounded['bitwise_equal_unbounded'] else 'DIFFERS'}"
+               f" (max |Δ| {vs_unbounded['max_abs_vs_unbounded']:.3e})" if vs_unbounded else "")
     print(f"  {name} ({tag}{', float64' if f64 else ''}): max |Δ| {err:.3e}, {measure} "
           f"(tol {tol:g}) {'ok' if ok else 'FAIL'}; {ms:.3f} ms, plain {plain_ms:.1f} ms, "
           f"bound {bound_ms:.3f} ms; {tested} pair tests needed ({n_valid} valid "
           f"slots), {within} in the cutoff, {near} in the spline near field; the "
           f"launch visits {visited} row pairs (deepest receiver bound {int(rb.max())}, "
-          f"supplier bound {int(sb.max())} rows)")
+          f"supplier bound {int(sb.max())} rows){against}")
     if not ok:
         raise SystemExit(f"{name} ({tag}) disagrees with its plain version")
-    return dict(
+    return dict(**vs_unbounded,
         max_abs_err=err, max_rel_err=rel, tol_rel=tol, per_receiver=per_receiver,
         max_rel_err_of_max=rel_max, ms=ms, plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by="operations" if flops / peak >
@@ -871,9 +915,10 @@ def check_global_kernels(N: int = 128**3, mesh: int = 256, device: str = "cuda",
                          dtype=None) -> dict:
     """The global stepper's kernels against their plain versions at the
     shapes of a realized N-particle state on grid `mesh`: the two-sided
-    sweep on the short-range slots, the deposit and gather on the PM
-    blocks.  In float64 (``dtype``) also row 2, the one-sided sweep of
-    ``pair_sweep_subset``, on the same slots."""
+    sweep on the short-range slots (row 6, with their occupancy bounds),
+    the deposit and gather on the PM blocks.  In float64 (``dtype``) also
+    row 2, the one-sided sweep of ``pair_sweep_subset``, on the same
+    slots."""
     sim, flat = _global_sim(N, mesh, device, dtype)
     box = sim.config.boxsize
     slots, n_over = _global_sweep_slots(sim, flat.pos)
@@ -883,11 +928,13 @@ def check_global_kernels(N: int = 128**3, mesh: int = 256, device: str = "cuda",
           f"{mesh // 2}³ PM blocks, K = {sim._k_pm}")
     out = {"shape": {"N": N, "mesh": mesh, "nc": sim._sr_ncells, "K_rows": K,
                      "stragglers": n_over, "nb": mesh // 2, "k_pm": sim._k_pm}}
+    ext = _occ(slots, box)
     out["pair_sweep_two_sided"] = _check_sweep("two-sided", slots, _sweep_geometry(sim),
-                                               (None, None), 10, 1 if dtype else 2)
+                                               (ext, ext), 10, 1 if dtype else 2,
+                                               reach="global")
     if dtype is not None:
         out["subset_sweep"] = _check_sweep("one-sided", slots, _sweep_geometry(sim),
-                                           (None, None), 10, 1, reach="subset")
+                                           (ext, ext), 10, 1, reach="subset")
     del slots
     pos, valid, ext = _global_pm_slots(sim, flat.pos)
     out.update(_check_slot_pm("PM blocks", pos, valid, sim.spec.mass, sim.config.G,
@@ -1088,7 +1135,7 @@ def check_pm_only_kernels(N: int = 256**3, mesh: int = 256, device: str = "cuda"
 
 
 RUNG_KERNELS = ("pair_sweep", "deposit_cells", "gather_cells")
-GLOBAL_KERNELS = ("pair_sweep", "deposit_blocks", "gather_blocks")
+GLOBAL_KERNELS = ("pair_sweep_global", "deposit_blocks", "gather_blocks")
 REACH_KERNELS = ("pair_sweep_reach", "deposit_cells", "gather_cells")
 TIGHT_KERNELS = ("pair_sweep", "deposit_blocks", "gather_blocks")
 PM_KERNELS = ("deposit_pm", "gather_pm")
@@ -1296,7 +1343,7 @@ def realistic(a_end: float = 0.023, n: int = 256, mesh: int = 512, ucb: int = 8,
 
 
 # device-time groups of a profiled run, by kernel name (first match)
-PROFILE_GROUPS = (("pair_sweep", ("pair_sweep_kernel",)),
+PROFILE_GROUPS = (("pair_sweep", ("pair_sweep_kernel", "pair_sweep_global_kernel")),
                   ("CIC deposit", ("deposit_tile_kernel",)),
                   ("CIC gather", ("gather_tile_kernel", "gather_columns_kernel")),
                   ("cuFFT", ("fft", "FFT")),
@@ -1368,8 +1415,9 @@ def global_main_path() -> dict:
     slots, n_over = _global_sweep_slots(sim, state.pos)
     print(f"kernel vs plain on the final slots: {sim._sr_ncells}³ cells, "
           f"K = {slots.shape[1]}, {n_over} stragglers")
+    ext = _occ(slots, sim.config.boxsize)
     clustered = _check_sweep("two-sided, clustered", slots, _sweep_geometry(sim),
-                             (None, None), 10, 1)
+                             (ext, ext), 10, 1, reach="global")
     del slots
     pos, valid, ext = _global_pm_slots(sim, state.pos)
     pm = _check_slot_pm("PM kernels vs plain on the final blocks", pos, valid,
@@ -1659,8 +1707,8 @@ def bucket_sustained(n: int = 256, a_end: float = 0.12) -> dict:
             "peak_bytes": peak, "launches": counts, "final_slots": final}
 
 
-P3M_KERNELS = ("pair_sweep", "deposit_blocks", "gather_blocks")
-RUNGS_GLOBAL_KERNELS = ("pair_sweep", "pair_sweep_subset", "deposit_pm", "gather_pm")
+P3M_KERNELS = ("pair_sweep_global", "deposit_blocks", "gather_blocks")
+RUNGS_GLOBAL_KERNELS = ("pair_sweep_global", "pair_sweep_subset", "deposit_pm", "gather_pm")
 LEAN_KERNELS = ("deposit_cells", "gather_cells")
 
 
@@ -1744,7 +1792,8 @@ def p3m_persistent(n: int = 256, mesh: int = 512, a_end: float = 0.025,
           f"launches {counts}")
     pos_s = torch.where(state.valid[None], state.pos, SENTINEL * box).contiguous()
     print(f"kernels vs plain on the final slots: {sim.nc}³ cells, K = {sim.capacity}")
-    sweep = _check_sweep("two-sided, final", pos_s, sim, (None, None), 5, 1)
+    ext = sim._extents(state)
+    sweep = _check_sweep("two-sided, final", pos_s, sim, (ext, ext), 5, 1, reach="global")
     del pos_s
     flat = state.pos.reshape(3, -1)[:, state.valid.reshape(-1)]
     from concept_tpu_torch.forces.p3m import block_layout
@@ -1823,7 +1872,8 @@ def global_rungs(n: int = 64, mesh: int = 128, extra_steps: int = 2,
                         SENTINEL * cfg.boxsize).contiguous()
     print(f"row 2 vs plain on the last substep's receivers: {sim._sr_ncells}³ cells, "
           f"K = {cap}")
-    sweep = _check_sweep("one-sided, substep", slots, _sweep_geometry(sim), (None, None), 10, 1,
+    ext = _occ(slots, cfg.boxsize)
+    sweep = _check_sweep("one-sided, substep", slots, _sweep_geometry(sim), (ext, ext), 10, 1,
                          reach="subset")
     return {"a_end": a, "base_steps": calls, "seconds": seconds, "stats": stats,
             "launches": counts, "subset_sweep": sweep}
@@ -2630,8 +2680,8 @@ def nu_cosmology(a_end: float = NU_A_END, n: int = 80, device: str = "cuda",
 REL_PARAM = os.path.join(ROOT, "param", "example_relativistic.py")
 MULTI_STEPS = 200  # example_nonlinnu's global steps from a_begin (the ν Courant limit)
 SPLIT_STEPS = 16  # steps timed part by part after the counted run
-SWEEP_ROWS = ("pair_sweep",)
-PAIR_ROWS = ("pair_sweep", "pair_sweep_subset")
+SWEEP_ROWS = ("pair_sweep_global",)
+PAIR_ROWS = ("pair_sweep_global", "pair_sweep_subset")
 ALL_PAIRS = "powerspec_select={'all': True, 'all combinations': True}"
 
 
@@ -2740,7 +2790,7 @@ def _multi_nonlinnu(cache: str, device: str = "cuda", steps: int = MULTI_STEPS,
 
     from concept_tpu_torch import sim_multi
     from concept_tpu_torch.device import resolve_device, resolve_dtype
-    from concept_tpu_torch.forces.cuda_shortrange import pair_sweep
+    from concept_tpu_torch.forces.cuda_shortrange import pair_sweep_global
     from concept_tpu_torch.forces.shortrange import dtype_square
     from concept_tpu_torch.param import load_params
     from concept_tpu_torch.run import build_components, build_cosmology, make_multi
@@ -2800,31 +2850,35 @@ def _multi_nonlinnu(cache: str, device: str = "cuda", steps: int = MULTI_STEPS,
     # ~6000 pairs in the cutoff that nearly cancel: the float32 sums carry
     # a floor of their own, which the plain float32 version's distance
     # from its float64 version measures on the first 64 rows of each
-    # column.  The bounded float32 launch on those rows is held to its
-    # plain version, and the run's own launch (every row, no bounds) to
+    # column.  The float32 launch bounded to those rows is held to its
+    # plain version, and the run's own launch (every occupied row) to
     # the double kernel's on the same slots, each within twice that floor
     # (or 1e-5, the larger); the double kernel is held at 1e-10 of its
     # plain version.  Every measure is per receiver (_max_rel_recv).
     slots = _component_slots(sim, state.particles["matter"].pos)
     geom = _sweep_geometry(sim)
     K = slots.shape[1]
-    rows = torch.full((geom.nc**3,), min(64, K), dtype=torch.int32, device=slots.device)
+    ext = _occ(slots, geom.boxsize)
+    rows = torch.clamp(ext, max=64)
     args = (geom.nc, geom.boxsize, geom.scale, dtype_square(geom.cutoff, slots.dtype),
             dtype_square(geom.softening, slots.dtype), geom.softening_kernel)
     floor = _float32_floor(slots, slots, args, rext=rows)
     tol = max(1e-5, 2 * floor)
     tag = f"ν run's final slots, the first {min(64, K)} rows of each column"
-    check = _check_sweep(tag, slots, geom, (rows, None), 3, 1, tol=tol, per_receiver=True)
+    check = _check_sweep(tag, slots, geom, (rows, ext), 3, 1, reach="global", tol=tol,
+                         per_receiver=True)
     check["float32_floor"] = floor
     s64 = slots.double()
-    check_f64 = _check_sweep(tag, s64, geom, (rows, None), 3, 1, per_receiver=True)
+    check_f64 = _check_sweep(tag, s64, geom, (rows, ext), 3, 1, reach="global",
+                             per_receiver=True)
     args64 = args[:3] + (dtype_square(geom.cutoff, s64.dtype),
                          dtype_square(geom.softening, s64.dtype), geom.softening_kernel)
-    full = _max_rel_recv(pair_sweep(slots, slots, *args).double(),
-                         pair_sweep(s64, s64, *args64))
+    full = _max_rel_recv(pair_sweep_global(slots, slots, *args, rext=ext, sext=ext).double(),
+                         pair_sweep_global(s64, s64, *args64, rext=ext, sext=ext))
     del s64
     check["all_rows_vs_f64_kernel"] = full
-    check["ms_all_rows"] = _time_ms(lambda: pair_sweep(slots, slots, *args), 3)
+    check["ms_all_rows"] = _time_ms(
+        lambda: pair_sweep_global(slots, slots, *args, rext=ext, sext=ext), 3)
     print(f"multi (a) example_nonlinnu whole ({n}³ matter, P³M grid {mesh}, ν "
           f"fluid grid {n // 2}, KT RK2) on {device}: {steps} global steps a {cfg.a_begin} → "
           f"{a:.6g}, {sim.timings['evolve_s']:.2f} s of evolution ({ms_step:.2f} ms a step), "
@@ -2887,19 +2941,22 @@ def _multi_cdm_baryon(device: str = "cuda", n: int = 64, mesh: int = 128) -> dic
     # float32 at 1e-5, float64 at 1e-10; the float32 plain version's own
     # distance from float64 on the same slots is recorded beside
     spline = SimpleNamespace(**{**vars(geom), "softening_kernel": "spline"})
-    cases = (("row6_final", "CDM's final slots, softening 0", geom, None),
+    cases = (("row6_final", "CDM's final slots, softening 0", geom, "global"),
              ("row2_final", "CDM receivers, baryon suppliers, softening 0", geom, "subset"),
-             ("row6_spline", "CDM's final slots, spline at softening 0", spline, None))
+             ("row6_spline", "CDM's final slots, spline at softening 0", spline, "global"))
+    e_cdm, e_bar = _occ(cdm, geom.boxsize), _occ(bar, geom.boxsize)
     for key, tag, g, reach in cases:
-        sup = bar if reach else cdm
+        row2 = reach == "subset"
+        sup = bar if row2 else cdm
+        bounds = (e_cdm, e_bar if row2 else e_cdm)
         args = (g.nc, g.boxsize, g.scale, dtype_square(g.cutoff, cdm.dtype),
                 dtype_square(g.softening, cdm.dtype), g.softening_kernel)
         floor = _float32_floor(cdm, sup, args)
-        out[key] = _check_sweep(tag, cdm, g, (None, None), 3, 1, reach=reach,
-                                sup_s=bar if reach else None, per_receiver=True)
+        out[key] = _check_sweep(tag, cdm, g, bounds, 3, 1, reach=reach,
+                                sup_s=bar if row2 else None, per_receiver=True)
         out[key]["float32_floor"] = floor
-        out[f"{key}_f64"] = _check_sweep(tag, cdm.double(), g, (None, None), 3, 1,
-                                         reach=reach, sup_s=bar.double() if reach else None,
+        out[f"{key}_f64"] = _check_sweep(tag, cdm.double(), g, bounds, 3, 1,
+                                         reach=reach, sup_s=bar.double() if row2 else None,
                                          per_receiver=True)
     return out
 
@@ -3169,7 +3226,7 @@ def parallel(sim, state) -> dict:
             if dpos > 1e-4 or dmom > 1e-5:
                 raise SystemExit(f"the {method} step over the ranks differs from one device's: "
                                  f"positions {dpos:.3g}, momenta {dmom:.3g} of the largest")
-            _check_launches(counts, ("pair_sweep",) if method == "p3m" else ())
+            _check_launches(counts, ("pair_sweep_global",) if method == "p3m" else ())
         del steps
         try:
             run(load_params(PARAM), n_devices=2)
@@ -4033,14 +4090,17 @@ def parallel_multi(cache: str, steps: int = MULTI_STEPS) -> dict:
               f"{cb['peak_bytes'] / 2**30:.3f} GiB (one device {cb['single_ms_per_step']:.2f} "
               f"ms, {cb['single_peak_bytes'] / 2**30:.3f} GiB); launches {cb['launches']}; "
               f"rows 6 and 2 on the final state at softening 0:")
+        box = geom.boxsize
         for key, tag, recv, reach in (
-                ("row6", "the whole CDM over the rank, softening 0", cdm_all, None),
+                ("row6", "the whole CDM over the rank, softening 0", cdm_all, "global"),
                 ("row2", "the rank's CDM receivers, all baryons, softening 0", cdm, "subset")):
-            cb[key] = _check_sweep(tag, recv, geom, (None, None), 3, 1, reach=reach,
-                                   sup_s=bar if reach else None, per_receiver=True)
-            cb[f"{key}_f64"] = _check_sweep(tag, recv.double(), geom, (None, None), 3, 1,
+            row2 = reach == "subset"
+            bounds = (_occ(recv, box), _occ(bar if row2 else recv, box))
+            cb[key] = _check_sweep(tag, recv, geom, bounds, 3, 1, reach=reach,
+                                   sup_s=bar if row2 else None, per_receiver=True)
+            cb[f"{key}_f64"] = _check_sweep(tag, recv.double(), geom, bounds, 3, 1,
                                             reach=reach,
-                                            sup_s=bar.double() if reach else None,
+                                            sup_s=bar.double() if row2 else None,
                                             per_receiver=True)
         del cdm, cdm_all, bar, sim, final
         out["cdm_baryon"] = _public(cb)
@@ -4153,7 +4213,8 @@ def parallel_pencils(n: int = 256, mesh: int = 512) -> dict:
             if err > 1e-5:
                 raise SystemExit(f"the {method} kick on the pencils differs from one "
                                  f"device's by {err:.3g} of the largest momentum change")
-            _check_launches(counts, PM_KERNELS + (("pair_sweep",) if method == "p3m" else ()))
+            _check_launches(counts, PM_KERNELS + (("pair_sweep_global",) if method == "p3m"
+                                                  else ()))
             if method == "p3m":
                 pencil_sim = res["pencils"]["sim"]
             del res
@@ -4162,8 +4223,10 @@ def parallel_pencils(n: int = 256, mesh: int = 512) -> dict:
         # state at world size 1)
         out["pm_kernels"] = _check_pm_buckets(pos, m, cfg.G, mesh, box)
         slots, n_over = _global_sweep_slots(pencil_sim, pos)
+        ext = _occ(slots, box)
         out["pair_sweep"] = _check_sweep("two-sided, on the pencils' kick", slots,
-                                         _sweep_geometry(pencil_sim), (None, None), 3, 1)
+                                         _sweep_geometry(pencil_sim), (ext, ext), 3, 1,
+                                         reach="global")
         out["pair_sweep"]["stragglers"] = n_over
         del slots, pencil_sim
         # (d)
@@ -4211,7 +4274,7 @@ KERNELS = (
      "concept_tpu/grid/pallas_cells.py:206", "lean_kick"),
     ("pair_sweep_reach", "pair_sweep_reach", "check_reach", "reach_one_sided", SWEEP_SRC,
      "concept_tpu/forces/pallas_shortrange.py:976", "reach_main_path"),
-    ("pair_sweep_two_sided", "pair_sweep", "check_global", "pair_sweep_two_sided",
+    ("pair_sweep_global", "pair_sweep_global", "check_global", "pair_sweep_two_sided",
      SWEEP_SRC, "concept_tpu/forces/pallas_shortrange.py:220", "p3m_persistent"),
     ("sweep_reach", "sweep_reach", "check_reach", "reach_two_sided_unbounded", SWEEP_SRC,
      "concept_tpu/forces/pallas_shortrange.py:831", None),
@@ -4274,12 +4337,12 @@ def kernels_line(results: dict) -> list:
     # the earlier paths' launches of the kernels whose newest path is above
     for name, counter, phase in (("deposit_cells", "deposit_cells", "main_path"),
                                  ("gather_cells", "gather_cells", "main_path"),
-                                 ("pair_sweep_two_sided", "pair_sweep", "global_main_path"),
+                                 ("pair_sweep_global", "pair_sweep_global", "global_main_path"),
                                  ("deposit_blocks", "deposit_blocks", "global_main_path"),
                                  ("gather_blocks", "gather_blocks", "global_main_path")):
         byname[name][f"{phase}_launches"] = results[phase]["launches"][counter]
-    byname["pair_sweep_two_sided"]["global_rungs_launches"] = (
-        results["global_rungs"]["launches"]["pair_sweep"])
+    byname["pair_sweep_global"]["global_rungs_launches"] = (
+        results["global_rungs"]["launches"]["pair_sweep_global"])
     byname["pair_sweep_subset"]["global_rungs_launches"] = (
         results["global_rungs"]["launches"]["pair_sweep_subset"])
     # the multi phase: rows 6 and 2 launched by its three runs, and held
@@ -4287,33 +4350,33 @@ def kernels_line(results: dict) -> list:
     # (the run's 'plummer', and 'spline'), in float and in double
     mp = results["multi"]
     for run_name in ("nonlinnu", "cdm_baryon", "relativistic"):
-        byname["pair_sweep_two_sided"][f"multi_{run_name}_launches"] = (
-            mp[run_name]["launches"]["pair_sweep"])
+        byname["pair_sweep_global"][f"multi_{run_name}_launches"] = (
+            mp[run_name]["launches"]["pair_sweep_global"])
         byname["pair_sweep_subset"][f"multi_{run_name}_launches"] = (
             mp[run_name]["launches"]["pair_sweep_subset"])
     for name, prefix, run_name, key in (
-            ("pair_sweep_two_sided", "multi_nonlinnu_final", "nonlinnu", "row6_final"),
-            ("pair_sweep_two_sided", "multi_soft0", "cdm_baryon", "row6_final"),
-            ("pair_sweep_two_sided", "multi_soft0_spline", "cdm_baryon", "row6_spline"),
-            ("pair_sweep_two_sided", "f64_multi_soft0", "cdm_baryon", "row6_final_f64"),
-            ("pair_sweep_two_sided", "f64_multi_soft0_spline", "cdm_baryon",
+            ("pair_sweep_global", "multi_nonlinnu_final", "nonlinnu", "row6_final"),
+            ("pair_sweep_global", "multi_soft0", "cdm_baryon", "row6_final"),
+            ("pair_sweep_global", "multi_soft0_spline", "cdm_baryon", "row6_spline"),
+            ("pair_sweep_global", "f64_multi_soft0", "cdm_baryon", "row6_final_f64"),
+            ("pair_sweep_global", "f64_multi_soft0_spline", "cdm_baryon",
              "row6_spline_f64"),
             ("pair_sweep_subset", "multi_soft0", "cdm_baryon", "row2_final"),
             ("pair_sweep_subset", "f64_multi_soft0", "cdm_baryon", "row2_final_f64")):
         c = mp[run_name][key]
         byname[name].update({f"{prefix}_{k}": c[k] for k in (
             "max_abs_err", "max_rel_err", "tol_rel", "ms", "plain_ms", "bound_ms")})
-    byname["pair_sweep_two_sided"]["parallel_launches"] = (
-        results["parallel"]["p3m"]["launches"]["pair_sweep"])
+    byname["pair_sweep_global"]["parallel_launches"] = (
+        results["parallel"]["p3m"]["launches"]["pair_sweep_global"])
     # phase 14: rows 6 and 2 launched by the three runs over the rank, and
     # held per receiver on the CDM + baryon run's final state there
     pmu = results["parallel_multi"]
     for run_name in ("nonlinnu", "cdm_baryon", "relativistic"):
-        for name, counter in (("pair_sweep_two_sided", "pair_sweep"),
+        for name, counter in (("pair_sweep_global", "pair_sweep_global"),
                               ("pair_sweep_subset", "pair_sweep_subset")):
             byname[name][f"parallel_multi_{run_name}_launches"] = (
                 pmu[run_name]["launches"][counter])
-    for name, key in (("pair_sweep_two_sided", "row6"), ("pair_sweep_subset", "row2")):
+    for name, key in (("pair_sweep_global", "row6"), ("pair_sweep_subset", "row2")):
         for suffix, prefix in (("", "parallel_multi_soft0"), ("_f64", "f64_parallel_multi_soft0")):
             c = pmu["cdm_baryon"][key + suffix]
             byname[name].update({f"{prefix}_{k}": c[k] for k in (
@@ -4322,12 +4385,12 @@ def kernels_line(results: dict) -> list:
     # 1 x 1 pencils, and held on the kick's block sort and slots
     pp = results["parallel_pencils"]
     for name, counter in (("deposit_pm", "deposit_pm"), ("gather_pm", "gather_pm"),
-                          ("pair_sweep_two_sided", "pair_sweep")):
+                          ("pair_sweep_global", "pair_sweep_global")):
         for method in ("pm", "p3m"):
             byname[name][f"parallel_pencils_{method}_launches"] = pp[method]["launches"][counter]
     for name, c in (("deposit_pm", pp["pm_kernels"]["deposit_pm"]),
                     ("gather_pm", pp["pm_kernels"]["gather_pm"]),
-                    ("pair_sweep_two_sided", pp["pair_sweep"])):
+                    ("pair_sweep_global", pp["pair_sweep"])):
         byname[name].update({f"parallel_pencils_{k}": c.get(k) for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")})
     # rows 1, 3 and 4 over a rank's planes (phase 12): their checks, and
@@ -4349,7 +4412,7 @@ def kernels_line(results: dict) -> list:
                                      for k in planes_keys})
             byname[name][f"planes_{tag}_base_steps_launches"] = (
                 pr[tag]["base_steps"]["launches"][name])
-    byname["pair_sweep_two_sided"]["multi_nonlinnu_all_rows_vs_f64_kernel"] = (
+    byname["pair_sweep_global"]["multi_nonlinnu_all_rows_vs_f64_kernel"] = (
         mp["nonlinnu"]["row6_final"]["all_rows_vs_f64_kernel"])
     for name in ("deposit_pm", "gather_pm"):
         byname[name]["global_rungs_launches"] = results["global_rungs"]["launches"][name]
@@ -4362,8 +4425,8 @@ def kernels_line(results: dict) -> list:
             unbounded_plain_ms=unb["plain_ms"], unbounded_bound_ms=unb["bound_ms"])
     for name, prefix, phase, key in (
             ("pair_sweep", "clustered", "main_path", "pair_sweep_clustered"),
-            ("pair_sweep_two_sided", "clustered", "global_main_path", "pair_sweep_clustered"),
-            ("pair_sweep_two_sided", "p3m_final", "p3m_persistent", "sweep_final"),
+            ("pair_sweep_global", "clustered", "global_main_path", "pair_sweep_clustered"),
+            ("pair_sweep_global", "p3m_final", "p3m_persistent", "sweep_final"),
             ("pair_sweep_reach", "clustered", "reach_main_path", "sweep_clustered")):
         clu = results[phase][key]
         byname[name].update({f"{prefix}_{k}": clu[k] for k in (
@@ -4411,8 +4474,8 @@ def kernels_line(results: dict) -> list:
             "gather_cells": ("rungs", "gather_cells", f64p["rungs"]["launches"]["gather_cells"]),
             "pair_sweep_reach": ("reach", "reach_one_sided",
                                  f64p["reach"]["launches"]["pair_sweep_reach"]),
-            "pair_sweep_two_sided": ("global", "pair_sweep_two_sided",
-                                     f64p["global"]["launches"]["pair_sweep"]),
+            "pair_sweep_global": ("global", "pair_sweep_two_sided",
+                                     f64p["global"]["launches"]["pair_sweep_global"]),
             "sweep_reach": ("reach", "reach_two_sided_unbounded",
                             f64p["reach"]["launches"]["sweep_reach"]),
             "deposit_blocks": ("global", "deposit_blocks",
@@ -4425,6 +4488,28 @@ def kernels_line(results: dict) -> list:
         byname[name].update({f"f64_{k}": c.get(k) for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
         byname[name]["f64_launches"] = launches
+    # rows 6 and 2 on every shape that checks them: the row pairs the
+    # global kernel visited beside the pair tests needed, and the
+    # unbounded launch of row 1's kernel (what rows 6 and 2 launched
+    # before) bit for bit and its time
+    pmc = pmu["cdm_baryon"]
+    for name, prefix, c in (
+            ("pair_sweep_global", "check", results["check_global"]["pair_sweep_two_sided"]),
+            ("pair_sweep_global", "clustered", results["global_main_path"]["pair_sweep_clustered"]),
+            ("pair_sweep_global", "p3m_final", results["p3m_persistent"]["sweep_final"]),
+            ("pair_sweep_global", "multi_nonlinnu_final", mp["nonlinnu"]["row6_final"]),
+            ("pair_sweep_global", "multi_soft0", mp["cdm_baryon"]["row6_final"]),
+            ("pair_sweep_global", "multi_soft0_spline", mp["cdm_baryon"]["row6_spline"]),
+            ("pair_sweep_global", "parallel_multi_soft0", pmc["row6"]),
+            ("pair_sweep_global", "parallel_pencils", pp["pair_sweep"]),
+            ("pair_sweep_global", "f64", results["check_f64"]["global"]["pair_sweep_two_sided"]),
+            ("pair_sweep_subset", "check", results["global_rungs"]["subset_sweep"]),
+            ("pair_sweep_subset", "multi_soft0", mp["cdm_baryon"]["row2_final"]),
+            ("pair_sweep_subset", "parallel_multi_soft0", pmc["row2"]),
+            ("pair_sweep_subset", "f64", results["check_f64"]["global"]["subset_sweep"])):
+        byname[name].update({f"{prefix}_{k}": c[k] for k in (
+            "row_pairs_visited", "pairs_tested", "bitwise_equal_unbounded",
+            "max_abs_vs_unbounded", "unbounded_ms")})
     return kernels
 
 

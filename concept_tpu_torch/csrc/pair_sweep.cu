@@ -3,8 +3,9 @@
 // Replaces concept_tpu/forces/pallas_shortrange.py
 //   _make_pair_kernel_flat_bounded (pallas_call at :714),
 //   _make_pair_kernel_flat         (pallas_call at :798),
-//   _make_pair_kernel_reach        (pallas_call at :1103) and
-//   _make_kernel_reach             (pallas_call at :965),
+//   _make_pair_kernel_reach        (pallas_call at :1103),
+//   _make_kernel_reach             (pallas_call at :965) and
+//   _make_kernel                   (pallas_call at :1163),
 // with the shared pair math of _make_accum / _force_law / screening_g.
 //
 // What it computes: for every receiver slot (row r < K_r of column c) the
@@ -68,8 +69,12 @@
 // the cutoff, so the kernel and the plain version must take the same
 // pairs.
 //
-// Both kernels are templates on the scalar type, instantiated for float
-// and double (the _f64 launch function).  The double kernels evaluate
+// The global steppers' sweeps without a rung bound (rows 6 and 2, the
+// ±1 table over whole columns) take a third design, pair_sweep_global_kernel
+// (below, at its definition).
+//
+// All three kernels are templates on the scalar type, instantiated for
+// float and double (the _f64 launch functions).  The double kernels evaluate
 // the screening exactly, erfc and exp as the float64 plain version does,
 // where the float ones take the degree-10 fit; they stage 32-byte rows
 // (two shared loads a test), and the reach kernel's double instantiation
@@ -566,19 +571,328 @@ __global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS) pair_sweep_kernel_reac
   }
 }
 
-template <typename T, int REACH_BLOCKS>
-static int launch(const T* recv, long long recv_cs, int K_r, const T* sup, long long sup_cs,
-                  int K_s, int n, int nx, const int* rb, const int* sb, T* out, T boxsize,
-                  T inv_scale,
-                  T cutoff2, T soft2, int kernel, const float* coef,
-                  const signed char* offsets, int n_offsets, void* stream) {
-  if (n_offsets < 1 || n_offsets > MAX_OFFSETS) return (int)cudaErrorInvalidValue;
-  GCoef gc;
-  for (int i = 0; i < NCOEF; ++i) gc.c[i] = coef ? coef[i] : 0.0f;
-  Offsets offs;
-  offs.count = n_offsets;
-  for (int i = 0; i < 3 * n_offsets; ++i) offs.d[i] = offsets[i];
-  // GADGET-2 spline: h = 2.8ε (soft2 = ε²)
+// ---------------------------------------------------------------------- //
+// The global sweeps (pair_sweep_global_kernel; rows 6 and 2): the ±1
+// table over the bounded slot layouts of the global steppers, receivers =
+// suppliers (row 6) or one set against another (row 2).  Their columns
+// range from empty to several hundred rows deep, so a block per column
+// (pair_sweep_kernel) idles on the shallow ones and leaves a deep one to
+// run alone at the end.  Here the work is a list of items, built on the
+// device by the wrapper (cuda_shortrange.global_work_list): an item is a
+// receiver column and its first row, at most GW_ITEM rows, so a deep
+// column makes several items and a column with no receiver none.  The
+// list runs from the columns with the most items down, and within one
+// count in column order, so that the warps at work at one time share
+// their neighbourhoods' rows in L2 (a finer order by depth would scatter
+// the neighbourhood reads over the box).  Persistent blocks (as many as
+// fit on the SMs at once) of GW_WARPS warps, each warp taking items from
+// one atomic counter: for an item of nr rows it holds R = ⌈nr/32⌉ ≤ GW_RMAX
+// receivers a lane (one shared load serves R tests), stages the item's
+// neighbourhood once, compacted by the supplier bounds and with the ±box
+// wrap, GW_STAGE_BYTES at a time (stage_flat(): 512 rows in float, 256 in
+// double), and queues and drains its pass masks as the kernels above do.
+// Each receiver's sum stays in one lane and takes its pairs in the staged
+// order of pair_sweep_kernel, by the same arithmetic, so the output equals
+// that kernel's unbounded launch bit for bit.  Rows at or beyond a
+// column's receiver bound are written 0 by the warps once the items run
+// out.  PAIR_SWEEP_SPLIT (a build flag of scripts/torch_sweep_split.py,
+// 0 as shipped) builds the variants that split its time: 1 tests the
+// pairs but skips the force path, 2 only stages.
+// GW_RMAX, GW_STAGE_BYTES and GW_BLOCKS_F32 take -D overrides for the
+// same script's variants (GW_RMAX ≤ 4; the wrapper's GLOBAL_ITEM_ROWS
+// must then match).
+#define GW_WARPS 4               // global kernel: warps a block, each on its own items
+#ifndef GW_RMAX
+#define GW_RMAX 2                // global kernel: receivers a lane holds, at most
+#endif
+#ifndef GW_BLOCKS_F32
+#define GW_BLOCKS_F32 5          // global kernel: resident blocks an SM, float
+#endif
+#define GW_ITEM (32 * GW_RMAX)   // global kernel: receiver rows an item holds, at most
+#define GW_QUEUE 12              // global kernel: queue entries a lane holds
+#ifndef GW_STAGE_BYTES
+#define GW_STAGE_BYTES 8192      // global kernel: staged rows a warp holds, in bytes
+#endif
+#define GW_COL_SHIFT 24          // an item is column << GW_COL_SHIFT | chunk
+#define GW_INFLIGHT 4            // global kernel: rows a lane stages at once
+#ifndef PAIR_SWEEP_SPLIT
+#define PAIR_SWEEP_SPLIT 0
+#endif
+
+template <typename T>
+struct GlobalWork {
+  const T* recv;
+  long long recv_cs;
+  int K_r;
+  const int* rb;           // (C,) receiver bounds in [0, K_r]
+  const long long* items;  // the work list
+  const int* n_items;      // its length, on the device
+  int* counter;            // the next item, 0 at the launch
+  T* out;
+  T cutoff2;
+};
+
+// Stages the supplier rows of the neighbour columns for the global
+// kernel, from neighbour nb's row `row` on, at most Cap rows, in the order
+// and places of stage(), and advances nb and row past what it staged.
+// Where stage() copies a column a lane or a column at a time, each a
+// chain of loads as long as the column is deep, this copies the rows of
+// the neighbourhood as one flat range, GW_INFLIGHT rows a lane at once
+// (a lane finds the column of its flat row by a binary search over the
+// lanes' inclusive row counts), so that a staging waits on a few load
+// latencies only.
+template <typename T, int Cap>
+__device__ int stage_flat(const Geometry<T>& G, int ci, int cj, int ck,
+                          const signed char* table, int n_off, int& nb, int& row,
+                          typename Num<T>::Row* q, int lane) {
+  int total = 0;
+  while (nb < n_off && total < Cap) {
+    const int avail = min(32, n_off - nb);
+    T hx = 0, hy = 0, hz = 0;
+    int col = 0, cnt = 0;
+    if (lane < avail) {
+      col = neighbour(G, ci, cj, ck, table + 3 * (nb + lane), hx, hy, hz);
+      cnt = G.sb ? min(G.sb[col], G.K_s) : G.K_s;
+    }
+    const int first = lane == 0 ? row : 0;
+    cnt = max(cnt - first, 0);
+    int incl = cnt;  // inclusive scan of the row counts
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int t = __shfl_up_sync(FULL, incl, o);
+      if (lane >= o) incl += t;
+    }
+    const int excl = incl - cnt;
+    // the lane (column) of flat row t: the number of lanes with incl ≤ t
+    auto column_of = [&](int t) {
+      int j = 0;
+#pragma unroll
+      for (int step = 16; step > 0; step >>= 1)
+        if (__shfl_sync(FULL, incl, j + step - 1) <= t) j += step;
+      return j;
+    };
+    const int all = __shfl_sync(FULL, incl, 31);
+    const int take = min(all, Cap - total);
+    for (int t0 = 0; t0 < take; t0 += 32 * GW_INFLIGHT) {
+      T x[GW_INFLIGHT], y[GW_INFLIGHT], z[GW_INFLIGHT];
+#pragma unroll
+      for (int u = 0; u < GW_INFLIGHT; ++u) {
+        const int t = t0 + 32 * u + lane;
+        const int j = column_of(t);
+        const int jcol = __shfl_sync(FULL, col, j);
+        const int jrow = __shfl_sync(FULL, first - excl, j) + t;
+        const T jhx = __shfl_sync(FULL, hx, j);
+        const T jhy = __shfl_sync(FULL, hy, j);
+        const T jhz = __shfl_sync(FULL, hz, j);
+        if (t < take) {
+          const long long a = (long long)jrow * G.C + jcol;
+          x[u] = G.sup[a] + jhx;
+          y[u] = G.sup[G.sup_cs + a] + jhy;
+          z[u] = G.sup[2 * G.sup_cs + a] + jhz;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < GW_INFLIGHT; ++u) {
+        const int t = t0 + 32 * u + lane;
+        if (t < take) q[total + t] = Num<T>::row(x[u], y[u], z[u]);
+      }
+    }
+    total += take;
+    if (take == all) {
+      nb += avail;
+      row = 0;
+    } else {
+      // column j holds flat row `take`: the next staging starts there
+      const int j = column_of(take);
+      row = __shfl_sync(FULL, first - excl, j) + take;
+      nb += j;
+    }
+  }
+  __syncwarp();
+  return total;
+}
+
+// One item: rows r0 .. r0 + nr − 1 of column c, R receivers a lane (rows
+// r0 + lane + 32k), against the 27 neighbour columns' supplier rows.
+template <typename T, int R, int Cap>
+__device__ __forceinline__ void global_item(const GlobalWork<T>& W, const Geometry<T>& G,
+                                            const ForceLaw<T>& law, const GCoef& gc,
+                                            const signed char* table, long long c, int r0,
+                                            int nr, typename Num<T>::Row* q, unsigned* qmask,
+                                            unsigned short* qbase, int lane) {
+  using Row = typename Num<T>::Row;
+  const long long C = G.C;
+  const int stride = GW_WARPS * 32;
+  T ox[R], oy[R], oz[R], ax[R], ay[R], az[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    ox[k] = oy[k] = oz[k] = Num<T>::nan();
+    ax[k] = ay[k] = az[k] = T(0);
+    if (lane + 32 * k < nr) {
+      const long long at = (long long)(r0 + lane + 32 * k) * C + c;
+      ox[k] = W.recv[at];
+      oy[k] = W.recv[W.recv_cs + at];
+      oz[k] = W.recv[2 * W.recv_cs + at];
+    }
+  }
+  const int n = G.n;
+  const int ci = (int)(c / ((long long)n * n)), cj = (int)((c / n) % n), ck = (int)(c % n);
+  const T far = T(1e30);  // pads a staging to whole 32-blocks
+  int cnt = 0, nb = 0, row = 0;
+  while (nb < 27) {
+    const int total = stage_flat<T, Cap>(G, ci, cj, ck, table, 27, nb, row, q, lane);
+    const int padded = (total + 31) & ~31;
+    if (total + lane < padded) q[total + lane] = Num<T>::row(far, far, far);
+    __syncwarp();
+#if PAIR_SWEEP_SPLIT < 2
+    for (int s0 = 0; s0 < padded; s0 += 32) {
+      unsigned m[R];
+#pragma unroll
+      for (int k = 0; k < R; ++k) m[k] = 0;
+#pragma unroll
+      for (int u = 0; u < 32; ++u) {
+        const Row p = q[s0 + u];
+#pragma unroll
+        for (int k = 0; k < R; ++k) {
+          const T r2 = dist2(ox[k] - p.x, oy[k] - p.y, oz[k] - p.z);
+          if (r2 < W.cutoff2 && r2 > T(0)) m[k] |= 1u << u;
+        }
+      }
+#if PAIR_SWEEP_SPLIT == 1
+#pragma unroll
+      for (int k = 0; k < R; ++k) ax[k] += T(__popc(m[k]));
+#else
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        if (m[k]) {
+          qmask[cnt * stride] = m[k];
+          qbase[cnt * stride] = (unsigned short)(s0 | (k << 14));
+          ++cnt;
+        }
+      }
+      // drain before a queue can overflow, and after the staging's last
+      // block (the entries name its rows): each lane walks its own passing
+      // pairs, one an iteration, in the order they were tested
+      if (__any_sync(FULL, cnt > GW_QUEUE - R) || s0 + 32 >= padded) {
+        int e = 0, b0 = 0, kk = 0;
+        unsigned mm = 0;
+        while (true) {
+          if (mm == 0) {
+            if (e == cnt) break;
+            mm = qmask[e * stride];
+            const unsigned b = qbase[e * stride];
+            b0 = b & 0x3fff;
+            kk = b >> 14;
+            ++e;
+          }
+          const Row p = q[b0 + __ffs(mm) - 1];
+          T rx = ox[0], ry = oy[0], rz = oz[0];
+#pragma unroll
+          for (int k = 1; k < R; ++k) {
+            if (kk == k) {
+              rx = ox[k];
+              ry = oy[k];
+              rz = oz[k];
+            }
+          }
+          const T dx = rx - p.x, dy = ry - p.y, dz = rz - p.z;
+          const T f = pair_factor(dist2(dx, dy, dz), law, gc);
+#pragma unroll
+          for (int k = 0; k < R; ++k) {
+            if (kk == k) {
+              ax[k] += f * dx;
+              ay[k] += f * dy;
+              az[k] += f * dz;
+            }
+          }
+          mm &= mm - 1;
+        }
+        cnt = 0;
+      }
+#endif
+    }
+#endif
+    __syncwarp();  // the staged rows are consumed before the next staging
+  }
+  const long long oc = (long long)W.K_r * C;
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    if (lane + 32 * k < nr) {
+      const long long at = (long long)(r0 + lane + 32 * k) * C + c;
+      W.out[at] = ax[k];
+      W.out[oc + at] = ay[k];
+      W.out[2 * oc + at] = az[k];
+    }
+  }
+}
+
+// global_item at R = r receivers a lane, r ≤ R (only R ≤ GW_RMAX is built)
+template <typename T, int R, int Cap>
+__device__ __forceinline__ void item_of_depth(int r, const GlobalWork<T>& W,
+                                              const Geometry<T>& G, const ForceLaw<T>& law,
+                                              const GCoef& gc, const signed char* table,
+                                              long long c, int r0, int nr,
+                                              typename Num<T>::Row* q, unsigned* qmask,
+                                              unsigned short* qbase, int lane) {
+  if constexpr (R > 1) {
+    if (r < R) {
+      item_of_depth<T, R - 1, Cap>(r, W, G, law, gc, table, c, r0, nr, q, qmask, qbase, lane);
+      return;
+    }
+  }
+  global_item<T, R, Cap>(W, G, law, gc, table, c, r0, nr, q, qmask, qbase, lane);
+}
+
+template <typename T, int MIN_BLOCKS>
+__global__ void __launch_bounds__(GW_WARPS * 32, MIN_BLOCKS) pair_sweep_global_kernel(
+    GlobalWork<T> W, Geometry<T> G, ForceLaw<T> law, GCoef gc) {
+  constexpr int Cap = GW_STAGE_BYTES / (int)sizeof(typename Num<T>::Row);
+  __shared__ typename Num<T>::Row staged[GW_WARPS][Cap];
+  __shared__ unsigned qmask[GW_QUEUE][GW_WARPS * 32];
+  __shared__ unsigned short qbase[GW_QUEUE][GW_WARPS * 32];
+  __shared__ signed char table[81];
+  // the 27 offsets (di, dj, dk) in pair_sweep_kernel's order: the
+  // launches' table, cuda_shortrange.OFFSETS_27
+  for (int i = threadIdx.x; i < 27; i += blockDim.x) {
+    table[3 * i] = (signed char)(i / 9 - 1);
+    table[3 * i + 1] = (signed char)((i / 3) % 3 - 1);
+    table[3 * i + 2] = (signed char)(i % 3 - 1);
+  }
+  __syncthreads();  // the only block barrier
+
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int n_items = *W.n_items;
+  unsigned* qm = &qmask[0][threadIdx.x];
+  unsigned short* qb = &qbase[0][threadIdx.x];
+  while (true) {
+    int it = 0;
+    if (lane == 0) it = atomicAdd(W.counter, 1);
+    it = __shfl_sync(FULL, it, 0);
+    if (it >= n_items) break;
+    const long long e = W.items[it];
+    const long long c = e >> GW_COL_SHIFT;
+    const int r0 = (int)(e & ((1 << GW_COL_SHIFT) - 1)) * GW_ITEM;
+    const int nr = min(GW_ITEM, W.rb[c] - r0);
+    item_of_depth<T, GW_RMAX, Cap>((nr + 31) >> 5, W, G, law, gc, table, c, r0, nr,
+                                   staged[w], qm, qb, lane);
+  }
+  // no item left: rows at or beyond a column's receiver bound write 0, a
+  // lane per column (neighbouring lanes on neighbouring addresses)
+  const long long C = G.C, oc = (long long)W.K_r * C;
+  const long long warps = (long long)gridDim.x * GW_WARPS;
+  for (long long c = ((long long)blockIdx.x * GW_WARPS + w) * 32 + lane; c < C;
+       c += warps * 32) {
+    for (long long a = (long long)W.rb[c] * C + c; a < oc; a += C) {
+      W.out[a] = T(0);
+      W.out[oc + a] = T(0);
+      W.out[2 * oc + a] = T(0);
+    }
+  }
+}
+
+// The launches' force law: GADGET-2 spline h = 2.8ε (soft2 = ε²).
+template <typename T>
+static ForceLaw<T> force_law(T inv_scale, T soft2, int kernel) {
   const T h = T(2.8) * std::sqrt(soft2);
   ForceLaw<T> law;
   law.kernel = kernel;
@@ -587,6 +901,12 @@ static int launch(const T* recv, long long recv_cs, int K_r, const T* sup, long 
   law.h2 = T(7.84) * soft2;
   law.inv_h = h > T(0) ? T(1) / std::fmax(h, T(1e-30)) : T(1e30);
   law.soft2 = soft2;
+  return law;
+}
+
+template <typename T>
+static Geometry<T> geometry(const T* sup, long long sup_cs, int K_s, int n, int nx,
+                            const int* sb, T boxsize) {
   Geometry<T> G;
   G.sup = sup;
   G.sup_cs = sup_cs;
@@ -596,6 +916,47 @@ static int launch(const T* recv, long long recv_cs, int K_r, const T* sup, long 
   G.nx = nx;
   G.sb = sb;
   G.boxsize = boxsize;
+  return G;
+}
+
+static GCoef coefficients(const float* coef) {
+  GCoef gc;
+  for (int i = 0; i < NCOEF; ++i) gc.c[i] = coef ? coef[i] : 0.0f;
+  return gc;
+}
+
+template <typename T, int MIN_BLOCKS>
+static int launch_global(const T* recv, long long recv_cs, int K_r, const T* sup,
+                         long long sup_cs, int K_s, int n, const int* rb, const int* sb,
+                         const long long* items, const int* n_items, int* counter, T* out,
+                         T boxsize, T inv_scale, T cutoff2, T soft2, int kernel,
+                         const float* coef, void* stream) {
+  const GlobalWork<T> W{recv, recv_cs, K_r, rb, items, n_items, counter, out, cutoff2};
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, pair_sweep_global_kernel<T, MIN_BLOCKS>, GW_WARPS * 32, 0);
+  const unsigned blocks = (unsigned)((per_sm > 0 ? per_sm : 1) * (sms > 0 ? sms : 1));
+  pair_sweep_global_kernel<T, MIN_BLOCKS><<<blocks, GW_WARPS * 32, 0, (cudaStream_t)stream>>>(
+      W, geometry(sup, sup_cs, K_s, n, n, sb, boxsize), force_law(inv_scale, soft2, kernel),
+      coefficients(coef));
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int REACH_BLOCKS>
+static int launch(const T* recv, long long recv_cs, int K_r, const T* sup, long long sup_cs,
+                  int K_s, int n, int nx, const int* rb, const int* sb, T* out, T boxsize,
+                  T inv_scale,
+                  T cutoff2, T soft2, int kernel, const float* coef,
+                  const signed char* offsets, int n_offsets, void* stream) {
+  if (n_offsets < 1 || n_offsets > MAX_OFFSETS) return (int)cudaErrorInvalidValue;
+  const GCoef gc = coefficients(coef);
+  Offsets offs;
+  offs.count = n_offsets;
+  for (int i = 0; i < 3 * n_offsets; ++i) offs.d[i] = offsets[i];
+  const ForceLaw<T> law = force_law(inv_scale, soft2, kernel);
+  const Geometry<T> G = geometry(sup, sup_cs, K_s, n, nx, sb, boxsize);
   if (n_offsets <= 27) {
     const int rows = ((K_r + 31) / 32) * 32;
     const int threads = rows < THREADS ? rows : THREADS;
@@ -639,4 +1000,34 @@ extern "C" int pair_sweep_launch_f64(const double* recv, long long recv_cs, int 
   return launch<double, 4>(recv, recv_cs, K_r, sup, sup_cs, K_s, n, nx, rb, sb, out, boxsize,
                            inv_scale, cutoff2, soft2, kernel, nullptr, offsets, n_offsets,
                            stream);
+}
+
+// The global sweep (rows 6 and 2): recv, sup, out as for
+// pair_sweep_launch at nx = n; rb (C,) int32 receiver bounds in [0, K_r]
+// (required), sb (C,) supplier bounds or null; items the work list
+// (column << 24 | chunk of GW_ITEM rows), n_items its length and counter
+// an int32 set to 0, all on the device.
+extern "C" int pair_sweep_global_launch(const float* recv, long long recv_cs, int K_r,
+                                        const float* sup, long long sup_cs, int K_s, int n,
+                                        const int* rb, const int* sb, const long long* items,
+                                        const int* n_items, int* counter, float* out,
+                                        float boxsize, float inv_scale, float cutoff2,
+                                        float soft2, int kernel, const float* coef,
+                                        void* stream) {
+  return launch_global<float, GW_BLOCKS_F32>(recv, recv_cs, K_r, sup, sup_cs, K_s, n, rb, sb,
+                                             items,
+                                 n_items, counter, out, boxsize, inv_scale, cutoff2, soft2,
+                                 kernel, coef, stream);
+}
+
+extern "C" int pair_sweep_global_launch_f64(const double* recv, long long recv_cs, int K_r,
+                                            const double* sup, long long sup_cs, int K_s,
+                                            int n, const int* rb, const int* sb,
+                                            const long long* items, const int* n_items,
+                                            int* counter, double* out, double boxsize,
+                                            double inv_scale, double cutoff2, double soft2,
+                                            int kernel, void* stream) {
+  return launch_global<double, 4>(recv, recv_cs, K_r, sup, sup_cs, K_s, n, rb, sb, items,
+                                  n_items, counter, out, boxsize, inv_scale, cutoff2, soft2,
+                                  kernel, nullptr, stream);
 }

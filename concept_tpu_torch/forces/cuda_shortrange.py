@@ -1,8 +1,15 @@
-"""The one-sided P³M short-range sweep: the CUDA kernel's wrappers
-(csrc/pair_sweep.cu) and its plain PyTorch version.
+"""The one-sided P³M short-range sweep: the CUDA kernels' wrappers
+(csrc/pair_sweep.cu) and their plain PyTorch version.
 
-Port of ``sweep_pallas_pair`` (flat and row-bounded) and
-``sweep_pallas_pair_reach`` (concept_tpu/forces/pallas_shortrange.py).
+Port of ``sweep_pallas_pair`` (flat and row-bounded), ``sweep_pallas_pair_reach``
+and the global steppers' two-sided sweep (concept_tpu/forces/pallas_shortrange.py),
+the rows of PERF.md's kernel table: :func:`pair_sweep` serves row 1 (the
+rung stepper's row-bounded sweep), :func:`pair_sweep_reach` rows 5 and 7,
+:func:`pair_sweep_global` row 6 (the global steppers' sweep, receivers =
+suppliers) and :func:`pair_sweep_subset` row 2 (one set's receivers
+against another's suppliers); the last two launch the global kernel,
+which takes its work from a list of the occupied columns
+(:func:`global_work_list`).
 Contract: ``recv`` (3, K_r, C) and ``sup`` (3, K_s, C) slot positions
 with invalid slots at a far sentinel ``±SENTINEL·boxsize`` (typically row
 slices of one sentinel-filled (3, K, C) array); C = nx·n² cells of an
@@ -25,9 +32,8 @@ in a row below its bound.  Rows of a column at or beyond its receiver
 bound come out exactly 0; the supplier rows of a neighbour column at or
 beyond its own supplier bound are skipped.  The TPU reach kernel takes
 no bounds; with bounds that hold the valid slots the output is the same
-on every row that carries a force.  They launch the one kernel and
-count their launches apart: ``launches`` for the float kernel,
-``launches_f64`` for the double one.
+on every row that carries a force.  Each wrapper counts its launches:
+``launches`` for the float kernel, ``launches_f64`` for the double one.
 
 recv and sup are float32 (the float kernel, the fitted screening) or
 float64 (the double kernel, the exact screening), both of one dtype.  On
@@ -155,6 +161,31 @@ def pair_sweep_plain(recv, sup, n_cells: int, boxsize: float, scale: float,
     return out
 
 
+GLOBAL_ITEM_ROWS = 64  # csrc/pair_sweep.cu GW_ITEM: receiver rows a work item holds
+_COL_SHIFT = 24  # GW_COL_SHIFT: an item is column << 24 | chunk
+
+
+def global_work_list(rb, K_r: int):
+    """The global kernel's work list from receiver bounds rb (C,) in
+    [0, K_r]: (items (C·ch,) int64, n_items (1,) int32), ch =
+    ⌈K_r/GLOBAL_ITEM_ROWS⌉.  An item is a column c and a chunk j of its
+    rows, encoded c << 24 | j: rows j·GLOBAL_ITEM_ROWS on, below rb[c].
+    The first n_items entries are every chunk of every column once, the
+    columns with the most chunks first, then by column id (one stable
+    sort by depth in chunks, with the empty (column, chunk) pairs last);
+    the rest of the list is never read.  Device ops of fixed size only: no
+    host sync."""
+    dev = rb.device
+    ch = max(1, -(-K_r // GLOBAL_ITEM_ROWS))
+    n_ch = torch.div(rb.to(torch.int64) + GLOBAL_ITEM_ROWS - 1, GLOBAL_ITEM_ROWS,
+                     rounding_mode="floor")
+    j = torch.arange(ch, device=dev)
+    key = torch.where(j[None, :] < n_ch[:, None], ch - n_ch[:, None], ch)
+    _, order = torch.sort(key.reshape(-1), stable=True)
+    items = torch.div(order, ch, rounding_mode="floor") << _COL_SHIFT | order % ch
+    return items, n_ch.sum().to(torch.int32).reshape(1)
+
+
 def _lib(f64: bool):
     lib = _build.load("pair_sweep")
     fn = lib.pair_sweep_launch_f64 if f64 else lib.pair_sweep_launch
@@ -170,20 +201,33 @@ def _lib(f64: bool):
     return fn
 
 
+def _lib_global(f64: bool):
+    lib = _build.load("pair_sweep")
+    fn = lib.pair_sweep_global_launch_f64 if f64 else lib.pair_sweep_global_launch
+    if fn.argtypes is None:
+        P, L, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        head = [P, L, I, P, L, I, I, P, P, P, P, P, P]
+        if f64:
+            D = ctypes.c_double
+            fn.argtypes = head + [D, D, D, D, I, P]
+        else:
+            F = ctypes.c_float
+            fn.argtypes = head + [F, F, F, F, I, P, P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def _check_cuda_rows(t, C: int, what: str):
     if t.stride(2) != 1 or t.stride(1) != C:
         raise ValueError(f"{what} rows must be contiguous with row stride C")
 
 
-def _launch(recv, sup, n_cells: int, boxsize: float, scale: float,
-            cutoff2: float, soft2: float, kernel: str, rext, sext, offsets, nx=None):
-    """Check the CUDA inputs, launch the float or the double kernel,
-    return its output."""
+def _cuda_inputs(recv, sup, n_cells: int, kernel: str, rext, sext, offsets, nx):
+    """Check the CUDA inputs: returns (dtype, K_r, K_s, C, the bounds per
+    column (rb, sb), each None or contiguous int32)."""
     _check(recv, sup, n_cells, kernel, offsets, nx)
-    nx = n_cells if nx is None else nx
     dtype = _build.scalar_dtype("pair_sweep", recv, sup)
     _, K_r, C = recv.shape
-    K_s = sup.shape[1]
     _check_cuda_rows(recv, C, "recv")
     _check_cuda_rows(sup, C, "sup")
     if sup.device != recv.device or K_r < 1:
@@ -194,21 +238,73 @@ def _launch(recv, sup, n_cells: int, boxsize: float, scale: float,
                               or e.device != recv.device):
             raise ValueError("rext/sext must be contiguous int32 on the "
                              "receivers' device")
+    return dtype, K_r, sup.shape[1], C, bounds
+
+
+def _law_args(dtype, scale: float, kernel: str):
+    """The launch functions' (inv_scale, kernel id[, coefficients])."""
+    if dtype == torch.float64:
+        # the double kernel evaluates the screening exactly from the scale
+        return 1.0 / scale, KERNEL_IDS[kernel]
+    coef = np.ascontiguousarray(_G_COEF, np.float32)
+    return (float(np.float32(1.0) / np.float32(scale)), KERNEL_IDS[kernel],
+            coef.ctypes.data)
+
+
+def _launch_global(recv, sup, n_cells: int, boxsize: float, scale: float,
+                   cutoff2: float, soft2: float, kernel: str, rext, sext):
+    """Check the CUDA inputs, launch the float or the double global
+    kernel over the work list of the receiver bounds (all K_r rows of
+    every column without them), return its output."""
+    dtype, K_r, K_s, C, (rb, sb) = _cuda_inputs(recv, sup, n_cells, kernel, rext, sext,
+                                                OFFSETS_27, None)
+    dev = recv.device
+    rb = (torch.full((C,), K_r, dtype=torch.int32, device=dev) if rb is None
+          else torch.clamp(rb, 0, K_r))
+    items, n_items = global_work_list(rb, K_r)
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
+    out = torch.empty((3, K_r, C), dtype=dtype, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    inv_scale, kid, *coef = _law_args(dtype, scale, kernel)
+    err = _lib_global(dtype == torch.float64)(
+        recv.data_ptr(), recv.stride(0), K_r, sup.data_ptr(), sup.stride(0), K_s, n_cells,
+        rb.data_ptr(), None if sb is None else sb.data_ptr(), items.data_ptr(),
+        n_items.data_ptr(), counter.data_ptr(), out.data_ptr(), boxsize, inv_scale,
+        cutoff2, soft2, kid, *coef, stream)
+    _build.check(err, "pair_sweep_global")
+    return out
+
+
+def _sweep_global(wrapper, recv, sup, n_cells: int, boxsize: float, scale: float,
+                  cutoff2: float, soft2: float, kernel: str, rext, sext):
+    """The plain version on the CPU, else the global kernel, its launch
+    counted on ``wrapper``."""
+    if recv.device.type == "cpu":
+        _build.scalar_dtype(wrapper.__name__, recv, sup)
+        return pair_sweep_plain(recv, sup, n_cells, boxsize, scale, cutoff2,
+                                soft2, kernel, rext, sext)
+    out = _launch_global(recv, sup, n_cells, boxsize, scale, cutoff2, soft2, kernel,
+                         rext, sext)
+    _build.count_launch(wrapper, out.dtype)
+    return out
+
+
+def _launch(recv, sup, n_cells: int, boxsize: float, scale: float,
+            cutoff2: float, soft2: float, kernel: str, rext, sext, offsets, nx=None):
+    """Check the CUDA inputs, launch the float or the double kernel,
+    return its output."""
+    dtype, K_r, K_s, C, bounds = _cuda_inputs(recv, sup, n_cells, kernel, rext, sext,
+                                              offsets, nx)
+    nx = n_cells if nx is None else nx
     rb, sb = (None if e is None else e.data_ptr() for e in bounds)
     out = torch.empty((3, K_r, C), dtype=dtype, device=recv.device)
     table = np.ascontiguousarray(offsets, np.int8)
     stream = torch.cuda.current_stream(recv.device).cuda_stream
     head = (recv.data_ptr(), recv.stride(0), K_r, sup.data_ptr(), sup.stride(0),
             K_s, n_cells, nx, rb, sb, out.data_ptr())
-    if dtype == torch.float64:
-        # the double kernel evaluates the screening exactly from the scale
-        err = _lib(True)(*head, boxsize, 1.0 / scale, cutoff2, soft2,
-                         KERNEL_IDS[kernel], table.ctypes.data, len(offsets), stream)
-    else:
-        coef = np.ascontiguousarray(_G_COEF, np.float32)
-        inv_scale = float(np.float32(1.0) / np.float32(scale))
-        err = _lib(False)(*head, boxsize, inv_scale, cutoff2, soft2, KERNEL_IDS[kernel],
-                          coef.ctypes.data, table.ctypes.data, len(offsets), stream)
+    inv_scale, kid, *coef = _law_args(dtype, scale, kernel)
+    err = _lib(dtype == torch.float64)(*head, boxsize, inv_scale, cutoff2, soft2, kid,
+                                       *coef, table.ctypes.data, len(offsets), stream)
     _build.check(err, "pair_sweep")
     return out
 
@@ -229,20 +325,33 @@ def pair_sweep(recv, sup, n_cells: int, boxsize: float, scale: float,
     return out
 
 
+def pair_sweep_global(recv, sup, n_cells: int, boxsize: float, scale: float,
+                      cutoff2: float, soft2: float, kernel: str = "plummer",
+                      rext=None, sext=None):
+    """The global steppers' ±1 sweep (PERF.md row 6, port of the
+    two-sided ``_make_kernel``): every slot of the whole box's n³ columns
+    against the suppliers of its 27 neighbour columns, receivers =
+    suppliers, with the occupancy bounds ``rext`` / ``sext`` of the
+    layout (``min(counts, K)`` of a bucketize, ``_column_occ_ext`` of a
+    persistent layout).  The global kernel for CUDA tensors (it visits
+    only the rows below the bounds, and its output equals the unbounded
+    launch of :func:`pair_sweep`'s kernel bit for bit where the bounds hold
+    every valid slot), the plain version for CPU tensors."""
+    return _sweep_global(pair_sweep_global, recv, sup, n_cells, boxsize, scale, cutoff2,
+                         soft2, kernel, rext, sext)
+
+
 def pair_sweep_subset(recv, sup, n_cells: int, boxsize: float, scale: float,
-                      cutoff2: float, soft2: float, kernel: str = "plummer"):
-    """The ±1 sweep without row bounds of a receiver set against another
-    set's suppliers (port of ``sweep_pallas_pair`` → the flat
-    ``_make_pair_kernel_flat``, PERF.md row 2): the kernel of
-    :func:`pair_sweep`, its launches counted apart."""
-    if recv.device.type == "cpu":
-        _build.scalar_dtype("pair_sweep_subset", recv, sup)
-        return pair_sweep_plain(recv, sup, n_cells, boxsize, scale, cutoff2,
-                                soft2, kernel)
-    out = _launch(recv, sup, n_cells, boxsize, scale, cutoff2, soft2, kernel,
-                  None, None, OFFSETS_27)
-    _build.count_launch(pair_sweep_subset, out.dtype)
-    return out
+                      cutoff2: float, soft2: float, kernel: str = "plummer",
+                      rext=None, sext=None):
+    """The ±1 sweep of a receiver set against another set's suppliers
+    (PERF.md row 2, port of ``sweep_pallas_pair`` → the flat
+    ``_make_pair_kernel_flat``), with the receivers' and the suppliers'
+    occupancy bounds ``rext`` / ``sext``: the global kernel of
+    :func:`pair_sweep_global`, its launches counted apart; the plain
+    version for CPU tensors."""
+    return _sweep_global(pair_sweep_subset, recv, sup, n_cells, boxsize, scale, cutoff2,
+                         soft2, kernel, rext, sext)
 
 
 def pair_sweep_reach(recv, sup, n_cells: int, boxsize: float, scale: float,
@@ -266,5 +375,5 @@ def pair_sweep_reach(recv, sup, n_cells: int, boxsize: float, scale: float,
     return out
 
 
-for _fn in (pair_sweep, pair_sweep_subset, pair_sweep_reach):
+for _fn in (pair_sweep, pair_sweep_global, pair_sweep_subset, pair_sweep_reach):
     _fn.launches = _fn.launches_f64 = 0

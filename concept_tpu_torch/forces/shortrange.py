@@ -382,6 +382,12 @@ def bucketize(pos, boxsize: float, n_cells: int, capacity: int):
                 counts=lay["counts"], starts=lay["starts"], px=px, py=py, pz=pz)
 
 
+def occupancy_bounds(counts, capacity: int):
+    """The sweep's row bounds (C,) int32 of a bucketize layout, whose
+    valid slots are a column prefix: min(counts, capacity)."""
+    return torch.clamp(counts, max=capacity).to(torch.int32)
+
+
 def _straggler_forces(b, acc, sidx, n: int, boxsize: float, scale: float,
                       cutoff2: float, soft2: float, kernel: str):
     """The exact straggler path: accelerations (S, 3) on the stragglers
@@ -435,8 +441,9 @@ def shortrange_momentum_updates(pos, mass: float, boxsize: float, scale: float,
                                 softening_kernel: str = "plummer"):
     """Δmom from the P³M short-range force of one self-interacting
     particle group: the two-sided sweep of every slot against its 27
-    neighbour cells (``pair_sweep`` with receivers = suppliers, the CUDA
-    kernel on the card), the exact straggler path for particles beyond
+    neighbour cells (``pair_sweep_global`` with receivers = suppliers and
+    the occupancy bounds min(counts, K), PERF.md row 6: the CUDA kernel on
+    the card), the exact straggler path for particles beyond
     the capacity K of their cell, and the unsort.
 
     pos: a 3-tuple of (N,) components.  Returns ((dmx, dmy, dmz),
@@ -448,7 +455,7 @@ def shortrange_momentum_updates(pos, mass: float, boxsize: float, scale: float,
     sweep is folded (:func:`sweep_fold`): the slots and the stragglers in
     the budget meet all at once, each pair at its minimum image, which
     sums the JAX package's folded sweep and straggler path."""
-    from concept_tpu_torch.forces.cuda_shortrange import pair_sweep
+    from concept_tpu_torch.forces.cuda_shortrange import pair_sweep_global
 
     N = pos[0].shape[0]
     dtype = pos[0].dtype
@@ -478,8 +485,9 @@ def shortrange_momentum_updates(pos, mass: float, boxsize: float, scale: float,
         dmom[:, b["order"]] = coef * dm_s
         return tuple(dmom), n_overflow
     slots = torch.where(valid[None], torch.stack([b["hx"], b["hy"], b["hz"]]), big)
-    acc = pair_sweep(slots, slots, n, boxsize, scale, cutoff2, soft2,
-                     kernel=softening_kernel)
+    ext = occupancy_bounds(b["counts"], K)
+    acc = pair_sweep_global(slots, slots, n, boxsize, scale, cutoff2, soft2,
+                            kernel=softening_kernel, rext=ext, sext=ext)
     del slots
     if sidx is not None:
         s_acc = _straggler_forces(b, acc, sidx, n, boxsize, scale, cutoff2,
@@ -510,7 +518,8 @@ def shortrange_momentum_updates_on_subset(recv_pos, sup_pos, mass: float,
     same cells, at their own capacities, and the one-sided sweep
     (``cuda_shortrange.pair_sweep_subset``, the CUDA kernel of PERF.md
     row 2 on the card; :func:`sweep_fold` below 3 cells a side)
-    runs receivers against the suppliers of their 27 neighbour cells.
+    runs receivers against the suppliers of their 27 neighbour cells,
+    within each set's occupancy bounds min(counts, capacity).
     Two uses: the global rungs' substep force (receivers the active
     rungs, suppliers everyone, one mass) and a pair of components
     (``mass_sup`` the supplier's particle mass).  The capacities must
@@ -530,12 +539,14 @@ def shortrange_momentum_updates_on_subset(recv_pos, sup_pos, mass: float,
     big = SENTINEL * boxsize
     sup = torch.where(b_sup["valid"][None],
                       torch.stack([b_sup["hx"], b_sup["hy"], b_sup["hz"]]), big)
+    sext = occupancy_bounds(b_sup["counts"], capacity_sup)
     del b_sup
     recv = torch.where(b_rec["valid"][None],
                        torch.stack([b_rec["hx"], b_rec["hy"], b_rec["hz"]]), big)
     sweep = pair_sweep_subset if n >= 3 else sweep_fold
     acc = sweep(recv, sup, n, boxsize, scale, dtype_square(cutoff, dtype),
-                dtype_square(softening, dtype), kernel=softening_kernel)
+                dtype_square(softening, dtype), kernel=softening_kernel,
+                rext=occupancy_bounds(b_rec["counts"], K_r), sext=sext)
     del recv, sup
     accf = torch.cat([acc.reshape(3, K_r * C),
                       torch.zeros((3, 1), dtype=dtype, device=acc.device)], 1)

@@ -4,8 +4,9 @@ layouts (port of concept_tpu/p3msim.py; reference interactions.py:
 
 ``P3MSimulation`` keeps the particle state in the short-range slot-major
 (3, K, C) layout over cells at least cutoff·(1 + margin) wide, across
-steps: the sweep runs on the stored layout (``pair_sweep`` with receivers
-= suppliers, PERF.md row 6; folded below 3 cells a side), the kick and
+steps: the sweep runs on the stored layout (``pair_sweep_global`` with
+receivers = suppliers and the layout's occupancy extents, PERF.md row 6;
+folded below 3 cells a side), the kick and
 the drift apply in layout, and the host re-bucketizes before the drift
 since the last rebucket can exceed the margin.  Its PM goes through the
 2³-mesh-cell blocks (rows 8-9): a persistent slot → block binding
@@ -46,7 +47,7 @@ from concept_tpu_torch.components import periodic_wrap
 from concept_tpu_torch.forces.p3m import block_layout, block_pm, pm_gradient_blocks
 from concept_tpu_torch.forces.pm import gravity_potential_slab
 from concept_tpu_torch.forces.shortrange import (
-    SENTINEL, dtype_square, grid_key, scatter_slots, slot_layout, sweep_slots,
+    SENTINEL, dtype_square, grid_key, scatter_slots, slot_layout, sweep_fold,
 )
 from concept_tpu_torch.grid import fourier
 from concept_tpu_torch.grid.cuda_cells import deposit_cells, gather_cells
@@ -323,20 +324,28 @@ def p3m_bucket_step(state: P3MState, mass: float, G: float, int_a1: float,
                     int_a2: float, boxsize: float, mesh: int, nc: int,
                     scale: float, cutoff: float, softening: float,
                     k_pm: int = 8, pm_max_overflow: int = 262144,
-                    softening_kernel: str = "plummer", binding=None):
+                    softening_kernel: str = "plummer", binding=None, ext=None):
     """One KDK step in the persistent layout, in place: the short-range
-    sweep on the stored slots (receivers = suppliers, no row bounds, the
-    sentinel in the invalid slots for the sweep only), the PM of
+    sweep on the stored slots (receivers = suppliers within the per-column
+    occupancy extents ``ext``, ``p3mrungs._column_occ_ext(state.valid)``
+    when not given; the sentinel in the invalid slots for the sweep
+    only), the PM of
     :func:`pm_gradient_layout` (through ``binding`` when given), the kick
     ᔑa⁻¹dt = int_a1 and the drift ᔑa⁻²dt = int_a2.
 
     Returns (state, (n_pm_overflow, vmax2, mass_sum)): vmax2 = the
     largest |mom|² (0-dim), mass_sum the deposited mass (0-dim
     float64)."""
+    from concept_tpu_torch.forces.cuda_shortrange import pair_sweep_global
+    from concept_tpu_torch.p3mrungs import _column_occ_ext
+
     dtype = state.pos.dtype
+    if ext is None:
+        ext = _column_occ_ext(state.valid)
     slots = torch.where(state.valid[None], state.pos, SENTINEL * boxsize)
-    acc = sweep_slots(slots, slots, nc, boxsize, scale, dtype_square(cutoff, dtype),
-                      dtype_square(softening, dtype), kernel=softening_kernel)
+    sweep = pair_sweep_global if nc >= 3 else sweep_fold
+    acc = sweep(slots, slots, nc, boxsize, scale, dtype_square(cutoff, dtype),
+                dtype_square(softening, dtype), kernel=softening_kernel, rext=ext, sext=ext)
     del slots
     fd, n_over, mass_sum = pm_gradient_layout(
         state.pos, state.valid, mass, G, scale, boxsize, mesh, k_pm=k_pm,
@@ -387,6 +396,8 @@ class P3MSimulation:
         self._pm_budget = 0.9 * boxsize / self.mesh
         # the per-particle displacement bound since the last rebucket
         self._drift_used = 0.0
+        # the layout's valid mask and its sweep extents (_extents)
+        self._ext_of = self._ext = None
         self.stats = {"steps": 0, "rebuckets": 0, "binding_refreshes": 0,
                       "pm_overflow_max": 0, "budget_warnings": 0,
                       "pm_mass_warnings": 0}
@@ -426,7 +437,8 @@ class P3MSimulation:
             state, self.mass, self.G, int_a1, int_a2, self.boxsize, self.mesh,
             self.nc, self.scale, self.cutoff, self.softening, k_pm=self.k_pm,
             pm_max_overflow=self.pm_max_overflow,
-            softening_kernel=self.softening_kernel, binding=self._pm_binding)
+            softening_kernel=self.softening_kernel, binding=self._pm_binding,
+            ext=self._extents(state))
         self.stats["steps"] += 1
         # margin budget: each particle moved ≤ vmax/mass·ᔑa⁻²dt comoving
         vmax = math.sqrt(float(vmax2))
@@ -441,6 +453,16 @@ class P3MSimulation:
             self.stats["pm_mass_warnings"] += 1
             self._pm_binding = None
         return state, (n_pm_over, vmax)
+
+    def _extents(self, state: P3MState):
+        """The sweep's per-column occupancy extents of the state's layout,
+        computed once a layout: ``valid`` changes only at a rebucket,
+        which makes a new tensor."""
+        from concept_tpu_torch.p3mrungs import _column_occ_ext
+
+        if self._ext_of is not state.valid:
+            self._ext_of, self._ext = state.valid, _column_occ_ext(state.valid)
+        return self._ext
 
     def _check_pm_overflow(self, n_pm_over: int):
         """The PM block overflow: past the budget the layout path without

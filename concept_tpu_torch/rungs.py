@@ -9,7 +9,8 @@ short-range field, sorts the particles by rung so that the rungs a
 substep fires form a suffix, and drifts through 2^max_rung substeps; at
 each the suffix of fired rungs is swept as receivers against every
 particle as suppliers (``forces/shortrange.shortrange_momentum_updates_on_subset``,
-the unbounded ``pair_sweep`` of PERF.md row 2 on the card), each scaled
+the global kernel of PERF.md row 2 on the card, within each set's
+occupancy bounds), each scaled
 by its own rung's kick integral.  The rung stepper on the persistent cell
 layout (p3mrungs.py) is the production path; this one serves
 ``Simulation`` states.

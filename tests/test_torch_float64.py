@@ -224,6 +224,8 @@ def _wrapper_calls(other):
                        lambda: sr.pair_sweep_plain(s, s, *args)),
         "pair_sweep_subset": (sr.pair_sweep_subset, lambda f: f(s, s.to(other), *args),
                               lambda: sr.pair_sweep_plain(s, s, *args)),
+        "pair_sweep_global": (sr.pair_sweep_global, lambda f: f(s, s.to(other), *args),
+                              lambda: sr.pair_sweep_plain(s, s, *args)),
         "pair_sweep_reach": (sr.pair_sweep_reach,
                              lambda f: f(s, s.to(other), *args[:5], offs, args[5]),
                              lambda: sr.pair_sweep_plain(s, s, *args, offsets=offs)),
@@ -242,8 +244,9 @@ def _wrapper_calls(other):
     }
 
 
-WRAPPERS = ("pair_sweep", "pair_sweep_subset", "pair_sweep_reach", "deposit_cells",
-            "gather_cells", "deposit_blocks", "gather_blocks", "deposit_pm", "gather_pm")
+WRAPPERS = ("pair_sweep", "pair_sweep_subset", "pair_sweep_global", "pair_sweep_reach",
+            "deposit_cells", "gather_cells", "deposit_blocks", "gather_blocks", "deposit_pm",
+            "gather_pm")
 
 
 @pytest.mark.parametrize("name", WRAPPERS)

@@ -245,19 +245,20 @@ def test_pair_sweep_reach_wrapped_and_clumped(dev, kernel, two_sided):
 @pytest.mark.parametrize("kernel", ["plummer", "spline", "none"])
 @pytest.mark.parametrize("K", [32, 40])
 def test_pair_sweep_two_sided_matches_plain(dev, kernel, K):
-    """The global stepper's sweep: receivers = suppliers = the whole
-    sentinel-filled slot array, no row bounds, at its column depths
-    (K = 32-40: one pass of 32 or 64 threads per column)."""
-    from concept_tpu_torch.forces.cuda_shortrange import pair_sweep, pair_sweep_plain
+    """The global stepper's sweep (row 6, ``pair_sweep_global``):
+    receivers = suppliers = the whole sentinel-filled slot array, no row
+    bounds, at its column depths (K = 32-40: items of 32 or 64 rows, one
+    or two receivers a lane)."""
+    from concept_tpu_torch.forces.cuda_shortrange import pair_sweep_global, pair_sweep_plain
 
     rng = np.random.default_rng(21 + K)
     n, box = 5, 1.0
     s, _, _ = _layout(rng, n, K, box)
     st = torch.as_tensor(s, device=dev)
     args = (n, box, 0.05, float(np.float32(0.2) ** 2), float(np.float32(0.01) ** 2), kernel)
-    before = pair_sweep.launches
-    got = pair_sweep(st, st, *args)
-    assert pair_sweep.launches == before + 1
+    before = pair_sweep_global.launches
+    got = pair_sweep_global(st, st, *args)
+    assert pair_sweep_global.launches == before + 1
     ref = pair_sweep_plain(st, st, *args)
     torch.cuda.synchronize()
     got, ref = got.cpu().numpy(), ref.cpu().numpy()
@@ -786,7 +787,7 @@ def test_p3m_step_on_the_card_matches_the_cpu(dev):
     the PM binding, with block overflow from a clump) on the card against
     the same step on the CPU: equal layouts and overflow, positions within
     5e-5 of the box, momenta within 1e-5 of the largest."""
-    from concept_tpu_torch.forces.cuda_shortrange import pair_sweep
+    from concept_tpu_torch.forces.cuda_shortrange import pair_sweep_global
     from concept_tpu_torch.grid.cuda_blocks import deposit_blocks, gather_blocks
     from concept_tpu_torch.p3msim import P3MSimulation
 
@@ -802,9 +803,9 @@ def test_p3m_step_on_the_card_matches_the_cpu(dev):
                             softening_kernel="spline")
         st = sim.init_state(tuple(torch.as_tensor(pos[:, d], device=device) for d in range(3)),
                             tuple(torch.as_tensor(mom[:, d], device=device) for d in range(3)))
-        before = (pair_sweep.launches, deposit_blocks.launches, gather_blocks.launches)
+        before = (pair_sweep_global.launches, deposit_blocks.launches, gather_blocks.launches)
         st, (n_over, _) = sim.step(st, 2e-3, 0.5)
-        after = (pair_sweep.launches, deposit_blocks.launches, gather_blocks.launches)
+        after = (pair_sweep_global.launches, deposit_blocks.launches, gather_blocks.launches)
         out.append((st.pos.cpu(), st.mom.cpu(), st.valid.cpu(), n_over))
     assert after == tuple(b + 1 for b in before)
     assert out[1][3] == out[0][3] > 0
@@ -1066,8 +1067,9 @@ def test_p3m_step_f64_on_the_card_matches_the_cpu(dev):
 @pytest.mark.parametrize("kernel", ["plummer", "spline", "none"])
 @pytest.mark.parametrize("row", ["two_sided", "subset"])
 def test_sweeps_at_zero_softening_match_plain(dev, row, kernel, dtype):
-    """Rows 6 (receivers = suppliers, no bounds) and 2 (one component's
-    slots against another's, ``pair_sweep_subset``) at soft2 = 0, as a
+    """Rows 6 (receivers = suppliers, ``pair_sweep_global`` without
+    bounds) and 2 (one component's slots against another's,
+    ``pair_sweep_subset``) at soft2 = 0, as a
     run of several components sweeps (softening 0, the Plummer kernel):
     near pairs at 1e-4 of a cell feel the unsoftened force, and the
     pairs of coincident particles (one of each component on the same
@@ -1075,7 +1077,7 @@ def test_sweeps_at_zero_softening_match_plain(dev, row, kernel, dtype):
     ~1e8, so each receiver is judged on its own scale
     (_close_per_receiver), within 1e-5 in float32 and 1e-10 in float64."""
     from concept_tpu_torch.forces.cuda_shortrange import (
-        pair_sweep, pair_sweep_plain, pair_sweep_subset,
+        pair_sweep_global, pair_sweep_plain, pair_sweep_subset,
     )
 
     np_dtype = np.float64 if dtype == "float64" else np.float32
@@ -1090,10 +1092,10 @@ def test_sweeps_at_zero_softening_match_plain(dev, row, kernel, dtype):
         :, ::2][None]
     st, so = torch.as_tensor(s, device=dev), torch.as_tensor(other, device=dev)
     args = (n, box, 0.05, float(np_dtype(0.2) ** 2), 0.0, kernel)
-    fn = pair_sweep if row == "two_sided" else pair_sweep_subset
+    fn = pair_sweep_global if row == "two_sided" else pair_sweep_subset
     before = _counts(fn)
     if row == "two_sided":
-        got, ref = pair_sweep(st, st, *args), pair_sweep_plain(st, st, *args)
+        got, ref = pair_sweep_global(st, st, *args), pair_sweep_plain(st, st, *args)
     else:
         got, ref = pair_sweep_subset(st, so, *args), pair_sweep_plain(st, so, *args)
     f64 = dtype == "float64"
@@ -1355,3 +1357,100 @@ def test_blocks_over_planes_match_plain(dev, d, dtype):
         both = (by_particle(pl, got) != 0).any(0) & (whole_g[:, mine] != 0).any(0)
         close(by_particle(pl, got)[:, both], whole_g[:, mine][:, both])
     close(summed, whole)
+
+
+# ---------------------------------------------------------------------- #
+# The global kernel (rows 6 and 2) with the occupancy bounds its callers
+# pass: against the plain version, and bit for bit against the unbounded
+# launch of row 1's kernel (pair_sweep without bounds), which is what rows
+# 6 and 2 launched before they had a kernel of their own.
+
+
+def _global_case(rng, case, dtype):
+    """(receivers (3, K_r, C), suppliers (3, K_s, C), rext, sext, n, box,
+    soft, per-receiver judging) of one global-sweep case, on the CPU."""
+    from concept_tpu_torch.forces.shortrange import SENTINEL, bucketize, occupancy_bounds
+    from concept_tpu_torch.p3mrungs import _column_occ_ext
+
+    box = 1.0
+
+    def bucketized(pos, n, K):
+        b = bucketize(tuple(torch.as_tensor(pos[:, d].astype(dtype)) for d in range(3)),
+                      box, n, K)
+        slots = torch.where(b["valid"][None], torch.stack([b["hx"], b["hy"], b["hz"]]),
+                            SENTINEL * box)
+        return slots.contiguous(), occupancy_bounds(b["counts"], K)
+
+    if case == "deep":  # clumps of up to 600 rows: several items a column
+        n = 5
+        pos = rng.uniform(0, box, (3000, 3))
+        for i, c in enumerate(([0.5, 0.5, 0.5], [0.05, 0.95, 0.5], [0.9, 0.1, 0.1])):
+            pos[600 * i:600 * i + 500 + 50 * i] = np.mod(
+                np.array(c) + rng.normal(0, 0.02, (500 + 50 * i, 3)), box)
+        s, e = bucketized(pos, n, 600)
+        return s, s, e, e, n, box, 0.005, False
+    if case == "sparse":  # row 2: 99 % of the receiver columns empty, K_r > 256
+        n = 10
+        recv = np.concatenate([np.clip(0.45 + rng.normal(0, 0.02, (290, 3)), 0.401, 0.499),
+                               rng.uniform(0, box, (8, 3))])
+        r, re = bucketized(recv, n, 300)
+        s, se = bucketized(rng.uniform(0, box, (8000, 3)), n, 32)
+        return r, s, re, se, n, box, 0.01, False
+    if case == "soft0":  # near pairs at softening 0, judged per receiver
+        n = 6
+        pos = rng.uniform(0, box, (4000, 3))
+        pos[1::2] = pos[::2] + 1e-4 * box / n
+        s, e = bucketized(np.mod(pos, box), n, 64)
+        return s, s, e, e, n, box, 0.0, True
+    # "counts" / "occ": an nx = n grid from a bucketize (bounds from its
+    # counts) or a persistent layout with holes (bounds _column_occ_ext)
+    n, K = 7, 40
+    pos = rng.uniform(0, box, (6000, 3))
+    pos[:1500] = np.mod(0.3 + rng.normal(0, 0.05, (1500, 3)), box)
+    s, e = bucketized(pos, n, K)
+    if case == "occ":
+        valid = (s[0] < 0.5 * SENTINEL * box) & torch.as_tensor(rng.random(s.shape[1:]) < 0.7)
+        s = torch.where(valid[None], s, SENTINEL * box).contiguous()
+        e = _column_occ_ext(valid)
+    return s, s, e, e, n, box, 0.01, False
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("kernel", ["plummer", "spline"])
+@pytest.mark.parametrize("case", ["deep", "sparse", "soft0", "counts", "occ"])
+def test_global_sweep_matches_plain_and_unbounded(dev, case, kernel, dtype):
+    """Rows 6 and 2 through the global kernel on clumped deep columns (K =
+    600: several items a column), row 2 with 99 % of its receiver columns
+    empty (K_r = 300), softening 0 (judged per receiver), and an n grid
+    with bounds from counts and from ``_column_occ_ext`` (holes): within
+    1e-5 (float) or 1e-10 (double) of the plain version, equal bit for
+    bit to the unbounded launch, one launch counted, rows at or beyond a
+    bound exactly 0."""
+    from concept_tpu_torch.forces.cuda_shortrange import (
+        pair_sweep, pair_sweep_global, pair_sweep_plain, pair_sweep_subset,
+    )
+
+    np_dtype = np.float64 if dtype == "float64" else np.float32
+    rng = np.random.default_rng(["deep", "sparse", "soft0", "counts", "occ"].index(case))
+    recv, sup, rext, sext, n, box, soft, per_recv = _global_case(rng, case, np_dtype)
+    recv, sup, rext, sext = (t.to(dev) for t in (recv, sup, rext, sext))
+    args = (n, box, 0.22 / n, float(np_dtype(0.95 / n) ** 2), float(np_dtype(soft) ** 2),
+            kernel)
+    fn = pair_sweep_subset if case == "sparse" else pair_sweep_global
+    f64 = dtype == "float64"
+    before = _counts(fn)
+    got = fn(recv, sup, *args, rext=rext, sext=sext)
+    assert _counts(fn) == ((before[0][0] + (not f64), before[0][1] + f64),)
+    unbounded = pair_sweep(recv, sup, *args)
+    ref = pair_sweep_plain(recv, sup, *args, rext=rext, sext=sext)
+    torch.cuda.synchronize()
+    assert torch.equal(got, unbounded)
+    K_r = recv.shape[1]
+    assert not got[:, torch.arange(K_r, device=dev)[:, None] >= rext[None, :].long()].any()
+    tol = F64_TOL if f64 else 1e-5
+    if per_recv:
+        _close_per_receiver(got, ref, tol)
+    else:
+        assert float((got - ref).abs().max()) <= tol * float(ref.abs().max())
+    if case == "deep":
+        assert int(rext.max()) > 512 and float(got[:, 512:].abs().max()) > 0
